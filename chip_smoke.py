@@ -1,30 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line:
+Phases, each printed as JSON lines:
 
 1. build      — compile every CUDA kernel from tla_raft_tpu_torch/csrc
                 (one nvcc per source, all at once);
-2. reference  — the Raft.cfg constants (S=3, V=2, MaxElection=3,
-                MaxRestart=3, symmetry + VIEW) to depth 20, every level
-                held against the golden per-level counts, and the
-                depth-12 prefix against its golden generated count;
-3. fixpoint   — (3,1,2,1) to its fixpoint: 180,582 distinct, 747,500
-                generated, depth 35;
-4. trace      — the median-bug mutation on (3,1,2,0): the pinned
-                violation depth, level sizes and counterexample trace;
-   Each of phases 2-4 sets every kernel's launch count to 0 just before
-   it runs, prints the counts just after, and fails if a kernel did not
-   launch: the proof that each path ran through the kernels.
-5. kernels    — each kernel against its plain torch twin on the card, at
-                the main path's shapes, on seeded random inputs and on
-                the reference run's last frontier: exact equality of
-                every output, with times and bounds, and the launches of
-                the reference run;
-6. profile    — one more level from that frontier under torch.profiler:
-                kernel time by name and the device's busy share.
+2. staged     — the staged chain (``megakernel=False``) on the Raft.cfg
+                constants (S=3, V=2, MaxElection=3, MaxRestart=3, symmetry +
+                VIEW) to depth 20, every level held against the golden
+                per-level counts and the depth-12 prefix against its golden
+                generated count;
+3. default    — the default path (supersteps of span 4, the per-level
+                fused program for a stopped window, the staged chain past
+                the fused size limit) on the same constants to depth 24,
+                every level golden (32,683,044 distinct); then the per-level
+                pidx/slot digests of its depth-20 prefix held against the
+                staged phase's;
+4. fixpoint   — (3,1,2,1) to its fixpoint on the default path: 180,582
+                distinct, 747,500 generated, depth 35;
+5. trace      — the median-bug mutation on (3,1,2,0), default path: the
+                pinned violation depth, level sizes and counterexample;
+6. drill      — (3,1,1,1) on the default path with every stop class forced
+                (cap_x, slab, cap_m, ring, the frontier seat, K4's rounds
+                budget) and the double-vote abort on (3,1,2,0): the counts
+                never move;
+   Each of phases 2-6 sets every kernel's launch count to 0 just before it
+   runs, prints the counts just after, and fails if a kernel of its path
+   did not launch (the staged phase: the staged chain's eight; the other
+   phases: all eleven).  The default phase also prints graph launches and
+   device-to-host reads per superstep and per fused level beside the
+   staged chain's reads per level, K4's claim rounds, the levels by route,
+   the graph captures and their seconds, and peak device memory.
+7. twins      — one fused level and one superstep (two levels) on the
+                card against the CPU twins from the same carried depth-9
+                frontier and slab: every output equal;
+8. kernels    — each kernel against its plain torch twin on the card, at
+                the main path's shapes, with times, bounds and the default
+                phase's launches;
+9. profile    — one deep level (2,150,466 parents) on the staged chain and
+                as one fused-level graph, under torch.profiler: kernel time
+                by name and the device's idle share.
 
 Then the card's name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero and prints
@@ -47,6 +64,7 @@ GOLDEN_FULL_3121 = (180_582, 747_500, 35)
 GOLDEN_LEVELS_REF = [
     1, 1, 3, 9, 22, 57, 136, 345, 931, 2468, 5881, 12505, 24705, 47599,
     91014, 169607, 301664, 511609, 839797, 1353766, 2150466, 3350017,
+    5099018, 7596394, 11125029,
 ]
 GENERATED_AT_12 = 112_939
 MEDIAN_BUG = dict(
@@ -63,7 +81,10 @@ MEDIAN_BUG = dict(
     # sha256 of "\n".join(f"{action!r} {state!r}") over the trace steps
     trace_sha256="bacbf70789c240c765b1b5a4220d64ca33bc919f3232d9814244f10f4632c757",
 )
-DEPTH = 20  # of the reference prefix
+DEPTH = 20  # of the staged reference prefix
+DEPTH_DEFAULT = 24  # of the default path's reference prefix
+DOUBLE_VOTE = dict(result=(False, 359, 707, 8),
+                   trace_sha256="54144ebf556e93bb8f6c0f2eab315032283bd583ed12112600368de2d9e73662")
 CHUNK = 16384  # parents per guard launch on the main path
 SEED = 0  # of the random kernel inputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -116,34 +137,137 @@ def wall_ms(fn) -> float:
 # -- phases -------------------------------------------------------------------
 
 
-def phase_reference(depth: int, chunk: int):
+def level_digests(chk) -> list:
+    """sha256 of each level's (pidx, slot) records, in level order."""
+    out = []
+    for pidx, slot in chk.trace_levels:
+        h = hashlib.sha256(np.asarray(pidx, np.int64).tobytes())
+        h.update(np.asarray(slot, np.int64).tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def _reads_total(reads: dict, prefix: str = "") -> int:
+    return sum(v for k, v in reads.items() if k.startswith(prefix))
+
+
+def _run_reference(depth: int, chunk: int, **kw):
+    """The reference constants to ``depth``: (checker, result, per-level
+    progress records, seconds)."""
     import torch
 
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch import kernels
     from tla_raft_tpu_torch.config import RaftConfig
     from tla_raft_tpu_torch.engine.bfs import TorchChecker
 
     levels = []
-    chk = TorchChecker(RaftConfig(), device="cuda", chunk=chunk, progress=levels.append)
+    chk = TorchChecker(RaftConfig(), device="cuda", chunk=chunk, progress=levels.append, **kw)
+    D.READS.clear()
+    kernels.K4_ROUNDS.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = chk.run(max_depth=depth)
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    want = GOLDEN_LEVELS_REF[: depth + 1]
+    return chk, res, levels, time.perf_counter() - t0
+
+
+def _common(res, levels, secs, depth):
+    import torch
+
     gen12 = next((lv["generated"] for lv in levels if lv["level"] == 12), None)
     elapsed = [lv["elapsed"] for lv in levels]
-    emit(dict(
-        phase="reference", depth=res.depth, distinct=res.distinct, generated=res.generated,
-        level_sizes=list(res.level_sizes), generated_at_12=gen12, seconds=secs,
-        distinct_per_s=res.distinct / secs,
-        peak_bytes=torch.cuda.max_memory_allocated(),
-        level_seconds=[b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)],
-        slab_rows=chk.hstore.cap, cap_x=chk.cap_x, cap_m=chk.cap_m, redos=chk.redos,
-    ))
+    return dict(depth=res.depth, distinct=res.distinct, generated=res.generated,
+                level_sizes=list(res.level_sizes), generated_at_12=gen12, seconds=secs,
+                distinct_per_s=res.distinct / secs, peak_bytes=torch.cuda.max_memory_allocated(),
+                level_seconds=[b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)])
+
+
+def _check_golden(out: dict, res, depth: int) -> None:
+    want = GOLDEN_LEVELS_REF[: depth + 1]
     check(res.ok, "reference run reported a violation")
     check(list(res.level_sizes) == want, f"level sizes {res.level_sizes} != golden {want}")
-    check(depth < 12 or gen12 == GENERATED_AT_12, f"generated at depth 12: {gen12}")
-    return chk
+    check(depth < 12 or out["generated_at_12"] == GENERATED_AT_12,
+          f"generated at depth 12: {out['generated_at_12']}")
+
+
+def phase_staged(depth: int, chunk: int):
+    """The staged chain to ``depth``: (checker, level digests)."""
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch import kernels
+
+    chk, res, levels, secs = _run_reference(depth, chunk, megakernel=False)
+    reads = dict(D.READS)
+    rounds = list(kernels.K4_ROUNDS)
+    out = dict(phase="staged", **_common(res, levels, secs, depth),
+               slab_rows=chk.hstore.cap, cap_x=chk.cap_x, cap_m=chk.cap_m, redos=chk.redos,
+               routes=chk.routes, reads=reads,
+               reads_per_level=_reads_total(reads) / max(res.depth, 1),
+               k4_rounds_per_call=dict(max=max(rounds, default=0),
+                                       mean=float(np.mean(rounds)) if rounds else 0.0,
+                                       calls=len(rounds)))
+    emit(out)
+    _check_golden(out, res, depth)
+    return chk, level_digests(chk)
+
+
+def phase_default(depth: int, chunk: int):
+    """The default path to ``depth``: level digests.  Steady state is one
+    graph launch and one read per superstep and per fused level."""
+    import torch
+
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch import kernels
+
+    chk, res, levels, secs = _run_reference(depth, chunk)
+    reads = dict(D.READS)
+    g, ss, mg = chk.graph_stats, chk._ss_stats, chk._mega_stats
+    fused_runs = mg["levels"] + g["level_redo_launches"]
+    rounds = chk.k4_round_log
+    staged_rounds = list(kernels.K4_ROUNDS)
+    staged_levels = chk.routes["staged"]
+    out = dict(
+        phase="default", **_common(res, levels, secs, depth),
+        routes=chk.routes, superstep_stats=ss, mega_stats=mg, graph_stats=g, reads=reads,
+        per_superstep=dict(graph_launches=g["superstep_launches"] / max(ss["supersteps"], 1),
+                           reads=reads.get("superstep", 0) / max(ss["supersteps"], 1),
+                           levels=ss["levels"] / max(ss["supersteps"], 1)),
+        per_fused_level=dict(graph_launches=g["level_launches"] / max(mg["levels"], 1),
+                             reads=reads.get("level", 0) / max(mg["levels"], 1),
+                             runs=fused_runs),
+        per_staged_level=dict(reads=(_reads_total(reads, "staged") + reads.get("k4_round", 0))
+                              / max(staged_levels, 1), levels=staged_levels),
+        k4_rounds_per_fused_level=dict(max=max(rounds, default=0),
+                                       mean=float(np.mean(rounds)) if rounds else 0.0,
+                                       budget=chk.k4_rounds),
+        k4_rounds_per_staged_call=dict(max=max(staged_rounds, default=0),
+                                       mean=float(np.mean(staged_rounds)) if staged_rounds
+                                       else 0.0),
+        route_seconds={r: sum(b["elapsed"] - a["elapsed"] for a, b in zip(
+            [dict(elapsed=0.0)] + levels[:-1], levels) if b["route"] == r) for r in chk.routes},
+        slab_rows=chk.hstore.cap, cap_x=chk.cap_x, cap_m=chk.cap_m,
+        k4_rounds_log=rounds,
+        program_cache_bytes=sum(p.nbytes() for p in chk._progs.progs.values()),
+        memory_reserved=torch.cuda.memory_reserved(),
+    )
+    emit(out)
+    chk._progs.clear()  # free the captured programs' buffers for the phases after
+    _check_golden(out, res, depth)
+    # one graph launch per superstep and per fused level run; one read each
+    check(g["superstep_launches"] == ss["supersteps"] == reads.get("superstep", 0),
+          f"supersteps {ss['supersteps']}: graph launches {g['superstep_launches']}, "
+          f"reads {reads.get('superstep', 0)}")
+    check(g["level_launches"] == fused_runs == reads.get("level", 0),
+          f"fused levels {mg['levels']} + redos {g['level_redo_launches']}: graph launches "
+          f"{g['level_launches']}, reads {reads.get('level', 0)}")
+    return level_digests(chk)
+
+
+def phase_digests(staged: list, default: list, depth: int) -> None:
+    same = [a == b for a, b in zip(staged[:depth], default[:depth])]
+    emit(dict(phase="digests", levels=len(same), equal=sum(same)))
+    check(len(same) == depth and all(same),
+          f"pidx/slot digests differ at levels {[i + 1 for i, x in enumerate(same) if not x]}")
 
 
 def phase_fixpoint(chunk: int) -> None:
@@ -175,6 +299,132 @@ def phase_trace(chunk: int) -> None:
           and tuple(res.level_sizes) == MEDIAN_BUG["level_sizes"], "median-bug counts")
     check([a for a, _ in trace] == MEDIAN_BUG["actions"], "median-bug trace actions")
     check(sha == MEDIAN_BUG["trace_sha256"], "median-bug trace states")
+
+
+def phase_drill() -> None:
+    """Every stop class of the superstep commit forced on (3,1,1,1), and the
+    double-vote abort on (3,1,2,0): the counts never move."""
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine import superstep as ss
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    cfg = RaftConfig(3, 1, 1, 1)
+    want = (True, 545, 2028, 19)
+    rows = []
+
+    def case(name, expect, **kw):
+        flags = []
+        chk = TorchChecker(cfg, device="cuda", **{"chunk": 256, **kw.pop("ctor", {})})
+        for k, v in kw.items():
+            setattr(chk, k, v)
+        grow = chk._grow_for_stop
+
+        def spy(f, frontier):
+            flags.append(f)
+            return grow(f, frontier)
+
+        chk._grow_for_stop = spy
+        res = chk.run()
+        got = (res.ok, res.distinct, res.generated, res.depth)
+        rows.append(dict(case=name, counts=list(got), stops=chk._ss_stats["stops"],
+                         ring_stops=chk._ss_stats["ring_stops"], flags=sorted(set(flags)),
+                         redo={k: v for k, v in chk._mega_stats.items() if v}))
+        check(got == want, f"drill {name}: counts {got} != {want}")
+        check(expect(chk, flags), f"drill {name}: the stop class did not fire {rows[-1]}")
+
+    case("base", lambda c, f: c._ss_stats["stops"] == 0)
+    case("cap_x", lambda c, f: any(x & ss.FLAG_OVF_X for x in f), ctor=dict(cap_x=16))
+    case("cap_m", lambda c, f: any(x & ss.FLAG_OVF_M for x in f), ctor=dict(cap_m=4))
+    case("rounds", lambda c, f: any(x & ss.FLAG_OVF_ROUNDS for x in f), k4_rounds=1)
+    saved = (hs.MIN_CAP, hs.DeviceHashStore.need_grow, ss.ring_capacity,
+             TorchChecker._superstep_shapes)
+    try:
+        hs.MIN_CAP = 16
+        hs.DeviceHashStore.need_grow = lambda self, extra=0: False
+        case("slab", lambda c, f: any(x & ss.FLAG_OVF_SLAB for x in f))
+        hs.MIN_CAP, hs.DeviceHashStore.need_grow = saved[0], saved[1]
+        ss.ring_capacity = lambda fut, span, cap_f, pow2: 4
+        case("ring", lambda c, f: c._ss_stats["ring_stops"] > 0)
+        ss.ring_capacity = saved[2]
+
+        def small_seat(self, fut, span, n_rows, cap_cur):
+            cap_f = max(4 * self.chunk, cap_cur)
+            return cap_f, ss.ring_capacity(fut, span, cap_f,
+                                           lambda x: 1 << max(0, x - 1).bit_length())
+
+        TorchChecker._superstep_shapes = small_seat
+        case("seat", lambda c, f: any(x & ss.FLAG_OVF_OUT for x in f), ctor=dict(chunk=8))
+    finally:
+        hs.MIN_CAP, hs.DeviceHashStore.need_grow, ss.ring_capacity = saved[:3]
+        TorchChecker._superstep_shapes = saved[3]
+    chk = TorchChecker(RaftConfig(3, 1, 2, 0, mutations=("double-vote",)), device="cuda",
+                       chunk=256)
+    res = chk.run()
+    lines = "\n".join(f"{a!r} {s!r}" for a, s in res.violation[1])
+    rows.append(dict(case="abort", counts=list(res[:4]), stops=chk._ss_stats["stops"]))
+    emit(dict(phase="drill", cases=rows))
+    check(tuple(res[:4]) == DOUBLE_VOTE["result"]
+          and hashlib.sha256(lines.encode()).hexdigest() == DOUBLE_VOTE["trace_sha256"]
+          and chk._ss_stats["stops"] == 1, "drill abort: the double-vote stop point or trace")
+
+
+def phase_twins(chunk: int) -> None:
+    """One fused level and one superstep of two levels on the card against
+    the CPU twins, from the depth-9 frontier and slab of the reference
+    constants: every output equal."""
+    import torch
+
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine import megakernel as mk
+    from tla_raft_tpu_torch.engine import superstep as ss
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+    from tla_raft_tpu_torch.models.raft import Frontier
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    base = TorchChecker(RaftConfig(), device="cuda", chunk=chunk)
+    base.run(max_depth=9)
+    n_f = base.frontier.voted_for.shape[0]
+    base.hstore.reserve(base.hstore.count + 8 * n_f)  # room for two more levels
+
+    def carried(device):
+        chk = TorchChecker(RaftConfig(), device=device, chunk=chunk, cap_x=base.cap_x,
+                           cap_m=base.cap_m)
+        chk.hstore = hs.DeviceHashStore(base.hstore.cap, base.hstore.count, device)
+        chk.hstore.slab = base.hstore.slab.to(device).clone()
+        return chk, Frontier(*(x.to(device) for x in base.frontier))
+
+    outs, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        chk, fr = carried(device)
+        cap_f = chk._rows_cap(fr)
+        t0 = time.perf_counter()
+        prog = mk.LevelProgram(chk, ("twin",), cap_f, 4 * chunk, mk.DEFAULT_ROUNDS)
+        mk.copy_rows(prog.fr_in, fr, n_f)
+        prog.run(n_f)
+        n_new = int(prog.ctrl[0])
+        level = [prog.ctrl, prog.mult, prog.fps_out, prog.pidx, prog.slot, chk.hstore.slab,
+                 *(x[:n_new] for x in prog.fr_out)]
+        chk2, fr2 = carried(device)
+        prog2 = ss.SuperstepProgram(chk2, ("twin",), 4 * chunk, 16 * chunk, 4, mk.DEFAULT_ROUNDS)
+        mk.copy_rows(prog2.fr[0], fr2, n_f)
+        prog2.run(n_f, 2, 16 * chunk)
+        n2 = int(prog2.ss[ss.SS_NF])
+        sstep = [prog2.ss[: ss.SS_CTRL], prog2.meta_n, prog2.meta_mult, prog2.ring_fps,
+                 prog2.ring_pidx, prog2.ring_slot, chk2.hstore.slab,
+                 *(x[:n2] for x in prog2.fr[0])]
+        outs[device] = [t.cpu() for t in level + sstep]
+        secs[device] = time.perf_counter() - t0
+        if device == "cuda":
+            meta = dict(n_new=n_new, superstep_levels=prog2.meta_n.tolist()[:2])
+        del prog, prog2
+        torch.cuda.empty_cache()
+    same = [bool(torch.equal(a, b)) for a, b in zip(outs["cuda"], outs["cpu"])]
+    emit(dict(phase="twins", parents=n_f, **meta, outputs=len(same), equal=sum(same),
+              seconds=secs))
+    check(meta["n_new"] == GOLDEN_LEVELS_REF[10]
+          and meta["superstep_levels"] == GOLDEN_LEVELS_REF[10:12], f"twins counts {meta}")
+    check(all(same), f"fused level / superstep differ from the CPU twins: {same}")
 
 
 def _equal(a, b) -> bool:
@@ -448,28 +698,157 @@ def phase_kernels(chk, launches: dict, seed: int) -> None:
     # lanes: fp, key, payload in, fresh out; slab: at least one 32-B
     # sector read per live lane and one written per new fingerprint
     entry(kernels.HASHSTORE, True, ms, plain, N * 25 + (n_live + n_new) * 32, N * 64, None)
+
+    # B9 (the compaction kernel's two-array form): the real insert's fresh
+    # lanes packed to a prefix, as the level's dedup tail runs it; its own
+    # time and bound go into the compact entry
+    fresh = kernels.probe_and_insert(slab.clone(), cv, cf, cp_)[1]
+    a = hs.compact_fresh(fresh, cv, cp_, N)
+    b = hs.compact_fresh_plain(fresh, cv, cp_, N)
+    check(all(_equal(x, y) for x, y in zip(a, b)), "B9 compact_fresh differs from its twin")
+    kept = int(fresh.sum())
+    b9_bytes = 2 * N + kept * 16 + N * 16
+    comp = next(e for e in out if e["name"] == "compact")
+    comp["b9"] = dict(
+        ms=cuda_ms(lambda: hs.compact_fresh(fresh, cv, cp_, N), 10),
+        plain_ms=wall_ms(lambda: hs.compact_fresh_plain(fresh, cv, cp_, N)),
+        bound_ms=b9_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: (torch.masked_select(cv, fresh),
+                                    torch.masked_select(cp_, fresh)), 10),
+        lanes=N, kept=kept)
+
+    # B11 level control at the deep fused level's shapes: 256 chunks, the
+    # run's slab, the survivors of a level of 2,150,466 (cap_out 2^22)
+    from tla_raft_tpu_torch.engine import megakernel as mk
+    from tla_raft_tpu_torch.engine import superstep as ss
+    from tla_raft_tpu_torch.ops import sieve
+
+    cap_out = 1 << 22
+    pidx_l, slot_l = chk.trace_levels[-1]
+    n_lvl = len(pidx_l)
+    pay = torch.full((cap_out,), -1, dtype=torch.int64, device=dev)
+    pay[:n_lvl] = torch.from_numpy(pidx_l * K + slot_l).to(dev)
+    totals = torch.from_numpy(gen.integers(0, G + 1, 256)).to(dev)
+    n_run = torch.tensor(n, device=dev)
+
+    def level_ctl(begin, gate, decide, live, fin):
+        lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=dev)
+        mult = torch.ones((K,), dtype=torch.int64, device=dev)
+        ctrl = torch.zeros((8,), dtype=torch.int64, device=dev)
+        pidx = torch.zeros((cap_out,), dtype=torch.int32, device=dev)
+        slot = torch.zeros((cap_out,), dtype=torch.int16, device=dev)
+
+        def go():
+            begin(lc, mult, n_run)
+            gate(lc, totals, G, B)
+            lc[mk.LC_N_NEW] = n_lvl
+            decide(lc, cap_out)
+            live(slab, lc[mk.LC_SLAB_LIVE])
+            fin(lc, ctrl, pay, K, pidx, slot)
+
+        return go, (lc, mult, ctrl, pidx, slot)
+
+    kgo, kout = level_ctl(kernels.level_begin, kernels.level_gate, kernels.level_decide,
+                          kernels.slab_live, kernels.level_finalize)
+    pgo, pout = level_ctl(mk.level_begin_plain, mk.level_gate_plain, mk.level_decide_plain,
+                          mk.slab_live_plain, mk.level_finalize_plain)
+    kgo()
+    pgo()
+    check(all(_equal(x, y) for x, y in zip(kout, pout))
+          and int(kout[0][mk.LC_SLAB_LIVE]) == chk.hstore.count,
+          "B11 level control differs from its twin")
+    ms = cuda_ms(kgo, 10)
+    plain = wall_ms(pgo)
+    entry(kernels.LEVEL, True, ms, plain, slab.shape[0] * 8 + cap_out * 14 + 256 * 8 + K * 16,
+          slab.shape[0] + cap_out * 4, None)
+
+    # B12 commit, ring append and frontier settle at the deep superstep's
+    # shapes: cap_f 2^22, a committed level of 3,350,017 after one of
+    # 2,150,466, a ring of 2^24, the frontier rows settled into buffer 0
+    cap_f, ring, n_new2 = 1 << 22, 1 << 24, GOLDEN_LEVELS_REF[21]
+    fps2 = torch.from_numpy(gen.integers(-(1 << 63), (1 << 63) - 1, cap_f,
+                                         dtype=np.int64)).to(dev)
+    pay2 = torch.from_numpy(gen.integers(0, n * K, cap_f)).to(dev)
+    lc2 = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=dev)
+    mk.level_begin_plain(lc2, torch.zeros((K,), dtype=torch.int64, device=dev), n_run)
+    lc2[mk.LC_N_NEW] = n_new2
+    mult2 = torch.from_numpy(gen.integers(0, 1 << 20, K)).to(dev)
+    args2 = torch.tensor([n, 4, ring], device=dev)
+    src = mk.empty_frontier(chk.cfg, cap_f, cap_m, dev)
+    mk.copy_rows(src, fr, n)
+
+    def superstep_ctl(begin, commit, append, settle):
+        st = torch.zeros((ss.SS_LEN,), dtype=torch.int64, device=dev)
+        mn = torch.zeros((4,), dtype=torch.int64, device=dev)
+        mm = torch.zeros((4, K), dtype=torch.int64, device=dev)
+        mr = torch.zeros((4,), dtype=torch.int64, device=dev)
+        rf = torch.full((ring,), -1, dtype=torch.int64, device=dev)
+        rp = torch.zeros((ring,), dtype=torch.int32, device=dev)
+        rs = torch.zeros((ring,), dtype=torch.int16, device=dev)
+        dst = mk.empty_frontier(chk.cfg, cap_f, cap_m, dev)
+
+        def go():
+            begin(st, args2)
+            commit(st, lc2, mult2, cap_f, mn, mm, mr)
+            append(st, lc2, fps2, pay2, K, rf, rp, rs)
+            settle(st, src, dst)
+
+        return go, (st, mn, mm, mr, rf, rp, rs, *dst)
+
+    kgo, kout = superstep_ctl(kernels.ss_begin, kernels.ss_commit, kernels.ss_append,
+                              kernels.ss_settle)
+    pgo, pout = superstep_ctl(ss.ss_begin_plain, ss.ss_commit_plain, ss.ss_append_plain,
+                              ss.ss_settle_plain)
+    kgo()
+    pgo()
+    check(all(_equal(x, y) for x, y in zip(kout, pout)) and int(kout[0][ss.SS_LEVELS]) == 1,
+          "B12 superstep commit / ring / settle differs from its twin")
+    ms = cuda_ms(kgo, 10)
+    plain = wall_ms(pgo)
+    row_b = _core_bytes(fr) + 2 * cap_m
+    entry(kernels.SUPERSTEP, True, ms, plain, K * 16 + n_new2 * 30 + 2 * n_new2 * row_b,
+          n_new2 * 4, None)
+    del src, kout, pout
+    torch.cuda.empty_cache()
+
+    # B13 sieve probe over a fused level's fresh lanes (cap_out, SENT past
+    # n_new): the main path's all-miss sentinel, and a 2^20-word filter
+    fps3 = torch.full((cap_out,), -1, dtype=torch.int64, device=dev)
+    fps3[:n_lvl] = torch.from_numpy(gen.integers(-(1 << 63), (1 << 63) - 1, n_lvl,
+                                                 dtype=np.int64)).to(dev)
+    words = torch.from_numpy(gen.integers(-(1 << 63), (1 << 63) - 1, 1 << 20, dtype=np.int64)
+                             & gen.integers(-(1 << 63), (1 << 63) - 1, 1 << 20,
+                                            dtype=np.int64)).to(dev)
+    ok = True
+    for w in (sieve.empty_sieve(dev), words):
+        kc = torch.zeros((), dtype=torch.int64, device=dev)
+        pc = torch.zeros((), dtype=torch.int64, device=dev)
+        kernels.sieve_probe(w, fps3, count=kc)
+        pc += (sieve.probe_plain(w, fps3) & (fps3 != -1)).sum()
+        ok &= int(kc) == int(pc) and _equal(sieve.probe(w, fps3), sieve.probe_plain(w, fps3))
+    check(ok, "B13 sieve probe differs from its twin")
+    empty, cnt = sieve.empty_sieve(dev), torch.zeros((), dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: kernels.sieve_probe(empty, fps3, count=cnt), 10)
+    plain = wall_ms(lambda: (sieve.probe_plain(empty, fps3) & (fps3 != -1)).sum())
+    entry(kernels.SIEVE, True, ms, plain, cap_out * 8 + 8, cap_out * 40, None)
+
     emit(dict(kernels=out, shapes=dict(chunk=B, cap_x=G, cap_m=cap_m, slab_rows=slab.shape[0],
                                         dedup_lanes=N, dedup_new=n_new, frontier_rows=n)))
 
 
-def phase_profile(chk) -> None:
-    """One more level from the reference run's last frontier (expand,
-    dedup, materialize) under torch.profiler: kernel time by name and the
-    device's busy share of the wall time.  Reported, not gated."""
+def _profiled(fn):
+    """(result, wall ms, device busy ms, top kernels) of ``fn`` under
+    torch.profiler; busy = the sum of kernel times (graph-launched
+    kernels included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fr = chk.frontier
-    n = fr.voted_for.shape[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = chk.expand_level(fr, n, chk.hstore.slab.clone())
-        t1 = time.perf_counter()
-        if res["n_new"]:  # an overflowed level inserts nothing (the run would redo it)
-            chk.materialize_level(fr, res["new_payload"], res["n_new"])
+        res = fn()
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        wall = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
         # kernel records only: the CPU op that launched a kernel reports
@@ -482,13 +861,70 @@ def phase_profile(chk) -> None:
         if dev_us > 0:
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    wall = (t2 - t0) * 1e3
-    emit(dict(phase="profile", parents=n, n_new=res["n_new"], overflow=[res["ovf_x"],
-              res["ovf_h"], res["ovf_m"]], expand_ms=(t1 - t0) * 1e3,
-              materialize_ms=(t2 - t1) * 1e3, wall_ms=wall, device_busy_ms=busy,
-              device_idle_share=max(0.0, 1 - busy / wall) if wall else None,
-              top=[[k, round(ms, 4), c] for k, ms, c in rows[:14]]))
+    return res, wall, sum(r[1] for r in rows), [[k, round(ms, 4), c] for k, ms, c in rows[:14]]
+
+
+def phase_profile(chk) -> None:
+    """One more level from the staged run's depth-20 frontier (2,150,466
+    parents), on the staged chain and as one fused-level graph (captured
+    first), each on its own copy of the slab: the wall of a timed run, then
+    kernel time by name under torch.profiler, and the device's idle share
+    (1 - kernel time / the timed wall; the profiler's own tracing slows the
+    host, so its wall is printed apart).  Reported, not gated."""
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    fr = chk.frontier
+    n = fr.voted_for.shape[0]
+
+    def staged():
+        res = chk.expand_level(fr, n, chk.hstore.slab.clone())
+        if res["n_new"]:  # an overflowed level inserts nothing (the run would redo it)
+            chk.materialize_level(fr, res["new_payload"], res["n_new"])
+        return res
+
+    staged()  # warm
+    wall = wall_ms(staged)
+    D.READS.clear()
+    res, pwall, busy, top = _profiled(staged)
+    emit(dict(phase="profile", path="staged", parents=n, n_new=res["n_new"],
+              overflow=[res["ovf_x"], res["ovf_h"], res["ovf_m"]], wall_ms=wall,
+              profiled_wall_ms=pwall, device_busy_ms=busy,
+              device_idle_share=max(0.0, 1 - busy / wall), reads=_reads_total(D.READS),
+              top=top))
+
+    fchk = TorchChecker(RaftConfig(), device="cuda", chunk=chk.chunk, cap_x=chk.cap_x,
+                        cap_m=chk.cap_m, superstep=1)
+    fchk.hstore = hs.DeviceHashStore(chk.hstore.cap, chk.hstore.count, "cuda")
+    fchk.hstore.slab = chk.hstore.slab.clone()
+    slab0 = fchk.hstore.slab.clone()
+    sizes = GOLDEN_LEVELS_REF[: DEPTH + 1]
+
+    def fused():
+        out = fchk._expand_level_mega(fr, n, None, sizes)
+        timing = dict(fchk.level_timing)
+        if fchk.hstore.slab.shape == slab0.shape:
+            fchk.hstore.slab.copy_(slab0)  # in place: the captured graph keeps its slab
+        else:  # the run grew the slab: the next run captures again
+            fchk.hstore.slab = slab0.clone()
+        return out, timing
+
+    fused()  # capture (and any redo) outside the timed runs
+    captures = fchk.graph_stats["captures"]
+    wall = wall_ms(fused)
+    timing = dict(fchk.level_timing)
+    D.READS.clear()
+    launches = fchk.graph_stats["level_launches"]
+    (res, _t), pwall, busy, top = _profiled(fused)
+    emit(dict(phase="profile", path="fused", parents=n, n_new=res["n_new"], wall_ms=wall,
+              profiled_wall_ms=pwall, device_busy_ms=busy,
+              device_idle_share=max(0.0, 1 - busy / wall),
+              host_seconds=timing, graph_launches=fchk.graph_stats["level_launches"] - launches,
+              reads=_reads_total(D.READS), captures=captures,
+              recaptures=fchk.graph_stats["captures"] - captures,
+              capture_seconds=fchk.graph_stats["capture_seconds"], top=top))
 
 
 def main() -> int:
@@ -505,9 +941,10 @@ def main() -> int:
 
     failures = []
 
-    def run(name, fn, *a):
+    def run(name, need, fn, *a):
         """One main-path phase, with its own launch counts: every count is
-        set to 0 just before the phase and read just after it."""
+        set to 0 just before the phase and read just after it; every
+        kernel in ``need`` must have launched."""
         kernels.reset_launches()
         try:
             res = fn(*a)
@@ -515,9 +952,9 @@ def main() -> int:
             failures.append(f"{name}: {e}")
             emit(dict(phase=name, failed=str(e)))
             res = None
-        counts = {k: v.launches for k, v in kernels.KERNELS.items()}
+        counts = kernels.launch_counts()
         emit(dict(phase=f"{name}_launches", launches=counts))
-        idle = sorted(k for k, c in counts.items() if c == 0)
+        idle = sorted(k for k in need if counts[k] == 0)
         if idle:
             failures.append(f"{name}: kernels never launched on this path: {idle}")
         return res, counts
@@ -526,18 +963,30 @@ def main() -> int:
     kernels.build_all()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=sorted(kernels.KERNELS)))
-    chk, ref_launches = run("reference", phase_reference, DEPTH, CHUNK)
-    run("fixpoint", phase_fixpoint, CHUNK)
-    run("trace", phase_trace, CHUNK)
-    if chk is not None:
+    every = sorted(kernels.KERNELS)
+    staged, _ = run("staged", kernels.STAGED, phase_staged, DEPTH, CHUNK)
+    chk, staged_digests = staged if staged else (None, None)
+    default_digests, launches = run("default", every, phase_default, DEPTH_DEFAULT, CHUNK)
+    if staged_digests and default_digests:
         try:
-            phase_kernels(chk, ref_launches, SEED)
+            phase_digests(staged_digests, default_digests, DEPTH)
         except Failed as e:
-            failures.append(f"kernels: {e}")
-            emit(dict(phase="kernels", failed=str(e)))
+            failures.append(f"digests: {e}")
+    run("fixpoint", every, phase_fixpoint, CHUNK)
+    run("trace", every, phase_trace, CHUNK)
+    run("drill", every, phase_drill)
+    for name, fn, args in (("twins", phase_twins, (CHUNK,)),
+                           ("kernels", phase_kernels, (chk, launches, SEED))):
+        if chk is None:
+            failures.append(f"{name}: no staged reference run to test on")
+            continue
+        try:
+            fn(*args)
+        except Failed as e:
+            failures.append(f"{name}: {e}")
+            emit(dict(phase=name, failed=str(e)))
+    if chk is not None:
         phase_profile(chk)
-    else:
-        failures.append("kernels: no reference frontier to test on")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,

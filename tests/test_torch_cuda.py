@@ -127,3 +127,147 @@ def test_inv_scan_kernel_equals_twin(run):
             want = int(inv_scan_plain(run.cfg, st, [name], run.tables, 5))
             assert int(run.inv_scan(case, offset=5, names=[name])) == want, name
     assert int(run.inv_scan(mixed)) >= 0
+
+
+# -- the fused level (B11), supersteps (B12) and the sieve (B13) ----------------
+
+
+def _result_tuple(r):
+    return (r.ok, r.distinct, r.generated, r.depth, tuple(r.level_sizes), r.action_counts)
+
+
+@pytest.mark.parametrize("arm", [dict(megakernel=False), dict(superstep=1), dict()],
+                         ids=["staged", "fused", "superstep"])
+def test_arms_on_the_card_equal_the_cpu(run, arm):
+    cfg = RaftConfig(3, 1, 1, 1)
+    cpu = TorchChecker(cfg, device="cpu", chunk=256, **arm).run()
+    chk = TorchChecker(cfg, device="cuda", chunk=256, **arm)
+    got = chk.run()
+    assert _result_tuple(got) == _result_tuple(cpu) and got.distinct == 545
+    # one graph launch per superstep, per fused level and per redo
+    redos = sum(v for k, v in chk._mega_stats.items() if k.startswith("redo"))
+    want = chk._ss_stats["supersteps"] + chk._mega_stats["levels"] + redos
+    launches = chk.graph_stats["level_launches"] + chk.graph_stats["superstep_launches"]
+    assert launches == (0 if arm.get("megakernel") is False else want)
+
+
+def _carry(run, device):
+    """The depth-10 frontier and slab of the ``run`` fixture, on ``device``,
+    under a fresh checker of the same budgets."""
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    chk = TorchChecker(RaftConfig(), device=device, chunk=1024, cap_x=run.cap_x, cap_m=run.cap_m)
+    chk.hstore = hs.DeviceHashStore(run.hstore.cap, run.hstore.count, device)
+    chk.hstore.slab = run.hstore.slab.to(device).clone()
+    n_f = run.frontier.voted_for.shape[0]
+    chk.hstore.reserve(chk.hstore.count + 16 * n_f)  # room for the levels after
+    fr = Frontier(*(x.to(device) for x in run.frontier))
+    return chk, fr, n_f, mk
+
+
+def test_level_program_equals_twin(run):
+    outs = {}
+    for device in ("cuda", "cpu"):
+        chk, fr, n_f, mk = _carry(run, device)
+        cap_f = -(-n_f // chk.chunk) * chk.chunk
+        cap_out = chk._frontier_cap(4 * n_f)
+        prog = mk.LevelProgram(chk, ("test",), cap_f, cap_out, mk.DEFAULT_ROUNDS)
+        mk.copy_rows(prog.fr_in, fr, n_f)
+        prog.run(n_f)
+        outs[device] = [t.cpu() for t in (prog.ctrl, prog.mult, prog.fps_out, prog.pidx,
+                                          prog.slot, chk.hstore.slab)]
+        n_new = int(prog.ctrl[0])
+        outs[device] += [x[:n_new].cpu() for x in prog.fr_out]
+    assert int(outs["cuda"][0][0]) == 12505  # the golden level 11
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_superstep_program_equals_twin(run):
+    from tla_raft_tpu_torch.engine import superstep as ss
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        chk, fr, n_f, mk = _carry(run, device)
+        cap_f = chk._frontier_cap(64 * n_f)
+        prog = ss.SuperstepProgram(chk, ("test",), cap_f, 4 * cap_f, 4, mk.DEFAULT_ROUNDS)
+        mk.copy_rows(prog.fr[0], fr, n_f)
+        prog.run(n_f, 3, 4 * cap_f)
+        outs[device] = [t.cpu() for t in (prog.ss[:ss.SS_CTRL], prog.meta_n, prog.meta_mult,
+                                          prog.ring_fps, prog.ring_pidx, prog.ring_slot,
+                                          chk.hstore.slab)]
+    assert outs["cuda"][1].tolist()[:3] == [12505, 24705, 47599]  # golden levels 11-13
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_commit_kernel_equals_twin(run):
+    from tla_raft_tpu_torch.engine import megakernel as mk
+    from tla_raft_tpu_torch.engine import superstep as ss
+
+    fields = ("n_new", "abort", "ovf_x", "ovf_slab", "ovf_m", "ovf_mx", "bad", "tier_hits",
+              "ovf_rounds")
+    g = np.random.default_rng(5)
+    for _ in range(64):
+        lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64)
+        lc[mk.LC_N_RUN] = 10
+        lc[mk.LC_ABORT] = mk.BIG if g.random() < 0.8 else int(g.integers(0, 12))
+        lc[mk.LC_BAD] = -1 if g.random() < 0.8 else int(g.integers(0, 5))
+        for f in fields[2:6] + fields[7:]:
+            lc[getattr(mk, "LC_" + f.upper())] = int(g.random() < 0.15)
+        lc[mk.LC_N_NEW] = int(g.integers(0, 40))
+        outs = []
+        for device in ("cuda", "cpu"):
+            st = torch.zeros((ss.SS_LEN,), dtype=torch.int64, device=device)
+            ss.op_ss_begin(st, torch.tensor([10, 4, 20], device=device))
+            mult = torch.arange(7, dtype=torch.int64, device=device)
+            mn = torch.zeros(4, dtype=torch.int64, device=device)
+            mm = torch.zeros((4, 7), dtype=torch.int64, device=device)
+            mr = torch.zeros(4, dtype=torch.int64, device=device)
+            ss.op_ss_commit(st, lc.to(device), mult, 32, mn, mm, mr)
+            outs.append([x.cpu() for x in (st, mn, mm, mr)])
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_level_control_kernels_equal_twins(run):
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    g = np.random.default_rng(6)
+    totals = torch.from_numpy(g.integers(0, 300, 9))
+    slab = run.hstore.slab
+    pay = torch.from_numpy(np.concatenate([g.integers(0, 1 << 40, 500), [-1] * 12]))
+    outs = []
+    for device in ("cuda", "cpu"):
+        lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=device)
+        mult = torch.ones(11, dtype=torch.int64, device=device)
+        mk.op_level_begin(lc, mult, torch.tensor(1500, device=device))
+        lc[mk.LC_ABORT] = 1400
+        mk.op_level_gate(lc, totals.to(device), 256, 128)
+        a = lc.clone()
+        lc[mk.LC_N_NEW] = 700
+        mk.op_level_decide(lc, 512)
+        mk.op_slab_live(slab.to(device), lc[mk.LC_SLAB_LIVE])
+        ctrl = torch.zeros(8, dtype=torch.int64, device=device)
+        pidx = torch.zeros(pay.shape[0], dtype=torch.int32, device=device)
+        slot = torch.zeros(pay.shape[0], dtype=torch.int16, device=device)
+        mk.op_level_finalize(lc, ctrl, pay.to(device), 696, pidx, slot)
+        outs.append([x.cpu() for x in (a, lc, mult, ctrl, pidx, slot)])
+    assert int(outs[0][1][mk.LC_SLAB_LIVE]) == run.hstore.count
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_sieve_kernel_equals_twin(run):
+    from tla_raft_tpu_torch.ops import sieve
+
+    g = np.random.default_rng(4)
+    words = torch.from_numpy(g.integers(-(1 << 63), (1 << 63) - 1, 1024, dtype=np.int64)
+                             & g.integers(-(1 << 63), (1 << 63) - 1, 1024, dtype=np.int64))
+    fps = torch.from_numpy(g.integers(-(1 << 63), (1 << 63) - 1, 100_000, dtype=np.int64))
+    fps[::97] = -1
+    assert torch.equal(sieve.probe(words.cuda(), fps.cuda()).cpu(), sieve.probe_plain(words, fps))
+    for w in (words, sieve.empty_sieve("cpu")):
+        c = torch.zeros((), dtype=torch.int64, device="cuda")
+        sieve.count_hits(w.cuda(), fps.cuda(), c)
+        want = torch.zeros((), dtype=torch.int64)
+        sieve.count_hits(w, fps, want)
+        assert int(c) == int(want)

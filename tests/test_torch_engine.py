@@ -56,9 +56,11 @@ def test_chunk_size_does_not_change_results():
 
 def test_grow_and_redo_every_budget(monkeypatch):
     """Tiny cap_x and cap_m, and a slab that only grows on a probe
-    overflow: every budget overflows, grows, redoes — same counts."""
+    overflow: every budget overflows, grows, redoes — same counts.  The
+    staged chain (a superstep reserves its span's slab room up front;
+    tests/test_torch_superstep.py drills the fused arms' stops)."""
     monkeypatch.setattr(hs.DeviceHashStore, "need_grow", lambda self, extra=0: False)
-    chk = _port(RaftConfig(), cap_x=8, cap_m=4)
+    chk = _port(RaftConfig(), cap_x=8, cap_m=4, megakernel=False)
     res = chk.run(max_depth=8)
     assert (res.distinct, res.generated, res.depth) == (1505, 3044, 8)
     assert res.level_sizes == (1, 1, 3, 9, 22, 57, 136, 345, 931)

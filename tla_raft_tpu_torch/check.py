@@ -83,18 +83,25 @@ def print_trace(cfg: RaftConfig, trace, out) -> None:
         print(format_state(cfg, st), file=out)
 
 
-def summarize(res, seconds: float, device) -> dict:
-    """CheckResult -> the ``--json`` summary (the reference's core keys)."""
-    return dict(
+def summarize(res, seconds: float, chk) -> dict:
+    """CheckResult -> the ``--json`` summary (the reference's keys:
+    check.py:236-280), plus the levels each route committed."""
+    out = dict(
         ok=res.ok,
         distinct=res.distinct,
         generated=res.generated,
         depth=res.depth,
         level_sizes=list(res.level_sizes),
+        megakernel=chk.megakernel,
+        superstep=chk.superstep_span,
         seconds=round(seconds, 3),
         violation=res.violation[0] if res.violation else None,
-        device=str(device),
+        device=str(chk.device),
+        routes=dict(chk.routes),
     )
+    if chk._ss_stats["supersteps"]:
+        out["superstep_stats"] = {k: int(v) for k, v in sorted(chk._ss_stats.items())}
+    return out
 
 
 def main(argv=None) -> int:
@@ -108,6 +115,12 @@ def main(argv=None) -> int:
                     help="compile in a planted semantic bug (repeatable)")
     ap.add_argument("--chunk", type=int, default=16384, help="parents per guard launch")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--megakernel", type=int, choices=(0, 1), default=None,
+                    help="the fused level: one CUDA graph launch and one read per level "
+                         "(default on; 0 selects the staged chain)")
+    ap.add_argument("--superstep", type=int, default=None, metavar="N",
+                    help="up to N fused levels per CUDA graph launch and read (default 4; "
+                         "1 selects the per-level fused program)")
     ap.add_argument("--coverage", action="store_true", help="print per-action counts")
     ap.add_argument("--json", action="store_true", help="print a JSON summary line")
     args = ap.parse_args(argv)
@@ -127,7 +140,9 @@ def main(argv=None) -> int:
               f"distinct {s['distinct']}, generated {s['generated']}, "
               f"{rate:,.0f} states/s", file=out, flush=True)
 
-    chk = TorchChecker(cfg, device=args.device, chunk=args.chunk, progress=progress)
+    chk = TorchChecker(cfg, device=args.device, chunk=args.chunk, progress=progress,
+                       megakernel=None if args.megakernel is None else bool(args.megakernel),
+                       superstep=args.superstep)
     print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
     print(f"Config: {cfg.describe()}", file=out)
     res = chk.run(max_depth=args.max_depth)
@@ -152,7 +167,7 @@ def main(argv=None) -> int:
     print(f"Finished in {dt:.1f}s ({res.distinct / max(dt, 1e-9):,.0f} distinct states/s).",
           file=out)
     if args.json:
-        print(json.dumps(summarize(res, dt, chk.device)), file=out)
+        print(json.dumps(summarize(res, dt, chk)), file=out)
     return 0 if res.ok else 1
 
 

@@ -34,6 +34,57 @@ struct Dims {
 
 EXPORT const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// A live count read on the device: min(n, max(0, *cnt - sub) * mul), or n
+// when cnt is null.  The fused level (engine/megakernel.py) sizes every
+// grid at its static capacity and bounds the work by such counts, so one
+// captured CUDA graph serves every frontier size: chunk rows
+// (n_f - start), a chunk's flag lanes ((n_f - start) * K), compacted lanes
+// (a total), a materialize slice ((n_new - start)).
+__device__ inline long long live_count(const int64_t* cnt, long long sub, long long mul,
+                                       long long n) {
+  if (!cnt) return n;
+  long long v = (long long)*cnt - sub;
+  if (v <= 0) return 0;
+  v *= mul;
+  return v < n ? v : n;
+}
+
+// The fused level's control words (i64[LC_LEN]; engine/megakernel.py
+// keeps the same numbers).  Written by the level's own kernels on the
+// device, read by the host once per level (or once per superstep).
+enum LevelCtl {
+  LC_N_RUN = 0,       // live parent rows of the level (0: a dead level)
+  LC_ABORT = 1,       // first split-brain parent, BIG if none
+  LC_OVF_X = 2,       // a chunk overflowed cap_x
+  LC_OVF_MX = 3,      // an expanded child overflowed cap_m (its fingerprint is void)
+  LC_LIVE_LANES = 4,  // candidate lanes K4 takes (0: K4 gated off)
+  LC_N_NEW = 5,       // fresh lanes (the new frontier's rows)
+  LC_OVF_SLAB = 6,    // a probe window filled
+  LC_OVF_M = 7,       // a materialized child overflowed cap_m
+  LC_BAD = 8,         // first invariant-violating new row, -1 if none
+  LC_SLAB_LIVE = 9,   // live slab slots after the level
+  LC_TIER_HITS = 10,  // sieve hits among the fresh lanes
+  LC_W0 = 11,         // claiming lanes, even rounds (K4's two counters)
+  LC_W1 = 12,         // claiming lanes, odd rounds
+  LC_K4_NEW = 13,     // K4's own fresh count
+  LC_ROUNDS = 14,     // claim rounds that ran
+  LC_OVF_ROUNDS = 15, // lanes still claimed after the rounds budget
+  LC_UNDO = 16,       // give this level's claims back
+  LC_LEN = 24,
+};
+constexpr long long LC_BIG = 1ll << 62;
+
+// Force the module's kernels to load now (under CUDA's lazy loading a
+// kernel loads at its first launch, which must not be inside a graph
+// capture).
+#define WARM(...)                                                        \
+  EXPORT int lib_warm() {                                                \
+    cudaFuncAttributes a;                                                \
+    const void* fns[] = {__VA_ARGS__};                                   \
+    for (const void* f : fns) cudaFuncGetAttributes(&a, f);              \
+    return (int)cudaGetLastError();                                      \
+  }
+
 static inline Dims load_dims(const int* dims) {
   Dims d;
   memcpy(&d, dims, sizeof(Dims));

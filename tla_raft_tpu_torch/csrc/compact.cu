@@ -69,7 +69,9 @@ __device__ inline int thread_count(const uint8_t* flags, long long n, long long 
 }
 
 __global__ void count_tiles(const uint8_t* __restrict__ flags, long long n,
-                            long long* __restrict__ tile_count) {
+                            long long* __restrict__ tile_count, const int64_t* cnt,
+                            long long sub, long long mul) {
+  n = live_count(cnt, sub, mul, n);
   const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
   const int c = thread_count(flags, n, base);
   int total;
@@ -106,7 +108,10 @@ __global__ void scan_offsets(long long* __restrict__ tile, long long n_tiles,
 __global__ void scatter_tiles(const uint8_t* __restrict__ flags, long long n,
                               const long long* __restrict__ tile_off,
                               const long long* __restrict__ va, const long long* __restrict__ vb,
-                              long long cap, long long* __restrict__ oa, long long* __restrict__ ob) {
+                              long long cap, long long* __restrict__ oa, long long* __restrict__ ob,
+                              const int64_t* cnt, long long sub, long long mul,
+                              long long iota_base) {
+  n = live_count(cnt, sub, mul, n);
   const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
   int total;
   long long r = tile_off[blockIdx.x] + block_exclusive_scan(thread_count(flags, n, base), &total);
@@ -115,7 +120,7 @@ __global__ void scatter_tiles(const uint8_t* __restrict__ flags, long long n,
     const long long i = base + k;
     if (i < n && flags[i]) {
       if (r < cap) {
-        oa[r] = va[i];
+        oa[r] = va ? va[i] : iota_base + i;
         if (ob) ob[r] = vb[i];
       }
       ++r;
@@ -138,24 +143,31 @@ __global__ void pad_tail(const long long* __restrict__ total, long long cap, lon
 
 static inline unsigned blocks_of(long long n, long long per) { return (unsigned)((n + per - 1) / per); }
 
-// Scratch: tile i64[ceil(n / TILE)].  vb/ob and lane may be null.
+// Scratch: tile i64[ceil(n / TILE)].  vb/ob and lane may be null; va null
+// means the values are iota_base + lane (the chunk's payloads).  With cnt,
+// only the first live_count(cnt, sub, mul, n) flag lanes count.
 EXPORT long long compact_tile() { return TILE; }
 
 EXPORT int launch_compact(const uint8_t* flags, long long n, const int64_t* va,
                           const int64_t* vb, long long pad_a, long long pad_b, long long cap,
                           int64_t* oa, int64_t* ob, bool* lane, int64_t* tile, int64_t* total,
+                          const int64_t* cnt, long long sub, long long mul, long long iota_base,
                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long n_tiles = (n + TILE - 1) / TILE;
   if (n_tiles > 0)
-    count_tiles<<<(unsigned)n_tiles, THREADS, 0, st>>>(flags, n, (long long*)tile);
+    count_tiles<<<(unsigned)n_tiles, THREADS, 0, st>>>(flags, n, (long long*)tile, cnt, sub,
+                                                       mul);
   scan_offsets<<<1, THREADS, 0, st>>>((long long*)tile, n_tiles, (long long*)total);
   if (n_tiles > 0)
     scatter_tiles<<<(unsigned)n_tiles, THREADS, 0, st>>>(
         flags, n, (const long long*)tile, (const long long*)va, (const long long*)vb, cap,
-        (long long*)oa, (long long*)ob);
+        (long long*)oa, (long long*)ob, cnt, sub, mul, iota_base);
   if (cap > 0)
     pad_tail<<<blocks_of(cap, THREADS), THREADS, 0, st>>>(
         (const long long*)total, cap, pad_a, pad_b, (long long*)oa, (long long*)ob, lane);
   return (int)cudaGetLastError();
 }
+
+WARM((const void*)count_tiles, (const void*)scan_offsets, (const void*)scatter_tiles,
+     (const void*)pad_tail)

@@ -58,7 +58,8 @@ __global__ void fingerprint_kernel(Core P, const int16_t* __restrict__ ids, int 
                                    long long G, const int8_t* __restrict__ cplanes,
                                    const int8_t* __restrict__ gplanes, int F, int ncols, int nperm,
                                    Dims d, int64_t* __restrict__ fp_view,
-                                   int64_t* __restrict__ fp_full) {
+                                   int64_t* __restrict__ fp_full, const int64_t* cnt,
+                                   long long sub) {
   extern __shared__ int8_t csm[];  // the feature plane table, F * ncols
   __shared__ int8_t feats[WARPS][MAX_F];
   __shared__ int32_t acc_sm[WARPS][MAX_COLS];
@@ -66,11 +67,14 @@ __global__ void fingerprint_kernel(Core P, const int16_t* __restrict__ ids, int 
   for (int i = threadIdx.x; i < F * ncols; i += blockDim.x) csm[i] = cplanes[i];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long g = (long long)blockIdx.x * WARPS + w;
-  const bool live = g < G;
+  const bool live = g < live_count(cnt, sub, 1, G);
   if (live)
     for (int e = lane; e < F; e += 32) feats[w][e] = (int8_t)feature(P, g, e, d);
   __syncthreads();
-  if (!live) return;
+  if (!live) {  // a dead lane of a counted launch reads as SENT
+    if (g < G && lane == 0) fp_view[g] = fp_full[g] = -1;
+    return;
+  }
 
   int acc[MAX_COLS / 32];
   const int per_lane = (ncols + 31) / 32;
@@ -119,10 +123,13 @@ __global__ void fingerprint_kernel(Core P, const int16_t* __restrict__ ids, int 
   }
 }
 
+// With cnt, lanes at or past live_count(cnt, sub, 1, G) are dead and get
+// SENT (-1) in both outputs.
 EXPORT int launch_fingerprints(const void* const* core, const int16_t* ids, int cap_m,
                                long long G, const int8_t* cplanes, const int8_t* gplanes, int F,
                                int ncols, int nperm, const int* dims, int64_t* fp_view,
-                               int64_t* fp_full, void* stream) {
+                               int64_t* fp_full, const int64_t* cnt, long long sub,
+                               void* stream) {
   Core P;
   for (int i = 0; i < N_FIELDS; ++i) P.f[i] = (const uint8_t*)core[i];
   Dims d = load_dims(dims);
@@ -130,7 +137,9 @@ EXPORT int launch_fingerprints(const void* const* core, const int16_t* ids, int 
   if (G > 0) {
     const long long blocks = (G + WARPS - 1) / WARPS;
     fingerprint_kernel<<<(unsigned)blocks, WARPS * 32, F * ncols, (cudaStream_t)stream>>>(
-        P, ids, cap_m, G, cplanes, gplanes, F, ncols, nperm, d, fp_view, fp_full);
+        P, ids, cap_m, G, cplanes, gplanes, F, ncols, nperm, d, fp_view, fp_full, cnt, sub);
   }
   return (int)cudaGetLastError();
 }
+
+WARM((const void*)fingerprint_kernel)

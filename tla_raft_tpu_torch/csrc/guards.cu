@@ -39,11 +39,13 @@ __device__ inline int popc_range(const uint32_t* w, int a, int n) {
 __global__ void guards_kernel(Core P, const int32_t* __restrict__ msgs, int B,
                               const int32_t* __restrict__ slot_tab, int K, Dims d,
                               bool* __restrict__ valid, int32_t* __restrict__ mult,
-                              bool* __restrict__ abort_out) {
+                              bool* __restrict__ abort_out, const int64_t* cnt, long long sub,
+                              unsigned long long* __restrict__ mult_acc,
+                              unsigned long long* __restrict__ abort_acc, long long base) {
   extern __shared__ uint32_t bits[];
   __shared__ int abort_flag;
   const int b = blockIdx.x;
-  if (b >= B) return;
+  if (b >= live_count(cnt, sub, 1, B)) return;
   const int S = d.S, T = d.T, L = d.L, V = d.V, E = d.E;
   for (int i = threadIdx.x; i < d.n_words; i += blockDim.x)
     bits[i] = (uint32_t)msgs[(size_t)b * d.n_words + i];
@@ -200,21 +202,35 @@ __global__ void guards_kernel(Core P, const int32_t* __restrict__ msgs, int B,
         break;
     }
     valid[(size_t)b * K + k] = ok;
-    mult[(size_t)b * K + k] = ok ? m : 0;
+    if (mult) mult[(size_t)b * K + k] = ok ? m : 0;
+    if (mult_acc && ok && m) atomicAdd(&mult_acc[k], (unsigned long long)m);
   }
   __syncthreads();
-  if (threadIdx.x == 0) abort_out[b] = abort_flag != 0;
+  if (threadIdx.x == 0) {
+    if (abort_out) abort_out[b] = abort_flag != 0;
+    if (abort_acc && abort_flag) atomicMin(abort_acc, (unsigned long long)(base + b));
+  }
 }
 
+// mult and abort_out may be null.  With cnt, rows at or past
+// live_count(cnt, sub, 1, B) are dead (nothing written); with mult_acc
+// (i64[K]) each live row's per-slot multiplicities add into it, and with
+// abort_acc the first aborting row (+ base) is an unsigned atomic minimum
+// into it: the fused level's per-level sums, exact (integer adds and
+// minima are order-free).
 EXPORT int launch_guards(const void* const* core, const int32_t* msgs, int B,
                          const int32_t* slot_tab, int K, const int* dims, bool* valid,
-                         int32_t* mult, bool* abort_out, void* stream) {
+                         int32_t* mult, bool* abort_out, const int64_t* cnt, long long sub,
+                         int64_t* mult_acc, int64_t* abort_acc, long long base, void* stream) {
   Core P;
   for (int i = 0; i < N_FIELDS; ++i) P.f[i] = (const uint8_t*)core[i];
   Dims d = load_dims(dims);
   if (B > 0) {
     guards_kernel<<<B, 256, d.n_words * sizeof(uint32_t), (cudaStream_t)stream>>>(
-        P, msgs, B, slot_tab, K, d, valid, mult, abort_out);
+        P, msgs, B, slot_tab, K, d, valid, mult, abort_out, cnt, sub,
+        (unsigned long long*)mult_acc, (unsigned long long*)abort_acc, base);
   }
   return (int)cudaGetLastError();
 }
+
+WARM((const void*)guards_kernel)

@@ -137,9 +137,10 @@ __device__ bool holds(int code, const Core& P, const int16_t* ids, int cap_m, lo
 
 __global__ void inv_scan_kernel(Core P, const int16_t* __restrict__ ids, int cap_m, long long n,
                                 InvList inv, Dims d, long long offset,
-                                unsigned long long* __restrict__ first_bad) {
+                                unsigned long long* __restrict__ first_bad, const int64_t* cnt,
+                                long long sub) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
+  if (g >= live_count(cnt, sub, 1, n)) return;
   bool bad = false;
   for (int i = 0; i < inv.n && !bad; ++i)
     bad = holds(inv.code[i], P, ids + g * cap_m, cap_m, g, d) == (inv.negate[i] != 0);
@@ -149,9 +150,11 @@ __global__ void inv_scan_kernel(Core P, const int16_t* __restrict__ ids, int cap
 // codes[i] = InvCode, negate[i] = 1 for `~Name`.  first_bad is an int64
 // that reads -1 when no row is bad, else the smallest bad row + offset.
 // fresh = 1 sets it to -1 first; fresh = 0 folds this batch into it.
+// With cnt, rows at or past live_count(cnt, sub, 1, n) are not scanned.
 EXPORT int launch_inv_scan(const void* const* core, const int16_t* ids, int cap_m, long long n,
                            const int* codes, const int* negate, int n_inv, const int* dims,
-                           long long offset, int fresh, int64_t* first_bad, void* stream) {
+                           long long offset, int fresh, int64_t* first_bad,
+                           const int64_t* cnt, long long sub, void* stream) {
   if (n_inv > MAX_INV) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Core P;
@@ -165,6 +168,9 @@ EXPORT int launch_inv_scan(const void* const* core, const int16_t* ids, int cap_
   if (fresh) cudaMemsetAsync(first_bad, 0xFF, sizeof(int64_t), st);
   if (n > 0)
     inv_scan_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        P, ids, cap_m, n, inv, load_dims(dims), offset, (unsigned long long*)first_bad);
+        P, ids, cap_m, n, inv, load_dims(dims), offset, (unsigned long long*)first_bad, cnt,
+        sub);
   return (int)cudaGetLastError();
 }
+
+WARM((const void*)inv_scan_kernel)

@@ -25,14 +25,24 @@ __global__ void materialize_kernel(Core P, const int16_t* __restrict__ ids, int 
                                    const int64_t* __restrict__ slots, long long G,
                                    const int32_t* __restrict__ slot_tab, int K, Dims d, CoreOut C,
                                    int32_t* __restrict__ added, int16_t* __restrict__ child_ids,
-                                   bool* __restrict__ ovf) {
+                                   bool* __restrict__ ovf, const int64_t* __restrict__ pay,
+                                   long long pay_base, const int64_t* cnt, long long sub,
+                                   long long* ovf_any) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
+  if (g >= live_count(cnt, sub, 1, G)) return;
   const int S = d.S, T = d.T, L = d.L, V = d.V, E = d.E;
   const int A = S - 1 > 1 ? S - 1 : 1;
-  long long p = pidx[g];
+  long long p, sl;
+  if (pay) {  // a global payload parent * K + slot: floor division, floor mod
+    const long long y = pay[g];
+    const long long q = y >= 0 ? y / K : -((-y + K - 1) / K);
+    p = q - pay_base;
+    sl = y - q * K;
+  } else {
+    p = pidx[g];
+    sl = slots[g];
+  }
   p = p < 0 ? 0 : (p >= N ? N - 1 : p);
-  long long sl = slots[g];
   sl = sl < 0 ? 0 : (sl >= K ? K - 1 : sl);
 
   // child := parent
@@ -189,13 +199,20 @@ __global__ void materialize_kernel(Core P, const int16_t* __restrict__ ids, int 
     if (pos < cap_m) out[pos] = (int16_t)aid;
   }
   ovf[g] = of;
+  if (of && ovf_any) *ovf_any = 1;
 }
 
+// Lanes are (pidx, slots), or with pay non-null the payloads
+// pay = (parent + pay_base) * K + slot.  With cnt, lanes at or past
+// live_count(cnt, sub, 1, G) are dead (nothing written); ovf_any (i64, may
+// be null) is set to 1 when a live lane's id list overflows.
 EXPORT int launch_materialize(const void* const* core, const int16_t* ids, int cap_m,
                               long long N, const int64_t* pidx, const int64_t* slots, long long G,
                               const int32_t* slot_tab, int K, const int* dims,
                               void* const* core_out, int32_t* added, int16_t* child_ids,
-                              bool* ovf, void* stream) {
+                              bool* ovf, const int64_t* pay, long long pay_base,
+                              const int64_t* cnt, long long sub, int64_t* ovf_any,
+                              void* stream) {
   Core P;
   CoreOut C;
   for (int i = 0; i < N_FIELDS; ++i) {
@@ -207,7 +224,10 @@ EXPORT int launch_materialize(const void* const* core, const int16_t* ids, int c
     const int threads = 128;
     const long long blocks = (G + threads - 1) / threads;
     materialize_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        P, ids, cap_m, N, pidx, slots, G, slot_tab, K, d, C, added, child_ids, ovf);
+        P, ids, cap_m, N, pidx, slots, G, slot_tab, K, d, C, added, child_ids, ovf, pay,
+        pay_base, cnt, sub, (long long*)ovf_any);
   }
   return (int)cudaGetLastError();
 }
+
+WARM((const void*)materialize_kernel)

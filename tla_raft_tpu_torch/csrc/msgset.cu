@@ -27,11 +27,12 @@
 constexpr int WARPS = 8;  // states per block
 
 __global__ void inflate_kernel(const int16_t* __restrict__ ids, int cap_m, long long n,
-                               int n_words, uint32_t* __restrict__ msgs) {
+                               int n_words, uint32_t* __restrict__ msgs, const int64_t* cnt,
+                               long long sub) {
   extern __shared__ uint32_t sh[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * WARPS + warp;
-  if (row >= n) return;
+  if (row >= live_count(cnt, sub, 1, n)) return;
   uint32_t* w = sh + warp * n_words;
   for (int j = lane; j < n_words; j += 32) w[j] = 0u;
   __syncwarp();
@@ -84,11 +85,12 @@ __global__ void deflate_kernel(const uint32_t* __restrict__ msgs, int n_words, i
 
 static inline unsigned blocks_of(long long n) { return (unsigned)((n + WARPS - 1) / WARPS); }
 
+// With cnt, rows at or past live_count(cnt, sub, 1, n) are dead (not written).
 EXPORT int launch_inflate(const int16_t* ids, int cap_m, long long n, int n_words, int32_t* msgs,
-                          void* stream) {
+                          const int64_t* cnt, long long sub, void* stream) {
   if (n > 0)
     inflate_kernel<<<blocks_of(n), WARPS * 32, WARPS * n_words * sizeof(uint32_t),
-                     (cudaStream_t)stream>>>(ids, cap_m, n, n_words, (uint32_t*)msgs);
+                     (cudaStream_t)stream>>>(ids, cap_m, n, n_words, (uint32_t*)msgs, cnt, sub);
   return (int)cudaGetLastError();
 }
 
@@ -99,3 +101,5 @@ EXPORT int launch_deflate(const int32_t* msgs, int n_words, int M, long long n, 
         (const uint32_t*)msgs, n_words, M, n, cap_m, ids, ovf);
   return (int)cudaGetLastError();
 }
+
+WARM((const void*)inflate_kernel, (const void*)deflate_kernel)

@@ -10,11 +10,19 @@ loads.  Nothing is imported or built when this module is imported.
 
 Every wrapper checks device, dtype, shape and contiguity and raises on
 anything it does not take; allocates its outputs and scratch with
-``torch.empty``; launches on ``torch.cuda.current_stream()``; raises if the
-C entry point returns a CUDA error; and adds to its kernel's ``launches``
-count the number of CUDA kernels it launched, where it launches them.
-There is no fallback: the callers send CPU tensors to the plain twins and
-CUDA tensors here.
+``torch.empty`` unless the caller passes them (``out=``); launches on
+``torch.cuda.current_stream()``; raises if the C entry point returns a
+CUDA error; and adds to its kernel's ``launches`` count the number of CUDA
+kernels it launched, where it launches them.  There is no fallback: the
+callers send CPU tensors to the plain twins and CUDA tensors here.
+
+The fused level (engine/megakernel.py) captures these launches into a
+CUDA graph, so its wrappers take *device counts*: ``cnt`` (an int64 0-d
+CUDA tensor) with ``sub`` bounds the live rows or lanes at
+``min(n, max(0, cnt - sub) * mul)`` on the device (common.cuh
+``live_count``), and the grid stays at the static capacity.  A capture
+adds its launches to the counts once per replay, not at capture time
+(``Tally``).
 """
 
 from __future__ import annotations
@@ -65,7 +73,9 @@ class Kernel:
                 getattr(lib, fn).restype = I32
             lib.error_string.argtypes = [I32]
             lib.error_string.restype = ctypes.c_char_p
+            lib.lib_warm.restype = I32
             self._lib = lib
+            self.check(lib.lib_warm())
         return self._lib
 
     def check(self, rc: int) -> None:
@@ -78,42 +88,46 @@ GUARDS = Kernel(
     "guards", "csrc/guards.cu",
     "tla_raft_tpu/ops/mxu_expand.py:398 (MXUExpand.guards + _guard_features:342, "
     "dense_expand.py:184 msg_guard_parts)",
-    {"launch_guards": [VP, VP, I32, VP, I32, VP, VP, VP, VP, VP]},
+    {"launch_guards": [VP, VP, I32, VP, I32, VP, VP, VP, VP, VP, I64, VP, VP, I64, VP]},
 )
 MATERIALIZE = Kernel(
     "materialize", "csrc/materialize.cu",
     "tla_raft_tpu/ops/mxu_expand.py:416 (MXUExpand.materialize_added, "
     "+ engine/bfs.py:861 _ids_insert)",
-    {"launch_materialize": [VP, VP, I32, I64, VP, VP, I64, VP, I32, VP, VP, VP, VP, VP, VP]},
+    {"launch_materialize": [VP, VP, I32, I64, VP, VP, I64, VP, I32, VP, VP, VP, VP, VP,
+                            VP, I64, VP, I64, VP, VP]},
 )
 FINGERPRINT = Kernel(
     "fingerprint", "csrc/fingerprint.cu",
     "tla_raft_tpu/ops/fingerprint.py:517 (Fingerprinter.state_fingerprints: "
     "features:102, _plane_matmul:398, msg_hash:418, finalize:505)",
-    {"launch_fingerprints": [VP, VP, I32, I64, VP, VP, I32, I32, I32, VP, VP, VP, VP]},
+    {"launch_fingerprints": [VP, VP, I32, I64, VP, VP, I32, I32, I32, VP, VP, VP, VP, I64,
+                             VP]},
 )
 HASHSTORE = Kernel(
     "hashstore", "csrc/hashstore.cu",
     "tla_raft_tpu/ops/hashstore.py:270 (probe_and_insert_impl: _probe_rounds:160, "
     "_claim_loop:226)",
     {
-        "hs_probe_first": [VP, I64, VP, I64, VP, VP, VP, VP, VP],
+        "hs_probe_first": [VP, I64, VP, I64, VP, VP, VP, VP, VP, VP, VP],
         "hs_round": [VP, I64, VP, I64, VP, VP, VP, VP, VP],
-        "hs_represent": [VP, VP, I64, VP, VP, VP, VP, VP, VP, VP],
-        "hs_undo": [VP, I64, VP, VP, VP],
+        "hs_rounds_dev": [VP, I64, VP, I64, VP, VP, VP, VP, VP, VP, VP, I32, VP],
+        "hs_represent": [VP, VP, I64, VP, VP, VP, VP, VP, VP, VP, VP],
+        "hs_undo": [VP, I64, VP, VP, VP, VP, VP],
     },
 )
 COMPACT = Kernel(
     "compact", "csrc/compact.cu",
     "tla_raft_tpu/engine/bfs.py:287 (_compact_payloads) and "
     "tla_raft_tpu/ops/hashstore.py:351 (compact_fresh)",
-    {"launch_compact": [VP, I64, VP, VP, I64, I64, I64, VP, VP, VP, VP, VP, VP],
+    {"launch_compact": [VP, I64, VP, VP, I64, I64, I64, VP, VP, VP, VP, VP, VP, I64, I64, I64,
+                        VP],
      "compact_tile": []},
 )
 INFLATE = Kernel(
     "inflate", "csrc/msgset.cu",
     "tla_raft_tpu/engine/bfs.py:833 (_ids_to_msgs, under _inflate:894)",
-    {"launch_inflate": [VP, I32, I64, I32, VP, VP]},
+    {"launch_inflate": [VP, I32, I64, I32, VP, VP, I64, VP]},
 )
 DEFLATE = Kernel(
     "deflate", "csrc/msgset.cu",
@@ -124,15 +138,71 @@ INV_SCAN = Kernel(
     "inv_scan", "csrc/invariants.cu",
     "tla_raft_tpu/engine/bfs.py:1794 (_inv_scan_impl over "
     "tla_raft_tpu/engine/invariants.py:21-149)",
-    {"launch_inv_scan": [VP, VP, I32, I64, VP, VP, I32, VP, I64, I32, VP, VP]},
+    {"launch_inv_scan": [VP, VP, I32, I64, VP, VP, I32, VP, I64, I32, VP, VP, I64, VP]},
+)
+LEVEL = Kernel(
+    "level", "csrc/level.cu",
+    "tla_raft_tpu/engine/megakernel.py:170 (fused_level_core's carried reductions and "
+    "build_level_program:311's ctrl / pidx / slot outputs)",
+    {
+        "lv_begin_launch": [VP, VP, I32, VP, VP],
+        "lv_gate_launch": [VP, VP, I32, I64, I64, VP],
+        "lv_decide_launch": [VP, I64, VP],
+        "slab_live_launch": [VP, I64, VP, VP],
+        "lv_finalize_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
+    },
+)
+SUPERSTEP = Kernel(
+    "superstep", "csrc/superstep.cu",
+    "tla_raft_tpu/engine/superstep.py:181 (build_superstep_program: commit algebra "
+    ":258-300, ring append :272-279, meta :280-283)",
+    {
+        "ss_begin_launch": [VP, VP, VP],
+        "ss_commit_launch": [VP, VP, VP, I32, I64, VP, VP, VP, VP],
+        "ss_append_launch": [VP, VP, VP, VP, I64, I32, VP, VP, VP, VP],
+        "ss_settle_launch": [VP, VP, VP, VP, I32, I64, VP],
+    },
+)
+SIEVE = Kernel(
+    "sieve", "csrc/sieve.cu",
+    "tla_raft_tpu/ops/sieve.py:194 (probe_impl over _word_and_mask:80)",
+    {"sieve_probe_launch": [VP, I64, VP, I64, VP, VP, VP]},
 )
 KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMPACT, INFLATE,
-                               DEFLATE, INV_SCAN)}
+                               DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE)}
+# the kernels the staged chain launches (the fused level launches all)
+STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
+          "inv_scan")
 
 
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS.values()}
+
+
+class Tally:
+    """The launches of one captured CUDA graph.  ``take`` (after the
+    capture) moves the launches the wrappers counted while capturing out
+    of the counts — a capture launches nothing — and ``replay`` adds them
+    back once per replay, when the graph launches them."""
+
+    def __init__(self):
+        self.before = launch_counts()
+        self.per_replay: dict = {}
+
+    def take(self) -> None:
+        after = launch_counts()
+        self.per_replay = {k: after[k] - self.before[k] for k in after}
+        for k, v in self.before.items():
+            KERNELS[k].launches = v
+
+    def replay(self) -> None:
+        for k, v in self.per_replay.items():
+            KERNELS[k].launches += v
 
 
 # -- build ---------------------------------------------------------------------
@@ -197,11 +267,11 @@ def build_all() -> dict:
 
 
 def _need(t: torch.Tensor, what: str, dtype, shape=None) -> None:
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
@@ -218,7 +288,17 @@ def _core_ptrs(st, n: int, dims: dict):
     return (VP * len(ptrs))(*ptrs)
 
 
+_SHAPES: dict = {}
+_DIMS: dict = {}
+
+
 def _field_shapes(cfg) -> dict:
+    if cfg not in _SHAPES:
+        _SHAPES[cfg] = _field_shapes_of(cfg)
+    return _SHAPES[cfg]
+
+
+def _field_shapes_of(cfg) -> dict:
     S, L, V = cfg.S, cfg.L, cfg.V
     return dict(
         voted_for=(S,), current_term=(S,), role=(S,), log_term=(S, L), log_val=(S, L),
@@ -228,7 +308,14 @@ def _field_shapes(cfg) -> dict:
 
 
 def dims_array(cfg, uni):
-    """The C ``Dims`` struct of common.cuh, as a ctypes int array."""
+    """The C ``Dims`` struct of common.cuh, as a ctypes int array (one per
+    config: the entry points copy it)."""
+    if cfg not in _DIMS:
+        _DIMS[cfg] = _dims_array_of(cfg, uni)
+    return _DIMS[cfg]
+
+
+def _dims_array_of(cfg, uni):
     vals = [
         cfg.S, cfg.T, cfg.L, cfg.V, uni.n_entry, uni.ap_npli, uni.ap_pli_min,
         uni.vq_off, uni.vp_off, uni.aq_off, uni.ap_off, uni.M, uni.n_words,
@@ -239,7 +326,14 @@ def dims_array(cfg, uni):
     return (I32 * len(vals))(*vals)
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream() -> int:
+    """The current CUDA stream's handle (the capture stream inside a graph
+    capture), read without building a Stream object where torch allows."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch._C._cuda_getDevice())
     return torch.cuda.current_stream().cuda_stream
 
 
@@ -251,8 +345,25 @@ def _check_cfg(cfg, uni) -> None:
 # -- wrappers --------------------------------------------------------------------
 
 
-def guards(mx, st):
-    """K1: (valid bool[B,K], mult i32[B,K], abort bool[B]) of a RaftState."""
+def _p(t):
+    """A tensor's data pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _cnt(cnt):
+    if cnt is not None:
+        _need(cnt, "cnt", torch.int64, ())
+    return _p(cnt)
+
+
+def guards(mx, st, *, valid=None, per_row=True, cnt=None, sub=0, mult_acc=None, abort_acc=None,
+           base=0):
+    """K1: (valid bool[B,K], mult i32[B,K], abort bool[B]) of a RaftState.
+
+    Counted form (the fused level): ``valid`` given, ``per_row=False``
+    (no per-row mult/abort), rows past the device count ``cnt - sub``
+    dead; each live row's mult adds into ``mult_acc`` i64[K] and its
+    abort (+ ``base``) minimizes into ``abort_acc`` (int64 0-d)."""
     cfg, uni = mx.cfg, mx.uni
     _check_cfg(cfg, uni)
     B, K = st.msgs.shape[0], mx.K
@@ -260,51 +371,79 @@ def guards(mx, st):
     _need(st.msgs, "msgs", torch.int32, (B, uni.n_words))
     _need(mx.slot_table, "slot_table", torch.int32, (K, 6))
     dev = st.msgs.device
-    valid = torch.empty((B, K), dtype=torch.bool, device=dev)
-    mult = torch.empty((B, K), dtype=torch.int32, device=dev)
-    abort = torch.empty((B,), dtype=torch.bool, device=dev)
+    if valid is None:
+        valid = torch.empty((B, K), dtype=torch.bool, device=dev)
+    _need(valid, "valid", torch.bool, (B, K))
+    mult = torch.empty((B, K), dtype=torch.int32, device=dev) if per_row else None
+    abort = torch.empty((B,), dtype=torch.bool, device=dev) if per_row else None
+    if mult_acc is not None:
+        _need(mult_acc, "mult_acc", torch.int64, (K,))
+    if abort_acc is not None:
+        _need(abort_acc, "abort_acc", torch.int64, ())
     lib = GUARDS.lib()
     GUARDS.check(lib.launch_guards(
         core, st.msgs.data_ptr(), B, mx.slot_table.data_ptr(), K, dims_array(cfg, uni),
-        valid.data_ptr(), mult.data_ptr(), abort.data_ptr(), _stream(),
+        valid.data_ptr(), _p(mult), _p(abort), _cnt(cnt), sub, _p(mult_acc), _p(abort_acc), base,
+        _stream(),
     ))
     GUARDS.launches += int(B > 0)
     return valid, mult, abort
 
 
-def materialize(mx, fr, pidx, slots):
-    """K2: (child Frontier [G], added i32[G, A], overflow bool[G])."""
+def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None, sub=0,
+                ovf_any=None):
+    """K2: (child Frontier [G], added i32[G, A], overflow bool[G]).
+
+    Lanes are (``pidx``, ``slots``), or payloads ``pay`` =
+    (parent + ``pay_base``) * K + slot.  ``out`` = (Frontier, added, ovf)
+    to write into; lanes past the device count ``cnt - sub`` are dead, and
+    ``ovf_any`` (int64 0-d) is set to 1 when a live lane overflows."""
     from ..models.raft import Frontier, _CORE_FIELDS
 
     cfg, uni = mx.cfg, mx.uni
     _check_cfg(cfg, uni)
-    N, G, K, A = fr.msg_ids.shape[0], pidx.shape[0], mx.K, mx.A
+    lanes = pay if pay is not None else pidx
+    N, G, K, A = fr.msg_ids.shape[0], lanes.shape[0], mx.K, mx.A
     if N == 0:
         raise ValueError("materialize: empty parent frontier")
     shapes = _field_shapes(cfg)
     core = _core_ptrs(fr, N, shapes)
     cap_m = fr.msg_ids.shape[1]
     _need(fr.msg_ids, "msg_ids", torch.int16, (N, cap_m))
-    _need(pidx, "pidx", torch.int64, (G,))
-    _need(slots, "slots", torch.int64, (G,))
-    dev = pidx.device
-    out = {f: torch.empty((G, *shapes[f]), dtype=torch.uint8, device=dev) for f in _CORE_FIELDS}
-    out_ptrs = (VP * len(_CORE_FIELDS))(*(out[f].data_ptr() for f in _CORE_FIELDS))
-    added = torch.empty((G, A), dtype=torch.int32, device=dev)
-    child_ids = torch.empty((G, cap_m), dtype=torch.int16, device=dev)
-    ovf = torch.empty((G,), dtype=torch.bool, device=dev)
+    if pay is not None:
+        _need(pay, "pay", torch.int64, (G,))
+    else:
+        _need(pidx, "pidx", torch.int64, (G,))
+        _need(slots, "slots", torch.int64, (G,))
+    dev = lanes.device
+    if out is None:
+        child = Frontier(msg_ids=torch.empty((G, cap_m), dtype=torch.int16, device=dev),
+                         **{f: torch.empty((G, *shapes[f]), dtype=torch.uint8, device=dev)
+                            for f in _CORE_FIELDS})
+        added = torch.empty((G, A), dtype=torch.int32, device=dev)
+        ovf = torch.empty((G,), dtype=torch.bool, device=dev)
+    else:
+        child, added, ovf = out
+        _need(child.msg_ids, "child msg_ids", torch.int16, (G, cap_m))
+        _need(added, "added", torch.int32, (G, A))
+        _need(ovf, "ovf", torch.bool, (G,))
+    out_ptrs = _core_ptrs(child, G, shapes)
+    if ovf_any is not None:
+        _need(ovf_any, "ovf_any", torch.int64, ())
     lib = MATERIALIZE.lib()
     MATERIALIZE.check(lib.launch_materialize(
-        core, fr.msg_ids.data_ptr(), cap_m, N, pidx.data_ptr(), slots.data_ptr(), G,
-        mx.slot_table.data_ptr(), K, dims_array(cfg, uni), out_ptrs, added.data_ptr(),
-        child_ids.data_ptr(), ovf.data_ptr(), _stream(),
+        core, fr.msg_ids.data_ptr(), cap_m, N, _p(pidx if pay is None else None),
+        _p(slots if pay is None else None), G, mx.slot_table.data_ptr(), K,
+        dims_array(cfg, uni), out_ptrs, added.data_ptr(), child.msg_ids.data_ptr(),
+        ovf.data_ptr(), _p(pay), pay_base, _cnt(cnt), sub, _p(ovf_any), _stream(),
     ))
     MATERIALIZE.launches += int(G > 0)
-    return Frontier(msg_ids=child_ids, **out), added, ovf
+    return child, added, ovf
 
 
-def fingerprints(fpr, fr):
-    """K3: (fp_view i64[G], fp_full i64[G]) of a Frontier batch."""
+def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0):
+    """K3: (fp_view i64[G], fp_full i64[G]) of a Frontier batch; lanes past
+    the device count ``cnt - sub`` get SENT."""
     cfg, uni = fpr.cfg, fpr.uni
     _check_cfg(cfg, uni)
     G = fr.msg_ids.shape[0]
@@ -317,24 +456,30 @@ def fingerprints(fpr, fr):
     if fpr.C_planes.device != fr.msg_ids.device:
         raise ValueError("fingerprints: tables and states on different devices")
     dev = fr.msg_ids.device
-    fpv = torch.empty((G,), dtype=torch.int64, device=dev)
-    fpf = torch.empty((G,), dtype=torch.int64, device=dev)
+    if out is None:
+        out = (torch.empty((G,), dtype=torch.int64, device=dev),
+               torch.empty((G,), dtype=torch.int64, device=dev))
+    fpv, fpf = out
+    _need(fpv, "fp_view", torch.int64, (G,))
+    _need(fpf, "fp_full", torch.int64, (G,))
     lib = FINGERPRINT.lib()
     FINGERPRINT.check(lib.launch_fingerprints(
         core, fr.msg_ids.data_ptr(), cap_m, G, fpr.C_planes.data_ptr(),
         fpr.G_planes.data_ptr(), F, ncols, fpr.P, dims_array(cfg, uni),
-        fpv.data_ptr(), fpf.data_ptr(), _stream(),
+        fpv.data_ptr(), fpf.data_ptr(), _cnt(cnt), sub, _stream(),
     ))
     FINGERPRINT.launches += int(G > 0)
     return fpv, fpf
 
 
 _SCRATCH: dict = {}  # (device, cap) -> the representative's scratch minima
+K4_ROUNDS: list = []  # the claim rounds of every host-driven K4 call
 
 
-def _rep_scratch(dev, cap: int):
+def rep_scratch(dev, cap: int):
     """The two slab-sized minima of the representative pass, filled once
-    per slab size; every call leaves them empty again (``rep_reset``)."""
+    per slab size; every call leaves them empty again (``rep_reset``).
+    The fused level takes them before its capture."""
     key = (str(dev), cap)
     if key not in _SCRATCH:
         _SCRATCH.clear()  # the slab grew: the old size is not used again
@@ -343,12 +488,7 @@ def _rep_scratch(dev, cap: int):
     return _SCRATCH[key]
 
 
-def probe_and_insert(slab, fps, keys, pays):
-    """K4: (slab, fresh bool[N], n_new i64 0-d, overflow bool 0-d).
-
-    Inserts into ``slab`` in place and returns it.  On a probe-depth
-    overflow the slots this call claimed are emptied again, so ``slab`` is
-    as it was and the caller can grow it and redo the batch."""
+def _hs_check(slab, fps, keys, pays):
     cap = slab.shape[0]
     if cap & (cap - 1):
         raise ValueError(f"slab capacity must be a power of two, got {cap}")
@@ -356,6 +496,19 @@ def probe_and_insert(slab, fps, keys, pays):
     _need(slab, "slab", torch.int64, (cap,))
     for name, t in (("fps", fps), ("keys", keys), ("pays", pays)):
         _need(t, name, torch.int64, (n,))
+    return cap, n
+
+
+def probe_and_insert(slab, fps, keys, pays):
+    """K4: (slab, fresh bool[N], n_new i64 0-d, overflow bool 0-d).
+
+    Inserts into ``slab`` in place and returns it.  On a probe-depth
+    overflow the slots this call claimed are emptied again, so ``slab`` is
+    as it was and the caller can grow it and redo the batch.  The claim
+    rounds run until none claims, with one host read a round."""
+    from ..device import fetch
+
+    cap, n = _hs_check(slab, fps, keys, pays)
     dev = slab.device
     lib = HASHSTORE.lib()
     slot = torch.empty((n,), dtype=torch.int64, device=dev)
@@ -365,72 +518,139 @@ def probe_and_insert(slab, fps, keys, pays):
     ctr = torch.zeros((3,), dtype=torch.int64, device=dev)
     if n == 0:
         return slab, fresh, ctr[2].clone(), ctr[1] > 0
-    m1, m2 = _rep_scratch(dev, cap)
+    m1, m2 = rep_scratch(dev, cap)
     st = _stream()
     HASHSTORE.check(lib.hs_probe_first(
         slab.data_ptr(), cap, fps.data_ptr(), n, slot.data_ptr(), tgt.data_ptr(),
-        flags.data_ptr(), ctr.data_ptr(), st,
+        flags.data_ptr(), ctr[0].data_ptr(), ctr[1].data_ptr(), None, st,
     ))
     HASHSTORE.launches += 1
+    rounds = 0
     while True:
-        claiming, overflow = ctr[:2].tolist()
+        claiming, overflow = (int(x) for x in fetch(ctr[:2], what="k4_round")[0])
         if not claiming:
             break
+        rounds += 1
         HASHSTORE.check(lib.hs_round(  # one more round: claim, then verify_probe
             slab.data_ptr(), cap, fps.data_ptr(), n, slot.data_ptr(), tgt.data_ptr(),
             flags.data_ptr(), ctr.data_ptr(), st,
         ))
         HASHSTORE.launches += 2
+    K4_ROUNDS.append(rounds)
     HASHSTORE.check(lib.hs_represent(  # rep_key, rep_pay, rep_fresh, rep_reset
         keys.data_ptr(), pays.data_ptr(), n, slot.data_ptr(), flags.data_ptr(),
-        m1.data_ptr(), m2.data_ptr(), fresh.data_ptr(), ctr.data_ptr(), st,
+        m1.data_ptr(), m2.data_ptr(), fresh.data_ptr(), ctr[2].data_ptr(), None, st,
     ))
     HASHSTORE.launches += 4
     if overflow:
-        HASHSTORE.check(lib.hs_undo(slab.data_ptr(), n, slot.data_ptr(), flags.data_ptr(), st))
+        HASHSTORE.check(lib.hs_undo(slab.data_ptr(), n, slot.data_ptr(), flags.data_ptr(), None,
+                                    None, st))
         HASHSTORE.launches += 1
     return slab, fresh, ctr[2].clone(), ctr[1] > 0
 
 
-def compact(flags, va, pad_a, cap, vb=None, pad_b=0, want_lane=False):
+def probe_and_insert_dev(slab, fps, keys, pays, lc, scratch, budget: int):
+    """K4 with no host read (the fused level): the live lanes are the first
+    ``lc[LC_LIVE_LANES]``; ``budget`` claim rounds, each exiting at once
+    when no lane claims; the control words get the overflow, the rounds
+    that ran, the rounds overflow and K4's fresh count.  ``scratch`` =
+    (slot i64[N], tgt i64[N], flags u8[N], fresh bool[N], m1, m2)."""
+    from ..engine import megakernel as mk
+
+    cap, n = _hs_check(slab, fps, keys, pays)
+    slot, tgt, flags, fresh, m1, m2 = scratch
+    _need(lc, "lc", torch.int64, (mk.LC_LEN,))
+    lib = HASHSTORE.lib()
+    st = _stream()
+    cnt = lc[mk.LC_LIVE_LANES].data_ptr()
+
+    def w(i):
+        return lc[i].data_ptr()
+
+    HASHSTORE.check(lib.hs_probe_first(
+        slab.data_ptr(), cap, fps.data_ptr(), n, slot.data_ptr(), tgt.data_ptr(),
+        flags.data_ptr(), w(mk.LC_W0), w(mk.LC_OVF_SLAB), cnt, st,
+    ))
+    HASHSTORE.check(lib.hs_rounds_dev(
+        slab.data_ptr(), cap, fps.data_ptr(), n, slot.data_ptr(), tgt.data_ptr(),
+        flags.data_ptr(), w(mk.LC_W0), w(mk.LC_OVF_SLAB), w(mk.LC_ROUNDS),
+        w(mk.LC_OVF_ROUNDS), int(budget), st,
+    ))
+    HASHSTORE.check(lib.hs_represent(
+        keys.data_ptr(), pays.data_ptr(), n, slot.data_ptr(), flags.data_ptr(),
+        m1.data_ptr(), m2.data_ptr(), fresh.data_ptr(), w(mk.LC_K4_NEW), cnt, st,
+    ))
+    HASHSTORE.launches += 1 + 2 * int(budget) + 1 + 4
+    return fresh
+
+
+def undo_dev(slab, scratch, live, cond):
+    """K4's undo, gated on the device flag ``cond`` (int64 0-d), over the
+    first ``live`` (int64 0-d) lanes of the last ``probe_and_insert_dev``."""
+    slot, _tgt, flags, *_ = scratch
+    n = slot.shape[0]
+    lib = HASHSTORE.lib()
+    HASHSTORE.check(lib.hs_undo(slab.data_ptr(), n, slot.data_ptr(), flags.data_ptr(),
+                                _cnt(live), _cnt(cond), _stream()))
+    HASHSTORE.launches += int(n > 0)
+
+
+def compact(flags, va, pad_a, cap, vb=None, pad_b=0, want_lane=False, *, out_a=None,
+            out_b=None, total=None, cnt=None, sub=0, mul=1, iota_base=0, tile=None):
     """Order-keeping compaction of the flagged lanes' values to ``cap``
     lanes: (out_a i64[cap] (pad_a past the kept prefix), out_b or None,
-    lane bool[cap] or None, total i64 0-d = the number of flagged lanes)."""
+    lane bool[cap] or None, total i64 0-d = the number of flagged lanes).
+    ``va`` None means the values are ``iota_base + lane``; with ``cnt``
+    only the first ``(cnt - sub) * mul`` flag lanes count."""
     n = flags.shape[0]
     _need(flags, "flags", torch.bool, (n,))
-    _need(va, "va", torch.int64, (n,))
+    if va is not None:
+        _need(va, "va", torch.int64, (n,))
     if vb is not None:
         _need(vb, "vb", torch.int64, (n,))
     dev = flags.device
     lib = COMPACT.lib()
     tile_n = lib.compact_tile()
     n_tiles = (n + tile_n - 1) // tile_n
-    oa = torch.empty((cap,), dtype=torch.int64, device=dev)
-    ob = torch.empty((cap,), dtype=torch.int64, device=dev) if vb is not None else None
+    oa = torch.empty((cap,), dtype=torch.int64, device=dev) if out_a is None else out_a
+    ob = out_b
+    if vb is not None and ob is None:
+        ob = torch.empty((cap,), dtype=torch.int64, device=dev)
+    _need(oa, "out_a", torch.int64, (cap,))
+    if ob is not None:
+        _need(ob, "out_b", torch.int64, (cap,))
     lane = torch.empty((cap,), dtype=torch.bool, device=dev) if want_lane else None
-    tile = torch.empty((max(n_tiles, 1),), dtype=torch.int64, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    if tile is None:
+        tile = torch.empty((max(n_tiles, 1),), dtype=torch.int64, device=dev)
+    if total is None:
+        total = torch.empty((), dtype=torch.int64, device=dev)
+    _need(total, "total", torch.int64, ())
+    if tile.numel() < max(n_tiles, 1):
+        raise ValueError("compact: tile scratch too small")
     COMPACT.check(lib.launch_compact(
-        flags.data_ptr(), n, va.data_ptr(), ptr(vb), pad_a, pad_b, cap, oa.data_ptr(), ptr(ob),
-        ptr(lane), tile.data_ptr(), total.data_ptr(), _stream(),
+        flags.data_ptr(), n, _p(va), _p(vb), pad_a, pad_b, cap, oa.data_ptr(), _p(ob),
+        _p(lane), tile.data_ptr(), total.data_ptr(), _cnt(cnt), sub, mul, iota_base, _stream(),
     ))
     # count_tiles and scatter_tiles per tile pass, scan_offsets, pad_tail
     COMPACT.launches += 2 * int(n_tiles > 0) + 1 + int(cap > 0)
     return oa, ob, lane, total
 
 
-def inflate(ids, n_words: int):
+def compact_tiles(n: int) -> int:
+    """Scratch words ``compact`` needs for ``n`` flag lanes."""
+    t = COMPACT.lib().compact_tile()
+    return max((n + t - 1) // t, 1)
+
+
+def inflate(ids, n_words: int, *, out=None, cnt=None, sub=0):
     """Sparse ids int16[n, cap_m] (-1 padded) -> packed int32 words [n, n_words]."""
     n, cap_m = ids.shape
     _need(ids, "msg_ids", torch.int16, (n, cap_m))
-    msgs = torch.empty((n, n_words), dtype=torch.int32, device=ids.device)
+    msgs = torch.empty((n, n_words), dtype=torch.int32, device=ids.device) if out is None else out
+    _need(msgs, "msgs", torch.int32, (n, n_words))
     lib = INFLATE.lib()
     INFLATE.check(lib.launch_inflate(ids.data_ptr(), cap_m, n, n_words, msgs.data_ptr(),
-                                     _stream()))
+                                     _cnt(cnt), sub, _stream()))
     INFLATE.launches += int(n > 0)
     return msgs
 
@@ -457,11 +677,12 @@ INV_CODES = {
 }
 
 
-def inv_scan(cfg, uni, fr, names, offset: int = 0, into=None):
+def inv_scan(cfg, uni, fr, names, offset: int = 0, into=None, *, cnt=None, sub=0):
     """First row (+ ``offset``) of a Frontier that violates one of the
     invariants ``names`` (``~Name`` negates), or -1: an int64 0-d tensor.
     With ``into`` (an earlier result) the smaller bad row of the two is
-    kept, in ``into`` itself."""
+    kept, in ``into`` itself; rows past the device count ``cnt - sub`` are
+    not scanned."""
     _check_cfg(cfg, uni)
     names = list(names)
     if not 1 <= len(names) <= 8:
@@ -480,7 +701,120 @@ def inv_scan(cfg, uni, fr, names, offset: int = 0, into=None):
     lib = INV_SCAN.lib()
     INV_SCAN.check(lib.launch_inv_scan(
         core, fr.msg_ids.data_ptr(), cap_m, n, codes, neg, len(names), dims_array(cfg, uni),
-        offset, int(into is None), out.data_ptr(), _stream(),
+        offset, int(into is None), out.data_ptr(), _cnt(cnt), sub, _stream(),
     ))
     INV_SCAN.launches += int(n > 0)
     return out
+
+
+# -- B11: level control (csrc/level.cu) --------------------------------------------
+
+
+def level_begin(lc, mult, n_run) -> None:
+    """The level's control words and mult[K] to their empty values, the
+    parent count from the device word ``n_run``."""
+    _need(mult, "mult", torch.int64, (mult.shape[0],))
+    LEVEL.check(LEVEL.lib().lv_begin_launch(lc.data_ptr(), mult.data_ptr(), mult.shape[0],
+                                            _cnt(n_run), _stream()))
+    LEVEL.launches += 1
+
+
+def level_gate(lc, chunk_total, cap_x: int, chunk: int) -> None:
+    """OVF_X from the chunks' totals; LIVE_LANES, 0 when K4 must not run."""
+    _need(chunk_total, "chunk_total", torch.int64, (chunk_total.shape[0],))
+    LEVEL.check(LEVEL.lib().lv_gate_launch(lc.data_ptr(), chunk_total.data_ptr(),
+                                           chunk_total.shape[0], cap_x, chunk, _stream()))
+    LEVEL.launches += 1
+
+
+def level_decide(lc, cap_out: int) -> None:
+    """The per-level undo flag."""
+    LEVEL.check(LEVEL.lib().lv_decide_launch(lc.data_ptr(), cap_out, _stream()))
+    LEVEL.launches += 1
+
+
+def slab_live(slab, out) -> None:
+    """``out`` (int64 0-d, zeroed by the caller) += the slab's live slots."""
+    _need(slab, "slab", torch.int64, (slab.shape[0],))
+    _need(out, "out", torch.int64, ())
+    LEVEL.check(LEVEL.lib().slab_live_launch(slab.data_ptr(), slab.shape[0], out.data_ptr(),
+                                             _stream()))
+    LEVEL.launches += 1
+
+
+def level_finalize(lc, ctrl, pay, K: int, pidx, slot) -> None:
+    """ctrl i64[8] (the reference's layout) and the survivors' pidx u32 /
+    slot u16 (int32 / int16 bit patterns) from their payloads."""
+    n = pay.shape[0]
+    _need(ctrl, "ctrl", torch.int64, (8,))
+    _need(pay, "pay", torch.int64, (n,))
+    _need(pidx, "pidx", torch.int32, (n,))
+    _need(slot, "slot", torch.int16, (n,))
+    LEVEL.check(LEVEL.lib().lv_finalize_launch(lc.data_ptr(), ctrl.data_ptr(), pay.data_ptr(), n,
+                                               K, pidx.data_ptr(), slot.data_ptr(), _stream()))
+    LEVEL.launches += 1
+
+
+# -- B12: superstep commit and ring (csrc/superstep.cu) ------------------------------
+
+
+def ss_begin(ss, args) -> None:
+    _need(args, "args", torch.int64, (3,))
+    SUPERSTEP.check(SUPERSTEP.lib().ss_begin_launch(ss.data_ptr(), args.data_ptr(), _stream()))
+    SUPERSTEP.launches += 1
+
+
+def ss_commit(ss, lc, mult, cap_f: int, meta_n, meta_mult, meta_rounds) -> None:
+    K = mult.shape[0]
+    _need(meta_mult, "meta_mult", torch.int64, (meta_n.shape[0], K))
+    SUPERSTEP.check(SUPERSTEP.lib().ss_commit_launch(
+        ss.data_ptr(), lc.data_ptr(), mult.data_ptr(), K, cap_f, meta_n.data_ptr(),
+        meta_mult.data_ptr(), meta_rounds.data_ptr(), _stream()))
+    SUPERSTEP.launches += 1
+
+
+def ss_append(ss, lc, fps, pay, K: int, ring_fps, ring_pidx, ring_slot) -> None:
+    n = fps.shape[0]
+    _need(pay, "pay", torch.int64, (n,))
+    _need(ring_pidx, "ring_pidx", torch.int32, (ring_fps.shape[0],))
+    _need(ring_slot, "ring_slot", torch.int16, (ring_fps.shape[0],))
+    SUPERSTEP.check(SUPERSTEP.lib().ss_append_launch(
+        ss.data_ptr(), lc.data_ptr(), fps.data_ptr(), pay.data_ptr(), n, K, ring_fps.data_ptr(),
+        ring_pidx.data_ptr(), ring_slot.data_ptr(), _stream()))
+    SUPERSTEP.launches += 1
+
+
+def ss_settle(ss, src, dst) -> None:
+    """Copy the committed frontier rows from ``src`` into ``dst`` (two
+    Frontiers of one capacity) when an odd number of levels committed."""
+    if len(src) > 16:
+        raise ValueError("ss_settle takes at most 16 fields")
+    widths = []
+    for a, b in zip(src, dst):
+        if a.shape != b.shape or a.dtype != b.dtype or not (a.is_contiguous() and
+                                                            b.is_contiguous()):
+            raise ValueError("ss_settle: mismatched frontier buffers")
+        widths.append(a[0].numel() * a.element_size())
+    rows = src[0].shape[0]
+    n = len(widths)
+    SUPERSTEP.check(SUPERSTEP.lib().ss_settle_launch(
+        ss.data_ptr(), (VP * n)(*(a.data_ptr() for a in src)),
+        (VP * n)(*(b.data_ptr() for b in dst)), (ctypes.c_longlong * n)(*widths), n, rows,
+        _stream()))
+    SUPERSTEP.launches += 1
+
+
+# -- B13: sieve probe (csrc/sieve.cu) -------------------------------------------
+
+
+def sieve_probe(words, fps, *, hit=None, count=None) -> None:
+    """Blocked-bloom probe of every lane of ``fps``: ``hit`` bool[n] per
+    lane and/or ``count`` (int64 0-d) += the live lanes that hit."""
+    m, n = words.shape[0], fps.shape[0]
+    _need(words, "words", torch.int64, (m,))
+    _need(fps, "fps", torch.int64, (n,))
+    if hit is not None:
+        _need(hit, "hit", torch.bool, (n,))
+    SIEVE.check(SIEVE.lib().sieve_probe_launch(words.data_ptr(), m, fps.data_ptr(), n, _p(hit),
+                                               _cnt(count), _stream()))
+    SIEVE.launches += int(n > 0)

@@ -238,6 +238,14 @@ class DeviceHashStore:
     def need_grow(self, extra: int = 0) -> bool:
         return (self.count + extra) * 2 > self.cap
 
+    def reserve(self, expected: int) -> None:
+        """Grow (never shrink) to hold ``expected`` entries at the <= 1/2
+        load (hashstore.py:533): a superstep reserves its whole span's
+        forecast inserts before it starts."""
+        want = slab_rows(expected)
+        if want > self.cap:
+            self.grow(min_cap=want)
+
     def adopt(self, slab: torch.Tensor, n_new: int) -> None:
         self.slab = slab
         self.count += int(n_new)
