@@ -13,11 +13,11 @@ Phases, each printed as JSON lines:
                 per-level counts and the depth-12 prefix against its golden
                 generated count;
 3. default    — the default path (supersteps of span 4, the per-level
-                fused program for a stopped window, the staged chain past
-                the fused size limit) on the same constants to depth 24,
-                every level golden (32,683,044 distinct); then the per-level
-                pidx/slot digests of its depth-20 prefix held against the
-                staged phase's;
+                fused program for a stopped window, the grouped chain past
+                the fused size limit: levels 23-25) on the same constants to
+                depth 25, every level golden (48,760,187 distinct); then the
+                per-level pidx/slot digests of its depth-20 prefix held
+                against the staged phase's;
 4. fixpoint   — (3,1,2,1) to its fixpoint on the default path: 180,582
                 distinct, 747,500 generated, depth 35;
 5. trace      — the median-bug mutation on (3,1,2,0), default path: the
@@ -26,20 +26,35 @@ Phases, each printed as JSON lines:
                 (cap_x, slab, cap_m, ring, the frontier seat, K4's rounds
                 budget) and the double-vote abort on (3,1,2,0): the counts
                 never move;
-   Each of phases 2-6 sets every kernel's launch count to 0 just before it
+7. grouped    — from a staged run's depth-22 frontier (5,099,018 parents),
+                one level on the grouped chain and one on the ungrouped
+                staged chain, each from a copy of the slab: the same n_new,
+                new payloads and slab bytes;
+8. tiered     — the reference constants to depth 22 on the default path
+                under a 64 MiB hot-slab budget: every level golden, at least
+                two demotions, the fused levels' in-graph sieve hits equal
+                to the host SpillSieve's on the same fingerprints, revisits
+                dropped from frontiers (drop_rows), and a level's fresh set
+                seated past the budget (the soft overshoot);
+   Each of phases 2-8 sets every kernel's launch count to 0 just before it
    runs, prints the counts just after, and fails if a kernel of its path
-   did not launch (the staged phase: the staged chain's eight; the other
-   phases: all eleven).  The default phase also prints graph launches and
-   device-to-host reads per superstep and per fused level beside the
-   staged chain's reads per level, K4's claim rounds, the levels by route,
-   the graph captures and their seconds, and peak device memory.
-7. twins      — one fused level and one superstep (two levels) on the
+   did not launch (the staged phase: the staged chain's eight; the default
+   phase: every kernel but drop_rows; the tiered phase: the fused path's
+   eleven and drop_rows; the grouped phase: the staged chain's, level,
+   hs_probe and filter_compact; the others: the fused path's eleven).  The
+   default phase also prints graph launches and device-to-host reads per
+   superstep and per fused level, each grouped level's reads, graph
+   launches, K4 rounds, cap_g, lanes (against the ungrouped lane count)
+   and seconds, the levels by route, the graph captures and their
+   seconds, and peak device memory.
+9. twins      — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
-8. kernels    — each kernel against its plain torch twin on the card, at
-                the main path's shapes, with times, bounds and the default
-                phase's launches;
-9. profile    — one deep level (2,150,466 parents) on the staged chain and
+10. kernels   — each kernel against its plain torch twin on the card, at
+                the main path's shapes, with times, bounds and the launches
+                of its phase (drop_rows: the tiered phase; the rest: the
+                default phase);
+11. profile   — one deep level (2,150,466 parents) on the staged chain and
                 as one fused-level graph, under torch.profiler: kernel time
                 by name and the device's idle share.
 
@@ -64,7 +79,7 @@ GOLDEN_FULL_3121 = (180_582, 747_500, 35)
 GOLDEN_LEVELS_REF = [
     1, 1, 3, 9, 22, 57, 136, 345, 931, 2468, 5881, 12505, 24705, 47599,
     91014, 169607, 301664, 511609, 839797, 1353766, 2150466, 3350017,
-    5099018, 7596394, 11125029,
+    5099018, 7596394, 11125029, 16077143,
 ]
 GENERATED_AT_12 = 112_939
 MEDIAN_BUG = dict(
@@ -82,7 +97,10 @@ MEDIAN_BUG = dict(
     trace_sha256="bacbf70789c240c765b1b5a4220d64ca33bc919f3232d9814244f10f4632c757",
 )
 DEPTH = 20  # of the staged reference prefix
-DEPTH_DEFAULT = 24  # of the default path's reference prefix
+DEPTH_DEFAULT = 25  # of the default path's reference prefix
+DEPTH_GROUPED = 22  # the grouped phase's parents: the depth-22 frontier
+DEPTH_TIERED = 22
+TIER_BYTES = 64 << 20  # the tiered phase's hot-slab budget
 DOUBLE_VOTE = dict(result=(False, 359, 707, 8),
                    trace_sha256="54144ebf556e93bb8f6c0f2eab315032283bd583ed12112600368de2d9e73662")
 CHUNK = 16384  # parents per guard launch on the main path
@@ -247,12 +265,24 @@ def phase_default(depth: int, chunk: int):
             [dict(elapsed=0.0)] + levels[:-1], levels) if b["route"] == r) for r in chk.routes},
         slab_rows=chk.hstore.cap, cap_x=chk.cap_x, cap_m=chk.cap_m,
         k4_rounds_log=rounds,
+        grouped_levels=chk.group_log,
         program_cache_bytes=sum(p.nbytes() for p in chk._progs.progs.values()),
         memory_reserved=torch.cuda.memory_reserved(),
     )
     emit(out)
     chk._progs.clear()  # free the captured programs' buffers for the phases after
     _check_golden(out, res, depth)
+    # every level past the fused limit ran grouped: one graph launch per
+    # group and attempt, one control read per attempt, then the materialize
+    # and trace reads (none per K4 claim round; the slab's growth between
+    # levels is not the level's)
+    past = [n for n in res.level_sizes[:-1] if -(-n // chunk) > 16 * chk.G]
+    check(chk.routes["grouped"] == len(past),
+          f"levels past the fused limit {len(past)}, grouped {chk.routes['grouped']}")
+    for lv in chk.group_log:
+        attempts = lv["graph_launches"] // lv["groups"]
+        check(lv["graph_launches"] == attempts * lv["groups"] and lv["reads"] == attempts + 2,
+              f"grouped level {lv['level']}: {lv}")
     # one graph launch per superstep and per fused level run; one read each
     check(g["superstep_launches"] == ss["supersteps"] == reads.get("superstep", 0),
           f"supersteps {ss['supersteps']}: graph launches {g['superstep_launches']}, "
@@ -261,6 +291,127 @@ def phase_default(depth: int, chunk: int):
           f"fused levels {mg['levels']} + redos {g['level_redo_launches']}: graph launches "
           f"{g['level_launches']}, reads {reads.get('level', 0)}")
     return level_digests(chk)
+
+
+def phase_grouped(depth: int, chunk: int) -> None:
+    """One level past the fused limit from a staged run's depth-22 frontier
+    on the grouped chain and on the ungrouped staged chain, each from a
+    copy of the run's slab: the same n_new, new payloads and slab bytes."""
+    import torch
+
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    chk, res, _levels, secs = _run_reference(depth, chunk, megakernel=False)
+    check(list(res.level_sizes) == GOLDEN_LEVELS_REF[: depth + 1], "grouped phase: staged run")
+    fr, n = chk.frontier, chk.frontier.voted_for.shape[0]
+    base = (chk.hstore.slab.clone(), chk.hstore.cap, chk.hstore.count)
+    outs, rows = {}, []
+    for route in ("grouped", "staged"):
+        chk.hstore = hs.DeviceHashStore(base[1], base[2], "cuda")
+        chk.hstore.slab = base[0].clone()
+        D.READS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "grouped":
+            out, _fr = chk._expand_level_grouped(fr, n, depth)
+        else:
+            out, _fr = chk._expand_level_staged(fr, n, depth)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_new = out["n_new"]
+        outs[route] = (n_new, out["new_payload"][:n_new].clone(), chk.hstore.slab.clone())
+        rows.append(dict(route=route, n_new=n_new, seconds=secs, reads=dict(D.READS),
+                         slab_rows=chk.hstore.cap, cap_x=chk.cap_x, cap_g=chk.cap_g,
+                         lanes=out.get("lanes"), k4_rounds=out.get("rounds")))
+    g, st = outs["grouped"], outs["staged"]
+    same = dict(n_new=g[0] == st[0], payloads=_equal(g[1], st[1]), slab=_equal(g[2], st[2]))
+    emit(dict(phase="grouped", parents=n, routes=rows, equal=same))
+    check(g[0] == GOLDEN_LEVELS_REF[depth + 1] and all(same.values()),
+          f"grouped level differs from the ungrouped one: {same}, n_new {g[0]} / {st[0]}")
+
+    # the whole grouped level (expand, tail, materialize, trace read), warm:
+    # its budgets grown and its programs captured by the run above; the slab
+    # is restored in place before each run, so no program is captured again
+    from tla_raft_tpu_torch.device import fetch
+
+    split = {}
+
+    def level():
+        chk.hstore.slab.copy_(base[0])
+        t0 = time.perf_counter()
+        out, _fr = chk._expand_level_grouped(fr, n, depth)
+        t1 = time.perf_counter()
+        new, _bad, _ovf = chk.materialize_level(fr, out["new_payload"], out["n_new"])
+        t2 = time.perf_counter()
+        fetch(out["pidx"][:out["n_new"]], out["slot"][:out["n_new"]], what="staged_trace")
+        t3 = time.perf_counter()
+        split.update(expand_and_insert=t1 - t0, materialize=t2 - t1, trace=t3 - t2)
+        return out["n_new"]
+
+    level()
+    captures = chk.graph_stats["captures"]
+    wall = wall_ms(level)
+    timing = dict(split)
+    D.READS.clear()
+    n_new, pwall, busy, top = _profiled(level)
+    emit(dict(phase="profile", path="grouped", parents=n, n_new=n_new, wall_ms=wall,
+              host_seconds=timing, profiled_wall_ms=pwall, device_busy_ms=busy,
+              device_idle_share=max(0.0, 1 - busy / wall), reads=_reads_total(D.READS),
+              recaptures=chk.graph_stats["captures"] - captures, top=top))
+
+
+def phase_tiered(depth: int, chunk: int, dev_bytes: int) -> None:
+    """The default path to ``depth`` under a hot-slab budget of
+    ``dev_bytes``: golden counts, demotions, the in-graph sieve hits of
+    every fused level held against the host SpillSieve on its fresh
+    fingerprints, and the soft overshoot."""
+    import torch
+
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+
+    levels, sieve_rows = [], []
+    chk = TorchChecker(RaftConfig(), device="cuda", chunk=chunk, progress=levels.append,
+                       store_bytes=dev_bytes)
+    mega = chk._expand_level_mega
+
+    def spy(*a, **k):
+        mres = mega(*a, **k)
+        if chk._tier_active():  # the graph probed the spill sieve's words
+            sv = chk.tiered.spill_sieve
+            sieve_rows.append(dict(
+                level=len(a[3]), fresh=mres["n_new"], device_hits=mres["tier_hits"],
+                host_hits=int(sv.contains(np.asarray(mres["fps"][:mres["n_new"]])).sum()),
+                words=len(sv.words), words_set=int((sv.words != 0).sum())))
+        return mres
+
+    chk._expand_level_mega = spy
+    D.READS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = chk.run(max_depth=depth)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = chk.tiered.stats
+    out = dict(phase="tiered", **_common(res, levels, secs, depth), dev_bytes=dev_bytes,
+               tiered=dict(st, generations=len(chk.tiered.gens)),
+               soft_seats=chk.tier_soft_seats, routes=chk.routes, superstep_stats=chk._ss_stats,
+               sieve_levels=sieve_rows, hot_count=chk.hstore.count,
+               hot_occupancy=chk.hstore.occupancy(), slab_rows=chk.hstore.cap,
+               drop_rows_launches=kernels.DROP_ROWS.launches)
+    emit(out)
+    chk._progs.clear()
+    _check_golden(out, res, depth)
+    check(st["demotions"] >= 2 and st["reheats"] == st["probe_hits"] > 0,
+          f"tiered: demotions {st['demotions']}, hits {st['probe_hits']}, reheats {st['reheats']}")
+    check(sieve_rows and all(r["device_hits"] == r["host_hits"] for r in sieve_rows)
+          and any(r["words_set"] for r in sieve_rows),
+          f"tiered: sieve hits on the card differ from the host mirror: {sieve_rows}")
+    check(chk.tier_soft_seats > 0, "tiered: no level was seated past the budget")
+    check(chk.hstore.occupancy() == chk.hstore.count, "tiered: hot count != slab occupancy")
 
 
 def phase_digests(staged: list, default: list, depth: int) -> None:
@@ -320,9 +471,9 @@ def phase_drill() -> None:
             setattr(chk, k, v)
         grow = chk._grow_for_stop
 
-        def spy(f, frontier):
+        def spy(f, *rest):
             flags.append(f)
-            return grow(f, frontier)
+            return grow(f, *rest)
 
         chk._grow_for_stop = spy
         res = chk.run()
@@ -717,6 +868,54 @@ def phase_kernels(chk, launches: dict, seed: int) -> None:
                                     torch.masked_select(cp_, fresh)), 10),
         lanes=N, kept=kept)
 
+    # B8 probe and B3 filter compaction at a grouped level's shapes: one
+    # group's lanes (G * cap_x, the 16 chunks above) against the run's
+    # slab into cap_g = G * cap_x / 2 lanes; B19 is the two in sequence
+    from tla_raft_tpu_torch.engine import group
+    from tla_raft_tpu_torch.u64 import mix64
+
+    cap_g = 16 * G // 2
+    ok = True
+    for lanes_v in (cv, rf):
+        ok &= _equal(hs.probe(slab, lanes_v), hs.probe_plain(slab, lanes_v))
+    hit = hs.probe(slab, cv)
+    keep = (cv != -1) & ~hit
+    for cap in (cap_g, int(keep.sum()) // 2):  # fits; overflows
+        ok &= all(_equal(a, b) for a, b in zip(group.filter_compact(hit, cv, cf, cp_, cap),
+                                                group.filter_compact_plain(hit, cv, cf, cp_, cap)))
+        ok &= all(_equal(a, b) for a, b in zip(
+            group.group_filter_hash(cv, cf, cp_, slab, cap),
+            group.filter_compact_plain(hs.probe_plain(slab, cv), cv, cf, cp_, cap)))
+    check(ok, "hs_probe / filter_compact / group_filter_hash differ from their twins")
+    keep_buf = torch.empty_like(keep)
+    ms = cuda_ms(lambda: kernels.hs_probe(slab, cv, keep=keep_buf), 10)
+    plain = wall_ms(lambda: hs.probe_plain(slab, cv))
+    # the slab words each live lane's walk touches (one 32-B sector each)
+    live_l = cv != -1
+    idx = hs._probe_rounds(slab, cv)[0]
+    walk = (((idx - (mix64(cv) & (slab.shape[0] - 1))) & (slab.shape[0] - 1)) + 1)[live_l]
+    n_words_touched = int(walk.sum())
+    # the library's membership test gives the same keep flags: SENT lanes
+    # are never kept, since the slab (at most half full) holds SENT slots
+    check(_equal(torch.isin(cv, slab, invert=True), keep), "isin differs from hs_probe's keep")
+    lib = cuda_ms(lambda: torch.isin(cv, slab, invert=True), 10)
+    entry(kernels.HS_PROBE, True, ms, plain, N * 9 + n_words_touched * 32, N * 40, lib)
+    kept = int(keep.sum())
+    ms = cuda_ms(lambda: kernels.filter_compact(keep, cv, cf, cp_, cap_g), 10)
+    plain = wall_ms(lambda: group.filter_compact_plain(hit, cv, cf, cp_, cap_g))
+    lib = cuda_ms(lambda: (torch.masked_select(cv, keep), torch.masked_select(cf, keep),
+                           torch.masked_select(cp_, keep)), 10)
+    entry(kernels.FILTER_COMPACT, True, ms, plain, N + min(kept, cap_g) * 24 + cap_g * 24,
+          N * 4, lib)
+    fc = out[-1]
+    fc["b19"] = dict(
+        ms=cuda_ms(lambda: group.group_filter_hash(cv, cf, cp_, slab, cap_g), 10),
+        plain_ms=wall_ms(lambda: group.filter_compact_plain(hs.probe_plain(slab, cv), cv, cf,
+                                                            cp_, cap_g)),
+        bound_ms=(N * 8 + n_words_touched * 32 + min(kept, cap_g) * 24 + cap_g * 24)
+        / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None, lanes=N, kept=kept,
+        cap_g=cap_g, slab_words_touched=n_words_touched)
+
     # B11 level control at the deep fused level's shapes: 256 chunks, the
     # run's slab, the survivors of a level of 2,150,466 (cap_out 2^22)
     from tla_raft_tpu_torch.engine import megakernel as mk
@@ -761,6 +960,50 @@ def phase_kernels(chk, launches: dict, seed: int) -> None:
     plain = wall_ms(pgo)
     entry(kernels.LEVEL, True, ms, plain, slab.shape[0] * 8 + cap_out * 14 + 256 * 8 + K * 16,
           slab.shape[0] + cap_out * 4, None)
+
+    # the grouped level's control (lv_group_begin, lv_group_end per group,
+    # then lv_tail_gate) over a depth-23 level's 20 groups of 16 chunks,
+    # with the 16 real chunk totals above; then with one group's totals
+    # past cap_x and another group's abort, which close the tail's gate
+    rows_g, n_par = 16 * B, GOLDEN_LEVELS_REF[22]
+    n_groups = -(-n_par // rows_g)
+    real_tot = (cp_.view(-1, G) >= 0).sum(1)
+    bad_tot = real_tot.clone()
+    bad_tot[3] = G + 1
+    n_par_t = torch.tensor(n_par, device=dev)
+
+    def group_ctl(level_begin, begin, end, gate, bad):
+        lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=dev)
+        mult = torch.zeros((K,), dtype=torch.int64, device=dev)
+
+        def go():
+            level_begin(lc, mult, n_par_t)
+            for g in range(n_groups):
+                begin(lc, rows_g, K, cap_g)
+                if bad and g == 7:
+                    lc[group.LC_G_ABORT] = 12_345
+                end(lc, bad_tot if bad and g == 5 else real_tot, G, rows_g)
+            gate(lc, n_groups * cap_g)
+
+        return go, lc
+
+    kern = (kernels.level_begin, kernels.group_begin, kernels.group_end, kernels.tail_gate)
+    twin = (mk.level_begin_plain, group.group_begin_plain, group.group_end_plain,
+             group.tail_gate_plain)
+    ok = True
+    for bad in (False, True):
+        (kgo, klc), (pgo, plc) = group_ctl(*kern, bad), group_ctl(*twin, bad)
+        kgo()
+        pgo()
+        ok &= _equal(klc, plc) and int(klc[group.LC_GROUP]) == n_groups
+        ok &= int(klc[mk.LC_LIVE_LANES]) == (0 if bad else n_groups * cap_g)
+    check(ok, "grouped level control differs from its twin")
+    kgo, pgo = group_ctl(*kern, False)[0], group_ctl(*twin, False)[0]
+    # per group: the control words read and written, the 16 totals read
+    ctl_b = n_groups * (2 * mk.LC_LEN * 8 + 16 * 8) + 2 * mk.LC_LEN * 8 + K * 8
+    out[-1]["group"] = dict(
+        ms=cuda_ms(kgo, 10), plain_ms=wall_ms(pgo), bound_ms=ctl_b / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, groups=n_groups, rows=rows_g, cap_g=cap_g)
 
     # B12 commit, ring append and frontier settle at the deep superstep's
     # shapes: cap_f 2^22, a committed level of 3,350,017 after one of
@@ -831,6 +1074,30 @@ def phase_kernels(chk, launches: dict, seed: int) -> None:
     ms = cuda_ms(lambda: kernels.sieve_probe(empty, fps3, count=cnt), 10)
     plain = wall_ms(lambda: (sieve.probe_plain(empty, fps3) & (fps3 != -1)).sum())
     entry(kernels.SIEVE, True, ms, plain, cap_out * 8 + 8, cap_out * 40, None)
+
+    # B16 drop_rows over the depth-20 frontier (2,150,466 rows, a fused
+    # level's output size) with 90 % of its rows kept, and the edge cases
+    from tla_raft_tpu_torch.store import tiered
+
+    ok = True
+    for p in (0.0, 0.9, 1.0):
+        kp = torch.from_numpy(gen.random(n) < p).to(dev)
+        a = tiered.drop_rows(fr, kp, int(kp.sum()))
+        b = tiered.drop_rows_plain(fr, kp, int(kp.sum()))
+        ok &= all(_equal(x, y) for x, y in zip(a, b))
+    check(ok, "B16 drop_rows differs from its twin")
+    kp = torch.from_numpy(gen.random(n) < 0.9).to(dev)
+    n_keep = int(kp.sum())
+    ms = cuda_ms(lambda: tiered.drop_rows(fr, kp, n_keep), 10)
+    plain = wall_ms(lambda: tiered.drop_rows_plain(fr, kp, n_keep))
+
+    def library():
+        rows_k = torch.nonzero(kp).reshape(-1)
+        return [x.index_select(0, rows_k) for x in fr]
+
+    lib = cuda_ms(library, 10)
+    row_b = _core_bytes(fr) + 2 * cap_m
+    entry(kernels.DROP_ROWS, True, ms, plain, n + n_keep * row_b + n * row_b, n * 4, lib)
 
     emit(dict(kernels=out, shapes=dict(chunk=B, cap_x=G, cap_m=cap_m, slab_rows=slab.shape[0],
                                         dedup_lanes=N, dedup_new=n_new, frontier_rows=n)))
@@ -963,18 +1230,24 @@ def main() -> int:
     kernels.build_all()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=sorted(kernels.KERNELS)))
-    every = sorted(kernels.KERNELS)
+    fused = kernels.FUSED
     staged, _ = run("staged", kernels.STAGED, phase_staged, DEPTH, CHUNK)
     chk, staged_digests = staged if staged else (None, None)
-    default_digests, launches = run("default", every, phase_default, DEPTH_DEFAULT, CHUNK)
+    default_digests, launches = run("default", [k for k in kernels.KERNELS if k != "drop_rows"],
+                                    phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
             phase_digests(staged_digests, default_digests, DEPTH)
         except Failed as e:
             failures.append(f"digests: {e}")
-    run("fixpoint", every, phase_fixpoint, CHUNK)
-    run("trace", every, phase_trace, CHUNK)
-    run("drill", every, phase_drill)
+    run("fixpoint", fused, phase_fixpoint, CHUNK)
+    run("trace", fused, phase_trace, CHUNK)
+    run("drill", fused, phase_drill)
+    run("grouped", kernels.STAGED + ("level",) + kernels.GROUPED, phase_grouped, DEPTH_GROUPED,
+        CHUNK)
+    _res, tier_launches = run("tiered", fused + ("drop_rows",), phase_tiered, DEPTH_TIERED, CHUNK,
+                              TIER_BYTES)
+    launches = dict(launches, drop_rows=tier_launches["drop_rows"])
     for name, fn, args in (("twins", phase_twins, (CHUNK,)),
                            ("kernels", phase_kernels, (chk, launches, SEED))):
         if chk is None:

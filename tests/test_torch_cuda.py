@@ -271,3 +271,87 @@ def test_sieve_kernel_equals_twin(run):
         want = torch.zeros((), dtype=torch.int64)
         sieve.count_hits(w, fps, want)
         assert int(c) == int(want)
+
+
+# -- the grouped level (B8 probe, B3 filter, B19) and the tiered store (B16) ------
+
+
+def test_probe_and_filter_kernels_equal_twins(run):
+    from tla_raft_tpu_torch.engine import group
+
+    fr = run.frontier
+    cvs, cfs, cps = [], [], []
+    for start in range(0, fr.voted_for.shape[0], 1024):
+        cv, cf, cp, *_ = run._expand_chunk(Frontier(*(x[start:start + 1024] for x in fr)), start)
+        cvs.append(cv)
+        cfs.append(cf)
+        cps.append(cp)
+    cv, cf, cp = torch.cat(cvs), torch.cat(cfs), torch.cat(cps)
+    slab = run.hstore.slab
+    hit = hs.probe(slab, cv)
+    assert torch.equal(hit, hs.probe_plain(slab, cv)) and 0 < int(hit.sum()) < cv.shape[0]
+    for cap_g in (cv.shape[0], 256):  # fits, overflows
+        for a, b in zip(group.filter_compact(hit, cv, cf, cp, cap_g),
+                        group.filter_compact_plain(hit, cv, cf, cp, cap_g)):
+            assert torch.equal(a, b)
+        for a, b in zip(group.group_filter_hash(cv, cf, cp, slab, cap_g),
+                        group.group_filter_hash(cv.cpu(), cf.cpu(), cp.cpu(), slab.cpu(), cap_g)):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_group_control_kernels_equal_twins(run):
+    from tla_raft_tpu_torch.engine import group
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    totals = torch.tensor([10, 300, 5])
+    outs = []
+    for device in ("cuda", "cpu"):
+        lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=device)
+        mk.op_level_begin(lc, torch.zeros(7, dtype=torch.int64, device=device),
+                          torch.tensor(2500, device=device))
+        rows = []
+        for g in range(3):
+            group.op_group_begin(lc, 1000, 7, 64)
+            lc[group.LC_G_ABORT] = 900 if g == 1 else mk.BIG
+            group.op_group_end(lc, totals.to(device) if g == 2 else totals[:1].to(device), 256,
+                               1000)
+            rows.append(lc.clone())
+        group.op_tail_gate(lc, 192)
+        outs.append([x.cpu() for x in rows + [lc]])
+    assert int(outs[0][-1][mk.LC_ABORT]) == 1900 and int(outs[0][-1][mk.LC_OVF_X]) == 1
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_drop_rows_kernel_equals_twin(run):
+    from tla_raft_tpu_torch.store import tiered
+
+    fr = run.frontier
+    g = np.random.default_rng(8)
+    for p in (0.0, 0.5, 1.0):
+        keep = torch.from_numpy(g.random(fr.voted_for.shape[0]) < p)
+        n_keep = int(keep.sum())
+        a = tiered.drop_rows(fr, keep.cuda(), n_keep)
+        b = tiered.drop_rows_plain(Frontier(*(x.cpu() for x in fr)), keep, n_keep)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("arm", [dict(megakernel=False), dict()], ids=["staged", "default"])
+def test_grouped_and_tiered_runs_on_the_card_equal_the_cpu(run, arm):
+    """G = 1 at chunk 64 on (3,1,2,1) to depth 13 (levels 12-13 grouped),
+    hot-only and under an 8 KiB hot budget."""
+    def go(device, **kw):
+        chk = TorchChecker(RaftConfig(3, 1, 2, 1), device=device, chunk=64, **arm, **kw)
+        chk.G, chk.cap_g = 1, chk.cap_x // 2
+        return chk, chk.run(max_depth=13)
+
+    _c, want = go("cpu")
+    chk, got = go("cuda")
+    assert _result_tuple(got) == _result_tuple(want) and chk.routes["grouped"] == 2
+    # one graph launch per group and attempt; one control read per attempt,
+    # then the materialize read and the trace read: none per K4 claim round
+    for g in chk.group_log:
+        attempts = g["graph_launches"] // g["groups"]
+        assert g["graph_launches"] == attempts * g["groups"] and g["reads"] == attempts + 2
+    tchk, tgot = go("cuda", store_bytes=8 * 1024)
+    assert _result_tuple(tgot) == _result_tuple(want)
+    assert tchk.tiered.stats["demotions"] >= 2

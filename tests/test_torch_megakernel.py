@@ -48,7 +48,7 @@ def test_fused_arm_equals_reference(ref_fused, args):
     chk = _port(args, superstep=1)
     got = chk.run()
     assert got == ref  # ok, counts, level sizes, no violation, action counts
-    assert chk.routes == dict(superstep=0, fused=got.depth, staged=0)
+    assert chk.routes == dict(superstep=0, fused=got.depth, grouped=0, staged=0)
     # every level, the fixpoint-discovery one included, ran fused
     assert chk._mega_stats["levels"] == ref_stats["levels"] == got.depth + 1
 

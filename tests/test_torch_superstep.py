@@ -50,7 +50,7 @@ def test_superstep_s2_fixpoint_in_four_supersteps(ref_s2):
     assert got == ref
     assert (got.distinct, got.generated, got.depth) == (50, 97, 12)
     assert chk._ss_stats == ref_stats == dict(supersteps=4, levels=13, stops=0, ring_stops=0)
-    assert chk.routes == dict(superstep=12, fused=0, staged=0)
+    assert chk.routes == dict(superstep=12, fused=0, grouped=0, staged=0)
     # all four windows fit one static shape (the ring size is a device
     # word): one program, built once
     assert chk.graph_stats["programs"] == 1
@@ -107,9 +107,9 @@ def test_out_seat_stop_replays_per_level(monkeypatch):
     flags = []
     orig_grow = TorchChecker._grow_for_stop
 
-    def spy(self, f, frontier):
+    def spy(self, f, *rest):
         flags.append(f)
-        return orig_grow(self, f, frontier)
+        return orig_grow(self, f, *rest)
 
     monkeypatch.setattr(TorchChecker, "_grow_for_stop", spy)
     chk = _port(S2, chunk=2)

@@ -10,6 +10,7 @@ level_sizes and violation.
     python -m tla_raft_tpu_torch.check --max-depth 12 --json          # on the card
     python -m tla_raft_tpu_torch.check --servers 2 --vals 1 \\
         --max-election 1 --max-restart 1 --device cpu                # plain torch
+    python -m tla_raft_tpu_torch.check --max-depth 22 --dev-bytes 64e6  # tiered store
 
 Exit code 0 when no error was found, 1 on a violation.
 """
@@ -85,7 +86,9 @@ def print_trace(cfg: RaftConfig, trace, out) -> None:
 
 def summarize(res, seconds: float, chk) -> dict:
     """CheckResult -> the ``--json`` summary (the reference's keys:
-    check.py:236-280), plus the levels each route committed."""
+    check.py:236-280), plus the levels each route committed, the grouped
+    levels' records and, once the tiered store demoted or probed, its
+    stats."""
     out = dict(
         ok=res.ok,
         distinct=res.distinct,
@@ -101,6 +104,15 @@ def summarize(res, seconds: float, chk) -> dict:
     )
     if chk._ss_stats["supersteps"]:
         out["superstep_stats"] = {k: int(v) for k, v in sorted(chk._ss_stats.items())}
+    if chk.group_log:
+        out["grouped"] = dict(levels=len(chk.group_log), cap_g=chk.cap_g,
+                              lanes=sum(g["lanes"] for g in chk.group_log),
+                              ungrouped_lanes=sum(g["ungrouped_lanes"] for g in chk.group_log))
+    tiered = chk.tiered
+    if tiered is not None and (tiered.stats["demotions"] or tiered.stats["probes"]):
+        out["tiered"] = dict(tiered.stats, dev_bytes=tiered.dev_bytes,
+                             generations=len(tiered.gens), soft_seats=chk.tier_soft_seats,
+                             probe_wait_s=round(tiered.stats["probe_wait_s"], 6))
     return out
 
 
@@ -121,6 +133,11 @@ def main(argv=None) -> int:
     ap.add_argument("--superstep", type=int, default=None, metavar="N",
                     help="up to N fused levels per CUDA graph launch and read (default 4; "
                          "1 selects the per-level fused program)")
+    ap.add_argument("--dev-bytes", type=float, default=None, metavar="BYTES",
+                    help="device budget for the hot visited tier (the hash slab): past it the "
+                         "slab demotes whole generations to host RAM instead of growing; "
+                         "0/unset = unbounded, and the counts are the same either way "
+                         "(env: TLA_RAFT_STORE_BYTES)")
     ap.add_argument("--coverage", action="store_true", help="print per-action counts")
     ap.add_argument("--json", action="store_true", help="print a JSON summary line")
     args = ap.parse_args(argv)
@@ -142,9 +159,13 @@ def main(argv=None) -> int:
 
     chk = TorchChecker(cfg, device=args.device, chunk=args.chunk, progress=progress,
                        megakernel=None if args.megakernel is None else bool(args.megakernel),
-                       superstep=args.superstep)
+                       superstep=args.superstep,
+                       store_bytes=int(args.dev_bytes) if args.dev_bytes else None)
     print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
     print(f"Config: {cfg.describe()}", file=out)
+    if chk.store_bytes:
+        print(f"Tiered visited store: hot slab budget {chk.store_bytes:,} B (demotions spill "
+              "to host generations)", file=out)
     res = chk.run(max_depth=args.max_depth)
     dt = time.monotonic() - t0
     print(file=out)

@@ -70,6 +70,14 @@ enum LevelCtl {
   LC_ROUNDS = 14,     // claim rounds that ran
   LC_OVF_ROUNDS = 15, // lanes still claimed after the rounds budget
   LC_UNDO = 16,       // give this level's claims back
+  // the grouped level (engine/group.py): the level's words above, plus
+  LC_OVF_G = 17,      // a group's unvisited lanes overflowed cap_g
+  LC_GROUP = 18,      // the group the next replay runs
+  LC_G_RUN = 19,      // live parent rows of the group's seat
+  LC_G_PAY = 20,      // payload of the seat's row 0, slot 0: group * rows * K
+  LC_G_OUT = 21,      // the group's first lane in the level's lane buffer
+  LC_G_ABORT = 22,    // first split-brain row of the seat, BIG if none
+  LC_G_TOTAL = 23,    // the group's unvisited lanes
   LC_LEN = 24,
 };
 constexpr long long LC_BIG = 1ll << 62;

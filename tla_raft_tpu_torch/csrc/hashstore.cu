@@ -1,4 +1,5 @@
-// K4 probe-and-insert into the open-addressing fingerprint slab.
+// K4 probe-and-insert into the open-addressing fingerprint slab, and the
+// membership probe hs_probe.
 //
 // Replaces the XLA program of tla_raft_tpu/ops/hashstore.py
 // probe_and_insert_impl (_probe_rounds + _claim_loop: a while_loop of
@@ -37,9 +38,17 @@
 // level runs `undo` gated on a device flag (a level that stopped for any
 // reason gives its claims back in the same graph).
 //
+// hs_probe is the read-only membership test of probe_impl (:210): each lane
+// walks its probe path against the slab as it is and reports found, and
+// optionally the keep flag of the group filter (live and not found) that
+// the filter compaction in compact.cu takes.  The grouped level runs it
+// against the slab as it was before the level (K4 inserts only in the
+// level's tail).
+//
 // Bound: bytes.  Each lane reads its fp, key and payload (24 B) and a
 // few slab words, and writes its fresh flag; the slab traffic is random
-// 8-byte accesses, a cache line each.
+// 8-byte accesses, a cache line each.  hs_probe reads 8 B a lane plus the
+// slab words its walk touches, and writes 1 B (or 2) a lane.
 #include "common.cuh"
 
 constexpr unsigned long long SENT = ~0ull;
@@ -140,6 +149,24 @@ __global__ void verify_probe(const u64* slab, u64 cap, const u64* fps, long long
     }
     long long idx = 0;
     settle(walk(slab, cap, fp, &idx), idx, i, slot, tgt, flags, claims, ovf);
+  }
+}
+
+// Membership of every lane (one thread a lane): hit = found on its probe
+// path, keep = live (not SENT) and not found; lanes past the device count
+// cnt are neither.
+__global__ void probe_keep(const u64* slab, u64 cap, const u64* fps, long long n, bool* hit,
+                           uint8_t* keep, const int64_t* cnt) {
+  const long long live = live_count(cnt, 0, 1, n);
+  LANES(i, n) {
+    const u64 fp = fps[i];
+    bool found = false;
+    if (i < live && fp != SENT) {
+      long long idx = 0;
+      found = walk(slab, cap, fp, &idx) == 1;
+    }
+    if (hit) hit[i] = found;
+    if (keep) keep[i] = i < live && fp != SENT && !found;
   }
 }
 
@@ -271,6 +298,16 @@ EXPORT int hs_represent(const int64_t* keys, const int64_t* pays, long long n,
   return (int)cudaGetLastError();
 }
 
+// Membership without insert: hit bool[n] and/or keep u8[n] (either may be
+// null); cnt (may be null) bounds the live lanes.
+EXPORT int hs_probe(const int64_t* slab, long long cap, const int64_t* fps, long long n,
+                    bool* hit, uint8_t* keep, const int64_t* cnt, void* stream) {
+  if (n > 0)
+    probe_keep<<<grid_of(n), THREADS, 0, (cudaStream_t)stream>>>(
+        (const u64*)slab, (u64)cap, (const u64*)fps, n, hit, keep, cnt);
+  return (int)cudaGetLastError();
+}
+
 // Empties the slots this call's lanes won; with cond (i64), only when *cond.
 EXPORT int hs_undo(int64_t* slab, long long n, const int64_t* slot, const uint8_t* flags,
                    const int64_t* cnt, const int64_t* cond, void* stream) {
@@ -283,4 +320,4 @@ EXPORT int hs_undo(int64_t* slab, long long n, const int64_t* slot, const uint8_
 
 WARM((const void*)probe_first, (const void*)claim, (const void*)verify_probe,
      (const void*)rep_key, (const void*)rep_pay, (const void*)rep_fresh, (const void*)rep_reset,
-     (const void*)undo, (const void*)rounds_left)
+     (const void*)undo, (const void*)rounds_left, (const void*)probe_keep)

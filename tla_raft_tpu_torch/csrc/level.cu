@@ -28,6 +28,22 @@
 //   lv_finalize  ctrl i64[8] in the reference's layout, and the
 //                survivors' pidx u32 / slot u16 from their payloads.
 //
+// The grouped level (engine/group.py, the counterpart of bfs.py's
+// _expand_group_gfused_impl :1144 and the grouped tail of
+// _expand_level_device :3522-3690) replays one captured group program per
+// group of G chunks; its control kernels keep the group's words in the
+// same control vector:
+//   lv_group_begin  one thread: the group's live rows (the level's n_f
+//                   less the rows before the group, clamped to the seat),
+//                   its payload base and its lane offset, from the group
+//                   index the previous replay left;
+//   lv_group_end    one block: the group's chunk totals into OVF_X, its
+//                   split-brain row into the level's ABORT (as a level row),
+//                   and the group index advanced for the next replay;
+//   lv_tail_gate    one thread: LIVE_LANES for the level's one
+//                   probe-and-insert, 0 when the level aborted or
+//                   overflowed cap_x, cap_m or cap_g (nothing is inserted).
+//
 // Bound: bytes.  slab_live reads the slab once (8 B a slot); lv_finalize
 // reads 8 B and writes 6 B a survivor lane; the rest is O(K + chunks).
 #include "common.cuh"
@@ -108,6 +124,43 @@ __global__ void lv_finalize(const int64_t* lc, int64_t* ctrl, const int64_t* pay
   }
 }
 
+__global__ void lv_group_begin(int64_t* lc, long long rows, int K, long long cap_g) {
+  if (threadIdx.x || blockIdx.x) return;
+  const long long g = lc[LC_GROUP];
+  long long run = lc[LC_N_RUN] - g * rows;
+  run = run < 0 ? 0 : (run > rows ? rows : run);
+  lc[LC_G_RUN] = run;
+  lc[LC_G_PAY] = g * rows * K;
+  lc[LC_G_OUT] = g * cap_g;
+  lc[LC_G_ABORT] = LC_BIG;
+  lc[LC_G_TOTAL] = 0;
+}
+
+__global__ void lv_group_end(int64_t* lc, const int64_t* chunk_total, int n_chunks,
+                             long long cap_x, long long rows) {
+  __shared__ int ovf;
+  if (threadIdx.x == 0) ovf = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_chunks; i += blockDim.x)
+    if (chunk_total[i] > cap_x) ovf = 1;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const long long g = lc[LC_GROUP];
+    if (ovf) lc[LC_OVF_X] = 1;
+    if (lc[LC_G_ABORT] < LC_BIG) {
+      const long long row = g * rows + lc[LC_G_ABORT];
+      if (row < lc[LC_ABORT]) lc[LC_ABORT] = row;
+    }
+    lc[LC_GROUP] = g + 1;
+  }
+}
+
+__global__ void lv_tail_gate(int64_t* lc, long long lanes) {
+  if (threadIdx.x || blockIdx.x) return;
+  const bool gate = lc[LC_OVF_X] || lc[LC_OVF_MX] || lc[LC_OVF_G] || lc[LC_ABORT] < lc[LC_N_RUN];
+  lc[LC_LIVE_LANES] = gate ? 0 : lanes;
+}
+
 static inline unsigned grid_of(long long n) {
   const long long b = (n + 255) / 256;
   return (unsigned)(b < 1 ? 1 : (b > 4096 ? 4096 : b));
@@ -143,5 +196,25 @@ EXPORT int lv_finalize_launch(const int64_t* lc, int64_t* ctrl, const int64_t* p
   return (int)cudaGetLastError();
 }
 
+// rows = the group's seat (G * chunk parent rows), cap_g its lane slice.
+EXPORT int lv_group_begin_launch(int64_t* lc, long long rows, int K, long long cap_g,
+                                 void* stream) {
+  lv_group_begin<<<1, 32, 0, (cudaStream_t)stream>>>(lc, rows, K, cap_g);
+  return (int)cudaGetLastError();
+}
+
+EXPORT int lv_group_end_launch(int64_t* lc, const int64_t* chunk_total, int n_chunks,
+                               long long cap_x, long long rows, void* stream) {
+  lv_group_end<<<1, 256, 0, (cudaStream_t)stream>>>(lc, chunk_total, n_chunks, cap_x, rows);
+  return (int)cudaGetLastError();
+}
+
+// lanes = the level's groups * cap_g.
+EXPORT int lv_tail_gate_launch(int64_t* lc, long long lanes, void* stream) {
+  lv_tail_gate<<<1, 32, 0, (cudaStream_t)stream>>>(lc, lanes);
+  return (int)cudaGetLastError();
+}
+
 WARM((const void*)lv_begin, (const void*)lv_gate, (const void*)lv_decide,
-     (const void*)slab_live, (const void*)lv_finalize)
+     (const void*)slab_live, (const void*)lv_finalize, (const void*)lv_group_begin,
+     (const void*)lv_group_end, (const void*)lv_tail_gate)

@@ -16,10 +16,12 @@ Routing follows the reference (bfs.py:4265-4620): a superstep runs while
 the span left to ``max_depth`` is above 1 and the level is within the
 fused size limit (``16 * G`` chunks, G = 16); a stopped superstep routes
 its stopped level once through the per-level fused program, which grows
-and redoes; a level past the size limit runs on the staged chain (the
-reference runs it on its grouped staged chain, which the port does not
-have yet; the counts are the same).  All three give the same counts,
-level sizes and traces.
+and redoes.  A level past the size limit runs on the **grouped chain**
+(engine/group.py, the reference's ``grouping`` at bfs.py:3522) on every
+arm, as in the reference: G chunks at a time through one captured group
+graph that also drops the lanes the slab already holds, then one
+probe-and-insert over the level's filtered lanes, with one control read.
+All arms give the same counts, level sizes and traces.
 
 The staged chain runs, per level:
 
@@ -35,10 +37,23 @@ The staged chain runs, per level:
 
 Payloads are global (``parent * K + slot``), compaction keeps lane order
 and the representative is a minimum, so the counts, the slab bytes and
-the traces do not depend on the chunk size.  Every lane budget grows and
-redoes the level on overflow: ``cap_x`` (candidates per chunk), the slab
-(probe depth) and ``cap_m`` (message ids per state).  The split-brain
+the traces do not depend on the chunk size or on the route.  Every lane
+budget grows and redoes the level on overflow: ``cap_x`` (candidates per
+chunk), ``cap_g`` (a group's unvisited lanes), the slab (probe depth), K4's
+claim rounds and ``cap_m`` (message ids per state).  The split-brain
 Assert stops the run with a trace; so does an invariant violation.
+
+Under a device budget for the visited set (``store_bytes``, the CLI's
+``--dev-bytes``; store/tiered.py) the hot slab demotes its fingerprints
+to a host generation instead of growing past the budget (the reference's
+``_slab_grow_or_demote`` :3285, ``_tier_drain`` :3312), and every level's
+fresh states are probed against the generations: the fused level skips
+that probe when its in-graph sieve probe (B13, now over the spill sieve's
+words) counted no hit; a superstep level with hits stops the window on
+``FLAG_TIER`` and replays alone; the grouped and staged tails always
+probe.  Revisits found there leave the new frontier (``drop_rows``, B16)
+and stay in the hot slab (the re-heat), so the counts equal the hot-only
+run's.
 
 The order-keeping compactions, inflate/deflate of the message sets and
 the invariant scan are kernels too (csrc/compact.cu, msgset.cu,
@@ -48,6 +63,7 @@ its plain twin and CUDA tensors to the kernel.
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Callable, NamedTuple
 
@@ -56,15 +72,19 @@ import torch
 
 from .. import kernels
 from ..config import RaftConfig
-from ..device import fetch, resolve_device
+from ..device import READS, fetch, resolve_device
 from ..models.raft import Frontier, RaftState, core_of, init_batch, to_oracle
+from ..ops import hashstore
+from ..ops import sieve as sieve_ops
 from ..ops.fingerprint import Fingerprinter
 from ..ops.hashstore import DeviceHashStore, compact_fresh, probe_and_insert
 from ..ops.msg_universe import get_universe
 from ..ops.mxu_expand import MXUExpand
 from ..ops.successor import GuardTables
+from ..store import tiered
 from ..u64 import SENT
 from . import forecast
+from . import group
 from . import megakernel as mk
 from . import superstep as ss
 from .invariants import inv_scan_plain, needs_msgs, resolve_invariant_kernel
@@ -178,6 +198,9 @@ class TorchChecker:
         staged chain.
       superstep: levels per superstep (``None``: 4); 1 selects the
         per-level fused program.
+      store_bytes: the hot slab's device budget in bytes (``None``:
+        ``TLA_RAFT_STORE_BYTES``; 0: no budget).  Past it the slab demotes
+        to host generations (store/tiered.py); the counts do not change.
     """
 
     def __init__(
@@ -190,6 +213,7 @@ class TorchChecker:
         progress: Callable[[dict], None] | None = None,
         megakernel: bool | None = None,
         superstep: int | None = None,
+        store_bytes: int | None = None,
     ):
         if chunk & (chunk - 1):
             raise ValueError(f"chunk must be a power of two, got {chunk}")
@@ -210,22 +234,35 @@ class TorchChecker:
             resolve_invariant_kernel(name)  # an unknown name raises here
         self.hstore: DeviceHashStore | None = None
         self.frontier: Frontier | None = None  # the last committed level's rows
-        self.redos = dict(cap_x=0, slab=0, cap_m=0)  # every route's redos
+        self.redos = dict(cap_x=0, slab=0, cap_m=0, cap_g=0)  # every route's redos
         self.megakernel = megakernel is None or bool(megakernel)
         if superstep is None:
             superstep = ss.DEFAULT_SPAN
         self.superstep_span = max(1, int(superstep)) if self.megakernel else 1
-        self.G = 16  # the reference's chunks per group: fused levels hold <= 16 * G chunks
+        # chunks per group (bfs.py:558): fused levels hold <= 16 * G chunks,
+        # larger ones run grouped; a group keeps <= cap_g unvisited lanes
+        self.G = 16
+        self.cap_g = self.G * self.cap_x // 2
         self.k4_rounds = mk.DEFAULT_ROUNDS  # claim rounds per K4 call in a graph
+        if store_bytes is None:
+            store_bytes = tiered.store_bytes_from_env()
+        self.store_bytes = int(store_bytes)
+        self.tiered: tiered.TieredVisitedStore | None = None  # built in run()
+        self._sieve_empty = None  # the 1-word all-miss sentinel
+        self._sieve_dev = None  # the spill sieve's device copy, full size once made
+        self._sieve_ver = -1
+        self.tier_soft_seats = 0  # levels seated past the budget (soft overshoot)
         self._mega_stats = dict(levels=0, redo_out=0, redo_x=0, redo_slab=0, redo_m=0,
                                 redo_rounds=0)
         self._ss_stats = dict(supersteps=0, levels=0, stops=0, ring_stops=0)
         self.graph_stats = dict(programs=0, captures=0, capture_seconds=0.0, level_launches=0,
-                                level_redo_launches=0, superstep_launches=0, copies=0,
-                                capture_log=[], launch_log=[])
+                                level_redo_launches=0, superstep_launches=0, group_launches=0,
+                                copies=0, capture_log=[], launch_log=[])
         self.level_timing: dict = {}  # host seconds of the last fused level, by step
-        self.routes = dict(superstep=0, fused=0, staged=0)  # levels committed by route
+        # levels committed by route
+        self.routes = dict(superstep=0, fused=0, grouped=0, staged=0)
         self.k4_round_log: list = []  # claim rounds of every fused level run
+        self.group_log: list = []  # one record per grouped level
         self._progs = mk.ProgramCache()
 
     # -- sparse <-> dense message sets ------------------------------------
@@ -389,7 +426,7 @@ class TorchChecker:
 
     def _mega_level_ok(self, n_f: int) -> bool:
         """Fused levels hold at most 16 * G chunks of parents
-        (bfs.py:1166); larger levels run staged."""
+        (bfs.py:1166); larger levels run grouped."""
         return self.megakernel and -(-max(n_f, 1) // self.chunk) <= 16 * self.G
 
     def _mega_cap_out(self, n_f, level_sizes, max_depth, n_lanes, floor) -> int:
@@ -427,8 +464,13 @@ class TorchChecker:
         return cap_f, ring
 
     def _program(self, key, build):
+        """The captured program of ``key`` at the current budgets, slab and
+        sieve words (a program built for others is dropped: its graph
+        holds their addresses)."""
         slab = self.hstore.slab
-        sig = (self.cap_x, self.cap_m, self.k4_rounds, slab.data_ptr(), slab.shape[0])
+        sieve = self._sieve_operand()
+        sig = (self.cap_x, self.cap_m, self.k4_rounds, slab.data_ptr(), slab.shape[0],
+               sieve.data_ptr(), sieve.shape[0])
         self._progs.drop_stale(sig)
 
         def built():
@@ -454,18 +496,22 @@ class TorchChecker:
             [prog.kind, prog.cap_f, sum(tally.values()), levels])
 
     def _grow_cap_x(self) -> None:
+        """Half-step growth of cap_x; cap_g stays at least G * cap_x / 2
+        (bfs.py:4673)."""
         self.cap_x = _cap_steps(self.cap_x + 1)
+        self.cap_g = max(self.cap_g, self.G * self.cap_x // 2)
         self.redos["cap_x"] += 1
-        self._mega_stats["redo_x"] += 1
 
-    def _grow_slab(self) -> None:
-        self.hstore.grow()
+    def _grow_slab(self, depth: int, expected: int) -> None:
+        """A probe overflow's slab growth, or a demotion under the budget."""
+        if self._slab_grow_or_demote(depth, expected=expected) == "demoted":
+            self.tiered.stats["tier_redos"] += 1
         self.redos["slab"] += 1
-        self._mega_stats["redo_slab"] += 1
 
     def _check_occupancy(self, slab_live: int) -> None:
         """The conservation signal: the slab's live slots, counted on the
-        device, equal the distinct states."""
+        device, equal the hot tier's count (the distinct states while
+        nothing is demoted)."""
         if slab_live != self.hstore.count:
             raise RuntimeError(
                 f"device hash slab holds {slab_live} fingerprints, expected {self.hstore.count}"
@@ -507,10 +553,12 @@ class TorchChecker:
                 self._mega_stats["redo_rounds"] += 1
                 continue
             if ctrl[mk.CTRL_OVF_SLAB]:
-                self._grow_slab()
+                self._grow_slab(len(level_sizes), max(n_new, n_f))
+                self._mega_stats["redo_slab"] += 1
                 continue
             if ctrl[mk.CTRL_OVF_X]:
                 self._grow_cap_x()
+                self._mega_stats["redo_x"] += 1
                 continue
             if n_new > cap_out:
                 out_floor = n_new  # the exact count is known: one redo lands it
@@ -528,7 +576,8 @@ class TorchChecker:
         t3 = time.perf_counter()
         out = dict(
             n_new=n_new, abort_at=int(ctrl[mk.CTRL_ABORT]), bad_idx=int(ctrl[mk.CTRL_BAD]),
-            slab_live=int(ctrl[mk.CTRL_SLAB_LIVE]), level_mult=mult.copy(),
+            slab_live=int(ctrl[mk.CTRL_SLAB_LIVE]), tier_hits=int(ctrl[mk.CTRL_TIER_HITS]),
+            level_mult=mult.copy(),
             new_frontier=prog.fr_out, parent=frontier,
             fps=fps[:n_new].view(np.uint64),  # valid until the next fused level's read
             pidx=pidx[:n_new].view(np.uint32).copy(),
@@ -550,7 +599,7 @@ class TorchChecker:
             ins_bound = sum(min(int(f * m) + 1, cap_f) for f in fut)
         else:
             ins_bound = 2 * max(n_f, 1)
-        self.hstore.reserve(self.hstore.count + max(ins_bound, 2 * max(n_f, 1)))
+        self._tier_reserve(self.hstore.count + max(ins_bound, 2 * max(n_f, 1)))
         # the ring size is a device word: one program per cap_f serves
         # every ring up to its span * cap_f ceiling
         key = ("superstep", cap_f, self.superstep_span, self.chunk)
@@ -576,22 +625,173 @@ class TorchChecker:
         return dict(recs=recs, frontier=prog.fr[0], n_total=sum(r["n_new"] for r in recs),
                     n_f=n_f_out, reason=reason, slab_live=slab_live, flags=flags)
 
-    def _grow_for_stop(self, flags: int, frontier: Frontier) -> Frontier:
+    def _grow_for_stop(self, flags: int, frontier: Frontier, depth: int, n_f: int) -> Frontier:
         """Grow the budget a stopped superstep names before the per-level
-        replay (bfs.py:4495-4569), so the replay's first attempt lands."""
+        replay (bfs.py:4495-4569), so the replay's first attempt lands; a
+        slab that may not grow demotes instead.  A stop on sieve hits
+        (FLAG_TIER) grows nothing: the replay's level tail probes."""
         if flags & ss.FLAG_OVF_X:
             self._grow_cap_x()
+            self._mega_stats["redo_x"] += 1
         if flags & ss.FLAG_OVF_SLAB:
-            self._grow_slab()
+            if self._slab_grow_or_demote(depth + 1, expected=max(n_f, 1)) == "demoted":
+                self._ss_stats["tier_stops"] = self._ss_stats.get("tier_stops", 0) + 1
+                self.tiered.stats["tier_redos"] += 1
+            self.redos["slab"] += 1
+            self._mega_stats["redo_slab"] += 1
         if flags & ss.FLAG_OVF_M and self.cap_m < self.uni.M:
             frontier = self._grow_cap_m(frontier)
             self._mega_stats["redo_m"] += 1
         if flags & ss.FLAG_OVF_ROUNDS:
             self.k4_rounds *= 2
             self._mega_stats["redo_rounds"] += 1
+        if flags & ss.FLAG_TIER:
+            self._ss_stats["sieve_stops"] = self._ss_stats.get("sieve_stops", 0) + 1
         return frontier
 
+    # -- the tiered visited store (bfs.py:3207-3375) ---------------------------------
+
+    def _tier_on(self) -> bool:
+        """A device budget bounds the hot slab."""
+        return self.tiered is not None
+
+    def _tier_active(self) -> bool:
+        """At least one generation is demoted: level tails must probe."""
+        return self._tier_on() and self.tiered.active
+
+    def _sieve_operand(self) -> torch.Tensor:
+        """The sieve words the fused programs probe: the 1-word all-miss
+        sentinel, or the spill sieve's device copy, allocated at full size
+        once and refreshed in place when the host filter changed (the
+        captured graphs keep its address).  The spill sieve holds every
+        demoted fingerprint and is always armed (the reference's
+        ``_sieve_ready`` without its governor)."""
+        if not self._tier_active():
+            if self._sieve_empty is None:
+                self._sieve_empty = sieve_ops.empty_sieve(self.device)
+            return self._sieve_empty
+        sv = self.tiered.spill_sieve
+        if self._sieve_dev is None:
+            self._sieve_dev = torch.zeros((len(sv.words),), dtype=I64, device=self.device)
+        if self._sieve_ver != sv.version:
+            self._sieve_dev.copy_(torch.from_numpy(sv.words.view(np.int64)))
+            self._sieve_ver = sv.version
+        return self._sieve_dev
+
+    def _demote_generation(self, depth: int, expected: int = 0) -> None:
+        """The hot slab's fingerprints become one warm generation and the
+        slab restarts empty, sized to seat the level in flight (past the
+        budget if its fresh set alone is larger: the drain at the next
+        level top takes it back)."""
+        (vb,) = fetch(self.hstore.slab, what="demote")
+        self.tiered.demote(vb.view(np.uint64))
+        want = hashstore.slab_rows(max(2 * max(expected, 1), hashstore.MIN_CAP // 2))
+        if not self.tiered.slab_fits(want):
+            want = max(min(want, hashstore.slab_rows(max(expected, 1))), hashstore.MIN_CAP)
+        self.hstore = DeviceHashStore(cap=want, device=self.device)
+        soft = not self.tiered.slab_fits(self.hstore.cap)
+        self.tier_soft_seats += int(soft)
+        gens = self.tiered.gens
+        print(f"[tiered] hot slab demoted to generation {gens[-1].gid if gens else '-'} at level "
+              f"{depth} ({self.tiered.spilled_distinct()} fps across {len(gens)} gen(s)); hot "
+              f"restarts at {self.hstore.cap} slots"
+              + (" (over the budget for one level's fresh set)" if soft else ""), file=sys.stderr)
+
+    def _slab_grow_or_demote(self, depth: int, expected: int = 0,
+                             min_cap: int | None = None) -> str:
+        """Grow the slab while the grown slab fits the budget, else demote
+        (with content to demote) or seat one level's fresh set past the
+        budget, drained at the next level top.  "grew" or "demoted"."""
+        want = max(self.hstore.cap * 2, min_cap or 0)
+        want = 1 << (want - 1).bit_length()
+        if self._tier_on() and not self.tiered.slab_fits(want):
+            if self.hstore.count > 0:
+                self._demote_generation(depth, expected=expected)
+                return "demoted"
+            self.tier_soft_seats += 1
+            print(f"[tiered] level {depth}: the fresh set exceeds the hot budget even after "
+                  f"demotion; seating it at {want} slots", file=sys.stderr)
+        self.hstore.grow(min_cap=min_cap)
+        return "grew"
+
+    def _tier_drain(self, depth: int, n_next: int) -> None:
+        """At the loop top: demote a slab over the budget, or one whose next
+        growth would pass it (the superstep windows' only drain site)."""
+        if not self._tier_on() or self.hstore.count == 0:
+            return
+        over = not self.tiered.slab_fits(self.hstore.cap)
+        grow_needed = self.hstore.need_grow(extra=2 * max(n_next, 1))
+        if over or (grow_needed and not self.tiered.slab_fits(self.hstore.cap * 2)):
+            self._demote_generation(depth, expected=2 * max(n_next, 1))
+
+    def _tier_reserve(self, entries: int) -> None:
+        """``hstore.reserve`` clamped to the budget's entries."""
+        if self._tier_on() and self.tiered.max_hot_entries:
+            entries = min(entries, self.tiered.max_hot_entries)
+        self.hstore.reserve(int(entries))
+
+    def _tier_filter_level(self, depth: int, n_new: int, fps_np, new_frontier: Frontier):
+        """The level tail's generation probe: the fresh rows that revisit a
+        demoted fingerprint leave the new frontier (``drop_rows``); their
+        fingerprints stay in the hot slab.  (n_keep, keep mask or None,
+        new frontier)."""
+        hits = self.tiered.probe(fps_np[:n_new])
+        n_hit = int(hits.sum())
+        if not n_hit:
+            return n_new, None, new_frontier
+        self.tiered.stats["reheats"] += n_hit
+        keep = ~hits
+        n_keep = n_new - n_hit
+        if n_keep:
+            mask = np.zeros(new_frontier.voted_for.shape[0], bool)
+            mask[:n_new] = keep
+            new_frontier = tiered.drop_rows(new_frontier, torch.from_numpy(mask).to(self.device),
+                                            n_keep)
+        return n_keep, keep, new_frontier
+
     # -- the run ------------------------------------------------------------------
+
+    def _grouping(self, n_f: int) -> bool:
+        """Levels of more than 16 * G chunks run grouped (bfs.py:3522)."""
+        return -(-max(n_f, 1) // self.chunk) > 16 * self.G
+
+    def _expand_level_grouped(self, frontier: Frontier, n_f: int, depth: int) -> tuple:
+        """One grouped level with its grow-and-redo (bfs.py:4620-4677):
+        (result, parent frontier).  Every redo runs against the slab as it
+        was before the level."""
+        groups = -(-max(n_f, 1) // (self.G * self.chunk))
+        while True:
+            # the lane buffer's groups, quantized: one program serves nearby levels
+            res = group.expand_level_grouped(self, frontier, n_f, _cap_steps(groups))
+            if not (res["ovf_x"] or res["ovf_g"] or res["ovf_h"] or res["ovf_m"]
+                    or res["ovf_rounds"]):
+                return res, frontier
+            if res["ovf_h"]:
+                self._grow_slab(depth + 1, max(n_f, res["n_new"]))
+            if res["ovf_x"]:
+                self._grow_cap_x()
+            if res["ovf_g"]:
+                self.cap_g *= 2
+                self.redos["cap_g"] += 1
+            if res["ovf_rounds"]:
+                self.k4_rounds *= 2
+            if res["ovf_m"]:
+                frontier = self._grow_cap_m(frontier)
+
+    def _expand_level_staged(self, frontier: Frontier, n_f: int, depth: int) -> tuple:
+        """One ungrouped staged level with its grow-and-redo: (result,
+        parent frontier)."""
+        while True:
+            res = self.expand_level(frontier, n_f, self.hstore.slab)
+            if not (res["ovf_x"] or res["ovf_h"] or res["ovf_m"]):
+                return res, frontier
+            # nothing was inserted, or the insert was undone
+            if res["ovf_x"]:
+                self._grow_cap_x()
+            if res["ovf_h"]:
+                self._grow_slab(depth + 1, max(n_f, res["n_new"]))
+            if res["ovf_m"]:
+                frontier = self._grow_cap_m(frontier)
 
     def run(self, max_depth: int | None = None) -> CheckResult:
         cfg, K = self.cfg, self.K
@@ -603,6 +803,8 @@ class TorchChecker:
         self.hstore = DeviceHashStore.from_fps(
             fv.cpu().numpy().view(np.uint64), device=self.device
         )
+        self.tiered = tiered.TieredVisitedStore(self.store_bytes) if self.store_bytes else None
+        self._sieve_dev, self._sieve_ver, self.tier_soft_seats = None, -1, 0
         self.frontier = frontier
         n_f, distinct, generated, depth = 1, 1, 0, 0
         level_sizes = [1]
@@ -627,6 +829,7 @@ class TorchChecker:
         while n_f > 0:
             if max_depth is not None and depth >= max_depth:
                 break
+            self._tier_drain(depth, n_f)
             if (not skip_superstep and self._superstep_span_at(max_depth, depth) > 1
                     and self._mega_level_ok(n_f)):
                 sres = self._run_superstep(frontier, n_f, max_depth, depth, level_sizes)
@@ -653,30 +856,24 @@ class TorchChecker:
                 skip_superstep = sres["reason"] == "stop" or (
                     sres["reason"] == "ring" and not sres["recs"])
                 if sres["reason"] == "stop":
-                    frontier = self._grow_for_stop(sres["flags"], frontier)
+                    frontier = self._grow_for_stop(sres["flags"], frontier, depth, n_f)
                 continue
             skip_superstep = False
             mres = None
+            t_level, reads0 = time.perf_counter(), sum(READS.values())
             if self._mega_level_ok(n_f):
                 mres = self._expand_level_mega(frontier, n_f, max_depth, level_sizes)
                 frontier = mres["parent"]
                 res = dict(n_new=mres["n_new"], abort_at=mres["abort_at"],
-                           mult=mres["level_mult"])
+                           mult=mres["level_mult"], slab_live=mres["slab_live"])
+                route = "fused"
+            elif self._grouping(n_f):
+                launches0 = self.graph_stats["group_launches"]
+                res, frontier = self._expand_level_grouped(frontier, n_f, depth)
+                route = "grouped"
             else:
-                while True:
-                    res = self.expand_level(frontier, n_f, self.hstore.slab)
-                    if not (res["ovf_x"] or res["ovf_h"] or res["ovf_m"]):
-                        break
-                    # a lane budget overflowed: grow it and redo the level
-                    # (nothing was inserted, or the insert was undone)
-                    if res["ovf_x"]:
-                        self.cap_x = _cap_steps(self.cap_x + 1)
-                        self.redos["cap_x"] += 1
-                    if res["ovf_h"]:
-                        self.hstore.grow()
-                        self.redos["slab"] += 1
-                    if res["ovf_m"]:
-                        frontier = self._grow_cap_m(frontier)
+                res, frontier = self._expand_level_staged(frontier, n_f, depth)
+                route = "staged"
             if res["abort_at"] < n_f:
                 return CheckResult(
                     False, distinct, generated, depth, tuple(level_sizes),
@@ -689,10 +886,8 @@ class TorchChecker:
             if n_new == 0:
                 break
             if mres is not None:
-                frontier = mres["new_frontier"]
-                bad_idx = mres["bad_idx"]
-                trace_levels.append((mres["pidx"], mres["slot"]))
-                route = "fused"
+                new_frontier, bad_idx = mres["new_frontier"], mres["bad_idx"]
+                pidx, slot, fps_lvl = mres["pidx"], mres["slot"], mres["fps"]
             else:
                 while True:
                     new_frontier, bad_idx, ovf_m = self.materialize_level(
@@ -701,18 +896,60 @@ class TorchChecker:
                     if not ovf_m:
                         break
                     frontier = self._grow_cap_m(frontier)
-                frontier = new_frontier
-                (pay,) = fetch(res["new_payload"][:n_new], what="staged_trace")
-                trace_levels.append((pay // K, pay % K))
-                route = "staged"
+                # the trace read (the grouped tail split the payloads on the
+                # device), with the fresh fps when the tiers probe them
+                if route == "grouped":
+                    want = [res["pidx"][:n_new], res["slot"][:n_new]]
+                else:
+                    want = [res["new_payload"][:n_new]]
+                if self._tier_active():
+                    want.append(res["new_fps"][:n_new])
+                got = fetch(*want, what="staged_trace")
+                if route == "grouped":
+                    pidx, slot = got[0].view(np.uint32).copy(), got[1].view(np.uint16).copy()
+                else:
+                    pidx, slot = np.divmod(got[0], K)
+                fps_lvl = got[-1].view(np.uint64) if self._tier_active() else None
+            # the tiered level tail: a fused level with no sieve hit
+            # provably revisits nothing demoted; every other route probes
+            n_store = n_new  # the slab's own fresh count
+            if self._tier_active():
+                if mres is not None and mres["tier_hits"] == 0:
+                    self.tiered.stats["sieve_skips"] += 1
+                else:
+                    n_new, keep, new_frontier = self._tier_filter_level(
+                        depth, n_new, fps_lvl, new_frontier)
+                    if keep is not None:
+                        pidx, slot = pidx[keep], slot[keep]
+                        if bad_idx >= 0:
+                            # a violating row is new: its first visit is here
+                            assert keep[bad_idx], "invariant violation on a demoted revisit"
+                            bad_idx = int(np.count_nonzero(keep[:bad_idx]))
+                    if n_new == 0:
+                        # every fresh state revisited a generation: the fixpoint
+                        self.hstore.adopt(self.hstore.slab, n_store)
+                        n_f = 0
+                        break
+            if route == "grouped":
+                self.group_log.append(dict(
+                    level=depth + 1, parents=n_f, groups=res["groups"],
+                    graph_launches=self.graph_stats["group_launches"] - launches0,
+                    reads=sum(READS.values()) - reads0, k4_rounds=res["rounds"],
+                    cap_g=self.cap_g, lanes=res["lanes"],
+                    ungrouped_lanes=-(-n_f // self.chunk) * self.cap_x,
+                    seconds=time.perf_counter() - t_level))
+            frontier = new_frontier
+            trace_levels.append((pidx, slot))
             distinct += n_new
             level_sizes.append(n_new)
             depth += 1
-            self.hstore.adopt(self.hstore.slab if mres is not None else res["slab"], n_new)
-            if mres is not None:
-                self._check_occupancy(mres["slab_live"])
-            if self.hstore.need_grow(extra=2 * n_new):
-                self.hstore.grow()
+            self.hstore.adopt(self.hstore.slab, n_store)
+            if route != "staged":
+                self._check_occupancy(res["slab_live"])
+            if self.hstore.need_grow(extra=2 * n_new) or (
+                    self._tier_on() and self.hstore.count > 0
+                    and not self.tiered.slab_fits(self.hstore.cap)):
+                self._slab_grow_or_demote(depth, expected=2 * n_new)
             n_f = n_new
             self.frontier = mk.rows_of(frontier, 0, n_f)
             note(route)

@@ -17,7 +17,8 @@ fixed sequence of hand-written kernels captured once into a
    probe-and-insert (K4) over the live chunks' lanes, with a fixed budget
    of claim rounds (each exits at once when no lane claims), then the
    fresh lanes compacted to a prefix in lane (= payload) order;
-3. **the sieve probe** (B13) over the fresh lanes;
+3. **the sieve probe** (B13) over the fresh lanes, against the engine's
+   sieve words (the all-miss sentinel until the tiered store demotes);
 4. **materialize + invariant scan** of the survivors in slices of
    ``mat_slice_width`` rows into the new frontier buffer of ``cap_out``
    rows;
@@ -380,7 +381,7 @@ class LaneBuffers:
         self.sl = sl
         self.madded = torch.zeros((sl, eng.mx.A), dtype=torch.int32, device=dev)
         self.movf = torch.zeros((sl,), dtype=torch.bool, device=dev)
-        self.sieve = sieve_ops.empty_sieve(dev)
+        self.sieve = eng._sieve_operand()  # its address is part of the program's key
         if dev.type == "cuda":
             self.tile_chunk = torch.zeros((kernels.compact_tiles(chunk * K),), dtype=I64,
                                           device=dev)

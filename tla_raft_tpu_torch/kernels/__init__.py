@@ -143,13 +143,17 @@ INV_SCAN = Kernel(
 LEVEL = Kernel(
     "level", "csrc/level.cu",
     "tla_raft_tpu/engine/megakernel.py:170 (fused_level_core's carried reductions and "
-    "build_level_program:311's ctrl / pidx / slot outputs)",
+    "build_level_program:311's ctrl / pidx / slot outputs; the grouped level's group and "
+    "tail control, engine/bfs.py:1144, 3522-3690)",
     {
         "lv_begin_launch": [VP, VP, I32, VP, VP],
         "lv_gate_launch": [VP, VP, I32, I64, I64, VP],
         "lv_decide_launch": [VP, I64, VP],
         "slab_live_launch": [VP, I64, VP, VP],
         "lv_finalize_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
+        "lv_group_begin_launch": [VP, I64, I32, I64, VP],
+        "lv_group_end_launch": [VP, VP, I32, I64, I64, VP],
+        "lv_tail_gate_launch": [VP, I64, VP],
     },
 )
 SUPERSTEP = Kernel(
@@ -168,11 +172,33 @@ SIEVE = Kernel(
     "tla_raft_tpu/ops/sieve.py:194 (probe_impl over _word_and_mask:80)",
     {"sieve_probe_launch": [VP, I64, VP, I64, VP, VP, VP]},
 )
+HS_PROBE = Kernel(
+    "hs_probe", "csrc/hashstore.cu",
+    "tla_raft_tpu/ops/hashstore.py:210 (probe_impl over _probe_rounds:160)",
+    {"hs_probe": [VP, I64, VP, I64, VP, VP, VP, VP]},
+)
+FILTER_COMPACT = Kernel(
+    "filter_compact", "csrc/compact.cu",
+    "tla_raft_tpu/engine/bfs.py:338 (_filter_compact; after hs_probe it is "
+    "_group_filter_hash:374)",
+    {"launch_filter_compact": [VP, I64, VP, VP, VP, I64, VP, VP, VP, VP, VP, VP, VP, VP, VP],
+     "compact_tile": []},
+)
+DROP_ROWS = Kernel(
+    "drop_rows", "csrc/tiered.cu",
+    "tla_raft_tpu/store/tiered.py:810 (drop_rows_impl)",
+    {"drop_rows_launch": [VP, I64, VP, VP, VP, I32, VP, VP, VP, VP], "drop_rows_tile": []},
+)
 KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMPACT, INFLATE,
-                               DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE)}
-# the kernels the staged chain launches (the fused level launches all)
+                               DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE, HS_PROBE,
+                               FILTER_COMPACT, DROP_ROWS)}
+# the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
+# the kernels of the fused level and the supersteps
+FUSED = STAGED + ("level", "superstep", "sieve")
+# the grouped level's own (levels past 16 * G chunks)
+GROUPED = ("hs_probe", "filter_compact")
 
 
 def reset_launches() -> None:
@@ -818,3 +844,123 @@ def sieve_probe(words, fps, *, hit=None, count=None) -> None:
     SIEVE.check(SIEVE.lib().sieve_probe_launch(words.data_ptr(), m, fps.data_ptr(), n, _p(hit),
                                                _cnt(count), _stream()))
     SIEVE.launches += int(n > 0)
+
+
+# -- B8 membership, B3 filter compaction (the grouped level) -------------------------
+
+
+def hs_probe(slab, fps, *, hit=None, keep=None, cnt=None):
+    """B8 probe: ``hit`` bool[n] (fps[i] is in the slab) and/or ``keep``
+    bool[n] (live and not in the slab); lanes past the device count
+    ``cnt`` are neither.  Allocates ``hit`` when neither is given."""
+    cap, n = slab.shape[0], fps.shape[0]
+    if cap & (cap - 1):
+        raise ValueError(f"slab capacity must be a power of two, got {cap}")
+    _need(slab, "slab", torch.int64, (cap,))
+    _need(fps, "fps", torch.int64, (n,))
+    if hit is None and keep is None:
+        hit = torch.empty((n,), dtype=torch.bool, device=fps.device)
+    for name, t in (("hit", hit), ("keep", keep)):
+        if t is not None:
+            _need(t, name, torch.bool, (n,))
+    HS_PROBE.check(HS_PROBE.lib().hs_probe(slab.data_ptr(), cap, fps.data_ptr(), n, _p(hit),
+                                           _p(keep), _cnt(cnt), _stream()))
+    HS_PROBE.launches += int(n > 0)
+    return hit
+
+
+def filter_compact(keep, cv, cf, cp, cap, *, out=None, total=None, out_off=None, pay_off=None,
+                   ovf=None, tile=None):
+    """B3 filter compaction: the ``keep`` lanes of (cv, cf, cp) packed in
+    lane order to ``cap`` lanes padded (SENT, SENT, -1): (ov, of, op,
+    total i64 0-d).  With ``out`` = (ov, of, op) they are written at lane
+    ``*out_off`` of those buffers; ``pay_off`` (int64 0-d) is added to
+    every kept payload; ``ovf`` (int64 0-d) is set to 1 when more than
+    ``cap`` lanes are kept."""
+    n = keep.shape[0]
+    _need(keep, "keep", torch.bool, (n,))
+    for name, t in (("cv", cv), ("cf", cf), ("cp", cp)):
+        _need(t, name, torch.int64, (n,))
+    dev = keep.device
+    if out is None:
+        out = tuple(torch.empty((cap,), dtype=torch.int64, device=dev) for _ in range(3))
+    for name, t in zip(("ov", "of", "op"), out):
+        _need(t, name, torch.int64, (t.shape[0],))
+        if t.shape[0] < cap or (out_off is None and t.shape[0] != cap):
+            raise ValueError(f"filter_compact: {name} holds {t.shape[0]} lanes, cap is {cap}")
+    for name, t in (("out_off", out_off), ("pay_off", pay_off), ("ovf", ovf)):
+        if t is not None:
+            _need(t, name, torch.int64, ())
+    lib = FILTER_COMPACT.lib()
+    n_tiles = max((n + lib.compact_tile() - 1) // lib.compact_tile(), 1)
+    if tile is None:
+        tile = torch.empty((n_tiles,), dtype=torch.int64, device=dev)
+    if tile.numel() < n_tiles:
+        raise ValueError("filter_compact: tile scratch too small")
+    if total is None:
+        total = torch.empty((), dtype=torch.int64, device=dev)
+    _need(total, "total", torch.int64, ())
+    FILTER_COMPACT.check(lib.launch_filter_compact(
+        keep.data_ptr(), n, cv.data_ptr(), cf.data_ptr(), cp.data_ptr(), cap, out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), tile.data_ptr(), total.data_ptr(), _p(out_off),
+        _p(pay_off), _p(ovf), _stream()))
+    # count_tiles, scan_offsets, scatter_tiles, pad_tail
+    FILTER_COMPACT.launches += 2 * int(n > 0) + 1 + int(cap > 0)
+    return (*out, total)
+
+
+def group_begin(lc, rows: int, K: int, cap_g: int) -> None:
+    """The group's live rows, payload base and lane offset, from the group
+    index in ``lc`` (``LC_GROUP``)."""
+    LEVEL.check(LEVEL.lib().lv_group_begin_launch(lc.data_ptr(), rows, K, cap_g, _stream()))
+    LEVEL.launches += 1
+
+
+def group_end(lc, chunk_total, cap_x: int, rows: int) -> None:
+    """OVF_X from the group's chunk totals, its abort into the level's, and
+    the group index advanced."""
+    _need(chunk_total, "chunk_total", torch.int64, (chunk_total.shape[0],))
+    LEVEL.check(LEVEL.lib().lv_group_end_launch(lc.data_ptr(), chunk_total.data_ptr(),
+                                                chunk_total.shape[0], cap_x, rows, _stream()))
+    LEVEL.launches += 1
+
+
+def tail_gate(lc, lanes: int) -> None:
+    """LIVE_LANES of the grouped level's probe-and-insert: ``lanes``, or 0
+    when the level aborted or overflowed cap_x, cap_m or cap_g."""
+    LEVEL.check(LEVEL.lib().lv_tail_gate_launch(lc.data_ptr(), lanes, _stream()))
+    LEVEL.launches += 1
+
+
+# -- B16: frontier row compaction (csrc/tiered.cu) ---------------------------------
+
+
+def drop_rows(keep, src, dst):
+    """B16: the ``keep`` rows of the buffers ``src`` (a Frontier, every
+    field with ``rows`` rows) packed in order to the front of ``dst`` (the
+    same shapes), every later row zero; returns the kept count (int64
+    0-d)."""
+    rows = keep.shape[0]
+    _need(keep, "keep", torch.bool, (rows,))
+    if len(src) > 16:
+        raise ValueError("drop_rows takes at most 16 fields")
+    widths = []
+    for a, b in zip(src, dst):
+        if a.shape != b.shape or a.dtype != b.dtype or a.shape[0] != rows or not (
+                a.is_cuda and a.is_contiguous() and b.is_contiguous()):
+            raise ValueError("drop_rows: mismatched frontier buffers")
+        widths.append(a[0].numel() * a.element_size() if rows else 0)
+    lib = DROP_ROWS.lib()
+    dev = keep.device
+    tile = torch.empty((max((rows + lib.drop_rows_tile() - 1) // lib.drop_rows_tile(), 1),),
+                       dtype=torch.int64, device=dev)
+    idx = torch.empty((max(rows, 1),), dtype=torch.int64, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    n = len(widths)
+    DROP_ROWS.check(lib.drop_rows_launch(
+        keep.data_ptr(), rows, (VP * n)(*(a.data_ptr() for a in src)),
+        (VP * n)(*(b.data_ptr() for b in dst)), (ctypes.c_longlong * n)(*widths), n,
+        tile.data_ptr(), idx.data_ptr(), total.data_ptr(), _stream()))
+    # count_tiles, scan_offsets, scatter_rows, gather_rows
+    DROP_ROWS.launches += 3 * int(rows > 0) + 1
+    return total

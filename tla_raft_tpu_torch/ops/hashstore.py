@@ -20,7 +20,9 @@ byte for byte, so slabs move between the two packages:
 
 ``probe_and_insert`` is kernel K4 (csrc/hashstore.cu) on the card and its
 plain twin ``probe_and_insert_plain`` on the CPU; growth rehashes through
-it too.  ``compact_fresh`` is the compaction kernel (csrc/compact.cu) on
+it too.  ``probe`` (the membership test, B8 ``probe_impl``) is the
+``hs_probe`` kernel of the same source on the card and ``probe_plain`` on
+the CPU.  ``compact_fresh`` is the compaction kernel (csrc/compact.cu) on
 the card; ``insert_np`` (the host-side build of a slab from a fingerprint
 array) is numpy.
 """
@@ -82,9 +84,17 @@ def _probe_rounds(slab: torch.Tensor, fps: torch.Tensor, depth: int = PROBE_DEPT
     return idx, found, done & live
 
 
-def probe(slab: torch.Tensor, fps: torch.Tensor) -> torch.Tensor:
-    """Membership mask (plain): fps[i] (!= SENT) is in the slab."""
+def probe_plain(slab: torch.Tensor, fps: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``probe``: fps[i] (!= SENT) is in the slab."""
     return _probe_rounds(slab, fps)[1]
+
+
+def probe(slab: torch.Tensor, fps: torch.Tensor) -> torch.Tensor:
+    """Membership mask bool[N]: fps[i] (!= SENT) is in the slab.  The
+    ``hs_probe`` kernel on the card, the plain twin on the CPU."""
+    if fps.device.type == "cpu":
+        return probe_plain(slab, fps)
+    return kernels.hs_probe(slab, fps)
 
 
 def _scatter_umin(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -234,6 +244,10 @@ class DeviceHashStore:
             insert_np(arr, fps)
         st.slab = torch.from_numpy(arr.view(np.int64)).to(st.device)
         return st
+
+    def occupancy(self) -> int:
+        """Live (non-SENT) slots of the slab, counted on its device."""
+        return int((self.slab != SENT).sum())
 
     def need_grow(self, extra: int = 0) -> bool:
         return (self.count + extra) * 2 > self.cap
