@@ -36,25 +36,39 @@ Phases, each printed as JSON lines:
                 to the host SpillSieve's on the same fingerprints, revisits
                 dropped from frontiers (drop_rows), and a level's fresh set
                 seated past the budget (the soft overshoot);
-   Each of phases 2-8 sets every kernel's launch count to 0 just before it
+9. scale      — the Raft.cfg constants at 5 servers to depth 16 (2,457,226
+                distinct, 9,353,884 generated) and at 7 servers to depth 9
+                (3,736 / 22,776) on the default path at the default chunk,
+                every level golden; K3 (its tensor-core MMAs over P = 120
+                and 5,040 permutations) fingerprints both, with its
+                pair-block factored message part at 7 servers (int32
+                message ids);
+   Each of phases 2-9 sets every kernel's launch count to 0 just before it
    runs, prints the counts just after, and fails if a kernel of its path
    did not launch (the staged phase: the staged chain's eight; the default
-   phase: every kernel but drop_rows; the tiered phase: the fused path's
-   eleven and drop_rows; the grouped phase: the staged chain's, level,
-   hs_probe and filter_compact; the others: the fused path's eleven).  The
+   phase: every kernel but drop_rows and K3's factored mode; the tiered
+   phase: the fused path's eleven and drop_rows; the grouped phase: the
+   staged chain's, level, hs_probe and filter_compact; the scale phase: the
+   fused path's eleven and K3's factored mode; the others: the fused path's
+   eleven).  The
    default phase also prints graph launches and device-to-host reads per
    superstep and per fused level, each grouped level's reads, graph
    launches, K4 rounds, cap_g, lanes (against the ungrouped lane count)
    and seconds, the levels by route, the graph captures and their
    seconds, and peak device memory.
-9. twins      — one fused level and one superstep (two levels) on the
+10. twins     — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
-10. kernels   — each kernel against its plain torch twin on the card, at
+11. kernels   — each kernel against its plain torch twin on the card, at
                 the main path's shapes, with times, bounds and the launches
-                of its phase (drop_rows: the tiered phase; the rest: the
-                default phase);
-11. profile   — one deep level (2,150,466 parents) on the staged chain and
+                of its phase (drop_rows: the tiered phase; K3's factored
+                mode: the scale phase; the rest: the default phase); then
+                the kernels again at 5 and 7 servers on the scale runs'
+                frontiers (K1 at K = 1,900 / 3,696, K2, inflate and deflate
+                with int32 ids, K3 at P = 120 and factored at P = 5,040,
+                inv_scan, K4, hs_probe, filter_compact, level control),
+                all in one ``kernels`` line;
+12. profile   — one deep level (2,150,466 parents) on the staged chain and
                 as one fused-level graph, under torch.profiler: kernel time
                 by name and the device's idle share.
 
@@ -67,6 +81,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import subprocess
@@ -101,6 +116,15 @@ DEPTH_DEFAULT = 25  # of the default path's reference prefix
 DEPTH_GROUPED = 22  # the grouped phase's parents: the depth-22 frontier
 DEPTH_TIERED = 22
 TIER_BYTES = 64 << 20  # the tiered phase's hot-slab budget
+# the Raft.cfg constants at 5 and 7 servers, golden level by level
+# (docs/BENCH_S5_r05.json(.log), docs/BENCH_S7_r05.json / BENCH_S7_r05b.log)
+SCALE_GOLDEN = {
+    5: dict(depth=16, distinct=2_457_226, generated=9_353_884, levels=[
+        1, 1, 3, 9, 24, 66, 169, 401, 859, 1797, 4018, 10484, 30763, 90919, 250982, 629645,
+        1437085]),
+    7: dict(depth=9, distinct=3_736, generated=22_776, levels=[
+        1, 1, 3, 9, 24, 66, 171, 418, 960, 2083]),
+}
 DOUBLE_VOTE = dict(result=(False, 359, 707, 8),
                    trace_sha256="54144ebf556e93bb8f6c0f2eab315032283bd583ed12112600368de2d9e73662")
 CHUNK = 16384  # parents per guard launch on the main path
@@ -414,6 +438,65 @@ def phase_tiered(depth: int, chunk: int, dev_bytes: int) -> None:
     check(chk.hstore.occupancy() == chk.hstore.count, "tiered: hot count != slab occupancy")
 
 
+def phase_scale() -> dict:
+    """The Raft.cfg constants at 5 servers to depth 16 and at 7 servers to
+    depth 9 on the default path (``TorchChecker`` at its default chunk),
+    every level golden; K3 fingerprints both (P = 120, 5,040), with its
+    factored message part at 7.  Returns the two checkers."""
+    import torch
+
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+
+    runs, rows = {}, []
+    for S, want in SCALE_GOLDEN.items():
+        # the earlier phases' cached device blocks go back first: a graph
+        # capture empties the allocator's cache, which would charge their
+        # release to this run's first capture
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        release_s = time.perf_counter() - t0
+        before = kernels.launch_counts()
+        levels = []
+        chk = TorchChecker(RaftConfig(n_servers=S), device="cuda", progress=levels.append)
+        D.READS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = chk.run(max_depth=want["depth"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        k3 = {k: after[k] - before[k] for k in ("fingerprint", "msg_hash_factored")}
+        elapsed = [lv["elapsed"] for lv in levels]
+        rows.append(dict(
+            servers=S, depth=res.depth, distinct=res.distinct, generated=res.generated,
+            level_sizes=list(res.level_sizes), seconds=secs, distinct_per_s=res.distinct / secs,
+            peak_bytes=torch.cuda.max_memory_allocated(), K=chk.K, P=chk.fpr.P,
+            M=chk.uni.M, id_dtype=str(chk.id_dtype), factored=chk.fpr.factored_msgs,
+            chunk=chk.chunk, cap_x=chk.cap_x, cap_m=chk.cap_m, slab_rows=chk.hstore.cap,
+            routes=dict(chk.routes), superstep_stats=dict(chk._ss_stats),
+            mega_stats=dict(chk._mega_stats), reads=dict(D.READS), k3_launches=k3,
+            captures=chk.graph_stats["captures"],
+            capture_seconds=chk.graph_stats["capture_seconds"],
+            capture_log=chk.graph_stats["capture_log"], cache_release_seconds=release_s,
+            level_seconds=[b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)]))
+        emit(dict(phase="scale", **rows[-1]))
+        chk._progs.clear()  # the captured programs' buffers
+        check(res.ok and list(res.level_sizes) == want["levels"]
+              and (res.distinct, res.generated) == (want["distinct"], want["generated"]),
+              f"S={S}: {res.level_sizes} {res.distinct} / {res.generated} != {want}")
+        # every fingerprint from K3, with its factored part at S=7
+        check(k3["fingerprint"] > 0
+              and k3["msg_hash_factored"] == (k3["fingerprint"] if S == 7 else 0),
+              f"S={S}: K3 launches {k3}")
+        runs[S] = chk
+    return runs
+
+
 def phase_digests(staged: list, default: list, depth: int) -> None:
     same = [a == b for a, b in zip(staged[:depth], default[:depth])]
     emit(dict(phase="digests", levels=len(same), equal=sum(same)))
@@ -627,8 +710,25 @@ def _timed_insert(insert, slab, args, reps: int) -> float:
     return float(np.median(times[1:]))
 
 
-def phase_kernels(chk, launches: dict, seed: int) -> None:
-    """Each kernel against its plain twin on real and seeded random inputs."""
+def _entry(out: list, launches: dict, k, ms, plain_ms, bytes_, lib_ms, ops=0,
+           ops_rate=None, ops_ms=None) -> dict:
+    """One kernel's record of the ``kernels`` line: its bound is the larger
+    of bytes / the HBM rate and the operations' time (``ops`` at
+    ``ops_rate``, or ``ops_ms`` given)."""
+    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    o_ms = ops_ms if ops_ms is not None else ops / (ops_rate or INT_OPS_PER_S) * 1e3
+    out.append(dict(
+        name=k.name, route="cuda", source=f"tla_raft_tpu_torch/{k.source}",
+        replaces=k.replaces, launches=launches[k.name], equal=True, max_abs_err=0, ms=ms,
+        plain_ms=plain_ms, bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms
+        else "operations", library_ms=lib_ms,
+    ))
+    return out[-1]
+
+
+def phase_kernels(chk, launches: dict, seed: int):
+    """Each kernel against its plain twin on real and seeded random inputs:
+    (the kernels' records, the shapes)."""
     import torch
 
     from tla_raft_tpu_torch import kernels
@@ -647,15 +747,9 @@ def phase_kernels(chk, launches: dict, seed: int) -> None:
     out = []
     bytes_of = {}
 
-    def entry(k, err_ok, ms, plain_ms, bytes_, ops, lib_ms, ops_rate=INT_OPS_PER_S):
-        b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_rate * 1e3
-        out.append(dict(
-            name=k.name, route="cuda", source=f"tla_raft_tpu_torch/{k.source}",
-            replaces=k.replaces, launches=launches[k.name], equal=err_ok,
-            max_abs_err=0 if err_ok else None, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations",
-            library_ms=lib_ms,
-        ))
+    def entry(k, _equal_ok, ms, plain_ms, bytes_, ops, lib_ms, ops_rate=INT_OPS_PER_S):
+        # every caller checked the kernel equal to its twin before timing it
+        _entry(out, launches, k, ms, plain_ms, bytes_, lib_ms, ops, ops_rate)
 
     # K1 guards: one chunk of real parents, and a seeded random sample
     def guards_case(part):
@@ -1099,8 +1193,169 @@ def phase_kernels(chk, launches: dict, seed: int) -> None:
     row_b = _core_bytes(fr) + 2 * cap_m
     entry(kernels.DROP_ROWS, True, ms, plain, n + n_keep * row_b + n * row_b, n * 4, lib)
 
-    emit(dict(kernels=out, shapes=dict(chunk=B, cap_x=G, cap_m=cap_m, slab_rows=slab.shape[0],
-                                        dedup_lanes=N, dedup_new=n_new, frontier_rows=n)))
+    return out, dict(chunk=B, cap_x=G, cap_m=cap_m, slab_rows=slab.shape[0], dedup_lanes=N,
+                     dedup_new=n_new, frontier_rows=n)
+
+
+def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
+    """The kernels at 5 and 7 servers against their twins, on the scale
+    runs' last frontiers and on random id lists (ids >= 2^15 at S=7): K1 at
+    K = 1,900 / 3,696, the compaction, K2, K3 (monolithic at S=5, factored
+    at S=7), inflate and deflate with the config's id width, the invariant
+    scan, K4, the grouped level's probe and filter, and the fused level's
+    control: (the record of K3's factored mode (S=7), per-kernel times at
+    both shapes with K3's at S=5 in full)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import bfs, group
+    from tla_raft_tpu_torch.engine import megakernel as mk
+    from tla_raft_tpu_torch.engine.invariants import INVARIANT_KERNELS, inv_scan_plain
+    from tla_raft_tpu_torch.models.raft import Frontier
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    gen = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    out, times = [], {}
+    for S, chk in runs.items():
+        fr, mx, fpr, uni, K, B = chk.frontier, chk.mx, chk.fpr, chk.uni, chk.K, chk.chunk
+        n, cap_m, G = fr.voted_for.shape[0], fr.msg_ids.shape[1], chk.cap_x
+        idb = fr.msg_ids.element_size()
+        row_b = _core_bytes(fr) + idb * cap_m
+        t = times[S] = dict(frontier_rows=n, chunk=B, cap_x=G, cap_m=cap_m, id_bytes=idb)
+        real = _frontier_rows(fr, torch.arange(min(B, n), device=dev))
+        nb = real.voted_for.shape[0]
+        rnd_ids = np.full((n, cap_m), -1, np.int64)
+        for i, k in enumerate(gen.integers(0, cap_m + 1, n)):
+            rnd_ids[i, :k] = np.sort(gen.choice(uni.M, k, replace=False))
+        rnd = fr._replace(msg_ids=torch.from_numpy(rnd_ids).to(chk.id_dtype).to(dev))
+        check(S != 7 or int(rnd.msg_ids.max()) >= 1 << 15, "S=7 random ids below 2^15")
+        # K1
+        st = chk.inflate(real)
+        pv, pm, pa = zip(*(mx.guards_plain(chk.inflate(Frontier(*(x[i:i + 1024] for x in real))))
+                           for i in range(0, nb, 1024)))
+        kv, km, ka = mx.guards(st)
+        check(_equal(kv, torch.cat(pv)) and _equal(km, torch.cat(pm)) and _equal(ka, torch.cat(pa)),
+              f"S={S}: K1 guards differs from its twin")
+        t["guards_ms"] = cuda_ms(lambda: mx.guards(st), 10)
+        # the compaction and K2 (real candidates and random lanes over random ids)
+        vflat = kv.reshape(-1)
+        payload = (torch.arange(nb, device=dev)[:, None] * K + torch.arange(K, device=dev)).reshape(-1)
+        a = bfs.compact_payloads(vflat, payload, G)
+        b = bfs.compact_payloads_plain(vflat, payload, G)
+        check(all(_equal(x, y) for x, y in zip(a, b)), f"S={S}: compaction differs")
+        cp, lane, _o = a
+        live = int(lane.sum())
+        lidx, slots = torch.div(cp, K, rounding_mode="floor").clamp(0, nb - 1), cp % K
+        for par, pi, sl in ((real, lidx, slots),
+                            (rnd, torch.from_numpy(gen.integers(0, n, G)).to(dev),
+                             torch.from_numpy(gen.integers(0, K, G)).to(dev))):
+            kc, kad, ko = mx.materialize(par, pi, sl)
+            pc, pad_, po = mx.materialize_plain(par, pi, sl)
+            check(all(_equal(x, y) for x, y in zip(kc, pc)) and _equal(kad, pad_)
+                  and _equal(ko, po), f"S={S}: K2 materialize differs from its twin")
+        children = mx.materialize(real, lidx, slots)[0]
+        t["materialize_ms"] = cuda_ms(lambda: mx.materialize(real, lidx, slots), 10)
+        # K3, counted as the fused level counts it: the live candidates
+        cnt = torch.tensor(live, device=dev)
+        outv = (torch.empty(G, dtype=torch.int64, device=dev),
+                torch.empty(G, dtype=torch.int64, device=dev))
+        kernels.fingerprints(fpr, children, out=outv, cnt=cnt)
+        lv = Frontier(*(x[:live] for x in children))
+        wv, wf = fpr.state_fingerprints_plain(lv)
+        ok = _equal(outv[0][:live], wv) and _equal(outv[1][:live], wf)
+        ok &= bool((outv[0][live:] == -1).all()) and bool((outv[1][live:] == -1).all())
+        for case in (_frontier_rows(rnd, torch.arange(min(G, n), device=dev)),
+                     _mix_rows(_frontier_rows(fr, torch.arange(min(G, n), device=dev)), gen)):
+            ok &= all(_equal(x, y) for x, y in zip(fpr.state_fingerprints(case),
+                                                   fpr.state_fingerprints_plain(case)))
+        check(ok, f"S={S}: K3 differs from its twin")
+        ms = cuda_ms(lambda: kernels.fingerprints(fpr, children, out=outv, cnt=cnt), 10)
+        plain = wall_ms(lambda: fpr.state_fingerprints_plain(lv))
+        F, ncols = fpr.C_planes.shape
+        f_pad = fpr.ktab["f_pad"]
+        n_ids = int((lv.msg_ids >= 0).sum())
+        int8_ms = 2 * live * f_pad * ncols / INT8_TENSOR_OPS_PER_S * 1e3
+        add_ms = n_ids * fpr.P * 4 / INT_OPS_PER_S * 1e3
+        tab = fpr.ktab
+        tab_b = tab["ct"].numel() + (tab["gt_eff"].numel() * 4 + tab["pperm"].numel()
+                                     if fpr.factored_msgs else tab["msg_eff"].numel() * 4)
+        feats = torch.nn.functional.pad(fpr.spec.features(lv), (0, f_pad - F))
+        ct_t = tab["ct"].t().contiguous()
+        lib = cuda_ms(lambda: torch._int_mm(feats, ct_t), 10) if live > 16 else None
+        rec = _entry([], launches, kernels.MSG_FACTORED if S == 7 else kernels.FINGERPRINT,
+                     ms, plain, live * (row_b + 16) + tab_b, None if S == 7 else lib,
+                     ops_ms=int8_ms + add_ms)
+        rec.update(servers=S, lanes=live, P=fpr.P, F=F, f_pad=f_pad, set_ids=n_ids,
+                   feature_int_mm_ms=lib)
+        if S == 7:
+            out.append(rec)
+        t["fingerprint"] = rec
+        # inflate / deflate with the config's id width
+        msgs = bfs.ids_to_msgs(fr.msg_ids, uni.n_words)
+        ok = _equal(msgs, bfs.ids_to_msgs_plain(fr.msg_ids, uni.n_words))
+        rmsgs = bfs.ids_to_msgs(rnd.msg_ids, uni.n_words)
+        ok &= _equal(rmsgs, bfs.ids_to_msgs_plain(rnd.msg_ids, uni.n_words))
+        for m in (msgs[:16384], rmsgs[:16384]):
+            for cm in (cap_m, 6):
+                x = bfs.msgs_to_ids(m, uni.M, cm, chk.id_dtype)
+                y = bfs.msgs_to_ids_plain(m, uni.M, cm, chk.id_dtype)
+                ok &= _equal(x[0], y[0]) and _equal(x[1], y[1])
+        check(ok, f"S={S}: inflate / deflate differ from their twins")
+        t["inflate_ms"] = cuda_ms(lambda: bfs.ids_to_msgs(real.msg_ids, uni.n_words), 10)
+        t["deflate_ms"] = cuda_ms(lambda: bfs.msgs_to_ids(msgs[:nb], uni.M, cap_m, chk.id_dtype),
+                                  10)
+        # the invariant scan: every predicate on the frontier and mixed rows
+        mixed = _mix_rows(fr, gen)
+        ok = True
+        for case in (fr, mixed):
+            cst = chk.inflate(case)
+            for nm in sorted(INVARIANT_KERNELS) + ["~NoSplitVote", "~CommitAll"]:
+                ok &= int(chk.inv_scan(case, names=[nm])) == int(
+                    inv_scan_plain(chk.cfg, cst, [nm], chk.tables))
+        check(ok, f"S={S}: inv_scan differs from its twin")
+        sl = _frontier_rows(fr, torch.arange(min(8 * B, n), device=dev))
+        t["inv_scan_ms"] = cuda_ms(lambda: chk.inv_scan(sl), 10)
+        # K4, the grouped level's probe and filter, over up to 16 chunks' candidates
+        slab = chk.hstore.slab
+        lanes = [chk._expand_chunk(Frontier(*(x[a:a + B] for x in fr)), a)[:3]
+                 for a in range(0, min(n, 16 * B), B)]
+        cv, cf, cpp = (torch.cat(z) for z in zip(*lanes))
+        ks_, kfr, kn, ko = kernels.probe_and_insert(slab.clone(), cv, cf, cpp)
+        ps_, pfr, pn, po = hs.probe_and_insert_plain(slab.clone(), cv, cf, cpp)
+        check(_equal(ks_, ps_) and _equal(kfr, pfr) and int(kn) == int(pn)
+              and bool(ko) == bool(po), f"S={S}: K4 differs from its twin")
+        hit = hs.probe(slab, cv)
+        ok = _equal(hit, hs.probe_plain(slab, cv))
+        cap_g = chk.G * G // 2
+        ok &= all(_equal(x, y) for x, y in zip(group.filter_compact(hit, cv, cf, cpp, cap_g),
+                                                group.filter_compact_plain(hit, cv, cf, cpp,
+                                                                           cap_g)))
+        check(ok, f"S={S}: hs_probe / filter_compact differ from their twins")
+        t["hashstore_ms"] = _timed_insert(kernels.probe_and_insert, slab, (cv, cf, cpp), 5)
+        t["k4_lanes"] = cv.shape[0]
+        # the fused level's control over K slots
+        n_run = torch.tensor(n, device=dev)
+        totals = torch.from_numpy(gen.integers(0, G + 1, 16)).to(dev)
+        res = []
+        for fns in ((kernels.level_begin, kernels.level_gate, kernels.level_decide,
+                     kernels.slab_live, kernels.level_finalize),
+                    (mk.level_begin_plain, mk.level_gate_plain, mk.level_decide_plain,
+                     mk.slab_live_plain, mk.level_finalize_plain)):
+            lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=dev)
+            mult = torch.ones((K,), dtype=torch.int64, device=dev)
+            ctrl = torch.zeros((8,), dtype=torch.int64, device=dev)
+            pidx = torch.zeros((cpp.shape[0],), dtype=torch.int32, device=dev)
+            slot = torch.zeros((cpp.shape[0],), dtype=torch.int16, device=dev)
+            fns[0](lc, mult, n_run)
+            fns[1](lc, totals, G, B)
+            lc[mk.LC_N_NEW] = int(kn)
+            fns[2](lc, cpp.shape[0])
+            fns[3](slab, lc[mk.LC_SLAB_LIVE])
+            fns[4](lc, ctrl, cpp, K, pidx, slot)
+            res.append((lc, mult, ctrl, pidx, slot))
+        check(all(_equal(x, y) for x, y in zip(*res)), f"S={S}: level control differs")
+    return out, times
 
 
 def _profiled(fn):
@@ -1233,8 +1488,9 @@ def main() -> int:
     fused = kernels.FUSED
     staged, _ = run("staged", kernels.STAGED, phase_staged, DEPTH, CHUNK)
     chk, staged_digests = staged if staged else (None, None)
-    default_digests, launches = run("default", [k for k in kernels.KERNELS if k != "drop_rows"],
-                                    phase_default, DEPTH_DEFAULT, CHUNK)
+    default_digests, launches = run(
+        "default", [k for k in kernels.KERNELS if k not in ("drop_rows",) + kernels.SCALE],
+        phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
             phase_digests(staged_digests, default_digests, DEPTH)
@@ -1248,16 +1504,30 @@ def main() -> int:
     _res, tier_launches = run("tiered", fused + ("drop_rows",), phase_tiered, DEPTH_TIERED, CHUNK,
                               TIER_BYTES)
     launches = dict(launches, drop_rows=tier_launches["drop_rows"])
+    # 5 and 7 servers: K3 with its factored message part at 7
+    runs, scale_launches = run("scale", fused + kernels.SCALE, phase_scale)
+    launches.update({k: scale_launches[k] for k in kernels.SCALE})
+    records, shapes, scale_times = [], None, None
     for name, fn, args in (("twins", phase_twins, (CHUNK,)),
-                           ("kernels", phase_kernels, (chk, launches, SEED))):
-        if chk is None:
-            failures.append(f"{name}: no staged reference run to test on")
+                           ("kernels", phase_kernels, (chk, launches, SEED)),
+                           ("scale_kernels", phase_scale_kernels, (runs, launches, SEED))):
+        if chk is None or (name == "scale_kernels" and not runs):
+            failures.append(f"{name}: no reference run to test on")
             continue
         try:
-            fn(*args)
+            res = fn(*args)
         except Failed as e:
             failures.append(f"{name}: {e}")
             emit(dict(phase=name, failed=str(e)))
+            continue
+        if name == "kernels":
+            records, shapes = res
+        elif name == "scale_kernels":
+            records += res[0]
+            scale_times = res[1]
+    runs = None  # free the scale runs' frontiers and slabs
+    torch.cuda.empty_cache()
+    emit(dict(kernels=records, shapes=shapes, scale=scale_times))
     if chk is not None:
         phase_profile(chk)
     smi = subprocess.run(

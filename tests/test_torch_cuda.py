@@ -355,3 +355,127 @@ def test_grouped_and_tiered_runs_on_the_card_equal_the_cpu(run, arm):
     tchk, tgot = go("cuda", store_bytes=8 * 1024)
     assert _result_tuple(tgot) == _result_tuple(want)
     assert tchk.tiered.stats["demotions"] >= 2
+
+
+# -- 5 and 7 servers: K3 at P = 120 and 5,040, its factored mode, int32 ids --------
+
+# golden level sizes of the Raft.cfg constants at 5 and 7 servers
+# (docs/BENCH_S5_r05.json.log, docs/BENCH_S7_r05b.log)
+GOLDEN_S5 = (1, 1, 3, 9, 24, 66, 169, 401, 859)
+GOLDEN_S7 = (1, 1, 3, 9, 24, 66, 171, 418)
+
+
+@pytest.fixture(scope="module")
+def scale():
+    """Default-path runs on the card: S=5 to depth 8 and S=7 to depth 7,
+    each golden; their last frontiers are the kernels' inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    out = {}
+    for S, golden in ((5, GOLDEN_S5), (7, GOLDEN_S7)):
+        chk = TorchChecker(RaftConfig(n_servers=S), device="cuda")
+        res = chk.run(max_depth=len(golden) - 1)
+        assert res.ok and res.level_sizes == golden
+        out[S] = chk
+    return out
+
+
+def _mixed_rows(fr, seed):
+    g = np.random.default_rng(seed)
+    n = fr.voted_for.shape[0]
+    return Frontier(*(x[torch.from_numpy(g.integers(0, n, n)).cuda()].contiguous() for x in fr))
+
+
+def _random_ids(uni, n, cap_m, dtype, seed):
+    """Ascending -1-padded random id lists (ids >= 2^15 where M allows)."""
+    g = np.random.default_rng(seed)
+    ids = np.full((n, cap_m), -1, np.int64)
+    for i, k in enumerate(g.integers(0, cap_m + 1, n)):
+        ids[i, :k] = np.sort(g.choice(uni.M, k, replace=False))
+    return torch.from_numpy(ids).to(dtype).cuda()
+
+
+@pytest.mark.parametrize("S", [5, 7])
+def test_scale_fingerprint_kernel_equals_twin(scale, S):
+    """K3 (monolithic at S=5, factored at S=7) on the frontier, on mixed
+    rows and on random id lists equals the plain twin, and the launches
+    land on its counters."""
+    from tla_raft_tpu_torch import kernels
+
+    chk = scale[S]
+    fr = chk.frontier
+    rnd = fr._replace(msg_ids=_random_ids(chk.uni, fr.voted_for.shape[0], fr.msg_ids.shape[1],
+                                          chk.id_dtype, S))
+    before = kernels.launch_counts()
+    for case in (fr, _mixed_rows(fr, S), rnd):
+        for a, b in zip(chk.fpr.state_fingerprints(case), chk.fpr.state_fingerprints_plain(case)):
+            assert torch.equal(a, b)
+    after = kernels.launch_counts()
+    assert after["fingerprint"] - before["fingerprint"] == 3
+    assert after["msg_hash_factored"] - before["msg_hash_factored"] == (3 if S == 7 else 0)
+
+
+@pytest.mark.parametrize("S", [3, 5])
+def test_factored_kernel_equals_monolithic(scale, run, S):
+    """K3 in its forced factored mode equals K3 with the monolithic message
+    hash and the twin."""
+    from tla_raft_tpu_torch.ops.fingerprint import Fingerprinter
+
+    chk = run if S == 3 else scale[5]
+    fact = Fingerprinter(chk.cfg, device="cuda", force_factored=True)
+    fr = _mixed_rows(chk.frontier, 11)
+    mono = chk.fpr.state_fingerprints(fr)
+    for a, b, c in zip(fact.state_fingerprints(fr), mono, fact.state_fingerprints_plain(fr)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_counted_fingerprint_launch_leaves_dead_lanes_sent(scale):
+    """Lanes past the device count stay SENT (the fused level's counted
+    launch)."""
+    chk = scale[7]
+    fr = chk.frontier
+    n = fr.voted_for.shape[0]
+    out = (torch.zeros(n, dtype=torch.int64, device="cuda"),
+           torch.zeros(n, dtype=torch.int64, device="cuda"))
+    from tla_raft_tpu_torch import kernels
+
+    kernels.fingerprints(chk.fpr, fr, out=out, cnt=torch.tensor(n // 3, device="cuda"))
+    pv, pf = chk.fpr.state_fingerprints_plain(Frontier(*(x[: n // 3] for x in fr)))
+    assert torch.equal(out[0][: n // 3], pv) and torch.equal(out[1][: n // 3], pf)
+    assert bool((out[0][n // 3:] == -1).all()) and bool((out[1][n // 3:] == -1).all())
+
+
+@pytest.mark.parametrize("S", [5, 7])
+def test_scale_kernels_equal_twins(scale, S):
+    """K1 at K = 1,900 / 3,696, K2 with int16 / int32 ids (ids >= 2^15 at
+    S=7), inflate and deflate with the config's id width, and inv_scan."""
+    chk = scale[S]
+    fr, uni = chk.frontier, chk.uni
+    assert fr.msg_ids.dtype == (torch.int32 if S == 7 else torch.int16)
+    st = chk.inflate(fr)
+    for a, b in zip(chk.mx.guards(st), chk.mx.guards_plain(st)):
+        assert torch.equal(a, b)
+    g = np.random.default_rng(S)
+    n = fr.voted_for.shape[0]
+    rnd = fr._replace(msg_ids=_random_ids(uni, n, fr.msg_ids.shape[1], chk.id_dtype, S + 1))
+    for par in (fr, rnd):
+        pidx = torch.from_numpy(g.integers(0, n, 4096)).cuda()
+        slots = torch.from_numpy(g.integers(0, chk.K, 4096)).cuda()
+        kc, ka, ko = chk.mx.materialize(par, pidx, slots)
+        pc, pa, po = chk.mx.materialize_plain(par, pidx, slots)
+        assert all(torch.equal(x, y) for x, y in zip(kc, pc))
+        assert torch.equal(ka, pa) and torch.equal(ko, po)
+        msgs = bfs.ids_to_msgs(par.msg_ids, uni.n_words)
+        assert torch.equal(msgs, bfs.ids_to_msgs_plain(par.msg_ids, uni.n_words))
+        for cap_m in (par.msg_ids.shape[1], 6):  # 6: rows overflow
+            a = bfs.msgs_to_ids(msgs, uni.M, cap_m, chk.id_dtype)
+            b = bfs.msgs_to_ids_plain(msgs, uni.M, cap_m, chk.id_dtype)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if S == 7:
+        assert int(rnd.msg_ids.max()) >= 1 << 15
+    mixed = _mixed_rows(fr, S + 2)
+    for case in (fr, mixed):
+        cst = chk.inflate(case)
+        for name in sorted(INVARIANT_KERNELS) + ["~NoSplitVote", "~CommitAll"]:
+            want = int(inv_scan_plain(chk.cfg, cst, [name], chk.tables, 3))
+            assert int(chk.inv_scan(case, offset=3, names=[name])) == want, name

@@ -93,11 +93,6 @@ def test_universe_carry_round_trip():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-def test_factored_config_is_refused():
-    with pytest.raises(NotImplementedError, match="factored"):
-        Fingerprinter(RaftConfig(n_servers=7, n_vals=1, max_election=1, max_restart=1), device="cpu")
-
-
 @pytest.mark.parametrize("args,muts", [CASES[1], CASES[2], CASES[5]], ids=["s3v1", "ref", "legacy"])
 def test_guard_tables_match(args, muts):
     from tla_raft_tpu_torch.ops.successor import GuardTables

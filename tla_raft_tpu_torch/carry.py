@@ -29,6 +29,23 @@ def fingerprint_tables(c_planes, g_planes, device=None) -> dict:
     return dict(C_planes=_t(c_planes, device, torch.int8), G_planes=_t(g_planes, device, torch.int8))
 
 
+def factored_tables(gt_planes, ppfold, device=None) -> dict:
+    """The reference Fingerprinter's pair-block tables (``_Gt_planes``, one
+    i8 [stride_t, NP * chan * 4] table per message type) and its P-fold
+    one-hot ``_ppfold`` (f32 [P, NP * NP]) -> the port's ``Gt_planes`` and
+    ``fold_index`` ([P, NP]: the one-hot's column q * NP + PPERM[p, q] for
+    each (p, q))."""
+    oh = np.asarray(ppfold)
+    P, cols = oh.shape
+    NP = int(round(cols ** 0.5))
+    rows, idx = np.nonzero(oh)  # row-major: each row's columns ascending in q
+    if (NP * NP != cols or not np.all(oh[rows, idx] == 1)
+            or not np.array_equal(np.bincount(rows, minlength=P), np.full(P, NP))):
+        raise ValueError("ppfold is not a one-hot with NP ones per row")
+    return dict(Gt_planes=[_t(g, device, torch.int8) for g in gt_planes],
+                fold_index=_t(idx.reshape(P, NP), device, torch.int64))
+
+
 def mxu_tables(W, theta, slot_ok, BIG, col_off, device=None) -> dict:
     """The reference MXUTables: guard matrix, threshold, static slot mask,
     the per-slot constant block (as int64) and its column slices."""
@@ -50,11 +67,17 @@ def slot_layout(slot_family, slot_coords, device=None) -> dict:
 
 
 def universe_tables(uni, device=None) -> dict:
-    """Decode tables and the permutation table of a message universe
-    (either package's: both expose the same numpy attributes)."""
+    """Decode tables, the pair-permutation table and, where the fingerprints
+    fold messages through it (the monolithic form: P * M * 16 B <= 64 MiB),
+    the permutation table of a message universe (either package's: both
+    expose the same numpy attributes).  At S = 7 the [P, M] permutation
+    table would take 680 MB, and the factored form does not use it."""
     names = ("typ", "src", "dst", "term", "lli", "llt", "pli", "plt", "entry", "lc", "succ")
     out = {n: _t(getattr(uni, n), device, torch.int64) for n in names}
-    out["perm_table"] = _t(uni.perm_table, device, torch.int64)
+    out["pair_perm_table"] = _t(uni.pair_perm_table, device, torch.int64)
+    P = uni.pair_perm_table.shape[0]
+    if P * 16 * uni.M <= (64 << 20):
+        out["perm_table"] = _t(uni.perm_table, device, torch.int64)
     return out
 
 

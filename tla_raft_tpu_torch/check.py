@@ -11,6 +11,8 @@ level_sizes and violation.
     python -m tla_raft_tpu_torch.check --servers 2 --vals 1 \\
         --max-election 1 --max-restart 1 --device cpu                # plain torch
     python -m tla_raft_tpu_torch.check --max-depth 22 --dev-bytes 64e6  # tiered store
+    python -m tla_raft_tpu_torch.check --servers 5 --max-depth 16     # 5 servers
+    python -m tla_raft_tpu_torch.check --servers 7 --max-depth 9      # 7 servers
 
 Exit code 0 when no error was found, 1 on a violation.
 """
@@ -125,7 +127,10 @@ def main(argv=None) -> int:
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--mutate", action="append", default=[], choices=MUTATIONS,
                     help="compile in a planted semantic bug (repeatable)")
-    ap.add_argument("--chunk", type=int, default=16384, help="parents per guard launch")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="parents per guard launch (default: the largest power of two at or "
+                         "below 16,384 * 696 / K, at most 16,384: 16,384 at 3 servers, 4,096 "
+                         "at 5, 2,048 at 7)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--megakernel", type=int, choices=(0, 1), default=None,
                     help="the fused level: one CUDA graph launch and one read per level "
@@ -162,7 +167,7 @@ def main(argv=None) -> int:
                        superstep=args.superstep,
                        store_bytes=int(args.dev_bytes) if args.dev_bytes else None)
     print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
-    print(f"Config: {cfg.describe()}", file=out)
+    print(f"Config: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
     if chk.store_bytes:
         print(f"Tiered visited store: hot slab budget {chk.store_bytes:,} B (demotions spill "
               "to host generations)", file=out)

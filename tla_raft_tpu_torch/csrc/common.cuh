@@ -3,7 +3,9 @@
 //
 // A batch of states is 13 row-major uint8 arrays (the core fields of
 // models/raft.py, in that order) plus the message set, either as packed
-// 32-bit words or as an ascending, -1-padded int16 id list.  Every entry
+// 32-bit words or as an ascending, -1-padded id list (int16 while the
+// universe has M < 2^15 ids, int32 past it; the kernels that read ids are
+// instantiated for both and take the width as ``id_bytes``).  Every entry
 // point has a plain C interface (for ctypes), launches on the stream it is
 // given, allocates nothing, and returns cudaGetLastError().
 #pragma once

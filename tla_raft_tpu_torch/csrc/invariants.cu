@@ -58,7 +58,8 @@ __device__ bool leader_has_all(const Core& P, long long g, const Dims& d) {
 }
 
 // Any of the state's ids in [lo, lo + len)?
-__device__ inline bool has_in(const int16_t* ids, int cap_m, int lo, int len) {
+template <typename Id>
+__device__ inline bool has_in(const Id* ids, int cap_m, int lo, int len) {
   for (int j = 0; j < cap_m; ++j) {
     const int id = ids[j];
     if (id < 0) break;
@@ -67,7 +68,8 @@ __device__ inline bool has_in(const int16_t* ids, int cap_m, int lo, int len) {
   return false;
 }
 
-__device__ bool no_all_commit(const Core& P, const int16_t* ids, int cap_m, long long g,
+template <typename Id>
+__device__ bool no_all_commit(const Core& P, const Id* ids, int cap_m, long long g,
                               const Dims& d) {
   const int S = d.S, T = d.T, L = d.L;
   const int aq_block = (T + 1) * d.E * L;  // ids of one (src, dst, term, pli)
@@ -97,7 +99,8 @@ __device__ bool no_all_commit(const Core& P, const int16_t* ids, int cap_m, long
   return false;
 }
 
-__device__ bool holds(int code, const Core& P, const int16_t* ids, int cap_m, long long g,
+template <typename Id>
+__device__ bool holds(int code, const Core& P, const Id* ids, int cap_m, long long g,
                       const Dims& d) {
   const int S = d.S;
   switch (code) {
@@ -135,7 +138,8 @@ __device__ bool holds(int code, const Core& P, const int16_t* ids, int cap_m, lo
   }
 }
 
-__global__ void inv_scan_kernel(Core P, const int16_t* __restrict__ ids, int cap_m, long long n,
+template <typename Id>
+__global__ void inv_scan_kernel(Core P, const Id* __restrict__ ids, int cap_m, long long n,
                                 InvList inv, Dims d, long long offset,
                                 unsigned long long* __restrict__ first_bad, const int64_t* cnt,
                                 long long sub) {
@@ -151,11 +155,12 @@ __global__ void inv_scan_kernel(Core P, const int16_t* __restrict__ ids, int cap
 // that reads -1 when no row is bad, else the smallest bad row + offset.
 // fresh = 1 sets it to -1 first; fresh = 0 folds this batch into it.
 // With cnt, rows at or past live_count(cnt, sub, 1, n) are not scanned.
-EXPORT int launch_inv_scan(const void* const* core, const int16_t* ids, int cap_m, long long n,
-                           const int* codes, const int* negate, int n_inv, const int* dims,
-                           long long offset, int fresh, int64_t* first_bad,
+// id_bytes: 2 (int16 ids) or 4 (int32).
+EXPORT int launch_inv_scan(const void* const* core, const void* ids, int id_bytes, int cap_m,
+                           long long n, const int* codes, const int* negate, int n_inv,
+                           const int* dims, long long offset, int fresh, int64_t* first_bad,
                            const int64_t* cnt, long long sub, void* stream) {
-  if (n_inv > MAX_INV) return (int)cudaErrorInvalidValue;
+  if (n_inv > MAX_INV || (id_bytes != 2 && id_bytes != 4)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Core P;
   for (int i = 0; i < N_FIELDS; ++i) P.f[i] = (const uint8_t*)core[i];
@@ -166,11 +171,18 @@ EXPORT int launch_inv_scan(const void* const* core, const int16_t* ids, int cap_
     inv.negate[i] = negate[i];
   }
   if (fresh) cudaMemsetAsync(first_bad, 0xFF, sizeof(int64_t), st);
-  if (n > 0)
-    inv_scan_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        P, ids, cap_m, n, inv, load_dims(dims), offset, (unsigned long long*)first_bad, cnt,
-        sub);
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + 255) / 256);
+    if (id_bytes == 2)
+      inv_scan_kernel<int16_t><<<blocks, 256, 0, st>>>(
+          P, (const int16_t*)ids, cap_m, n, inv, load_dims(dims), offset,
+          (unsigned long long*)first_bad, cnt, sub);
+    else
+      inv_scan_kernel<int32_t><<<blocks, 256, 0, st>>>(
+          P, (const int32_t*)ids, cap_m, n, inv, load_dims(dims), offset,
+          (unsigned long long*)first_bad, cnt, sub);
+  }
   return (int)cudaGetLastError();
 }
 
-WARM((const void*)inv_scan_kernel)
+WARM((const void*)inv_scan_kernel<int16_t>, (const void*)inv_scan_kernel<int32_t>)

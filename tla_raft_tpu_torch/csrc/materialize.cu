@@ -15,16 +15,22 @@
 // Raft.tla:43-45).  Garbage lanes (indices clamped into range) compute
 // in-range garbage and never fault.
 //
+// Ids are int16 while M < 2^15 and int32 past it (S = 7: M = 33,768), the
+// reference's id_dtype (engine/bfs.py:547); the kernel is instantiated for
+// both.
+//
 // Bound: bytes.  Per lane it reads the parent row and id list
-// (~64 + 2 * cap_m B) and writes the same again plus the sent ids; the
-// work per lane is a few dozen integer operations and a cap_m-long scan.
+// (~64 + 2 * cap_m B, 4 * cap_m with int32 ids) and writes the same again
+// plus the sent ids; the work per lane is a few dozen integer operations and
+// a cap_m-long scan.
 #include "common.cuh"
 
-__global__ void materialize_kernel(Core P, const int16_t* __restrict__ ids, int cap_m, long long N,
+template <typename Id>
+__global__ void materialize_kernel(Core P, const Id* __restrict__ ids, int cap_m, long long N,
                                    const int64_t* __restrict__ pidx,
                                    const int64_t* __restrict__ slots, long long G,
                                    const int32_t* __restrict__ slot_tab, int K, Dims d, CoreOut C,
-                                   int32_t* __restrict__ added, int16_t* __restrict__ child_ids,
+                                   int32_t* __restrict__ added, Id* __restrict__ child_ids,
                                    bool* __restrict__ ovf, const int64_t* __restrict__ pay,
                                    long long pay_base, const int64_t* cnt, long long sub,
                                    long long* ovf_any) {
@@ -179,8 +185,8 @@ __global__ void materialize_kernel(Core P, const int16_t* __restrict__ ids, int 
   for (int a = 0; a < A; ++a) added[g * A + a] = sent[a];
 
   // child ids := parent ids with the live sent ids inserted in order
-  const int16_t* in = ids + p * cap_m;
-  int16_t* out = child_ids + g * cap_m;
+  const Id* in = ids + p * cap_m;
+  Id* out = child_ids + g * cap_m;
   for (int j = 0; j < cap_m; ++j) out[j] = in[j];
   bool of = false;
   for (int a = 0; a < A; ++a) {
@@ -196,7 +202,7 @@ __global__ void materialize_kernel(Core P, const int16_t* __restrict__ ids, int 
     if (present) continue;
     if (out[cap_m - 1] >= 0) of = true;  // the list is full: the last id drops
     for (int j = cap_m - 1; j > pos; --j) out[j] = out[j - 1];
-    if (pos < cap_m) out[pos] = (int16_t)aid;
+    if (pos < cap_m) out[pos] = (Id)aid;
   }
   ovf[g] = of;
   if (of && ovf_any) *ovf_any = 1;
@@ -205,14 +211,16 @@ __global__ void materialize_kernel(Core P, const int16_t* __restrict__ ids, int 
 // Lanes are (pidx, slots), or with pay non-null the payloads
 // pay = (parent + pay_base) * K + slot.  With cnt, lanes at or past
 // live_count(cnt, sub, 1, G) are dead (nothing written); ovf_any (i64, may
-// be null) is set to 1 when a live lane's id list overflows.
-EXPORT int launch_materialize(const void* const* core, const int16_t* ids, int cap_m,
+// be null) is set to 1 when a live lane's id list overflows.  id_bytes: 2
+// (int16 ids in and out) or 4 (int32).
+EXPORT int launch_materialize(const void* const* core, const void* ids, int id_bytes, int cap_m,
                               long long N, const int64_t* pidx, const int64_t* slots, long long G,
                               const int32_t* slot_tab, int K, const int* dims,
-                              void* const* core_out, int32_t* added, int16_t* child_ids,
+                              void* const* core_out, int32_t* added, void* child_ids,
                               bool* ovf, const int64_t* pay, long long pay_base,
                               const int64_t* cnt, long long sub, int64_t* ovf_any,
                               void* stream) {
+  if (id_bytes != 2 && id_bytes != 4) return (int)cudaErrorInvalidValue;
   Core P;
   CoreOut C;
   for (int i = 0; i < N_FIELDS; ++i) {
@@ -222,12 +230,18 @@ EXPORT int launch_materialize(const void* const* core, const int16_t* ids, int c
   Dims d = load_dims(dims);
   if (G > 0) {
     const int threads = 128;
-    const long long blocks = (G + threads - 1) / threads;
-    materialize_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        P, ids, cap_m, N, pidx, slots, G, slot_tab, K, d, C, added, child_ids, ovf, pay,
-        pay_base, cnt, sub, (long long*)ovf_any);
+    const unsigned blocks = (unsigned)((G + threads - 1) / threads);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (id_bytes == 2)
+      materialize_kernel<int16_t><<<blocks, threads, 0, st>>>(
+          P, (const int16_t*)ids, cap_m, N, pidx, slots, G, slot_tab, K, d, C, added,
+          (int16_t*)child_ids, ovf, pay, pay_base, cnt, sub, (long long*)ovf_any);
+    else
+      materialize_kernel<int32_t><<<blocks, threads, 0, st>>>(
+          P, (const int32_t*)ids, cap_m, N, pidx, slots, G, slot_tab, K, d, C, added,
+          (int32_t*)child_ids, ovf, pay, pay_base, cnt, sub, (long long*)ovf_any);
   }
   return (int)cudaGetLastError();
 }
 
-WARM((const void*)materialize_kernel)
+WARM((const void*)materialize_kernel<int16_t>, (const void*)materialize_kernel<int32_t>)

@@ -1,6 +1,7 @@
 // Message sets between their two forms: the sparse, ascending, -1-padded
-// int16 id list a frontier stores, and the packed 32-bit bitmask the
-// guards read.
+// id list a frontier stores (int16 ids while M < 2^15, int32 past it, as
+// the reference's id_dtype, engine/bfs.py:547), and the packed 32-bit
+// bitmask the guards read.
 //
 // Replaces the XLA programs of tla_raft_tpu/engine/bfs.py _ids_to_msgs
 // (inflate: a one-hot compare of every id against every word, summed) and
@@ -19,14 +20,16 @@
 // Both keep ascending order by construction: ids are written at their
 // rank among the set bits.
 //
-// Bound: bytes.  Inflate reads 2 * cap_m B and writes 4 * n_words B a
-// row; deflate reads 4 * n_words B and writes 2 * cap_m + 1 B.  The
+// Bound: bytes.  Inflate reads 2 * cap_m B (4 * cap_m with int32 ids) and
+// writes 4 * n_words B a row; deflate reads 4 * n_words B and writes
+// 2 * cap_m + 1 B (4 * cap_m + 1).  The
 // integer work is a few operations per id or word.
 #include "common.cuh"
 
 constexpr int WARPS = 8;  // states per block
 
-__global__ void inflate_kernel(const int16_t* __restrict__ ids, int cap_m, long long n,
+template <typename Id>
+__global__ void inflate_kernel(const Id* __restrict__ ids, int cap_m, long long n,
                                int n_words, uint32_t* __restrict__ msgs, const int64_t* cnt,
                                long long sub) {
   extern __shared__ uint32_t sh[];
@@ -36,7 +39,7 @@ __global__ void inflate_kernel(const int16_t* __restrict__ ids, int cap_m, long 
   uint32_t* w = sh + warp * n_words;
   for (int j = lane; j < n_words; j += 32) w[j] = 0u;
   __syncwarp();
-  const int16_t* r = ids + row * cap_m;
+  const Id* r = ids + row * cap_m;
   for (int j = lane; j < cap_m; j += 32) {
     const int id = r[j];
     if (id >= 0 && (id >> 5) < n_words) atomicOr(&w[id >> 5], 1u << (id & 31));
@@ -46,13 +49,14 @@ __global__ void inflate_kernel(const int16_t* __restrict__ ids, int cap_m, long 
   for (int j = lane; j < n_words; j += 32) out[j] = w[j];
 }
 
+template <typename Id>
 __global__ void deflate_kernel(const uint32_t* __restrict__ msgs, int n_words, int M, long long n,
-                               int cap_m, int16_t* __restrict__ ids, bool* __restrict__ ovf) {
+                               int cap_m, Id* __restrict__ ids, bool* __restrict__ ovf) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * WARPS + warp;
   if (row >= n) return;
   const uint32_t* m = msgs + row * n_words;
-  int16_t* out = ids + row * cap_m;
+  Id* out = ids + row * cap_m;
   int base = 0;
   for (int w0 = 0; w0 < n_words; w0 += 32) {
     const int w = w0 + lane;
@@ -72,7 +76,7 @@ __global__ void deflate_kernel(const uint32_t* __restrict__ msgs, int n_words, i
     int pos = base + inc - c;
     while (word) {
       const int b = __ffs(word) - 1;
-      if (pos < cap_m) out[pos] = (int16_t)(w * 32 + b);
+      if (pos < cap_m) out[pos] = (Id)(w * 32 + b);
       ++pos;
       word &= word - 1u;
     }
@@ -86,20 +90,37 @@ __global__ void deflate_kernel(const uint32_t* __restrict__ msgs, int n_words, i
 static inline unsigned blocks_of(long long n) { return (unsigned)((n + WARPS - 1) / WARPS); }
 
 // With cnt, rows at or past live_count(cnt, sub, 1, n) are dead (not written).
-EXPORT int launch_inflate(const int16_t* ids, int cap_m, long long n, int n_words, int32_t* msgs,
-                          const int64_t* cnt, long long sub, void* stream) {
-  if (n > 0)
-    inflate_kernel<<<blocks_of(n), WARPS * 32, WARPS * n_words * sizeof(uint32_t),
-                     (cudaStream_t)stream>>>(ids, cap_m, n, n_words, (uint32_t*)msgs, cnt, sub);
+// id_bytes: 2 (int16 ids) or 4 (int32 ids).
+EXPORT int launch_inflate(const void* ids, int id_bytes, int cap_m, long long n, int n_words,
+                          int32_t* msgs, const int64_t* cnt, long long sub, void* stream) {
+  if (id_bytes != 2 && id_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const size_t sm = WARPS * n_words * sizeof(uint32_t);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (id_bytes == 2)
+      inflate_kernel<int16_t><<<blocks_of(n), WARPS * 32, sm, st>>>(
+          (const int16_t*)ids, cap_m, n, n_words, (uint32_t*)msgs, cnt, sub);
+    else
+      inflate_kernel<int32_t><<<blocks_of(n), WARPS * 32, sm, st>>>(
+          (const int32_t*)ids, cap_m, n, n_words, (uint32_t*)msgs, cnt, sub);
+  }
   return (int)cudaGetLastError();
 }
 
 EXPORT int launch_deflate(const int32_t* msgs, int n_words, int M, long long n, int cap_m,
-                          int16_t* ids, bool* ovf, void* stream) {
-  if (n > 0)
-    deflate_kernel<<<blocks_of(n), WARPS * 32, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)msgs, n_words, M, n, cap_m, ids, ovf);
+                          void* ids, int id_bytes, bool* ovf, void* stream) {
+  if (id_bytes != 2 && id_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (id_bytes == 2)
+      deflate_kernel<int16_t><<<blocks_of(n), WARPS * 32, 0, st>>>(
+          (const uint32_t*)msgs, n_words, M, n, cap_m, (int16_t*)ids, ovf);
+    else
+      deflate_kernel<int32_t><<<blocks_of(n), WARPS * 32, 0, st>>>(
+          (const uint32_t*)msgs, n_words, M, n, cap_m, (int32_t*)ids, ovf);
+  }
   return (int)cudaGetLastError();
 }
 
-WARM((const void*)inflate_kernel, (const void*)deflate_kernel)
+WARM((const void*)inflate_kernel<int16_t>, (const void*)inflate_kernel<int32_t>,
+     (const void*)deflate_kernel<int16_t>, (const void*)deflate_kernel<int32_t>)

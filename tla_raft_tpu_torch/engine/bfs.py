@@ -73,7 +73,7 @@ import torch
 from .. import kernels
 from ..config import RaftConfig
 from ..device import READS, fetch, resolve_device
-from ..models.raft import Frontier, RaftState, core_of, init_batch, to_oracle
+from ..models.raft import Frontier, RaftState, core_of, id_dtype, init_batch, to_oracle
 from ..ops import hashstore
 from ..ops import sieve as sieve_ops
 from ..ops.fingerprint import Fingerprinter
@@ -114,6 +114,19 @@ def _cap_steps(n: int) -> int:
     p = _pow2(n)
     half = 3 * (p >> 2)
     return half if half >= n and half > 0 else p
+
+
+# the main path's lane budget per guard launch: chunk * K at S = 3 (K = 696)
+LANE_BUDGET = 16384 * 696
+
+
+def default_chunk(K: int) -> int:
+    """Parents per guard launch for K slots: the largest power of two at or
+    below ``LANE_BUDGET / K``, at most 16,384 (S = 3: 16,384; S = 5, K =
+    1,900: 4,096; S = 7, K = 3,696: 2,048), so the guard launch keeps the
+    S = 3 lane count as S grows, as the reference's bench.py:847-852 scales
+    its chunk."""
+    return min(16384, 1 << max(0, (LANE_BUDGET // max(K, 1)).bit_length() - 1))
 
 
 def compact_payloads(valid_flat: torch.Tensor, payload: torch.Tensor, cap_x: int):
@@ -167,9 +180,7 @@ def msgs_to_ids(msgs: torch.Tensor, M: int, cap_m: int, id_dtype):
     bool[n]): the deflate kernel on the card, the plain twin on the CPU."""
     if msgs.device.type == "cpu":
         return msgs_to_ids_plain(msgs, M, cap_m, id_dtype)
-    if id_dtype != torch.int16:
-        raise ValueError(f"the deflate kernel writes int16 ids, not {id_dtype}")
-    return kernels.deflate(msgs, M, cap_m)
+    return kernels.deflate(msgs, M, cap_m, id_dtype)
 
 
 def msgs_to_ids_plain(msgs: torch.Tensor, M: int, cap_m: int, id_dtype):
@@ -190,7 +201,7 @@ class TorchChecker:
 
     Parameters:
       device: ``None`` (the card; raises without CUDA), "cuda" or "cpu".
-      chunk: parents expanded per guard launch.
+      chunk: parents expanded per guard launch (``None``: ``default_chunk``).
       cap_x: compacted candidate lanes per chunk (grows on overflow).
       cap_m: message ids per frontier state (grows on overflow).
       progress: optional callable(level_stats_dict).
@@ -207,7 +218,7 @@ class TorchChecker:
         self,
         cfg: RaftConfig,
         device=None,
-        chunk: int = 16384,
+        chunk: int | None = None,
         cap_x: int | None = None,
         cap_m: int = 96,
         progress: Callable[[dict], None] | None = None,
@@ -215,8 +226,6 @@ class TorchChecker:
         superstep: int | None = None,
         store_bytes: int | None = None,
     ):
-        if chunk & (chunk - 1):
-            raise ValueError(f"chunk must be a power of two, got {chunk}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.uni = get_universe(cfg)
@@ -225,10 +234,14 @@ class TorchChecker:
         self.layout = self.mx.layout
         self.tables = GuardTables(cfg, self.device)
         self.K = self.layout.K
+        if chunk is None:
+            chunk = default_chunk(self.K)
+        if chunk & (chunk - 1):
+            raise ValueError(f"chunk must be a power of two, got {chunk}")
         self.chunk = int(chunk)
         self.cap_x = int(cap_x or 4 * chunk)
         self.cap_m = min(int(cap_m), self.uni.M)
-        self.id_dtype = torch.int16 if self.uni.M < (1 << 15) else torch.int32
+        self.id_dtype = id_dtype(cfg)
         self.progress = progress
         for name in cfg.invariants:
             resolve_invariant_kernel(name)  # an unknown name raises here

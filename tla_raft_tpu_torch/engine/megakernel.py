@@ -53,7 +53,7 @@ import time
 import torch
 
 from .. import kernels
-from ..models.raft import Frontier, RaftState, core_of
+from ..models.raft import Frontier, RaftState, core_of, id_dtype
 from ..ops import sieve as sieve_ops
 from ..ops.hashstore import compact_fresh_plain, probe_and_insert_plain
 from ..u64 import SENT
@@ -111,11 +111,12 @@ def mat_slice_width(cap_out: int, chunk: int) -> int:
 
 
 def empty_frontier(cfg, rows: int, cap_m: int, device) -> Frontier:
+    """A frontier buffer of ``rows`` empty rows (ids of the config's width)."""
     from ..kernels import _field_shapes
 
     shapes = _field_shapes(cfg)
     return Frontier(
-        msg_ids=torch.full((rows, cap_m), -1, dtype=torch.int16, device=device),
+        msg_ids=torch.full((rows, cap_m), -1, dtype=id_dtype(cfg), device=device),
         **{f: torch.zeros((rows, *shapes[f]), dtype=torch.uint8, device=device)
            for f in shapes},
     )

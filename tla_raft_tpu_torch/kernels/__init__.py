@@ -94,15 +94,23 @@ MATERIALIZE = Kernel(
     "materialize", "csrc/materialize.cu",
     "tla_raft_tpu/ops/mxu_expand.py:416 (MXUExpand.materialize_added, "
     "+ engine/bfs.py:861 _ids_insert)",
-    {"launch_materialize": [VP, VP, I32, I64, VP, VP, I64, VP, I32, VP, VP, VP, VP, VP,
+    {"launch_materialize": [VP, VP, I32, I32, I64, VP, VP, I64, VP, I32, VP, VP, VP, VP, VP,
                             VP, I64, VP, I64, VP, VP]},
 )
+_K3_ARGS = [VP, VP, I32, I32, I64, VP, I32, I32, I32, VP, VP, I32, VP, VP, VP, VP, VP, I64, VP]
+# K3, every launch (any symmetry group: P = 6, 120, 5,040 at S = 3, 5, 7)
 FINGERPRINT = Kernel(
     "fingerprint", "csrc/fingerprint.cu",
     "tla_raft_tpu/ops/fingerprint.py:517 (Fingerprinter.state_fingerprints: "
     "features:102, _plane_matmul:398, msg_hash:418, finalize:505)",
-    {"launch_fingerprints": [VP, VP, I32, I64, VP, VP, I32, I32, I32, VP, VP, VP, VP, I64,
-                             VP]},
+    {"launch_fingerprints": _K3_ARGS},
+)
+# K3's launches whose message part is the pair-block factored hash (S = 7)
+MSG_FACTORED = Kernel(
+    "msg_hash_factored", "csrc/fingerprint.cu",
+    "tla_raft_tpu/ops/fingerprint.py:424 (_msg_hash_factored, tables "
+    "_build_pair_block_tables:332)",
+    {"launch_fingerprints": _K3_ARGS},
 )
 HASHSTORE = Kernel(
     "hashstore", "csrc/hashstore.cu",
@@ -127,18 +135,18 @@ COMPACT = Kernel(
 INFLATE = Kernel(
     "inflate", "csrc/msgset.cu",
     "tla_raft_tpu/engine/bfs.py:833 (_ids_to_msgs, under _inflate:894)",
-    {"launch_inflate": [VP, I32, I64, I32, VP, VP, I64, VP]},
+    {"launch_inflate": [VP, I32, I32, I64, I32, VP, VP, I64, VP]},
 )
 DEFLATE = Kernel(
     "deflate", "csrc/msgset.cu",
     "tla_raft_tpu/engine/bfs.py:847 (_msgs_to_ids, under _deflate:899)",
-    {"launch_deflate": [VP, I32, I32, I64, I32, VP, VP, VP]},
+    {"launch_deflate": [VP, I32, I32, I64, I32, VP, I32, VP, VP]},
 )
 INV_SCAN = Kernel(
     "inv_scan", "csrc/invariants.cu",
     "tla_raft_tpu/engine/bfs.py:1794 (_inv_scan_impl over "
     "tla_raft_tpu/engine/invariants.py:21-149)",
-    {"launch_inv_scan": [VP, VP, I32, I64, VP, VP, I32, VP, I64, I32, VP, VP, I64, VP]},
+    {"launch_inv_scan": [VP, VP, I32, I32, I64, VP, VP, I32, VP, I64, I32, VP, VP, I64, VP]},
 )
 LEVEL = Kernel(
     "level", "csrc/level.cu",
@@ -191,7 +199,7 @@ DROP_ROWS = Kernel(
 )
 KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMPACT, INFLATE,
                                DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE, HS_PROBE,
-                               FILTER_COMPACT, DROP_ROWS)}
+                               FILTER_COMPACT, DROP_ROWS, MSG_FACTORED)}
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
@@ -199,6 +207,8 @@ STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "infla
 FUSED = STAGED + ("level", "superstep", "sieve")
 # the grouped level's own (levels past 16 * G chunks)
 GROUPED = ("hs_probe", "filter_compact")
+# K3's factored message part (where the folded table passes 64 MiB: S = 7)
+SCALE = ("msg_hash_factored",)
 
 
 def reset_launches() -> None:
@@ -364,8 +374,20 @@ def _stream() -> int:
 
 
 def _check_cfg(cfg, uni) -> None:
-    if not 2 <= cfg.S <= 8 or uni.M >= (1 << 15):
-        raise ValueError(f"the CUDA kernels take 2 <= S <= 8 and M < 2^15: {cfg.describe()}")
+    if not 2 <= cfg.S <= 8:
+        raise ValueError(f"the CUDA kernels take 2 <= S <= 8: {cfg.describe()}")
+
+
+_ID_BYTES = {torch.int16: 2, torch.int32: 4}
+
+
+def _ids(t: torch.Tensor, what: str, shape) -> int:
+    """Check a message-id list (int16 or int32, the universe's id width) and
+    return its width in bytes."""
+    if t.dtype not in _ID_BYTES:
+        raise ValueError(f"{what}: expected int16 or int32 ids, got {t.dtype}")
+    _need(t, what, t.dtype, shape)
+    return _ID_BYTES[t.dtype]
 
 
 # -- wrappers --------------------------------------------------------------------
@@ -435,7 +457,7 @@ def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None
     shapes = _field_shapes(cfg)
     core = _core_ptrs(fr, N, shapes)
     cap_m = fr.msg_ids.shape[1]
-    _need(fr.msg_ids, "msg_ids", torch.int16, (N, cap_m))
+    id_bytes = _ids(fr.msg_ids, "msg_ids", (N, cap_m))
     if pay is not None:
         _need(pay, "pay", torch.int64, (G,))
     else:
@@ -443,14 +465,14 @@ def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None
         _need(slots, "slots", torch.int64, (G,))
     dev = lanes.device
     if out is None:
-        child = Frontier(msg_ids=torch.empty((G, cap_m), dtype=torch.int16, device=dev),
+        child = Frontier(msg_ids=torch.empty((G, cap_m), dtype=fr.msg_ids.dtype, device=dev),
                          **{f: torch.empty((G, *shapes[f]), dtype=torch.uint8, device=dev)
                             for f in _CORE_FIELDS})
         added = torch.empty((G, A), dtype=torch.int32, device=dev)
         ovf = torch.empty((G,), dtype=torch.bool, device=dev)
     else:
         child, added, ovf = out
-        _need(child.msg_ids, "child msg_ids", torch.int16, (G, cap_m))
+        _need(child.msg_ids, "child msg_ids", fr.msg_ids.dtype, (G, cap_m))
         _need(added, "added", torch.int32, (G, A))
         _need(ovf, "ovf", torch.bool, (G,))
     out_ptrs = _core_ptrs(child, G, shapes)
@@ -458,7 +480,7 @@ def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None
         _need(ovf_any, "ovf_any", torch.int64, ())
     lib = MATERIALIZE.lib()
     MATERIALIZE.check(lib.launch_materialize(
-        core, fr.msg_ids.data_ptr(), cap_m, N, _p(pidx if pay is None else None),
+        core, fr.msg_ids.data_ptr(), id_bytes, cap_m, N, _p(pidx if pay is None else None),
         _p(slots if pay is None else None), G, mx.slot_table.data_ptr(), K,
         dims_array(cfg, uni), out_ptrs, added.data_ptr(), child.msg_ids.data_ptr(),
         ovf.data_ptr(), _p(pay), pay_base, _cnt(cnt), sub, _p(ovf_any), _stream(),
@@ -468,17 +490,16 @@ def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None
 
 
 def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0):
-    """K3: (fp_view i64[G], fp_full i64[G]) of a Frontier batch; lanes past
-    the device count ``cnt - sub`` get SENT."""
+    """K3: (fp_view i64[G], fp_full i64[G]) of a Frontier batch, from the
+    Fingerprinter's kernel tables (``fpr.ktab``); lanes past the
+    device count ``cnt - sub`` get SENT.  Launches with the factored
+    message hash also count as ``msg_hash_factored``."""
     cfg, uni = fpr.cfg, fpr.uni
     _check_cfg(cfg, uni)
     G = fr.msg_ids.shape[0]
     core = _core_ptrs(fr, G, _field_shapes(cfg))
     cap_m = fr.msg_ids.shape[1]
-    _need(fr.msg_ids, "msg_ids", torch.int16, (G, cap_m))
-    F, ncols = fpr.C_planes.shape
-    _need(fpr.C_planes, "C_planes", torch.int8, (F, ncols))
-    _need(fpr.G_planes, "G_planes", torch.int8, (uni.M, ncols))
+    id_bytes = _ids(fr.msg_ids, "msg_ids", (G, cap_m))
     if fpr.C_planes.device != fr.msg_ids.device:
         raise ValueError("fingerprints: tables and states on different devices")
     dev = fr.msg_ids.device
@@ -488,13 +509,26 @@ def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0):
     fpv, fpf = out
     _need(fpv, "fp_view", torch.int64, (G,))
     _need(fpf, "fp_full", torch.int64, (G,))
+    tab = fpr.ktab
+    f_pad = tab["f_pad"]
+    _need(tab["ct"], "ct", torch.int8, (fpr.P * fpr.N_CHAN * 4, f_pad))
+    if fpr.factored_msgs:
+        eff, pperm = tab["gt_eff"], tab["pperm"]
+        _need(eff, "gt_eff", torch.int32, (sum(uni.type_strides), fpr.NP, fpr.N_CHAN))
+        _need(pperm, "pperm", torch.uint8, (fpr.P, fpr.NP))
+        tdims = (I32 * 12)(*uni.type_offsets, *uni.type_strides, *tab["row_base"])
+    else:
+        eff, pperm, tdims = tab["msg_eff"], None, None
+        _need(eff, "msg_eff", torch.int32, (uni.M, fpr.P, fpr.N_CHAN))
     lib = FINGERPRINT.lib()
     FINGERPRINT.check(lib.launch_fingerprints(
-        core, fr.msg_ids.data_ptr(), cap_m, G, fpr.C_planes.data_ptr(),
-        fpr.G_planes.data_ptr(), F, ncols, fpr.P, dims_array(cfg, uni),
+        core, fr.msg_ids.data_ptr(), id_bytes, cap_m, G, tab["ct"].data_ptr(), f_pad,
+        fpr.spec.F, fpr.P, eff.data_ptr(), _p(pperm), fpr.NP, tdims, dims_array(cfg, uni),
         fpv.data_ptr(), fpf.data_ptr(), _cnt(cnt), sub, _stream(),
     ))
     FINGERPRINT.launches += int(G > 0)
+    if fpr.factored_msgs:
+        MSG_FACTORED.launches += int(G > 0)
     return fpv, fpf
 
 
@@ -669,30 +703,32 @@ def compact_tiles(n: int) -> int:
 
 
 def inflate(ids, n_words: int, *, out=None, cnt=None, sub=0):
-    """Sparse ids int16[n, cap_m] (-1 padded) -> packed int32 words [n, n_words]."""
+    """Sparse ids int16/int32 [n, cap_m] (-1 padded) -> packed int32 words
+    [n, n_words]."""
     n, cap_m = ids.shape
-    _need(ids, "msg_ids", torch.int16, (n, cap_m))
+    id_bytes = _ids(ids, "msg_ids", (n, cap_m))
     msgs = torch.empty((n, n_words), dtype=torch.int32, device=ids.device) if out is None else out
     _need(msgs, "msgs", torch.int32, (n, n_words))
     lib = INFLATE.lib()
-    INFLATE.check(lib.launch_inflate(ids.data_ptr(), cap_m, n, n_words, msgs.data_ptr(),
-                                     _cnt(cnt), sub, _stream()))
+    INFLATE.check(lib.launch_inflate(ids.data_ptr(), id_bytes, cap_m, n, n_words,
+                                     msgs.data_ptr(), _cnt(cnt), sub, _stream()))
     INFLATE.launches += int(n > 0)
     return msgs
 
 
-def deflate(msgs, M: int, cap_m: int):
+def deflate(msgs, M: int, cap_m: int, id_dtype):
     """Packed words int32[n, n_words] -> (ascending -1-padded ids
-    int16[n, cap_m], overflow bool[n])."""
+    [n, cap_m] of ``id_dtype`` (int16 for M < 2^15, else int32),
+    overflow bool[n])."""
     n, n_words = msgs.shape
-    if M >= (1 << 15) or n_words * 32 < M:
-        raise ValueError(f"deflate takes M < 2^15 ids in n_words * 32 >= M bits, got M={M}")
+    if id_dtype not in _ID_BYTES or M > 1 << (8 * _ID_BYTES[id_dtype] - 1) or n_words * 32 < M:
+        raise ValueError(f"deflate: M={M} ids do not fit {id_dtype} or {n_words} words")
     _need(msgs, "msgs", torch.int32, (n, n_words))
-    ids = torch.empty((n, cap_m), dtype=torch.int16, device=msgs.device)
+    ids = torch.empty((n, cap_m), dtype=id_dtype, device=msgs.device)
     ovf = torch.empty((n,), dtype=torch.bool, device=msgs.device)
     lib = DEFLATE.lib()
     DEFLATE.check(lib.launch_deflate(msgs.data_ptr(), n_words, M, n, cap_m, ids.data_ptr(),
-                                     ovf.data_ptr(), _stream()))
+                                     _ID_BYTES[id_dtype], ovf.data_ptr(), _stream()))
     DEFLATE.launches += int(n > 0)
     return ids, ovf
 
@@ -716,7 +752,7 @@ def inv_scan(cfg, uni, fr, names, offset: int = 0, into=None, *, cnt=None, sub=0
     n = fr.msg_ids.shape[0]
     core = _core_ptrs(fr, n, _field_shapes(cfg))
     cap_m = fr.msg_ids.shape[1]
-    _need(fr.msg_ids, "msg_ids", torch.int16, (n, cap_m))
+    id_bytes = _ids(fr.msg_ids, "msg_ids", (n, cap_m))
     codes = (I32 * len(names))(*(INV_CODES[nm.lstrip("~")] for nm in names))
     neg = (I32 * len(names))(*(int(nm.startswith("~")) for nm in names))
     if into is None:
@@ -726,7 +762,8 @@ def inv_scan(cfg, uni, fr, names, offset: int = 0, into=None, *, cnt=None, sub=0
         out = into
     lib = INV_SCAN.lib()
     INV_SCAN.check(lib.launch_inv_scan(
-        core, fr.msg_ids.data_ptr(), cap_m, n, codes, neg, len(names), dims_array(cfg, uni),
+        core, fr.msg_ids.data_ptr(), id_bytes, cap_m, n, codes, neg, len(names),
+        dims_array(cfg, uni),
         offset, int(into is None), out.data_ptr(), _cnt(cnt), sub, _stream(),
     ))
     INV_SCAN.launches += int(n > 0)

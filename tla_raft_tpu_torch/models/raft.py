@@ -7,7 +7,8 @@ per-server data is uint8, and the message set is a packed bitmask over
 the enumerated universe (ops/msg_universe.py), kept as int32 words that
 hold the u32 bit patterns.  ``Frontier`` is the same state with the
 bitmask replaced by the ascending, -1-padded list of the state's message
-ids (``msg_ids``, int16 while the universe fits).
+ids (``msg_ids``: int16 while the universe has fewer than 2^15 ids, int32
+past it, as the reference's ``id_dtype``; ``id_dtype`` below).
 
 Canonical-form invariants every kernel keeps: log slots at positions
 >= log_len are zero, and bits past the universe in the last word are
@@ -86,6 +87,13 @@ class OState(NamedTuple):
     restart_count: int
     pending_response: tuple
     val_sent: tuple
+
+
+def id_dtype(cfg: RaftConfig) -> torch.dtype:
+    """The message-id width of a config's frontiers (engine/bfs.py:547 of
+    the reference): int16 while M < 2^15 (S <= 5 at the Raft.cfg bounds),
+    int32 past it (S = 7: M = 33,768)."""
+    return torch.int16 if get_universe(cfg).M < (1 << 15) else torch.int32
 
 
 def core_of(st) -> dict:
