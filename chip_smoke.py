@@ -43,32 +43,45 @@ Phases, each printed as JSON lines:
                 and 5,040 permutations) fingerprints both, with its
                 pair-block factored message part at 7 servers (int32
                 message ids);
-   Each of phases 2-9 sets every kernel's launch count to 0 just before it
+10. orbit     — orbit pruning (``orbit=True``, the reference's
+                TLA_RAFT_ORBIT=1): the Raft.cfg constants at 7 servers to
+                depth 15 (levels 0-9 golden, and every level and the
+                generated count equal to a default-path run to the same
+                depth, whose wall is printed beside), at 5 servers to depth
+                16 and at 3 servers to depth 23 (level 23 on the grouped
+                chain, the orbit op inside the group graph), every level
+                golden; the per-level share of tied candidates of each run
+                and the launches of orbit, orbit_fold and K3's factored mode;
+   Each of phases 2-10 sets every kernel's launch count to 0 just before it
    runs, prints the counts just after, and fails if a kernel of its path
    did not launch (the staged phase: the staged chain's eight; the default
-   phase: every kernel but drop_rows and K3's factored mode; the tiered
-   phase: the fused path's eleven and drop_rows; the grouped phase: the
-   staged chain's, level, hs_probe and filter_compact; the scale phase: the
-   fused path's eleven and K3's factored mode; the others: the fused path's
-   eleven).  The
+   phase: every kernel but drop_rows, K3's factored mode and the orbit
+   pair; the tiered phase: the fused path's eleven and drop_rows; the
+   grouped phase: the staged chain's, level, hs_probe and filter_compact;
+   the scale phase: the fused path's eleven and K3's factored mode; the
+   orbit phase: the staged chain's, the grouped level's, K3's factored
+   mode, orbit and orbit_fold; the others: the fused path's eleven).  The
    default phase also prints graph launches and device-to-host reads per
    superstep and per fused level, each grouped level's reads, graph
    launches, K4 rounds, cap_g, lanes (against the ungrouped lane count)
    and seconds, the levels by route, the graph captures and their
    seconds, and peak device memory.
-10. twins     — one fused level and one superstep (two levels) on the
+11. twins     — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
-11. kernels   — each kernel against its plain torch twin on the card, at
+12. kernels   — each kernel against its plain torch twin on the card, at
                 the main path's shapes, with times, bounds and the launches
                 of its phase (drop_rows: the tiered phase; K3's factored
-                mode: the scale phase; the rest: the default phase); then
+                mode: the scale phase; orbit and orbit_fold: the orbit
+                phase, on a chunk of its 7-server run's last frontier,
+                with K3's full fold of the same chunk timed beside; the
+                rest: the default phase); then
                 the kernels again at 5 and 7 servers on the scale runs'
                 frontiers (K1 at K = 1,900 / 3,696, K2, inflate and deflate
                 with int32 ids, K3 at P = 120 and factored at P = 5,040,
                 inv_scan, K4, hs_probe, filter_compact, level control),
                 all in one ``kernels`` line;
-12. profile   — one deep level (2,150,466 parents) on the staged chain and
+13. profile   — one deep level (2,150,466 parents) on the staged chain and
                 as one fused-level graph, under torch.profiler: kernel time
                 by name and the device's idle share.
 
@@ -125,6 +138,10 @@ SCALE_GOLDEN = {
     7: dict(depth=9, distinct=3_736, generated=22_776, levels=[
         1, 1, 3, 9, 24, 66, 171, 418, 960, 2083]),
 }
+# the orbit phase's depths: 7 servers past the reference's record (depth 9)
+# to 15, 5 servers to the scale cell's 16, 3 servers to 23 (level 23
+# grouped)
+ORBIT_DEPTHS = {7: 15, 5: 16, 3: 23}
 DOUBLE_VOTE = dict(result=(False, 359, 707, 8),
                    trace_sha256="54144ebf556e93bb8f6c0f2eab315032283bd583ed12112600368de2d9e73662")
 CHUNK = 16384  # parents per guard launch on the main path
@@ -495,6 +512,221 @@ def phase_scale() -> dict:
               f"S={S}: K3 launches {k3}")
         runs[S] = chk
     return runs
+
+
+def _release_cache() -> float:
+    """The earlier runs' cached device blocks back to the card (a graph
+    capture would charge their release to a run's first capture): the
+    seconds it took."""
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def _orbit_run(S: int, depth: int, orbit: bool, tied_log: list | None = None):
+    """The Raft.cfg constants at ``S`` servers to ``depth``, orbit pruning on
+    or off (the default path): (checker, result, record).  With
+    ``tied_log`` the orbit run's tied and live candidates are summed on the
+    card per level, over every attempt of a level (in the group graphs
+    too), and read once a level into it (the orbit wall includes those
+    reads)."""
+    import torch
+
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+    from tla_raft_tpu_torch.ops.fingerprint import OrbitScratch
+
+    release_s = _release_cache()
+    levels = []
+    acc = torch.zeros((2,), dtype=torch.int64, device="cuda")
+
+    def progress(lv):
+        levels.append(lv)
+        if tied_log is not None:
+            tied, live = (int(x) for x in acc.tolist())
+            tied_log.append(dict(level=lv["level"], tied=tied, live=live,
+                                 share=tied / max(live, 1)))
+            acc.zero_()
+
+    chk = TorchChecker(RaftConfig(n_servers=S), device="cuda", orbit=orbit, progress=progress)
+    if tied_log is not None:
+        fold = chk.fpr.orbit_chunk_fps
+
+        def counted(children, cap_nd, cnt, **kw):
+            if kw.get("scratch") is None:
+                kw["scratch"] = OrbitScratch(children.msg_ids.shape[0], cap_nd, "cuda")
+            out = fold(children, cap_nd, cnt, **kw)
+            acc[0] += kw["scratch"].n_tied
+            acc[1] += cnt
+            return out
+
+        chk.fpr.orbit_chunk_fps = counted
+    before = kernels.launch_counts()
+    D.READS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = chk.run(max_depth=depth)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    elapsed = [lv["elapsed"] for lv in levels]
+    rec = dict(servers=S, orbit=orbit, depth=res.depth, distinct=res.distinct,
+               generated=res.generated, level_sizes=list(res.level_sizes), seconds=secs,
+               distinct_per_s=res.distinct / secs, peak_bytes=torch.cuda.max_memory_allocated(),
+               chunk=chk.chunk, cap_x=chk.cap_x, cap_nd=chk.cap_nd, cap_m=chk.cap_m,
+               slab_rows=chk.hstore.cap, routes=dict(chk.routes), redos=dict(chk.redos),
+               reads=dict(D.READS), grouped_levels=chk.group_log,
+               captures=chk.graph_stats["captures"],
+               capture_seconds=chk.graph_stats["capture_seconds"],
+               cache_release_seconds=release_s,
+               launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
+               level_seconds=[b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)])
+    return chk, res, rec
+
+
+def phase_orbit() -> dict:
+    """Orbit pruning on the staged and grouped chains: 7 servers to depth
+    15 against the default path to the same depth (levels 0-9 golden), 5
+    servers to depth 16 and 3 servers to depth 23, golden.  Returns the
+    7-server orbit checker (the kernels phase's inputs)."""
+    from tla_raft_tpu_torch import kernels
+
+    out = {}
+    for S, depth in ORBIT_DEPTHS.items():
+        golden = GOLDEN_LEVELS_REF if S == 3 else SCALE_GOLDEN[S]["levels"]
+        tied: list = []
+        chk, res, rec = _orbit_run(S, depth, True, tied)
+        rec["tied_per_level"] = tied
+        emit(dict(phase="orbit", **rec))
+        n_gold = min(depth, len(golden) - 1) + 1
+        check(res.ok and list(res.level_sizes)[:n_gold] == golden[:n_gold]
+              and res.depth == depth, f"orbit S={S}: levels {res.level_sizes} != golden")
+        check(S != 5 or (res.distinct, res.generated) == (SCALE_GOLDEN[5]["distinct"],
+                                                          SCALE_GOLDEN[5]["generated"]),
+              f"orbit S=5: {res.distinct} / {res.generated}")
+        L = rec["launches"]
+        fp = L.get("fingerprint", 0)
+        check(L.get("orbit", 0) > 0 and L.get("orbit_fold", 0) > 0 and fp == 1
+              and L.get("msg_hash_factored", 0) == (L["orbit_fold"] + fp if S == 7 else 0),
+              f"orbit S={S}: launches {L} (K3 only at the root, every fold factored at S=7)")
+        # no fused level or superstep; the level kernel only as group control
+        check(not L.get("superstep") and not L.get("sieve") and (S == 3 or not L.get("level")),
+              f"orbit S={S}: a fused program ran {L}")
+        if S == 3:
+            check(chk.routes["grouped"] == 1 and chk.group_log[0]["level"] == 23
+                  and chk.group_log[0]["parents"] == GOLDEN_LEVELS_REF[22],
+                  f"orbit S=3: grouped levels {chk.group_log}")
+        if S == 7:
+            _c, want, base = _orbit_run(7, depth, False)
+            base.pop("grouped_levels")
+            emit(dict(phase="orbit_baseline", **base))
+            check(list(want.level_sizes) == list(res.level_sizes)
+                  and (want.distinct, want.generated) == (res.distinct, res.generated)
+                  and want.action_counts == res.action_counts,
+                  f"orbit S=7: {res.level_sizes} / {res.generated} != the default path's "
+                  f"{want.level_sizes} / {want.generated}")
+            emit(dict(phase="orbit_s7_walls", orbit_seconds=rec["seconds"],
+                      default_seconds=base["seconds"], tied_share=[t["share"] for t in tied],
+                      launches={k: rec["launches"].get(k, 0) for k in
+                                ("orbit", "orbit_fold", "msg_hash_factored")}))
+            out[7] = chk
+        chk._progs.clear()
+    return out
+
+
+def phase_orbit_kernels(chk, launches: dict) -> list:
+    """``orbit`` and K3's indexed mode (``orbit_fold``) against their twins
+    on one chunk of candidates expanded from the 7-server orbit run's last
+    frontier (the main path's shapes: chunk 2,048 parents, cap_x lanes),
+    plus the whole chunk path and K3's full fold of the same lanes timed
+    beside: (records, shapes)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import bfs
+    from tla_raft_tpu_torch.models.raft import Frontier
+    from tla_raft_tpu_torch.ops.fingerprint import OrbitScratch
+
+    dev = torch.device("cuda")
+    fr, mx, fpr, K, B = chk.frontier, chk.mx, chk.fpr, chk.K, chk.chunk
+    part = Frontier(*(x[:B] for x in fr))
+    nb = part.voted_for.shape[0]
+    valid, _m, _a = mx.guards(chk.inflate(part))
+    payload = (torch.arange(nb, device=dev)[:, None] * K + torch.arange(K, device=dev)).reshape(-1)
+    cp, lane, _o = bfs.compact_payloads(valid.reshape(-1), payload, chk.cap_x)
+    live = int(lane.sum())
+    children = mx.materialize(part, torch.div(cp, K, rounding_mode="floor").clamp(0, nb - 1),
+                              cp % K)[0]
+    G = children.voted_for.shape[0]
+    cnt = torch.tensor(live, device=dev)
+    idb = children.msg_ids.element_size()
+    row_b = _core_bytes(children) + idb * children.msg_ids.shape[1]
+    lv = Frontier(*(x[:live] for x in children))
+    out = []
+    # orbit: every live row against the twin (on the card)
+    outs = (torch.empty(G, dtype=torch.int64, device=dev), torch.empty(G, dtype=torch.int64,
+                                                                         device=dev))
+    disc = torch.empty(G, dtype=torch.bool, device=dev)
+    rank = torch.empty(G, dtype=torch.int32, device=dev)
+    kernels.orbit(fpr, children, out=outs, discrete=disc, rank=rank, cnt=cnt)
+    pv, pf, pd, pr = fpr.state_fingerprints_orbit_plain(lv)
+    check(_equal(outs[0][:live], pv) and _equal(outs[1][:live], pf) and _equal(disc[:live], pd)
+          and _equal(rank[:live].long(), pr) and bool((outs[0][live:] == -1).all()),
+          "orbit differs from its twin")
+    ms = cuda_ms(lambda: kernels.orbit(fpr, children, out=outs, discrete=disc, rank=rank,
+                                       cnt=cnt), 10)
+    plain = wall_ms(lambda: fpr.state_fingerprints_orbit_plain(lv))
+    F, f_pad, S, P, NP = fpr.spec.F, fpr.ktab["f_pad"], chk.cfg.S, fpr.P, fpr.NP
+    ids = lv.msg_ids.long()
+    n_ids = int((ids >= 0).sum())
+    # the table entries this chunk reads: the plane rows of its ranks and one
+    # message entry per distinct (id, rank) (16 B each), W once
+    rk = rank[:live].long()
+    ranks = int(torch.unique(rk).numel())
+    keys = torch.where(ids >= 0, ids * P + rk[:, None], torch.full_like(ids, -1))
+    entries = int(torch.unique(keys).numel()) - int(bool((keys < 0).any()))
+    bytes_ = live * (row_b + 22) + ranks * 16 * f_pad + entries * 16 + 4 * fpr.orbit_tables[
+        "w_cat"].numel()
+    ops = live * (8 * F + 3 * 2 * S * (S - 1) * 12 + 2 * S * S) + 5 * n_ids
+    rec = _entry(out, launches, kernels.ORBIT, ms, plain, bytes_, None, ops)
+    tied = live - int(disc[:live].sum())
+    rec.update(servers=S, lanes=live, set_ids=n_ids, tied=tied, distinct_ranks=ranks)
+    # K3's indexed mode over the chunk's tied rows, and the whole chunk path
+    scr = OrbitScratch(G, chk.cap_nd, dev)
+    fpr.orbit_chunk_fps(children, chk.cap_nd, cnt, out=outs, scratch=scr)
+    n_t = min(int(scr.n_tied), chk.cap_nd)
+    rows = scr.idx[:n_t]
+    sv, sf = fpr.state_fingerprints_plain(Frontier(*(x[rows] for x in children)))
+    check(n_t > 0 and _equal(outs[0][rows], sv) and _equal(outs[1][rows], sf),
+          f"orbit_fold differs from its twin ({n_t} tied rows)")
+    fold_out = (outs[0].clone(), outs[1].clone())
+    ms_f = cuda_ms(lambda: kernels.fingerprints(fpr, children, out=fold_out, idx=scr.idx,
+                                                cnt=scr.n_tied), 10)
+    tied_rows = Frontier(*(x[rows] for x in children))
+    plain_f = wall_ms(lambda: fpr.state_fingerprints_plain(tied_rows))
+    t_ids = int((tied_rows.msg_ids >= 0).sum())
+    tab = fpr.ktab
+    tab_b = tab["ct"].numel() + (tab["gt_eff"].numel() * 4 + tab["pperm"].numel()
+                                 if fpr.factored_msgs else tab["msg_eff"].numel() * 4)
+    int8_ms = 2 * n_t * f_pad * P * 16 / INT8_TENSOR_OPS_PER_S * 1e3
+    add_ms = t_ids * P * 4 / INT_OPS_PER_S * 1e3
+    rec_f = _entry(out, launches, kernels.ORBIT_FOLD, ms_f, plain_f,
+                   n_t * (row_b + 8 + 16) + tab_b, None, ops_ms=int8_ms + add_ms)
+    rec_f.update(servers=S, tied_rows=n_t, set_ids=t_ids, P=P)
+    chunk_ms = cuda_ms(lambda: fpr.orbit_chunk_fps(children, chk.cap_nd, cnt, out=outs,
+                                                   scratch=scr), 10)
+    k3 = (torch.empty(G, dtype=torch.int64, device=dev), torch.empty(G, dtype=torch.int64,
+                                                                       device=dev))
+    k3_ms = cuda_ms(lambda: kernels.fingerprints(fpr, children, out=k3, cnt=cnt), 3)
+    return out, dict(servers=S, frontier_rows=fr.voted_for.shape[0], parents=nb, lanes=live,
+                     cap_x=G, cap_nd=chk.cap_nd, tied=tied, orbit_chunk_path_ms=chunk_ms,
+                     k3_full_fold_ms=k3_ms)
 
 
 def phase_digests(staged: list, default: list, depth: int) -> None:
@@ -1489,7 +1721,8 @@ def main() -> int:
     staged, _ = run("staged", kernels.STAGED, phase_staged, DEPTH, CHUNK)
     chk, staged_digests = staged if staged else (None, None)
     default_digests, launches = run(
-        "default", [k for k in kernels.KERNELS if k not in ("drop_rows",) + kernels.SCALE],
+        "default", [k for k in kernels.KERNELS
+                    if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH],
         phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
@@ -1507,11 +1740,20 @@ def main() -> int:
     # 5 and 7 servers: K3 with its factored message part at 7
     runs, scale_launches = run("scale", fused + kernels.SCALE, phase_scale)
     launches.update({k: scale_launches[k] for k in kernels.SCALE})
-    records, shapes, scale_times = [], None, None
+    # orbit pruning: the staged and grouped chains with the orbit pair
+    orbit_runs, orbit_launches = run(
+        "orbit", ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate",
+                  "deflate", "inv_scan", "level") + kernels.GROUPED + kernels.SCALE
+        + kernels.ORBIT_PATH, phase_orbit)
+    launches.update({k: orbit_launches[k] for k in kernels.ORBIT_PATH})
+    records, shapes, scale_times, orbit_shapes = [], None, None, None
     for name, fn, args in (("twins", phase_twins, (CHUNK,)),
                            ("kernels", phase_kernels, (chk, launches, SEED)),
-                           ("scale_kernels", phase_scale_kernels, (runs, launches, SEED))):
-        if chk is None or (name == "scale_kernels" and not runs):
+                           ("scale_kernels", phase_scale_kernels, (runs, launches, SEED)),
+                           ("orbit_kernels", phase_orbit_kernels,
+                            ((orbit_runs or {}).get(7), launches))):
+        if chk is None or (name == "scale_kernels" and not runs) or (
+                name == "orbit_kernels" and not orbit_runs):
             failures.append(f"{name}: no reference run to test on")
             continue
         try:
@@ -1525,9 +1767,12 @@ def main() -> int:
         elif name == "scale_kernels":
             records += res[0]
             scale_times = res[1]
-    runs = None  # free the scale runs' frontiers and slabs
+        elif name == "orbit_kernels":
+            records += res[0]
+            orbit_shapes = res[1]
+    runs = orbit_runs = None  # free the scale and orbit runs' frontiers and slabs
     torch.cuda.empty_cache()
-    emit(dict(kernels=records, shapes=shapes, scale=scale_times))
+    emit(dict(kernels=records, shapes=shapes, scale=scale_times, orbit=orbit_shapes))
     if chk is not None:
         phase_profile(chk)
     smi = subprocess.run(

@@ -479,3 +479,131 @@ def test_scale_kernels_equal_twins(scale, S):
         for name in sorted(INVARIANT_KERNELS) + ["~NoSplitVote", "~CommitAll"]:
             want = int(inv_scan_plain(chk.cfg, cst, [name], chk.tables, 3))
             assert int(chk.inv_scan(case, offset=3, names=[name])) == want, name
+
+
+# -- orbit pruning (B17): the orbit kernel, K3's indexed mode, the chunk path ------
+
+
+def _tied_rows(fr, k):
+    """The first k rows made server-symmetric (every server's data equal to
+    server 1's, votedFor None, no messages): their colours tie."""
+    out = [x.clone() for x in fr]
+    f = Frontier(*out)
+    for name in ("current_term", "role", "log_len", "commit_index", "log_term", "log_val"):
+        t = getattr(f, name)
+        t[:k] = t[:k, :1]
+    for name in ("match_index", "next_index", "pending"):
+        t = getattr(f, name)
+        t[:k] = t[:k, :1, 1:2]
+    f.voted_for[:k] = 0
+    f.msg_ids[:k] = -1
+    return f
+
+
+def _orbit_cases(chk, seed):
+    fr = chk.frontier
+    n = fr.voted_for.shape[0]
+    rnd = fr._replace(msg_ids=_random_ids(chk.uni, n, fr.msg_ids.shape[1], chk.id_dtype, seed))
+    return [fr, _mixed_rows(fr, seed), rnd, _tied_rows(_mixed_rows(fr, seed + 1), n // 4)]
+
+
+@pytest.mark.parametrize("S", [3, 5, 7])
+def test_orbit_kernel_equals_twin(scale, run, S):
+    """The orbit kernel (monolithic tables at S = 3, 5, factored at 7) on
+    the frontier, mixed rows, random id lists and tied rows: fp_view,
+    fp_full, discrete and rank equal the twin's on every row; a counted
+    launch leaves the rows past its count SENT."""
+    from tla_raft_tpu_torch import kernels
+
+    chk = run if S == 3 else scale[S]
+    fpr = chk.fpr
+    before = kernels.launch_counts()["orbit"]
+    cases = _orbit_cases(chk, 20 + S)
+    for case in cases:
+        fv, ff, disc, rank = fpr.state_fingerprints_orbit(case)
+        pv, pf, pd, pr = fpr.state_fingerprints_orbit_plain(Frontier(*(x.cpu() for x in case)))
+        assert torch.equal(fv.cpu(), pv) and torch.equal(ff.cpu(), pf)
+        assert torch.equal(disc.cpu(), pd) and torch.equal(rank.cpu().long(), pr)
+    assert kernels.launch_counts()["orbit"] - before == len(cases)
+    assert not bool(disc[: cases[-1].voted_for.shape[0] // 4].any())
+    fr = cases[1]
+    n = fr.voted_for.shape[0]
+    fv, ff, disc, rank = kernels.orbit(fpr, fr, cnt=torch.tensor(n // 3, device="cuda"))
+    pv, pf, _pd, _pr = fpr.state_fingerprints_orbit_plain(Frontier(*(x[: n // 3].cpu() for x in fr)))
+    assert torch.equal(fv[: n // 3].cpu(), pv) and torch.equal(ff[: n // 3].cpu(), pf)
+    assert bool((fv[n // 3:] == -1).all()) and not bool(disc[n // 3:].any())
+
+
+@pytest.mark.parametrize("S", [3, 5, 7])
+def test_indexed_fold_equals_k3(scale, run, S):
+    """K3's indexed mode folds exactly the indexed rows under its device
+    count (their values equal K3's over all rows), leaves every other
+    output as it was, counts as orbit_fold, and sets its overflow word when
+    the count passes its index rows."""
+    from tla_raft_tpu_torch import kernels
+
+    chk = run if S == 3 else scale[S]
+    fr = _mixed_rows(chk.frontier, 30 + S)
+    n = fr.voted_for.shape[0]
+    want = chk.fpr.state_fingerprints(fr)
+    g = np.random.default_rng(S)
+    idx = torch.from_numpy(np.sort(g.choice(n, min(n, 200), replace=False))).cuda()
+    for count, cap in ((idx.shape[0] // 2, idx.shape[0]), (idx.shape[0], idx.shape[0] // 2)):
+        out = (torch.full((n,), 7, dtype=torch.int64, device="cuda"),
+               torch.full((n,), 9, dtype=torch.int64, device="cuda"))
+        ovf = torch.zeros((), dtype=torch.int64, device="cuda")
+        before = kernels.launch_counts()
+        kernels.fingerprints(chk.fpr, fr, out=out, idx=idx[:cap].contiguous(),
+                             cnt=torch.tensor(count, device="cuda"), ovf=ovf)
+        after = kernels.launch_counts()
+        hit = idx[: min(count, cap)]
+        mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+        mask[hit] = True
+        for o, w, fill in ((out[0], want[0], 7), (out[1], want[1], 9)):
+            assert torch.equal(o[mask], w[mask]) and bool((o[~mask] == fill).all())
+        assert int(ovf) == int(count > cap)
+        assert after["orbit_fold"] - before["orbit_fold"] == 1
+        assert after["fingerprint"] == before["fingerprint"]
+        assert after["msg_hash_factored"] - before["msg_hash_factored"] == int(S == 7)
+
+
+@pytest.mark.parametrize("S", [3, 7])
+def test_orbit_chunk_path_equals_twin(scale, run, S):
+    """The chunk path on the card (orbit kernel, tied compaction, indexed
+    fold, under a device count) equals ``orbit_chunk_fps_plain`` on its live
+    rows, with the tied rows within the budget and past it (the overflow
+    word set, the first cap_nd tied rows folded, as the twin).  At S=7 most
+    rows of a shallow frontier tie, so the budgets follow the tied count."""
+    chk = run if S == 3 else scale[S]
+    fr = _tied_rows(_mixed_rows(chk.frontier, 40 + S), 64)
+    n = fr.voted_for.shape[0]
+    live = n - n // 5
+    lane = torch.arange(n, device="cuda") < live
+    _v, _f, disc, _r = chk.fpr.state_fingerprints_orbit_plain(fr)
+    tied = int((lane & ~disc).sum())
+    assert tied >= 64
+    for cap_nd in (tied, tied // 2):
+        fv, ff, ovf = chk.fpr.orbit_chunk_fps(fr, cap_nd, torch.tensor(live, device="cuda"))
+        pv, pf, po = chk.fpr.orbit_chunk_fps_plain(fr, lane, cap_nd)  # the twin on the card
+        assert torch.equal(fv[:live], pv[:live]) and torch.equal(ff[:live], pf[:live])
+        assert bool((fv[live:] == -1).all()) and bool((ff[live:] == -1).all())
+        assert int(ovf) == int(bool(po)) == int(cap_nd < tied)
+
+
+def test_orbit_runs_on_the_card_equal_the_cpu(run):
+    """(3,1,2,1) to depth 13 under orbit with G = 1 at chunk 64 (levels
+    12-13 grouped: the orbit op inside the group graph) and all staged, on
+    the card and on the CPU: the same result and visited set."""
+    def go(device, G=None):
+        chk = TorchChecker(RaftConfig(3, 1, 2, 1), device=device, chunk=64, orbit=True)
+        if G:
+            chk.G, chk.cap_g = G, G * chk.cap_x // 2
+        res = chk.run(max_depth=13)
+        slab = chk.hstore.slab.cpu()
+        return chk, res, torch.sort(slab[slab != -1]).values
+
+    _c, want, want_set = go("cpu")
+    for G in (None, 1):
+        chk, got, got_set = go("cuda", G)
+        assert _result_tuple(got) == _result_tuple(want) and torch.equal(got_set, want_set)
+        assert chk.routes["grouped"] == (2 if G else 0)

@@ -46,6 +46,17 @@ def factored_tables(gt_planes, ppfold, device=None) -> dict:
                 fold_index=_t(idx.reshape(P, NP), device, torch.int64))
 
 
+def orbit_tables(psi, ppinv, qidx, W, fact, device=None) -> dict:
+    """The reference Fingerprinter's ``_orbit_tables`` (orbit pruning:
+    ``psi`` [P, F], ``ppinv`` [P, NP], ``qidx`` [S, S], the per-type
+    pair-hash coefficients ``W`` (int32), ``fact`` [S]) -> the port's
+    ``Fingerprinter.orbit_tables`` entries of the same names (int64 index
+    tables, int32 ``W``)."""
+    return dict(psi=_t(psi, device, torch.int64), ppinv=_t(ppinv, device, torch.int64),
+                qidx=_t(qidx, device, torch.int64), W=[_t(w, device, torch.int32) for w in W],
+                fact=_t(fact, device, torch.int64))
+
+
 def mxu_tables(W, theta, slot_ok, BIG, col_off, device=None) -> dict:
     """The reference MXUTables: guard matrix, threshold, static slot mask,
     the per-slot constant block (as int64) and its column slices."""

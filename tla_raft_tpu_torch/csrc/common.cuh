@@ -154,3 +154,35 @@ __device__ inline int rank_median(const uint8_t* row, int S, int median_index) {
   }
   return med;
 }
+
+// Feature e of state g: the flattening of ops/fingerprint.py FeatureSpec
+// (currentTerm, role, logTerm, logVal, logLen, matchIndex, nextIndex,
+// commitIndex, the votedFor one-hot, electionCount, restartCount,
+// pendingResponse, valSent), as the uint8 value (callers wrap it to int8).
+__device__ inline int feature(const Core& P, long long g, int e, const Dims& d) {
+  const int S = d.S, L = d.L;
+  if (e < S) return P.f[CT][g * S + e];
+  e -= S;
+  if (e < S) return P.f[ROLE][g * S + e];
+  e -= S;
+  if (e < S * L) return P.f[LT][g * S * L + e];
+  e -= S * L;
+  if (e < S * L) return P.f[LV][g * S * L + e];
+  e -= S * L;
+  if (e < S) return P.f[LL][g * S + e];
+  e -= S;
+  if (e < S * S) return P.f[MI][g * S * S + e];
+  e -= S * S;
+  if (e < S * S) return P.f[NI][g * S * S + e];
+  e -= S * S;
+  if (e < S) return P.f[CI][g * S + e];
+  e -= S;
+  if (e < S * (S + 1)) return P.f[VF][g * S + e / (S + 1)] == e % (S + 1);
+  e -= S * (S + 1);
+  if (e == 0) return P.f[EC][g];
+  if (e == 1) return P.f[RC][g];
+  e -= 2;
+  if (e < S * S) return P.f[PEND][g * S * S + e];
+  e -= S * S;
+  return P.f[VS][g * d.V + e];
+}

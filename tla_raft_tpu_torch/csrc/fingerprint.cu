@@ -33,6 +33,14 @@
 //   table (543 KB at S = 7) — the reference's partial sums R[q, q'] folded
 //   by PPERM, computed per id and permutation in exact u32 arithmetic.
 //
+//   Indexed mode (orbit pruning, B17: the exact fold of the tied rows of
+//   tla_raft_tpu/engine/bfs.py _orbit_chunk_fps :1056): launch row i is
+//   state idx[i] and writes fp_view / fp_full[idx[i]], for i below a device
+//   count (the tied rows' compaction total), so the fold runs inside a
+//   captured graph with no host read; a first kernel sets just those
+//   outputs to SENT (the others keep the orbit kernel's values) and sets an
+//   overflow word when the count passes the index budget.
+//
 //   An earlier form (a warp per state, the 16 P plane columns over its lanes
 //   in int32 on the CUDA cores) took 0.76 ms where this one takes 0.25 ms at
 //   the S = 3 main path's shapes on an H100 (chip_smoke.py), and could not
@@ -44,34 +52,6 @@
 // lists (~2-4 B * cap_m) and 16 B out.  The tables stay in L2 (30.9 MB
 // eff + 0.3 MB features at S = 5; 23 MB features + 0.5 MB gt at S = 7).
 #include "common.cuh"
-
-__device__ inline int feature(const Core& P, long long g, int e, const Dims& d) {
-  const int S = d.S, L = d.L;
-  if (e < S) return P.f[CT][g * S + e];
-  e -= S;
-  if (e < S) return P.f[ROLE][g * S + e];
-  e -= S;
-  if (e < S * L) return P.f[LT][g * S * L + e];
-  e -= S * L;
-  if (e < S * L) return P.f[LV][g * S * L + e];
-  e -= S * L;
-  if (e < S) return P.f[LL][g * S + e];
-  e -= S;
-  if (e < S * S) return P.f[MI][g * S * S + e];
-  e -= S * S;
-  if (e < S * S) return P.f[NI][g * S * S + e];
-  e -= S * S;
-  if (e < S) return P.f[CI][g * S + e];
-  e -= S;
-  if (e < S * (S + 1)) return P.f[VF][g * S + e / (S + 1)] == e % (S + 1);
-  e -= S * (S + 1);
-  if (e == 0) return P.f[EC][g];
-  if (e == 1) return P.f[RC][g];
-  e -= 2;
-  if (e < S * S) return P.f[PEND][g * S * S + e];
-  e -= S * S;
-  return P.f[VS][g * d.V + e];
-}
 
 // -- the kernel ---------------------------------------------------------------------
 
@@ -120,7 +100,7 @@ __global__ void __launch_bounds__(TB_THREADS)
                        const int8_t* __restrict__ ct, int f_pad, int F, int nperm, MsgTab mt,
                        Dims d, unsigned long long* __restrict__ fp_view,
                        unsigned long long* __restrict__ fp_full, const int64_t* cnt,
-                       long long sub) {
+                       long long sub, const int64_t* __restrict__ idx) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int row_b = f_pad + 16;  // shared row stride (bytes): spreads the fragment loads' banks
   int8_t* As = (int8_t*)smem;                                 // [64][row_b] features
@@ -134,10 +114,12 @@ __global__ void __launch_bounds__(TB_THREADS)
   const int gq = lane >> 2, t4 = lane & 3;
   const int ks_n = f_pad / 32;
 
+  // launch row g is state g, or idx[g] in the indexed mode
   for (int i = tid; i < TB_STATES * f_pad; i += TB_THREADS) {
     const int r = i / f_pad, e = i - r * f_pad;
     const long long g = base + r;
-    As[r * row_b + e] = (g < live && e < F) ? (int8_t)feature(P, g, e, d) : (int8_t)0;
+    As[r * row_b + e] =
+        (g < live && e < F) ? (int8_t)feature(P, idx ? idx[g] : g, e, d) : (int8_t)0;
   }
   __syncthreads();
   // the warp's A fragments (rows w*16 + gq and + 8), every k-step
@@ -184,7 +166,7 @@ __global__ void __launch_bounds__(TB_THREADS)
         const long long g = base + row;
         uint32_t acc = 0;
         if (g < live) {
-          const Id* rid = ids + g * cap_m;
+          const Id* rid = ids + (idx ? idx[g] : g) * cap_m;
           for (int j0 = 0; j0 < cap_m; j0 += 32) {  // the ids, 32 at a time
             const int mine = j0 + lane < cap_m ? (int)rid[j0 + lane] : -1;
             const int n = __popc(__ballot_sync(0xFFFFFFFFu, mine >= 0));
@@ -246,10 +228,23 @@ __global__ void __launch_bounds__(TB_THREADS)
     for (int r = 0; r < 2; ++r) {
       const long long g = base + w * 16 + gq + 8 * r;
       if (g < live) {
-        atomicMin(fp_view + g, minv[r]);
-        atomicMin(fp_full + g, minf[r]);
+        const long long s = idx ? idx[g] : g;
+        atomicMin(fp_view + s, minv[r]);
+        atomicMin(fp_full + s, minf[r]);
       }
     }
+}
+
+// The indexed mode's outputs to SENT (the rows below the count), and
+// *ovf = 1 when the count passes the G index rows.
+__global__ void sent_at_idx(const int64_t* __restrict__ idx, long long G, const int64_t* cnt,
+                            long long sub, int64_t* fp_view, int64_t* fp_full, int64_t* ovf) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0 && ovf && *cnt - sub > G) *ovf = 1;
+  if (i < live_count(cnt, sub, 1, G)) {
+    fp_view[idx[i]] = -1;
+    fp_full[idx[i]] = -1;
+  }
 }
 
 static Core core_of(const void* const* core) {
@@ -261,21 +256,30 @@ static Core core_of(const void* const* core) {
 // ct: i8 [16 nperm][f_pad]; eff: u32 [M][nperm][4]
 // (pperm null) or [rows][np][4] with pperm u8 [nperm][np] and type_dims =
 // off[4], stride[4], row_base[4].  Both outputs are set to SENT first; lanes
-// at or past live_count(cnt, sub, 1, G) stay SENT.
+// at or past live_count(cnt, sub, 1, G) stay SENT.  With idx (i64 [G], the
+// indexed mode; cnt then required) launch row i is state idx[i], only the
+// outputs at idx[i] are set and folded, and ovf (nullable) is set to 1 when
+// the count passes G.
 EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_bytes,
                                int cap_m, long long G, const int8_t* ct, int f_pad, int F,
                                int nperm, const uint32_t* eff, const uint8_t* pperm, int np,
                                const int* type_dims, const int* dims, int64_t* fp_view,
-                               int64_t* fp_full, const int64_t* cnt, long long sub, void* stream) {
+                               int64_t* fp_full, const int64_t* cnt, long long sub,
+                               const int64_t* idx, int64_t* ovf, void* stream) {
   const size_t smem = (size_t)(TB_STATES + TB_COLS) * (f_pad + 16) +
                       TB_STATES * MS_STRIDE * sizeof(uint32_t) + TB_PERMS * MAX_NP;
   if (f_pad % 32 || f_pad / 32 > MAX_KS || F > f_pad || np > MAX_NP || smem > TB_SMEM_MAX ||
-      (id_bytes != 2 && id_bytes != 4) || nperm < 1)
+      (id_bytes != 2 && id_bytes != 4) || nperm < 1 || (idx && !cnt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (G <= 0) return (int)cudaGetLastError();
-  cudaMemsetAsync(fp_view, 0xFF, (size_t)G * sizeof(int64_t), st);
-  cudaMemsetAsync(fp_full, 0xFF, (size_t)G * sizeof(int64_t), st);
+  if (idx) {
+    sent_at_idx<<<(unsigned)((G + 255) / 256), 256, 0, st>>>(idx, G, cnt, sub, fp_view, fp_full,
+                                                             ovf);
+  } else {
+    cudaMemsetAsync(fp_view, 0xFF, (size_t)G * sizeof(int64_t), st);
+    cudaMemsetAsync(fp_full, 0xFF, (size_t)G * sizeof(int64_t), st);
+  }
   MsgTab mt;
   mt.eff = eff;
   mt.pperm = pperm;
@@ -293,11 +297,11 @@ EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_
   if (id_bytes == 2)
     fingerprint_kernel<int16_t><<<grid, TB_THREADS, smem, st>>>(
         P, (const int16_t*)ids, cap_m, G, ct, f_pad, F, nperm, mt, d,
-        (unsigned long long*)fp_view, (unsigned long long*)fp_full, cnt, sub);
+        (unsigned long long*)fp_view, (unsigned long long*)fp_full, cnt, sub, idx);
   else
     fingerprint_kernel<int32_t><<<grid, TB_THREADS, smem, st>>>(
         P, (const int32_t*)ids, cap_m, G, ct, f_pad, F, nperm, mt, d,
-        (unsigned long long*)fp_view, (unsigned long long*)fp_full, cnt, sub);
+        (unsigned long long*)fp_view, (unsigned long long*)fp_full, cnt, sub, idx);
   return (int)cudaGetLastError();
 }
 
@@ -306,7 +310,7 @@ EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_
 EXPORT int lib_warm() {
   cudaFuncAttributes a;
   const void* fns[] = {(const void*)fingerprint_kernel<int16_t>,
-                       (const void*)fingerprint_kernel<int32_t>};
+                       (const void*)fingerprint_kernel<int32_t>, (const void*)sent_at_idx};
   for (const void* f : fns) {
     cudaFuncGetAttributes(&a, f);
     cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM_MAX);

@@ -55,6 +55,18 @@ probe.  Revisits found there leave the new frontier (``drop_rows``, B16)
 and stay in the hot slab (the re-heat), so the counts equal the hot-only
 run's.
 
+Under orbit pruning (``orbit=True`` or ``TLA_RAFT_ORBIT=1``, the
+reference's flag, bfs.py:721-738) every candidate is fingerprinted by
+the canonical-relabel definition (ops/fingerprint.py, B17): the fused
+level and the supersteps are off, as in the reference, so a level runs
+the staged chain, or the grouped chain past the size limit, with the
+orbit kernel and the tied rows' fold (on a ``cap_nd = max(256, cap_x //
+4)`` budget; more tied rows than that redo the level as a cap_x overflow)
+in place of K3.  The root takes the fold (it is symmetric, not discrete).
+The counts, level sizes and traces equal the default definition's; the
+fingerprint values do not, so a slab or frontier carried across from the
+reference must come from a run with the same flag.
+
 The order-keeping compactions, inflate/deflate of the message sets and
 the invariant scan are kernels too (csrc/compact.cu, msgset.cu,
 invariants.cu); each function here that wraps one sends CPU tensors to
@@ -63,6 +75,7 @@ its plain twin and CUDA tensors to the kernel.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Callable, NamedTuple
@@ -212,6 +225,8 @@ class TorchChecker:
       store_bytes: the hot slab's device budget in bytes (``None``:
         ``TLA_RAFT_STORE_BYTES``; 0: no budget).  Past it the slab demotes
         to host generations (store/tiered.py); the counts do not change.
+      orbit: orbit-pruned fingerprints (``None``: ``TLA_RAFT_ORBIT``, as the
+        reference reads it); turns the fused level and supersteps off.
     """
 
     def __init__(
@@ -225,8 +240,13 @@ class TorchChecker:
         megakernel: bool | None = None,
         superstep: int | None = None,
         store_bytes: int | None = None,
+        orbit: bool | None = None,
     ):
         self.cfg = cfg
+        if orbit is None:
+            env = os.environ.get("TLA_RAFT_ORBIT")
+            orbit = bool(int(env)) if env else False
+        self.orbit = bool(orbit)
         self.device = resolve_device(device)
         self.uni = get_universe(cfg)
         self.fpr = Fingerprinter(cfg, device=self.device)
@@ -248,7 +268,11 @@ class TorchChecker:
         self.hstore: DeviceHashStore | None = None
         self.frontier: Frontier | None = None  # the last committed level's rows
         self.redos = dict(cap_x=0, slab=0, cap_m=0, cap_g=0)  # every route's redos
-        self.megakernel = megakernel is None or bool(megakernel)
+        # the fused level and the supersteps fingerprint with K3 alone: orbit
+        # runs the staged and grouped chains (bfs.py:738)
+        self.megakernel = (megakernel is None or bool(megakernel)) and not self.orbit
+        if self.orbit:
+            self.fpr.orbit_tables  # on the card now: a first launch may be in a capture
         if superstep is None:
             superstep = ss.DEFAULT_SPAN
         self.superstep_span = max(1, int(superstep)) if self.megakernel else 1
@@ -321,6 +345,21 @@ class TorchChecker:
 
     # -- one level ------------------------------------------------------------
 
+    @property
+    def cap_nd(self) -> int:
+        """Tied candidate rows a chunk folds under orbit pruning (bfs.py:1070)."""
+        return max(256, self.cap_x // 4)
+
+    def _fp_states(self, fr: Frontier):
+        """(fp_view, fp_full) of a small batch (the root) under the run's
+        definition: under orbit both routes, selected by ``discrete``
+        (bfs.py:1078)."""
+        fv, ff = self.fpr.state_fingerprints(fr)
+        if not self.orbit:
+            return fv, ff
+        ov, of, disc, _rank = self.fpr.state_fingerprints_orbit(fr)
+        return torch.where(disc, ov, fv), torch.where(disc, of, ff)
+
     def _expand_chunk(self, part_f: Frontier, start: int):
         """Guards, compaction, materialize and fingerprints of one chunk."""
         K = self.K
@@ -334,7 +373,12 @@ class TorchChecker:
         cp_raw, lane, ovf_x = compact_payloads(valid.reshape(-1), payload, self.cap_x)
         lidx = (torch.div(cp_raw, K, rounding_mode="floor") - start).clamp(0, B - 1)
         children, _added, ovf_rows = self.mx.materialize(part_f, lidx, cp_raw % K)
-        fv, ff = self.fpr.state_fingerprints(children)
+        if self.orbit:
+            # the tied rows' budget overflow redoes the level as a cap_x one
+            fv, ff, ovf_nd = self.fpr.orbit_chunk_fps(children, self.cap_nd, lane.sum())
+            ovf_x = ovf_x | (ovf_nd > 0)
+        else:
+            fv, ff = self.fpr.state_fingerprints(children)
         sent = torch.full_like(fv, SENT)
         cv = torch.where(lane, fv, sent)
         cf = torch.where(lane, ff, sent)
@@ -812,7 +856,7 @@ class TorchChecker:
         frontier, ovf0 = self.deflate(init_batch(cfg, 1, self.device))
         if bool(ovf0.any()):
             raise RuntimeError(f"initial state's message set exceeds cap_m={self.cap_m}")
-        fv, _ff = self.fpr.state_fingerprints(frontier)
+        fv, _ff = self._fp_states(frontier)
         self.hstore = DeviceHashStore.from_fps(
             fv.cpu().numpy().view(np.uint64), device=self.device
         )

@@ -24,7 +24,11 @@ device.  The group's control kernels (csrc/level.cu) read the group index
 that the previous replay left in the level's control words, so one graph
 serves every group of every level that fits its shapes, the last,
 partial group included (rows past ``n_f`` are dead by device count).  The
-host seats each group's rows (a device copy) and replays the graph.
+host seats each group's rows (a device copy) and replays the graph.  Under
+orbit pruning each chunk's fingerprints are the orbit kernel's, with the
+tied rows compacted and folded by K3's indexed mode inside the same graph
+(``Fingerprinter.orbit_chunk_fps``); a chunk with more tied rows than the
+budget sets the level's cap_x overflow word.
 
 The tail runs on the level's lanes without a host read: the gate (a level
 that aborted or overflowed cap_x, cap_m or cap_g inserts nothing), K4
@@ -48,6 +52,7 @@ import torch
 from .. import kernels
 from ..device import fetch
 from ..models.raft import Frontier, RaftState, core_of
+from ..ops.fingerprint import OrbitScratch
 from ..ops.hashstore import probe_plain
 from ..u64 import SENT
 from . import megakernel as mk
@@ -205,6 +210,8 @@ class GroupProgram(mk.GraphProgram):
         self.children = mk.empty_frontier(eng.cfg, cap_x, cap_m, dev)
         self.added = torch.zeros((cap_x, eng.mx.A), dtype=torch.int32, device=dev)
         self.covf = torch.zeros((cap_x,), dtype=torch.bool, device=dev)
+        self.orbit_scr = (OrbitScratch(cap_x, eng.cap_nd, dev)
+                          if eng.orbit and dev.type == "cuda" else None)
         N = groups * self.cap_g
         self.N = N
         self.lanes = tuple(torch.full((N,), pad, dtype=I64, device=dev)
@@ -244,7 +251,12 @@ class GroupProgram(mk.GraphProgram):
                                 start * K, self.tile_chunk)
             mk.op_materialize(eng, part, self.cp[seg], start,
                               (self.children, self.added, self.covf), total, 0, lc[mk.LC_OVF_MX])
-            mk.op_fingerprints(eng, self.children, (self.cv[seg], self.cf[seg]), total, 0)
+            if eng.orbit:
+                eng.fpr.orbit_chunk_fps(self.children, eng.cap_nd, total,
+                                        out=(self.cv[seg], self.cf[seg]), ovf=lc[mk.LC_OVF_X],
+                                        scratch=self.orbit_scr)
+            else:
+                mk.op_fingerprints(eng, self.children, (self.cv[seg], self.cf[seg]), total, 0)
         op_probe_keep(self.slab, self.cv, self.keep)
         op_filter_compact(self.keep, self.cv, self.cf, self.cp, self.lanes, self.cap_g, lc,
                           self.tile_group)

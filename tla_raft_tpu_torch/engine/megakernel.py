@@ -55,6 +55,7 @@ import torch
 from .. import kernels
 from ..models.raft import Frontier, RaftState, core_of, id_dtype
 from ..ops import sieve as sieve_ops
+from ..ops.fingerprint import OrbitScratch
 from ..ops.hashstore import compact_fresh_plain, probe_and_insert_plain
 from ..u64 import SENT
 
@@ -399,7 +400,7 @@ def _device_bytes(x) -> int:
         return x.numel() * x.element_size() if x.is_cuda else 0
     if isinstance(x, (list, tuple)):
         return sum(_device_bytes(y) for y in x)
-    if isinstance(x, (LaneBuffers, K4Scratch)):
+    if isinstance(x, (LaneBuffers, K4Scratch, OrbitScratch)):
         return sum(_device_bytes(v) for k, v in vars(x).items() if k not in ("m1", "m2"))
     return 0
 

@@ -97,20 +97,37 @@ MATERIALIZE = Kernel(
     {"launch_materialize": [VP, VP, I32, I32, I64, VP, VP, I64, VP, I32, VP, VP, VP, VP, VP,
                             VP, I64, VP, I64, VP, VP]},
 )
-_K3_ARGS = [VP, VP, I32, I32, I64, VP, I32, I32, I32, VP, VP, I32, VP, VP, VP, VP, VP, I64, VP]
-# K3, every launch (any symmetry group: P = 6, 120, 5,040 at S = 3, 5, 7)
+_K3_ARGS = [VP, VP, I32, I32, I64, VP, I32, I32, I32, VP, VP, I32, VP, VP, VP, VP, VP, I64, VP, VP,
+            VP]
+# K3, every launch but the indexed mode's (any symmetry group: P = 6, 120,
+# 5,040 at S = 3, 5, 7)
 FINGERPRINT = Kernel(
     "fingerprint", "csrc/fingerprint.cu",
     "tla_raft_tpu/ops/fingerprint.py:517 (Fingerprinter.state_fingerprints: "
     "features:102, _plane_matmul:398, msg_hash:418, finalize:505)",
     {"launch_fingerprints": _K3_ARGS},
 )
-# K3's launches whose message part is the pair-block factored hash (S = 7)
+# K3's launches whose message part is the pair-block factored hash (S = 7),
+# the indexed mode's included
 MSG_FACTORED = Kernel(
     "msg_hash_factored", "csrc/fingerprint.cu",
     "tla_raft_tpu/ops/fingerprint.py:424 (_msg_hash_factored, tables "
     "_build_pair_block_tables:332)",
     {"launch_fingerprints": _K3_ARGS},
+)
+# K3's indexed mode: the exact fold of orbit pruning's tied rows
+ORBIT_FOLD = Kernel(
+    "orbit_fold", "csrc/fingerprint.cu",
+    "tla_raft_tpu/engine/bfs.py:1056 (_orbit_chunk_fps: the tied rows' min-over-P fold, "
+    "state_fingerprints over argsort(~need)[:cap_nd])",
+    {"launch_fingerprints": _K3_ARGS},
+)
+ORBIT = Kernel(
+    "orbit", "csrc/orbit.cu",
+    "tla_raft_tpu/ops/fingerprint.py:721 (state_fingerprints_orbit: _orbit_pairh:619, "
+    "_orbit_colors:634, _orbit_rank:690, _plane_matmul_flat:710)",
+    {"launch_orbit": [VP, VP, I32, I32, I64, VP, VP, I32, I32, I32, VP, VP, I32, VP, VP, VP, VP,
+                      VP, VP, VP, VP, I64, VP]},
 )
 HASHSTORE = Kernel(
     "hashstore", "csrc/hashstore.cu",
@@ -199,7 +216,7 @@ DROP_ROWS = Kernel(
 )
 KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMPACT, INFLATE,
                                DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE, HS_PROBE,
-                               FILTER_COMPACT, DROP_ROWS, MSG_FACTORED)}
+                               FILTER_COMPACT, DROP_ROWS, MSG_FACTORED, ORBIT, ORBIT_FOLD)}
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
@@ -209,6 +226,8 @@ FUSED = STAGED + ("level", "superstep", "sieve")
 GROUPED = ("hs_probe", "filter_compact")
 # K3's factored message part (where the folded table passes 64 MiB: S = 7)
 SCALE = ("msg_hash_factored",)
+# orbit pruning (TLA_RAFT_ORBIT=1): the canonical relabel and the tied fold
+ORBIT_PATH = ("orbit", "orbit_fold")
 
 
 def reset_launches() -> None:
@@ -489,11 +508,76 @@ def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None
     return child, added, ovf
 
 
-def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0):
-    """K3: (fp_view i64[G], fp_full i64[G]) of a Frontier batch, from the
-    Fingerprinter's kernel tables (``fpr.ktab``); lanes past the
+def _msg_table(fpr, uni):
+    """K3's message-part table (``fpr.ktab``), checked: (eff, pperm or None,
+    the type layout off[4], stride[4], row_base[4] as a ctypes array)."""
+    tab = fpr.ktab
+    _need(tab["ct"], "ct", torch.int8, (fpr.P * fpr.N_CHAN * 4, tab["f_pad"]))
+    if fpr.factored_msgs:
+        eff, pperm = tab["gt_eff"], tab["pperm"]
+        _need(eff, "gt_eff", torch.int32, (sum(uni.type_strides), fpr.NP, fpr.N_CHAN))
+        _need(pperm, "pperm", torch.uint8, (fpr.P, fpr.NP))
+    else:
+        eff, pperm = tab["msg_eff"], None
+        _need(eff, "msg_eff", torch.int32, (uni.M, fpr.P, fpr.N_CHAN))
+    row_base = [sum(uni.type_strides[:t]) for t in range(4)]
+    return eff, pperm, (I32 * 12)(*uni.type_offsets, *uni.type_strides, *row_base)
+
+
+def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0, idx=None, ovf=None):
+    """K3: (fp_view i64[N], fp_full i64[N]) of a Frontier batch of N rows,
+    from the Fingerprinter's kernel tables (``fpr.ktab``); lanes past the
     device count ``cnt - sub`` get SENT.  Launches with the factored
-    message hash also count as ``msg_hash_factored``."""
+    message hash also count as ``msg_hash_factored``.
+
+    Indexed mode (``idx`` i64[G], with ``cnt``, into ``out``; counted as
+    ``orbit_fold``): launch row i < ``cnt - sub`` folds state ``idx[i]``
+    into ``out[*][idx[i]]``, every other output keeps its value; ``ovf``
+    (int64 0-d) is set to 1 when ``cnt - sub`` passes G."""
+    cfg, uni = fpr.cfg, fpr.uni
+    _check_cfg(cfg, uni)
+    N = fr.msg_ids.shape[0]
+    core = _core_ptrs(fr, N, _field_shapes(cfg))
+    cap_m = fr.msg_ids.shape[1]
+    id_bytes = _ids(fr.msg_ids, "msg_ids", (N, cap_m))
+    if fpr.C_planes.device != fr.msg_ids.device:
+        raise ValueError("fingerprints: tables and states on different devices")
+    dev = fr.msg_ids.device
+    G = N
+    if idx is not None:
+        if out is None or cnt is None:
+            raise ValueError("fingerprints: the indexed mode writes into out under a count")
+        G = idx.shape[0]
+        _need(idx, "idx", torch.int64, (G,))
+    if ovf is not None:
+        _need(ovf, "ovf", torch.int64, ())
+    if out is None:
+        out = (torch.empty((N,), dtype=torch.int64, device=dev),
+               torch.empty((N,), dtype=torch.int64, device=dev))
+    fpv, fpf = out
+    _need(fpv, "fp_view", torch.int64, (N,))
+    _need(fpf, "fp_full", torch.int64, (N,))
+    eff, pperm, tdims = _msg_table(fpr, uni)
+    tab = fpr.ktab
+    lib = FINGERPRINT.lib()
+    FINGERPRINT.check(lib.launch_fingerprints(
+        core, fr.msg_ids.data_ptr(), id_bytes, cap_m, G, tab["ct"].data_ptr(), tab["f_pad"],
+        fpr.spec.F, fpr.P, eff.data_ptr(), _p(pperm), fpr.NP, tdims, dims_array(cfg, uni),
+        fpv.data_ptr(), fpf.data_ptr(), _cnt(cnt), sub, _p(idx), _p(ovf), _stream(),
+    ))
+    (ORBIT_FOLD if idx is not None else FINGERPRINT).launches += int(G > 0)
+    if fpr.factored_msgs:
+        MSG_FACTORED.launches += int(G > 0)
+    return fpv, fpf
+
+
+def orbit(fpr, fr, *, out=None, discrete=None, rank=None, tied=None, cnt=None, sub=0):
+    """B17: (fp_view i64[G], fp_full i64[G], discrete bool[G], rank i32[G])
+    of a Frontier batch under orbit pruning: the hash at each state's
+    canonical permutation, from K3's tables and the orbit tables' pair-hash
+    coefficients.  Rows past the device count ``cnt - sub`` get SENT,
+    discrete False, rank 0; ``tied`` (bool[G], optional) is written as
+    live and not discrete."""
     cfg, uni = fpr.cfg, fpr.uni
     _check_cfg(cfg, uni)
     G = fr.msg_ids.shape[0]
@@ -501,35 +585,34 @@ def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0):
     cap_m = fr.msg_ids.shape[1]
     id_bytes = _ids(fr.msg_ids, "msg_ids", (G, cap_m))
     if fpr.C_planes.device != fr.msg_ids.device:
-        raise ValueError("fingerprints: tables and states on different devices")
+        raise ValueError("orbit: tables and states on different devices")
     dev = fr.msg_ids.device
     if out is None:
         out = (torch.empty((G,), dtype=torch.int64, device=dev),
                torch.empty((G,), dtype=torch.int64, device=dev))
+    if discrete is None:
+        discrete = torch.empty((G,), dtype=torch.bool, device=dev)
+    if rank is None:
+        rank = torch.empty((G,), dtype=torch.int32, device=dev)
     fpv, fpf = out
-    _need(fpv, "fp_view", torch.int64, (G,))
-    _need(fpf, "fp_full", torch.int64, (G,))
+    for name, t, dt in (("fp_view", fpv, torch.int64), ("fp_full", fpf, torch.int64),
+                        ("discrete", discrete, torch.bool), ("rank", rank, torch.int32)):
+        _need(t, name, dt, (G,))
+    if tied is not None:
+        _need(tied, "tied", torch.bool, (G,))
+    w = fpr.orbit_tables["w_cat"]
+    _need(w, "w_cat", torch.int32, (sum(uni.type_strides),))
+    eff, pperm, tdims = _msg_table(fpr, uni)
     tab = fpr.ktab
-    f_pad = tab["f_pad"]
-    _need(tab["ct"], "ct", torch.int8, (fpr.P * fpr.N_CHAN * 4, f_pad))
-    if fpr.factored_msgs:
-        eff, pperm = tab["gt_eff"], tab["pperm"]
-        _need(eff, "gt_eff", torch.int32, (sum(uni.type_strides), fpr.NP, fpr.N_CHAN))
-        _need(pperm, "pperm", torch.uint8, (fpr.P, fpr.NP))
-        tdims = (I32 * 12)(*uni.type_offsets, *uni.type_strides, *tab["row_base"])
-    else:
-        eff, pperm, tdims = tab["msg_eff"], None, None
-        _need(eff, "msg_eff", torch.int32, (uni.M, fpr.P, fpr.N_CHAN))
-    lib = FINGERPRINT.lib()
-    FINGERPRINT.check(lib.launch_fingerprints(
-        core, fr.msg_ids.data_ptr(), id_bytes, cap_m, G, tab["ct"].data_ptr(), f_pad,
-        fpr.spec.F, fpr.P, eff.data_ptr(), _p(pperm), fpr.NP, tdims, dims_array(cfg, uni),
-        fpv.data_ptr(), fpf.data_ptr(), _cnt(cnt), sub, _stream(),
+    lib = ORBIT.lib()
+    ORBIT.check(lib.launch_orbit(
+        core, fr.msg_ids.data_ptr(), id_bytes, cap_m, G, w.data_ptr(), tab["ct"].data_ptr(),
+        tab["f_pad"], fpr.spec.F, fpr.P, eff.data_ptr(), _p(pperm), fpr.NP, tdims,
+        dims_array(cfg, uni), fpv.data_ptr(), fpf.data_ptr(), discrete.data_ptr(),
+        rank.data_ptr(), _p(tied), _cnt(cnt), sub, _stream(),
     ))
-    FINGERPRINT.launches += int(G > 0)
-    if fpr.factored_msgs:
-        MSG_FACTORED.launches += int(G > 0)
-    return fpv, fpf
+    ORBIT.launches += int(G > 0)
+    return fpv, fpf, discrete, rank
 
 
 _SCRATCH: dict = {}  # (device, cap) -> the representative's scratch minima

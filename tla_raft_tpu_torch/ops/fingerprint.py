@@ -32,9 +32,23 @@ the sum equals ``bits @ G_planes`` exactly.  The kernel adds the
 *effective* u32 coefficients (``_eff_u32``: the four signed byte planes
 combined), which is the plane sum combined, because the combine is
 linear mod 2^32; ``kernel_tables_np`` builds them.
+
+**Orbit pruning** (B17, ``TLA_RAFT_ORBIT=1``; the reference's
+``state_fingerprints_orbit`` and ``bfs._orbit_chunk_fps``) is a second
+fingerprint definition: a per-state Weisfeiler-Leman colouring of the
+servers from VIEW data picks one canonical permutation (servers sorted by
+colour) where no two colours tie ("discrete" states), and the fingerprint
+is the hash at that one permutation; tied states keep the exact minimum
+over P.  The values differ from the min-over-P definition (the counts do
+not), so one run uses one definition throughout.  ``state_fingerprints_orbit``
+is the ``orbit`` kernel (csrc/orbit.cu) on the card and the plain twin
+``state_fingerprints_orbit_plain`` on the CPU; ``orbit_chunk_fps`` folds a
+chunk's tied rows with K3's indexed mode on a compacted budget.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -44,13 +58,16 @@ from ..config import RaftConfig
 from ..device import resolve_device
 from ..models.raft import Frontier
 from ..u64 import (
+    MASK32,
+    SENT,
     _combine_planes_u32,
     _eff_u32,
+    _mix32,
     _mix32_np,
     _u32_to_i8_planes,
     umin,
 )
-from .msg_universe import MsgUniverse, get_universe
+from .msg_universe import MsgUniverse, _dst_idx, get_universe
 
 _SEED = 0x7C3A_11E5
 _PHI = 0x9E3779B9
@@ -389,3 +406,238 @@ class Fingerprinter:
         if fr.msg_ids.device.type == "cpu":
             return self.state_fingerprints_plain(fr)
         return kernels.fingerprints(self, fr)
+
+    # -- orbit pruning (B17) --------------------------------------------------
+
+    @functools.cached_property
+    def orbit_tables(self) -> dict:
+        """The reference's ``_orbit_tables`` (fingerprint.py:565), on the
+        Fingerprinter's device: ``psi`` [P, F] (``perm_source_indices`` of
+        every permutation), ``ppinv`` [P, NP] (the inverse pair-digit map),
+        ``qidx`` [S, S] ((src, dst) -> pair digit; diagonal 0), ``W`` (one
+        int32 vector of random pair-hash coefficients per message type,
+        lengths ``type_strides``), ``C0`` i8 [F, 16] and ``G0`` i8 [M, 16]
+        (the identity permutation's feature and message planes), ``fact``
+        [S] ((S-1-i)!, the Lehmer weights); ``w_cat`` is ``W`` concatenated
+        (the ``orbit`` kernel's).  Built at first use: the engine touches
+        it at construction, since a first launch may be inside a graph
+        capture."""
+        uni, S, P, NP, F = self.uni, self.cfg.S, self.P, self.NP, self.spec.F
+        psi = np.stack([self.spec.perm_source_indices(p) for p in self.perms])
+        ppinv = np.empty_like(self.pair_perm)
+        ppinv[np.arange(P)[:, None], self.pair_perm] = np.arange(NP)[None, :]
+        qidx = np.zeros((S, S), np.int64)
+        for src in range(1, S + 1):
+            for dst in range(1, S + 1):
+                if src != dst:
+                    qidx[src - 1, dst - 1] = (src - 1) * (S - 1) + _dst_idx(src, dst)
+        rng = np.random.default_rng(int(self.seed) ^ 0x0B17)
+        W = [rng.integers(-(1 << 31), 1 << 31, size=(s,), dtype=np.int64).astype(np.int32)
+             for s in uni.type_strides]
+        C0 = self.C_planes_np.reshape(F, P, self.N_CHAN * 4)[:, 0, :]
+        G0 = _u32_to_i8_planes(self.raw_msg_coef_np(np.arange(uni.M, dtype=np.uint32)))
+        fact = np.ones(S, np.int64)
+        for i in range(S - 2, -1, -1):
+            fact[i] = fact[i + 1] * (S - 1 - i)
+        dev = self.device
+
+        def t(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+
+        return dict(psi=t(psi, torch.int64), ppinv=t(ppinv, torch.int64),
+                    qidx=t(qidx, torch.int64), W=[t(w, torch.int32) for w in W],
+                    w_cat=t(np.concatenate(W), torch.int32), C0=t(C0, torch.int8),
+                    G0=t(G0.reshape(uni.M, self.N_CHAN * 4), torch.int8),
+                    fact=t(fact, torch.int64))
+
+    def orbit_pairh(self, ids: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_orbit_pairh`` (fingerprint.py:619) from the
+        sparse ids: per (src, dst) pair digit q, the sum of ``W_t[r]`` over
+        the state's messages ``off_t + q * stride_t + r``, mod 2^32: u32
+        [n, NP] held in int64."""
+        uni, dev = self.uni, ids.device
+        idl = ids.to(torch.int64)
+        live = idl >= 0
+        id0 = idl.clamp(min=0)  # dead ids decode as id 0 and add nothing
+        offs = torch.tensor(uni.type_offsets, dtype=torch.int64, device=dev)
+        strides = torch.tensor(uni.type_strides, dtype=torch.int64, device=dev)
+        base = torch.tensor([sum(uni.type_strides[:t]) for t in range(4)], dtype=torch.int64,
+                            device=dev)
+        ty = (id0 >= offs[1]).long() + (id0 >= offs[2]).long() + (id0 >= offs[3]).long()
+        rel = id0 - offs[ty]
+        q = torch.div(rel, strides[ty], rounding_mode="floor")
+        w = self.orbit_tables["w_cat"].to(dev).to(torch.int64)[base[ty] + rel - q * strides[ty]]
+        acc = torch.zeros((ids.shape[0], self.NP), dtype=torch.int64, device=dev)
+        acc.scatter_add_(1, q, torch.where(live, w, torch.zeros_like(w)))
+        return acc & MASK32
+
+    def orbit_colors(self, st, pairh: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_orbit_colors`` (fingerprint.py:634): three
+        rounds of view-covariant WL refinement, u32 [n, S] in int64.  Every
+        sum is taken in int64 and masked (``_mix32`` masks its input), which
+        is the u32 arithmetic mod 2^32."""
+        S, L = self.cfg.S, self.cfg.L
+        tb = self.orbit_tables
+        dev = pairh.device
+
+        def u(x):
+            return x.to(torch.int64)
+
+        ct, role, ll, ci = u(st.current_term), u(st.role), u(st.log_len), u(st.commit_index)
+        lt, lv, mi, ni, vf = (u(st.log_term), u(st.log_val), u(st.match_index),
+                              u(st.next_index), u(st.voted_for))
+        lpos = (torch.arange(L, dtype=torch.int64, device=dev) * 0x9E3779B9) & MASK32
+        logh = _mix32(lt * 0x85EBCA6B + lv * 0xC2B2AE35 + lpos).sum(-1) & MASK32
+        c = _mix32(ct * 0x8DA6B343 + role * 0xD8163841 + ll * 0xCB1AB31F
+                   + ci * 0x165667B1 + logh)
+        qidx = tb["qidx"].to(dev)
+        ph_ij = pairh[:, qidx]  # [n, S(i), S(j)]; the diagonal is masked below
+        ph_ji = pairh[:, qidx.t()]
+        offdiag = ~torch.eye(S, dtype=torch.bool, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        mi_d, ni_d = torch.diagonal(mi, 0, -2, -1), torch.diagonal(ni, 0, -2, -1)
+        mi_t, ni_t = mi.transpose(-1, -2), ni.transpose(-1, -2)
+        vsrc = (vf - 1).clamp(0, S - 1)
+        for _ in range(3):
+            cj = c[:, None, :]
+            e_out = torch.where(offdiag, _mix32(cj + ph_ij * 3 + mi * 0x27D4EB2F
+                                                + ni * 0x9E3779B1), zero).sum(-1)
+            e_in = torch.where(offdiag, _mix32(cj + ph_ji * 5 + mi_t * 0x85EBCA77
+                                               + ni_t * 0xC2B2AE3D), zero).sum(-1)
+            vfh = torch.where(vf == 0, torch.full_like(vf, 0x94D049BB),
+                              _mix32(c.gather(1, vsrc) + 0xBF58476D))
+            c = _mix32((c * 0xFF51AFD7 & MASK32) + e_out + e_in + vfh + mi_d * 0xE6546B64
+                       + ni_d * 0x2545F491)
+        return c
+
+    def orbit_rank(self, colors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``_orbit_rank`` (fingerprint.py:690): (rank i64
+        [n], discrete bool [n]).  The canonical permutation maps server i to
+        1 + the number of smaller colours; its index in ``server_perms()``
+        is the Lehmer code of that image sequence weighted by ``fact``.
+        Only meaningful where ``discrete`` (no two colours equal)."""
+        S = self.cfg.S
+        dev = colors.device
+        ci, cj = colors[:, :, None], colors[:, None, :]
+        p = (cj < ci).sum(-1)  # 0-based images (u32 values in int64: signed order is unsigned)
+        eq = (ci == cj) & ~torch.eye(S, dtype=torch.bool, device=dev)
+        discrete = ~eq.any(-1).any(-1)
+        after = torch.triu(torch.ones((S, S), dtype=torch.bool, device=dev), diagonal=1)
+        code = ((p[:, None, :] < p[:, :, None]) & after).sum(-1)
+        return (code * self.orbit_tables["fact"].to(dev)).sum(-1), discrete
+
+    def state_fingerprints_orbit_plain(self, fr: Frontier):
+        """Plain twin of the ``orbit`` kernel, in the reference's form
+        (``state_fingerprints_orbit``, fingerprint.py:721): (fp_view i64
+        [n], fp_full i64 [n], discrete bool [n], rank i64 [n]).  The hash
+        at the canonical permutation ``rank`` takes the features permuted
+        by ``psi[rank]`` and the message bitmask with each type block's pair
+        digits moved by ``ppinv[rank]``, against the identity planes C0 and
+        G0.  Exact on every row; the canonical value only where
+        ``discrete``.  In blocks of rows that bound the bitmask."""
+        tb = self.orbit_tables
+        uni, NP = self.uni, self.NP
+        n = fr.msg_ids.shape[0]
+        step = max(1, _PLAIN_ELEMS // uni.M)
+        outs = []
+        for a in range(0, n, step):
+            part = Frontier(*(x[a : a + step] for x in fr))
+            m = part.msg_ids.shape[0]
+            dev = part.msg_ids.device
+            rank, disc = self.orbit_rank(self.orbit_colors(part, self.orbit_pairh(part.msg_ids)))
+            fplanes = self.spec.features(part).gather(1, tb["psi"].to(dev)[rank])
+            h = _int_matmul(fplanes, tb["C0"].to(dev))
+            bits = self.ids_to_bits(part.msg_ids)
+            ppinv_row = tb["ppinv"].to(dev)[rank]  # [m, NP]
+            parts = []
+            for off, stride in zip(uni.type_offsets, uni.type_strides):
+                bt = bits[:, off : off + NP * stride].reshape(m, NP, stride)
+                parts.append(bt.gather(1, ppinv_row[:, :, None].expand(m, NP, stride))
+                             .reshape(m, NP * stride))
+            h = h + _int_matmul(torch.cat(parts, 1), tb["G0"].to(dev))
+            h = _combine_planes_u32(h.reshape(m, self.N_CHAN, 4))
+            outs.append(((h[:, 0] << 32) | h[:, 1], (h[:, 2] << 32) | h[:, 3], disc, rank))
+        if not outs:
+            e = torch.empty((0,), dtype=torch.int64, device=fr.msg_ids.device)
+            return e, e.clone(), e.to(torch.bool), e.clone()
+        return tuple(torch.cat(z) for z in zip(*outs))
+
+    def state_fingerprints_orbit(self, fr: Frontier):
+        """(fp_view, fp_full, discrete, rank) of a Frontier batch under orbit
+        pruning: the ``orbit`` kernel on the card (rank int32), the plain
+        twin on the CPU (rank int64)."""
+        if fr.msg_ids.device.type == "cpu":
+            return self.state_fingerprints_orbit_plain(fr)
+        return kernels.orbit(self, fr)
+
+    def orbit_chunk_fps_plain(self, children: Frontier, lane: torch.Tensor, cap_nd: int):
+        """Plain twin of the reference's ``_orbit_chunk_fps`` (bfs.py:1056)
+        with its budget ``cap_nd`` given: the canonical-relabel
+        fingerprints of every row, then the exact min-over-P fold for the
+        live rows that are not discrete, the first ``cap_nd`` of them in
+        lane order; (fp_view, fp_full, overflow 0-d bool: more tied live
+        rows than ``cap_nd``).  Rows the budget leaves out keep their
+        canonical-relabel value, as in the reference (the chunk redoes)."""
+        fv, ff, disc, _rank = self.state_fingerprints_orbit_plain(children)
+        need = lane & ~disc
+        comp = torch.nonzero(need).reshape(-1)[:cap_nd]
+        if comp.numel():
+            sv, sf = self.state_fingerprints_plain(Frontier(*(x[comp] for x in children)))
+            fv[comp] = sv
+            ff[comp] = sf
+        return fv, ff, need.sum() > cap_nd
+
+    def orbit_chunk_fps(self, children: Frontier, cap_nd: int, cnt: torch.Tensor, *, sub=0,
+                        out=None, ovf=None, scratch=None):
+        """One chunk's candidate fingerprints under orbit pruning, for its
+        first ``cnt - sub`` rows (a device count; the rest get SENT):
+        (fp_view, fp_full, ovf), ``ovf`` an int64 0-d word set to 1 when more
+        than ``cap_nd`` live rows are tied (the caller's cap_x redo grows
+        the budget).  On the card: the ``orbit`` kernel, the compaction of
+        its tied flags to ``cap_nd`` row indices (``compact``), and K3's
+        indexed mode folding those rows over P in place, all under device
+        counts (no host read: it runs inside the grouped level's graph);
+        ``out``, ``ovf`` and ``scratch`` (``OrbitScratch``) are written in
+        place when given.  On the CPU: ``orbit_chunk_fps_plain``."""
+        n = children.msg_ids.shape[0]
+        dev = children.msg_ids.device
+        if out is None:
+            out = (torch.empty((n,), dtype=torch.int64, device=dev),
+                   torch.empty((n,), dtype=torch.int64, device=dev))
+        if ovf is None:
+            ovf = torch.zeros((), dtype=torch.int64, device=dev)
+        fv, ff = out
+        if dev.type == "cpu":
+            live = max(0, min(n, int(cnt) - sub))
+            fv.fill_(SENT)
+            ff.fill_(SENT)
+            if live:
+                v, f, o = self.orbit_chunk_fps_plain(Frontier(*(x[:live] for x in children)),
+                                                     torch.ones((live,), dtype=torch.bool), cap_nd)
+                fv[:live] = v
+                ff[:live] = f
+                if bool(o):
+                    ovf.fill_(1)
+            return fv, ff, ovf
+        scr = scratch if scratch is not None else OrbitScratch(n, cap_nd, dev)
+        kernels.orbit(self, children, out=out, discrete=scr.discrete, rank=scr.rank,
+                      tied=scr.tied, cnt=cnt, sub=sub)
+        kernels.compact(scr.tied, None, -1, cap_nd, out_a=scr.idx, total=scr.n_tied,
+                        tile=scr.tile)
+        kernels.fingerprints(self, children, out=out, idx=scr.idx, cnt=scr.n_tied, ovf=ovf)
+        return fv, ff, ovf
+
+
+class OrbitScratch:
+    """The device buffers of one chunk's orbit fingerprints (``n`` rows,
+    ``cap_nd`` tied rows), allocated once (nothing is allocated while a
+    graph is captured): the orbit kernel's discrete / rank / tied outputs,
+    the tied rows' indices, their count and the compaction's tile scratch."""
+
+    def __init__(self, n: int, cap_nd: int, device):
+        self.discrete = torch.zeros((n,), dtype=torch.bool, device=device)
+        self.rank = torch.zeros((n,), dtype=torch.int32, device=device)
+        self.tied = torch.zeros((n,), dtype=torch.bool, device=device)
+        self.idx = torch.full((cap_nd,), -1, dtype=torch.int64, device=device)
+        self.n_tied = torch.zeros((), dtype=torch.int64, device=device)
+        self.tile = torch.zeros((kernels.compact_tiles(n),), dtype=torch.int64, device=device)
