@@ -52,36 +52,66 @@ Phases, each printed as JSON lines:
                 chain, the orbit op inside the group graph), every level
                 golden; the per-level share of tied candidates of each run
                 and the launches of orbit, orbit_fold and K3's factored mode;
-   Each of phases 2-10 sets every kernel's launch count to 0 just before it
+   Each of phases 2-11 sets every kernel's launch count to 0 just before it
    runs, prints the counts just after, and fails if a kernel of its path
    did not launch (the staged phase: the staged chain's eight; the default
-   phase: every kernel but drop_rows, K3's factored mode and the orbit
-   pair; the tiered phase: the fused path's eleven and drop_rows; the
+   phase: every kernel but drop_rows, K3's factored mode, the orbit pair
+   and the cross-check arms' three; the tiered phase: the fused path's eleven and drop_rows; the
    grouped phase: the staged chain's, level, hs_probe and filter_compact;
    the scale phase: the fused path's eleven and K3's factored mode; the
    orbit phase: the staged chain's, the grouped level's, K3's factored
-   mode, orbit and orbit_fold; the others: the fused path's eleven).  The
+   mode, orbit and orbit_fold; the canon phase: dense_expand,
+   chunk_compact, K2, superstep and the fused and grouped paths' tail
+   kernels, with K1 never and K3 far less than dense_expand; the legacy
+   phase: dense_expand, legacy_materialize, K3, superstep and the tail,
+   with K1 and K2 never; the legacy fixpoint: the canon and legacy
+   arms' kernels, K1 and K2 never; the audit phase: the legacy pair, the
+   tail and K1, K2, K3; the flip drill: the legacy pair; the others: the
+   fused path's eleven).  Every arm's run and every run beside it (the
+   baselines, the fixpoint, the drill) is a phase of its own, so an
+   arm's counts are its run's alone.  The
    default phase also prints graph launches and device-to-host reads per
    superstep and per fused level, each grouped level's reads, graph
    launches, K4 rounds, cap_g, lanes (against the ungrouped lane count)
    and seconds, the levels by route, the graph captures and their
    seconds, and peak device memory.
-11. twins     — one fused level and one superstep (two levels) on the
+11. canon     — ``canon="expand"`` (every fan-out lane fingerprinted by
+                the dense expand's delta hash, B18, then the chunk
+                compaction, B3) on the Raft.cfg constants to depth 23 on
+                the default routes (level 23 grouped), every level golden;
+    canon_baseline — a default run to the same depth: golden, its wall,
+                and its slab bytes and (pidx, slot) records equal to the
+                canon run's;
+    legacy    — ``use_mxu=False`` (the guards-only dense expand and the
+                legacy per-lane materialize, B20) to depth 22, golden;
+    legacy_baseline — a default run to depth 22 (its wall);
+    legacy_fixpoint — canon="expand" with the legacy kernels on (3,1,2,1)
+                to its fixpoint;
+    audit     — ``audit=64`` to depth 20 (per-level fused levels), every
+                level audited with no mismatch;
+    audit_baseline — a default run to depth 20 (its wall);
+    flip_drill — the tensor.flip drill on (3,1,1,1), which must stop
+                with the CPU's message;
+12. twins     — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
-12. kernels   — each kernel against its plain torch twin on the card, at
+13. kernels   — each kernel against its plain torch twin on the card, at
                 the main path's shapes, with times, bounds and the launches
                 of its phase (drop_rows: the tiered phase; K3's factored
                 mode: the scale phase; orbit and orbit_fold: the orbit
                 phase, on a chunk of its 7-server run's last frontier,
-                with K3's full fold of the same chunk timed beside; the
-                rest: the default phase); then
+                with K3's full fold of the same chunk timed beside;
+                dense_expand and chunk_compact: the canon phase;
+                legacy_materialize: the legacy phase; the rest: the
+                default phase); then
                 the kernels again at 5 and 7 servers on the scale runs'
                 frontiers (K1 at K = 1,900 / 3,696, K2, inflate and deflate
                 with int32 ids, K3 at P = 120 and factored at P = 5,040,
                 inv_scan, K4, hs_probe, filter_compact, level control),
+                and the cross-check arms' three (dense_expand both modes,
+                chunk_compact, legacy_materialize) on a depth-20 chunk,
                 all in one ``kernels`` line;
-13. profile   — one deep level (2,150,466 parents) on the staged chain and
+14. profile   — one deep level (2,150,466 parents) on the staged chain and
                 as one fused-level graph, under torch.profiler: kernel time
                 by name and the device's idle share.
 
@@ -144,6 +174,17 @@ SCALE_GOLDEN = {
 ORBIT_DEPTHS = {7: 15, 5: 16, 3: 23}
 DOUBLE_VOTE = dict(result=(False, 359, 707, 8),
                    trace_sha256="54144ebf556e93bb8f6c0f2eab315032283bd583ed12112600368de2d9e73662")
+# the cross-check arms' depths: canon="expand" to 23 (level 23 grouped),
+# the legacy kernels to 22, the audit to 20
+DEPTH_CANON, DEPTH_LEGACY, DEPTH_AUDIT = 23, 22, 20
+AUDIT_ROWS = 64
+# the flip drill's stop on (3,1,1,1) under TLA_RAFT_FAULT=tensor.flip:flip@4,
+# audit=8, chunk=64: the reference's message on the CPU, pinned by
+# tests/test_torch_audit.py
+FLIP_STOP = (
+    "audit mismatch at level 5 with no checkpoint directory to rewind to — fail-stop; "
+    "first problem: row 0: materialized frontier row re-fingerprints to 0x881833cfb10cf06 "
+    "!= recorded 0x2083c782df2f3e63 (corrupted frontier tensor)")
 CHUNK = 16384  # parents per guard launch on the main path
 SEED = 0  # of the random kernel inputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -727,6 +768,232 @@ def phase_orbit_kernels(chk, launches: dict) -> list:
     return out, dict(servers=S, frontier_rows=fr.voted_for.shape[0], parents=nb, lanes=live,
                      cap_x=G, cap_nd=chk.cap_nd, tied=tied, orbit_chunk_path_ms=chunk_ms,
                      k3_full_fold_ms=k3_ms)
+
+
+def _slab_digest(chk) -> str:
+    from tla_raft_tpu_torch import carry
+
+    return hashlib.sha256(carry.slab_to_numpy(chk.hstore.slab).tobytes()).hexdigest()
+
+
+def phase_baseline(name: str, depth: int, chunk: int, arm: dict | None = None) -> dict:
+    """The default path (canon="late", K1/K2) to ``depth``, golden, its
+    wall beside an arm's (the arms' phases run after the default phase, so
+    both find the kernels loaded).  With ``arm`` (the canon phase's
+    result) the two slabs' bytes are equal (every fingerprint of the delta
+    hash equals K3's of the whole state) and so are the per-level (pidx,
+    slot) records."""
+    import torch
+
+    base, res, levels, secs = _run_reference(depth, chunk)
+    out = dict(phase=name, **_common(res, levels, secs, depth), routes=base.routes)
+    if arm is not None:
+        out.update(slab_equal=_slab_digest(base) == arm["slab_digest"],
+                   records_equal=level_digests(base) == arm["records"])
+    base = None
+    torch.cuda.empty_cache()
+    emit(out)
+    _check_golden(out, res, depth)
+    if arm is not None:
+        check(out["slab_equal"], "canon=expand slab bytes differ from the late run's")
+        check(out["records_equal"],
+              "canon=expand (pidx, slot) records differ from the late run's")
+    return out
+
+
+def phase_canon(depth: int, chunk: int) -> dict:
+    """canon="expand" on the default routes to ``depth`` (supersteps, a
+    fused level for a stopped window, level 23 grouped), every level
+    golden.  K3 fingerprints only the root on this arm (its launch count
+    is checked by ``canon_counts``); the slab digest and the records go to
+    the baseline phase."""
+    import torch
+
+    chk, res, levels, secs = _run_reference(depth, chunk, canon="expand")
+    out = dict(phase="canon", **_common(res, levels, secs, depth), routes=chk.routes,
+               cap_x=chk.cap_x, redos=chk.redos)
+    digest, records = _slab_digest(chk), level_digests(chk)
+    chk = None
+    torch.cuda.empty_cache()
+    emit(out)
+    _check_golden(out, res, depth)
+    check(out["routes"]["grouped"] >= 1, "no grouped level on the canon arm")
+    return dict(out, slab_digest=digest, records=records)
+
+
+def canon_counts(c: dict) -> None:
+    check(c["fingerprint"] * 10 < c["dense_expand"],
+          f"K3 launched {c['fingerprint']} times beside {c['dense_expand']} dense expands")
+    check(c["guards"] == 0, "K1 launched on the canon=expand arm")
+
+
+def legacy_counts(c: dict) -> None:
+    check(c["guards"] == 0 and c["materialize"] == 0,
+          f"K1/K2 launched on the legacy arm: guards {c['guards']}, "
+          f"materialize {c['materialize']}")
+
+
+def phase_legacy(depth: int, chunk: int) -> dict:
+    """use_mxu=False (the legacy per-lane kernels) on the default routes to
+    ``depth``, golden (``legacy_counts``: K1 and K2 never launched)."""
+    chk, res, levels, secs = _run_reference(depth, chunk, use_mxu=False)
+    out = dict(phase="legacy", **_common(res, levels, secs, depth), routes=chk.routes)
+    chk = None
+    emit(out)
+    _check_golden(out, res, depth)
+    return out
+
+
+def phase_legacy_fixpoint(chunk: int) -> dict:
+    """canon="expand" with use_mxu=False on (3,1,2,1) to its fixpoint."""
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+
+    t0 = time.perf_counter()
+    r = TorchChecker(RaftConfig(3, 1, 2, 1), device="cuda", chunk=chunk, canon="expand",
+                     use_mxu=False).run()
+    out = dict(phase="legacy_fixpoint", config=[3, 1, 2, 1], distinct=r.distinct,
+               generated=r.generated, depth=r.depth, seconds=time.perf_counter() - t0)
+    emit(out)
+    check((r.distinct, r.generated, r.depth) == GOLDEN_FULL_3121,
+          f"canon=expand + legacy fixpoint {out}")
+    return out
+
+
+def phase_audit(depth: int, chunk: int, rows: int) -> dict:
+    """audit=``rows`` on the default routes to ``depth`` (per-level fused
+    levels: the audit turns supersteps off): golden, every level audited,
+    no mismatch."""
+    chk, res, levels, secs = _run_reference(depth, chunk, audit=rows)
+    out = dict(phase="audit", **_common(res, levels, secs, depth), routes=chk.routes,
+               audit_stats=dict(chk.audit_stats))
+    chk = None
+    emit(out)
+    _check_golden(out, res, depth)
+    a = out["audit_stats"]
+    check(a["levels"] == depth and a["mismatches"] == 0 and a["rewinds"] == 0,
+          f"audit stats {a}")
+    check(out["routes"]["superstep"] == 0, "supersteps ran under the audit")
+    return out
+
+
+def phase_flip_drill() -> dict:
+    """The tensor.flip drill on (3,1,1,1) with audit=8: it must stop at the
+    CPU's level with the CPU's first problem."""
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+    from tla_raft_tpu_torch.resilience import faults
+    from tla_raft_tpu_torch.resilience.integrity import AuditFailStop
+
+    stop = None
+    faults.install("tensor.flip:flip@4")
+    try:
+        TorchChecker(RaftConfig(3, 1, 1, 1), device="cuda", chunk=64, audit=8).run()
+    except AuditFailStop as e:
+        stop = str(e)
+    finally:
+        faults.reset()
+    out = dict(phase="flip_drill", flip_stop=stop)
+    emit(out)
+    check(stop is not None, "the flip drill did not stop the run")
+    check(stop == FLIP_STOP, f"flip drill stop {stop!r} != the CPU's {FLIP_STOP!r}")
+    return out
+
+
+def phase_cross_kernels(chk, launches: dict, seed: int) -> list:
+    """The cross-check arms' kernels against their twins on a depth-20
+    chunk of parents (``chk``: the staged run's last frontier) and on
+    seeded random inputs, with times, bounds, twin and library times:
+    ``dense_expand`` with fingerprints and guards-only, ``chunk_compact``
+    of its fan-out (and a forced overflow), ``legacy_materialize`` on the
+    chunk's compacted candidates (and random lanes)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import bfs
+    from tla_raft_tpu_torch.models.raft import Frontier
+    from tla_raft_tpu_torch.ops.dense_expand import DenseExpand
+    from tla_raft_tpu_torch.ops.successor import materialize_legacy_plain
+
+    gen = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    fr, fpr, uni, cfg = chk.frontier, chk.fpr, chk.uni, chk.cfg
+    n, K, B, G = fr.voted_for.shape[0], chk.K, chk.chunk, chk.cap_x
+    dx = DenseExpand(cfg, uni, dev, fpr=fpr)
+    real = _frontier_rows(fr, torch.arange(min(B, n), device=dev))
+    st = chk.inflate(real)
+    nb = real.voted_for.shape[0]
+    core_b = _core_bytes(real)
+    out = []
+
+    def twin_blocks(fn, rows=2048):
+        parts = [fn(type(st)(*(x[i:i + rows] for x in st))) for i in range(0, nb, rows)]
+        return [torch.cat(z) if z[0] is not None else None for z in zip(*parts)]
+
+    # dense_expand, both modes
+    kv, km, kfv, kff, ka = dx.expand(st)
+    pv, pm, pfv, pff, pa = twin_blocks(dx.expand_plain)
+    ok = all(_equal(a, b) for a, b in ((kv, pv), (km, pm), (kfv, pfv), (kff, pff), (ka, pa)))
+    gv, gm, ga = dx.guards(st)
+    qv, qm, qa = twin_blocks(dx.guards_plain)
+    ok &= _equal(gv, qv) and _equal(gm, qm) and _equal(ga, qa) and _equal(gv, kv)
+    check(ok, "dense_expand differs from its twin")
+    valid_n = int(kv.sum())
+    ms = cuda_ms(lambda: dx.expand(st), 10)
+    plain = wall_ms(lambda: twin_blocks(dx.expand_plain))
+    in_b = nb * (core_b + uni.n_words * 4)
+    # per valid lane: P permutations of (4 base words + the feature deltas and
+    # added ids' mix32 coefficients): about 60 32-bit operations each
+    rec = _entry(out, launches, kernels.DENSE_EXPAND, ms, plain, in_b + nb * K * 21,
+                 None, nb * K * 40 + valid_n * fpr.P * 60)
+    rec.update(mode="fingerprints", valid_lanes=valid_n)
+    ms_g = cuda_ms(lambda: dx.guards(st), 10)
+    plain_g = wall_ms(lambda: twin_blocks(dx.guards_plain))
+    rec["guards_only"] = dict(ms=ms_g, plain_ms=plain_g,
+                              bound_ms=max((in_b + nb * K * 5) / HBM_BYTES_PER_S * 1e3,
+                                           nb * K * 40 / INT_OPS_PER_S * 1e3))
+
+    # chunk_compact: the chunk's fan-out fingerprints to cap_x lanes, and a
+    # random fan-out into a small cap (overflow)
+    fvf, fff = kfv.reshape(-1), kff.reshape(-1)
+    C = fvf.shape[0]
+    rnd = torch.from_numpy(np.where(gen.random(C) < 0.01, gen.integers(0, 1 << 62, C), -1)).to(dev)
+    ok = True
+    for a_v, a_f, cap in ((fvf, fff, G), (rnd, rnd, 1024)):
+        k = bfs.chunk_compact(a_v, a_f, cap, 7 * K)
+        q = bfs.chunk_compact_plain(a_v, a_f, cap, 7 * K)
+        ok &= all(_equal(x, y) for x, y in zip(k[:3], q[:3])) and bool(k[3]) == bool(q[3] > cap)
+    check(ok, "chunk_compact differs from its twin")
+    ms = cuda_ms(lambda: bfs.chunk_compact(fvf, fff, G, 7 * K), 10)
+    plain = wall_ms(lambda: bfs.chunk_compact_plain(fvf, fff, G, 7 * K))
+    pay = torch.arange(C, dtype=torch.int64, device=dev) + 7 * K
+    live = fvf != -1
+    lib = cuda_ms(lambda: (torch.masked_select(fvf, live), torch.masked_select(fff, live),
+                           torch.masked_select(pay, live)), 10)
+    rec = _entry(out, launches, kernels.CHUNK_COMPACT, ms, plain, C * 8 + valid_n * 8 + G * 24,
+                 lib, C * 4)
+    rec.update(lanes=C, live=valid_n)
+
+    # legacy_materialize: the chunk's compacted candidates, and random lanes
+    cp, lane, _o = bfs.compact_payloads(kv.reshape(-1), torch.arange(
+        C, dtype=torch.int64, device=dev), G)
+    lidx, slots = torch.div(cp, K, rounding_mode="floor").clamp(0, nb - 1), cp.clamp(min=0) % K
+    cases = [(real, lidx, slots),
+             (fr, torch.from_numpy(gen.integers(0, n, G)).to(dev),
+              torch.from_numpy(gen.integers(0, K, G)).to(dev))]
+    ok = True
+    for par, pi, sl in cases:
+        kc, ka2, ko = chk.materialize(par, pi, sl, legacy=True)
+        pc, pa2, po = materialize_legacy_plain(cfg, par, pi, sl)
+        ok &= all(_equal(x, y) for x, y in zip(kc, pc)) and _equal(ka2, pa2) and _equal(ko, po)
+    check(ok, "legacy_materialize differs from its twin")
+    ms = cuda_ms(lambda: chk.materialize(real, lidx, slots, legacy=True), 10)
+    plain = wall_ms(lambda: materialize_legacy_plain(cfg, real, lidx, slots))
+    cap_m = real.msg_ids.shape[1]
+    row_b = core_b + 2 * cap_m
+    _entry(out, launches, kernels.LEGACY, ms, plain, G * (2 * row_b + 16 + 4 * chk.mx.A + 1),
+           None, G * (cap_m * 4 + 64))
+    return out
 
 
 def phase_digests(staged: list, default: list, depth: int) -> None:
@@ -1695,10 +1962,11 @@ def main() -> int:
 
     failures = []
 
-    def run(name, need, fn, *a):
+    def run(name, need, fn, *a, counts_check=None):
         """One main-path phase, with its own launch counts: every count is
         set to 0 just before the phase and read just after it; every
-        kernel in ``need`` must have launched."""
+        kernel in ``need`` must have launched, and ``counts_check`` (if
+        any) holds the counts to what the phase's route may launch."""
         kernels.reset_launches()
         try:
             res = fn(*a)
@@ -1711,6 +1979,12 @@ def main() -> int:
         idle = sorted(k for k in need if counts[k] == 0)
         if idle:
             failures.append(f"{name}: kernels never launched on this path: {idle}")
+        if counts_check is not None:
+            try:
+                counts_check(counts)
+            except Failed as e:
+                failures.append(f"{name}: {e}")
+                emit(dict(phase=name, failed=str(e)))
         return res, counts
 
     t0 = time.perf_counter()
@@ -1722,7 +1996,8 @@ def main() -> int:
     chk, staged_digests = staged if staged else (None, None)
     default_digests, launches = run(
         "default", [k for k in kernels.KERNELS
-                    if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH],
+                    if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH
+                    + kernels.EXPAND_PATH + kernels.LEGACY_PATH],
         phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
@@ -1746,12 +2021,33 @@ def main() -> int:
                   "deflate", "inv_scan", "level") + kernels.GROUPED + kernels.SCALE
         + kernels.ORBIT_PATH, phase_orbit)
     launches.update({k: orbit_launches[k] for k in kernels.ORBIT_PATH})
+    # the cross-check arms: canon="expand", the legacy kernels, the audit;
+    # each arm's run is a phase of its own, and so is each run beside it
+    tail = ("hashstore", "compact", "inflate", "deflate", "inv_scan", "level")
+    canon, canon_launches = run(
+        "canon", kernels.EXPAND_PATH + tail + ("materialize", "superstep") + kernels.GROUPED,
+        phase_canon, DEPTH_CANON, CHUNK, counts_check=canon_counts)
+    launches.update({k: canon_launches[k] for k in kernels.EXPAND_PATH})
+    if canon is not None:
+        run("canon_baseline", fused, phase_baseline, "canon_baseline", DEPTH_CANON, CHUNK, canon)
+    canon = None
+    _res, legacy_launches = run("legacy", kernels.LEGACY_PATH + tail + ("fingerprint", "superstep"),
+                                phase_legacy, DEPTH_LEGACY, CHUNK, counts_check=legacy_counts)
+    launches["legacy_materialize"] = legacy_launches["legacy_materialize"]
+    run("legacy_baseline", fused, phase_baseline, "legacy_baseline", DEPTH_LEGACY, CHUNK)
+    run("legacy_fixpoint", kernels.EXPAND_PATH + kernels.LEGACY_PATH, phase_legacy_fixpoint,
+        CHUNK, counts_check=legacy_counts)
+    run("audit", kernels.LEGACY_PATH + tail + ("guards", "materialize", "fingerprint"),
+        phase_audit, DEPTH_AUDIT, CHUNK, AUDIT_ROWS)
+    run("audit_baseline", fused, phase_baseline, "audit_baseline", DEPTH_AUDIT, CHUNK)
+    run("flip_drill", kernels.LEGACY_PATH, phase_flip_drill)
     records, shapes, scale_times, orbit_shapes = [], None, None, None
     for name, fn, args in (("twins", phase_twins, (CHUNK,)),
                            ("kernels", phase_kernels, (chk, launches, SEED)),
                            ("scale_kernels", phase_scale_kernels, (runs, launches, SEED)),
                            ("orbit_kernels", phase_orbit_kernels,
-                            ((orbit_runs or {}).get(7), launches))):
+                            ((orbit_runs or {}).get(7), launches)),
+                           ("cross_kernels", phase_cross_kernels, (chk, launches, SEED))):
         if chk is None or (name == "scale_kernels" and not runs) or (
                 name == "orbit_kernels" and not orbit_runs):
             failures.append(f"{name}: no reference run to test on")
@@ -1770,6 +2066,8 @@ def main() -> int:
         elif name == "orbit_kernels":
             records += res[0]
             orbit_shapes = res[1]
+        elif name == "cross_kernels":
+            records += res
     runs = orbit_runs = None  # free the scale and orbit runs' frontiers and slabs
     torch.cuda.empty_cache()
     emit(dict(kernels=records, shapes=shapes, scale=scale_times, orbit=orbit_shapes))

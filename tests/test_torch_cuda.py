@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tla_raft_tpu_torch import kernels
 from tla_raft_tpu_torch.config import RaftConfig
 from tla_raft_tpu_torch.engine import bfs
 from tla_raft_tpu_torch.engine.bfs import TorchChecker, compact_payloads
@@ -607,3 +608,92 @@ def test_orbit_runs_on_the_card_equal_the_cpu(run):
         chk, got, got_set = go("cuda", G)
         assert _result_tuple(got) == _result_tuple(want) and torch.equal(got_set, want_set)
         assert chk.routes["grouped"] == (2 if G else 0)
+
+
+# -- the cross-check arms' kernels: dense_expand, chunk_compact, legacy ---------
+
+
+def _dense_of(chk):
+    from tla_raft_tpu_torch.ops.dense_expand import DenseExpand
+
+    return DenseExpand(chk.cfg, chk.uni, "cuda", fpr=chk.fpr)
+
+
+@pytest.mark.parametrize("S", [3, 5])
+def test_dense_expand_kernel_equals_twin(scale, run, S):
+    """Both modes over a frontier's rows (S = 3: the depth-10 frontier of
+    the Raft.cfg constants; S = 5: the scale run's), and the counted form
+    folding mult and the abort with dead rows past the count."""
+    chk = run if S == 3 else scale[S]
+    dx = _dense_of(chk)
+    fr = Frontier(*(x[:2048] for x in chk.frontier))
+    st = chk.inflate(fr)
+    for a, b in zip(dx.expand(st), dx.expand_plain(st)):
+        assert torch.equal(a, b)
+    for a, b in zip(dx.guards(st), dx.guards_plain(st)):
+        assert torch.equal(a, b)
+    n = st.msgs.shape[0]
+    live = n - 100
+    valid = torch.zeros((n, dx.K), dtype=torch.bool, device="cuda")
+    mult = torch.zeros((dx.K,), dtype=torch.int64, device="cuda")
+    abort = torch.full((), 1 << 62, dtype=torch.int64, device="cuda")
+    kernels.dense_expand(dx, st, False, valid=valid, per_row=False, cnt=torch.tensor(
+        live, device="cuda"), mult_acc=mult, abort_acc=abort, base=5)
+    pv, pm, pa = dx.guards_plain(type(st)(*(x[:live] for x in st)))
+    assert torch.equal(valid[:live], pv) and not bool(valid[live:].any())
+    assert torch.equal(mult, pm.to(torch.int64).sum(0))
+    assert int(abort) == (5 + int(torch.argmax(pa.to(torch.int32))) if bool(pa.any()) else 1 << 62)
+
+
+@pytest.mark.parametrize("S", [3, 5])
+def test_chunk_compact_kernel_equals_twin(scale, run, S):
+    """The fan-out of real parents into cap_x, a small cap (overflow) and a
+    cap past the lanes, and the counted form over the live rows' lanes."""
+    run = run if S == 3 else scale[S]
+    dx = _dense_of(run)
+    st = run.inflate(Frontier(*(x[:1024] for x in run.frontier)))
+    _v, _m, fv, ff, _a = dx.expand(st)
+    fv, ff = fv.reshape(-1), ff.reshape(-1)
+    live = int((fv != -1).sum())
+    for cap in (4 * live, live // 2, fv.shape[0] + 7):
+        k = bfs.chunk_compact(fv, ff, cap, 3 * run.K)
+        p = bfs.chunk_compact_plain(fv, ff, cap, 3 * run.K)
+        assert all(torch.equal(a, b) for a, b in zip(k[:3], p[:3]))
+        assert bool(k[3]) == (live > cap)
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    rows = 600
+    out = kernels.chunk_compact(fv, ff, 4 * live, cnt=torch.tensor(rows, device="cuda"),
+                                mul=run.K, total=total)
+    p = bfs.chunk_compact_plain(fv[: rows * run.K], ff[: rows * run.K], 4 * live)
+    assert all(torch.equal(a, b) for a, b in zip(out[:3], p[:3])) and int(total) == int(p[3])
+
+
+@pytest.mark.parametrize("S", [3, 5])
+def test_legacy_materialize_kernel_equals_twin(scale, run, S):
+    """Every slot of a few parents (valid and garbage lanes alike), and
+    random lanes, against ``materialize_legacy_plain`` on the card."""
+    from tla_raft_tpu_torch.ops.successor import materialize_legacy_plain
+
+    chk = run if S == 3 else scale[S]
+    fr = chk.frontier
+    n, K = fr.voted_for.shape[0], chk.K
+    rows = torch.linspace(0, n - 1, 6, device="cuda").long()
+    pidx = rows.repeat_interleave(K)
+    slots = torch.arange(K, device="cuda").repeat(rows.shape[0])
+    g = np.random.default_rng(S)
+    for pi, sl in ((pidx, slots), (torch.from_numpy(g.integers(0, n, 4096)).cuda(),
+                                   torch.from_numpy(g.integers(0, K, 4096)).cuda())):
+        kc, ka, ko = chk.materialize(fr, pi, sl, legacy=True)
+        pc, pa, po = materialize_legacy_plain(chk.cfg, fr, pi, sl)
+        assert all(torch.equal(a, b) for a, b in zip(kc, pc))
+        assert torch.equal(ka, pa) and torch.equal(ko, po)
+
+
+def test_canon_expand_run_is_golden(run):
+    """canon="expand" to depth 12 on the card: 47,064 / 112,939, with the
+    dense expand and the chunk compaction launched and K1 not."""
+    kernels.reset_launches()
+    res = TorchChecker(RaftConfig(), device="cuda", canon="expand").run(max_depth=12)
+    assert (res.distinct, res.generated) == (47_064, 112_939)
+    counts = kernels.launch_counts()
+    assert counts["dense_expand"] > 0 and counts["chunk_compact"] > 0 and counts["guards"] == 0

@@ -70,6 +70,8 @@ def _no_device_calls():
     from tla_raft_tpu_torch.models.raft import init_batch
     from tla_raft_tpu_torch.ops.fingerprint import Fingerprinter
     from tla_raft_tpu_torch.ops.hashstore import DeviceHashStore, make_slab
+    from tla_raft_tpu_torch.ops.dense_expand import DenseExpand
+    from tla_raft_tpu_torch.ops.msg_universe import get_universe
     from tla_raft_tpu_torch.ops.mxu_expand import MXUExpand
     from tla_raft_tpu_torch.ops.successor import GuardTables
 
@@ -77,6 +79,7 @@ def _no_device_calls():
     return {
         "Fingerprinter": lambda: Fingerprinter(cfg).C_planes,
         "MXUExpand": lambda: MXUExpand(cfg).W,
+        "DenseExpand": lambda: DenseExpand(cfg, get_universe(cfg)).SELP,
         "GuardTables": lambda: GuardTables(cfg).any_to,
         "init_batch": lambda: init_batch(cfg).role,
         "make_slab": lambda: make_slab(1024),

@@ -13,8 +13,12 @@ level_sizes and violation.
     python -m tla_raft_tpu_torch.check --max-depth 22 --dev-bytes 64e6  # tiered store
     python -m tla_raft_tpu_torch.check --servers 5 --max-depth 16     # 5 servers
     python -m tla_raft_tpu_torch.check --servers 7 --max-depth 9      # 7 servers
+    python -m tla_raft_tpu_torch.check --max-depth 23 --canon expand  # delta-hash fingerprints
+    python -m tla_raft_tpu_torch.check --max-depth 22 --no-mxu-expand # legacy per-lane kernels
+    python -m tla_raft_tpu_torch.check --max-depth 20 --audit 64      # sampled re-expansion
 
-Exit code 0 when no error was found, 1 on a violation.
+Exit code 0 when no error was found, 1 on a violation, 4 on an audit
+fail-stop.
 """
 
 from __future__ import annotations
@@ -97,6 +101,8 @@ def summarize(res, seconds: float, chk) -> dict:
         generated=res.generated,
         depth=res.depth,
         level_sizes=list(res.level_sizes),
+        mxu=chk.use_mxu,
+        canon=chk.canon,
         megakernel=chk.megakernel,
         superstep=chk.superstep_span,
         seconds=round(seconds, 3),
@@ -104,6 +110,8 @@ def summarize(res, seconds: float, chk) -> dict:
         device=str(chk.device),
         routes=dict(chk.routes),
     )
+    if chk.audit_stats.get("levels"):
+        out["audit"] = dict(chk.audit_stats)
     if chk._ss_stats["supersteps"]:
         out["superstep_stats"] = {k: int(v) for k, v in sorted(chk._ss_stats.items())}
     if chk.group_log:
@@ -116,6 +124,15 @@ def summarize(res, seconds: float, chk) -> dict:
                              generations=len(tiered.gens), soft_seats=chk.tier_soft_seats,
                              probe_wait_s=round(tiered.stats["probe_wait_s"], 6))
     return out
+
+
+def _mxu_arg(args):
+    """--mxu-expand / --no-mxu-expand -> use_mxu (None: TLA_RAFT_MXU)."""
+    if args.no_mxu_expand:
+        return False
+    if args.mxu_expand is None:
+        return None
+    return bool(args.mxu_expand)
 
 
 def main(argv=None) -> int:
@@ -143,11 +160,27 @@ def main(argv=None) -> int:
                          "slab demotes whole generations to host RAM instead of growing; "
                          "0/unset = unbounded, and the counts are the same either way "
                          "(env: TLA_RAFT_STORE_BYTES)")
+    ap.add_argument("--canon", choices=("late", "expand"), default="late",
+                    help="candidate canonicalization: 'late' fingerprints the compacted "
+                         "candidates (default), 'expand' every fan-out lane by the dense "
+                         "expand's delta hash")
+    ap.add_argument("--mxu-expand", type=int, choices=(0, 1), default=None,
+                    help="the matrix forms' kernels K1/K2 (default on; 0 selects the legacy "
+                         "per-lane kernels: the same counts; env: TLA_RAFT_MXU)")
+    ap.add_argument("--no-mxu-expand", action="store_true",
+                    help="shorthand for --mxu-expand 0")
+    ap.add_argument("--audit", type=int, default=0, metavar="N",
+                    help="every level, re-expand N deterministic new rows through the legacy "
+                         "kernels and cross-check guard and fingerprints; a mismatch "
+                         "fail-stops with exit 4 (no checkpoint to rewind to)")
+    ap.add_argument("--audit-retries", type=int, default=3, metavar="R",
+                    help="fail-stop after R reproducible audit mismatches (default 3)")
     ap.add_argument("--coverage", action="store_true", help="print per-action counts")
     ap.add_argument("--json", action="store_true", help="print a JSON summary line")
     args = ap.parse_args(argv)
 
     from .engine.bfs import TorchChecker
+    from .resilience.integrity import IntegrityError
 
     out = sys.stdout
     cfg = RaftConfig(
@@ -165,13 +198,20 @@ def main(argv=None) -> int:
     chk = TorchChecker(cfg, device=args.device, chunk=args.chunk, progress=progress,
                        megakernel=None if args.megakernel is None else bool(args.megakernel),
                        superstep=args.superstep,
-                       store_bytes=int(args.dev_bytes) if args.dev_bytes else None)
+                       store_bytes=int(args.dev_bytes) if args.dev_bytes else None,
+                       canon=args.canon, use_mxu=_mxu_arg(args), audit=args.audit,
+                       audit_retries=args.audit_retries)
     print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
     print(f"Config: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
     if chk.store_bytes:
         print(f"Tiered visited store: hot slab budget {chk.store_bytes:,} B (demotions spill "
               "to host generations)", file=out)
-    res = chk.run(max_depth=args.max_depth)
+    try:
+        res = chk.run(max_depth=args.max_depth)
+    except IntegrityError as e:
+        # an audit mismatch is no model verdict: exit 4 (check.py:1188-1197)
+        print(f"Integrity fail-stop: {e}", file=out)
+        return 4
     dt = time.monotonic() - t0
     print(file=out)
     if res.ok:

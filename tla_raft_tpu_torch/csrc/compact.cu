@@ -1,5 +1,10 @@
 // Order-keeping compaction: the flagged lanes' values packed to a prefix.
 //
+// Also tla_raft_tpu/engine/bfs.py _chunk_compact (:313; canon="expand":
+// a chunk's live fan-out lanes, those whose fp_view is not SENT, packed
+// with fp_view, fp_full and their payloads to cap_x lanes, with the
+// overflow flag): launch_chunk_compact derives the flags from fp_view in
+// one pass and runs the same scan.
 // Replaces the XLA programs of tla_raft_tpu/engine/bfs.py _compact_payloads
 // (the valid (parent, slot) lanes of a chunk packed to cap_x candidate
 // lanes, plus the overflow flag), tla_raft_tpu/ops/hashstore.py
@@ -57,7 +62,7 @@ __global__ void scatter_tiles(const uint8_t* __restrict__ flags, long long n,
       if (r < cap) {
         vs.o[0][off + r] = vs.v[0] ? vs.v[0][i] : iota_base + i;
         if (vs.o[1]) vs.o[1][off + r] = vs.v[1][i];
-        if (vs.o[2]) vs.o[2][off + r] = vs.v[2][i] + add;
+        if (vs.o[2]) vs.o[2][off + r] = (vs.v[2] ? vs.v[2][i] : iota_base + i) + add;
       }
       ++r;
     }
@@ -130,5 +135,31 @@ EXPORT int launch_filter_compact(const uint8_t* keep, long long n, const int64_t
                      ovf, (cudaStream_t)stream);
 }
 
-WARM((const void*)count_tiles, (const void*)scan_offsets, (const void*)scatter_tiles,
+// flags[i] = fv[i] != SENT over the first live_count(cnt, sub, mul, n) lanes.
+__global__ void live_flags(const int64_t* __restrict__ fv, long long n, uint8_t* __restrict__ flags,
+                           const int64_t* cnt, long long sub, long long mul) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < live_count(cnt, sub, mul, n)) flags[i] = fv[i] != -1;
+}
+
+// The chunk compaction (B3 _chunk_compact): the lanes of fv i64[n] that
+// are not SENT, in lane order, to (ov, of, op)[r] for r < cap: fv, ff and
+// the payload iota_base + lane; padded SENT, SENT, -1.  *total = the live
+// lanes; *ovf (may be null) = 1 when they are more than cap.  With cnt only
+// the first live_count(cnt, sub, mul, n) lanes count.  Scratch: flags
+// u8[n], tile i64[ceil(n / TILE)].
+EXPORT int launch_chunk_compact(const int64_t* fv, const int64_t* ff, long long n, long long cap,
+                                int64_t* ov, int64_t* of, int64_t* op, uint8_t* flags,
+                                int64_t* tile, int64_t* total, int64_t* ovf, const int64_t* cnt,
+                                long long sub, long long mul, long long iota_base, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0) live_flags<<<blocks_of(n, THREADS), THREADS, 0, st>>>(fv, n, flags, cnt, sub, mul);
+  Vals vs = {{(const long long*)fv, (const long long*)ff, nullptr},
+             {(long long*)ov, (long long*)of, (long long*)op},
+             {-1, -1, -1}};
+  return run_compact(flags, n, vs, cap, nullptr, tile, total, cnt, sub, mul, iota_base, nullptr,
+                     nullptr, ovf, st);
+}
+
+WARM((const void*)live_flags, (const void*)count_tiles, (const void*)scan_offsets, (const void*)scatter_tiles,
      (const void*)pad_tail)

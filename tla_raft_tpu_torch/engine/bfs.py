@@ -67,6 +67,14 @@ The counts, level sizes and traces equal the default definition's; the
 fingerprint values do not, so a slab or frontier carried across from the
 reference must come from a run with the same flag.
 
+The reference's cross-check paths run on every route: ``canon="expand"``
+replaces a chunk's guards, compaction, materialize and K3 by the dense
+expand with per-lane delta-hash fingerprints and the chunk compaction
+(bfs.py:977-1001; the same slab bytes); ``use_mxu=False`` replaces K1 and
+K2 by the legacy per-lane kernels; ``audit=N`` re-expands N sampled rows
+of every level through those legacy kernels before it commits and
+fail-stops on a mismatch (bfs.py:1864-2082; no checkpoint to rewind to).
+
 The order-keeping compactions, inflate/deflate of the message sets and
 the invariant scan are kernels too (csrc/compact.cu, msgset.cu,
 invariants.cu); each function here that wraps one sends CPU tensors to
@@ -92,8 +100,11 @@ from ..ops import sieve as sieve_ops
 from ..ops.fingerprint import Fingerprinter
 from ..ops.hashstore import DeviceHashStore, compact_fresh, probe_and_insert
 from ..ops.msg_universe import get_universe
-from ..ops.mxu_expand import MXUExpand
-from ..ops.successor import GuardTables
+from ..ops.dense_expand import DenseExpand
+from ..ops.mxu_expand import MXUExpand, mxu_enabled_by_env
+from ..ops.successor import GuardTables, materialize_legacy_plain
+from ..resilience import faults
+from ..resilience.integrity import AuditFailStop, audit_indices
 from ..store import tiered
 from ..u64 import SENT
 from . import forecast
@@ -166,6 +177,34 @@ def compact_payloads_plain(valid_flat: torch.Tensor, payload: torch.Tensor, cap_
     return out[:cap_x], lane, n_live > cap_x
 
 
+def chunk_compact(fpv: torch.Tensor, fpf: torch.Tensor, cap_x: int, iota_base: int = 0):
+    """The live fan-out lanes (``fpv`` not SENT) with their fingerprints and
+    payloads (``iota_base + lane``) packed to ``cap_x`` lanes in lane order
+    (bfs.py:313 ``_chunk_compact``): (cv, cf, cp, overflow 0-d bool).  The
+    ``chunk_compact`` kernel on the card, the plain twin on the CPU."""
+    if fpv.device.type == "cpu":
+        cv, cf, cp, n_live = chunk_compact_plain(fpv, fpf, cap_x, iota_base)
+        return cv, cf, cp, n_live > cap_x
+    cv, cf, cp, total = kernels.chunk_compact(fpv, fpf, cap_x, iota_base=iota_base)
+    return cv, cf, cp, total > cap_x
+
+
+def chunk_compact_plain(fpv: torch.Tensor, fpf: torch.Tensor, cap_x: int, iota_base: int = 0):
+    """Plain twin of ``chunk_compact``: (cv, cf, cp, n_live 0-d), padded
+    SENT, SENT, -1."""
+    live = fpv != SENT
+    dest = torch.cumsum(live.to(I64), 0) - 1
+    keep = live & (dest < cap_x)
+    tgt = torch.where(keep, dest, torch.full_like(dest, cap_x))
+    lanes = torch.arange(fpv.shape[0], dtype=I64, device=fpv.device) + iota_base
+    outs = []
+    for vals, pad in ((fpv, SENT), (fpf, SENT), (lanes, -1)):
+        o = torch.full((cap_x + 1,), pad, dtype=I64, device=fpv.device)
+        o.scatter_(0, tgt, vals)
+        outs.append(o[:cap_x])
+    return (*outs, live.sum())
+
+
 def ids_to_msgs(ids: torch.Tensor, n_words: int) -> torch.Tensor:
     """Sparse ids [n, cap_m] (-1 padded) -> packed int32 words [n, n_words]:
     the inflate kernel on the card, the plain twin on the CPU."""
@@ -227,6 +266,26 @@ class TorchChecker:
         to host generations (store/tiered.py); the counts do not change.
       orbit: orbit-pruned fingerprints (``None``: ``TLA_RAFT_ORBIT``, as the
         reference reads it); turns the fused level and supersteps off.
+      canon: "late" (guards, compaction, materialize, then K3 on the
+        candidates) or "expand" (every fan-out lane fingerprinted by the
+        dense expand's delta hash, then the chunk compaction; the
+        reference's independent formulation, bfs.py:977-1001).  Refused
+        under orbit, as in the reference.
+      use_mxu: the matrix forms' kernels K1/K2 (``None``: ``TLA_RAFT_MXU``,
+        on unless "0"); ``False`` takes the legacy per-lane kernels: the
+        guards-only dense expand and ``legacy_materialize``.
+      audit: rows per level re-expanded through the legacy kernels and
+        cross-checked (``--audit N``; 0: off).  Turns supersteps off; a
+        mismatch raises ``AuditFailStop`` (no checkpoint to rewind to).
+      audit_retries: reproducible strikes before the fail-stop (with no
+        checkpoint to rewind to, only 1 changes the fail-stop's message).
+
+    The reference's settings are read where it reads them, an explicit
+    argument winning: ``TLA_RAFT_MEGAKERNEL=0`` (the staged chain),
+    ``TLA_RAFT_SUPERSTEP`` (the span; <= 1: per-level fused levels; the
+    port has no tuner, so without it the span is ``ss.DEFAULT_SPAN``),
+    ``TLA_RAFT_CAP_M`` (replaces only the default cap_m of 96),
+    ``TLA_RAFT_MXU`` and ``TLA_RAFT_ORBIT``.
     """
 
     def __init__(
@@ -241,12 +300,28 @@ class TorchChecker:
         superstep: int | None = None,
         store_bytes: int | None = None,
         orbit: bool | None = None,
+        canon: str = "late",
+        use_mxu: bool | None = None,
+        audit: int = 0,
+        audit_retries: int = 3,
     ):
         self.cfg = cfg
         if orbit is None:
             env = os.environ.get("TLA_RAFT_ORBIT")
             orbit = bool(int(env)) if env else False
         self.orbit = bool(orbit)
+        if canon not in ("late", "expand"):
+            raise ValueError(f"canon must be 'late' or 'expand', got {canon!r}")
+        if self.orbit and canon != "late":
+            raise ValueError("TLA_RAFT_ORBIT requires canon='late'")
+        self.canon = canon
+        self.use_mxu = mxu_enabled_by_env() if use_mxu is None else bool(use_mxu)
+        env_capm = os.environ.get("TLA_RAFT_CAP_M")
+        if env_capm is not None and cap_m == 96:
+            cap_m = int(env_capm)  # the setting replaces only the default (bfs.py:536-546)
+        self.audit = max(0, int(audit))
+        self.audit_retries = max(1, int(audit_retries))
+        self.audit_stats = dict(levels=0, sampled=0, mismatches=0, rewinds=0)
         self.device = resolve_device(device)
         self.uni = get_universe(cfg)
         self.fpr = Fingerprinter(cfg, device=self.device)
@@ -254,6 +329,12 @@ class TorchChecker:
         self.layout = self.mx.layout
         self.tables = GuardTables(cfg, self.device)
         self.K = self.layout.K
+        # the dense expand: canon="expand"'s chunk expand, and the legacy
+        # guard of use_mxu=False and of the audit; its tables on the card
+        # now, since a first launch may be inside a graph capture
+        self.dx = None
+        if canon == "expand" or not self.use_mxu or self.audit:
+            self.dx = DenseExpand(cfg, self.uni, self.device, fpr=self.fpr)
         if chunk is None:
             chunk = default_chunk(self.K)
         if chunk & (chunk - 1):
@@ -270,12 +351,17 @@ class TorchChecker:
         self.redos = dict(cap_x=0, slab=0, cap_m=0, cap_g=0)  # every route's redos
         # the fused level and the supersteps fingerprint with K3 alone: orbit
         # runs the staged and grouped chains (bfs.py:738)
-        self.megakernel = (megakernel is None or bool(megakernel)) and not self.orbit
+        if megakernel is None:
+            megakernel = mk.enabled_by_env()
+        self.megakernel = bool(megakernel) and not self.orbit
         if self.orbit:
             self.fpr.orbit_tables  # on the card now: a first launch may be in a capture
         if superstep is None:
-            superstep = ss.DEFAULT_SPAN
-        self.superstep_span = max(1, int(superstep)) if self.megakernel else 1
+            superstep = ss.span_from_env()
+        # the audit re-expands from each level's parents, which a resident
+        # superstep consumes: audited runs go per level (bfs.py:758)
+        self.superstep_span = (max(1, int(superstep)) if self.megakernel and not self.audit
+                               else 1)
         # chunks per group (bfs.py:558): fused levels hold <= 16 * G chunks,
         # larger ones run grouped; a group keeps <= cap_g unvisited lanes
         self.G = 16
@@ -319,6 +405,30 @@ class TorchChecker:
         fill = torch.full((fr.msg_ids.shape[0], pad), -1, dtype=fr.msg_ids.dtype,
                           device=fr.msg_ids.device)
         return fr._replace(msg_ids=torch.cat([fr.msg_ids, fill], 1))
+
+    # -- the arms' kernels ---------------------------------------------------
+
+    def guards(self, st: RaftState):
+        """(valid, mult, abort) of a parent batch: K1, or the legacy guard
+        (the guards-only dense expand) under ``use_mxu=False``."""
+        return self.mx.guards(st) if self.use_mxu else self.dx.guards(st)
+
+    def materialize_plain(self, fr: Frontier, pidx, slots):
+        """The arm's materialize twin (K2's or ``legacy_materialize``'s)."""
+        if self.use_mxu:
+            return self.mx.materialize_plain(fr, pidx, slots)
+        return materialize_legacy_plain(self.cfg, fr, pidx, slots)
+
+    def materialize(self, fr: Frontier, pidx, slots, legacy: bool | None = None):
+        """(child Frontier, added, overflow) of (parent row, slot) lanes:
+        K2, or ``legacy_materialize`` under ``use_mxu=False`` (or
+        ``legacy``); the plain twin on the CPU."""
+        legacy = (not self.use_mxu) if legacy is None else legacy
+        if fr.msg_ids.device.type == "cpu":
+            if legacy:
+                return materialize_legacy_plain(self.cfg, fr, pidx, slots)
+            return self.mx.materialize_plain(fr, pidx, slots)
+        return kernels.materialize(self.mx, fr, pidx, slots, legacy=legacy)
 
     # -- invariants ---------------------------------------------------------
 
@@ -364,15 +474,24 @@ class TorchChecker:
         """Guards, compaction, materialize and fingerprints of one chunk."""
         K = self.K
         B = part_f.voted_for.shape[0]
-        valid, mult, abort = self.mx.guards(self.inflate(part_f))
+        if self.canon == "expand":
+            # bfs.py:986-1001: fingerprints of every fan-out lane by delta
+            # hash, then the live lanes compacted; nothing materialized
+            valid, mult, fv, ff, abort = self.dx.expand(self.inflate(part_f))
+        else:
+            valid, mult, abort = self.guards(self.inflate(part_f))
         mult_slots = mult.to(I64).sum(0)
         first = start + torch.argmax(abort.to(torch.int32)).to(I64)
         abort_at = torch.where(abort.any(), first, torch.full_like(first, BIG))
+        if self.canon == "expand":
+            cv, cf, cp, ovf_x = chunk_compact(fv.reshape(-1), ff.reshape(-1), self.cap_x,
+                                              start * K)
+            return cv, cf, cp, mult_slots, abort_at, ovf_x, torch.zeros_like(ovf_x)
         rows = start + torch.arange(B, dtype=I64, device=self.device)
         payload = (rows[:, None] * K + torch.arange(K, dtype=I64, device=self.device)).reshape(-1)
         cp_raw, lane, ovf_x = compact_payloads(valid.reshape(-1), payload, self.cap_x)
         lidx = (torch.div(cp_raw, K, rounding_mode="floor") - start).clamp(0, B - 1)
-        children, _added, ovf_rows = self.mx.materialize(part_f, lidx, cp_raw % K)
+        children, _added, ovf_rows = self.materialize(part_f, lidx, cp_raw % K)
         if self.orbit:
             # the tied rows' budget overflow redoes the level as a cap_x one
             fv, ff, ovf_nd = self.fpr.orbit_chunk_fps(children, self.cap_nd, lane.sum())
@@ -435,13 +554,98 @@ class TorchChecker:
         for a in range(0, n_new, sl):
             pay = new_payload[a : min(a + sl, n_new)]
             pidx = torch.div(pay, K, rounding_mode="floor")
-            child, _added, ovf = self.mx.materialize(frontier, pidx, pay % K)
+            child, _added, ovf = self.materialize(frontier, pidx, pay % K)
             parts.append(child)
             bad = self.inv_scan(child, offset=a, into=bad)
             ovfs.append(ovf.any())
         new = Frontier(*(torch.cat([getattr(p, f) for p in parts]) for f in Frontier._fields))
         (ctl,) = fetch(torch.stack([bad, torch.stack(ovfs).any().to(I64)]), what="staged_mat")
         return new, int(ctl[0]), bool(ctl[1])
+
+    # -- the sampled recomputation audit (bfs.py:1864-2082) ---------------------
+
+    @staticmethod
+    def _flip_frontier_row(frontier: Frontier) -> Frontier:
+        """The ``tensor.flip`` fault: bit 0 of the first frontier row's
+        ``current_term[0]`` flips on the device, in place.  Row 0 is always
+        live and always in the audit sample (``audit_indices``)."""
+        frontier.current_term[0, 0] ^= 1
+        return frontier
+
+    def _audit_rows(self, par_rows: Frontier, kid_rows: Frontier, slots: torch.Tensor):
+        """The cross-check over gathered rows (bfs.py:1891): (guard_ok,
+        fp_view of the legacy re-expansion, fp_view of the stored row).
+        The legacy guard is the guards-only dense expand and the child is
+        ``legacy_materialize``'s, both independent of K1/K2; K3 (or the
+        orbit definition) fingerprints both row sets."""
+        n = slots.shape[0]
+        ar = torch.arange(n, dtype=I64, device=slots.device)
+        valid, _mult, _abort = self.dx.guards(self.inflate(par_rows))
+        guard_ok = valid[ar, slots]
+        kids, _added, _ovf = self.materialize(par_rows, ar, slots, legacy=True)
+        fv_leg, _ff = self._fp_states(kids)
+        fv_now, _ff = self._fp_states(kid_rows)
+        return guard_ok, fv_leg, fv_now
+
+    def _gather_frontier_rows(self, frontier: Frontier, idx_np) -> Frontier:
+        """Sampled rows of a device frontier as one small batch (bfs.py:1916;
+        the port's frontiers are single buffers, never segment lists)."""
+        rows = torch.from_numpy(np.asarray(idx_np).astype(np.int64)).to(self.device)
+        return Frontier(*(x[rows] for x in frontier))
+
+    def _audit_level(self, parents: Frontier, new_frontier: Frontier, pidx_np, slot_np,
+                     level_fps, n_new: int, depth: int) -> list:
+        """Re-expand the level's deterministic sample through the legacy
+        kernels (bfs.py:1938): the problems found (empty: verified).  The
+        sample is padded to the fixed ``audit`` width with row 0."""
+        idx = audit_indices(n_new, self.audit)
+        if idx.size == 0:
+            return []
+        self.audit_stats["levels"] += 1
+        self.audit_stats["sampled"] += int(idx.size)
+        n_live = int(idx.size)
+        if n_live < self.audit:
+            idx = np.concatenate([idx, np.full(self.audit - n_live, idx[0], np.int64)])
+        ref = np.asarray(level_fps)[idx].astype(np.uint64)
+        slots = torch.from_numpy(np.asarray(slot_np).astype(np.int64)[idx]).to(self.device)
+        par_rows = self._gather_frontier_rows(parents, np.asarray(pidx_np)[idx])
+        kid_rows = self._gather_frontier_rows(new_frontier, idx)
+        guard_ok, fv_leg, fv_now = self._audit_rows(par_rows, kid_rows, slots)
+        guard_np, leg_np, now_np = fetch(guard_ok, fv_leg, fv_now, what="audit")
+        leg_np, now_np = leg_np.view(np.uint64), now_np.view(np.uint64)
+        problems = []
+        for j, row in enumerate(idx[:n_live]):
+            if not guard_np[j]:
+                problems.append(f"row {int(row)}: legacy guard refutes recorded "
+                                f"slot {int(np.asarray(slot_np)[row])}")
+            if leg_np[j] != ref[j]:
+                problems.append(f"row {int(row)}: legacy re-expansion fp "
+                                f"{leg_np[j]:#x} != recorded {ref[j]:#x}")
+            if now_np[j] != ref[j]:
+                problems.append(f"row {int(row)}: materialized frontier row "
+                                f"re-fingerprints to {now_np[j]:#x} != recorded "
+                                f"{ref[j]:#x} (corrupted frontier tensor)")
+        if problems:
+            self.audit_stats["mismatches"] += len(problems)
+            for msg in problems[:8]:
+                print(f"[integrity] audit level {depth + 1}: {msg}", file=sys.stderr)
+        return problems
+
+    def _audit_rewind(self, problems: list, depth: int):
+        """The reference's ``_audit_rewind`` (bfs.py:2026) for a run with no
+        checkpoint directory, which every port run is (checkpoints are not
+        ported yet, so there is no rewind and the first mismatch is the
+        only strike): ``AuditFailStop``, with the reference's "reproduced"
+        message when ``audit_retries`` is 1."""
+        if self.audit_retries <= 1:
+            raise AuditFailStop(
+                f"audit mismatch at level {depth + 1} reproduced "
+                f"1 time(s) (budget {self.audit_retries}): "
+                "deterministic corruption — fail-stop; first problem: " + problems[0])
+        raise AuditFailStop(
+            f"audit mismatch at level {depth + 1} with no "
+            "checkpoint directory to rewind to — fail-stop; first "
+            "problem: " + problems[0])
 
     # -- traces -----------------------------------------------------------------
 
@@ -459,7 +663,7 @@ class TorchChecker:
         out = [("Init", to_oracle(self.cfg, self.inflate(fr))[0])]
         zero = torch.zeros((1,), dtype=I64, device=self.device)
         for slot in chain:
-            fr, _added, _ovf = self.mx.materialize(
+            fr, _added, _ovf = self.materialize(
                 fr, zero, torch.full((1,), slot, dtype=I64, device=self.device)
             )
             out.append((self.layout.action_name(slot), to_oracle(self.cfg, self.inflate(fr))[0]))
@@ -526,8 +730,8 @@ class TorchChecker:
         holds their addresses)."""
         slab = self.hstore.slab
         sieve = self._sieve_operand()
-        sig = (self.cap_x, self.cap_m, self.k4_rounds, slab.data_ptr(), slab.shape[0],
-               sieve.data_ptr(), sieve.shape[0])
+        sig = (self.canon, self.use_mxu, self.cap_x, self.cap_m, self.k4_rounds,
+               slab.data_ptr(), slab.shape[0], sieve.data_ptr(), sieve.shape[0])
         self._progs.drop_stale(sig)
 
         def built():
@@ -959,14 +1163,15 @@ class TorchChecker:
                     want = [res["pidx"][:n_new], res["slot"][:n_new]]
                 else:
                     want = [res["new_payload"][:n_new]]
-                if self._tier_active():
+                want_fps = self._tier_active() or bool(self.audit)
+                if want_fps:
                     want.append(res["new_fps"][:n_new])
                 got = fetch(*want, what="staged_trace")
                 if route == "grouped":
                     pidx, slot = got[0].view(np.uint32).copy(), got[1].view(np.uint16).copy()
                 else:
                     pidx, slot = np.divmod(got[0], K)
-                fps_lvl = got[-1].view(np.uint64) if self._tier_active() else None
+                fps_lvl = got[-1].view(np.uint64) if want_fps else None
             # the tiered level tail: a fused level with no sieve hit
             # provably revisits nothing demoted; every other route probes
             n_store = n_new  # the slab's own fresh count
@@ -978,6 +1183,7 @@ class TorchChecker:
                         depth, n_new, fps_lvl, new_frontier)
                     if keep is not None:
                         pidx, slot = pidx[keep], slot[keep]
+                        fps_lvl = np.asarray(fps_lvl)[:len(keep)][keep]
                         if bad_idx >= 0:
                             # a violating row is new: its first visit is here
                             assert keep[bad_idx], "invariant violation on a demoted revisit"
@@ -995,7 +1201,12 @@ class TorchChecker:
                     cap_g=self.cap_g, lanes=res["lanes"],
                     ungrouped_lanes=-(-n_f // self.chunk) * self.cap_x,
                     seconds=time.perf_counter() - t_level))
+            parent_prev = frontier if self.audit else None
             frontier = new_frontier
+            if faults.fire_flag("tensor.flip"):
+                # injected silent corruption after materialize: the recorded
+                # fingerprints disagree with the row from here on
+                frontier = self._flip_frontier_row(frontier)
             trace_levels.append((pidx, slot))
             distinct += n_new
             level_sizes.append(n_new)
@@ -1016,6 +1227,12 @@ class TorchChecker:
                     False, distinct, generated, depth, tuple(level_sizes),
                     (f"Invariant {name} is violated", self.trace(trace_levels, depth, bad_idx)),
                 )
+            if self.audit and n_new:
+                # before the level would commit (bfs.py:5009-5032)
+                problems = self._audit_level(parent_prev, frontier, pidx, slot, fps_lvl,
+                                             n_new, depth)
+                if problems:
+                    self._audit_rewind(problems, depth)
         return CheckResult(
             True, distinct, generated, depth, tuple(level_sizes), None,
             self.layout.action_counts(mult_per_slot),

@@ -15,7 +15,8 @@ Here a group is G chunks of parents seated in a buffer of ``G * chunk``
 rows and run as one captured CUDA graph (``GroupProgram``): per chunk
 inflate, guards (K1, folding ``mult`` into the level and the abort into
 the group), the order-keeping compaction to ``cap_x`` lanes, materialize
-(K2) and fingerprints (K3); then the membership probe ``hs_probe`` (B8
+(K2) and fingerprints (K3) -- or under ``canon="expand"`` the dense expand
+with fingerprints and the chunk compaction (``mk.op_expand_chunk``); then the membership probe ``hs_probe`` (B8
 ``probe_impl``) against the slab **as it was before the level** (K4 runs
 only in the tail), and the filter compaction (B3 ``_filter_compact``)
 of the unvisited lanes into the group's ``cap_g`` slice of the level's
@@ -212,6 +213,7 @@ class GroupProgram(mk.GraphProgram):
         self.covf = torch.zeros((cap_x,), dtype=torch.bool, device=dev)
         self.orbit_scr = (OrbitScratch(cap_x, eng.cap_nd, dev)
                           if eng.orbit and dev.type == "cuda" else None)
+        self.xs = mk.ExpandScratch(eng, chunk) if eng.canon == "expand" else None
         N = groups * self.cap_g
         self.N = N
         self.lanes = tuple(torch.full((N,), pad, dtype=I64, device=dev)
@@ -244,9 +246,14 @@ class GroupProgram(mk.GraphProgram):
             part = mk.rows_of(self.seat, start, start + chunk)
             mk.op_inflate(eng, part.msg_ids, self.msgs, n_run, start)
             st = RaftState(msgs=self.msgs, **core_of(part))
-            mk.op_guards(eng, st, self.valid, n_run, start, self.mult, lc[LC_G_ABORT], start)
             seg = slice(i * cap_x, (i + 1) * cap_x)
             total = self.chunk_total[i]
+            if eng.canon == "expand":
+                mk.op_expand_chunk(eng, st, self.valid, self.xs, n_run, start, self.mult,
+                                   lc[LC_G_ABORT], start, (self.cv[seg], self.cf[seg],
+                                                           self.cp[seg]), total, cap_x)
+                continue
+            mk.op_guards(eng, st, self.valid, n_run, start, self.mult, lc[LC_G_ABORT], start)
             mk.op_compact_chunk(self.valid.view(-1), self.cp[seg], total, n_run, start, K,
                                 start * K, self.tile_chunk)
             mk.op_materialize(eng, part, self.cp[seg], start,

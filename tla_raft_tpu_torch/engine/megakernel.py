@@ -40,6 +40,11 @@ stops for any reason gives its claims back inside the same graph (K4's
 undo gated on the device flag ``LC_UNDO``), so the slab after the graph is
 the slab before it plus exactly the committed level's fresh states.
 
+Under ``canon="expand"`` step 1's chunk is the dense expand with
+fingerprints and the chunk compaction (``op_expand_chunk``); under
+``use_mxu=False`` ``op_guards`` and ``op_materialize`` launch the legacy
+kernels (the guards-only dense expand, ``legacy_materialize``).
+
 On the CPU the same sequence runs eagerly through the plain twins (each
 ``op_*`` below sends CPU tensors to its twin and CUDA tensors to the
 kernel), which is what the tests hold against the reference.
@@ -48,6 +53,7 @@ kernel), which is what the tests hold against the reference.
 from __future__ import annotations
 
 import gc
+import os
 import time
 
 import torch
@@ -98,6 +104,12 @@ CTRL_LEN = 8
 # with twice the budget
 DEFAULT_ROUNDS = 32
 _PROG_CACHE_MAX = 16
+
+
+def enabled_by_env() -> bool:
+    """The fused level's default (megakernel.py:91): on;
+    ``TLA_RAFT_MEGAKERNEL=0`` selects the staged chain."""
+    return os.environ.get("TLA_RAFT_MEGAKERNEL", "1") != "0"
 
 
 def mat_slice_width(cap_out: int, chunk: int) -> int:
@@ -159,14 +171,21 @@ def op_inflate(eng, ids, out, cnt, sub):
 
 
 def op_guards(eng, st, valid, cnt, sub, mult_acc, abort_acc, base):
+    """The chunk's guards: K1, or under ``use_mxu=False`` the guards-only
+    ``dense_expand`` (the legacy guard)."""
     if st.msgs.is_cuda:
-        kernels.guards(eng.mx, st, valid=valid, per_row=False, cnt=cnt, sub=sub,
-                       mult_acc=mult_acc, abort_acc=abort_acc, base=base)
+        if eng.use_mxu:
+            kernels.guards(eng.mx, st, valid=valid, per_row=False, cnt=cnt, sub=sub,
+                           mult_acc=mult_acc, abort_acc=abort_acc, base=base)
+        else:
+            kernels.dense_expand(eng.dx, st, False, valid=valid, per_row=False, cnt=cnt, sub=sub,
+                                 mult_acc=mult_acc, abort_acc=abort_acc, base=base)
         return
     n = _live(cnt, sub, st.msgs.shape[0])
     if not n:
         return
-    v, m, a = eng.mx.guards_plain(RaftState(*(x[:n] for x in st)))
+    part = RaftState(*(x[:n] for x in st))
+    v, m, a = eng.mx.guards_plain(part) if eng.use_mxu else eng.dx.guards_plain(part)
     valid[:n] = v
     mult_acc += m.to(I64).sum(0)
     if bool(a.any()):
@@ -190,16 +209,18 @@ def op_compact_chunk(flags, out, total, cnt, sub, mul, iota_base, tile):
 
 
 def op_materialize(eng, parents, pay, pay_base, out, cnt, sub, ovf_any):
+    """Children of payload lanes: K2, or under ``use_mxu=False``
+    ``legacy_materialize``."""
     if pay.is_cuda:
         kernels.materialize(eng.mx, parents, None, None, pay=pay, pay_base=pay_base, out=out,
-                            cnt=cnt, sub=sub, ovf_any=ovf_any)
+                            cnt=cnt, sub=sub, ovf_any=ovf_any, legacy=not eng.use_mxu)
         return
     n = _live(cnt, sub, pay.shape[0])
     if not n:
         return
     K = eng.K
     p = pay[:n]
-    child, added, ovf = eng.mx.materialize_plain(
+    child, added, ovf = eng.materialize_plain(
         parents, torch.div(p, K, rounding_mode="floor") - pay_base, torch.remainder(p, K))
     o_child, o_added, o_ovf = out
     for d, s in zip(o_child, child):
@@ -222,6 +243,62 @@ def op_fingerprints(eng, children, out, cnt, sub):
         a, b = eng.fpr.state_fingerprints_plain(rows_of(children, 0, n))
         fv[:n] = a
         ff[:n] = b
+
+
+class ExpandScratch:
+    """One chunk's canon="expand" buffers: the fan-out's fingerprints
+    fp_view / fp_full i64[chunk, K] (SENT where invalid) and the
+    compaction's flags and tiles (allocated once per program)."""
+
+    def __init__(self, eng, rows: int):
+        dev, K = eng.device, eng.K
+        self.fpv = torch.full((rows, K), SENT, dtype=I64, device=dev)
+        self.fpf = torch.full((rows, K), SENT, dtype=I64, device=dev)
+        if dev.type == "cuda":
+            self.flags = torch.zeros((rows * K,), dtype=torch.uint8, device=dev)
+            self.tile = torch.zeros((kernels.compact_tiles(rows * K),), dtype=I64, device=dev)
+        else:
+            self.flags = self.tile = None
+
+
+def op_expand_chunk(eng, st, valid, xs: ExpandScratch, cnt, sub, mult_acc, abort_acc, base,
+                    out, total, cap_x: int):
+    """canon="expand"'s chunk body (bfs.py:986-1001): the dense expand with
+    fingerprints (``dense_expand``, folding mult and the abort as the
+    guards do), then ``chunk_compact`` of the live lanes (fp_view not
+    SENT) with their payloads ``base * K + lane`` into ``out`` = (cv, cf,
+    cp) [cap_x]; ``total`` gets the live lanes (the gate's cap_x
+    overflow).  No child is materialized and K3 does not run."""
+    K = eng.K
+    cv, cf, cp = out
+    if st.msgs.is_cuda:
+        kernels.dense_expand(eng.dx, st, True, valid=valid, per_row=False, fpv=xs.fpv,
+                             fpf=xs.fpf, cnt=cnt, sub=sub, mult_acc=mult_acc,
+                             abort_acc=abort_acc, base=base)
+        kernels.chunk_compact(xs.fpv.view(-1), xs.fpf.view(-1), cap_x, iota_base=base * K,
+                              out=(cv, cf, cp), total=total, cnt=cnt, sub=sub, mul=K,
+                              flags=xs.flags, tile=xs.tile)
+        return
+    n = _live(cnt, sub, st.msgs.shape[0])
+    cv.fill_(SENT)
+    cf.fill_(SENT)
+    cp.fill_(-1)
+    total.fill_(0)
+    if not n:
+        return
+    v, m, fv, ff, a = eng.dx.expand_plain(RaftState(*(x[:n] for x in st)))
+    valid[:n] = v
+    mult_acc += m.to(I64).sum(0)
+    if bool(a.any()):
+        first = base + int(torch.argmax(a.to(torch.int32)))
+        abort_acc.fill_(min(int(abort_acc), first))
+    from .bfs import chunk_compact_plain
+
+    a_v, a_f, a_p, tot = chunk_compact_plain(fv.reshape(-1), ff.reshape(-1), cap_x, base * K)
+    cv.copy_(a_v)
+    cf.copy_(a_f)
+    cp.copy_(a_p)
+    total.fill_(int(tot))
 
 
 def op_inv_scan(eng, rows, offset, into, cnt, sub):
@@ -384,6 +461,7 @@ class LaneBuffers:
         self.madded = torch.zeros((sl, eng.mx.A), dtype=torch.int32, device=dev)
         self.movf = torch.zeros((sl,), dtype=torch.bool, device=dev)
         self.sieve = eng._sieve_operand()  # its address is part of the program's key
+        self.xs = ExpandScratch(eng, chunk) if eng.canon == "expand" else None
         if dev.type == "cuda":
             self.tile_chunk = torch.zeros((kernels.compact_tiles(chunk * K),), dtype=I64,
                                           device=dev)
@@ -400,7 +478,7 @@ def _device_bytes(x) -> int:
         return x.numel() * x.element_size() if x.is_cuda else 0
     if isinstance(x, (list, tuple)):
         return sum(_device_bytes(y) for y in x)
-    if isinstance(x, (LaneBuffers, K4Scratch, OrbitScratch)):
+    if isinstance(x, (LaneBuffers, K4Scratch, OrbitScratch, ExpandScratch)):
         return sum(_device_bytes(v) for k, v in vars(x).items() if k not in ("m1", "m2"))
     return 0
 
@@ -418,9 +496,13 @@ def level_core(eng, B: LaneBuffers, fr_in: Frontier, fr_out: Frontier, cap_out: 
         part = rows_of(fr_in, start, start + chunk)
         op_inflate(eng, part.msg_ids, B.msgs, n_run, start)
         st = RaftState(msgs=B.msgs, **core_of(part))
-        op_guards(eng, st, B.valid, n_run, start, mult, lc[LC_ABORT], start)
         seg = slice(i * cap_x, (i + 1) * cap_x)
         total = B.chunk_total[i]
+        if eng.canon == "expand":
+            op_expand_chunk(eng, st, B.valid, B.xs, n_run, start, mult, lc[LC_ABORT], start,
+                            (B.cv[seg], B.cf[seg], B.cp[seg]), total, cap_x)
+            continue
+        op_guards(eng, st, B.valid, n_run, start, mult, lc[LC_ABORT], start)
         op_compact_chunk(B.valid.view(-1), B.cp[seg], total, n_run, start, K, start * K,
                          B.tile_chunk)
         op_materialize(eng, part, B.cp[seg], start, (B.children, B.added, B.covf), total, 0,

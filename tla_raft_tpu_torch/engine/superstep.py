@@ -27,6 +27,8 @@ remainder.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -76,6 +78,17 @@ REASON_NAMES = {
     REASON_RING: "ring",
     REASON_FIX: "fixpoint",
 }
+
+
+def span_from_env(default: int = DEFAULT_SPAN) -> int:
+    """Levels per superstep (superstep.py:133): ``TLA_RAFT_SUPERSTEP`` when
+    set (<= 1: per-level fused levels), else ``default``.  The reference
+    falls back to its autotuner's plan; the port has no tuner yet, so the
+    fallback is ``DEFAULT_SPAN``."""
+    v = os.environ.get("TLA_RAFT_SUPERSTEP")
+    if v is None or v == "":
+        return default
+    return max(1, int(v))
 
 
 def unpack_ring(ctrl, meta_n, meta_mult, ring_fps, ring_pidx, ring_slot):

@@ -214,9 +214,32 @@ DROP_ROWS = Kernel(
     "tla_raft_tpu/store/tiered.py:810 (drop_rows_impl)",
     {"drop_rows_launch": [VP, I64, VP, VP, VP, I32, VP, VP, VP, VP], "drop_rows_tile": []},
 )
+DENSE_EXPAND = Kernel(
+    "dense_expand", "csrc/dense_expand.cu",
+    "tla_raft_tpu/ops/dense_expand.py:330 (DenseExpand.__call__, with "
+    "ops/fingerprint.py:392 msg_coef_eff, :456 delta_hash, :528 child_fingerprints; "
+    "guards-only: ops/successor.py:339 _expand_guards)",
+    {"launch_dense_expand": [VP, VP, I32, VP, I32, VP, I32, VP, I32, I32, VP, VP, VP, I32, VP,
+                             I64, VP, VP, VP, VP, VP, VP, I64, VP, VP, I64, VP]},
+)
+CHUNK_COMPACT = Kernel(
+    "chunk_compact", "csrc/compact.cu",
+    "tla_raft_tpu/engine/bfs.py:313 (_chunk_compact)",
+    {"launch_chunk_compact": [VP, VP, I64, I64, VP, VP, VP, VP, VP, VP, VP, VP, I64, I64, I64,
+                              VP],
+     "compact_tile": []},
+)
+LEGACY = Kernel(
+    "legacy_materialize", "csrc/legacy.cu",
+    "tla_raft_tpu/ops/successor.py:701-748 (_materialize_one / _materialize / "
+    "_materialize_added over the scalar actions :364-665)",
+    {"launch_legacy": [VP, VP, I32, I32, I64, VP, VP, I64, VP, I32, VP, VP, VP, VP, VP, VP, I64,
+                       VP, I64, VP, VP]},
+)
 KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMPACT, INFLATE,
                                DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE, HS_PROBE,
-                               FILTER_COMPACT, DROP_ROWS, MSG_FACTORED, ORBIT, ORBIT_FOLD)}
+                               FILTER_COMPACT, DROP_ROWS, MSG_FACTORED, ORBIT, ORBIT_FOLD,
+                               DENSE_EXPAND, CHUNK_COMPACT, LEGACY)}
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
@@ -228,6 +251,10 @@ GROUPED = ("hs_probe", "filter_compact")
 SCALE = ("msg_hash_factored",)
 # orbit pruning (TLA_RAFT_ORBIT=1): the canonical relabel and the tied fold
 ORBIT_PATH = ("orbit", "orbit_fold")
+# canon="expand" (the fan-out's fingerprints by delta hash), and the legacy
+# per-lane kernels of use_mxu=False and --audit
+EXPAND_PATH = ("dense_expand", "chunk_compact")
+LEGACY_PATH = ("dense_expand", "legacy_materialize")
 
 
 def reset_launches() -> None:
@@ -397,6 +424,23 @@ def _check_cfg(cfg, uni) -> None:
         raise ValueError(f"the CUDA kernels take 2 <= S <= 8: {cfg.describe()}")
 
 
+# csrc/dense_expand.cu's per-lane lists: MAX_DELTAS feature deltas and 8
+# added message ids
+DENSE_MAX_DELTAS, DENSE_MAX_ADDED = 40, 8
+
+
+def check_dense_cfg(cfg) -> None:
+    """Refuse a config whose widest action would overflow dense_expand's
+    per-lane lists: FollowerAcceptEntry's truncation writes 2L + 2 feature
+    deltas, BecomeLeader 3S + 1, and BecomeCandidate adds S - 1 ids."""
+    deltas = max(2 * cfg.L + 2, 3 * cfg.S + 1)
+    if deltas > DENSE_MAX_DELTAS or cfg.S - 1 > DENSE_MAX_ADDED:
+        raise ValueError(
+            f"dense_expand holds {DENSE_MAX_DELTAS} feature deltas and "
+            f"{DENSE_MAX_ADDED} added ids a lane; {cfg.describe()} needs {deltas} "
+            f"and {cfg.S - 1}")
+
+
 _ID_BYTES = {torch.int16: 2, torch.int32: 4}
 
 
@@ -458,13 +502,16 @@ def guards(mx, st, *, valid=None, per_row=True, cnt=None, sub=0, mult_acc=None, 
 
 
 def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None, sub=0,
-                ovf_any=None):
+                ovf_any=None, legacy=False):
     """K2: (child Frontier [G], added i32[G, A], overflow bool[G]).
 
     Lanes are (``pidx``, ``slots``), or payloads ``pay`` =
     (parent + ``pay_base``) * K + slot.  ``out`` = (Frontier, added, ovf)
     to write into; lanes past the device count ``cnt - sub`` are dead, and
-    ``ovf_any`` (int64 0-d) is set to 1 when a live lane overflows."""
+    ``ovf_any`` (int64 0-d) is set to 1 when a live lane overflows.
+
+    ``legacy`` launches ``legacy_materialize`` (csrc/legacy.cu, B20: the
+    scalar actions, one thread per lane) through the same interface."""
     from ..models.raft import Frontier, _CORE_FIELDS
 
     cfg, uni = mx.cfg, mx.uni
@@ -497,14 +544,15 @@ def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None
     out_ptrs = _core_ptrs(child, G, shapes)
     if ovf_any is not None:
         _need(ovf_any, "ovf_any", torch.int64, ())
-    lib = MATERIALIZE.lib()
-    MATERIALIZE.check(lib.launch_materialize(
+    kern = LEGACY if legacy else MATERIALIZE
+    lib = kern.lib()
+    kern.check(getattr(lib, "launch_legacy" if legacy else "launch_materialize")(
         core, fr.msg_ids.data_ptr(), id_bytes, cap_m, N, _p(pidx if pay is None else None),
         _p(slots if pay is None else None), G, mx.slot_table.data_ptr(), K,
         dims_array(cfg, uni), out_ptrs, added.data_ptr(), child.msg_ids.data_ptr(),
         ovf.data_ptr(), _p(pay), pay_base, _cnt(cnt), sub, _p(ovf_any), _stream(),
     ))
-    MATERIALIZE.launches += int(G > 0)
+    kern.launches += int(G > 0)
     return child, added, ovf
 
 
@@ -777,6 +825,105 @@ def compact(flags, va, pad_a, cap, vb=None, pad_b=0, want_lane=False, *, out_a=N
     # count_tiles and scatter_tiles per tile pass, scan_offsets, pad_tail
     COMPACT.launches += 2 * int(n_tiles > 0) + 1 + int(cap > 0)
     return oa, ob, lane, total
+
+
+def dense_expand(dx, st, want_fp: bool, *, valid=None, per_row=True, fpv=None, fpf=None,
+                 cnt=None, sub=0, mult_acc=None, abort_acc=None, base=0):
+    """B18: (valid bool[B,K], mult i32[B,K], fp_view i64[B,K], fp_full
+    i64[B,K], abort bool[B]) of a RaftState, fingerprints (SENT where
+    invalid) only with ``want_fp`` (else None).
+
+    Counted form (the fused level): ``per_row=False`` (no per-row mult /
+    abort), rows past the device count ``cnt - sub`` dead (nothing written);
+    each live row's mult adds into ``mult_acc`` i64[K] and its abort (+
+    ``base``) minimizes into ``abort_acc`` (int64 0-d)."""
+    cfg, uni = dx.cfg, dx.uni
+    _check_cfg(cfg, uni)
+    check_dense_cfg(cfg)
+    fpr = dx.fpr
+    B, K = st.msgs.shape[0], dx.K
+    core = _core_ptrs(st, B, _field_shapes(cfg))
+    _need(st.msgs, "msgs", torch.int32, (B, uni.n_words))
+    _need(dx.slot_table, "slot_table", torch.int32, (K, 6))
+    dev = st.msgs.device
+    if valid is None:
+        valid = torch.empty((B, K), dtype=torch.bool, device=dev)
+    _need(valid, "valid", torch.bool, (B, K))
+    mult = torch.empty((B, K), dtype=torch.int32, device=dev) if per_row else None
+    abort = torch.empty((B,), dtype=torch.bool, device=dev) if per_row else None
+    if mult_acc is not None:
+        _need(mult_acc, "mult_acc", torch.int64, (K,))
+    if abort_acc is not None:
+        _need(abort_acc, "abort_acc", torch.int64, ())
+    F = P = NP = 0
+    ceff = eff = gt = pperm = None
+    tdims = (I32 * 12)(*([0] * 12))
+    if want_fp:
+        if fpv is None:
+            fpv = torch.empty((B, K), dtype=torch.int64, device=dev)
+        if fpf is None:
+            fpf = torch.empty((B, K), dtype=torch.int64, device=dev)
+        _need(fpv, "fp_view", torch.int64, (B, K))
+        _need(fpf, "fp_full", torch.int64, (B, K))
+        F, P, NP = fpr.spec.F, fpr.P, fpr.NP
+        ceff, pperm = fpr.ceff, dx.pperm32
+        _need(ceff, "ceff", torch.int32, (F, P, fpr.N_CHAN))
+        _need(pperm, "pperm", torch.int32, (P, NP))
+        tab, _pp8, tdims = _msg_table(fpr, uni)
+        if fpr.factored_msgs:
+            gt = tab
+        else:
+            eff = tab
+    else:
+        fpv = fpf = None
+    lib = DENSE_EXPAND.lib()
+    DENSE_EXPAND.check(lib.launch_dense_expand(
+        core, st.msgs.data_ptr(), B, dx.slot_table.data_ptr(), K, dims_array(cfg, uni),
+        int(want_fp), _p(ceff), F, P, _p(eff), _p(gt), _p(pperm), NP, tdims, int(fpr.seed),
+        valid.data_ptr(), _p(mult), _p(abort), _p(fpv), _p(fpf), _cnt(cnt), sub, _p(mult_acc),
+        _p(abort_acc), base, _stream(),
+    ))
+    DENSE_EXPAND.launches += int(B > 0)
+    return valid, mult, fpv, fpf, abort
+
+
+def chunk_compact(fpv, fpf, cap, *, iota_base=0, out=None, total=None, ovf=None, cnt=None,
+                  sub=0, mul=1, flags=None, tile=None):
+    """B3 ``_chunk_compact``: the lanes of ``fpv`` that are not SENT, in
+    lane order, to ``cap`` lanes (ov, of, op) padded (SENT, SENT, -1), the
+    payload of lane i being ``iota_base + i``; returns (ov, of, op, total
+    i64 0-d).  ``ovf`` (int64 0-d) is set to 1 when more than ``cap`` lanes
+    live; with ``cnt`` only the first ``(cnt - sub) * mul`` lanes count."""
+    n = fpv.shape[0]
+    _need(fpv, "fp_view", torch.int64, (n,))
+    _need(fpf, "fp_full", torch.int64, (n,))
+    dev = fpv.device
+    if out is None:
+        out = tuple(torch.empty((cap,), dtype=torch.int64, device=dev) for _ in range(3))
+    for name, t in zip(("ov", "of", "op"), out):
+        _need(t, name, torch.int64, (cap,))
+    lib = CHUNK_COMPACT.lib()
+    n_tiles = max((n + lib.compact_tile() - 1) // lib.compact_tile(), 1)
+    if tile is None:
+        tile = torch.empty((n_tiles,), dtype=torch.int64, device=dev)
+    if tile.numel() < n_tiles:
+        raise ValueError("chunk_compact: tile scratch too small")
+    if flags is None:
+        flags = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
+    if flags.numel() < n or flags.dtype != torch.uint8:
+        raise ValueError("chunk_compact: flag scratch too small")
+    if total is None:
+        total = torch.empty((), dtype=torch.int64, device=dev)
+    _need(total, "total", torch.int64, ())
+    if ovf is not None:
+        _need(ovf, "ovf", torch.int64, ())
+    CHUNK_COMPACT.check(lib.launch_chunk_compact(
+        fpv.data_ptr(), fpf.data_ptr(), n, cap, out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), flags.data_ptr(), tile.data_ptr(), total.data_ptr(), _p(ovf),
+        _cnt(cnt), sub, mul, iota_base, _stream()))
+    # live_flags, count_tiles, scan_offsets, scatter_tiles, pad_tail
+    CHUNK_COMPACT.launches += 3 * int(n > 0) + 1 + int(cap > 0)
+    return (*out, total)
 
 
 def compact_tiles(n: int) -> int:

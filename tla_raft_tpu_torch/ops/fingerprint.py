@@ -277,6 +277,76 @@ class Fingerprinter:
             x = ids.astype(np.uint32)[..., None] * np.uint32(_PHI) + chan_c
         return _mix32_np(x)
 
+    # -- the incremental (delta) hash of canon="expand" -------------------
+
+    def raw_msg_coef(self, ids: torch.Tensor) -> torch.Tensor:
+        """Torch form of ``raw_msg_coef_np`` (the reference's
+        ``raw_msg_coef``, fingerprint.py:379): ids [...] -> u32 [..., chan]
+        in int64."""
+        chan = torch.arange(self.N_CHAN, dtype=torch.int64, device=ids.device)
+        chan_c = (chan * _PHI2 + int(self.seed)) & MASK32
+        return _mix32(ids.to(torch.int64)[..., None] * _PHI + chan_c)
+
+    def msg_coef_eff(self, ids: torch.Tensor) -> torch.Tensor:
+        """The byte-plane-linearized coefficient a delta adds
+        (fingerprint.py:392)."""
+        return _eff_u32(self.raw_msg_coef(ids))
+
+    def delta_hash(self, ids: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        """The added messages' contribution (fingerprint.py:456): ids
+        i32[..., A], live bool[..., A] -> u32 [..., P, chan] in int64.  A
+        dead id (-1 padding, or a message already in the parent's set:
+        set union adds nothing, Raft.tla:292-295) adds zero.  Under a
+        server permutation only the (src, dst) pair digit of an id moves:
+        id_p = off_t + PPERM[p, pair] * stride_t + rest."""
+        uni = self.uni
+        dev = ids.device
+        id0 = ids.to(torch.int64).clamp(0, uni.M - 1)
+        offs = torch.tensor(uni.type_offsets, dtype=torch.int64, device=dev)
+        strides = torch.tensor(uni.type_strides, dtype=torch.int64, device=dev)
+        t = (id0 >= offs[1]).long() + (id0 >= offs[2]).long() + (id0 >= offs[3]).long()
+        q = id0 - offs[t]
+        pair = torch.div(q, strides[t], rounding_mode="floor")
+        rest = q - pair * strides[t]
+        pp = torch.from_numpy(self.pair_perm.astype(np.int64)).to(dev)  # [P, NP]
+        id_p = offs[t][..., None] + pp.t()[pair] * strides[t][..., None] + rest[..., None]
+        g = self.msg_coef_eff(id_p)  # [..., A, P, chan]
+        g = torch.where(live[..., None, None], g, torch.zeros_like(g))
+        return g.sum(-3) & MASK32
+
+    def msg_hash_plain(self, msgs: torch.Tensor) -> torch.Tensor:
+        """The message-set hash of packed words int32 [N, n_words] (the
+        reference's ``msg_hash``, fingerprint.py:418): u32 [N, P, chan] in
+        int64, in either form."""
+        from .dense_expand import unpack_bits
+
+        bits = unpack_bits(msgs, self.uni.M)
+        if self.factored_msgs:
+            planes = self.msg_planes_factored(bits)
+        else:
+            planes = _int_matmul(bits, self.G_planes).reshape(-1, self.P, self.N_CHAN, 4)
+        return _combine_planes_u32(planes)
+
+    def feat_hash(self, feats: torch.Tensor) -> torch.Tensor:
+        """i8 [N, F] -> u32 [N, P, chan] in int64 (fingerprint.py:408)."""
+        planes = _int_matmul(feats, self.C_planes).reshape(-1, self.P, self.N_CHAN, 4)
+        return _combine_planes_u32(planes)
+
+    def child_fingerprints(self, feats, parent_msum, ids, live):
+        """Successor fingerprints from fresh features and the parent's
+        message hash plus the added messages (fingerprint.py:528)."""
+        h = self.feat_hash(feats) + parent_msum + self.delta_hash(ids, live)
+        return self.finalize(h & MASK32)
+
+    @functools.cached_property
+    def ceff(self) -> torch.Tensor:
+        """The effective u32 feature coefficients, int32 bit patterns
+        [F, P, chan] on the Fingerprinter's device: the table the
+        ``dense_expand`` kernel reads for its feature deltas (the
+        reference's ``C_*`` blocks are slices of it, dense_expand.py:100)."""
+        c = _effective_u32_np(self._Cp_np).transpose(2, 0, 1)
+        return torch.from_numpy(np.ascontiguousarray(c).view(np.int32)).to(self.device)
+
     # -- the plain twin ---------------------------------------------------
 
     def ids_to_bits(self, ids: torch.Tensor) -> torch.Tensor:

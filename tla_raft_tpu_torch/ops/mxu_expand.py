@@ -23,6 +23,8 @@ switch on the slot's family is the natural form:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -35,6 +37,12 @@ from .msg_universe import get_universe
 from .successor import SlotLayout, get_layout
 
 I64 = torch.int64
+
+
+def mxu_enabled_by_env() -> bool:
+    """The matrix forms' default (mxu_expand.py:72): on; ``TLA_RAFT_MXU=0``
+    selects the legacy per-lane kernels."""
+    return os.environ.get("TLA_RAFT_MXU", "1") != "0"
 
 
 def _pair(a0, b0, S: int) -> int:

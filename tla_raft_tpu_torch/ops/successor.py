@@ -398,3 +398,196 @@ class ScalarActions:
             ch["role"][s] = 0
             ch["restart_count"] = np.uint8(u8(int(st["restart_count"]) + 1))
         return ch, sent
+
+
+# -- the legacy per-lane materialize (B20), plain twin ---------------------------
+#
+# The reference keeps its per-lane kernels (successor.py:364-748: a
+# ``lax.switch`` over the 12 families of scalar actions, then the SendMsg
+# union of the added ids) as the A/B reference of the matrix forms and as
+# the ``--audit`` re-expansion.  ``materialize_legacy_plain`` is that
+# switch with the lanes as a batch: each family's lanes are picked out and
+# updated by the family's action, as the scalar transcriptions write it;
+# the kernel ``legacy_materialize`` (csrc/legacy.cu) is the same switch,
+# one thread per lane.
+
+
+def _median_rows(rows: torch.Tensor, median_index: int) -> torch.Tensor:
+    """Median(F) (Raft.tla:70-75) of each row of ``rows`` [n, S] (int64):
+    the element whose stable ascending position is ``median_index``."""
+    S = rows.shape[1]
+    ar = torch.arange(S, device=rows.device)
+    pos = (rows[:, None, :] < rows[:, :, None]).sum(-1) + (
+        (rows[:, None, :] == rows[:, :, None]) & (ar[None, :] < ar[:, None])).sum(-1)
+    return (rows * (pos == median_index).to(torch.int64)).sum(-1)
+
+
+def materialize_legacy_plain(cfg: RaftConfig, fr, pidx: torch.Tensor, slots: torch.Tensor):
+    """Children of the (parent row, slot) lanes by the scalar actions
+    (the reference's ``_materialize_added``, successor.py:735, with the
+    message set carried as ids): (child Frontier [G], added i32[G, A],
+    overflow bool[G]); the sent ids go into the parent's sorted id list
+    (``ids_insert``, the port of ``JaxChecker._ids_insert``)."""
+    from ..models.raft import Frontier
+    from .mxu_expand import ids_insert
+
+    uni = get_universe(cfg)
+    lay = get_layout(cfg)
+    S, T, L, V, E = cfg.S, cfg.T, cfg.L, cfg.V, uni.n_entry
+    A = lay.A
+    I64_ = torch.int64
+    dev = pidx.device
+    n = fr.voted_for.shape[0]
+    p = pidx.to(I64_).clamp(0, n - 1)
+    sl = slots.to(I64_).clamp(0, lay.K - 1)
+    G = p.shape[0]
+    ch = {f: getattr(fr, f)[p].to(I64_) for f in Frontier._fields[:-1]}
+    tab = torch.from_numpy(lay.slot_table_np.astype(np.int64)).to(dev)[sl]
+    fam, s, c1, c2, c3, c4 = (tab[:, i] for i in range(6))
+    sent = torch.full((G, A), -1, dtype=I64_, device=dev)
+    def pair(a, b):
+        return a * (S - 1) + b - (b > a).to(I64_)
+
+    def clip(x, lo, hi):
+        return x.clamp(lo, hi)
+
+    def lanes(f):
+        return torch.nonzero(fam == f).reshape(-1)
+
+    def get1(field, i):  # field[s] of lanes i
+        return ch[field][i, s[i]]
+
+    def set1(field, i, val):
+        ch[field][i, s[i]] = val
+
+    ct0 = ch["current_term"].clone()  # the parent's values (fields change below)
+    ll0 = ch["log_len"].clone()
+    ci0 = ch["commit_index"].clone()
+    lt0 = ch["log_term"].clone()
+    lv0 = ch["log_val"].clone()
+    mi0 = ch["match_index"].clone()
+    ni0 = ch["next_index"].clone()
+    role0 = ch["role"].clone()
+    vf0 = ch["voted_for"].clone()
+
+    # BecomeCandidate(s) (Raft.tla:107-130)
+    i = lanes(0)
+    if i.numel():
+        si = s[i]
+        nt = clip(ct0[i, si] + 1, 1, T)
+        ll = ll0[i, si]
+        llt = clip(lt0[i, si, clip(ll - 1, 0, L - 1)], 0, T - 1)
+        set1("current_term", i, nt)
+        set1("role", i, torch.full_like(nt, 1))
+        set1("voted_for", i, si + 1)
+        ch["election_count"][i] = (ch["election_count"][i] + 1) & 0xFF
+        for r in range(A):
+            peer = (si + 1 + r) % S
+            sent[i, r] = uni.vq_off + (((pair(si, peer) * T + nt - 1) * L + ll - 1) * T + llt)
+    # UpdateTerm (a) / BecomeFollower (Raft.tla:178-182, 192-197)
+    i = lanes(1)
+    if i.numel():
+        si = s[i]
+        keep = (role0[i, si] == 0) if "become-follower" in cfg.mutations else torch.zeros_like(si, dtype=torch.bool)
+        set1("voted_for", i, torch.where(keep, vf0[i, si], torch.zeros_like(si)))
+        set1("current_term", i, c1[i] + 1)
+        set1("role", i, torch.zeros_like(si))
+    # UpdateTerm (b) (Raft.tla:183-188)
+    i = lanes(2)
+    if i.numel():
+        set1("role", i, torch.zeros_like(s[i]))
+    # ResponseVote(s, cand) (Raft.tla:132-155)
+    i = lanes(3)
+    if i.numel():
+        si, cand = s[i], c1[i]
+        set1("voted_for", i, cand + 1)
+        sent[i, 0] = uni.vp_off + pair(si, cand) * T + clip(ct0[i, si], 1, 255) - 1
+    # BecomeLeader(s) (Raft.tla:157-173)
+    i = lanes(4)
+    if i.numel():
+        si = s[i]
+        ll = ll0[i, si]
+        ar = torch.arange(S, device=dev)
+        set1("role", i, torch.full_like(si, 2))
+        ch["match_index"][i, si] = torch.where(ar[None, :] == si[:, None], ll[:, None],
+                                               torch.ones_like(ll)[:, None])
+        ch["next_index"][i, si] = (ll + 1)[:, None].expand(-1, S)
+        ch["pending"][i, si] = 0
+    # ClientReq(s, v) (Raft.tla:233-240)
+    i = lanes(5)
+    if i.numel():
+        si, v = s[i], c1[i]
+        ll = ll0[i, si]
+        at = clip(ll, 0, L - 1)
+        ch["val_sent"][i, v] = 1
+        ch["log_term"][i, si, at] = ct0[i, si]
+        ch["log_val"][i, si, at] = v + 1
+        set1("log_len", i, ll + 1)
+        ch["match_index"][i, si, si] = ll + 1
+    # LeaderAppendEntry(s, dst) (Raft.tla:242-269)
+    i = lanes(6)
+    if i.numel():
+        si, d = s[i], c1[i]
+        nsd = ni0[i, si, d]
+        ll = ll0[i, si]
+        pli = clip(nsd - 1, 1, L)
+        plt = clip(lt0[i, si, clip(nsd - 2, 0, L - 1)], 0, T)
+        epos = clip(nsd - 1, 0, L - 1)
+        ecode = torch.where(nsd <= ll, 1 + (clip(lt0[i, si, epos], 1, T) - 1) * V
+                            + clip(lv0[i, si, epos], 1, V) - 1, torch.zeros_like(nsd))
+        ch["pending"][i, si, d] = 1
+        x = ((pair(si, d) * T + clip(ct0[i, si], 1, T) - 1) * L + pli - 1) * (T + 1) + plt
+        sent[i, 0] = uni.aq_off + (x * E + ecode) * L + ci0[i, si] - 1
+    # FollowerAcceptEntry(s, src, pli, e, lc) (Raft.tla:275-300)
+    i = lanes(7)
+    if i.numel():
+        si, src, pli, e, lc = s[i], c1[i], c2[i] + 1, c3[i], c4[i] + 1
+        ll = ll0[i, si]
+        lt, lv = lt0[i, si], lv0[i, si]  # [g, L]
+        el = (e > 0).to(I64_)
+        eterm = torch.where(el == 1, torch.div(e - 1, V, rounding_mode="floor") + 1, 0 * e)
+        evl = torch.where(el == 1, torch.remainder(e - 1, V) + 1, 0 * e)
+        nl = pli + el
+        pos = clip(pli, 0, L - 1)
+        ar = torch.arange(L, device=dev)[None, :]
+        at_pos = ar == pos[:, None]
+        conflict = (el == 1) & (pli < ll) & (((at_pos * lt).sum(1) != eterm)
+                                             | ((at_pos * lv).sum(1) != evl))
+        updated = (nl > ll) | conflict
+        keep = ar < pli[:, None]
+        at_entry = at_pos & (el == 1)[:, None]
+        new_lt = torch.where(at_entry, eterm[:, None], torch.where(keep, lt, 0 * lt))
+        new_lv = torch.where(at_entry, evl[:, None], torch.where(keep, lv, 0 * lv))
+        ch["log_term"][i, si] = torch.where(updated[:, None], new_lt, lt)
+        ch["log_val"][i, si] = torch.where(updated[:, None], new_lv, lv)
+        set1("log_len", i, torch.where(updated, nl, ll))
+        set1("commit_index", i, torch.maximum(ci0[i, si], torch.minimum(lc, nl)))
+        sent[i, 0] = uni.ap_off + ((pair(si, src) * T + clip(ct0[i, si], 1, T) - 1) * uni.ap_npli
+                                   + clip(nl, 1, L) - uni.ap_pli_min) * 2 + 1
+    # FollowerRejectEntry(s, src, pli) (Raft.tla:302-321): sends the reject only
+    i = lanes(8)
+    if i.numel():
+        si, src = s[i], c1[i]
+        rej_pli = c2[i] + (0 if "legacy-append" in cfg.mutations else 1)
+        sent[i, 0] = uni.ap_off + ((pair(si, src) * T + clip(ct0[i, si], 1, T) - 1) * uni.ap_npli
+                                   + rej_pli - uni.ap_pli_min) * 2
+    # HandleAppendResp(s, src, pli, succ) (Raft.tla:374-396)
+    i = lanes(9)
+    if i.numel():
+        si, src, pli, sc = s[i], c1[i], c2[i] + 1, c3[i]
+        ch["match_index"][i, si, src] = torch.where(sc == 1, pli, mi0[i, si, src])
+        ch["next_index"][i, si, src] = pli + sc
+        ch["pending"][i, si, src] = 0
+    # LeaderCanCommit(s) (Raft.tla:398-407)
+    i = lanes(10)
+    if i.numel():
+        set1("commit_index", i, _median_rows(mi0[i, s[i]], cfg.median_index))
+    # Restart(s) (Raft.tla:409-414)
+    i = lanes(11)
+    if i.numel():
+        set1("role", i, torch.zeros_like(s[i]))
+        ch["restart_count"][i] = (ch["restart_count"][i] + 1) & 0xFF
+    added = sent.to(torch.int32)
+    ids, ovf = ids_insert(fr.msg_ids[p], added, uni.M)
+    child = Frontier(msg_ids=ids, **{f: (v & 0xFF).to(torch.uint8) for f, v in ch.items()})
+    return child, added, ovf
