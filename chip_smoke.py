@@ -55,8 +55,9 @@ Phases, each printed as JSON lines:
    Each of phases 2-11 sets every kernel's launch count to 0 just before it
    runs, prints the counts just after, and fails if a kernel of its path
    did not launch (the staged phase: the staged chain's eight; the default
-   phase: every kernel but drop_rows, K3's factored mode, the orbit pair
-   and the cross-check arms' three; the tiered phase: the fused path's eleven and drop_rows; the
+   phase: every kernel but drop_rows, K3's factored mode, the orbit pair,
+   the cross-check arms' three and the sorted store's three; the tiered
+   phase: the fused path's eleven and drop_rows; the
    grouped phase: the staged chain's, level, hs_probe and filter_compact;
    the scale phase: the fused path's eleven and K3's factored mode; the
    orbit phase: the staged chain's, the grouped level's, K3's factored
@@ -66,8 +67,11 @@ Phases, each printed as JSON lines:
    phase: dense_expand, legacy_materialize, K3, superstep and the tail,
    with K1 and K2 never; the legacy fixpoint: the canon and legacy
    arms' kernels, K1 and K2 never; the audit phase: the legacy pair, the
-   tail and K1, K2, K3; the flip drill: the legacy pair; the others: the
-   fused path's eleven).  Every arm's run and every run beside it (the
+   tail and K1, K2, K3; the flip drill: the legacy pair; the sorted and
+   degrade phases: the sorted store's three, filter_compact and the eager
+   chain's kernels, with K4, level, superstep and sieve never launched on
+   the sorted phase; the cli phase runs in a process of its own; the
+   others: the fused path's eleven).  Every arm's run and every run beside it (the
    baselines, the fixpoint, the drill) is a phase of its own, so an
    arm's counts are its run's alone.  The
    default phase also prints graph launches and device-to-host reads per
@@ -92,6 +96,20 @@ Phases, each printed as JSON lines:
     audit_baseline — a default run to depth 20 (its wall);
     flip_drill — the tensor.flip drill on (3,1,1,1), which must stop
                 with the CPU's message;
+    sorted    — the sorted visited store (``use_hashstore=False``, the
+                reference's ``--no-hashstore``) to depth 25, every level
+                golden, levels 23-25 grouped (``group_filter``: sorted_member
+                then the filter compaction), each level deduped by
+                ``level_dedup`` and merged into the store by ``merge_sorted``;
+                K4, the fused level and the supersteps never launched; its
+                wall beside the default phase's to the same depth;
+    degrade   — the default path to depth 23 with ``hashstore.grow:fail@1``:
+                golden, the depth and route at which the slab's grow failed
+                and the run turned onto the sorted store, and no captured
+                program launched after it;
+    cli       — ``python -m tla_raft_tpu_torch.check --config <Raft.cfg>
+                --max-depth 20 --json`` in a subprocess, on a cfg file written
+                from the Raft.cfg constants: golden;
 12. twins     — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
@@ -102,8 +120,11 @@ Phases, each printed as JSON lines:
                 phase, on a chunk of its 7-server run's last frontier,
                 with K3's full fold of the same chunk timed beside;
                 dense_expand and chunk_compact: the canon phase;
-                legacy_materialize: the legacy phase; the rest: the
-                default phase); then
+                legacy_materialize: the legacy phase; sorted_member,
+                level_dedup and merge_sorted: the sorted phase, each on the
+                inputs of its depth-25 call in a second sorted run that keeps
+                only that level's; the rest: the default
+                phase); then
                 the kernels again at 5 and 7 servers on the scale runs'
                 frontiers (K1 at K = 1,900 / 3,696, K2, inflate and deflate
                 with int32 ids, K3 at P = 120 and factored at P = 5,040,
@@ -185,6 +206,41 @@ FLIP_STOP = (
     "audit mismatch at level 5 with no checkpoint directory to rewind to — fail-stop; "
     "first problem: row 0: materialized frontier row re-fingerprints to 0x881833cfb10cf06 "
     "!= recorded 0x2083c782df2f3e63 (corrupted frontier tensor)")
+# the sorted store's fallback drill: the default path to depth 23 (level 23
+# grouped on the sorted store) with the first slab grow failing
+DEPTH_DEGRADE = 23
+# TLC's Raft.cfg (the reference constants), for the cli phase's --config
+RAFT_CFG = """CONSTANTS
+    MaxTerm = 3
+    MaxRestart = 3
+    MaxElection = 3
+    Follower = Follower
+    Candidate = Candidate
+    Leader = Leader
+    None = None
+    VoteReq = VoteReq
+    VoteResp = VoteResp
+    AppendReq = AppendReq
+    AppendResp = AppendResp
+    s1 = s1
+    s2 = s2
+    s3 = s3
+    Servers = {s1, s2, s3}
+    v1 = v1
+    v2 = v2
+    Vals = {v1, v2}
+
+SYMMETRY symmServers
+
+VIEW view
+
+INIT Init
+NEXT Next
+
+INVARIANT
+Inv
+"""
+WALLS: dict = {}  # seconds of the phases' runs, by phase
 CHUNK = 16384  # parents per guard launch on the main path
 SEED = 0  # of the random kernel inputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -266,6 +322,7 @@ def _run_reference(depth: int, chunk: int, **kw):
     D.READS.clear()
     kernels.K4_ROUNDS.clear()
     torch.cuda.reset_peak_memory_stats()
+    WALLS["base_bytes"] = torch.cuda.memory_allocated()  # what earlier phases still hold
     t0 = time.perf_counter()
     res = chk.run(max_depth=depth)
     torch.cuda.synchronize()
@@ -280,6 +337,7 @@ def _common(res, levels, secs, depth):
     return dict(depth=res.depth, distinct=res.distinct, generated=res.generated,
                 level_sizes=list(res.level_sizes), generated_at_12=gen12, seconds=secs,
                 distinct_per_s=res.distinct / secs, peak_bytes=torch.cuda.max_memory_allocated(),
+                run_peak_bytes=torch.cuda.max_memory_allocated() - WALLS.get("base_bytes", 0),
                 level_seconds=[b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)])
 
 
@@ -352,6 +410,7 @@ def phase_default(depth: int, chunk: int):
         memory_reserved=torch.cuda.memory_reserved(),
     )
     emit(out)
+    WALLS["default"] = secs
     chk._progs.clear()  # free the captured programs' buffers for the phases after
     _check_golden(out, res, depth)
     # every level past the fused limit ran grouped: one graph launch per
@@ -897,6 +956,212 @@ def phase_flip_drill() -> dict:
     emit(out)
     check(stop is not None, "the flip drill did not stop the run")
     check(stop == FLIP_STOP, f"flip drill stop {stop!r} != the CPU's {FLIP_STOP!r}")
+    return out
+
+
+def sorted_counts(c: dict) -> None:
+    check(c["hashstore"] == 0 and c["hs_probe"] == 0 and c["level"] == 0
+          and c["superstep"] == 0 and c["sieve"] == 0,
+          f"hash-store or fused kernels launched on the sorted store: hashstore "
+          f"{c['hashstore']}, hs_probe {c['hs_probe']}, level {c['level']}, superstep "
+          f"{c['superstep']}, sieve {c['sieve']}")
+
+
+def phase_sorted(depth: int, chunk: int) -> dict:
+    """The sorted visited store to ``depth`` (``sorted_counts``: no K4, no
+    fused level, no superstep), golden, its wall and peak memory beside the
+    default phase's: a plain run, nothing of it kept for the kernels'
+    timings (``capture_sorted_inputs`` makes those in a run of its own)."""
+    import torch
+
+    chk, res, levels, secs = _run_reference(depth, chunk, use_hashstore=False)
+    default = WALLS.get("default")
+    out = dict(phase="sorted", **_common(res, levels, secs, depth), routes=chk.routes,
+               cap_x=chk.cap_x, cap_g=chk.cap_g, redos=chk.redos,
+               store_slots=chk.visited.shape[0], default_seconds=default,
+               wall_ratio=secs / default if default else None)
+    live = int((chk.visited != -1).sum())
+    chk = None
+    torch.cuda.empty_cache()
+    emit(out)
+    _check_golden(out, res, depth)
+    check(live == res.distinct, f"the sorted store holds {live} fingerprints, not {res.distinct}")
+    check(out["routes"]["grouped"] >= 1 and out["routes"]["staged"] >= 1
+          and out["routes"]["superstep"] == out["routes"]["fused"] == 0,
+          f"sorted store routes {out['routes']}")
+    return out
+
+
+def capture_sorted_inputs(depth: int, chunk: int) -> dict:
+    """A second sorted-store run to ``depth`` that keeps the inputs of the
+    last level's first ``group_filter`` call and of its ``level_dedup``
+    and ``merge_sorted`` calls, and nothing of an earlier level: the
+    kernels' timings at those shapes.  The level being expanded is one past
+    the merges made so far (one merge a committed level)."""
+    from tla_raft_tpu_torch.engine import bfs
+
+    captured, merges = {}, [0]
+    real = {n: getattr(bfs, n) for n in ("group_filter", "level_dedup", "merge_sorted")}
+
+    def last() -> bool:
+        return merges[0] == depth - 1
+
+    def group_filter(*a):
+        if last() and "group_filter" not in captured:
+            captured["group_filter"] = a
+        return real["group_filter"](*a)
+
+    def level_dedup(*a):
+        if last():
+            captured["level_dedup"] = a
+        return real["level_dedup"](*a)
+
+    def merge_sorted(*a):
+        if last():
+            captured["merge_sorted"] = a
+        merges[0] += 1
+        return real["merge_sorted"](*a)
+
+    bfs.group_filter, bfs.level_dedup, bfs.merge_sorted = group_filter, level_dedup, merge_sorted
+    try:
+        _chk, res, _levels, _secs = _run_reference(depth, chunk, use_hashstore=False)
+    finally:
+        for n, fn in real.items():
+            setattr(bfs, n, fn)
+    check(res.depth == depth and set(captured) == set(real),
+          f"the capture run reached depth {res.depth} and kept {sorted(captured)}")
+    return captured
+
+
+def phase_degrade(depth: int, chunk: int) -> dict:
+    """The default path to ``depth`` with the first slab grow failing
+    (``hashstore.grow:fail@1``): golden; the run turned onto the sorted
+    store where it failed, and no captured program was launched after."""
+    from tla_raft_tpu_torch.resilience import faults
+
+    faults.install("hashstore.grow:fail@1")
+    try:
+        chk, res, levels, secs = _run_reference(depth, chunk)
+    finally:
+        faults.reset()
+    d = chk.degraded_at
+    after = [lv["route"] for lv in levels[d:]] if d is not None else []
+    out = dict(phase="degrade", **_common(res, levels, secs, depth), routes=chk.routes,
+               degraded_at=d, degraded_site=chk.degraded_site, routes_after=sorted(set(after)),
+               graph_launches=chk._graph_launches(),
+               graph_launches_at_degrade=chk.graph_launches_at_degrade,
+               store_slots=None if chk.visited is None else chk.visited.shape[0])
+    chk = None
+    emit(out)
+    _check_golden(out, res, depth)
+    check(d is not None, "the run did not degrade")
+    check(out["graph_launches"] == out["graph_launches_at_degrade"],
+          f"captured programs launched after the degrade: {out['graph_launches_at_degrade']} "
+          f"-> {out['graph_launches']}")
+    check(set(after) <= {"staged", "grouped"} and "grouped" in after,
+          f"routes after the degrade: {after}")
+    return out
+
+
+def phase_cli(depth: int) -> dict:
+    """``python -m tla_raft_tpu_torch.check --config Raft.cfg --max-depth
+    depth --json`` in a subprocess, the cfg written under build/: golden."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    cfg = root / "build" / "smoke" / "Raft.cfg"
+    cfg.parent.mkdir(parents=True, exist_ok=True)
+    cfg.write_text(RAFT_CFG)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tla_raft_tpu_torch.check", "--config", str(cfg), "--max-depth",
+         str(depth), "--json"], capture_output=True, text=True, cwd=root, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    out = dict(phase="cli", rc=proc.returncode, seconds=secs, run_seconds=got.get("seconds"),
+               config_line=next((x for x in lines if x.startswith("Config ")), None),
+               **{k: got.get(k) for k in ("distinct", "generated", "depth", "level_sizes",
+                                          "hashstore", "routes")})
+    emit(out)
+    check(proc.returncode == 0, f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check(got["level_sizes"] == GOLDEN_LEVELS_REF[: depth + 1] and got["depth"] == depth,
+          f"cli level sizes {got['level_sizes']}")
+    check(out["config_line"] is not None and "S=3 V=2 MaxElection=3 MaxRestart=3"
+          in out["config_line"], f"cli config line {out['config_line']}")
+    return out
+
+
+def phase_sorted_kernels(launches: dict) -> list:
+    """The sorted store's three kernels against their twins on the inputs
+    of their depth-25 calls (``capture_sorted_inputs``), with times,
+    bounds, twin and library times: ``sorted_member`` on one group's lanes
+    against the depth-24 store (library: ``torch.searchsorted`` on
+    sign-flipped keys; the bound counts at most one 32-byte sector of the
+    store a lane, since a lane's search needs no more of it),
+    ``level_dedup`` on level 25's grouped lanes (library: the three stable
+    ``torch.argsort`` of the lexsort), ``merge_sorted`` of that store and
+    level 25's survivors (library: ``torch.sort`` of the concatenation, sign
+    flipped)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import bfs
+    from tla_raft_tpu_torch.u64 import ukey
+
+    captured = capture_sorted_inputs(DEPTH_DEFAULT, CHUNK)
+    out = []
+    # sorted_member: one group of level 25 against the store after level 24
+    cv, cf, cp, store, cap_g = captured.pop("group_filter")
+    n, V = cv.shape[0], store.shape[0]
+    hit = kernels.sorted_member(store, cv)
+    check(_equal(hit, bfs.member_plain(store, cv)), "sorted_member differs from its twin")
+    kg = bfs.group_filter(cv, cf, cp, store, cap_g)
+    pg = bfs.group.filter_compact_plain(bfs.member_plain(store, cv), cv, cf, cp, cap_g)
+    check(all(_equal(a, b) for a, b in zip(kg[:3], pg[:3])) and bool(kg[3]) == bool(pg[3]),
+          "group_filter differs from its twin")
+    ms = cuda_ms(lambda: kernels.sorted_member(store, cv), 10)
+    plain = wall_ms(lambda: bfs.member_plain(store, cv))
+    ks, kx = ukey(store), ukey(cv)
+    lib = cuda_ms(lambda: torch.searchsorted(ks, kx), 10)
+    rec = _entry(out, launches, kernels.SORTED_MEMBER, ms, plain, n * 9 + min(V * 8, n * 32),
+                 lib)
+    rec.update(lanes=n, store_slots=V, hits=int(hit.sum()))
+    cv = cf = cp = store = kg = pg = hit = ks = kx = None
+    # level_dedup: level 25's grouped lanes against the store after level 24
+    cv, cf, cp, store = captured.pop("level_dedup")
+    n, V = cv.shape[0], store.shape[0]
+    k = bfs.level_dedup(cv, cf, cp, store)
+    p = bfs.level_dedup_plain(cv, cf, cp, store)
+    check(int(k[0]) == int(p[0]) and _equal(k[1], p[1]) and _equal(k[2], p[2]),
+          "level_dedup differs from its twin")
+    n_new = int(k[0])
+    k = p = None
+    ms = cuda_ms(lambda: bfs.level_dedup(cv, cf, cp, store), 5)
+    plain = wall_ms(lambda: bfs.level_dedup_plain(cv, cf, cp, store))
+
+    def lexsort():
+        order = torch.argsort(cp, stable=True)
+        order = order[torch.argsort(ukey(cf[order]), stable=True)]
+        return order[torch.argsort(ukey(cv[order]), stable=True)]
+
+    lib = cuda_ms(lexsort, 5)
+    rec = _entry(out, launches, kernels.LEVEL_DEDUP, ms, plain, n * 24 + V * 8 + n * 16, lib)
+    rec.update(lanes=n, store_slots=V, n_new=n_new)
+    cv = cf = cp = store = None
+    # merge_sorted: the store after level 24 and level 25's survivor slice
+    store, new, n_out = captured.pop("merge_sorted")
+    A, B = store.shape[0], new.shape[0]
+    m = bfs.merge_sorted(store, new, n_out)
+    check(_equal(m, bfs.merge_sorted_plain(store, new, n_out)),
+          "merge_sorted differs from its twin")
+    m = None
+    ms = cuda_ms(lambda: bfs.merge_sorted(store, new, n_out), 10)
+    plain = wall_ms(lambda: bfs.merge_sorted_plain(store, new, n_out))
+    both = torch.cat([ukey(store), ukey(new)])
+    lib = cuda_ms(lambda: torch.sort(both), 10)
+    rec = _entry(out, launches, kernels.MERGE_SORTED, ms, plain, (A + B + n_out) * 8, lib)
+    rec.update(store_slots=A, new_lanes=B, n_out=n_out)
     return out
 
 
@@ -1997,7 +2262,7 @@ def main() -> int:
     default_digests, launches = run(
         "default", [k for k in kernels.KERNELS
                     if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH
-                    + kernels.EXPAND_PATH + kernels.LEGACY_PATH],
+                    + kernels.EXPAND_PATH + kernels.LEGACY_PATH + kernels.SORTED_PATH],
         phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
@@ -2041,15 +2306,25 @@ def main() -> int:
         phase_audit, DEPTH_AUDIT, CHUNK, AUDIT_ROWS)
     run("audit_baseline", fused, phase_baseline, "audit_baseline", DEPTH_AUDIT, CHUNK)
     run("flip_drill", kernels.LEGACY_PATH, phase_flip_drill)
+    # the sorted visited store, its fallback from the hash slab, the CLI on a cfg
+    eager = ("guards", "materialize", "fingerprint", "compact", "inflate", "inv_scan",
+             "filter_compact")
+    sorted_out, sorted_launches = run("sorted", kernels.SORTED_PATH + eager, phase_sorted,
+                                      DEPTH_DEFAULT, CHUNK, counts_check=sorted_counts)
+    launches.update({k: sorted_launches[k] for k in kernels.SORTED_PATH})
+    run("degrade", kernels.SORTED_PATH + eager, phase_degrade, DEPTH_DEGRADE, CHUNK)
+    run("cli", (), phase_cli, DEPTH)
     records, shapes, scale_times, orbit_shapes = [], None, None, None
     for name, fn, args in (("twins", phase_twins, (CHUNK,)),
                            ("kernels", phase_kernels, (chk, launches, SEED)),
                            ("scale_kernels", phase_scale_kernels, (runs, launches, SEED)),
                            ("orbit_kernels", phase_orbit_kernels,
                             ((orbit_runs or {}).get(7), launches)),
-                           ("cross_kernels", phase_cross_kernels, (chk, launches, SEED))):
+                           ("cross_kernels", phase_cross_kernels, (chk, launches, SEED)),
+                           ("sorted_kernels", phase_sorted_kernels, (launches,))):
         if chk is None or (name == "scale_kernels" and not runs) or (
-                name == "orbit_kernels" and not orbit_runs):
+                name == "orbit_kernels" and not orbit_runs) or (
+                name == "sorted_kernels" and not sorted_out):
             failures.append(f"{name}: no reference run to test on")
             continue
         try:
@@ -2066,9 +2341,9 @@ def main() -> int:
         elif name == "orbit_kernels":
             records += res[0]
             orbit_shapes = res[1]
-        elif name == "cross_kernels":
+        elif name in ("cross_kernels", "sorted_kernels"):
             records += res
-    runs = orbit_runs = None  # free the scale and orbit runs' frontiers and slabs
+    runs = orbit_runs = None  # free the runs' frontiers and slabs
     torch.cuda.empty_cache()
     emit(dict(kernels=records, shapes=shapes, scale=scale_times, orbit=orbit_shapes))
     if chk is not None:

@@ -9,6 +9,7 @@ the ``tensor.flip`` drill (the same AuditFailStop level and message in
 both packages; the CLI exits 4), the grouped route of every arm, and the
 orbit refusal.  The reference runs are module-scoped and shared."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
@@ -164,13 +165,16 @@ def test_flip_drill_matches_reference_rerun():
         assert got == want
 
 
-@pytest.mark.parametrize("spec", ["delta.tmp:kill@1", "tensor.flip:kill@1", "tensor.flip"])
+@pytest.mark.parametrize("spec", ["delta.tmp:kill@1", "tensor.flip:kill@1", "tensor.flip",
+                                  "tensor.flip:fail@1", "hashstore.grow:flip@1"])
 def test_fault_spec_refuses_what_the_port_does_not_poll(spec):
-    """A spec naming a site or action the port never fires is refused at
-    parse time rather than testing nothing."""
+    """A spec naming a site the port never fires, or an action its site
+    does not perform, is refused at parse time rather than testing
+    nothing."""
     with pytest.raises(ValueError):
         faults.FaultPlan(spec)
     assert faults.FaultPlan("tensor.flip:flip@4").triggers == [("tensor.flip", "flip", 4)]
+    assert faults.FaultPlan("hashstore.grow:fail").triggers == [("hashstore.grow", "fail", 1)]
 
 
 def test_flip_drill_retries_budget():

@@ -697,3 +697,132 @@ def test_canon_expand_run_is_golden(run):
     assert (res.distinct, res.generated) == (47_064, 112_939)
     counts = kernels.launch_counts()
     assert counts["dense_expand"] > 0 and counts["chunk_compact"] > 0 and counts["guards"] == 0
+
+
+# -- B19: the sorted visited store (csrc/sortstore.cu) ---------------------------------
+
+
+def _sorted_store(fps: torch.Tensor, pad: int = 64) -> torch.Tensor:
+    """The live fingerprints of ``fps`` as a sorted store with SENT pads."""
+    live = fps[fps != -1]
+    return torch.cat([bfs.sort_u64_plain(torch.unique(live)),
+                      torch.full((pad,), -1, dtype=torch.int64, device=fps.device)])
+
+
+def _level_lanes(chk, chunks: int):
+    """The lanes of ``chunks`` chunks of the run's last frontier (real
+    (fp_view, fp_full, payload) candidates with their pads), and a store of
+    the run's visited set with a third of the candidates added."""
+    fr, B = chk.frontier, chk.chunk
+    parts = [chk._expand_chunk(Frontier(*(x[i * B:(i + 1) * B] for x in fr)), i * B)
+             for i in range(chunks) if i * B < fr.voted_for.shape[0]]
+    cv, cf, cp = (torch.cat([p[j] for p in parts]) for j in range(3))
+    slab = chk.hstore.slab
+    store = _sorted_store(torch.cat([slab, cv[::3]]))
+    return cv, cf, cp, store
+
+
+@pytest.mark.parametrize("S", [3, 5])
+def test_sortstore_kernels_equal_twins(scale, run, S):
+    """sorted_member, level_dedup, group_filter (sorted_member then the
+    filter compaction) and merge_sorted against their twins: on the lanes of
+    real chunks (S = 3: the depth-10 frontier of the Raft.cfg constants; S =
+    5: the scale run's) against a store of the run's visited set, and on
+    seeded lanes with top-bit values, repeats and SENT pads."""
+    chk = run if S == 3 else scale[S]
+    cases = [_level_lanes(chk, 4)]
+    g = np.random.default_rng(S)
+    n = 300_000
+    def top(k):
+        return np.where(g.random(k) < 0.5, np.uint64(1 << 63), np.uint64(0))
+
+    cv = g.integers(0, 1 << 63, n, dtype=np.uint64) | top(n)
+    dup = g.random(n) < 0.5
+    cv[dup] = cv[g.integers(0, n, int(dup.sum()))]
+    cv[g.random(n) < 0.05] = cv[0]  # one long run of a fp_view
+    cf = g.integers(0, 1 << 63, n, dtype=np.uint64) | top(n)
+    cp = g.permutation(n).astype(np.int64) * 7
+    pad = g.random(n) < 0.1
+    cv[pad], cf[pad], cp[pad] = np.uint64(2**64 - 1), np.uint64(2**64 - 1), -1
+    t = [torch.from_numpy(x.view(np.int64).copy()).cuda() for x in (cv, cf)]
+    cases.append((t[0], t[1], torch.from_numpy(cp).cuda(), _sorted_store(t[0][::4])))
+    for cv, cf, cp, store in cases:
+        hit = kernels.sorted_member(store, cv)
+        assert torch.equal(hit, bfs.member_plain(store, cv)) and bool(hit.any())
+        keep = torch.empty_like(hit)
+        kernels.sorted_member(store, cv, keep=keep)
+        assert torch.equal(keep, (cv != -1) & ~hit)
+        k = bfs.level_dedup(cv, cf, cp, store)
+        p = bfs.level_dedup_plain(cv, cf, cp, store)
+        assert int(k[0]) == int(p[0]) > 0 and torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+        n_keep = int(keep.sum())
+        for cap in (n_keep + 5, n_keep // 2):
+            kg = bfs.group_filter(cv, cf, cp, store, cap)
+            pg = bfs.group.filter_compact_plain(bfs.member_plain(store, cv), cv, cf, cp, cap)
+            assert all(torch.equal(a, b) for a, b in zip(kg[:3], pg[:3]))
+            assert bool(kg[3]) == bool(pg[3]) == (cap < n_keep)
+        new = k[1][: max(int(k[0]), 1)]
+        for n_out in (store.shape[0] + new.shape[0], store.shape[0] // 2 + 3, 1):
+            assert torch.equal(bfs.merge_sorted(store, new, n_out),
+                               bfs.merge_sorted_plain(store, new, n_out))
+
+
+def test_sorted_runs_on_the_card_equal_the_cpu(run):
+    """The sorted store on the card: (3,1,2,1) to depth 13 at chunk 64 with
+    G = 1 (levels 12-13 grouped) equals the CPU's run level by level, store
+    included; the three sorted-store kernels run and K4 never does."""
+    def go(device):
+        chk = TorchChecker(RaftConfig(3, 1, 2, 1), device=device, chunk=64, use_hashstore=False)
+        chk.G, chk.cap_g = 1, chk.cap_x // 2
+        return chk, chk.run(max_depth=13)
+
+    cc, want = go("cpu")
+    kernels.reset_launches()
+    chk, got = go("cuda")
+    counts = kernels.launch_counts()
+    assert _result_tuple(got) == _result_tuple(want) and chk.routes["grouped"] == 2
+    for (p, s), (q, r) in zip(chk.trace_levels, cc.trace_levels):
+        assert np.array_equal(np.asarray(p, np.int64), np.asarray(q, np.int64))
+        assert np.array_equal(np.asarray(s, np.int64), np.asarray(r, np.int64))
+    assert torch.equal(chk.visited.cpu(), cc.visited)
+    assert all(counts[k] > 0 for k in kernels.SORTED_PATH)
+    assert counts["hashstore"] == 0 and counts["level"] == 0 and counts["superstep"] == 0
+
+
+def test_grow_failure_degrades_on_the_card(run, monkeypatch):
+    """``hashstore.grow:fail@1`` on the default path (slab floor 16 slots):
+    the run degrades to the sorted store with the CPU's counts, and no
+    captured program is launched after the degrade.  When the sorted store
+    is allocated, the failing grow's slab, every program (and its graph
+    pool) and the representative's scratch are already freed."""
+    import weakref
+
+    from tla_raft_tpu_torch.resilience import faults
+
+    want = TorchChecker(RaftConfig(3, 1, 1, 1), device="cpu", chunk=64).run()
+    monkeypatch.setattr(hs, "MIN_CAP", 16)
+    chk = TorchChecker(RaftConfig(3, 1, 1, 1), device="cuda", chunk=64)
+    slabs, at_upload = [], []
+    real_grow, real_upload = hs.DeviceHashStore.grow, bfs.upload_sorted_store
+
+    def grow(self, *a, **k):
+        slabs.append(weakref.ref(self.slab))
+        return real_grow(self, *a, **k)
+
+    def upload(*a):
+        at_upload.append((slabs[-1]() is None, chk.hstore, bool(chk._progs.progs),
+                          bool(kernels._SCRATCH)))
+        return real_upload(*a)
+
+    monkeypatch.setattr(hs.DeviceHashStore, "grow", grow)
+    monkeypatch.setattr(bfs, "upload_sorted_store", upload)
+    faults.install("hashstore.grow:fail@1")
+    try:
+        got = chk.run()
+    finally:
+        faults.reset()
+    assert at_upload == [(True, None, False, False)]
+    assert _result_tuple(got) == _result_tuple(want)
+    assert not chk.use_hashstore and chk.degraded_at is not None
+    assert chk._graph_launches() == chk.graph_launches_at_degrade
+    assert int((chk.visited != -1).sum()) == got.distinct

@@ -14,6 +14,7 @@ the reference on the CPU, exactly (integers and u64 fingerprints):
   against the port's ``ScalarActions``.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ grow-and-redo of every lane budget, chunk-size independence, a mid-run
 handoff of the reference's frontier and slab, and the counterexample
 traces of two planted bugs."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import hashlib
 
 import numpy as np

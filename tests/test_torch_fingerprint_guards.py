@@ -1,6 +1,7 @@
 """Kernels K3 (fingerprints) and K1 (guards): the port's plain twins
 against the reference on the same reachable states, exactly."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

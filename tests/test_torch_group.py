@@ -10,6 +10,7 @@ counts, every level's trace pidx/slot, the slab bytes, a ``cap_g``
 overflow and its redo, and the mutations' stop points and traces.  All
 outputs are integers: equality is exact."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ a small capacity, crowded homes, in-batch duplicates with different keys
 and payloads, SENT lanes, members of the slab, and a probe-depth
 overflow — comparing the slab bytes, fresh lanes, n_new and overflow."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

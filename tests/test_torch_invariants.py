@@ -1,6 +1,7 @@
 """The port's invariant and probe predicates against the reference's, on
 the same reachable states (Inv, the six probes, and ``~Name``)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -3,6 +3,7 @@ against the reference's ``materialize_added`` followed by
 ``JaxChecker._ids_insert``, on every slot of reachable parents, with and
 without a forced ``cap_m`` overflow."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import types
 
 import jax.numpy as jnp

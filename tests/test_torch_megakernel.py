@@ -7,6 +7,7 @@ slot, mult, fps/pidx/slot and the slab), every grow-and-redo class, the
 staged arm against the reference's staged chain, and the CLI's three
 arms.  All outputs are integers: equality is exact."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

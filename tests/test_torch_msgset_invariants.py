@@ -4,6 +4,7 @@ deflate) and of the invariant-scan kernel against the reference's
 states, including rows past ``cap_m`` (deflate's overflow) and the
 scan's row offset and fold."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import numpy as np

@@ -18,6 +18,7 @@ slab's fingerprint set) and the port's own runs on its other routes.
 Every output is an integer: equality is exact.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import itertools
 
 import jax.numpy as jnp

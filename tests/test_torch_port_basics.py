@@ -1,6 +1,7 @@
 """The PyTorch port's foundations: import hygiene, the default device and
 the unsigned-in-int64 helpers (tla_raft_tpu_torch/u64.py)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import ast
 import os
 import subprocess

@@ -2,6 +2,7 @@
 definition kernels K1 and K2 implement lane by lane, against the plain
 twins on every slot of reachable states, under each mutation."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

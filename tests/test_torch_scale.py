@@ -11,6 +11,7 @@ kernel's arithmetic; the kernel itself is held against the twin on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import json
 import types

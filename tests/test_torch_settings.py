@@ -3,7 +3,16 @@ them, an explicit argument winning: ``TLA_RAFT_MEGAKERNEL=0`` (the staged
 chain, megakernel.py:91-94), ``TLA_RAFT_SUPERSTEP=N`` (the superstep span;
 <= 1 per-level fused levels, superstep.py:133-142), ``TLA_RAFT_CAP_M``
 (replaces only the default cap_m of 96, bfs.py:536-546) and
-``TLA_RAFT_MXU=0`` (the legacy per-lane kernels, mxu_expand.py:72)."""
+``TLA_RAFT_MXU=0`` (the legacy per-lane kernels, mxu_expand.py:72) and
+``TLA_RAFT_HASHSTORE=0`` (the sorted visited store, hashstore.py:116); and
+the CLI's reference flags: ``--config`` (TLC's Raft.cfg, through the port's
+copy of cfgparse.py, the spec beside it validated by its copy of
+tla_frontend.py), ``--invariant``, ``--no-symmetry``, ``--no-view``,
+``--no-hashstore``, each against the reference's ``check.py --json``."""
+
+import torch_threads  # noqa: F401  (one torch thread a worker)
+import dataclasses
+import json
 
 import pytest
 
@@ -70,3 +79,136 @@ def test_audit_turns_supersteps_off():
     chk = _run(audit=4)
     assert chk.superstep_span == 1 and chk.routes["fused"] == 12
     assert chk.audit_stats["levels"] == 12
+
+
+def test_hashstore_setting(monkeypatch):
+    """``TLA_RAFT_HASHSTORE=0`` (hashstore.py:116) selects the sorted store,
+    and with it the staged chain; the argument wins."""
+    monkeypatch.setenv("TLA_RAFT_HASHSTORE", "0")
+    chk = _run()
+    assert not chk.use_hashstore and not chk.megakernel and chk.routes["staged"] == 12
+    assert chk.hstore is None and int((chk.visited != -1).sum()) == GOLD[0]
+    assert _run(use_hashstore=True).routes["superstep"] == 12
+    monkeypatch.setenv("TLA_RAFT_HASHSTORE", "1")
+    assert TorchChecker(S2, device="cpu").use_hashstore
+
+
+# -- the CLI reads TLC's Raft.cfg (check.py:815-1015) -------------------------------------
+
+
+def test_cfgparse_and_frontend_are_the_references():
+    """The port's copies of cfgparse.py and tla_frontend.py parse, lower and
+    validate as the reference's do."""
+    from tla_raft_tpu import cfgparse as ref_cfg
+    from tla_raft_tpu import tla_frontend as ref_fe
+    from tla_raft_tpu_torch import cfgparse, tla_frontend
+
+    from test_cfgparse import REFERENCE_CFG
+
+    a, b = cfgparse.parse_cfg(REFERENCE_CFG), ref_cfg.parse_cfg(REFERENCE_CFG)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert (dataclasses.asdict(cfgparse.to_raft_config(a))
+            == dataclasses.asdict(ref_cfg.to_raft_config(b)))
+    assert tla_frontend.SEMANTIC_HASHES == ref_fe.SEMANTIC_HASHES
+    for name in ("EXPECTED_ACTIONS", "EXPECTED_CONSTANTS", "EXPECTED_VARIABLES",
+                 "EXPECTED_VIEW"):
+        assert getattr(tla_frontend, name) == getattr(ref_fe, name)
+
+
+@pytest.fixture
+def cfg_file(tmp_path):
+    from test_cfgparse import REFERENCE_CFG
+
+    path = tmp_path / "Raft.cfg"
+    path.write_text(REFERENCE_CFG)
+    return path
+
+
+def _json_of(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+KEYS = ("ok", "distinct", "generated", "depth", "level_sizes", "violation")
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--no-hashstore"], ["--invariant", "~Inv"], ["--no-symmetry", "--no-view"],
+], ids=["cfg", "no-hashstore", "negated-inv", "no-symmetry-no-view"])
+def test_cli_config_equals_the_reference_cli(cfg_file, capsys, flags):
+    """``--config`` from the reference's Raft.cfg text, with the reference's
+    flags: the ``--json`` line's counts and verdict and the exit code equal
+    the reference's ``check.py --json`` on the same cfg and flags (the
+    reference's --no-hashstore run and its default give the same line, so
+    the two port arms share the reference's default); the port's line also
+    says which store ran."""
+    from tla_raft_tpu.check import main as ref_main
+    from tla_raft_tpu_torch.check import main
+
+    depth = "3" if "--no-view" in flags else "4"
+    ref_flags = [f for f in flags if f != "--no-hashstore"]
+    rc_ref = ref_main(["--config", str(cfg_file), "--max-depth", depth, "--json", "--log", "-",
+                       *ref_flags])
+    want = _json_of(capsys.readouterr().out)
+    rc = main(["--config", str(cfg_file), "--max-depth", depth, "--json", "--device", "cpu",
+               "--chunk", "256", *flags])
+    out = capsys.readouterr().out
+    got = _json_of(out)
+    assert rc == rc_ref and {k: got[k] for k in KEYS} == {k: want[k] for k in KEYS}
+    assert f"Config {cfg_file}: S=3 V=2" in out
+    assert got["hashstore"] == ("--no-hashstore" not in flags) and "degraded_at" not in got
+    if "~Inv" in flags:
+        assert rc == 1 and got["violation"] == "Invariant ~Inv is violated"
+
+
+def test_cli_refuses_a_spec_that_diverges(cfg_file, capsys):
+    """A Raft.tla beside the cfg that is not the compiled spec: exit 2, as
+    the reference; ``--spec ''`` skips the check."""
+    from tla_raft_tpu_torch.check import main
+
+    (cfg_file.parent / "Raft.tla").write_text("---- MODULE Raft ----\nVARIABLES x\n====\n")
+    assert main(["--config", str(cfg_file), "--device", "cpu", "--max-depth", "1"]) == 2
+    assert "SPEC MISMATCH" in capsys.readouterr().out
+    assert main(["--config", str(cfg_file), "--device", "cpu", "--max-depth", "1", "--spec",
+                 ""]) == 0
+
+
+def test_cli_degrade_line(capsys, monkeypatch):
+    """A grow failure on the CLI's run: the ``--json`` line says the store
+    ended sorted and at which depth it degraded."""
+    from tla_raft_tpu_torch.check import main
+    from tla_raft_tpu_torch.ops import hashstore as hs
+    from tla_raft_tpu_torch.resilience import faults
+
+    monkeypatch.setattr(hs, "MIN_CAP", 16)
+    faults.install("hashstore.grow:fail@1")
+    try:
+        rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+                   "--device", "cpu", "--chunk", "64", "--json"])
+    finally:
+        faults.reset()
+    got = _json_of(capsys.readouterr().out)
+    assert rc == 0 and (got["distinct"], got["generated"], got["depth"]) == GOLD
+    assert got["hashstore"] is False and got["degraded_at"] >= 1
+
+
+def test_cli_cap_x(capsys, monkeypatch):
+    """``--cap-x`` is the reference's mesh budget (its check.py reads it on
+    the distributed path only): accepted, and on one device it changes
+    nothing -- the checker is built without it, and the counts are the
+    run's without the flag."""
+    from tla_raft_tpu_torch.check import main
+
+    kws = []
+    real = TorchChecker.__init__
+
+    def init(self, *a, **kw):
+        kws.append(kw)
+        real(self, *a, **kw)
+
+    monkeypatch.setattr(TorchChecker, "__init__", init)
+    rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+               "--device", "cpu", "--chunk", "64", "--cap-x", "8", "--superstep", "1",
+               "--json"])
+    got = _json_of(capsys.readouterr().out)
+    assert rc == 0 and (got["distinct"], got["generated"], got["depth"]) == GOLD
+    assert len(kws) == 1 and "cap_x" not in kws[0]

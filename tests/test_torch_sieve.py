@@ -3,6 +3,7 @@
 numpy-seeded filters and fingerprints, on the CPU: exact equality of
 every lane's hit, and the all-miss sentinel."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

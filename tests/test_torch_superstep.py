@@ -6,6 +6,7 @@ algebra (superstep.py:258-300) stopping uncommitted and replaying
 through the per-level fused program, the ring's high water, and the
 abort and violation stop points with the reference's traces."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import hashlib
 
 import numpy as np

@@ -3,6 +3,7 @@ message universe, the slot layout, the fingerprint plane tables and the
 guard/materialize tables (MXUTables), for small and reference constants
 and under each planted mutation; plus the carry.py round trip."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import numpy as np

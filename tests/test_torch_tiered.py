@@ -10,6 +10,7 @@ level for level and stat for stat; a budgeted run through grouped levels;
 and the CLI's ``--dev-bytes``.  All outputs are integers: equality is
 exact."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 
 import jax.numpy as jnp

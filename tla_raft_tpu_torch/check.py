@@ -1,12 +1,16 @@
 """CLI: ``python -m tla_raft_tpu_torch.check`` — the port's checker.
 
-Runs the BFS check of the Raft spec (engine/bfs.py) with the given
-constants and prints the same TLC-shaped lines as the JAX package's
-``tla_raft_tpu.check``: per-level progress, the verdict (with the
-counterexample trace on a violation), the state counts and, with
-``--json``, one summary line with the keys distinct, generated, depth,
-level_sizes and violation.
+Runs the BFS check of the Raft spec (engine/bfs.py) and prints the same
+TLC-shaped lines as the JAX package's ``tla_raft_tpu.check``: per-level
+progress, the verdict (with the counterexample trace on a violation), the
+state counts and, with ``--json``, one summary line with the keys
+distinct, generated, depth, level_sizes and violation.  The constants come
+from TLC's ``Raft.cfg`` (``--config``, the reference's entry, as in
+``myrun.sh``; the spec file beside it is validated against the compiled
+semantics), or without one from the Raft.cfg defaults; ``--servers``,
+``--vals``, ``--max-election`` and ``--max-restart`` override either.
 
+    python -m tla_raft_tpu_torch.check --config Raft.cfg --max-depth 20 --json
     python -m tla_raft_tpu_torch.check --max-depth 12 --json          # on the card
     python -m tla_raft_tpu_torch.check --servers 2 --vals 1 \\
         --max-election 1 --max-restart 1 --device cpu                # plain torch
@@ -16,15 +20,19 @@ level_sizes and violation.
     python -m tla_raft_tpu_torch.check --max-depth 23 --canon expand  # delta-hash fingerprints
     python -m tla_raft_tpu_torch.check --max-depth 22 --no-mxu-expand # legacy per-lane kernels
     python -m tla_raft_tpu_torch.check --max-depth 20 --audit 64      # sampled re-expansion
+    python -m tla_raft_tpu_torch.check --max-depth 25 --no-hashstore  # the sorted visited store
 
-Exit code 0 when no error was found, 1 on a violation, 4 on an audit
-fail-stop.
+Exit code 0 when no error was found, 1 on a violation, 2 when the spec
+beside the cfg differs from the compiled semantics, 4 on an audit
+fail-stop (the reference's, check.py:1015-1275).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -109,7 +117,10 @@ def summarize(res, seconds: float, chk) -> dict:
         violation=res.violation[0] if res.violation else None,
         device=str(chk.device),
         routes=dict(chk.routes),
+        hashstore=chk.use_hashstore,
     )
+    if chk.degraded_at is not None:
+        out["degraded_at"] = chk.degraded_at
     if chk.audit_stats.get("levels"):
         out["audit"] = dict(chk.audit_stats)
     if chk._ss_stats["supersteps"]:
@@ -137,10 +148,20 @@ def _mxu_arg(args):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Raft model checker (PyTorch + CUDA port)")
-    ap.add_argument("--servers", type=int, default=3)
-    ap.add_argument("--vals", type=int, default=2)
-    ap.add_argument("--max-election", type=int, default=3)
-    ap.add_argument("--max-restart", type=int, default=3)
+    ap.add_argument("--config", default=None,
+                    help="TLC .cfg file (the single source of truth for constants; default: "
+                         "the Raft.cfg constants built in)")
+    ap.add_argument("--spec", default=None,
+                    help="TLA+ spec file to validate against the compiled semantics (default: "
+                         "Raft.tla next to the cfg, if there is one; '' skips)")
+    ap.add_argument("--invariant", action="append", default=None,
+                    help="override INVARIANT (repeatable; ~Name negates)")
+    ap.add_argument("--no-symmetry", action="store_true")
+    ap.add_argument("--no-view", action="store_true")
+    ap.add_argument("--servers", type=int, default=None, help="override |Servers|")
+    ap.add_argument("--vals", type=int, default=None, help="override |Vals|")
+    ap.add_argument("--max-election", type=int, default=None)
+    ap.add_argument("--max-restart", type=int, default=None)
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--mutate", action="append", default=[], choices=MUTATIONS,
                     help="compile in a planted semantic bug (repeatable)")
@@ -175,6 +196,12 @@ def main(argv=None) -> int:
                          "fail-stops with exit 4 (no checkpoint to rewind to)")
     ap.add_argument("--audit-retries", type=int, default=3, metavar="R",
                     help="fail-stop after R reproducible audit mismatches (default 3)")
+    ap.add_argument("--no-hashstore", action="store_true",
+                    help="the sort-based visited store (lexsort + searchsorted + sorted merge) "
+                         "instead of the hash slab; the same counts (env: TLA_RAFT_HASHSTORE=0)")
+    ap.add_argument("--cap-x", type=int, default=4096,
+                    help="per-device candidate capacity (distributed mode); accepted as the "
+                         "reference's CLI accepts it, read nowhere while the port has no mesh")
     ap.add_argument("--coverage", action="store_true", help="print per-action counts")
     ap.add_argument("--json", action="store_true", help="print a JSON summary line")
     args = ap.parse_args(argv)
@@ -183,11 +210,40 @@ def main(argv=None) -> int:
     from .resilience.integrity import IntegrityError
 
     out = sys.stdout
-    cfg = RaftConfig(
-        n_servers=args.servers, n_vals=args.vals, max_election=args.max_election,
-        max_restart=args.max_restart, mutations=tuple(args.mutate),
-    )
+    cfg = RaftConfig()
+    if args.config:
+        from .cfgparse import load_raft_config
+
+        cfg = load_raft_config(args.config)
+    overrides = {}
+    for key, val in (("invariants", tuple(args.invariant or ())),
+                     ("symmetry", False if args.no_symmetry else None),
+                     ("use_view", False if args.no_view else None),
+                     ("mutations", tuple(args.mutate)), ("n_servers", args.servers),
+                     ("n_vals", args.vals), ("max_election", args.max_election),
+                     ("max_restart", args.max_restart)):
+        if val is not None and val != ():
+            overrides[key] = val
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     t0 = time.monotonic()
+    # the spec beside the cfg must be the one the semantics were compiled
+    # from (check.py:1061-1076)
+    spec = args.spec
+    if spec is None and args.config:
+        cand = os.path.join(os.path.dirname(os.path.abspath(args.config)), "Raft.tla")
+        spec = cand if os.path.exists(cand) else None
+    if spec:
+        from .tla_frontend import validate_spec
+
+        problems = validate_spec(spec)
+        if problems:
+            for pr in problems:
+                print(f"SPEC MISMATCH: {pr}", file=out)
+            print("Refusing to check a spec that diverges from the compiled semantics "
+                  "(pass --spec '' to skip).", file=out)
+            return 2
+        print(f"Spec {spec}: structure matches compiled semantics.", file=out)
 
     def progress(s):
         rate = s["distinct"] / max(s["elapsed"], 1e-9)
@@ -200,9 +256,13 @@ def main(argv=None) -> int:
                        superstep=args.superstep,
                        store_bytes=int(args.dev_bytes) if args.dev_bytes else None,
                        canon=args.canon, use_mxu=_mxu_arg(args), audit=args.audit,
-                       audit_retries=args.audit_retries)
+                       audit_retries=args.audit_retries,
+                       use_hashstore=False if args.no_hashstore else None)
     print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
-    print(f"Config: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
+    where = f" {args.config}" if args.config else ""
+    print(f"Config{where}: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
+    if not chk.use_hashstore:
+        print("Visited store: sorted (level dedup by radix sort, merged per level)", file=out)
     if chk.store_bytes:
         print(f"Tiered visited store: hot slab budget {chk.store_bytes:,} B (demotions spill "
               "to host generations)", file=out)

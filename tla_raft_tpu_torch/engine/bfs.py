@@ -75,6 +75,18 @@ K2 by the legacy per-lane kernels; ``audit=N`` re-expands N sampled rows
 of every level through those legacy kernels before it commits and
 fail-stops on a mismatch (bfs.py:1864-2082; no checkpoint to rewind to).
 
+On the sorted visited store (``use_hashstore=False``, the reference's
+``--no-hashstore``, bfs.py:3481-3690 and 4912-4925) the fused level, the
+supersteps and the tiers are off: every level runs the staged chain, or
+past the size limit the same chain eagerly with each group of G chunks
+filtered against the store (``group_filter``, B19 ``_group_filter``), one
+``level_dedup`` (B19 ``_level_dedup``: the lanes sorted by (fp_view,
+fp_full, payload), the first of each fp_view not in the store kept) and
+one ``merge_sorted`` (B19 ``_merge_sorted``) a level; the survivors, the
+next frontier and the traces come fp_view-ascending, as in the
+reference.  A hash-store run whose slab fails to grow turns onto it
+mid-run (``_degrade_hashstore``, bfs.py:3369) with the same counts.
+
 The order-keeping compactions, inflate/deflate of the message sets and
 the invariant scan are kernels too (csrc/compact.cu, msgset.cu,
 invariants.cu); each function here that wraps one sends CPU tensors to
@@ -83,6 +95,7 @@ its plain twin and CUDA tensors to the kernel.
 
 from __future__ import annotations
 
+import gc
 import os
 import sys
 import time
@@ -106,7 +119,7 @@ from ..ops.successor import GuardTables, materialize_legacy_plain
 from ..resilience import faults
 from ..resilience.integrity import AuditFailStop, audit_indices
 from ..store import tiered
-from ..u64 import SENT
+from ..u64 import SENT, ukey
 from . import forecast
 from . import group
 from . import megakernel as mk
@@ -205,6 +218,103 @@ def chunk_compact_plain(fpv: torch.Tensor, fpf: torch.Tensor, cap_x: int, iota_b
     return (*outs, live.sum())
 
 
+# -- B19: the sorted visited store (--no-hashstore, and the grow-failure fallback) -----
+
+
+def _cap4(n: int) -> int:
+    """The next power of 4 at or above n (bfs.py:268): the sorted store's
+    capacity steps."""
+    c = 1
+    while c < n:
+        c <<= 2
+    return c
+
+
+def sort_u64_plain(x: torch.Tensor) -> torch.Tensor:
+    """Ascending unsigned order of int64-held u64 values (SENT last)."""
+    return ukey(torch.sort(ukey(x)).values)
+
+
+def member_plain(visited: torch.Tensor, fps: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``sorted_member``: hit bool[n], fps[i] in the sorted
+    store (bfs.py:368-369: searchsorted, then the clipped compare)."""
+    if visited.shape[0] == 0:
+        return torch.zeros(fps.shape, dtype=torch.bool, device=fps.device)
+    pos = torch.searchsorted(ukey(visited), ukey(fps)).clamp(0, visited.shape[0] - 1)
+    return visited[pos] == fps
+
+
+def group_filter(cv, cf, cp, visited, cap_g: int):
+    """B19 ``_group_filter`` (bfs.py:358): the lanes whose fp_view the
+    sorted store does not hold, compacted in lane order to ``cap_g`` lanes:
+    (gv, gf, gp, overflow 0-d bool).  ``sorted_member`` (writing the keep
+    flags) then the filter compaction on the card, the twins on the CPU."""
+    if cv.device.type == "cpu":
+        return group.filter_compact_plain(member_plain(visited, cv), cv, cf, cp, cap_g)
+    keep = torch.empty(cv.shape, dtype=torch.bool, device=cv.device)
+    kernels.sorted_member(visited, cv, keep=keep)
+    gv, gf, gp, total = kernels.filter_compact(keep, cv, cf, cp, cap_g)
+    return gv, gf, gp, total > cap_g
+
+
+def level_dedup(cv, cf, cp, visited):
+    """B19 ``_level_dedup`` (bfs.py:407): (n_new 0-d, new_fps, new_payload)
+    -- the lanes sorted by (fp_view, fp_full, payload), the first lane of
+    each fp_view kept unless it is SENT or in the sorted store ``visited``,
+    the survivors packed in sorted order (fp_view ascending), padded SENT
+    and -1.  The ``level_dedup`` kernel on the card, the twin on the CPU."""
+    if cv.device.type == "cpu":
+        return level_dedup_plain(cv, cf, cp, visited)
+    return kernels.level_dedup(cv, cf, cp, visited)
+
+
+def level_dedup_plain(cv, cf, cp, visited):
+    """Plain twin of ``level_dedup``: three stable sorts (payload signed,
+    then fp_full and fp_view unsigned), the first-of-run flags, the
+    membership twin and a cumsum scatter."""
+    n = cv.shape[0]
+    order = torch.argsort(cp, stable=True)
+    order = order[torch.argsort(ukey(cf[order]), stable=True)]
+    order = order[torch.argsort(ukey(cv[order]), stable=True)]
+    sv, sp = cv[order], cp[order]
+    first = torch.ones(n, dtype=torch.bool, device=cv.device)
+    first[1:] = sv[1:] != sv[:-1]
+    new = first & (sv != SENT) & ~member_plain(visited, sv)
+    dest = torch.cumsum(new.to(I64), 0) - 1
+    tgt = torch.where(new, dest, torch.full_like(dest, n))
+    outs = []
+    for vals, pad in ((sv, SENT), (sp, -1)):
+        o = torch.full((n + 1,), pad, dtype=I64, device=cv.device)
+        o.scatter_(0, tgt, vals)
+        outs.append(o[:n])
+    return (new.sum(), *outs)
+
+
+def merge_sorted(visited, new_fps, n_out: int):
+    """B19 ``_merge_sorted`` (bfs.py:469) with the caller's trim
+    (bfs.py:4921-4925): the first ``n_out`` values of the sorted union of
+    the store and the level's new fingerprints.  Both are sorted, so the
+    kernel merges (merge path) where the reference sorts the concatenation;
+    the bytes are the same.  The ``merge_sorted`` kernel on the card, the
+    twin on the CPU."""
+    if visited.device.type == "cpu":
+        return merge_sorted_plain(visited, new_fps, n_out)
+    return kernels.merge_sorted(visited, new_fps, n_out)
+
+
+def merge_sorted_plain(visited, new_fps, n_out: int):
+    """Plain twin of ``merge_sorted``: the unsigned sort of the
+    concatenation, trimmed."""
+    return sort_u64_plain(torch.cat([visited, new_fps]))[:n_out]
+
+
+def upload_sorted_store(fps: np.ndarray, device) -> torch.Tensor:
+    """The sorted store on ``device`` from sorted unique u64 ``fps``,
+    SENT-padded to a power-of-4 capacity past them (bfs.py:3394-3399)."""
+    pad = np.full(_cap4(len(fps) + 1) - len(fps), hashstore.SENT_U64)
+    return torch.from_numpy(np.concatenate([fps, pad]).view(np.int64)).to(device)
+
+
 def ids_to_msgs(ids: torch.Tensor, n_words: int) -> torch.Tensor:
     """Sparse ids [n, cap_m] (-1 padded) -> packed int32 words [n, n_words]:
     the inflate kernel on the card, the plain twin on the CPU."""
@@ -279,13 +389,20 @@ class TorchChecker:
         mismatch raises ``AuditFailStop`` (no checkpoint to rewind to).
       audit_retries: reproducible strikes before the fail-stop (with no
         checkpoint to rewind to, only 1 changes the fail-stop's message).
+      use_hashstore: the hash slab as the visited store (``None``:
+        ``TLA_RAFT_HASHSTORE``, on unless "0"); ``False`` selects the
+        sorted store (the reference's ``--no-hashstore``): the fused level,
+        the supersteps and the tiered budget off, every level staged or
+        grouped, deduped by ``level_dedup`` and merged into the store by
+        ``merge_sorted``.  A failed slab grow turns a hash-store run onto
+        it mid-run (``_degrade_hashstore``).
 
     The reference's settings are read where it reads them, an explicit
     argument winning: ``TLA_RAFT_MEGAKERNEL=0`` (the staged chain),
     ``TLA_RAFT_SUPERSTEP`` (the span; <= 1: per-level fused levels; the
     port has no tuner, so without it the span is ``ss.DEFAULT_SPAN``),
     ``TLA_RAFT_CAP_M`` (replaces only the default cap_m of 96),
-    ``TLA_RAFT_MXU`` and ``TLA_RAFT_ORBIT``.
+    ``TLA_RAFT_MXU``, ``TLA_RAFT_ORBIT`` and ``TLA_RAFT_HASHSTORE``.
     """
 
     def __init__(
@@ -304,6 +421,7 @@ class TorchChecker:
         use_mxu: bool | None = None,
         audit: int = 0,
         audit_retries: int = 3,
+        use_hashstore: bool | None = None,
     ):
         self.cfg = cfg
         if orbit is None:
@@ -346,14 +464,24 @@ class TorchChecker:
         self.progress = progress
         for name in cfg.invariants:
             resolve_invariant_kernel(name)  # an unknown name raises here
+        if use_hashstore is None:
+            use_hashstore = hashstore.enabled_by_env()
+        self.use_hashstore = bool(use_hashstore)
         self.hstore: DeviceHashStore | None = None
+        # the sorted store (use_hashstore=False): u64 ascending, SENT-padded
+        # to a power-of-4 length (bfs.py:4216, 4921-4925)
+        self.visited: torch.Tensor | None = None
+        self.degraded_at: int | None = None  # committed levels when the slab failed
+        self.degraded_site: str | None = None  # the route (or "between levels") it failed in
+        self.graph_launches_at_degrade: int | None = None
         self.frontier: Frontier | None = None  # the last committed level's rows
         self.redos = dict(cap_x=0, slab=0, cap_m=0, cap_g=0)  # every route's redos
-        # the fused level and the supersteps fingerprint with K3 alone: orbit
-        # runs the staged and grouped chains (bfs.py:738)
+        # the fused level and the supersteps fingerprint with K3 alone and
+        # dedup in the hash slab: orbit and the sorted store run the staged
+        # and grouped chains (bfs.py:738-742)
         if megakernel is None:
             megakernel = mk.enabled_by_env()
-        self.megakernel = bool(megakernel) and not self.orbit
+        self.megakernel = bool(megakernel) and not self.orbit and self.use_hashstore
         if self.orbit:
             self.fpr.orbit_tables  # on the card now: a first launch may be in a capture
         if superstep is None:
@@ -504,20 +632,47 @@ class TorchChecker:
         cp = torch.where(lane, cp_raw, torch.full_like(cp_raw, -1))
         return cv, cf, cp, mult_slots, abort_at, ovf_x, (ovf_rows & lane).any()
 
-    def expand_level(self, frontier: Frontier, n_f: int, slab: torch.Tensor) -> dict:
-        """Expand every chunk, then dedup the level against ``slab``.
+    def expand_level(self, frontier: Frontier, n_f: int, store: torch.Tensor,
+                     grouped: bool = False) -> dict:
+        """Expand every chunk, then dedup the level against ``store``: the
+        hash slab, or the sorted store when ``use_hashstore`` is off.
 
         Returns host-side control values (n_new, abort_at, overflow
         flags, per-slot multiplicities) and the device-side survivors
-        (new_fps, new_payload in payload order, and ``slab``, into which
-        they were inserted in place).  A level whose candidate or message
-        budget overflowed inserts nothing; one whose insert overflowed
-        leaves ``slab`` as it was."""
+        (new_fps, new_payload).  On the hash slab they come in payload
+        order and are inserted into ``store`` in place: a level whose
+        candidate or message budget overflowed inserts nothing, one whose
+        insert overflowed leaves ``store`` as it was.  On the sorted store
+        (bfs.py:3640-3684) they come fp_view-ascending and ``store`` is not
+        touched (the caller merges); with ``grouped`` every G chunks are
+        filtered against it (``group_filter``, each group to ``cap_g``
+        lanes; the last group padded to G chunks) before one
+        ``level_dedup`` over the groups' lanes, else the chunks' lanes go to
+        it whole; either way padded to a half-step lane count
+        (``_cap_steps``, bfs.py:3655-3666)."""
+        if grouped and self.use_hashstore:
+            raise ValueError("the eager grouped level runs on the sorted store only")
         cvs, cfs, cps = [], [], []
+        gvs, gfs, gps = [], [], []
         mult = torch.zeros((self.K,), dtype=I64, device=self.device)
         abort_at = torch.full((), BIG, dtype=I64, device=self.device)
         ovf_x = torch.zeros((), dtype=torch.bool, device=self.device)
         ovf_m = torch.zeros((), dtype=torch.bool, device=self.device)
+        ovf_g = torch.zeros((), dtype=torch.bool, device=self.device)
+
+        def flush_group():
+            pad = (self.G - len(cvs)) * self.cap_x
+            lanes = [torch.cat(x + [torch.full((pad,), v, dtype=I64, device=self.device)])
+                     for x, v in ((cvs, SENT), (cfs, SENT), (cps, -1))]
+            gv, gf, gp, ovf = group_filter(*lanes, store, self.cap_g)
+            gvs.append(gv)
+            gfs.append(gf)
+            gps.append(gp)
+            cvs.clear()
+            cfs.clear()
+            cps.clear()
+            return ovf
+
         for start in range(0, n_f, self.chunk):
             # rows past n_f are not parents (a fused level's buffer is larger)
             part = Frontier(*(x[start : min(start + self.chunk, n_f)] for x in frontier))
@@ -529,14 +684,31 @@ class TorchChecker:
             abort_at = torch.minimum(abort_at, ab)
             ovf_x = ovf_x | ox
             ovf_m = ovf_m | om
-        ctl = torch.cat([torch.stack([abort_at, ovf_x.to(I64), ovf_m.to(I64)]), mult])
+            if grouped and len(cvs) == self.G:
+                ovf_g = ovf_g | flush_group()
+        if grouped and cvs:
+            ovf_g = ovf_g | flush_group()
+        ctl = torch.cat([torch.stack([abort_at, ovf_x.to(I64), ovf_m.to(I64), ovf_g.to(I64)]),
+                         mult])
         (ctl,) = fetch(ctl, what="staged_expand")  # the expand pass's one control fetch
-        out = dict(abort_at=int(ctl[0]), ovf_x=bool(ctl[1]), ovf_m=bool(ctl[2]), ovf_h=False,
-                   mult=ctl[3:].copy(), n_new=0, new_fps=None, new_payload=None, slab=slab)
-        if out["ovf_x"] or out["ovf_m"] or out["abort_at"] < n_f:
+        out = dict(abort_at=int(ctl[0]), ovf_x=bool(ctl[1]), ovf_m=bool(ctl[2]),
+                   ovf_g=bool(ctl[3]), ovf_h=False, mult=ctl[4:].copy(), n_new=0, new_fps=None,
+                   new_payload=None, slab=store, groups=len(gvs), lanes=0)
+        if out["ovf_x"] or out["ovf_m"] or out["ovf_g"] or out["abort_at"] < n_f:
             return out  # the level is redone or the run stops: insert nothing
-        cv, cf, cp = torch.cat(cvs), torch.cat(cfs), torch.cat(cps)
-        slab, fresh, n_new, ovf_h = probe_and_insert(slab, cv, cf, cp)
+        lanes = (gvs, gfs, gps) if grouped else (cvs, cfs, cps)
+        cv, cf, cp = (torch.cat(x) for x in lanes)
+        out["lanes"] = cv.shape[0]
+        if not self.use_hashstore:
+            pad = _cap_steps(max(cv.shape[0], 1)) - cv.shape[0]
+            if pad:
+                cv, cf, cp = (torch.cat([x, torch.full((pad,), v, dtype=I64, device=self.device)])
+                              for x, v in ((cv, SENT), (cf, SENT), (cp, -1)))
+            n_new, new_fps, new_payload = level_dedup(cv, cf, cp, store)
+            (nv,) = fetch(n_new.reshape(1), what="staged_dedup")
+            out.update(n_new=int(nv[0]), new_fps=new_fps, new_payload=new_payload)
+            return out
+        slab, fresh, n_new, ovf_h = probe_and_insert(store, cv, cf, cp)
         new_fps, new_payload = compact_fresh(fresh, cv, cp, cv.shape[0])
         (nv,) = fetch(torch.stack([n_new.to(I64), ovf_h.to(I64)]), what="staged_insert")
         n_new, ovf_h = int(nv[0]), int(nv[1])
@@ -781,7 +953,9 @@ class TorchChecker:
     def _expand_level_mega(self, frontier, n_f, max_depth, level_sizes) -> dict:
         """One level as one graph launch and one read (bfs.py:1222); every
         overflow grows its budget and redoes the level against the slab as
-        it was (the graph gave any claims back)."""
+        it was (the graph gave any claims back).  A slab grow that fails
+        degrades the run to the sorted store and returns ``degraded`` with
+        the parents (bfs.py:1283-1292): the caller redoes the level."""
         out_floor = 0
         t = self.level_timing = dict(seat=0.0, launch=0.0, wait=0.0, post=0.0, runs=0)
         while True:
@@ -814,7 +988,11 @@ class TorchChecker:
                 self._mega_stats["redo_rounds"] += 1
                 continue
             if ctrl[mk.CTRL_OVF_SLAB]:
-                self._grow_slab(len(level_sizes), max(n_new, n_f))
+                depth = len(level_sizes) - 1
+                prog = None  # its graph holds the slab: no reference through the grow
+                if self._grow_or_degrade(lambda: self._grow_slab(depth + 1, max(n_new, n_f)),
+                                         depth, "fused") == "degraded":
+                    return dict(degraded=True, parent=frontier)
                 self._mega_stats["redo_slab"] += 1
                 continue
             if ctrl[mk.CTRL_OVF_X]:
@@ -860,7 +1038,12 @@ class TorchChecker:
             ins_bound = sum(min(int(f * m) + 1, cap_f) for f in fut)
         else:
             ins_bound = 2 * max(n_f, 1)
-        self._tier_reserve(self.hstore.count + max(ins_bound, 2 * max(n_f, 1)))
+        # a failed reserve degrades to the sorted store; the caller runs the
+        # level per level (bfs.py:1716-1727)
+        if self._grow_or_degrade(lambda: self._tier_reserve(
+                self.hstore.count + max(ins_bound, 2 * max(n_f, 1))),
+                depth, "superstep") == "degraded":
+            return dict(degraded=True, frontier=frontier)
         # the ring size is a device word: one program per cap_f serves
         # every ring up to its span * cap_f ceiling
         key = ("superstep", cap_f, self.superstep_span, self.chunk)
@@ -895,11 +1078,15 @@ class TorchChecker:
             self._grow_cap_x()
             self._mega_stats["redo_x"] += 1
         if flags & ss.FLAG_OVF_SLAB:
-            if self._slab_grow_or_demote(depth + 1, expected=max(n_f, 1)) == "demoted":
+            how = self._grow_or_degrade(
+                lambda: self._slab_grow_or_demote(depth + 1, expected=max(n_f, 1)), depth,
+                "superstep")
+            if how == "demoted":
                 self._ss_stats["tier_stops"] = self._ss_stats.get("tier_stops", 0) + 1
                 self.tiered.stats["tier_redos"] += 1
-            self.redos["slab"] += 1
-            self._mega_stats["redo_slab"] += 1
+            if how != "degraded":
+                self.redos["slab"] += 1
+                self._mega_stats["redo_slab"] += 1
         if flags & ss.FLAG_OVF_M and self.cap_m < self.uni.M:
             frontier = self._grow_cap_m(frontier)
             self._mega_stats["redo_m"] += 1
@@ -913,8 +1100,8 @@ class TorchChecker:
     # -- the tiered visited store (bfs.py:3207-3375) ---------------------------------
 
     def _tier_on(self) -> bool:
-        """A device budget bounds the hot slab."""
-        return self.tiered is not None
+        """A device budget bounds the hot slab (never the sorted store)."""
+        return self.tiered is not None and self.use_hashstore
 
     def _tier_active(self) -> bool:
         """At least one generation is demoted: level tails must probe."""
@@ -1010,6 +1197,74 @@ class TorchChecker:
                                             n_keep)
         return n_keep, keep, new_frontier
 
+    # -- the sorted store's fallback (bfs.py:3369-3404) -------------------------------
+
+    def _graph_launches(self) -> int:
+        g = self.graph_stats
+        return g["level_launches"] + g["superstep_launches"] + g["group_launches"]
+
+    def _grow_or_degrade(self, grow: Callable[[], object], depth: int, site: str):
+        """Run a slab grow and return what it returns; any exception from it
+        (an allocation failure on a full card, an injected ``hashstore.grow``
+        fault) degrades the run to the sorted store instead of ending it,
+        and returns "degraded".  ``site`` (the route, or "between levels")
+        is kept for the logs."""
+        try:
+            return grow()
+        except Exception as e:  # noqa: BLE001 - every grow failure degrades (bfs.py:4655)
+            why = f"{type(e).__name__}: {e}"
+        # out of the handler: the traceback, and with it whatever the failed
+        # grow had allocated, is gone before the degrade allocates
+        self._degrade_hashstore(why, depth)
+        self.degraded_site = site
+        return "degraded"
+
+    def _degrade_hashstore(self, why, depth: int) -> None:
+        """The automatic ``--no-hashstore`` (bfs.py:3369): the slab's live
+        slots are the visited set (with every demoted generation under a
+        budget), so one read and a host sort rebuild the sorted store; the
+        tiers, the fused level and the supersteps go, and so does every
+        captured program (its graph holds the old slab's address): none is
+        launched again in this run.  ``depth`` is the committed levels; the
+        next level runs on the sorted store.
+
+        The grow failed on a full card, so everything of the hash store --
+        the slab, the representative's slab-sized minima, the sieve's
+        device copy, every program and its graph pool -- is released
+        before the sorted store is allocated (``upload_sorted_store``); the
+        callers hold no reference to the slab across a grow."""
+        print(f"[resilience] hash-store grow failed ({why}); degrading to the sort-based "
+              "visited path (--no-hashstore equivalent) for the rest of the run",
+              file=sys.stderr)
+        (vb,) = fetch(self.hstore.slab, what="degrade")
+        vb = vb.view(np.uint64)
+        vb = vb[vb != hashstore.SENT_U64]
+        if self._tier_active():
+            vb = np.union1d(vb, self.tiered.all_fps())
+            self.tiered = None
+        vb = np.unique(vb)
+        self.graph_launches_at_degrade = self._graph_launches()
+        self.use_hashstore = False
+        self.hstore = None
+        self.megakernel = False
+        self.superstep_span = 1
+        self._progs.clear()
+        self._sieve_dev, self._sieve_ver = None, -1
+        kernels.drop_rep_scratch()
+        gc.collect()  # a cycle that still holds a program frees its pool now
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.visited = upload_sorted_store(vb, self.device)
+        self.degraded_at = depth
+
+    def _merge_level(self, new_fps: torch.Tensor, n_new: int, distinct: int) -> None:
+        """The level's new fingerprints into the sorted store, trimmed to a
+        power-of-4 capacity past ``distinct`` (bfs.py:4912-4925: the merge
+        input is the first max(pow2(n_new), chunk) lanes)."""
+        w = min(max(_pow2(n_new), self.chunk), new_fps.shape[0])
+        n_out = min(self.visited.shape[0] + w, _cap4(distinct + 1))
+        self.visited = merge_sorted(self.visited, new_fps[:w], n_out)
+
     # -- the run ------------------------------------------------------------------
 
     def _grouping(self, n_f: int) -> bool:
@@ -1018,40 +1273,56 @@ class TorchChecker:
 
     def _expand_level_grouped(self, frontier: Frontier, n_f: int, depth: int) -> tuple:
         """One grouped level with its grow-and-redo (bfs.py:4620-4677):
-        (result, parent frontier).  Every redo runs against the slab as it
-        was before the level."""
+        (result, parent frontier).  Every redo runs against the store as it
+        was before the level.  On the hash slab the group graph
+        (engine/group.py), on the sorted store the eager chain of
+        ``expand_level(grouped=True)``; a slab grow that fails degrades and
+        the redo runs on the latter."""
         groups = -(-max(n_f, 1) // (self.G * self.chunk))
         while True:
-            # the lane buffer's groups, quantized: one program serves nearby levels
-            res = group.expand_level_grouped(self, frontier, n_f, _cap_steps(groups))
+            if self.use_hashstore:
+                # the lane buffer's groups, quantized: one program serves nearby levels
+                res = group.expand_level_grouped(self, frontier, n_f, _cap_steps(groups))
+            else:
+                res = self.expand_level(frontier, n_f, self.visited, grouped=True)
+                res.update(ovf_rounds=False, rounds=0)
             if not (res["ovf_x"] or res["ovf_g"] or res["ovf_h"] or res["ovf_m"]
                     or res["ovf_rounds"]):
                 return res, frontier
-            if res["ovf_h"]:
-                self._grow_slab(depth + 1, max(n_f, res["n_new"]))
-            if res["ovf_x"]:
+            # the flags only: nothing of the attempt goes through a grow
+            ovf, res = {k: res[k] for k in ("ovf_x", "ovf_g", "ovf_h", "ovf_m", "ovf_rounds",
+                                            "n_new")}, None
+            if ovf["ovf_h"]:
+                n_new = ovf["n_new"]
+                self._grow_or_degrade(
+                    lambda: self._grow_slab(depth + 1, max(n_f, n_new)), depth, "grouped")
+            if ovf["ovf_x"]:
                 self._grow_cap_x()
-            if res["ovf_g"]:
+            if ovf["ovf_g"]:
                 self.cap_g *= 2
                 self.redos["cap_g"] += 1
-            if res["ovf_rounds"]:
+            if ovf["ovf_rounds"]:
                 self.k4_rounds *= 2
-            if res["ovf_m"]:
+            if ovf["ovf_m"]:
                 frontier = self._grow_cap_m(frontier)
 
     def _expand_level_staged(self, frontier: Frontier, n_f: int, depth: int) -> tuple:
         """One ungrouped staged level with its grow-and-redo: (result,
         parent frontier)."""
         while True:
-            res = self.expand_level(frontier, n_f, self.hstore.slab)
+            res = self.expand_level(frontier, n_f,
+                                    self.hstore.slab if self.use_hashstore else self.visited)
             if not (res["ovf_x"] or res["ovf_h"] or res["ovf_m"]):
                 return res, frontier
-            # nothing was inserted, or the insert was undone
-            if res["ovf_x"]:
+            # nothing was inserted, or the insert was undone; the attempt's
+            # dict holds the slab: only its flags go through a grow
+            ovf, res = {k: res[k] for k in ("ovf_x", "ovf_h", "ovf_m", "n_new")}, None
+            if ovf["ovf_x"]:
                 self._grow_cap_x()
-            if res["ovf_h"]:
-                self._grow_slab(depth + 1, max(n_f, res["n_new"]))
-            if res["ovf_m"]:
+            if ovf["ovf_h"]:
+                self._grow_or_degrade(
+                    lambda: self._grow_slab(depth + 1, max(n_f, ovf["n_new"])), depth, "staged")
+            if ovf["ovf_m"]:
                 frontier = self._grow_cap_m(frontier)
 
     def run(self, max_depth: int | None = None) -> CheckResult:
@@ -1061,10 +1332,15 @@ class TorchChecker:
         if bool(ovf0.any()):
             raise RuntimeError(f"initial state's message set exceeds cap_m={self.cap_m}")
         fv, _ff = self._fp_states(frontier)
-        self.hstore = DeviceHashStore.from_fps(
-            fv.cpu().numpy().view(np.uint64), device=self.device
-        )
-        self.tiered = tiered.TieredVisitedStore(self.store_bytes) if self.store_bytes else None
+        if self.use_hashstore:
+            self.hstore = DeviceHashStore.from_fps(
+                fv.cpu().numpy().view(np.uint64), device=self.device
+            )
+        else:
+            # the root and 63 pads: sorted, as SENT sorts last (bfs.py:4216)
+            self.visited = torch.cat([fv, torch.full((63,), SENT, dtype=I64, device=self.device)])
+        self.tiered = (tiered.TieredVisitedStore(self.store_bytes)
+                       if self.store_bytes and self.use_hashstore else None)
         self._sieve_dev, self._sieve_ver, self.tier_soft_seats = None, -1, 0
         self.frontier = frontier
         n_f, distinct, generated, depth = 1, 1, 0, 0
@@ -1095,6 +1371,9 @@ class TorchChecker:
                     and self._mega_level_ok(n_f)):
                 sres = self._run_superstep(frontier, n_f, max_depth, depth, level_sizes)
                 frontier = sres["frontier"]
+            else:
+                sres = None
+            if sres is not None and not sres.get("degraded"):
                 hit_fixpoint = False
                 for rec in sres["recs"]:
                     mult_per_slot = mult_per_slot + rec["mult"]
@@ -1119,20 +1398,24 @@ class TorchChecker:
                 if sres["reason"] == "stop":
                     frontier = self._grow_for_stop(sres["flags"], frontier, depth, n_f)
                 continue
+            # a superstep that degraded to the sorted store runs its level per level
             skip_superstep = False
             mres = None
             t_level, reads0 = time.perf_counter(), sum(READS.values())
             if self._mega_level_ok(n_f):
                 mres = self._expand_level_mega(frontier, n_f, max_depth, level_sizes)
                 frontier = mres["parent"]
-                res = dict(n_new=mres["n_new"], abort_at=mres["abort_at"],
-                           mult=mres["level_mult"], slab_live=mres["slab_live"])
-                route = "fused"
-            elif self._grouping(n_f):
+                if mres.get("degraded"):
+                    mres = None  # the slab failed to grow: the level is redone below
+                else:
+                    res = dict(n_new=mres["n_new"], abort_at=mres["abort_at"],
+                               mult=mres["level_mult"], slab_live=mres["slab_live"])
+                    route = "fused"
+            if mres is None and self._grouping(n_f):
                 launches0 = self.graph_stats["group_launches"]
                 res, frontier = self._expand_level_grouped(frontier, n_f, depth)
                 route = "grouped"
-            else:
+            elif mres is None:
                 res, frontier = self._expand_level_staged(frontier, n_f, depth)
                 route = "staged"
             if res["abort_at"] < n_f:
@@ -1159,7 +1442,8 @@ class TorchChecker:
                     frontier = self._grow_cap_m(frontier)
                 # the trace read (the grouped tail split the payloads on the
                 # device), with the fresh fps when the tiers probe them
-                if route == "grouped":
+                split = "pidx" in res
+                if split:
                     want = [res["pidx"][:n_new], res["slot"][:n_new]]
                 else:
                     want = [res["new_payload"][:n_new]]
@@ -1167,7 +1451,7 @@ class TorchChecker:
                 if want_fps:
                     want.append(res["new_fps"][:n_new])
                 got = fetch(*want, what="staged_trace")
-                if route == "grouped":
+                if split:
                     pidx, slot = got[0].view(np.uint32).copy(), got[1].view(np.uint16).copy()
                 else:
                     pidx, slot = np.divmod(got[0], K)
@@ -1211,13 +1495,21 @@ class TorchChecker:
             distinct += n_new
             level_sizes.append(n_new)
             depth += 1
-            self.hstore.adopt(self.hstore.slab, n_store)
-            if route != "staged":
-                self._check_occupancy(res["slab_live"])
-            if self.hstore.need_grow(extra=2 * n_new) or (
-                    self._tier_on() and self.hstore.count > 0
-                    and not self.tiered.slab_fits(self.hstore.cap)):
-                self._slab_grow_or_demote(depth, expected=2 * n_new)
+            if not self.use_hashstore:
+                self._merge_level(res["new_fps"], n_new, distinct)
+            else:
+                self.hstore.adopt(self.hstore.slab, n_store)
+                if route != "staged":
+                    self._check_occupancy(res["slab_live"])
+                res = None  # a staged level's holds the slab: no reference through a grow
+                if self.hstore.need_grow(extra=2 * n_new) or (
+                        self._tier_on() and self.hstore.count > 0
+                        and not self.tiered.slab_fits(self.hstore.cap)):
+                    # the level is committed: a failed grow degrades before
+                    # the next (bfs.py:4903-4909)
+                    self._grow_or_degrade(
+                        lambda: self._slab_grow_or_demote(depth, expected=2 * n_new), depth,
+                        "between levels")
             n_f = n_new
             self.frontier = mk.rows_of(frontier, 0, n_f)
             note(route)

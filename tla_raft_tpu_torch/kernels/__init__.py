@@ -236,10 +236,31 @@ LEGACY = Kernel(
     {"launch_legacy": [VP, VP, I32, I32, I64, VP, VP, I64, VP, I32, VP, VP, VP, VP, VP, VP, I64,
                        VP, I64, VP, VP]},
 )
+SORTED_MEMBER = Kernel(
+    "sorted_member", "csrc/sortstore.cu",
+    "tla_raft_tpu/engine/bfs.py:358 (_group_filter: searchsorted against the sorted store; "
+    "then the filter compaction, _filter_compact:338)",
+    {"launch_sorted_member": [VP, I64, VP, I64, VP, VP, VP]},
+)
+LEVEL_DEDUP = Kernel(
+    "level_dedup", "csrc/sortstore.cu",
+    "tla_raft_tpu/engine/bfs.py:407 (_level_dedup: lexsort by (fp_view, fp_full, payload), "
+    "first of each fp_view, searchsorted against the store, stable compaction)",
+    {"launch_level_dedup": [VP, VP, VP, I64, VP, I64, VP, VP, VP, VP, VP, VP, VP, VP, VP, VP,
+                            VP],
+     "rs_tile": [], "rs_scan_tile": []},
+)
+MERGE_SORTED = Kernel(
+    "merge_sorted", "csrc/sortstore.cu",
+    "tla_raft_tpu/engine/bfs.py:469 (_merge_sorted: jnp.sort of the store and the level's "
+    "new fingerprints)",
+    {"launch_merge_sorted": [VP, I64, VP, I64, VP, I64, VP]},
+)
 KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMPACT, INFLATE,
                                DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE, HS_PROBE,
                                FILTER_COMPACT, DROP_ROWS, MSG_FACTORED, ORBIT, ORBIT_FOLD,
-                               DENSE_EXPAND, CHUNK_COMPACT, LEGACY)}
+                               DENSE_EXPAND, CHUNK_COMPACT, LEGACY, SORTED_MEMBER, LEVEL_DEDUP,
+                               MERGE_SORTED)}
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
@@ -255,6 +276,8 @@ ORBIT_PATH = ("orbit", "orbit_fold")
 # per-lane kernels of use_mxu=False and --audit
 EXPAND_PATH = ("dense_expand", "chunk_compact")
 LEGACY_PATH = ("dense_expand", "legacy_materialize")
+# the sorted visited store (--no-hashstore, and the grow-failure fallback)
+SORTED_PATH = ("sorted_member", "level_dedup", "merge_sorted")
 
 
 def reset_launches() -> None:
@@ -677,6 +700,11 @@ def rep_scratch(dev, cap: int):
         _SCRATCH[key] = (torch.full((cap,), -1, dtype=torch.int64, device=dev),
                          torch.full((cap,), 1 << 62, dtype=torch.int64, device=dev))
     return _SCRATCH[key]
+
+
+def drop_rep_scratch() -> None:
+    """Free the representative's minima (the slab went: a degrade)."""
+    _SCRATCH.clear()
 
 
 def _hs_check(slab, fps, keys, pays):
@@ -1231,3 +1259,79 @@ def drop_rows(keep, src, dst):
     # count_tiles, scan_offsets, scatter_rows, gather_rows
     DROP_ROWS.launches += 3 * int(rows > 0) + 1
     return total
+
+
+# -- B19: the sorted visited store (csrc/sortstore.cu) -------------------------------
+
+
+def sorted_member(visited, fps, *, hit=None, keep=None):
+    """B19 membership against the sorted store ``visited`` (u64 in int64,
+    ascending as unsigned): ``hit`` bool[n] (fps[i] is in it) and/or
+    ``keep`` bool[n] (not SENT and not in it).  Allocates ``hit`` when
+    neither is given."""
+    V, n = visited.shape[0], fps.shape[0]
+    _need(visited, "visited", torch.int64, (V,))
+    _need(fps, "fps", torch.int64, (n,))
+    if hit is None and keep is None:
+        hit = torch.empty((n,), dtype=torch.bool, device=fps.device)
+    for name, t in (("hit", hit), ("keep", keep)):
+        if t is not None:
+            _need(t, name, torch.bool, (n,))
+    SORTED_MEMBER.check(SORTED_MEMBER.lib().launch_sorted_member(
+        visited.data_ptr(), V, fps.data_ptr(), n, _p(hit), _p(keep), _stream()))
+    SORTED_MEMBER.launches += int(n > 0)
+    return hit
+
+
+def level_dedup(cv, cf, cp, visited):
+    """B19 ``_level_dedup``: (n_new i64 0-d, new_fps i64[n], new_pay
+    i64[n]) -- the first lane of each fp_view in (fp_view, fp_full,
+    payload) order that is neither SENT nor in ``visited``, packed in that
+    order, padded SENT and -1."""
+    n, V = cv.shape[0], visited.shape[0]
+    for name, t in (("cv", cv), ("cf", cf), ("cp", cp)):
+        _need(t, name, torch.int64, (n,))
+    _need(visited, "visited", torch.int64, (V,))
+    if n >= 1 << 31:
+        raise ValueError(f"level_dedup takes fewer than 2^31 lanes, got {n}")
+    dev = cv.device
+    lib = LEVEL_DEDUP.lib()
+    nb = (n + lib.rs_tile() - 1) // lib.rs_tile()
+    scan_t = lib.rs_scan_tile()
+    n_parts = (256 * nb + scan_t - 1) // scan_t
+    new_fps = torch.empty((n,), dtype=torch.int64, device=dev)
+    new_pay = torch.empty((n,), dtype=torch.int64, device=dev)
+    n_new = torch.empty((), dtype=torch.int64, device=dev)
+    keys = torch.empty((2 * n,), dtype=torch.int64, device=dev)
+    idx = torch.empty((2 * n,), dtype=torch.int32, device=dev)
+    counts = torch.empty((max(256 * nb, 1),), dtype=torch.int32, device=dev)
+    part = torch.empty((n_parts + 1,), dtype=torch.int64, device=dev)
+    flags = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
+    sp = torch.empty((max(n, 1),), dtype=torch.int64, device=dev)
+    tile = torch.empty((max((n + scan_t - 1) // scan_t, 1),), dtype=torch.int64, device=dev)
+    LEVEL_DEDUP.check(lib.launch_level_dedup(
+        cv.data_ptr(), cf.data_ptr(), cp.data_ptr(), n, visited.data_ptr(), V,
+        new_fps.data_ptr(), new_pay.data_ptr(), n_new.data_ptr(), keys.data_ptr(),
+        idx.data_ptr(), counts.data_ptr(), part.data_ptr(), flags.data_ptr(), sp.data_ptr(),
+        tile.data_ptr(), _stream()))
+    # rs_init, two gathers, 24 passes of (hist, scan_local, scan_offsets,
+    # scatter) and dedup_flags; then count_tiles, scan_offsets,
+    # scatter_tiles and pad_tail
+    sort = 1 + 2 + 24 * 4 + 1 if n > 0 else 0
+    LEVEL_DEDUP.launches += sort + 2 * int(n > 0) + 1 + int(n > 0)
+    return n_new, new_fps, new_pay
+
+
+def merge_sorted(a, b, n_out: int):
+    """B19 ``_merge_sorted``: the first ``n_out`` values of the sorted
+    union of ``a`` and ``b`` (each ascending as unsigned u64)."""
+    A, B = a.shape[0], b.shape[0]
+    _need(a, "a", torch.int64, (A,))
+    _need(b, "b", torch.int64, (B,))
+    if not 0 <= n_out <= A + B:
+        raise ValueError(f"merge_sorted: n_out {n_out} outside [0, {A + B}]")
+    out = torch.empty((n_out,), dtype=torch.int64, device=a.device)
+    MERGE_SORTED.check(MERGE_SORTED.lib().launch_merge_sorted(
+        a.data_ptr(), A, b.data_ptr(), B, out.data_ptr(), n_out, _stream()))
+    MERGE_SORTED.launches += int(n_out > 0)
+    return out

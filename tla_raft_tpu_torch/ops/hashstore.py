@@ -43,6 +43,14 @@ MIN_CAP = 1 << 10
 SENT_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
+def enabled_by_env() -> bool:
+    """The ``TLA_RAFT_HASHSTORE`` default (on unless "0"; reference
+    hashstore.py:116)."""
+    import os
+
+    return bool(int(os.environ.get("TLA_RAFT_HASHSTORE", "1")))
+
+
 def slab_rows(expected: int, load: float = 0.5) -> int:
     """Power-of-two capacity holding ``expected`` entries at ``load``."""
     need = max(MIN_CAP, int(expected / load) + 1)
@@ -269,7 +277,15 @@ class DeviceHashStore:
         old slab's slots go through ``probe_and_insert`` into an empty slab
         as one batch (SENT slots are dead lanes) — the reference's
         ``insert_only`` rounds, so the layout is the reference's; doubles
-        again on a probe overflow."""
+        again on a probe overflow.
+
+        May raise (an allocation failure on a full card, or an injected
+        ``hashstore.grow`` fault, reference hashstore.py:521) and leaves the
+        slab as it was: the engine then turns the run onto the sorted
+        visited store."""
+        from ..resilience import faults
+
+        faults.fire("hashstore.grow")
         want = max(self.cap * 2, min_cap or 0)
         want = 1 << (want - 1).bit_length()
         pays = torch.arange(self.cap, dtype=torch.int64, device=self.device)

@@ -3,14 +3,17 @@ that the port polls.
 
 A :class:`FaultPlan` is a parsed list of ``site:action@n`` triggers armed
 from the environment (``TLA_RAFT_FAULT``) or by :func:`install`; the
-instrumented code path calls :func:`fire_flag` at a named site, and the
-plan fires when that site's hit counter reaches ``n``.
+instrumented code path calls :func:`fire_flag` or :func:`fire` at a named
+site, and the plan fires when that site's hit counter reaches ``n``.
 
-The port has one site, ``tensor.flip``: the engine's level end, where the
+The port has two sites: ``tensor.flip``, the engine's level end, where the
 caller flips one bit of the first live frontier row on the device (the
-``--audit`` drill).  The reference's file-writer, service and mesh sites
-and their actions (kill, torn, fail, lost, hang, pause) come with the
-checkpoints, the sweep service and the mesh.  A spec that names anything
+``--audit`` drill); and ``hashstore.grow``, the hash slab's grow, whose
+``fail`` raises :class:`FaultError` there (:func:`fire`) and turns the run
+onto the sorted visited store (reference ``resilience/faults.py:87``).  The
+reference's file-writer, service and mesh sites and their actions (kill,
+torn, lost, hang, pause) come with the checkpoints, the sweep service and
+the mesh.  A spec that names anything
 else is refused at parse time: a typo, or a site the port does not poll,
 must not silently test nothing.
 
@@ -29,9 +32,16 @@ FAULT_SITES = {
     "tensor.flip": "single-device level end: one bit of the first live "
                    "frontier row flips on device (action `flip`; the "
                    "--audit cross-check catches it)",
+    "hashstore.grow": "the Nth visited-slab grow/rehash (action `fail`: the "
+                      "run degrades to the sorted visited store)",
 }
 
-_ACTIONS = ("flip",)
+# the actions each site performs (the caller's flip; fire's FaultError)
+_ACTIONS = {"tensor.flip": ("flip",), "hashstore.grow": ("fail",)}
+
+
+class FaultError(RuntimeError):
+    """An injected transient failure (``fail`` action)."""
 
 
 class FaultPlan:
@@ -61,14 +71,25 @@ class FaultPlan:
                     f"unknown fault site {site!r} (known: "
                     f"{', '.join(sorted(FAULT_SITES))})"
                 )
-            if action not in _ACTIONS:
+            if action not in _ACTIONS[site]:
                 raise ValueError(
-                    f"unknown fault action {action!r} (known: "
-                    f"{', '.join(_ACTIONS)})"
+                    f"fault action {action!r} is not one {site} performs (known: "
+                    f"{', '.join(_ACTIONS[site])})"
                 )
             if n < 1:
                 raise ValueError(f"fault occurrence must be >= 1, got {n}")
             self.triggers.append((site, action, n))
+
+    def fire(self, site: str) -> None:
+        """Hit a site whose action is ``fail``: an armed trigger raises
+        ``FaultError`` at this hit."""
+        n = self.counts.get(site, 0) + 1
+        self.counts[site] = n
+        for tsite, action, tn in self.triggers:
+            if tsite != site or tn != n:
+                continue
+            self.fired.append(f"{site}:{action}@{n}")
+            raise FaultError(f"injected transient failure at {site} (#{n})")
 
     def fire_flag(self, site: str) -> bool:
         """Hit a site whose ``flip`` the caller applies: True when an
@@ -109,6 +130,13 @@ def reset() -> None:
     """Disarm (tests)."""
     global _PLAN
     _PLAN = FaultPlan("")
+
+
+def fire(site: str) -> None:
+    """Hit a fault site (a no-op unless a plan targets it)."""
+    p = plan()
+    if p.triggers:
+        p.fire(site)
 
 
 def fire_flag(site: str) -> bool:

@@ -124,6 +124,14 @@ class TieredVisitedStore:
         union: a re-heated fingerprint may be demoted again)."""
         return sum(g.n for g in self.gens)
 
+    def all_fps(self) -> np.ndarray:
+        """Every demoted fingerprint, sorted unique (the sorted store's
+        rebuild on a degrade must absorb the whole union; reference
+        store/tiered.py:623)."""
+        if not self.gens:
+            return np.empty(0, np.uint64)
+        return np.unique(np.concatenate([g.fps for g in self.gens]))
+
     # -- demotion -------------------------------------------------------------
 
     def demote(self, fps: np.ndarray) -> Generation:
