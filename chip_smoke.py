@@ -56,7 +56,8 @@ Phases, each printed as JSON lines:
    runs, prints the counts just after, and fails if a kernel of its path
    did not launch (the staged phase: the staged chain's eight; the default
    phase: every kernel but drop_rows, K3's factored mode, the orbit pair,
-   the cross-check arms' three and the sorted store's three; the tiered
+   the cross-check arms' three, the sorted store's three and the bucket
+   core's three; the tiered
    phase: the fused path's eleven and drop_rows; the
    grouped phase: the staged chain's, level, hs_probe and filter_compact;
    the scale phase: the fused path's eleven and K3's factored mode; the
@@ -70,8 +71,12 @@ Phases, each printed as JSON lines:
    tail and K1, K2, K3; the flip drill: the legacy pair; the sorted and
    degrade phases: the sorted store's three, filter_compact and the eager
    chain's kernels, with K4, level, superstep and sieve never launched on
-   the sorted phase; the cli phase runs in a process of its own; the
-   others: the fused path's eleven).  Every arm's run and every run beside it (the
+   the sorted phase; the cli and checkpoint phases run in processes of
+   their own; the bucket phase: the three bucket kernels and the chain
+   around them (dense_expand, chunk_compact, K4, the compactions,
+   inflate, K2, inv_scan, the level and superstep control); the service
+   phase: those and the fused path's eleven; the others: the fused
+   path's eleven).  Every arm's run and every run beside it (the
    baselines, the fixpoint, the drill) is a phase of its own, so an
    arm's counts are its run's alone.  The
    default phase also prints graph launches and device-to-host reads per
@@ -110,6 +115,28 @@ Phases, each printed as JSON lines:
     cli       — ``python -m tla_raft_tpu_torch.check --config <Raft.cfg>
                 --max-depth 20 --json`` in a subprocess, on a cfg file written
                 from the Raft.cfg constants: golden;
+    checkpoint — the delta log in CLI subprocesses: the Raft.cfg constants
+                to depth 22 plain and with ``--checkpoint-dir`` (the
+                checkpoint cost and the bytes written), killed by
+                ``--fault delta.commit:kill@18`` (exit by SIGKILL) and
+                resumed with ``--recover``: golden, every delta record equal
+                to the clean run's, the slab snapshots' live sets equal; then
+                ``--audit 64 --fault tensor.flip:flip@5`` with checkpoints to
+                20: one rewind, golden;
+    bucket    — the sweep service's batched core (B14: bucket_refine,
+                bucket_tally, bucket_ctrl with the canon="expand" chain):
+                (a) the Raft.cfg key, MaxRestart 0-3, to depth 20 (the
+                MaxRestart-3 member golden), (b) (3,1,2) MaxRestart 0-3 to the
+                fixpoint (MaxRestart 1 and 2 equal GOLDEN_FULL), (c) the
+                double-vote pair; each bucket's wall, routes and captures;
+    bucket_sequential — every member's sequential default-path run: equal
+                to its bucket result, the walls beside the bucket's;
+    service   — the Scheduler over the reference bench's 40-job synthetic
+                queue plus a median-bug pair, batched and ``--no-batch``
+                (jobs per hour of each; every job's counts equal; the pair's
+                traces equal the sequential runs'), and the SIGKILL drill at
+                the 4th bstate commit in ``service run --once`` subprocesses,
+                then a converging second pass;
 12. twins     — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
@@ -120,6 +147,10 @@ Phases, each printed as JSON lines:
                 phase, on a chunk of its 7-server run's last frontier,
                 with K3's full fold of the same chunk timed beside;
                 dense_expand and chunk_compact: the canon phase;
+                bucket_refine, bucket_tally and bucket_ctrl: the bucket phase,
+                at bucket (a)'s shapes (refine over one chunk of its depth-20
+                frontier, tally and ctrl over one more bucket level's lane
+                buffer from that frontier);
                 legacy_materialize: the legacy phase; sorted_member,
                 level_dedup and merge_sorted: the sorted phase, each on the
                 inputs of its depth-25 call in a second sorted run that keeps
@@ -209,6 +240,8 @@ FLIP_STOP = (
 # the sorted store's fallback drill: the default path to depth 23 (level 23
 # grouped on the sorted store) with the first slab grow failing
 DEPTH_DEGRADE = 23
+# the checkpoint phase: the Raft.cfg constants to depth 22 through the CLI
+DEPTH_CHECKPOINT = 22
 # TLC's Raft.cfg (the reference constants), for the cli phase's --config
 RAFT_CFG = """CONSTANTS
     MaxTerm = 3
@@ -1072,23 +1105,487 @@ def phase_cli(depth: int) -> dict:
     cfg = root / "build" / "smoke" / "Raft.cfg"
     cfg.parent.mkdir(parents=True, exist_ok=True)
     cfg.write_text(RAFT_CFG)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tla_raft_tpu_torch.check", "--config", str(cfg), "--max-depth",
-         str(depth), "--json"], capture_output=True, text=True, cwd=root, timeout=600)
-    secs = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    got = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
-    out = dict(phase="cli", rc=proc.returncode, seconds=secs, run_seconds=got.get("seconds"),
-               config_line=next((x for x in lines if x.startswith("Config ")), None),
+    rc, got, secs, err = _check_cli(["--config", str(cfg), "--max-depth", str(depth), "--json"])
+    out = dict(phase="cli", rc=rc, seconds=secs, run_seconds=got.get("seconds"),
+               config_line=got.get("_config_line"),
                **{k: got.get(k) for k in ("distinct", "generated", "depth", "level_sizes",
                                           "hashstore", "routes")})
     emit(out)
-    check(proc.returncode == 0, f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check(rc == 0, f"the CLI exited {rc}: {err}")
     check(got["level_sizes"] == GOLDEN_LEVELS_REF[: depth + 1] and got["depth"] == depth,
           f"cli level sizes {got['level_sizes']}")
     check(out["config_line"] is not None and "S=3 V=2 MaxElection=3 MaxRestart=3"
           in out["config_line"], f"cli config line {out['config_line']}")
+    return out
+
+
+# -- slice 8: checkpoints, the bucket core, the sweep service ----------------------------
+
+
+def _smoke_dir(name: str):
+    """A fresh directory under build/smoke/ (gitignored) for a phase's files."""
+    import shutil
+    from pathlib import Path
+
+    d = Path(__file__).resolve().parent / "build" / "smoke" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.parent.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _check_cli(args: list, timeout: int = 600, env: dict | None = None):
+    """``python -m tla_raft_tpu_torch.check args`` in a subprocess: (return
+    code, its --json line or {}, process seconds, stderr tail)."""
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args],
+                          capture_output=True, text=True, cwd=root, timeout=timeout,
+                          env=dict(os.environ, **(env or {})))
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    got = {}
+    if lines and lines[-1].startswith("{"):
+        got = json.loads(lines[-1])
+    # "Progress: level L, frontier F, distinct D, generated G, R states/s":
+    # the run's elapsed seconds at each level are D / R
+    got["_config_line"] = next((x for x in lines if x.startswith("Config ")), None)
+    got["_elapsed"] = [int(x.split("distinct ")[1].split(",")[0])
+                       / max(float(x.rsplit(", ", 1)[1].split(" ")[0].replace(",", "")), 1e-9)
+                       for x in lines if x.startswith("Progress: level")]
+    return proc.returncode, got, secs, proc.stderr[-1500:]
+
+
+def _delta_arrays(d) -> dict:
+    out = {}
+    for f in sorted(d.glob("delta_*.npz")):
+        with np.load(f) as z:
+            out[f.name] = {k: z[k].copy() for k in z.files}
+    return out
+
+
+def _slab_live(d):
+    """(depth, sorted live fingerprints) of a directory's hslab.npz."""
+    with np.load(d / "hslab.npz") as z:
+        slab, meta = z["slab"], z["meta"]
+        return int(meta[1]), np.sort(slab[slab != np.uint64(0xFFFFFFFFFFFFFFFF)])
+
+
+def phase_checkpoint(depth: int) -> dict:
+    """The delta log on the card, in subprocesses of the CLI: a plain run to
+    ``depth`` and a checkpointed one (the cost of checkpointing, the bytes
+    written), a run killed by ``delta.commit:kill@18`` (it must die by
+    SIGKILL) and its ``--recover`` to ``depth``: every run golden, every
+    delta record's arrays equal to the clean run's, the last slab
+    snapshots' live sets equal (and equal to the log's fingerprints); then
+    ``--audit 64 --fault tensor.flip:flip@5`` with checkpoints to 20: one
+    rewind, golden."""
+    import signal
+
+    a, b, c = _smoke_dir("ck_clean"), _smoke_dir("ck_kill"), _smoke_dir("ck_audit")
+    base = ["--max-depth", str(depth), "--json"]
+    runs = {}
+    for name, args in (("plain", base), ("clean", base + ["--checkpoint-dir", str(a)]),
+                       ("kill", base + ["--checkpoint-dir", str(b), "--fault",
+                                        "delta.commit:kill@18"]),
+                       ("resume", base + ["--checkpoint-dir", str(b), "--recover", str(b)])):
+        rc, got, secs, err = _check_cli(args)
+        el = got.get("_elapsed") or [0.0]
+        runs[name] = dict(rc=rc, process_s=secs, run_s=got.get("seconds"),
+                          first_level_s=el[0], levels_s=el[-1] - el[0],
+                          routes=got.get("routes"), level_sizes=got.get("level_sizes"))
+        want_rc = -signal.SIGKILL if name == "kill" else 0
+        check(rc == want_rc, f"checkpoint {name}: exit {rc} (want {want_rc}): {err}")
+        if name != "kill":
+            check(got["level_sizes"] == GOLDEN_LEVELS_REF[: depth + 1],
+                  f"checkpoint {name} level sizes {got['level_sizes']}")
+    da, db = _delta_arrays(a), _delta_arrays(b)
+    check(sorted(da) == sorted(db) and len(da) == depth, f"delta records {sorted(db)}")
+    for name in da:
+        for k, v in da[name].items():
+            check(np.array_equal(v, db[name][k]) and v.dtype == db[name][k].dtype,
+                  f"{name}:{k} differs after the kill and resume")
+    (sa_d, sa), (sb_d, sb) = _slab_live(a), _slab_live(b)
+    log_fps = np.concatenate([da[f"delta_{i:04d}.npz"]["fps"] for i in range(1, sa_d + 1)])
+    check(sa_d == sb_d and np.array_equal(sa, sb), "the slab snapshots' live sets differ")
+    check(len(sa) == sum(GOLDEN_LEVELS_REF[: sa_d + 1]) and np.isin(log_fps, sa).all(),
+          "the slab snapshot does not hold the log's fingerprints")
+    written = sum(f.stat().st_size for f in a.iterdir() if f.is_file())
+    rc, got, secs, err = _check_cli(["--max-depth", "20", "--audit", "64", "--fault",
+                                     "tensor.flip:flip@5", "--checkpoint-dir", str(c), "--json"])
+    check(rc == 0, f"audit drill exit {rc}: {err}")
+    check(got["level_sizes"] == GOLDEN_LEVELS_REF[:21], "audit drill not golden")
+    check(got.get("audit", {}).get("rewinds") == 1, f"audit drill: {got.get('audit')}")
+    out = dict(phase="checkpoint", depth=depth, runs=runs, delta_records=len(da),
+               bytes_written=written, slab_snapshot_depth=sa_d,
+               checkpoint_cost=runs["clean"]["levels_s"] / runs["plain"]["levels_s"],
+               audit=dict(got["audit"], run_s=got.get("seconds"), process_s=secs))
+    emit(out)
+    return out
+
+
+BUCKET_DEPTH = 20  # bucket (a): the Raft.cfg key, MaxRestart 0-3
+GOLDEN_FULL_3122 = (223_437, 936_729, 36)
+# the service phase's queue (synth_jobs(40, seed=1, mr_width=16, chunk=64) and the
+# median-bug pair (3,1,2) MaxRestart {0,1}), job by job: (ok, distinct, generated,
+# depth) from the reference package's JaxChecker runs of the same configs and caps
+SERVICE_REF = [
+    (True, 23, 34, 9), (True, 109, 145, 9), (True, 276, 1015, 18), (True, 203, 542, 16),
+    (True, 14, 14, 6), (True, 181, 255, 9), (True, 545, 2028, 19), (True, 402, 1071, 17),
+    (True, 39, 59, 9), (True, 1061, 2058, 22), (True, 128, 291, 9), (True, 21, 21, 6),
+    (True, 50, 97, 12), (True, 37, 46, 6), (True, 128, 291, 9), (True, 21, 21, 6),
+    (True, 50, 97, 12), (True, 181, 255, 9), (True, 128, 291, 9), (True, 402, 1071, 17),
+    (True, 39, 59, 9), (True, 1061, 2058, 22), (True, 545, 2028, 19), (True, 136, 207, 9),
+    (True, 14, 14, 6), (True, 1061, 2058, 22), (True, 545, 2028, 19), (True, 402, 1071, 17),
+    (True, 50, 97, 12), (True, 1061, 2058, 22), (True, 27, 39, 6), (True, 402, 1071, 17),
+    (True, 14, 14, 6), (True, 1061, 2058, 22), (True, 545, 2028, 19), (True, 402, 1071, 17),
+    (True, 39, 59, 9), (True, 181, 255, 9), (True, 128, 291, 9), (True, 21, 21, 6),
+    (False, 2556, 5912, 11), (False, 4204, 9717, 11),
+]
+
+
+def _bucket_groups():
+    from tla_raft_tpu_torch.config import RaftConfig
+
+    return {
+        "a": ([RaftConfig(max_restart=m) for m in range(4)], [BUCKET_DEPTH] * 4),
+        "b": ([RaftConfig(3, 1, 2, m) for m in range(4)], [None] * 4),
+        "c": ([RaftConfig(3, 1, 2, m, mutations=("double-vote",)) for m in (0, 1)], [None] * 2),
+    }
+
+
+def _brief(r: dict) -> tuple:
+    return (r["ok"], r["distinct"], r["generated"], r["depth"], tuple(r["level_sizes"]),
+            r["violation"])
+
+
+def phase_bucket(chunk: int):
+    """BatchedChecker on the card, three buckets: (a) the Raft.cfg key with
+    MaxRestart 0-3 to depth 20 (the MaxRestart-3 member golden), (b)
+    (3,1,2) MaxRestart 0-3 to the fixpoint (MaxRestart 1 and 2 equal
+    GOLDEN_FULL), (c) the double-vote pair (3,1,2) MaxRestart {0,1}, its
+    split-brain stops.  Returns the results by group."""
+    import torch
+
+    from tla_raft_tpu_torch.service.bucket import BatchedChecker
+
+    results = {}
+    for name, (cfgs, depths) in _bucket_groups().items():
+        torch.cuda.reset_peak_memory_stats()
+        bc = BatchedChecker(cfgs, max_depths=depths, device="cuda", chunk=chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bc.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g = bc.eng.graph_stats
+        WALLS[f"bucket_{name}"] = wall
+        emit(dict(phase="bucket", group=name, configs=[c.describe() for c in cfgs],
+                  depth_caps=depths, wall_s=wall, stats=bc.stats,
+                  graph_launches=dict(superstep=g["bucket_superstep_launches"],
+                                      level=g["bucket_level_launches"]),
+                  captures=g["captures"], capture_s=g["capture_seconds"],
+                  peak_bytes=torch.cuda.max_memory_allocated(),
+                  results=[_brief(r)[:4] + (r["violation"],) for r in out]))
+        results[name] = out
+        bc = None
+    a, b = results["a"], results["b"]
+    check(list(a[3]["level_sizes"]) == GOLDEN_LEVELS_REF[: BUCKET_DEPTH + 1] and a[3]["ok"],
+          f"bucket (a) MaxRestart 3: {a[3]['level_sizes']}")
+    check((b[1]["distinct"], b[1]["generated"], b[1]["depth"]) == GOLDEN_FULL_3121,
+          f"bucket (b) MaxRestart 1: {_brief(b[1])[:4]}")
+    check((b[2]["distinct"], b[2]["generated"], b[2]["depth"]) == GOLDEN_FULL_3122,
+          f"bucket (b) MaxRestart 2: {_brief(b[2])[:4]}")
+    check(all(r["violation"] == 'Assert "split brain" (Raft.tla:185)' for r in results["c"]),
+          "bucket (c): no split-brain stop")
+    WALLS["bucket_a_results"] = results["a"]
+    return results
+
+
+def bucket_results_a() -> list:
+    return WALLS["bucket_a_results"]
+
+
+def phase_bucket_sequential(chunk: int, results: dict) -> dict:
+    """Each bucket member's sequential default-path run on the card: equal
+    to its bucket result config by config; the bucket walls beside the sum
+    of their members'."""
+    import torch
+
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+
+    out = {}
+    for name, (cfgs, depths) in _bucket_groups().items():
+        walls, rows = [], []
+        for cfg, d in zip(cfgs, depths):
+            chk = TorchChecker(cfg, device="cuda", chunk=chunk)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = chk.run(max_depth=d)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rows.append((r.ok, r.distinct, r.generated, r.depth, tuple(r.level_sizes),
+                         r.violation[0] if r.violation else None))
+            del chk
+        got = [_brief(r) for r in results[name]]
+        check(got == rows, f"bucket ({name}) differs from its sequential runs: {got} != {rows}")
+        out[name] = dict(bucket_s=WALLS[f"bucket_{name}"], sequential_s=sum(walls),
+                         member_s=walls)
+    emit(dict(phase="bucket_sequential", walls=out))
+    return out
+
+
+def phase_service(chunk: int) -> dict:
+    """The port's Scheduler on the card over the reference bench's queue
+    (``synth_jobs(40, seed=1, mr_width=16, chunk=64)``) plus the median-bug
+    pair (3,1,2) MaxRestart {0,1}, drained batched and ``--no-batch``: jobs
+    per hour of each; each arm on its own route (the batched one in one
+    bucket a shape key and no job run alone, the other all jobs alone), no
+    job ending in an error and only the pair failing; every job's (ok,
+    distinct, generated, depth) equal to the reference's (``SERVICE_REF``)
+    and its level sizes equal between the two arms; the pair's result.json
+    traces equal to the sequential runs'; then the kill drill:
+    ``run --once`` killed at its 4th bstate commit (SIGKILL), and a second
+    pass that requeues, resumes and converges."""
+    import os
+    import signal
+    from pathlib import Path
+
+    from tla_raft_tpu_torch.check import run_check, trace_doc
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.service.bucket import bucket_key
+    from tla_raft_tpu_torch.service.daemon import Scheduler
+    from tla_raft_tpu_torch.service.queue import JobQueue
+    from tla_raft_tpu_torch.service.synth import synth_jobs
+
+    jobs = synth_jobs(40, seed=1, mr_width=16, chunk=64)
+    pair = [RaftConfig(3, 1, 2, m, mutations=("median-bug",)) for m in (0, 1)]
+    jobs = jobs + [(c, None, dict(chunk=64)) for c in pair]
+    check(len(jobs) == len(SERVICE_REF), "service: the pinned counts do not cover the queue")
+    n_keys = len({bucket_key(c) for c, _, _ in jobs})  # every key holds >= 2 jobs: 5 buckets
+    arms = {}
+    for arm in ("batched", "sequential"):
+        q = JobQueue(str(_smoke_dir(f"service_{arm}")))
+        jids = [q.submit(c, max_depth=d, options=o) for c, d, o in jobs]
+        sched = Scheduler(q, batch=arm == "batched", device="cuda", out=sys.stderr)
+        planned, singles = sched.plan(jids)
+        t0 = time.perf_counter()
+        stats = sched.run_once()
+        wall = time.perf_counter() - t0
+        res = [q.load_result(j) for j in jids]
+        arms[arm] = dict(wall_s=wall, jobs_per_hour=len(jobs) / wall * 3600.0,
+                         stats={k: stats[k] for k in ("jobs_done", "jobs_failed", "buckets",
+                                                       "batched_jobs", "sequential_jobs",
+                                                       "dispatches", "traces")},
+                         results=res)
+        check(all(r is not None for r in res), f"service {arm}: a job has no result")
+        # every job ran on its arm's route: a bucket that failed on the card
+        # degrades to sequential runs, which the stats would show
+        st = arms[arm]["stats"]
+        want = ((len(planned), len(jobs), 0) if arm == "batched" else (0, 0, len(jobs)))
+        check((st["buckets"], st["batched_jobs"], st["sequential_jobs"]) == want
+              and (arm == "sequential" or (len(planned) == n_keys and not singles)),
+              f"service {arm}: routes {st}, planned {len(planned)} buckets")
+        check((st["jobs_done"], st["jobs_failed"]) == (len(jobs) - 2, 2),
+              f"service {arm}: done/failed {st}")
+        errors = [i for i, r in enumerate(res) if str(r.get("violation") or "").startswith("error:")]
+        check(not errors, f"service {arm}: jobs {errors} ended in an error")
+        got = [(r["ok"], r["distinct"], r["generated"], r["depth"]) for r in res]
+        bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, SERVICE_REF)) if g != w]
+        check(not bad, f"service {arm}: jobs differ from the reference's counts: {bad[:4]}")
+    keys = ("ok", "distinct", "generated", "depth", "level_sizes")
+    for i, (rb, rs) in enumerate(zip(arms["batched"]["results"], arms["sequential"]["results"])):
+        check({k: rb[k] for k in keys} == {k: rs[k] for k in keys},
+              f"service job {i}: batched {rb} != sequential {rs}")
+    for i, cfg in enumerate(pair):
+        full = run_check(cfg, chunk=64, device="cuda")
+        want = trace_doc(cfg, full["_res"].violation[1])
+        for arm in arms:
+            got = arms[arm]["results"][40 + i]
+            check(got.get("trace") == want, f"service {arm}: median-bug MaxRestart {i} trace")
+    # the kill drill (tests/test_service.py:297) in subprocesses
+    root = _smoke_dir("service_kill")
+    q = JobQueue(str(root))
+    for m in (0, 1, 2):
+        q.submit(RaftConfig(2, 1, 1, m), options=dict(chunk=64))
+    here = Path(__file__).resolve().parent
+
+    def service(*args, env=None):
+        return subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.service", *args],
+                              capture_output=True, text=True, cwd=here, timeout=600,
+                              env=dict(os.environ, **(env or {})))
+
+    p1 = service("run", "--root", str(root), "--once",
+                 env={"TLA_RAFT_FAULT": "bstate.commit:kill@4"})
+    check(p1.returncode == -signal.SIGKILL, f"kill drill: first pass exit {p1.returncode}: "
+          f"{p1.stderr[-1500:]}")
+    p2 = service("run", "--root", str(root), "--once", "--lease-ttl", "0.1")
+    check(p2.returncode == 0, f"kill drill: second pass exit {p2.returncode}: {p2.stderr[-1500:]}")
+    stats = json.loads(p2.stdout.strip().splitlines()[-1])
+    golden = {0: (27, 11), 1: (50, 12), 2: (50, 12)}
+    for jid in q.list_jobs():
+        r = q.load_result(jid)
+        check(r is not None and r["ok"] and (r["distinct"], r["depth"])
+              == golden[q.job_cfg(jid).max_restart], f"kill drill job {jid}: {r}")
+    out = dict(phase="service", jobs=len(jobs),
+               arms={k: {kk: vv for kk, vv in v.items() if kk != "results"}
+                     for k, v in arms.items()},
+               kill_drill=dict(first_exit=p1.returncode, recovered=stats["recovered"],
+                               counts=stats["counts"]))
+    emit(out)
+    return out
+
+
+def phase_bucket_kernels(chunk: int, launches: dict) -> list:
+    """bucket_refine, bucket_tally and bucket_ctrl against their twins on the
+    card, at bucket (a)'s shapes: refine over chunks of its depth-20
+    frontier's dense expand (16,384 x 696 lanes) that straddle a config
+    boundary, one of them with a config done, tally and ctrl over the
+    lane buffer of one more bucket level from that frontier (the widest:
+    about 7.6 M parents), timed as the median of 10 CUDA-event calls.  The
+    frontier comes from a second bucket (a) run on the per-level route,
+    which keeps its depth-20 frontier (a superstep retires the capped
+    members on the card and drops it)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import megakernel as mk
+    from tla_raft_tpu_torch.models.raft import RaftState, core_of
+    from tla_raft_tpu_torch.service import bucket as bk
+
+    cfgs, depths = _bucket_groups()["a"]
+    bc = bk.BatchedChecker(cfgs, max_depths=depths, device="cuda", chunk=chunk, superstep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_level = bc.run()
+    torch.cuda.synchronize()
+    per_level_s = time.perf_counter() - t0
+    check([r["level_sizes"] for r in per_level] == [r["level_sizes"] for r in
+                                                     bucket_results_a()],
+          "bucket (a) on the per-level route differs from the superstep route")
+    eng, V, K, C = bc.eng, bc.vec, bc.K, bc.C_pad
+    dev = torch.device("cuda")
+    out = []
+    n_run = bc.n_run
+    # refine: chunks of real parents across a config boundary (a frontier's
+    # rows are grouped by config), the first with no config done, the
+    # second across the next boundary with the config below it done, as a
+    # level's done1 has it; the first is timed
+    chunk = eng.chunk
+    z = lambda: torch.zeros((C,), dtype=torch.int64, device=dev)  # noqa: E731
+    crow_all = bc.cur_crow[:n_run]
+    edges = (torch.nonzero(crow_all[1:] != crow_all[:-1]).reshape(-1) + 1).tolist()
+    check(bool(edges), "bucket_refine: the depth-20 frontier holds one config only")
+    refine_cases = []
+    for j, e in enumerate((edges + edges)[:2]):
+        start = min(max(e - chunk // 2, 0), max(n_run - chunk, 0))
+        part = mk.rows_of(bc.cur_fr, start, start + chunk)
+        st = RaftState(msgs=eng.inflate(part).msgs, **core_of(part))
+        valid, mult, fpv0, _fpf, abort = kernels.dense_expand(eng.dx, st, True)
+        crow = bc.cur_crow[start:start + chunk].contiguous()
+        done = z()
+        if j:
+            done[int(crow_all[e - 1])] = 1
+        args = (valid, mult, abort, None, crow, part.restart_count.contiguous(), V.fam_rs,
+                V.mr, V.salt, done)
+        res = []
+        for fn in (kernels.bucket_refine, bk.bucket_refine_plain):
+            fpv, gen, ab = fpv0.clone(), z(), z()
+            fn(*args[:3], fpv, *args[4:], gen, ab)
+            res.append((fpv, gen, ab))
+        check(all(torch.equal(x, y) for x, y in zip(*res)),
+              f"bucket_refine differs from its twin on rows {start}+{chunk}")
+        configs = sorted(set(crow.tolist()))
+        check(len(configs) > 1 and int(res[0][1][configs[-1]]) > 0,
+              f"bucket_refine rows {start}+{chunk}: configs {configs}, gen {res[0][1].tolist()}")
+        refine_cases.append(dict(start=start, configs=configs, done=done.nonzero().reshape(-1)
+                                 .tolist(), gen=res[0][1].tolist()))
+        if j == 0:
+            timed = (args, fpv0)
+        else:
+            del valid, mult, fpv0, _fpf, abort, res
+    args, fpv0 = timed
+    fpv, gen, ab = fpv0.clone(), z(), z()
+    ms = cuda_ms(lambda: kernels.bucket_refine(*args[:3], fpv, *args[4:], gen, ab), 10)
+    plain_ms = cuda_ms(lambda: bk.bucket_refine_plain(*args[:3], fpv, *args[4:], gen, ab), 10)
+    lanes = chunk * K
+    _entry(out, launches, kernels.BUCKET_REFINE, ms, plain_ms, lanes * 21 + chunk * 10 + K, None)
+    del args, timed, fpv0, fpv
+    # one bucket level from the depth-20 frontier: its lane buffer feeds tally and ctrl
+    cap_in = max(1 << max(n_run - 1, 0).bit_length(), chunk)
+    g_cap = 1 << 24
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    held = int((bc.slab != -1).sum())
+    need = hs.slab_rows(held + 4 * n_run, 0.25)
+    if need > bc.slab.shape[0]:
+        bc._grow_slab(need, held)  # room for the level's inserts at the bucket's load
+    prog = bk.BucketLevelProgram(bc, ("kernels",), cap_in, g_cap)
+    mk.copy_rows(prog.fr_in, bc.cur_fr, n_run)
+    prog.crow_in[:n_run].copy_(bc.cur_crow[:n_run])
+    V.upload(np.zeros(C, bool), np.zeros(C, np.int64), np.full(C, -1))
+    prog.run(n_run)
+    torch.cuda.synchronize()
+    B, lc, bs = prog.B, prog.lc, prog.bs
+    live, n_ins, n_g = int(lc[mk.LC_LIVE_LANES]), int(lc[mk.LC_N_NEW]), int(bs[bk.BS_NG])
+    check(live > 0 and not int(lc[mk.LC_OVF_SLAB]), f"kernel level: live {live}, lc {lc.tolist()}")
+    ring = torch.full((max(n_ins, 1),), -1, dtype=torch.int64, device=dev)
+    off = torch.zeros((), dtype=torch.int64, device=dev)
+    targs = (B.k4.fresh, B.cp, lc[mk.LC_LIVE_LANES], prog.crow_in, K, V.done1, V.abort)
+    res = []
+    for fn in (kernels.bucket_tally, bk.bucket_tally_plain):
+        new_c, keep, rg = z(), torch.zeros_like(B.keep), ring.clone()
+        fn(*targs, new_c, keep, B.ins_fps, lc[mk.LC_N_NEW], rg, off)
+        res.append((new_c, keep, rg))
+    check(all(torch.equal(x, y) for x, y in zip(*res)), "bucket_tally differs from its twin")
+    new_c, keep = z(), torch.zeros_like(B.keep)
+    ms = cuda_ms(lambda: kernels.bucket_tally(*targs, new_c, keep, B.ins_fps, lc[mk.LC_N_NEW],
+                                              ring, off), 10)
+    plain_ms = cuda_ms(lambda: bk.bucket_tally_plain(*targs, new_c, keep, B.ins_fps,
+                                                     lc[mk.LC_N_NEW], ring, off), 10)
+    fresh_lanes = B.k4.fresh[:live]
+    cfg_of = prog.crow_in[torch.div(B.cp[:live][fresh_lanes], K, rounding_mode="floor")]
+    lib_ms = cuda_ms(lambda: torch.bincount(cfg_of, minlength=C), 10)
+    _entry(out, launches, kernels.BUCKET_TALLY, ms, plain_ms,
+           live * 10 + n_run * 8 + n_ins * 16 + 4 * C * 8, lib_ms)
+    # ctrl POST: the commit algebra of a 4-level superstep's first level and the gather
+    meta = [torch.zeros((4, C), dtype=torch.int64, device=dev) for _ in range(3)] + [
+        torch.zeros((4,), dtype=torch.int64, device=dev) for _ in range(2)]
+    bs0 = bs.clone()
+    bs0[bk.BS_LEVELS], bs0[bk.BS_OFF], bs0[bk.BS_RUNNING] = 0, 0, 1
+    bs0[bk.BS_SPAN], bs0[bk.BS_RING] = 4, 1 << 40
+    vec0 = [t.clone() for t in (V.done, V.done1, V.depth, V.cap, V.gen, V.new, V.abort)]
+    crow_out = torch.zeros((g_cap,), dtype=torch.int64, device=dev)
+
+    def ctrl(fn):
+        bsx = bs0.clone()
+        vs = [t.clone() for t in vec0]
+        m = [t.clone() for t in meta]
+        co = crow_out.clone()
+        fn(bk.BC_POST, bsx, lc, prog.args, *vs, m, g_cap, prog.crow_in, co, B.surv_pay, K)
+        return [bsx, *vs, *m, co]
+
+    got, want = ctrl(kernels.bucket_ctrl), ctrl(bk.bucket_ctrl_plain)
+    check(all(torch.equal(x, y) for x, y in zip(got, want)), "bucket_ctrl differs from its twin")
+    bsx = bs0.clone()
+    vs = [t.clone() for t in vec0]
+
+    def post(fn):
+        bsx.copy_(bs0)  # the commit advances the words: each timed call starts from level 0
+        fn(bk.BC_POST, bsx, lc, prog.args, *vs, meta, g_cap, prog.crow_in, crow_out, B.surv_pay,
+           K)
+
+    ms = cuda_ms(lambda: post(kernels.bucket_ctrl), 10)
+    plain_ms = cuda_ms(lambda: post(bk.bucket_ctrl_plain), 10)
+    m = min(n_g, g_cap)
+    _entry(out, launches, kernels.BUCKET_CTRL, ms, plain_ms, m * 24 + 16 * C * 8, None)
+    emit(dict(phase="bucket_kernels", parents=n_run, lanes=live, inserted=n_ins, survivors=n_g,
+              refine_lanes=lanes, refine_cases=refine_cases, g_cap=g_cap,
+              per_level_route_s=per_level_s,
+              per_level_stats=bc.stats))
+    prog.release()
     return out
 
 
@@ -2262,7 +2759,8 @@ def main() -> int:
     default_digests, launches = run(
         "default", [k for k in kernels.KERNELS
                     if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH
-                    + kernels.EXPAND_PATH + kernels.LEGACY_PATH + kernels.SORTED_PATH],
+                    + kernels.EXPAND_PATH + kernels.LEGACY_PATH + kernels.SORTED_PATH
+                    + kernels.BUCKET_PATH],
         phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
@@ -2314,7 +2812,27 @@ def main() -> int:
     launches.update({k: sorted_launches[k] for k in kernels.SORTED_PATH})
     run("degrade", kernels.SORTED_PATH + eager, phase_degrade, DEPTH_DEGRADE, CHUNK)
     run("cli", (), phase_cli, DEPTH)
+    # slice 8: the delta log (in CLI subprocesses: no launch in this process),
+    # the bucket core, its members' sequential runs, the sweep service
+    run("checkpoint", (), phase_checkpoint, DEPTH_CHECKPOINT)
+    bucket_path = kernels.BUCKET_PATH + ("dense_expand", "chunk_compact", "hashstore", "compact",
+                                         "inflate", "materialize", "inv_scan", "level",
+                                         "superstep")
+    bucket_results, bucket_launches = run("bucket", bucket_path, phase_bucket, CHUNK)
+    launches.update({k: bucket_launches[k] for k in kernels.BUCKET_PATH})
+    if bucket_results:
+        run("bucket_sequential", fused, phase_bucket_sequential, CHUNK, bucket_results)
+    run("service", bucket_path + fused, phase_service, CHUNK)
     records, shapes, scale_times, orbit_shapes = [], None, None, None
+    if not bucket_results:
+        failures.append("bucket_kernels: no bucket run to test on")
+    else:
+        try:
+            records += phase_bucket_kernels(CHUNK, launches)
+        except Failed as e:
+            failures.append(f"bucket_kernels: {e}")
+            emit(dict(phase="bucket_kernels", failed=str(e)))
+    torch.cuda.empty_cache()
     for name, fn, args in (("twins", phase_twins, (CHUNK,)),
                            ("kernels", phase_kernels, (chk, launches, SEED)),
                            ("scale_kernels", phase_scale_kernels, (runs, launches, SEED)),
@@ -2334,7 +2852,7 @@ def main() -> int:
             emit(dict(phase=name, failed=str(e)))
             continue
         if name == "kernels":
-            records, shapes = res
+            records, shapes = records + res[0], res[1]
         elif name == "scale_kernels":
             records += res[0]
             scale_times = res[1]

@@ -165,7 +165,7 @@ def test_flip_drill_matches_reference_rerun():
         assert got == want
 
 
-@pytest.mark.parametrize("spec", ["delta.tmp:kill@1", "tensor.flip:kill@1", "tensor.flip",
+@pytest.mark.parametrize("spec", ["mdelta.tmp:kill@1", "tensor.flip:kill@1", "tensor.flip",
                                   "tensor.flip:fail@1", "hashstore.grow:flip@1"])
 def test_fault_spec_refuses_what_the_port_does_not_poll(spec):
     """A spec naming a site the port never fires, or an action its site

@@ -826,3 +826,113 @@ def test_grow_failure_degrades_on_the_card(run, monkeypatch):
     assert not chk.use_hashstore and chk.degraded_at is not None
     assert chk._graph_launches() == chk.graph_launches_at_degrade
     assert int((chk.visited != -1).sum()) == got.distinct
+
+
+# -- B14: the sweep service's bucket kernels (csrc/bucket.cu) -------------------------
+
+
+def _bucket_inputs(seed: int, rows: int, K: int, C: int):
+    """Random bucket-kernel inputs from a numpy seed (CPU tensors)."""
+    g = np.random.default_rng(seed)
+    t = torch.from_numpy
+    return dict(
+        valid=t(g.random((rows, K)) < 0.3), mult=t(g.integers(0, 3, (rows, K), dtype=np.int32)),
+        abort=t(g.random(rows) < 0.05), fpv=t(g.integers(-(1 << 63), (1 << 63) - 1, (rows, K))),
+        crow=t(np.sort(g.integers(0, C, rows))), rc=t(g.integers(0, 4, rows, dtype=np.uint8)),
+        fam_rs=t((g.random(K) < 0.1).astype(np.uint8)), mr=t(g.integers(0, 4, C, dtype=np.int32)),
+        salt=t(g.integers(-(1 << 63), (1 << 63) - 1, C)),
+        done=t((g.random(C) < 0.25).astype(np.int64)),
+        gen=t(g.integers(0, 9, C)), abort_c=t((g.random(C) < 0.2).astype(np.int64)))
+
+
+def _on(d: dict, dev) -> dict:
+    return {k: v.clone().to(dev) for k, v in d.items()}
+
+
+@pytest.mark.parametrize("sub", [0, 300])
+def test_bucket_refine_kernel_equals_twin(run, sub):
+    from tla_raft_tpu_torch.service import bucket as bk
+
+    a = _bucket_inputs(7 + sub, 1024, run.K, 4)
+    cnt = torch.tensor(900)
+    outs = []
+    for dev, fn in (("cuda", kernels.bucket_refine), ("cpu", bk.bucket_refine_plain)):
+        x = _on(a, dev)
+        fn(x["valid"], x["mult"], x["abort"], x["fpv"], x["crow"], x["rc"], x["fam_rs"], x["mr"],
+           x["salt"], x["done"], x["gen"], x["abort_c"], cnt=cnt.to(dev), sub=sub)
+        outs.append([x[k].cpu() for k in ("fpv", "gen", "abort_c")])
+    assert all(torch.equal(p, q) for p, q in zip(*outs))
+
+
+def test_bucket_tally_kernel_equals_twin(run):
+    from tla_raft_tpu_torch.service import bucket as bk
+
+    g = np.random.default_rng(3)
+    n, K, C, rows = 8192, run.K, 4, 512
+    base = _bucket_inputs(3, rows, 8, C)
+    fresh = torch.from_numpy(g.random(n) < 0.4)
+    pay = torch.from_numpy(g.integers(0, rows * K, n))
+    ins = torch.from_numpy(g.integers(-(1 << 63), (1 << 63) - 1, n))
+    outs = []
+    for dev, fn in (("cuda", kernels.bucket_tally), ("cpu", bk.bucket_tally_plain)):
+        new_c = torch.zeros(C, dtype=torch.int64, device=dev)
+        keep = torch.zeros(n, dtype=torch.bool, device=dev)
+        ring = torch.full((3000,), -1, dtype=torch.int64, device=dev)
+        fn(fresh.to(dev), pay.to(dev), torch.tensor(7000).to(dev), base["crow"].to(dev), K,
+           base["done"].to(dev), base["abort_c"].to(dev), new_c, keep, ins.to(dev),
+           torch.tensor(2900).to(dev), ring, torch.tensor(200).to(dev))
+        outs.append([new_c.cpu(), keep.cpu(), ring.cpu()])
+    assert all(torch.equal(p, q) for p, q in zip(*outs))
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_bucket_ctrl_kernel_equals_twin(run, case):
+    """Each phase, and the commit algebra under each stop class."""
+    from tla_raft_tpu_torch.engine import megakernel as mk
+    from tla_raft_tpu_torch.service import bucket as bk
+
+    g = np.random.default_rng(case)
+    C, K, g_cap, span = 8, run.K, 512, 4
+    a = _bucket_inputs(case, 64, K, C)
+    lc = torch.zeros(mk.LC_LEN, dtype=torch.int64)
+    lc[mk.LC_LIVE_LANES], lc[mk.LC_N_NEW], lc[mk.LC_BAD] = 900, int(g.integers(0, 600)), -1
+    stop_word = [None, mk.LC_OVF_SLAB, mk.LC_OVF_X, mk.LC_OVF_ROUNDS, mk.LC_OVF_M, None][case]
+    if stop_word is not None:
+        lc[stop_word] = 1
+    bs = torch.zeros(bk.BS_LEN, dtype=torch.int64)
+    bs[bk.BS_RUNNING], bs[bk.BS_LEVELS], bs[bk.BS_OFF], bs[bk.BS_SPAN] = 1, 1, 40, span
+    bs[bk.BS_RING], bs[bk.BS_NG] = 1000 if case != 5 else 100, int(g.integers(0, g_cap + 50))
+    vec = dict(args=torch.tensor([77, span, 4096]), depth=torch.from_numpy(g.integers(0, 9, C)),
+               cap=torch.from_numpy(g.integers(-1, 9, C)), done1=torch.zeros(C, dtype=torch.int64),
+               new_c=torch.from_numpy(g.integers(0, 3, C)), crow_in=a["crow"],
+               crow_out=torch.zeros(g_cap, dtype=torch.int64),
+               pay=torch.from_numpy(g.integers(0, 64 * K, g_cap)))
+    meta = [torch.zeros((span, C), dtype=torch.int64) for _ in range(3)] + [
+        torch.zeros(span, dtype=torch.int64) for _ in range(2)]
+    for phase in (bk.BC_BEGIN, bk.BC_PRE, bk.BC_POST, bk.BC_LEVEL):
+        outs = []
+        for dev, fn in (("cuda", kernels.bucket_ctrl), ("cpu", bk.bucket_ctrl_plain)):
+            x = _on(dict(a, **vec, lc=lc, bs=bs), dev)
+            m = [t.clone().to(dev) for t in meta]
+            fn(phase, x["bs"], x["lc"], x["args"], x["done"], x["done1"], x["depth"], x["cap"],
+               x["gen"], x["new_c"], x["abort_c"], m, g_cap, x["crow_in"], x["crow_out"],
+               x["pay"], K)
+            outs.append([x[k].cpu() for k in ("bs", "done", "done1", "depth", "gen", "new_c",
+                                              "abort_c", "crow_out")] + [t.cpu() for t in m])
+        assert all(torch.equal(p, q) for p, q in zip(*outs)), phase
+
+
+def test_bucket_runs_on_the_card_equal_the_cpu(run):
+    """BatchedChecker on the card (supersteps, and the fused level) equals
+    the CPU twins' run, config by config, with the bucket kernels launched."""
+    from tla_raft_tpu_torch.service.bucket import BatchedChecker
+
+    cfgs = [RaftConfig(3, 1, 1, m) for m in (0, 1)] + [RaftConfig(3, 1, 2, 1)]
+    for kw in (dict(), dict(superstep=1)):
+        kernels.reset_launches()
+        got = BatchedChecker(cfgs[:2], device="cuda", chunk=256, **kw).run()
+        counts = kernels.launch_counts()
+        want = BatchedChecker(cfgs[:2], device="cpu", chunk=256, **kw).run()
+        keys = ("ok", "distinct", "generated", "depth", "level_sizes", "violation")
+        assert [{k: r[k] for k in keys} for r in got] == [{k: r[k] for k in keys} for r in want]
+        assert all(counts[k] > 0 for k in kernels.BUCKET_PATH)

@@ -22,9 +22,14 @@ semantics), or without one from the Raft.cfg defaults; ``--servers``,
     python -m tla_raft_tpu_torch.check --max-depth 20 --audit 64      # sampled re-expansion
     python -m tla_raft_tpu_torch.check --max-depth 25 --no-hashstore  # the sorted visited store
 
+    python -m tla_raft_tpu_torch.check --max-depth 22 --checkpoint-dir ck  # delta log
+    python -m tla_raft_tpu_torch.check --max-depth 22 --checkpoint-dir ck --recover ck
+
 Exit code 0 when no error was found, 1 on a violation, 2 when the spec
-beside the cfg differs from the compiled semantics, 4 on an audit
-fail-stop (the reference's, check.py:1015-1275).
+beside the cfg differs from the compiled semantics (or on --dev-bytes with
+--checkpoint-dir), 4 on an integrity fail-stop, 75 on a preemption
+(SIGTERM/SIGINT: the run stops at a level boundary, resumable with
+--recover) — the reference's, check.py:1015-1275.
 """
 
 from __future__ import annotations
@@ -90,12 +95,29 @@ def format_state(cfg: RaftConfig, st) -> str:
     return "\n".join(lines)
 
 
+def trace_doc(cfg: RaftConfig, trace) -> list[dict]:
+    """Serializable counterexample trace (the reference's check.py:99): one
+    ``{action, state}`` dict per step, states rendered as ``print_trace``
+    shows them, so the sweep service's ``result.json`` trace block is
+    byte-equal to what the CLI prints for the same run."""
+    return [dict(action="Initial predicate" if action == "Init" else action,
+                 state=format_state(cfg, st)) for action, st in trace]
+
+
 def print_trace(cfg: RaftConfig, trace, out) -> None:
     print("The behavior up to this point is:", file=out)
-    for i, (action, st) in enumerate(trace):
-        name = "Initial predicate" if action == "Init" else action
-        print(f"\nSTATE {i + 1}: <{name}>", file=out)
-        print(format_state(cfg, st), file=out)
+    for i, step in enumerate(trace_doc(cfg, trace)):
+        print(f"\nSTATE {i + 1}: <{step['action']}>", file=out)
+        print(step["state"], file=out)
+
+
+def _report_preempted(e, out) -> int:
+    """Preemption is a resumable outcome, not an error: say where the
+    durable state sits and exit 75 (EX_TEMPFAIL; check.py:122)."""
+    print(f"Preempted: {e}.", file=out)
+    if e.checkpoint_dir:
+        print(f"Resume with --recover {e.checkpoint_dir}", file=out)
+    return 75
 
 
 def summarize(res, seconds: float, chk) -> dict:
@@ -135,6 +157,60 @@ def summarize(res, seconds: float, chk) -> dict:
                              generations=len(tiered.gens), soft_seats=chk.tier_soft_seats,
                              probe_wait_s=round(tiered.stats["probe_wait_s"], 6))
     return out
+
+
+def summary_public(summary: dict) -> dict:
+    """The JSON-serializable view of a :func:`run_check` summary
+    (check.py:311): the ``_res`` / ``_chk`` keys stripped."""
+    return {k: v for k, v in summary.items() if not k.startswith("_")}
+
+
+def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | None = None,
+              checkpoint_dir: str | None = None, checkpoint_every: int = 1,
+              recover: str | None = None, device=None, canon: str = "late",
+              use_hashstore: bool | None = None, use_mxu: bool | None = None,
+              megakernel: bool | None = None, superstep: int | None = None, audit: int = 0,
+              audit_retries: int = 3, dev_bytes: int | None = None, progress=None, out=None,
+              install_signals: bool = False, config_path: str | None = None) -> dict:
+    """One in-process check -> the ``--json`` summary dict (check.py:316):
+    the programmatic entry the sweep service and the tests call.  ``out``
+    (a stream, or None) receives the CLI's informational lines, ``progress``
+    is the per-level callback.  Raises ``resilience.Preempted`` on a
+    preemption (the CLI's exit 75) and propagates engine errors; the
+    ``_res`` / ``_chk`` keys carry the raw result and checker
+    (``summary_public`` strips them).  ``config_path`` names the cfg file
+    the constants came from in the ``Config`` line."""
+    from . import resilience
+    from .engine.bfs import TorchChecker
+
+    if install_signals:
+        # SIGTERM/SIGINT finish the level, flush, and raise Preempted
+        resilience.install_signal_handlers()
+    t0 = time.monotonic()
+    chk = TorchChecker(cfg, device=device, chunk=chunk, progress=progress,
+                       megakernel=megakernel, superstep=superstep,
+                       store_bytes=int(dev_bytes) if dev_bytes else None, canon=canon,
+                       use_mxu=use_mxu, audit=audit, audit_retries=audit_retries,
+                       use_hashstore=use_hashstore)
+    if out is not None:
+        print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
+        where = f" {config_path}" if config_path else ""
+        print(f"Config{where}: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
+        if not chk.use_hashstore:
+            print("Visited store: sorted (level dedup by radix sort, merged per level)",
+                  file=out)
+        if chk.store_bytes:
+            print(f"Tiered visited store: hot slab budget {chk.store_bytes:,} B (demotions "
+                  "spill to host generations)", file=out)
+        if checkpoint_dir and checkpoint_every:
+            print(f"Checkpoints: delta log in {checkpoint_dir}"
+                  + (f" (resuming from {recover})" if recover else ""), file=out)
+    res = chk.run(max_depth=max_depth, checkpoint_dir=checkpoint_dir,
+                  checkpoint_every=checkpoint_every, resume_from=recover)
+    summary = summarize(res, time.monotonic() - t0, chk)
+    summary["_res"] = res
+    summary["_chk"] = chk
+    return summary
 
 
 def _mxu_arg(args):
@@ -192,8 +268,9 @@ def main(argv=None) -> int:
                     help="shorthand for --mxu-expand 0")
     ap.add_argument("--audit", type=int, default=0, metavar="N",
                     help="every level, re-expand N deterministic new rows through the legacy "
-                         "kernels and cross-check guard and fingerprints; a mismatch "
-                         "fail-stops with exit 4 (no checkpoint to rewind to)")
+                         "kernels and cross-check guard and fingerprints; a mismatch rewinds to "
+                         "the last checkpoint (with --checkpoint-dir) and fail-stops with exit "
+                         "4 after --audit-retries strikes, or at once without checkpoints")
     ap.add_argument("--audit-retries", type=int, default=3, metavar="R",
                     help="fail-stop after R reproducible audit mismatches (default 3)")
     ap.add_argument("--no-hashstore", action="store_true",
@@ -202,13 +279,29 @@ def main(argv=None) -> int:
     ap.add_argument("--cap-x", type=int, default=4096,
                     help="per-device candidate capacity (distributed mode); accepted as the "
                          "reference's CLI accepts it, read nowhere while the port has no mesh")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="write a per-level delta-log checkpoint (delta_NNNN.npz, and the "
+                         "hslab.npz slab snapshot at its cadence) here")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="0 disables checkpointing; any other value records every level (the "
+                         "replay chain cannot skip levels)")
+    ap.add_argument("--recover", default=None,
+                    help="resume from a checkpoint directory (delta log); corrupt, torn or "
+                         "unmanifested records are quarantined or adopted and the run resumes "
+                         "from the last good contiguous prefix")
+    ap.add_argument("--fault", action="append", default=None, metavar="SITE:ACTION[@N]",
+                    help="deterministic fault injection (repeatable): kill/torn/flip/fail/pause "
+                         "at a named site's Nth hit, e.g. delta.commit:kill@3 (env "
+                         "TLA_RAFT_FAULT takes the same grammar)")
     ap.add_argument("--coverage", action="store_true", help="print per-action counts")
     ap.add_argument("--json", action="store_true", help="print a JSON summary line")
     args = ap.parse_args(argv)
 
-    from .engine.bfs import TorchChecker
+    from . import resilience
     from .resilience.integrity import IntegrityError
 
+    if args.fault:
+        resilience.fault_install(",".join(args.fault))
     out = sys.stdout
     cfg = RaftConfig()
     if args.config:
@@ -244,6 +337,11 @@ def main(argv=None) -> int:
                   "(pass --spec '' to skip).", file=out)
             return 2
         print(f"Spec {spec}: structure matches compiled semantics.", file=out)
+    if args.dev_bytes and args.checkpoint_dir and args.checkpoint_every:
+        print("Refusing --dev-bytes with --checkpoint-dir: resuming a tiered run needs the "
+              "tiered store's resume rebuild, which the port does not have yet (run without "
+              "one of the two).", file=out)
+        return 2
 
     def progress(s):
         rate = s["distinct"] / max(s["elapsed"], 1e-9)
@@ -251,27 +349,24 @@ def main(argv=None) -> int:
               f"distinct {s['distinct']}, generated {s['generated']}, "
               f"{rate:,.0f} states/s", file=out, flush=True)
 
-    chk = TorchChecker(cfg, device=args.device, chunk=args.chunk, progress=progress,
-                       megakernel=None if args.megakernel is None else bool(args.megakernel),
-                       superstep=args.superstep,
-                       store_bytes=int(args.dev_bytes) if args.dev_bytes else None,
-                       canon=args.canon, use_mxu=_mxu_arg(args), audit=args.audit,
-                       audit_retries=args.audit_retries,
-                       use_hashstore=False if args.no_hashstore else None)
-    print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
-    where = f" {args.config}" if args.config else ""
-    print(f"Config{where}: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
-    if not chk.use_hashstore:
-        print("Visited store: sorted (level dedup by radix sort, merged per level)", file=out)
-    if chk.store_bytes:
-        print(f"Tiered visited store: hot slab budget {chk.store_bytes:,} B (demotions spill "
-              "to host generations)", file=out)
     try:
-        res = chk.run(max_depth=args.max_depth)
+        summary = run_check(
+            cfg, max_depth=args.max_depth, chunk=args.chunk,
+            checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
+            recover=args.recover, device=args.device, canon=args.canon,
+            use_hashstore=False if args.no_hashstore else None, use_mxu=_mxu_arg(args),
+            megakernel=None if args.megakernel is None else bool(args.megakernel),
+            superstep=args.superstep, audit=args.audit, audit_retries=args.audit_retries,
+            dev_bytes=int(args.dev_bytes) if args.dev_bytes else None, progress=progress,
+            out=out, install_signals=True, config_path=args.config)
+    except resilience.Preempted as e:
+        return _report_preempted(e, out)
     except IntegrityError as e:
-        # an audit mismatch is no model verdict: exit 4 (check.py:1188-1197)
+        # an audit fail-stop or a conservation check is no model verdict:
+        # exit 4 (check.py:1188-1197)
         print(f"Integrity fail-stop: {e}", file=out)
         return 4
+    res, chk = summary["_res"], summary["_chk"]
     dt = time.monotonic() - t0
     print(file=out)
     if res.ok:

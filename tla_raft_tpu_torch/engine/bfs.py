@@ -72,8 +72,24 @@ replaces a chunk's guards, compaction, materialize and K3 by the dense
 expand with per-lane delta-hash fingerprints and the chunk compaction
 (bfs.py:977-1001; the same slab bytes); ``use_mxu=False`` replaces K1 and
 K2 by the legacy per-lane kernels; ``audit=N`` re-expands N sampled rows
-of every level through those legacy kernels before it commits and
-fail-stops on a mismatch (bfs.py:1864-2082; no checkpoint to rewind to).
+of every level through those legacy kernels before it commits; a mismatch
+rewinds to the delta log when the run checkpoints, and fail-stops after
+``audit_retries`` strikes or at once without checkpoints (bfs.py:1864-2082).
+
+With a checkpoint directory (``run(checkpoint_dir=...)``, the CLI's
+``--checkpoint-dir``) every committed level appends its delta record
+(``delta_NNNN.npz``: the survivors' pidx / slot, their fingerprints, the
+level's per-slot mult and ``meta = [depth, n_new, fp_def]``) through the
+atomic manifest writer, on every route (a superstep writes one record per
+level from its ring), and the hash slab is snapshotted beside it
+(``hslab.npz``) at the size-aware cadence; ``run(resume_from=...)`` heals
+the directory and replays the records from Init through the port's own
+materialize kernels, then loads the snapshot when it matches the resume
+point or rebuilds the store from the replayed fingerprints
+(bfs.py:2100, 2910).  The bytes are the reference's, so logs and slab
+snapshots move between the two packages.  A preemption request
+(SIGTERM/SIGINT under the CLI) stops the run at a level boundary with
+``resilience.Preempted``.
 
 On the sorted visited store (``use_hashstore=False``, the reference's
 ``--no-hashstore``, bfs.py:3481-3690 and 4912-4925) the fused level, the
@@ -96,6 +112,7 @@ its plain twin and CUDA tensors to the kernel.
 from __future__ import annotations
 
 import gc
+import glob
 import os
 import sys
 import time
@@ -116,8 +133,9 @@ from ..ops.msg_universe import get_universe
 from ..ops.dense_expand import DenseExpand
 from ..ops.mxu_expand import MXUExpand, mxu_enabled_by_env
 from ..ops.successor import GuardTables, materialize_legacy_plain
+from .. import resilience
 from ..resilience import faults
-from ..resilience.integrity import AuditFailStop, audit_indices
+from ..resilience.integrity import AuditFailStop, audit_indices, occupancy_check
 from ..store import tiered
 from ..u64 import SENT, ukey
 from . import forecast
@@ -386,9 +404,10 @@ class TorchChecker:
         guards-only dense expand and ``legacy_materialize``.
       audit: rows per level re-expanded through the legacy kernels and
         cross-checked (``--audit N``; 0: off).  Turns supersteps off; a
-        mismatch raises ``AuditFailStop`` (no checkpoint to rewind to).
-      audit_retries: reproducible strikes before the fail-stop (with no
-        checkpoint to rewind to, only 1 changes the fail-stop's message).
+        mismatch rewinds to the delta log of a checkpointing run, else
+        raises ``AuditFailStop``.
+      audit_retries: reproducible strikes at one level before the
+        fail-stop (and 4x that many rewinds in all).
       use_hashstore: the hash slab as the visited store (``None``:
         ``TLA_RAFT_HASHSTORE``, on unless "0"); ``False`` selects the
         sorted store (the reference's ``--no-hashstore``): the fused level,
@@ -440,6 +459,12 @@ class TorchChecker:
         self.audit = max(0, int(audit))
         self.audit_retries = max(1, int(audit_retries))
         self.audit_stats = dict(levels=0, sampled=0, mismatches=0, rewinds=0)
+        self._audit_strikes = 0
+        self._audit_strike_depth = None  # the level the strikes belong to
+        # the checkpoint manifests' run identity (bfs.py:773): the spec
+        # constants only, not tunables and not the fingerprint definition
+        # (each delta record's meta[2] guards that, _check_fp_def)
+        self._run_fp = resilience.run_config_fingerprint(cfg, log="delta")
         self.device = resolve_device(device)
         self.uni = get_universe(cfg)
         self.fpr = Fingerprinter(cfg, device=self.device)
@@ -803,21 +828,181 @@ class TorchChecker:
                 print(f"[integrity] audit level {depth + 1}: {msg}", file=sys.stderr)
         return problems
 
-    def _audit_rewind(self, problems: list, depth: int):
-        """The reference's ``_audit_rewind`` (bfs.py:2026) for a run with no
-        checkpoint directory, which every port run is (checkpoints are not
-        ported yet, so there is no rewind and the first mismatch is the
-        only strike): ``AuditFailStop``, with the reference's "reproduced"
-        message when ``audit_retries`` is 1."""
-        if self.audit_retries <= 1:
+    def _audit_rewind(self, problems: list, depth: int, max_depth, checkpoint_dir,
+                      checkpoint_every: int) -> CheckResult:
+        """Quarantine the mismatched level and rewind to the delta log
+        (bfs.py:2026-2098); fail-stop after ``audit_retries`` strikes at one
+        level, or after 4x that many rewinds in all, or at once without a
+        checkpoint directory.  The mismatched level never reached the log
+        (the audit runs before the commit), so the rewind is a plain
+        resume: the replay re-materializes every level from the durable
+        (parent, slot) records, and a transient corruption does not
+        survive it."""
+        if self._audit_strike_depth == depth:
+            self._audit_strikes += 1
+        else:
+            self._audit_strikes = 1
+            self._audit_strike_depth = depth
+        strikes = self._audit_strikes
+        if self.audit_stats["rewinds"] >= 4 * self.audit_retries:
+            raise AuditFailStop(
+                f"audit mismatches forced {self.audit_stats['rewinds']} rewinds in one run "
+                f"(cap {4 * self.audit_retries}): pervasive corruption — fail-stop; latest "
+                "problem: " + problems[0])
+        if strikes >= self.audit_retries:
             raise AuditFailStop(
                 f"audit mismatch at level {depth + 1} reproduced "
-                f"1 time(s) (budget {self.audit_retries}): "
+                f"{strikes} time(s) (budget {self.audit_retries}): "
                 "deterministic corruption — fail-stop; first problem: " + problems[0])
-        raise AuditFailStop(
-            f"audit mismatch at level {depth + 1} with no "
-            "checkpoint directory to rewind to — fail-stop; first "
-            "problem: " + problems[0])
+        if not (checkpoint_dir and checkpoint_every):
+            raise AuditFailStop(
+                f"audit mismatch at level {depth + 1} with no "
+                "checkpoint directory to rewind to — fail-stop; first "
+                "problem: " + problems[0])
+        has_records = bool(glob.glob(os.path.join(checkpoint_dir, "delta_*.npz")))
+        self.audit_stats["rewinds"] += 1
+        print(f"[integrity] quarantining level {depth + 1} and rewinding to the last "
+              f"committed checkpoint (strike {strikes}/{self.audit_retries})", file=sys.stderr)
+        # the slab, the sorted store and the frontier hold the quarantined
+        # level: drop them (and every captured program on the slab)
+        self._drop_run_state()
+        return self._run(max_depth, checkpoint_dir, checkpoint_every,
+                         checkpoint_dir if has_records else None)
+
+    # -- checkpoints: the delta log and the slab snapshot (bfs.py:2100-3160) ------------
+
+    def _drop_run_state(self) -> None:
+        self._progs.clear()
+        self.hstore = None
+        self.visited = None
+        self.frontier = None
+        self._sieve_dev, self._sieve_ver = None, -1
+        gc.collect()
+
+    def _save_delta(self, ckdir: str, depth: int, pidx_np, slot_np, fps_np, level_mult,
+                    n_new: int) -> None:
+        """One level's record (bfs.py:2100): ``delta_NNNN.npz`` with pidx
+        u32, slot u16 (u32 past 65,535 slots), fps u64, mult i64[K] and
+        ``meta = [depth, n_new, fp_def]`` (0: min-over-P, 1: orbit),
+        through the atomic manifest writer."""
+        slot_dt = np.uint16 if self.K <= 0xFFFF else np.uint32
+        resilience.commit_npz(
+            ckdir, f"delta_{depth:04d}.npz",
+            dict(pidx=np.asarray(pidx_np).astype(np.uint32),
+                 slot=np.asarray(slot_np).astype(slot_dt),
+                 fps=np.asarray(fps_np)[:n_new].astype(np.uint64),
+                 mult=np.asarray(level_mult).astype(np.int64),
+                 meta=np.asarray([depth, n_new, int(self.orbit)], np.int64)),
+            kind="delta", depth=depth, run_fp=self._run_fp,
+        )
+
+    def _dump_slab(self, ckdir: str, depth: int, distinct: int) -> None:
+        """The slab snapshot beside the log (bfs.py:5065-5096), at the
+        size-aware cadence (``hashstore.dump_interval``), after the
+        occupancy check: the snapshot a resume trusts counts exactly the
+        distinct set."""
+        occupancy_check("device hash slab", self.hstore.occupancy(), distinct, level=depth)
+        self.hstore.dump(os.path.join(ckdir, "hslab.npz"), depth, int(self.orbit),
+                         run_fp=self._run_fp)
+
+    def _check_fp_def(self, fp_def: int, path: str) -> None:
+        """Refuse to mix fingerprint definitions in one visited store
+        (bfs.py:3406)."""
+        if fp_def != int(self.orbit):
+            raise ValueError(
+                f"fingerprint-definition mismatch: {path} was written "
+                f"with {'orbit' if fp_def else 'min-over-P'} fingerprints "
+                f"but this run uses "
+                f"{'orbit' if self.orbit else 'min-over-P'} "
+                "(TLA_RAFT_ORBIT) — resume with the matching setting")
+
+    def _check_checkpoint_dirs(self, checkpoint_dir, resume_from) -> None:
+        """The reference's directory checks (bfs.py:4051-4126) for the
+        delta log; resuming from a monolith snapshot is not in the port."""
+        if resume_from is not None and not os.path.isdir(resume_from):
+            raise ValueError(f"{resume_from} is not a checkpoint directory (the port resumes "
+                             "from delta logs only; monolith snapshots are not ported)")
+        if not checkpoint_dir:
+            return
+        if resume_from is None and os.path.isdir(checkpoint_dir):
+            resilience.sweep_tmp(checkpoint_dir)
+        stale = glob.glob(os.path.join(checkpoint_dir, "delta_*.npz"))
+        if resume_from is None and stale:
+            raise ValueError(
+                f"{checkpoint_dir} holds checkpoints from a previous "
+                "run; a fresh run would interleave two runs' logs into "
+                "one (silently wrong) replay chain — resume with "
+                "--recover or clear the directory")
+        if (resume_from is not None
+                and os.path.abspath(resume_from) != os.path.abspath(checkpoint_dir) and stale):
+            raise ValueError(
+                f"resuming from {resume_from} but {checkpoint_dir} "
+                "already holds another run's checkpoints — the two "
+                "logs would interleave; clear it or checkpoint into "
+                "the resumed directory itself")
+
+    def _resume_from_deltas(self, ckdir: str) -> dict:
+        """Rebuild the run state from the delta log (bfs.py:2910): heal the
+        directory (sweep, verify, quarantine, adopt, truncate to the good
+        prefix), replay the records from Init through the port's own
+        materialize kernels, then load ``hslab.npz`` when it matches the
+        resume point, else rebuild the store from the replayed fps."""
+        files = resilience.heal_log(ckdir, "delta", run_fp=self._run_fp, slabs=("hslab.npz",))
+        if not files and not resilience.Manifest.load(ckdir).exists:
+            raise ValueError(f"no delta_*.npz checkpoints under {ckdir}")
+        K = self.K
+        frontier, _ovf = self.deflate(init_batch(self.cfg, 1, self.device))
+        fv0, _ff = self._fp_states(frontier)
+        fps_parts = [fv0.cpu().numpy().view(np.uint64)]
+        trace_levels, level_sizes = [], [1]
+        mult_per_slot = np.zeros(K, np.int64)
+        depth = 0
+        for f in files:
+            with np.load(f) as z:
+                meta = [int(x) for x in z["meta"]]
+                pidx = z["pidx"].astype(np.int64)
+                slot = z["slot"].astype(np.int64)
+                fps = z["fps"].astype(np.uint64)
+                mult = z["mult"].astype(np.int64)
+            d, n_new = meta[0], meta[1]
+            self._check_fp_def(meta[2] if len(meta) > 2 else 0, f)
+            if d != depth + 1:
+                raise ValueError(f"delta log gap: expected level {depth + 1}, found level {d} "
+                                 f"({f})")
+            pay = torch.from_numpy(pidx * K + slot).to(self.device)
+            while True:
+                new, _bad, ovf_m = self.materialize_level(frontier, pay, n_new)
+                if not ovf_m:
+                    break
+                frontier = self._grow_cap_m(frontier)
+            frontier = new
+            fps_parts.append(fps)
+            trace_levels.append((pidx, slot))
+            level_sizes.append(n_new)
+            mult_per_slot = mult_per_slot + mult
+            depth = d
+        distinct = int(sum(level_sizes))
+        allf = np.concatenate(fps_parts)
+        if self.use_hashstore:
+            self.hstore = DeviceHashStore.load(os.path.join(ckdir, "hslab.npz"), depth, distinct,
+                                               int(self.orbit), device=self.device)
+            if self.hstore is None:
+                self.hstore = DeviceHashStore.from_fps(allf, device=self.device)
+            if self.hstore.count != distinct:
+                raise ValueError(
+                    f"hash-store resume rebuilt {self.hstore.count} distinct fingerprints for "
+                    f"{distinct} recorded states — corrupt or mixed log")
+        else:
+            u = np.unique(allf)
+            if len(u) != distinct:
+                raise ValueError(f"sorted-store resume rebuilt {len(u)} distinct fingerprints "
+                                 f"for {distinct} recorded states — corrupt or mixed log")
+            self.visited = upload_sorted_store(u, self.device)
+        print(f"[resilience] resumed {ckdir} at level {depth} ({distinct} distinct)",
+              file=sys.stderr)
+        return dict(frontier=frontier, n_f=level_sizes[-1] if depth else 1, distinct=distinct,
+                    depth=depth, level_sizes=level_sizes, trace_levels=trace_levels,
+                    mult_per_slot=mult_per_slot)
 
     # -- traces -----------------------------------------------------------------
 
@@ -1325,33 +1510,70 @@ class TorchChecker:
             if ovf["ovf_m"]:
                 frontier = self._grow_cap_m(frontier)
 
-    def run(self, max_depth: int | None = None) -> CheckResult:
+    def run(self, max_depth: int | None = None, checkpoint_dir: str | None = None,
+            checkpoint_every: int = 1, resume_from: str | None = None) -> CheckResult:
+        """Check to ``max_depth`` (None: the fixpoint).  With
+        ``checkpoint_dir`` (and ``checkpoint_every`` not 0) every committed
+        level appends its delta record there, and the slab snapshot lands
+        beside it at the dump cadence; ``resume_from`` (a checkpoint
+        directory) continues the run its log records.  Raises
+        ``resilience.Preempted`` at a level boundary after a preemption
+        request."""
+        self._audit_strikes, self._audit_strike_depth = 0, None
+        return self._run(max_depth, checkpoint_dir, checkpoint_every, resume_from)
+
+    def _run(self, max_depth, checkpoint_dir, checkpoint_every, resume_from) -> CheckResult:
         cfg, K = self.cfg, self.K
         t0 = time.monotonic()
-        frontier, ovf0 = self.deflate(init_batch(cfg, 1, self.device))
-        if bool(ovf0.any()):
-            raise RuntimeError(f"initial state's message set exceeds cap_m={self.cap_m}")
-        fv, _ff = self._fp_states(frontier)
-        if self.use_hashstore:
-            self.hstore = DeviceHashStore.from_fps(
-                fv.cpu().numpy().view(np.uint64), device=self.device
-            )
-        else:
-            # the root and 63 pads: sorted, as SENT sorts last (bfs.py:4216)
-            self.visited = torch.cat([fv, torch.full((63,), SENT, dtype=I64, device=self.device)])
+        ck_on = bool(checkpoint_dir and checkpoint_every)
+        if self.store_bytes and self.use_hashstore and (ck_on or resume_from):
+            # the resume of a tiered run rebuilds the warm and cold tiers
+            # from the log (bfs.py:3085-3110), which comes with the cold tier
+            raise ValueError("checkpoints under a device budget (--dev-bytes) need the tiered "
+                             "store's resume rebuild, which the port does not have yet")
+        self._check_checkpoint_dirs(checkpoint_dir if ck_on else None, resume_from)
         self.tiered = (tiered.TieredVisitedStore(self.store_bytes)
                        if self.store_bytes and self.use_hashstore else None)
         self._sieve_dev, self._sieve_ver, self.tier_soft_seats = None, -1, 0
-        self.frontier = frontier
-        n_f, distinct, generated, depth = 1, 1, 0, 0
-        level_sizes = [1]
-        trace_levels: list = []  # (pidx, slot) per level
+        if resume_from is not None:
+            ck = self._resume_from_deltas(resume_from)
+            frontier, n_f, distinct, depth = ck["frontier"], ck["n_f"], ck["distinct"], ck["depth"]
+            level_sizes, trace_levels = ck["level_sizes"], ck["trace_levels"]
+            mult_per_slot = ck["mult_per_slot"]
+            generated = int(mult_per_slot.sum())
+        else:
+            frontier, ovf0 = self.deflate(init_batch(cfg, 1, self.device))
+            if bool(ovf0.any()):
+                raise RuntimeError(f"initial state's message set exceeds cap_m={self.cap_m}")
+            fv, _ff = self._fp_states(frontier)
+            if self.use_hashstore:
+                self.hstore = DeviceHashStore.from_fps(
+                    fv.cpu().numpy().view(np.uint64), device=self.device
+                )
+            else:
+                # the root and 63 pads: sorted, as SENT sorts last (bfs.py:4216)
+                self.visited = torch.cat([fv, torch.full((63,), SENT, dtype=I64,
+                                                         device=self.device)])
+            n_f, distinct, generated, depth = 1, 1, 0, 0
+            level_sizes = [1]
+            trace_levels = []  # (pidx, slot) per level
+            mult_per_slot = np.zeros(K, np.int64)
+            if int(self.inv_scan(frontier)) >= 0:
+                name = self.bad_invariant_name(frontier, 0)
+                return CheckResult(False, 1, 0, 0, (1,), (
+                    f"Invariant {name} is violated", self.trace(trace_levels, 0, 0)))
+        self.frontier = mk.rows_of(frontier, 0, n_f)
         self.trace_levels = trace_levels
-        mult_per_slot = np.zeros(K, np.int64)
-        if int(self.inv_scan(frontier)) >= 0:
-            name = self.bad_invariant_name(frontier, 0)
-            return CheckResult(False, 1, 0, 0, (1,), (
-                f"Invariant {name} is violated", self.trace(trace_levels, 0, 0)))
+
+        def commit_log(pidx, slot, fps, level_mult, n_new):
+            """The committed level's delta record, and the slab snapshot at
+            its cadence (bfs.py:5040-5096)."""
+            if not ck_on:
+                return
+            self._save_delta(checkpoint_dir, depth, pidx, slot, fps, level_mult, n_new)
+            every = hashstore.dump_interval(self.hstore.cap * 8) if self.use_hashstore else 0
+            if every and depth % every == 0:
+                self._dump_slab(checkpoint_dir, depth, distinct)
 
         def note(route):
             self.routes[route] += 1
@@ -1364,6 +1586,10 @@ class TorchChecker:
         # paths before supersteps engage again
         skip_superstep = False
         while n_f > 0:
+            faults.fire("level.start")
+            if resilience.preempt_requested():
+                # every committed level's record is already durable
+                raise resilience.Preempted(checkpoint_dir if ck_on else None, depth)
             if max_depth is not None and depth >= max_depth:
                 break
             self._tier_drain(depth, n_f)
@@ -1375,7 +1601,10 @@ class TorchChecker:
                 sres = None
             if sres is not None and not sres.get("degraded"):
                 hit_fixpoint = False
-                for rec in sres["recs"]:
+                depth0 = depth  # the window's entry, for the slab dump cadence
+                for li, rec in enumerate(sres["recs"]):
+                    if li:
+                        faults.fire("level.start")  # once a level, as the staged loop
                     mult_per_slot = mult_per_slot + rec["mult"]
                     generated += int(rec["mult"].sum())
                     if rec["n_new"] == 0:
@@ -1387,9 +1616,18 @@ class TorchChecker:
                     depth += 1
                     trace_levels.append((rec["pidx"], rec["slot"]))
                     note("superstep")
+                    if ck_on:
+                        self._save_delta(checkpoint_dir, depth, rec["pidx"], rec["slot"],
+                                         rec["fps"], rec["mult"], n_f)
                 if sres["n_total"] or hit_fixpoint:
                     self.hstore.adopt(self.hstore.slab, sres["n_total"])
                     self._check_occupancy(sres["slab_live"])
+                if ck_on and sres["recs"]:
+                    # floor-crossing: any cadence point the window crossed
+                    # earns the one end-of-window dump (bfs.py:4454-4470)
+                    every = hashstore.dump_interval(self.hstore.cap * 8)
+                    if every and depth // every > depth0 // every:
+                        self._dump_slab(checkpoint_dir, depth, distinct)
                 self.frontier = mk.rows_of(frontier, 0, n_f)
                 if hit_fixpoint:
                     break
@@ -1424,8 +1662,9 @@ class TorchChecker:
                     ('Assert "split brain" (Raft.tla:185)',
                      self.trace(trace_levels, depth, res["abort_at"])),
                 )
-            mult_per_slot = mult_per_slot + res["mult"]
-            generated += int(res["mult"].sum())
+            res_mult = res["mult"]
+            mult_per_slot = mult_per_slot + res_mult
+            generated += int(res_mult.sum())
             n_new = res["n_new"]
             if n_new == 0:
                 break
@@ -1447,7 +1686,7 @@ class TorchChecker:
                     want = [res["pidx"][:n_new], res["slot"][:n_new]]
                 else:
                     want = [res["new_payload"][:n_new]]
-                want_fps = self._tier_active() or bool(self.audit)
+                want_fps = self._tier_active() or bool(self.audit) or ck_on
                 if want_fps:
                     want.append(res["new_fps"][:n_new])
                 got = fetch(*want, what="staged_trace")
@@ -1524,7 +1763,11 @@ class TorchChecker:
                 problems = self._audit_level(parent_prev, frontier, pidx, slot, fps_lvl,
                                              n_new, depth)
                 if problems:
-                    self._audit_rewind(problems, depth)
+                    return self._audit_rewind(problems, depth, max_depth, checkpoint_dir,
+                                              checkpoint_every)
+            # only invariant-clean, audited levels reach the log: a resumed
+            # run never re-checks its replayed frontier
+            commit_log(pidx, slot, fps_lvl, res_mult, n_new)
         return CheckResult(
             True, distinct, generated, depth, tuple(level_sizes), None,
             self.layout.action_counts(mult_per_slot),

@@ -3,7 +3,8 @@
 A copy of the JAX package's ``tla_raft_tpu/engine/forecast.py`` (which
 imports no JAX), cut to what the port's fused level and supersteps use:
 ``forecast_new_states`` (the per-level new-state forecast from the
-measured growth-ratio decay), ``cap_margin`` (the 1.25 capacity margin,
+measured growth-ratio decay), ``forecast_peak_new`` (its largest level:
+the sweep service's bucket capacities), ``cap_margin`` (the 1.25 capacity margin,
 ``TLA_RAFT_CAP_MARGIN`` overrides) and ``pow2ceil``.  The reference's
 ``cap_margin`` also consults an autotuner plan; the port has no tuner yet,
 so the environment and the default are all it reads.
@@ -109,3 +110,8 @@ def forecast_new_states(
     if target_depth is None and len(out) >= max_levels:
         return []  # projection never reached a fixpoint: no usable signal
     return out
+
+
+def forecast_peak_new(level_sizes, target_depth: int | None) -> int:
+    """Forecast the largest per-level new-state count over the run."""
+    return max(forecast_new_states(level_sizes, target_depth), default=0)

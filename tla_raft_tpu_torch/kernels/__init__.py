@@ -256,11 +256,33 @@ MERGE_SORTED = Kernel(
     "new fingerprints)",
     {"launch_merge_sorted": [VP, I64, VP, I64, VP, I64, VP]},
 )
+_BUCKET = "tla_raft_tpu/service/bucket.py"
+BUCKET_REFINE = Kernel(
+    "bucket_refine", "csrc/bucket.cu",
+    f"{_BUCKET}:176 (BucketPrograms._level_step: the per-config MaxRestart refinement, the "
+    "salts, the gen / abort segment sums)",
+    {"bucket_refine_launch": [VP, VP, VP, VP, VP, VP, VP, VP, VP, VP, I32, I64, I32, VP, I64,
+                              VP, VP, VP]},
+)
+BUCKET_TALLY = Kernel(
+    "bucket_tally", "csrc/bucket.cu",
+    f"{_BUCKET}:212-266 (_level_step's new segment sum, _fused_level:236's keep filter, "
+    "_superstep:336-340's ring append)",
+    {"bucket_tally_launch": [VP, VP, I64, VP, VP, I32, VP, VP, I32, VP, VP, VP, VP, VP, I64, VP,
+                             VP]},
+)
+BUCKET_CTRL = Kernel(
+    "bucket_ctrl", "csrc/bucket.cu",
+    f"{_BUCKET}:270 (_superstep: the while_loop body's retirement and commit algebra "
+    ":320-399, the meta rows, crow = crow[rows])",
+    {"bucket_ctrl_launch": [I32, VP, VP, VP, VP, VP, VP, VP, VP, VP, VP, I32, VP, VP, VP, VP, VP,
+                            I64, VP, VP, VP, I32, VP]},
+)
 KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMPACT, INFLATE,
                                DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE, HS_PROBE,
                                FILTER_COMPACT, DROP_ROWS, MSG_FACTORED, ORBIT, ORBIT_FOLD,
                                DENSE_EXPAND, CHUNK_COMPACT, LEGACY, SORTED_MEMBER, LEVEL_DEDUP,
-                               MERGE_SORTED)}
+                               MERGE_SORTED, BUCKET_REFINE, BUCKET_TALLY, BUCKET_CTRL)}
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
@@ -278,6 +300,8 @@ EXPAND_PATH = ("dense_expand", "chunk_compact")
 LEGACY_PATH = ("dense_expand", "legacy_materialize")
 # the sorted visited store (--no-hashstore, and the grow-failure fallback)
 SORTED_PATH = ("sorted_member", "level_dedup", "merge_sorted")
+# the sweep service's batched bucket core (service/bucket.py)
+BUCKET_PATH = ("bucket_refine", "bucket_tally", "bucket_ctrl")
 
 
 def reset_launches() -> None:
@@ -856,7 +880,8 @@ def compact(flags, va, pad_a, cap, vb=None, pad_b=0, want_lane=False, *, out_a=N
 
 
 def dense_expand(dx, st, want_fp: bool, *, valid=None, per_row=True, fpv=None, fpf=None,
-                 cnt=None, sub=0, mult_acc=None, abort_acc=None, base=0):
+                 cnt=None, sub=0, mult_acc=None, abort_acc=None, base=0, mult_out=None,
+                 abort_out=None):
     """B18: (valid bool[B,K], mult i32[B,K], fp_view i64[B,K], fp_full
     i64[B,K], abort bool[B]) of a RaftState, fingerprints (SENT where
     invalid) only with ``want_fp`` (else None).
@@ -877,8 +902,12 @@ def dense_expand(dx, st, want_fp: bool, *, valid=None, per_row=True, fpv=None, f
     if valid is None:
         valid = torch.empty((B, K), dtype=torch.bool, device=dev)
     _need(valid, "valid", torch.bool, (B, K))
-    mult = torch.empty((B, K), dtype=torch.int32, device=dev) if per_row else None
-    abort = torch.empty((B,), dtype=torch.bool, device=dev) if per_row else None
+    mult = abort = None
+    if per_row:  # the per-row outputs, into the caller's buffers when given
+        mult = torch.empty((B, K), dtype=torch.int32, device=dev) if mult_out is None else mult_out
+        abort = torch.empty((B,), dtype=torch.bool, device=dev) if abort_out is None else abort_out
+        _need(mult, "mult", torch.int32, (B, K))
+        _need(abort, "abort", torch.bool, (B,))
     if mult_acc is not None:
         _need(mult_acc, "mult_acc", torch.int64, (K,))
     if abort_acc is not None:
@@ -1335,3 +1364,92 @@ def merge_sorted(a, b, n_out: int):
         a.data_ptr(), A, b.data_ptr(), B, out.data_ptr(), n_out, _stream()))
     MERGE_SORTED.launches += int(n_out > 0)
     return out
+
+
+# -- B14: the batched bucket core (csrc/bucket.cu) ------------------------------------
+
+
+def _bucket_vec(t, what: str, C: int, dtype=torch.int64) -> int:
+    _need(t, what, dtype, (C,))
+    return t.data_ptr()
+
+
+def bucket_refine(valid, mult, abort, fpv, crow, rc, fam_rs, mr, salt, done, gen, abort_c, *,
+                  cnt=None, sub=0) -> None:
+    """B14 ``_level_step``'s refinement of one chunk's dense-expand output
+    [rows, K], in place: lanes of dead rows (past ``cnt - sub``, or of a
+    done config), and Restart lanes of rows with ``rc >= mr[crow]``, turn
+    invalid; ``fpv`` is salted with ``salt[crow]`` where valid and SENT
+    elsewhere; ``gen[c]`` += the valid lanes' mult and ``abort_c[c]`` = 1
+    where a live row of c aborts (i64 [C] accumulators)."""
+    rows, K = valid.shape
+    C = mr.shape[0]
+    _need(valid, "valid", torch.bool, (rows, K))
+    _need(mult, "mult", torch.int32, (rows, K))
+    _need(abort, "abort", torch.bool, (rows,))
+    _need(fpv, "fp_view", torch.int64, (rows, K))
+    _need(crow, "crow", torch.int64, (rows,))
+    _need(rc, "restart_count", torch.uint8, (rows,))
+    _need(fam_rs, "fam_rs", torch.uint8, (K,))
+    BUCKET_REFINE.check(BUCKET_REFINE.lib().bucket_refine_launch(
+        valid.data_ptr(), mult.data_ptr(), abort.data_ptr(), fpv.data_ptr(), crow.data_ptr(),
+        rc.data_ptr(), fam_rs.data_ptr(), _bucket_vec(mr, "mr", C, torch.int32),
+        _bucket_vec(salt, "salt", C), _bucket_vec(done, "done", C), C, rows, K, _cnt(cnt), sub,
+        _bucket_vec(gen, "gen", C), _bucket_vec(abort_c, "abort_c", C), _stream()))
+    BUCKET_REFINE.launches += 1
+
+
+def bucket_tally(fresh, pay, live, crow, K: int, done, abort_c, new_c, keep, ins=None,
+                 n_ins=None, ring=None, ring_off=None) -> None:
+    """B14 after K4, over the level's lanes (the first ``live`` count,
+    an int64 0-d device word): ``new_c[c]`` += the fresh lanes of config c
+    (``crow[pay // K]``), ``keep`` = fresh & !(done | abort)[config]; with
+    a ``ring``, the inserted fingerprints ``ins[:n_ins]`` (the fresh
+    compaction's prefix) go to ``ring[off:]`` (``ring_off`` a device word),
+    dropped past its end."""
+    n = fresh.shape[0]
+    C = done.shape[0]
+    _need(fresh, "fresh", torch.bool, (n,))
+    _need(pay, "pay", torch.int64, (n,))
+    _need(keep, "keep", torch.bool, (n,))
+    _need(crow, "crow", torch.int64, (crow.shape[0],))
+    R = 0
+    if ring is not None:
+        _need(ring, "ring", torch.int64, (ring.shape[0],))
+        R = ring.shape[0]
+    BUCKET_TALLY.check(BUCKET_TALLY.lib().bucket_tally_launch(
+        fresh.data_ptr(), pay.data_ptr(), n, _cnt(live), crow.data_ptr(), K,
+        _bucket_vec(done, "done", C), _bucket_vec(abort_c, "abort_c", C), C,
+        _bucket_vec(new_c, "new_c", C), keep.data_ptr(), _p(ins), _cnt(n_ins), _p(ring), R,
+        _cnt(ring_off), _stream()))
+    BUCKET_TALLY.launches += 1
+
+
+BC_BEGIN, BC_PRE, BC_POST, BC_LEVEL = 0, 1, 2, 3
+
+
+def bucket_ctrl(phase: int, bs, lc, args, done, done1, depth, cap, gen_c, new_c, abort_c, meta,
+                g_cap: int, crow_in, crow_out, pay, K: int) -> None:
+    """B14 ``_superstep``'s control (csrc/bucket.cu ``bucket_ctrl``) in one
+    of its phases: BEGIN, PRE, POST (the commit algebra and the gather
+    crow_out = crow_in[pay // K] of the survivors) or LEVEL (the per-level
+    program's undo decision and the same gather).  ``meta`` = (m_new,
+    m_gen, m_abort [span, C], m_ins, m_ng [span])."""
+    C = done.shape[0]
+    m_new, m_gen, m_abort, m_ins, m_ng = meta
+    span = m_ins.shape[0]
+    for name, t in (("m_new", m_new), ("m_gen", m_gen), ("m_abort", m_abort)):
+        _need(t, name, torch.int64, (span, C))
+    _need(m_ng, "m_ng", torch.int64, (span,))
+    _need(pay, "pay", torch.int64, (g_cap,))
+    _need(crow_out, "crow_out", torch.int64, (crow_out.shape[0],))
+    if crow_out.shape[0] < g_cap:
+        raise ValueError("bucket_ctrl: crow_out shorter than g_cap")
+    BUCKET_CTRL.check(BUCKET_CTRL.lib().bucket_ctrl_launch(
+        phase, bs.data_ptr(), lc.data_ptr(), args.data_ptr(), _bucket_vec(done, "done", C),
+        _bucket_vec(done1, "done1", C), _bucket_vec(depth, "depth", C),
+        _bucket_vec(cap, "cap", C), _bucket_vec(gen_c, "gen_c", C),
+        _bucket_vec(new_c, "new_c", C), _bucket_vec(abort_c, "abort_c", C), C, m_new.data_ptr(),
+        m_gen.data_ptr(), m_abort.data_ptr(), m_ins.data_ptr(), m_ng.data_ptr(), g_cap,
+        crow_in.data_ptr(), crow_out.data_ptr(), pay.data_ptr(), K, _stream()))
+    BUCKET_CTRL.launches += 1

@@ -41,6 +41,8 @@ PROBE_DEPTH = 64
 PROBE_WINDOW = 8
 MIN_CAP = 1 << 10
 SENT_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+# hslab.npz's format version (meta[0]; reference hashstore.py)
+SLAB_VERSION = 1
 
 
 def enabled_by_env() -> bool:
@@ -49,6 +51,18 @@ def enabled_by_env() -> bool:
     import os
 
     return bool(int(os.environ.get("TLA_RAFT_HASHSTORE", "1")))
+
+
+def dump_interval(slab_bytes: int) -> int:
+    """Slab-snapshot cadence in levels (0 = off; reference hashstore.py:123):
+    ``TLA_RAFT_SLAB_DUMP`` overrides; the default dumps every level while
+    the slab is at most 256 MB and every 16th level beyond."""
+    import os
+
+    env = os.environ.get("TLA_RAFT_SLAB_DUMP")
+    if env is not None:
+        return int(env)
+    return 1 if slab_bytes <= (1 << 28) else 16
 
 
 def slab_rows(expected: int, load: float = 0.5) -> int:
@@ -298,3 +312,47 @@ class DeviceHashStore:
             want *= 2
         self.cap = want
         self.slab = slab2
+
+    # -- the slab snapshot (hslab.npz; reference hashstore.py:542, :566) --
+
+    def dump(self, path: str, depth: int, fp_def: int = 0, run_fp: str | None = None) -> None:
+        """Atomic slab snapshot next to the delta records, through the
+        manifest writer: ``slab`` u64[cap] and ``meta = [SLAB_VERSION,
+        depth, count, cap, fp_def]``, the reference's bytes."""
+        import os
+
+        from ..resilience import commit_npz
+
+        slab = self.slab.cpu().numpy().view(np.uint64)
+        commit_npz(
+            os.path.dirname(path) or ".", os.path.basename(path),
+            dict(slab=slab, meta=np.asarray([SLAB_VERSION, depth, self.count, self.cap, fp_def],
+                                            np.int64)),
+            kind="hslab", depth=depth, run_fp=run_fp,
+        )
+
+    @classmethod
+    def load(cls, path: str, depth: int, count: int, fp_def: int = 0, device=None):
+        """The dumped slab if it matches the resume point exactly (version,
+        depth, count, fingerprint definition, capacity), else None: the
+        caller rebuilds from the replayed fingerprints (the dump is an
+        optimization, never the source of truth)."""
+        import os
+        import zipfile
+
+        if not os.path.exists(path):
+            return None
+        try:
+            with np.load(path) as z:
+                ver, d, cnt, cap, fpd = (int(x) for x in z["meta"])
+                slab = z["slab"]
+                if (ver != SLAB_VERSION or d != depth or cnt != count or fpd != fp_def
+                        or cap != len(slab)):
+                    return None
+                st = cls.__new__(cls)
+                st.device = resolve_device(device)
+                st.cap, st.count = cap, cnt
+                st.slab = torch.from_numpy(np.ascontiguousarray(slab).view(np.int64)).to(st.device)
+                return st
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            return None

@@ -2,20 +2,36 @@
 that the port polls.
 
 A :class:`FaultPlan` is a parsed list of ``site:action@n`` triggers armed
-from the environment (``TLA_RAFT_FAULT``) or by :func:`install`; the
-instrumented code path calls :func:`fire_flag` or :func:`fire` at a named
-site, and the plan fires when that site's hit counter reaches ``n``.
+from the environment (``TLA_RAFT_FAULT``), the CLI (``--fault``) or by
+:func:`install`; the instrumented code path calls :func:`fire` (or
+:func:`fire_flag`) at a named site, and the plan performs the action when
+that site's hit counter reaches ``n``:
 
-The port has two sites: ``tensor.flip``, the engine's level end, where the
-caller flips one bit of the first live frontier row on the device (the
-``--audit`` drill); and ``hashstore.grow``, the hash slab's grow, whose
-``fail`` raises :class:`FaultError` there (:func:`fire`) and turns the run
-onto the sorted visited store (reference ``resilience/faults.py:87``).  The
-reference's file-writer, service and mesh sites and their actions (kill,
-torn, lost, hang, pause) come with the checkpoints, the sweep service and
-the mesh.  A spec that names anything
-else is refused at parse time: a typo, or a site the port does not poll,
-must not silently test nothing.
+* ``kill``  — SIGKILL the process (no cleanup, no atexit: the closest
+  userspace approximation of a power cut; the CUDA context dies with it),
+* ``torn``  — truncate the artifact at the site to half its bytes and
+  continue,
+* ``flip``  — flip one byte in the middle of the artifact and continue (at
+  ``tensor.flip``: the caller flips one bit of the first live frontier row
+  on the device, the ``--audit`` drill),
+* ``fail``  — raise :class:`FaultError`,
+* ``pause`` — SIGSTOP the whole process until something SIGCONTs it (the
+  zombie worker whose lease ages out).
+
+Writer sites follow the artifact kinds of the atomic writers
+(``resilience.manifest.commit_npz`` / ``commit_json``): ``<kind>.tmp``
+fires after the tmp file is written but before digest and rename,
+``<kind>.commit`` after the rename but before the manifest entry lands;
+``manifest.commit`` between the manifest's tmp write and its rename.  The
+other sites are ``level.start`` (the top of each BFS level),
+``bucket.level`` (the top of each batched-bucket level), ``lease.renew``
+(a lease heartbeat), ``tensor.flip`` and ``hashstore.grow`` (the Nth slab
+grow: ``fail`` turns the run onto the sorted visited store).  The
+reference's mesh, tier, partial-record, pool and device sites come with
+those parts of the port.  A spec that names a site the port does not
+poll, or an action its site cannot perform (``torn``/``flip`` need an
+artifact), is refused at parse time: a typo must not silently test
+nothing.
 
 Determinism: counters are per-site and in-process; the Nth hit is the
 Nth call.  The no-plan fast path is one attribute load and a truthiness
@@ -25,19 +41,42 @@ check.
 from __future__ import annotations
 
 import os
+import signal
 import sys
 
-# site registry: name -> what firing there means
-FAULT_SITES = {
-    "tensor.flip": "single-device level end: one bit of the first live "
-                   "frontier row flips on device (action `flip`; the "
-                   "--audit cross-check catches it)",
-    "hashstore.grow": "the Nth visited-slab grow/rehash (action `fail`: the "
-                      "run degrades to the sorted visited store)",
-}
+_WRITER = ("kill", "torn", "flip", "fail", "pause")
+_RUNTIME = ("kill", "fail", "pause")
 
-# the actions each site performs (the caller's flip; fire's FaultError)
-_ACTIONS = {"tensor.flip": ("flip",), "hashstore.grow": ("fail",)}
+# site registry: name -> (what firing there means, the actions it performs)
+FAULT_SITES = {
+    "delta.tmp": ("single-device delta record: tmp written, not renamed", _WRITER),
+    "delta.commit": ("single-device delta record: renamed, not manifested", _WRITER),
+    "hslab.tmp": ("hash-slab snapshot: tmp written, not renamed", _WRITER),
+    "hslab.commit": ("hash-slab snapshot: renamed, not manifested", _WRITER),
+    "manifest.commit": ("manifest json: tmp written, not renamed", _WRITER),
+    "job.tmp": ("service job spec: tmp written, not renamed", _WRITER),
+    "job.commit": ("service job spec: renamed, not manifested", _WRITER),
+    "jobstate.tmp": ("service state record: tmp written, not renamed", _WRITER),
+    "jobstate.commit": ("service state record: renamed, not manifested", _WRITER),
+    "result.tmp": ("service result record: tmp written, not renamed", _WRITER),
+    "result.commit": ("service result record: renamed, not manifested", _WRITER),
+    "lease.tmp": ("service worker lease: tmp written, not renamed", _WRITER),
+    "lease.commit": ("service worker lease: renamed (unmanifested kind)", _WRITER),
+    "bstate.tmp": ("bucket snapshot: tmp written, not renamed", _WRITER),
+    "bstate.commit": ("bucket snapshot: renamed, not manifested", _WRITER),
+    "metrics.tmp": ("service metrics snapshot: tmp written, not renamed", _WRITER),
+    "metrics.commit": ("service metrics snapshot: renamed, not manifested", _WRITER),
+    "level.start": ("top of a BFS level", _RUNTIME),
+    "bucket.level": ("top of each batched-bucket level (`kill` dies mid-bucket "
+                     "with the bstate snapshot behind)", _RUNTIME),
+    "lease.renew": ("top of a lease heartbeat, before the ownership re-check",
+                    _RUNTIME),
+    "tensor.flip": ("single-device level end: one bit of the first live "
+                    "frontier row flips on device (action `flip`; the "
+                    "--audit cross-check catches it and rewinds)", ("flip",)),
+    "hashstore.grow": ("the Nth visited-slab grow/rehash (action `fail`: the "
+                       "run degrades to the sorted visited store)", ("fail",)),
+}
 
 
 class FaultError(RuntimeError):
@@ -71,25 +110,23 @@ class FaultPlan:
                     f"unknown fault site {site!r} (known: "
                     f"{', '.join(sorted(FAULT_SITES))})"
                 )
-            if action not in _ACTIONS[site]:
+            if action not in FAULT_SITES[site][1]:
                 raise ValueError(
                     f"fault action {action!r} is not one {site} performs (known: "
-                    f"{', '.join(_ACTIONS[site])})"
+                    f"{', '.join(FAULT_SITES[site][1])})"
                 )
             if n < 1:
                 raise ValueError(f"fault occurrence must be >= 1, got {n}")
             self.triggers.append((site, action, n))
 
-    def fire(self, site: str) -> None:
-        """Hit a site whose action is ``fail``: an armed trigger raises
-        ``FaultError`` at this hit."""
+    def fire(self, site: str, path: str | None = None) -> None:
         n = self.counts.get(site, 0) + 1
         self.counts[site] = n
         for tsite, action, tn in self.triggers:
             if tsite != site or tn != n:
                 continue
             self.fired.append(f"{site}:{action}@{n}")
-            raise FaultError(f"injected transient failure at {site} (#{n})")
+            self._perform(site, action, n, path)
 
     def fire_flag(self, site: str) -> bool:
         """Hit a site whose ``flip`` the caller applies: True when an
@@ -106,6 +143,38 @@ class FaultPlan:
             hit = True
         return hit
 
+    def _perform(self, site, action, n, path):
+        note = f"[fault] {site}:{action}@{n}"
+        if action == "kill":
+            print(f"{note} — SIGKILL", file=sys.stderr)
+            sys.stderr.flush()
+            os.kill(os.getpid(), signal.SIGKILL)
+        if action == "pause":
+            print(f"{note} — SIGSTOP (waiting for SIGCONT)", file=sys.stderr)
+            sys.stderr.flush()
+            os.kill(os.getpid(), signal.SIGSTOP)
+            print(f"{note} — resumed", file=sys.stderr)
+            return
+        if action == "fail":
+            raise FaultError(f"injected transient failure at {site} (#{n})")
+        if path is None or not os.path.exists(path):
+            raise ValueError(
+                f"fault {site}:{action} needs an artifact path but the "
+                "site fired without one"
+            )
+        size = os.path.getsize(path)
+        if action == "torn":
+            print(f"{note} — truncating {path} to {size // 2} B", file=sys.stderr)
+            with open(path, "r+b") as fh:
+                fh.truncate(size // 2)
+        elif action == "flip":
+            print(f"{note} — flipping byte {size // 2} of {path}", file=sys.stderr)
+            with open(path, "r+b") as fh:
+                fh.seek(size // 2)
+                b = fh.read(1)
+                fh.seek(size // 2)
+                fh.write(bytes([b[0] ^ 0xFF]))
+
 
 # The process-wide plan.  ``None`` means "not yet armed from the env";
 # an EMPTY plan (no triggers) is the normal production state.
@@ -120,7 +189,7 @@ def plan() -> FaultPlan:
 
 
 def install(spec: str) -> FaultPlan:
-    """Arm a plan explicitly (tests, chip_smoke.py)."""
+    """Arm a plan explicitly (the CLI's ``--fault``; tests, chip_smoke.py)."""
     global _PLAN
     _PLAN = FaultPlan(spec)
     return _PLAN
@@ -132,11 +201,11 @@ def reset() -> None:
     _PLAN = FaultPlan("")
 
 
-def fire(site: str) -> None:
+def fire(site: str, path: str | None = None) -> None:
     """Hit a fault site (a no-op unless a plan targets it)."""
     p = plan()
     if p.triggers:
-        p.fire(site)
+        p.fire(site, path)
 
 
 def fire_flag(site: str) -> bool:
