@@ -56,8 +56,8 @@ Phases, each printed as JSON lines:
    runs, prints the counts just after, and fails if a kernel of its path
    did not launch (the staged phase: the staged chain's eight; the default
    phase: every kernel but drop_rows, K3's factored mode, the orbit pair,
-   the cross-check arms' three, the sorted store's three and the bucket
-   core's three; the tiered
+   the cross-check arms' three, the sorted store's three, the bucket
+   core's three and group_unique; the tiered
    phase: the fused path's eleven and drop_rows; the
    grouped phase: the staged chain's, level, hs_probe and filter_compact;
    the scale phase: the fused path's eleven and K3's factored mode; the
@@ -71,8 +71,10 @@ Phases, each printed as JSON lines:
    tail and K1, K2, K3; the flip drill: the legacy pair; the sorted and
    degrade phases: the sorted store's three, filter_compact and the eager
    chain's kernels, with K4, level, superstep and sieve never launched on
-   the sorted phase; the cli and checkpoint phases run in processes of
-   their own; the bucket phase: the three bucket kernels and the chain
+   the sorted phase; the fpstore phases: group_unique and the staged
+   chain's kernels but K4, with K4, hs_probe, filter_compact, the fused
+   level's, the sieve and the sorted store's three never launched; the
+   cli, checkpoint and fpstore_kill phases run in processes of their own; the bucket phase: the three bucket kernels and the chain
    around them (dense_expand, chunk_compact, K4, the compactions,
    inflate, K2, inv_scan, the level and superstep control); the service
    phase: those and the fused path's eleven; the others: the fused
@@ -137,6 +139,28 @@ Phases, each printed as JSON lines:
                 traces equal the sequential runs'), and the SIGKILL drill at
                 the 4th bstate commit in ``service run --once`` subprocesses,
                 then a converging second pass;
+    fpstore   — the external store route (``--fpstore-dir``: the native
+                store under build/smoke/, B19 ``group_unique`` per group of
+                16 chunks, the level-wide choice and the store's filter on
+                the host, segment-list frontiers) on the Raft.cfg constants
+                to depth 26, every level golden (22,959,572 new at 26;
+                71,719,759 distinct), the store holding every distinct state
+                and spilling sorted runs to disk past its 64 MiB buffer, one
+                read and, for a full group inside a segment, one graph
+                launch a group, no device-store kernel launched; the wall and
+                per-level seconds (the depth-25 wall beside the default
+                phase's), peak device memory, host seconds by part (the
+                groups on the card, the reads, the lexsort, the store's
+                insert, the materialize walk), runs and bloom skips;
+    fpstore_paged — the same route to depth 22 under TLA_RAFT_DEV_BYTES =
+                1e9, with checkpoints: golden, segments paged out to host
+                RAM, the per-level (pidx, slot) digests equal to the fpstore
+                phase's;
+    fpstore_kill — the route through the CLI to depth 22, killed by
+                ``partial.commit:kill@N`` after the 6th partial of level 22,
+                then ``--recover``: golden, the level's committed attempt
+                loading the saved groups and expanding the rest, every delta
+                record equal to the paged phase's, no partial left;
 12. twins     — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
@@ -154,7 +178,9 @@ Phases, each printed as JSON lines:
                 legacy_materialize: the legacy phase; sorted_member,
                 level_dedup and merge_sorted: the sorted phase, each on the
                 inputs of its depth-25 call in a second sorted run that keeps
-                only that level's; the rest: the default
+                only that level's; group_unique: the fpstore phase, on the
+                lanes of level 25's last full group, and on a copy with SENT
+                lanes and ties; the rest: the default
                 phase); then
                 the kernels again at 5 and 7 servers on the scale runs'
                 frontiers (K1 at K = 1,900 / 3,696, K2, inflate and deflate
@@ -242,6 +268,15 @@ FLIP_STOP = (
 DEPTH_DEGRADE = 23
 # the checkpoint phase: the Raft.cfg constants to depth 22 through the CLI
 DEPTH_CHECKPOINT = 22
+# the external store route (--fpstore-dir): the Raft.cfg constants to depth
+# 26, the port's first level past 25 (GOLDEN_LEVELS[(3,2,3,3)] at 26:
+# 22,959,572 new, 71,719,759 distinct); paged and killed to 22
+DEPTH_FPSTORE = 26
+GOLDEN_LEVEL_26 = 22_959_572
+DEPTH_FPSTORE_PAGED = 22
+FPSTORE_DEV_BYTES = 1e9  # the paged phase's TLA_RAFT_DEV_BYTES: the deep levels page
+FPSTORE_KILL_LEVEL = 22  # the kill lands in this level, after KILL_SAVED of its partials
+FPSTORE_KILL_SAVED = 6
 # TLC's Raft.cfg (the reference constants), for the cli phase's --config
 RAFT_CFG = """CONSTANTS
     MaxTerm = 3
@@ -1435,6 +1470,266 @@ def phase_service(chunk: int) -> dict:
                kill_drill=dict(first_exit=p1.returncode, recovered=stats["recovered"],
                                counts=stats["counts"]))
     emit(out)
+    return out
+
+
+# -- slice 9: the external store route (--fpstore-dir) ------------------------------
+
+
+def _golden_to(depth: int) -> list:
+    return (GOLDEN_LEVELS_REF + [GOLDEN_LEVEL_26])[: depth + 1]
+
+
+def host_counts(c: dict) -> None:
+    never = ("hashstore", "hs_probe", "filter_compact", "level", "superstep", "sieve",
+             "sorted_member", "level_dedup", "merge_sorted")
+    check(all(c[k] == 0 for k in never),
+          "device-store kernels launched on the external store route: "
+          + str({k: c[k] for k in never if c[k]}))
+
+
+def _fpstore_run(name: str, depth: int, chunk: int, dev_bytes: float = 0,
+                 checkpoint: bool = False, keep_level: int | None = None):
+    """The Raft.cfg constants to ``depth`` on the external store route (a
+    native store under build/smoke/<name>/, ``TLA_RAFT_DEV_BYTES`` =
+    ``dev_bytes`` while the checker is built): (checker, result, levels,
+    seconds, the phase directory, the group program's lanes of the last
+    full group of level ``keep_level``)."""
+    import os
+
+    import torch
+
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+    from tla_raft_tpu_torch.native import HostFPStore
+
+    d = _smoke_dir(name)
+    store = HostFPStore(str(d / "fps"))
+    levels = []
+    old = os.environ.pop("TLA_RAFT_DEV_BYTES", None)
+    if dev_bytes:
+        os.environ["TLA_RAFT_DEV_BYTES"] = repr(dev_bytes)
+    try:
+        chk = TorchChecker(RaftConfig(), device="cuda", chunk=chunk, progress=levels.append,
+                           host_store=store)
+    finally:
+        os.environ.pop("TLA_RAFT_DEV_BYTES", None)
+        if old is not None:
+            os.environ["TLA_RAFT_DEV_BYTES"] = old
+    kept = {}
+    if keep_level is not None:
+        real = chk._expand_level_host
+
+        def expand(segs, n_f, ckdir, depth):
+            res = real(segs, n_f, ckdir, depth)
+            if depth + 1 == keep_level:
+                prog = next(p for p in chk._progs.progs.values() if p.kind == "host_group")
+                kept.update(cv=prog.cv.clone(), cf=prog.cf.clone(), cp=prog.cp.clone())
+            return res
+
+        chk._expand_level_host = expand
+    D.READS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    WALLS["base_bytes"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = chk.run(max_depth=depth, checkpoint_dir=str(d / "ck") if checkpoint else None)
+    torch.cuda.synchronize()
+    return chk, res, levels, time.perf_counter() - t0, d, kept
+
+
+def _host_out(chk, res, levels, secs, depth) -> dict:
+    hs = chk.host_stats
+    st = chk.host_store
+    return dict(
+        **_common(res, levels, secs, depth), routes=chk.routes, cap_x=chk.cap_x,
+        cap_m=chk.cap_m, redos=chk.redos, paged_out=chk.paged_out, dev_budget=chk.dev_budget,
+        store=dict(entries=len(st), runs=st.num_runs, bloom_skips=st.bloom_skips),
+        host_seconds={k: hs[k] for k in ("group_s", "fetch_s", "lexsort_s", "insert_s",
+                                          "materialize_s")},
+        groups=dict(all=hs["groups"], graph=hs["graph_groups"], chunks=hs["chunk_groups"],
+                    saved=hs["saved_groups"]),
+        candidates=hs["candidates"], unique=hs["unique"],
+        graph_captures=chk.graph_stats["captures"],
+        capture_seconds=chk.graph_stats["capture_seconds"],
+        level_log=hs["level_log"])
+
+
+def _check_host_run(out: dict, res, depth: int) -> None:
+    want = _golden_to(depth)
+    check(res.ok and list(res.level_sizes) == want,
+          f"level sizes {list(res.level_sizes)} != golden {want}")
+    check(out["store"]["entries"] == res.distinct,
+          f"the external store holds {out['store']['entries']} fingerprints, not {res.distinct}")
+    check(out["routes"]["host"] == depth and sum(out["routes"].values()) == depth,
+          f"routes {out['routes']}")
+    for lv in out["level_log"]:
+        # one read a group (the level's materialize read comes after)
+        check(lv["reads"] == lv["groups"] - lv["saved"],
+              f"level {lv['level']}: {lv['reads']} reads for {lv['groups']} groups")
+        check(lv["graph_launches"] == lv["graph_groups"],
+              f"level {lv['level']}: {lv['graph_launches']} graph launches for "
+              f"{lv['graph_groups']} program groups")
+
+
+def phase_fpstore(depth: int, chunk: int) -> dict:
+    """The external store route to ``depth``: golden level by level, the
+    store holding every distinct state and spilling runs to disk past its
+    64 MiB buffer, one read and (for a full group inside a segment) one
+    graph launch a group; the wall and per-level seconds (the depth-25 wall
+    beside the default phase's), peak device memory, the host seconds by
+    part.  Keeps the lanes of level 25's last full group for the kernels
+    line."""
+    import torch
+
+    chk, res, levels, secs, d, kept = _fpstore_run("fpstore", depth, chunk,
+                                                   keep_level=min(25, depth))
+    out = dict(phase="fpstore", **_host_out(chk, res, levels, secs, depth),
+               wall_to_25=next((lv["elapsed"] for lv in levels if lv["level"] == 25), None),
+               default_wall_to_25=WALLS.get("default"))
+    digests = level_digests(chk)
+    chk.host_store.close()  # its run files go with it
+    chk = None
+    torch.cuda.empty_cache()
+    emit(out)
+    _check_host_run(out, res, depth)
+    check(out["store"]["runs"] >= 1, "the store never spilled a sorted run")
+    check(out["groups"]["graph"] > 0 and out["paged_out"] == 0, f"groups {out['groups']}")
+    check(set(kept) == {"cv", "cf", "cp"}, "no group program lanes kept at level 25")
+    kept["level"] = min(25, depth)
+    WALLS["fpstore"] = secs
+    return dict(digests=digests, lanes=kept)
+
+
+def phase_fpstore_paged(depth: int, chunk: int, digests: list) -> dict:
+    """The external store route to ``depth`` under TLA_RAFT_DEV_BYTES =
+    FPSTORE_DEV_BYTES, with checkpoints: golden, segments paged out to host
+    RAM, the per-level (pidx, slot) digests equal to the fpstore phase's;
+    its delta records are the kill phase's clean run."""
+    import torch
+
+    chk, res, levels, secs, d, _ = _fpstore_run("fpstore_paged", depth, chunk,
+                                                dev_bytes=FPSTORE_DEV_BYTES, checkpoint=True)
+    out = dict(phase="fpstore_paged", **_host_out(chk, res, levels, secs, depth))
+    mine = level_digests(chk)
+    chk.host_store.close()
+    chk = None
+    torch.cuda.empty_cache()
+    emit(out)
+    _check_host_run(out, res, depth)
+    check(out["paged_out"] > 0, "no segment was paged out under the budget")
+    check(digests is None or mine == digests[:depth],
+          "the paged run's (pidx, slot) records differ from the fpstore phase's")
+    return dict(ck=d / "ck", paged_out=out["paged_out"])
+
+
+def phase_fpstore_kill(depth: int, clean) -> dict:
+    """The external store route through the CLI: killed by
+    ``partial.commit:kill@N`` (N: the FPSTORE_KILL_SAVED-th partial of level
+    FPSTORE_KILL_LEVEL, each level writing one partial a group), then
+    ``--recover``: golden, only the unsaved groups of that level expanded,
+    every delta record equal to the paged phase's, no partial left."""
+    import signal
+
+    G, rows = 16, 16 * CHUNK
+    groups = [-(-GOLDEN_LEVELS_REF[lv - 1] // rows) for lv in range(1, FPSTORE_KILL_LEVEL + 1)]
+    check(groups[-1] > FPSTORE_KILL_SAVED, f"level {FPSTORE_KILL_LEVEL} has {groups[-1]} groups")
+    n_kill = sum(groups[:-1]) + FPSTORE_KILL_SAVED
+    d = _smoke_dir("fpstore_kill")
+    base = ["--max-depth", str(depth), "--json", "--fpstore-dir", str(d / "fps"),
+            "--checkpoint-dir", str(d / "ck")]
+    rc, got, secs_kill, err = _check_cli(base + ["--fault", f"partial.commit:kill@{n_kill}"])
+    check(rc == -signal.SIGKILL, f"fpstore kill: exit {rc} (want {-signal.SIGKILL}): {err}")
+    left = sorted(p.name for p in (d / "ck").glob("partial_*.npz"))
+    rc, got, secs, err = _check_cli(base + ["--recover", str(d / "ck")])
+    check(rc == 0, f"fpstore recover: exit {rc}: {err}")
+    hs = got.get("host_store", {})
+    last = hs.get("last_level", {})
+    out = dict(phase="fpstore_kill", kill_at_partial=n_kill, groups_per_level=groups,
+               partials_at_kill=left, kill_process_s=secs_kill, resume_process_s=secs,
+               resume_run_s=got.get("seconds"), last_level=last,
+               groups_expanded_in_all_attempts=hs.get("groups"),
+               groups_loaded_in_all_attempts=hs.get("saved_groups"),
+               level_sizes=got.get("level_sizes"))
+    emit(out)
+    check(got["level_sizes"] == _golden_to(depth), f"fpstore recover level sizes {got}")
+    check(len(left) == FPSTORE_KILL_SAVED
+          and all(n.startswith(f"partial_{FPSTORE_KILL_LEVEL:04d}_") for n in left),
+          f"partials at the kill: {left}")
+    # the committed attempt of the resumed level loaded the saved groups and
+    # expanded the rest (a fresh process's cap_x may overflow there first:
+    # the redo loads the groups completed before the overflow too)
+    check(last.get("level") == FPSTORE_KILL_LEVEL
+          and last.get("saved", -1) >= FPSTORE_KILL_SAVED and last.get("groups") == groups[-1],
+          f"the resumed level's committed attempt: {last}; want {FPSTORE_KILL_SAVED} of "
+          f"{groups[-1]} groups loaded")
+    check(not list((d / "ck").glob("partial_*.npz")), "partials left after the level")
+    da, db = _delta_arrays(clean), _delta_arrays(d / "ck")
+    check(sorted(da) == sorted(db) and len(da) == depth, f"delta records {sorted(db)}")
+    for name in da:
+        for k, v in da[name].items():
+            check(np.array_equal(v, db[name][k]) and v.dtype == db[name][k].dtype,
+                  f"{name}:{k} differs after the kill and resume")
+    return out
+
+
+def phase_host_kernels(lanes: dict, launches: dict, seed: int) -> list:
+    """``group_unique`` against its twin on the lanes of level 25's last
+    full group (G * cap_x = 1,048,576 lanes at the main path's chunk) and on
+    a copy with a third of the lanes SENT and ties in fp_view with other
+    fp_full and payloads, with times: the twin, the library (three stable
+    ``torch.argsort``, the lexsort, then ``torch.masked_select`` of the
+    first lanes), and the bound of 48 B a lane (each input read once, each
+    output written once)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import bfs
+    from tla_raft_tpu_torch.u64 import SENT, ukey
+
+    cv, cf, cp = lanes["cv"], lanes["cf"], lanes["cp"]
+    n = cv.shape[0]
+    k = bfs.group_unique(cv, cf, cp)
+    p = bfs.group_unique_plain(cv, cf, cp)
+    check(int(k[0]) == int(p[0]) and all(_equal(a, b) for a, b in zip(k[1:], p[1:])),
+          "group_unique differs from its twin on level 25's lanes")
+    n_u = int(k[0])
+    # ties and SENT: a third SENT, the rest's fp_view drawn from 1,024 values
+    gen = np.random.default_rng(seed)
+    dev = cv.device
+    tie_v = cv[torch.from_numpy(gen.integers(0, n, 1024)).to(dev)]
+    av = tie_v[torch.from_numpy(gen.integers(0, 1024, n)).to(dev)]
+    av = torch.where(torch.from_numpy(gen.random(n) < 1 / 3).to(dev), torch.full_like(av, SENT),
+                     av)
+    af = torch.from_numpy(gen.integers(-(1 << 62), 1 << 62, n)).to(dev)
+    ap = torch.from_numpy(gen.integers(-1, 1 << 40, n)).to(dev)
+    ka = bfs.group_unique(av, af, ap)
+    pa = bfs.group_unique_plain(av, af, ap)
+    check(int(ka[0]) == int(pa[0]) and all(_equal(a, b) for a, b in zip(ka[1:], pa[1:])),
+          "group_unique differs from its twin with ties and SENT lanes")
+    ties_u = int(ka[0])
+    k = p = ka = pa = av = af = ap = None
+    scratch = kernels.GroupUniqueScratch(n, dev)
+    outs = tuple(torch.empty_like(cv) for _ in range(3))
+    n_out = torch.empty((), dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: kernels.group_unique(cv, cf, cp, out=outs, n_u=n_out, scratch=scratch),
+                 10)
+    plain = wall_ms(lambda: bfs.group_unique_plain(cv, cf, cp))
+
+    def library():
+        order = torch.argsort(cp, stable=True)
+        order = order[torch.argsort(ukey(cf[order]), stable=True)]
+        order = order[torch.argsort(ukey(cv[order]), stable=True)]
+        sv = cv[order]
+        keep = torch.ones_like(sv, dtype=torch.bool)
+        keep[1:] = sv[1:] != sv[:-1]
+        keep &= sv != SENT
+        return [torch.masked_select(x, keep) for x in (sv, cf[order], cp[order])]
+
+    lib = cuda_ms(library, 5)
+    out = []
+    rec = _entry(out, launches, kernels.GROUP_UNIQUE, ms, plain, n * 48, lib)
+    rec.update(lanes=n, n_u=n_u, ties_case_n_u=ties_u)
     return out
 
 
@@ -2760,7 +3055,7 @@ def main() -> int:
         "default", [k for k in kernels.KERNELS
                     if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH
                     + kernels.EXPAND_PATH + kernels.LEGACY_PATH + kernels.SORTED_PATH
-                    + kernels.BUCKET_PATH],
+                    + kernels.BUCKET_PATH + kernels.HOST_PATH],
         phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
@@ -2823,6 +3118,18 @@ def main() -> int:
     if bucket_results:
         run("bucket_sequential", fused, phase_bucket_sequential, CHUNK, bucket_results)
     run("service", bucket_path + fused, phase_service, CHUNK)
+    # slice 9: the external store route (--fpstore-dir)
+    host_path = kernels.HOST_PATH + ("guards", "compact", "inflate", "materialize",
+                                     "fingerprint", "deflate", "inv_scan")
+    fps_out, fps_launches = run("fpstore", host_path, phase_fpstore, DEPTH_FPSTORE, CHUNK,
+                                counts_check=host_counts)
+    launches.update({k: fps_launches[k] for k in kernels.HOST_PATH})
+    paged, _ = run("fpstore_paged", host_path, phase_fpstore_paged, DEPTH_FPSTORE_PAGED, CHUNK,
+                   fps_out["digests"] if fps_out else None, counts_check=host_counts)
+    if paged:
+        run("fpstore_kill", (), phase_fpstore_kill, DEPTH_FPSTORE_PAGED, paged["ck"])
+    else:
+        failures.append("fpstore_kill: no clean checkpointed run to compare with")
     records, shapes, scale_times, orbit_shapes = [], None, None, None
     if not bucket_results:
         failures.append("bucket_kernels: no bucket run to test on")
@@ -2839,10 +3146,13 @@ def main() -> int:
                            ("orbit_kernels", phase_orbit_kernels,
                             ((orbit_runs or {}).get(7), launches)),
                            ("cross_kernels", phase_cross_kernels, (chk, launches, SEED)),
-                           ("sorted_kernels", phase_sorted_kernels, (launches,))):
+                           ("sorted_kernels", phase_sorted_kernels, (launches,)),
+                           ("host_kernels", phase_host_kernels,
+                            ((fps_out or {}).get("lanes"), launches, SEED))):
         if chk is None or (name == "scale_kernels" and not runs) or (
                 name == "orbit_kernels" and not orbit_runs) or (
-                name == "sorted_kernels" and not sorted_out):
+                name == "sorted_kernels" and not sorted_out) or (
+                name == "host_kernels" and not fps_out):
             failures.append(f"{name}: no reference run to test on")
             continue
         try:
@@ -2859,9 +3169,9 @@ def main() -> int:
         elif name == "orbit_kernels":
             records += res[0]
             orbit_shapes = res[1]
-        elif name in ("cross_kernels", "sorted_kernels"):
+        elif name in ("cross_kernels", "sorted_kernels", "host_kernels"):
             records += res
-    runs = orbit_runs = None  # free the runs' frontiers and slabs
+    runs = orbit_runs = fps_out = None  # free the runs' frontiers, slabs and lanes
     torch.cuda.empty_cache()
     emit(dict(kernels=records, shapes=shapes, scale=scale_times, orbit=orbit_shapes))
     if chk is not None:

@@ -936,3 +936,87 @@ def test_bucket_runs_on_the_card_equal_the_cpu(run):
         keys = ("ok", "distinct", "generated", "depth", "level_sizes", "violation")
         assert [{k: r[k] for k in keys} for r in got] == [{k: r[k] for k in keys} for r in want]
         assert all(counts[k] > 0 for k in kernels.BUCKET_PATH)
+
+
+# -- the external store route (--fpstore-dir) ----------------------------------------
+
+
+def _unique_cases(run):
+    """group_unique inputs: a real group's lanes (the depth-10 frontier's
+    chunks of the Raft.cfg constants, padded to G chunks), seeded lanes with
+    ties in fp_view (other fp_full and payloads), top-bit values and SENT
+    pads, all-SENT, one lane, and no lane."""
+    cv, cf, cp, _store = _level_lanes(run, 4)
+    cases = [(cv, cf, cp)]
+    g = np.random.default_rng(9)
+    n = 1 << 20
+    top = np.where(g.random(n) < 0.5, np.uint64(1 << 63), np.uint64(0))
+    pool = g.integers(0, 1 << 63, 4096, dtype=np.uint64) | top[:4096]
+    v = pool[g.integers(0, 4096, n)]
+    f = g.integers(0, 1 << 63, n, dtype=np.uint64) | top
+    f[g.random(n) < 0.3] = f[0]  # ties in (fp_view, fp_full): the payload decides
+    p = g.integers(0, 1 << 40, n).astype(np.int64)
+    pad = g.random(n) < 0.3
+    v[pad], f[pad], p[pad] = np.uint64(2**64 - 1), np.uint64(2**64 - 1), -1
+    cases.append(tuple(torch.from_numpy(x.view(np.int64).copy()).cuda() for x in (v, f, p)))
+    sent = torch.full((4096,), -1, dtype=torch.int64, device="cuda")
+    cases.append((sent, sent.clone(), sent.clone()))
+    one = torch.tensor([123456789], dtype=torch.int64, device="cuda")
+    cases.append((one, one * 3, one * 5))
+    empty = torch.empty((0,), dtype=torch.int64, device="cuda")
+    cases.append((empty, empty, empty))
+    return cases
+
+
+def test_group_unique_kernel_equals_twin(run):
+    """group_unique against its twin: n_u and the three padded outputs equal
+    (the SENT / -1 tail included) on real and adversarial lanes, into
+    caller buffers too."""
+    for cv, cf, cp in _unique_cases(run):
+        k = bfs.group_unique(cv, cf, cp)
+        p = bfs.group_unique_plain(cv, cf, cp)
+        assert int(k[0]) == int(p[0]) and all(torch.equal(a, b) for a, b in zip(k[1:], p[1:]))
+        n = cv.shape[0]
+        out = tuple(torch.full((n,), 7, dtype=torch.int64, device="cuda") for _ in range(3))
+        n_u = torch.zeros((), dtype=torch.int64, device="cuda")
+        kernels.group_unique(cv, cf, cp, out=out, n_u=n_u,
+                             scratch=kernels.GroupUniqueScratch(n, cv.device))
+        assert int(n_u) == int(p[0]) and all(torch.equal(a, b) for a, b in zip(out, p[1:]))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["resident", "paged"])
+def test_host_store_runs_on_the_card_equal_the_cpu(run, tmp_path, monkeypatch, paged):
+    """The external store route on the card: (3,1,2,1) to depth 13 at chunk
+    64 with G = 2 and the group program engaged (``span_min_chunk`` 64),
+    equal to the CPU's run level by level, the store's size and the delta
+    records included; ``group_unique`` runs and the device store's kernels
+    do not.  Paged: segments of 256 rows and a 1-byte budget, so every
+    sealed segment pages out to host RAM."""
+    import glob
+
+    from tla_raft_tpu_torch.native import HostFPStore
+
+    if paged:
+        monkeypatch.setattr(bfs, "SEG_ROWS", 256)
+
+    def go(device):
+        chk = TorchChecker(RaftConfig(3, 1, 2, 1), device=device, chunk=64,
+                           host_store=HostFPStore(str(tmp_path / device / "fps")))
+        chk.G, chk.span_min_chunk = 2, 64
+        chk.dev_budget = 1 if paged else 0
+        return chk, chk.run(max_depth=13, checkpoint_dir=str(tmp_path / device / "ck"))
+
+    cc, want = go("cpu")
+    kernels.reset_launches()
+    chk, got = go("cuda")
+    counts = kernels.launch_counts()
+    assert _result_tuple(got) == _result_tuple(want) and chk.routes["host"] == 13
+    assert len(chk.host_store) == len(cc.host_store) == got.distinct
+    assert chk.paged_out == cc.paged_out and (chk.paged_out > 0) == paged
+    assert chk.host_stats["graph_groups"] == cc.host_stats["graph_groups"] > 0
+    for f in sorted(glob.glob(str(tmp_path / "cpu" / "ck" / "delta_*.npz"))):
+        with np.load(f) as a, np.load(f.replace("/cpu/", "/cuda/")) as b:
+            assert all(np.array_equal(a[k], b[k]) for k in a.files)
+    assert counts["group_unique"] > 0
+    assert all(counts[k] == 0 for k in ("hashstore", "hs_probe", "level", "superstep",
+                                        "level_dedup"))

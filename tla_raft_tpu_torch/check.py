@@ -24,10 +24,13 @@ semantics), or without one from the Raft.cfg defaults; ``--servers``,
 
     python -m tla_raft_tpu_torch.check --max-depth 22 --checkpoint-dir ck  # delta log
     python -m tla_raft_tpu_torch.check --max-depth 22 --checkpoint-dir ck --recover ck
+    python -m tla_raft_tpu_torch.check --max-depth 26 --fpstore-dir fps    # external store
 
 Exit code 0 when no error was found, 1 on a violation, 2 when the spec
 beside the cfg differs from the compiled semantics (or on --dev-bytes with
---checkpoint-dir), 4 on an integrity fail-stop, 75 on a preemption
+--checkpoint-dir and no --fpstore-dir, or on a TLA_RAFT_DEV_BYTES /
+TLA_RAFT_FSEG_BYTES setting the port does not run), 4 on an integrity
+fail-stop, 75 on a preemption
 (SIGTERM/SIGINT: the run stops at a level boundary, resumable with
 --recover) — the reference's, check.py:1015-1275.
 """
@@ -151,6 +154,20 @@ def summarize(res, seconds: float, chk) -> dict:
         out["grouped"] = dict(levels=len(chk.group_log), cap_g=chk.cap_g,
                               lanes=sum(g["lanes"] for g in chk.group_log),
                               ungrouped_lanes=sum(g["ungrouped_lanes"] for g in chk.group_log))
+    if chk.host_store is not None:
+        st, hs = chk.host_store, chk.host_stats
+        out["host_store"] = dict(
+            entries=len(st), runs=st.num_runs, bloom_skips=st.bloom_skips,
+            mem_budget_entries=st.mem_budget_entries, paged_out=chk.paged_out,
+            dev_budget=chk.dev_budget,
+            **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in hs.items()
+               if k != "level_log"})
+        if hs["level_log"]:
+            # the last level's attempt that committed: its groups, and those
+            # of them loaded from partial records
+            out["host_store"]["last_level"] = {
+                k: hs["level_log"][-1][k] for k in ("level", "groups", "saved", "graph_groups",
+                                                    "new")}
     tiered = chk.tiered
     if tiered is not None and (tiered.stats["demotions"] or tiered.stats["probes"]):
         out["tiered"] = dict(tiered.stats, dev_bytes=tiered.dev_bytes,
@@ -171,7 +188,8 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
               use_hashstore: bool | None = None, use_mxu: bool | None = None,
               megakernel: bool | None = None, superstep: int | None = None, audit: int = 0,
               audit_retries: int = 3, dev_bytes: int | None = None, progress=None, out=None,
-              install_signals: bool = False, config_path: str | None = None) -> dict:
+              install_signals: bool = False, config_path: str | None = None,
+              fpstore_dir: str | None = None, warm_bytes: int | None = None) -> dict:
     """One in-process check -> the ``--json`` summary dict (check.py:316):
     the programmatic entry the sweep service and the tests call.  ``out``
     (a stream, or None) receives the CLI's informational lines, ``progress``
@@ -179,24 +197,41 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
     preemption (the CLI's exit 75) and propagates engine errors; the
     ``_res`` / ``_chk`` keys carry the raw result and checker
     (``summary_public`` strips them).  ``config_path`` names the cfg file
-    the constants came from in the ``Config`` line."""
+    the constants came from in the ``Config`` line.  ``fpstore_dir`` puts
+    the visited set in the native external store there (check.py:664-680),
+    its RAM buffer ``warm_bytes // 8`` fingerprints (``TLA_RAFT_WARM_BYTES``
+    when not given; the native 64 MiB default when neither is set); the
+    store is cleared unless the run recovers."""
     from . import resilience
     from .engine.bfs import TorchChecker
 
     if install_signals:
         # SIGTERM/SIGINT finish the level, flush, and raise Preempted
         resilience.install_signal_handlers()
+    if warm_bytes is None and os.environ.get("TLA_RAFT_WARM_BYTES"):
+        warm_bytes = int(float(os.environ["TLA_RAFT_WARM_BYTES"]))
     t0 = time.monotonic()
+    host_store = None
+    if fpstore_dir:
+        from .native import HostFPStore
+
+        host_store = HostFPStore(fpstore_dir,
+                                 mem_budget_entries=max(warm_bytes // 8, 1) if warm_bytes else 0)
+        if not recover:
+            # run files a crashed earlier process left behind
+            host_store.clear()
     chk = TorchChecker(cfg, device=device, chunk=chunk, progress=progress,
                        megakernel=megakernel, superstep=superstep,
                        store_bytes=int(dev_bytes) if dev_bytes else None, canon=canon,
                        use_mxu=use_mxu, audit=audit, audit_retries=audit_retries,
-                       use_hashstore=use_hashstore)
+                       use_hashstore=use_hashstore, host_store=host_store)
     if out is not None:
         print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
         where = f" {config_path}" if config_path else ""
         print(f"Config{where}: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
-        if not chk.use_hashstore:
+        if host_store is not None:
+            print(f"Native FP store: {fpstore_dir}", file=out)
+        elif not chk.use_hashstore:
             print("Visited store: sorted (level dedup by radix sort, merged per level)",
                   file=out)
         if chk.store_bytes:
@@ -276,6 +311,14 @@ def main(argv=None) -> int:
     ap.add_argument("--no-hashstore", action="store_true",
                     help="the sort-based visited store (lexsort + searchsorted + sorted merge) "
                          "instead of the hash slab; the same counts (env: TLA_RAFT_HASHSTORE=0)")
+    ap.add_argument("--fpstore-dir", default=None,
+                    help="the native external-memory fingerprint store rooted at this directory "
+                         "(TLC's states/ spill analog): the visited set on the host, per group "
+                         "of chunks deduped on the card and filtered against the store")
+    ap.add_argument("--warm-bytes", type=float, default=None, metavar="BYTES",
+                    help="on --fpstore-dir: the store's in-RAM buffer before it spills a sorted "
+                         "run to disk (unset: the native 64 MiB default; env: "
+                         "TLA_RAFT_WARM_BYTES)")
     ap.add_argument("--cap-x", type=int, default=4096,
                     help="per-device candidate capacity (distributed mode); accepted as the "
                          "reference's CLI accepts it, read nowhere while the port has no mesh")
@@ -337,10 +380,17 @@ def main(argv=None) -> int:
                   "(pass --spec '' to skip).", file=out)
             return 2
         print(f"Spec {spec}: structure matches compiled semantics.", file=out)
-    if args.dev_bytes and args.checkpoint_dir and args.checkpoint_every:
+    if args.dev_bytes and args.checkpoint_dir and args.checkpoint_every and not args.fpstore_dir:
+        # with --fpstore-dir the budget builds no tier (bfs.py:4131)
         print("Refusing --dev-bytes with --checkpoint-dir: resuming a tiered run needs the "
               "tiered store's resume rebuild, which the port does not have yet (run without "
               "one of the two).", file=out)
+        return 2
+    from .engine.bfs import segment_settings_refusal
+
+    why = segment_settings_refusal(bool(args.fpstore_dir))
+    if why:
+        print(f"Refusing: {why}.", file=out)
         return 2
 
     def progress(s):
@@ -358,7 +408,9 @@ def main(argv=None) -> int:
             megakernel=None if args.megakernel is None else bool(args.megakernel),
             superstep=args.superstep, audit=args.audit, audit_retries=args.audit_retries,
             dev_bytes=int(args.dev_bytes) if args.dev_bytes else None, progress=progress,
-            out=out, install_signals=True, config_path=args.config)
+            out=out, install_signals=True, config_path=args.config,
+            fpstore_dir=args.fpstore_dir,
+            warm_bytes=int(args.warm_bytes) if args.warm_bytes else None)
     except resilience.Preempted as e:
         return _report_preempted(e, out)
     except IntegrityError as e:

@@ -10,7 +10,14 @@
 //                         searchsorted against the store, and the stable
 //                         compaction of the survivors: launch_level_dedup;
 //   _merge_sorted (:469)  the sort of the store and the level's new
-//                         fingerprints: launch_merge_sorted.
+//                         fingerprints: launch_merge_sorted;
+//   _group_unique_impl (:437, jitted as _group_unique :465 and fused into
+//                         _expand_group_fused_impl :1130)  the external
+//                         store route's dedup of one group's candidates:
+//                         the first lane of each fp_view in (fp_view,
+//                         fp_full, payload) order, SENT dropped, compacted
+//                         fp_view-ascending with its fp_full and payload,
+//                         and no store access: launch_group_unique.
 // Fingerprints are u64 held in int64 (SENT = all ones, the largest value,
 // so pads sort last); the kernels compare them as unsigned.  The payload is
 // a signed key: its sign bit is flipped before it is sorted as unsigned.
@@ -38,6 +45,18 @@
 //                  tile scan of compact.cuh packs the survivors in sorted
 //                  order.  Bound: bytes; 24 passes of ~28 B a lane (8 B key
 //                  read twice, key and index read and written once).
+//   group_unique   the same radix passes over fp_view alone (8 instead of
+//                  24): runs of equal fp_view are then contiguous, and the
+//                  thread at the head of each run that is not SENT walks it
+//                  and keeps the least (fp_full unsigned, payload signed)
+//                  pair -- the lexsort's first lane of the run, whatever
+//                  order the run's lanes came in (the values, not the lane,
+//                  are the output, and equal pairs give equal values).  The
+//                  tile scan packs the heads in sorted order.  Bound: bytes
+//                  (each input read once, the outputs written once: 48 B a
+//                  lane); the 8 passes move ~28 B a lane each, and a run's
+//                  walk is as long as the run (a few lanes at the main
+//                  path's shapes; one thread walks a run of equal views).
 //   merge_sorted   merge path: each block searches its first and last
 //                  output diagonal (two binary searches), stages its slices
 //                  of both inputs in shared memory, and each thread merges
@@ -278,6 +297,90 @@ EXPORT int launch_level_dedup(const int64_t* cv, const int64_t* cf, const int64_
                      nullptr, st);
 }
 
+// -- the group dedup: 8 radix passes on fp_view, then each run's least pair ----------
+
+// keys = fp_view, idx = lane.
+__global__ void gu_init(const int64_t* __restrict__ cv, long long n, u64* __restrict__ keys,
+                        unsigned* __restrict__ idx) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    keys[i] = (u64)cv[i];
+    idx[i] = (unsigned)i;
+  }
+}
+
+// After the sort by fp_view (sv, idx the lanes): flags[i] = the head of a
+// run of equal fp_view that is not SENT; bf[i], bp[i] = the run's least
+// (fp_full as unsigned, payload as signed) pair.  Other lanes write only
+// their flag.
+__global__ void gu_heads(const u64* __restrict__ sv, const unsigned* __restrict__ idx,
+                         long long n, const int64_t* __restrict__ cf,
+                         const int64_t* __restrict__ cp, uint8_t* __restrict__ flags,
+                         int64_t* __restrict__ bf, int64_t* __restrict__ bp) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const u64 x = sv[i];
+  if ((i > 0 && sv[i - 1] == x) || x == SENT64) {
+    flags[i] = 0;
+    return;
+  }
+  unsigned lane = idx[i];
+  u64 f = (u64)cf[lane];
+  long long p = cp[lane];
+  for (long long j = i + 1; j < n && sv[j] == x; ++j) {
+    lane = idx[j];
+    const u64 f2 = (u64)cf[lane];
+    const long long p2 = cp[lane];
+    if (f2 < f || (f2 == f && p2 < p)) {
+      f = f2;
+      p = p2;
+    }
+  }
+  flags[i] = 1;
+  bf[i] = (int64_t)f;
+  bp[i] = p;
+}
+
+// cv, cf, cp i64[n] (u64, u64, signed).  Out: gv, gf i64[n] (the heads'
+// fp_view and least fp_full in fp_view order, SENT past *n_u), gp i64[n]
+// (the least pair's payload, -1 past it), *n_u.  Scratch: keys u64[2][n],
+// idx u32[2][n], counts i32[256 * nb] (nb = ceil(n / RS_TILE)), part
+// i64[ceil(256 * nb / TILE) + 1], flags u8[n], bf i64[n], bp i64[n], tile
+// i64[ceil(n / TILE)].  n < 2^31.
+EXPORT int launch_group_unique(const int64_t* cv, const int64_t* cf, const int64_t* cp,
+                               long long n, int64_t* gv, int64_t* gf, int64_t* gp,
+                               int64_t* n_u, int64_t* keys, int32_t* idx, int32_t* counts,
+                               int64_t* part, uint8_t* flags, int64_t* bf, int64_t* bp,
+                               int64_t* tile, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  u64* kb[2] = {(u64*)keys, (u64*)keys + n};
+  unsigned* ib[2] = {(unsigned*)idx, (unsigned*)idx + n};
+  const long long nb = (n + RS_TILE - 1) / RS_TILE;
+  const long long m = 256 * nb;
+  const long long n_parts = (m + TILE - 1) / TILE;
+  const unsigned eb = blocks_of(n, THREADS);
+  int cur = 0;
+  if (n > 0) {
+    gu_init<<<eb, THREADS, 0, st>>>(cv, n, kb[0], ib[0]);
+    for (int shift = 0; shift < 64; shift += 8) {
+      rs_hist<<<(unsigned)nb, RS_THREADS, 0, st>>>(kb[cur], n, shift, counts, nb);
+      rs_scan_local<<<(unsigned)n_parts, THREADS, 0, st>>>(counts, m, (long long*)part);
+      scan_offsets<<<1, THREADS, 0, st>>>((long long*)part, n_parts, (long long*)part + n_parts);
+      rs_scatter<<<(unsigned)nb, RS_THREADS, 0, st>>>(kb[cur], ib[cur], n, shift, counts,
+                                                       (const long long*)part, nb, kb[cur ^ 1],
+                                                       ib[cur ^ 1]);
+      cur ^= 1;
+    }
+    gu_heads<<<eb, THREADS, 0, st>>>(kb[cur], ib[cur], n, cf, cp, flags, bf, bp);
+  }
+  Vals vs = {{(const long long*)kb[cur], (const long long*)bf, (const long long*)bp},
+             {(long long*)gv, (long long*)gf, (long long*)gp},
+             {-1, -1, -1}};
+  return run_compact(flags, n, vs, n, nullptr, tile, n_u, nullptr, 0, 1, 0, nullptr, nullptr,
+                     nullptr, st);
+}
+
 // -- the merge ----------------------------------------------------------------------
 
 constexpr int MG_THREADS = 256;
@@ -347,4 +450,5 @@ EXPORT int launch_merge_sorted(const int64_t* a, long long A, const int64_t* b, 
 WARM((const void*)sorted_member, (const void*)rs_init, (const void*)rs_gather,
      (const void*)rs_hist, (const void*)rs_scan_local, (const void*)scan_offsets,
      (const void*)rs_scatter, (const void*)dedup_flags, (const void*)count_tiles,
-     (const void*)scatter_tiles, (const void*)pad_tail, (const void*)merge_sorted)
+     (const void*)scatter_tiles, (const void*)pad_tail, (const void*)merge_sorted,
+     (const void*)gu_init, (const void*)gu_heads)

@@ -116,6 +116,7 @@ import glob
 import os
 import sys
 import time
+import zipfile
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -333,6 +334,120 @@ def upload_sorted_store(fps: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([fps, pad]).view(np.int64)).to(device)
 
 
+# -- B19 _group_unique and the external store's segment lists (--fpstore-dir) ----------
+
+
+def group_unique(cv, cf, cp):
+    """B19 ``_group_unique_impl`` (bfs.py:437): (n_u 0-d, gv, gf, gp) -- of
+    every run of equal fp_view that is not SENT, the first lane in
+    (fp_view, fp_full, payload) order, packed fp_view-ascending, padded
+    SENT, SENT and -1.  No store is read: the external store route filters
+    on the host.  The ``group_unique`` kernel on the card, the twin on the
+    CPU."""
+    if cv.device.type == "cpu":
+        return group_unique_plain(cv, cf, cp)
+    return kernels.group_unique(cv, cf, cp)
+
+
+def group_unique_plain(cv, cf, cp):
+    """Plain twin of ``group_unique``: three stable sorts (payload signed,
+    then fp_full and fp_view unsigned), the first-of-run flags, a cumsum
+    scatter."""
+    n = cv.shape[0]
+    order = torch.argsort(cp, stable=True)
+    order = order[torch.argsort(ukey(cf[order]), stable=True)]
+    order = order[torch.argsort(ukey(cv[order]), stable=True)]
+    sv, sf, sp = cv[order], cf[order], cp[order]
+    first = torch.ones(n, dtype=torch.bool, device=cv.device)
+    first[1:] = sv[1:] != sv[:-1]
+    keep = first & (sv != SENT)
+    dest = torch.cumsum(keep.to(I64), 0) - 1
+    tgt = torch.where(keep, dest, torch.full_like(dest, n))
+    outs = []
+    for vals, pad in ((sv, SENT), (sf, SENT), (sp, -1)):
+        o = torch.full((n + 1,), pad, dtype=I64, device=cv.device)
+        o.scatter_(0, tgt, vals)
+        outs.append(o[:n])
+    return (keep.sum(), *outs)
+
+
+# Rows of one frontier segment on the external store route (bfs.py:204): a
+# deep level's frontier is a list of segments of this many rows, so a
+# chunk never straddles two (chunks are powers of two up to SEG_ROWS) and
+# the materialize walk frees and pages whole segments.
+SEG_ROWS = 1 << 21
+
+
+class _HostSeg:
+    """A frontier segment paged out to host RAM (bfs.py:134, without the
+    reference's disk tier below it): one numpy array a field.  The expand
+    and materialize walks consume segments in ascending row order, so the
+    segments on the card are a moving window."""
+
+    __slots__ = ("fields", "rows")
+
+    def __init__(self, fields: dict):
+        self.fields = fields
+        self.rows = fields["voted_for"].shape[0]
+
+
+def _seg_rows(seg) -> int:
+    return seg.rows if isinstance(seg, _HostSeg) else seg.voted_for.shape[0]
+
+
+def _pad_axis0(x: torch.Tensor, cap: int) -> torch.Tensor:
+    """``x`` cut or zero-padded to ``cap`` rows (bfs.py:277)."""
+    pad = cap - x.shape[0]
+    if pad <= 0:
+        return x[:cap]
+    return torch.cat([x, torch.zeros((pad, *x.shape[1:]), dtype=x.dtype, device=x.device)])
+
+
+def _concat_fields(segs: list) -> Frontier:
+    """One frontier from a segment list, field by field, emptying the list
+    (bfs.py:207): each field's sources are dropped as soon as its
+    concatenation lands, so the peak is about one frontier plus its widest
+    field, not two frontiers."""
+    if len(segs) == 1:
+        return segs.pop()
+    cols = {f: [getattr(s, f) for s in segs] for f in Frontier._fields}
+    segs[:] = []
+    out = {}
+    for f in Frontier._fields:
+        out[f] = torch.cat(cols[f])
+        cols[f] = None
+    return Frontier(**out)
+
+
+def _host_cap(n: int, chunk: int) -> int:
+    """Frontier capacity on the external store route (bfs.py:225): whole
+    segments past one segment, else the half-step quantizer (pow2 when the
+    half step is no chunk multiple), at least one chunk."""
+    if n > SEG_ROWS:
+        return -(-n // SEG_ROWS) * SEG_ROWS
+    c = _cap_steps(n)
+    if c % chunk:
+        c = _pow2(n)
+    return max(c, chunk)
+
+
+def segment_settings_refusal(host_store: bool) -> str | None:
+    """Why the port refuses the reference's segment settings, or None:
+    ``TLA_RAFT_FSEG_BYTES`` (host segments spilled to disk, the
+    ``FrontierPager`` tier) is not ported, and ``TLA_RAFT_DEV_BYTES``
+    without an external store selects the segment-streamed fused level
+    (bfs.py:1417), which is not ported either (ROADMAP A.5).  Ignoring
+    either would run another route than the one asked for."""
+    if float(os.environ.get("TLA_RAFT_FSEG_BYTES", "0") or 0):
+        return ("TLA_RAFT_FSEG_BYTES (spilled frontier segments, the FrontierPager disk tier) "
+                "is not ported (ROADMAP A.5); unset it")
+    if not host_store and float(os.environ.get("TLA_RAFT_DEV_BYTES", "0") or 0):
+        return ("TLA_RAFT_DEV_BYTES without an external store (--fpstore-dir) selects the "
+                "segment-streamed fused level, which is not ported (ROADMAP A.5); set it "
+                "only with --fpstore-dir")
+    return None
+
+
 def ids_to_msgs(ids: torch.Tensor, n_words: int) -> torch.Tensor:
     """Sparse ids [n, cap_m] (-1 padded) -> packed int32 words [n, n_words]:
     the inflate kernel on the card, the plain twin on the CPU."""
@@ -415,6 +530,14 @@ class TorchChecker:
         grouped, deduped by ``level_dedup`` and merged into the store by
         ``merge_sorted``.  A failed slab grow turns a hash-store run onto
         it mid-run (``_degrade_hashstore``).
+      host_store: a ``native.HostFPStore`` (the reference's ``host_store``,
+        ``--fpstore-dir``): the visited set lives in that external store on
+        the host and every level runs ``_expand_level_host`` -- per group of
+        G chunks the expand and ``group_unique`` on the card, one read, then
+        the level-wide representative choice and the store's filter on the
+        host; the frontier is a list of ``SEG_ROWS``-row segments, which
+        page to host RAM under ``dev_budget`` (``TLA_RAFT_DEV_BYTES``).  No
+        hash slab, fused level, superstep or grouped chain.
 
     The reference's settings are read where it reads them, an explicit
     argument winning: ``TLA_RAFT_MEGAKERNEL=0`` (the staged chain),
@@ -441,6 +564,7 @@ class TorchChecker:
         audit: int = 0,
         audit_retries: int = 3,
         use_hashstore: bool | None = None,
+        host_store=None,
     ):
         self.cfg = cfg
         if orbit is None:
@@ -491,7 +615,29 @@ class TorchChecker:
             resolve_invariant_kernel(name)  # an unknown name raises here
         if use_hashstore is None:
             use_hashstore = hashstore.enabled_by_env()
-        self.use_hashstore = bool(use_hashstore)
+        # an external store takes the visited set off the card (bfs.py:586)
+        self.host_store = host_store
+        self.use_hashstore = bool(use_hashstore) and host_store is None
+        refusal = segment_settings_refusal(host_store is not None)
+        if refusal:
+            raise ValueError(refusal)
+        if host_store is not None and self.chunk > SEG_ROWS:
+            # the segment walks assume no chunk straddles two segments
+            raise ValueError(f"chunk ({self.chunk}) must be <= SEG_ROWS ({SEG_ROWS}) when an "
+                             "external host store is attached")
+        # the device bytes a level's frontier segments may hold before the
+        # sealed ones page out to host RAM (bfs.py:634; 0: no paging)
+        self.dev_budget = int(float(os.environ.get("TLA_RAFT_DEV_BYTES", "0") or 0))
+        self.paged_out = 0  # sealed child segments paged out to host RAM
+        # full groups inside one segment run as the captured group program
+        # at chunks of at least this many rows (bfs.py:700); the tests lower
+        # it to reach the program at their small chunks
+        self.span_min_chunk = 2048
+        self.frontier_segs: list | None = None  # the host route's last committed segments
+        self.host_stats = dict(levels=0, groups=0, graph_groups=0, chunk_groups=0,
+                               saved_groups=0, group_s=0.0, fetch_s=0.0, lexsort_s=0.0,
+                               insert_s=0.0, materialize_s=0.0, candidates=0, unique=0,
+                               level_log=[])
         self.hstore: DeviceHashStore | None = None
         # the sorted store (use_hashstore=False): u64 ascending, SENT-padded
         # to a power-of-4 length (bfs.py:4216, 4921-4925)
@@ -533,10 +679,13 @@ class TorchChecker:
         self._ss_stats = dict(supersteps=0, levels=0, stops=0, ring_stops=0)
         self.graph_stats = dict(programs=0, captures=0, capture_seconds=0.0, level_launches=0,
                                 level_redo_launches=0, superstep_launches=0, group_launches=0,
+                                host_group_launches=0,
                                 copies=0, capture_log=[], launch_log=[])
         self.level_timing: dict = {}  # host seconds of the last fused level, by step
         # levels committed by route
         self.routes = dict(superstep=0, fused=0, grouped=0, staged=0)
+        if host_store is not None:
+            self.routes = dict(host=0)  # every level takes the external store route
         self.k4_round_log: list = []  # claim rounds of every fused level run
         self.group_log: list = []  # one record per grouped level
         self._progs = mk.ProgramCache()
@@ -784,9 +933,12 @@ class TorchChecker:
         fv_now, _ff = self._fp_states(kid_rows)
         return guard_ok, fv_leg, fv_now
 
-    def _gather_frontier_rows(self, frontier: Frontier, idx_np) -> Frontier:
-        """Sampled rows of a device frontier as one small batch (bfs.py:1916;
-        the port's frontiers are single buffers, never segment lists)."""
+    def _gather_frontier_rows(self, frontier, idx_np) -> Frontier:
+        """Sampled rows of a frontier (a device frontier, or the external
+        store route's segment list) as one small batch (bfs.py:1916)."""
+        if isinstance(frontier, list):
+            parts = [self._seg_row(frontier, i) for i in np.asarray(idx_np).tolist()]
+            return Frontier(*(torch.cat(xs) for xs in zip(*parts)))
         rows = torch.from_numpy(np.asarray(idx_np).astype(np.int64)).to(self.device)
         return Frontier(*(x[rows] for x in frontier))
 
@@ -866,6 +1018,9 @@ class TorchChecker:
         # the slab, the sorted store and the frontier hold the quarantined
         # level: drop them (and every captured program on the slab)
         self._drop_run_state()
+        if self.host_store is not None and not has_records:
+            # a restart from Init inserts the root again (bfs.py:2089)
+            self.host_store.clear()
         return self._run(max_depth, checkpoint_dir, checkpoint_every,
                          checkpoint_dir if has_records else None)
 
@@ -875,7 +1030,7 @@ class TorchChecker:
         self._progs.clear()
         self.hstore = None
         self.visited = None
-        self.frontier = None
+        self.frontier = self.frontier_segs = None
         self._sieve_dev, self._sieve_ver = None, -1
         gc.collect()
 
@@ -951,9 +1106,17 @@ class TorchChecker:
         if not files and not resilience.Manifest.load(ckdir).exists:
             raise ValueError(f"no delta_*.npz checkpoints under {ckdir}")
         K = self.K
+        host = self.host_store is not None
         frontier, _ovf = self.deflate(init_batch(self.cfg, 1, self.device))
         fv0, _ff = self._fp_states(frontier)
         fps_parts = [fv0.cpu().numpy().view(np.uint64)]
+        if host:
+            # the external store is rebuilt from the log as the replay walks
+            # it (bfs.py:2972-2980): cleared first, since it may hold inserts
+            # of a level that never reached the log
+            self.host_store.clear()
+            self.host_store.insert(fps_parts.pop())
+            frontier = [Frontier(*(_pad_axis0(x, self.chunk) for x in frontier))]
         trace_levels, level_sizes = [], [1]
         mult_per_slot = np.zeros(K, np.int64)
         depth = 0
@@ -969,21 +1132,31 @@ class TorchChecker:
             if d != depth + 1:
                 raise ValueError(f"delta log gap: expected level {depth + 1}, found level {d} "
                                  f"({f})")
-            pay = torch.from_numpy(pidx * K + slot).to(self.device)
-            while True:
-                new, _bad, ovf_m = self.materialize_level(frontier, pay, n_new)
-                if not ovf_m:
-                    break
-                frontier = self._grow_cap_m(frontier)
-            frontier = new
-            fps_parts.append(fps)
+            if host:
+                frontier, _bad, _parent = self._materialize_grow_segs(frontier, pidx * K + slot,
+                                                                      n_new)
+                self.host_store.insert(fps)
+            else:
+                pay = torch.from_numpy(pidx * K + slot).to(self.device)
+                while True:
+                    new, _bad, ovf_m = self.materialize_level(frontier, pay, n_new)
+                    if not ovf_m:
+                        break
+                    frontier = self._grow_cap_m(frontier)
+                frontier = new
+                fps_parts.append(fps)
             trace_levels.append((pidx, slot))
             level_sizes.append(n_new)
             mult_per_slot = mult_per_slot + mult
             depth = d
         distinct = int(sum(level_sizes))
-        allf = np.concatenate(fps_parts)
-        if self.use_hashstore:
+        allf = np.concatenate(fps_parts) if fps_parts else None
+        if host:
+            if len(self.host_store) != distinct:
+                raise ValueError(
+                    f"external-store resume rebuilt {len(self.host_store)} distinct fingerprints "
+                    f"for {distinct} recorded states — corrupt or mixed log")
+        elif self.use_hashstore:
             self.hstore = DeviceHashStore.load(os.path.join(ckdir, "hslab.npz"), depth, distinct,
                                                int(self.orbit), device=self.device)
             if self.hstore is None:
@@ -1450,6 +1623,457 @@ class TorchChecker:
         n_out = min(self.visited.shape[0] + w, _cap4(distinct + 1))
         self.visited = merge_sorted(self.visited, new_fps[:w], n_out)
 
+    # -- the external store route (--fpstore-dir; bfs.py:3713-4000, 2562-2830) -----------
+
+    def _seg_to_host(self, seg: Frontier) -> _HostSeg:
+        """A sealed device segment paged out to host RAM (bfs.py:2765)."""
+        arrs = fetch(*seg, what="page_out")
+        return _HostSeg({f: a.copy() for f, a in zip(Frontier._fields, arrs)})
+
+    def _seg_to_dev(self, seg) -> Frontier:
+        """A segment on the card: a host segment paged back in (bfs.py:2799)."""
+        if not isinstance(seg, _HostSeg):
+            return seg
+        return Frontier(**{f: torch.from_numpy(v).to(self.device) for f, v in seg.fields.items()})
+
+    def _widen_seg(self, seg):
+        """A segment's id lists padded out to ``cap_m`` (bfs.py:2742)."""
+        if not isinstance(seg, _HostSeg):
+            return self.widen(seg)
+        ids = seg.fields["msg_ids"]
+        pad = self.cap_m - ids.shape[1]
+        if pad <= 0:
+            return seg
+        fields = dict(seg.fields)
+        fields["msg_ids"] = np.concatenate([ids, np.full((ids.shape[0], pad), -1, ids.dtype)],
+                                           axis=1)
+        return _HostSeg(fields)
+
+    def _grow_cap_m_segs(self, segs: list) -> list:
+        if self.cap_m >= self.uni.M:
+            raise RuntimeError("message-set width exceeds the whole universe")
+        self.cap_m = min(self.cap_m + 32, self.uni.M)
+        self.redos["cap_m"] += 1
+        return [self._widen_seg(s) for s in segs]
+
+    def _seg_row(self, segs: list, idx: int) -> Frontier:
+        """Row ``idx`` of a segment list as a one-row frontier on the card."""
+        si, off = divmod(int(idx), _seg_rows(segs[0]))
+        seg = segs[si]
+        if isinstance(seg, _HostSeg):
+            return Frontier(**{f: torch.from_numpy(v[off:off + 1].copy()).to(self.device)
+                               for f, v in seg.fields.items()})
+        return mk.rows_of(seg, off, off + 1)
+
+    def _host_program(self):
+        """The captured group program at the current budgets (bfs.py:1130
+        ``_expand_group_fused_impl``); one serves every full group."""
+        sig = (self.canon, self.use_mxu, self.cap_x, self.cap_m)
+        self._progs.drop_stale(sig)
+        key = ("host_group", self.G, self.chunk) + sig
+
+        def built():
+            self.graph_stats["programs"] += 1
+            return group.HostGroupProgram(self, key)
+
+        return self._progs.get(key, built)
+
+    def _expand_level_host(self, segs: list, n_f: int, ckdir, depth: int) -> dict:
+        """One level on the external store route (bfs.py:3713).
+
+        Per group of G chunks: the expand and ``group_unique`` on the card,
+        as the captured group program where the reference's ``span_ok``
+        holds (a full group inside one segment at chunks of at least
+        ``span_min_chunk`` rows, not under orbit), else chunk by chunk and
+        padded to G chunks (the tail group, orbit, small chunks); then one
+        counted read of (n_u, abort, overflows, mult, gv, gf, gp).  The
+        groups are read one after another: the reference's
+        ``AsyncFetchWindow`` with window 0 gives the same bytes
+        (bfs.py:3742-3749), and the window itself waits in ROADMAP A.4.  A
+        completed group's lanes are saved as a partial record when the run
+        checkpoints, and a matching partial of an earlier, crashed run
+        stands in for its group.
+
+        An abort (split brain) or a cap_x / cap_m overflow stops the walk
+        before anything reaches the store (bfs.py:3752-3785).  Otherwise the
+        host makes the level-wide choice: the groups' lanes lexsorted by
+        (fp_view, fp_full, payload), the first of each fp_view kept, the
+        store's insert keeps the unvisited ones, and the survivors come out
+        ascending by payload -- the order the delta record, the trace and
+        the segment walk of the materialize rely on (bfs.py:3907-3916).
+
+        Returns host values: abort_at, ovf_x, ovf_m, mult, n_new, and the
+        survivors' new_fps (u64) and new_payload (i64) numpy arrays."""
+        K, G, chunk = self.K, self.G, self.chunk
+        hs = self.host_stats
+        seg_len = _seg_rows(segs[0])
+        n_chunks = -(-max(n_f, 1) // chunk)
+        n_groups = -(-n_chunks // G)
+        level = depth + 1
+        hv, hf, hp = [], [], []
+        mult = np.zeros(K, np.int64)
+        saved = self._load_partials(ckdir, level, n_f) if ckdir else {}
+        page = {"j": -1, "dev": None}  # the one host segment paged in
+        t_level = time.perf_counter()
+        reads0, launches0 = sum(READS.values()), self.graph_stats["host_group_launches"]
+        level_stats = dict(group_s=0.0, fetch_s=0.0, lexsort_s=0.0, insert_s=0.0)
+        graph_groups = 0
+
+        def seg_dev(sj):
+            s = segs[sj]
+            if not isinstance(s, _HostSeg):
+                return s
+            if page["j"] != sj:
+                page["j"], page["dev"] = sj, self._seg_to_dev(s)
+            return page["dev"]
+
+        stop = None
+        for gi in range(n_groups):
+            if gi in saved:
+                z = saved[gi]
+                hv.append(z["hv"])
+                hf.append(z["hf"])
+                hp.append(z["hp"])
+                mult += z["mult"]
+                hs["saved_groups"] += 1
+                continue
+            g_lo = gi * G * chunk
+            g_hi = g_lo + G * chunk
+            span_ok = (chunk >= self.span_min_chunk and not self.orbit
+                       and (gi + 1) * G <= n_chunks and g_lo // seg_len == (g_hi - 1) // seg_len)
+            t0 = time.perf_counter()
+            if span_ok:
+                sj, off = divmod(g_lo, seg_len)
+                prog = self._host_program()
+                prog.run(seg_dev(sj), off, min(G * chunk, n_f - g_lo))
+                want = (prog.ctl, prog.chunk_total, *prog.out)
+                graph_groups += 1
+            else:
+                want = self._host_group_chunks(seg_dev, seg_len, gi, n_f, n_chunks)
+                hs["chunk_groups"] += 1
+            if self.device.type == "cuda":
+                torch.cuda.current_stream().synchronize()
+            t1 = time.perf_counter()
+            ctl, chunk_total, gv, gf, gp = fetch(*want, what="host_group")
+            t2 = time.perf_counter()
+            level_stats["group_s"] += t1 - t0
+            level_stats["fetch_s"] += t2 - t1
+            hs["groups"] += 1
+            n_u = int(ctl[group.HG_N_U])
+            abort = int(ctl[group.HG_ABORT])
+            base = g_lo if span_ok else 0  # the program's rows and payloads are seat-relative
+            mult_g = ctl[group.HG_MULT:].astype(np.int64)
+            mult += mult_g
+            ovf_x = bool((chunk_total > self.cap_x).any())
+            ovf_m = bool(ctl[group.HG_OVF_M])
+            if abort < BIG or ovf_x or ovf_m:
+                # nothing reached the store: the caller reports the trace or
+                # grows the budget and redoes the level; completed groups'
+                # partials stay valid for the redo (_load_partials)
+                stop = dict(abort_at=base + abort if abort < BIG else BIG, ovf_x=ovf_x,
+                            ovf_m=ovf_m)
+                break
+            gv_c = gv[:n_u].view(np.uint64).copy()
+            gf_c = gf[:n_u].view(np.uint64).copy()
+            gp_c = gp[:n_u] + base * K
+            hv.append(gv_c)
+            hf.append(gf_c)
+            hp.append(gp_c)
+            if ckdir:
+                self._save_partial(ckdir, level, gi, gv_c, gf_c, gp_c, mult_g, n_f)
+        page["dev"] = None
+        hs["graph_groups"] += graph_groups
+        hs["group_s"] += level_stats["group_s"]
+        hs["fetch_s"] += level_stats["fetch_s"]
+        out = dict(abort_at=BIG, ovf_x=False, ovf_m=False, mult=mult, n_new=0, new_fps=None,
+                   new_payload=None)
+        if stop is not None:
+            out.update(stop)
+            return out
+        # the level-wide representative choice and the store's filter
+        t0 = time.perf_counter()
+        av = np.concatenate(hv) if hv else np.empty(0, np.uint64)
+        af = np.concatenate(hf) if hf else np.empty(0, np.uint64)
+        ap = np.concatenate(hp) if hp else np.empty(0, np.int64)
+        hv = hf = hp = None
+        order = np.lexsort((ap, af, av))
+        sv, sp = av[order], ap[order]
+        first = np.ones(len(sv), bool)
+        first[1:] = sv[1:] != sv[:-1]
+        uniq_v, uniq_p = sv[first], sp[first]
+        t1 = time.perf_counter()
+        is_new = self.host_store.insert(uniq_v)
+        t2 = time.perf_counter()
+        new_fps, new_pay = uniq_v[is_new], uniq_p[is_new]
+        o = np.argsort(new_pay)
+        level_stats["lexsort_s"] = t1 - t0
+        level_stats["insert_s"] = t2 - t1
+        hs["lexsort_s"] += t1 - t0
+        hs["insert_s"] += t2 - t1
+        hs["candidates"] += len(av)
+        hs["unique"] += len(uniq_v)
+        hs["levels"] += 1
+        hs["level_log"].append(dict(
+            level=level, parents=n_f, groups=n_groups, saved=len(saved),
+            graph_groups=graph_groups, lanes=len(av),
+            unique=len(uniq_v), new=int(len(new_fps)),
+            graph_launches=self.graph_stats["host_group_launches"] - launches0,
+            reads=sum(READS.values()) - reads0, store_runs=self.host_store.num_runs,
+            seconds=time.perf_counter() - t_level,
+            **{k: round(v, 6) for k, v in level_stats.items()}))
+        out.update(n_new=len(new_fps), new_fps=np.ascontiguousarray(new_fps[o]),
+                   new_payload=np.ascontiguousarray(new_pay[o]))
+        return out
+
+    def _host_group_chunks(self, seg_dev, seg_len: int, gi: int, n_f: int, n_chunks: int):
+        """One group chunk by chunk (bfs.py:3830-3860): each chunk's lanes,
+        padded to G chunks, then ``group_unique``.  Device values in the
+        group program's read layout, with global rows and payloads."""
+        K, G, chunk, cap_x = self.K, self.G, self.chunk, self.cap_x
+        dev = self.device
+        cvs, cfs, cps, totals = [], [], [], []
+        mult = torch.zeros((K,), dtype=I64, device=dev)
+        abort_at = torch.full((), BIG, dtype=I64, device=dev)
+        ovf_x = torch.zeros((), dtype=torch.bool, device=dev)
+        ovf_m = torch.zeros((), dtype=torch.bool, device=dev)
+        for ci in range(gi * G, min((gi + 1) * G, n_chunks)):
+            start = ci * chunk
+            sj, off = divmod(start, seg_len)
+            live = min(chunk, n_f - start)
+            part = mk.rows_of(seg_dev(sj), off, off + live)
+            cv, cf, cp, m, ab, ox, om = self._expand_chunk(part, start)
+            cvs.append(cv)
+            cfs.append(cf)
+            cps.append(cp)
+            mult = mult + m
+            abort_at = torch.minimum(abort_at, ab)
+            ovf_x = ovf_x | ox
+            ovf_m = ovf_m | om
+        pad = (G - len(cvs)) * cap_x
+        lanes = [torch.cat(x + [torch.full((pad,), v, dtype=I64, device=dev)])
+                 for x, v in ((cvs, SENT), (cfs, SENT), (cps, -1))]
+        n_u, gv, gf, gp = group_unique(*lanes)
+        zero = torch.zeros((), dtype=I64, device=dev)
+        ctl = torch.cat([torch.stack([abort_at, ovf_m.to(I64), n_u.to(I64), zero]), mult])
+        # the overflow as a chunk total past cap_x, as the program reports it
+        totals = torch.where(ovf_x, torch.full((1,), cap_x + 1, dtype=I64, device=dev),
+                             torch.zeros((1,), dtype=I64, device=dev))
+        return ctl, totals, gv, gf, gp
+
+    def _host_slice(self) -> int:
+        """Survivors a materialize slice takes on the external store route:
+        one chunk at the main path's chunks, four at small ones
+        (bfs.py:2588), and never more than a segment, so slices tile the
+        destination segments."""
+        return min(self.chunk if self.chunk >= 2048 else 4 * self.chunk, SEG_ROWS)
+
+    def _materialize_segs(self, segs: list, pay_np, pay_dev, n_new: int):
+        """The next frontier as a segment list, walking the parent segments
+        in (j, j+1) windows of one-chunk slices (bfs.py:2562): the survivors
+        are ascending by payload, so each slice's parents lie in a window of
+        two segments, and a segment the walk has passed is set to None in
+        ``segs`` (freed; kept under ``audit``, which re-reads parents).  The
+        slice's lanes in each segment go through the materialize kernel
+        against that segment, and the children are written into the
+        destination segment, sealed when the walk reaches its end -- and
+        paged out to host RAM when the live segments would pass
+        ``dev_budget`` (bfs.py:2655-2677).  Returns (segments, first bad row
+        or -1, cap_m overflow), or None when a precondition fails (payloads
+        not ascending, a slice's parents past the two-segment window, or a
+        slice tiling past the capacity): the caller then takes the
+        whole-parent walk."""
+        K = self.K
+        sl = self._host_slice()
+        n_slices = -(-n_new // sl)
+        cap_f = _host_cap(n_new, self.chunk)
+        if n_slices * sl > cap_f:
+            return None
+        if not bool(np.all(np.diff(pay_np[:n_new].astype(np.int64)) > 0)):
+            return None
+        L = _seg_rows(segs[0])
+        n_par = len(segs)
+        j_los = []
+        for si in range(n_slices):
+            a, b = si * sl, min(si * sl + sl, n_new)
+            j_lo = min(int(pay_np[a]) // K // L, n_par - 1)
+            if int(pay_np[b - 1]) // K >= min(j_lo + 2, n_par) * L:
+                return None  # the slice's parents pass the two-segment window
+            j_los.append(j_lo)
+        seg_d = SEG_ROWS if cap_f > SEG_ROWS else cap_f
+        n_seg_d = cap_f // seg_d
+        per_seg = seg_d // sl if n_seg_d > 1 else n_slices
+        dst = [None] * n_seg_d
+        paged: dict = {}  # host parent segments paged in for the window
+        cur, seg_b = None, None
+        bad, ovfs = None, []
+
+        def par(j):
+            s = segs[j]
+            if isinstance(s, _HostSeg):
+                if j not in paged:
+                    paged[j] = self._seg_to_dev(s)
+                return paged[j]
+            return s
+
+        for si in range(n_slices):
+            a, b = si * sl, min(si * sl + sl, n_new)
+            dj = a // seg_d
+            if cur is None:
+                cur = mk.empty_frontier(self.cfg, seg_d, self.cap_m, self.device)
+            j = j_los[si]
+            cut = a + int(np.searchsorted(pay_np[a:b], (j + 1) * L * K))
+            for x, y, sj in ((a, cut, j), (cut, b, j + 1)):
+                if x == y:
+                    continue
+                pay = pay_dev[x:y]
+                pidx = torch.div(pay, K, rounding_mode="floor") - sj * L
+                child, _added, ovf = self.materialize(par(sj), pidx, pay % K)
+                mk.copy_rows(mk.rows_of(cur, x - dj * seg_d, y - dj * seg_d), child, y - x)
+                bad = self.inv_scan(child, offset=x, into=bad)
+                ovfs.append(ovf.any())
+            if (si + 1) % per_seg == 0 or si == n_slices - 1:
+                sealed, cur = cur, None
+                if self.dev_budget:
+                    if seg_b is None:
+                        seg_b = sum(x.numel() * x.element_size() for x in sealed)
+                    # the live segments on the card (the reference's count,
+                    # with its pipeline window of 0): parents not yet freed,
+                    # sealed destinations, and the two transients
+                    live = (sum(1 for k, s in enumerate(segs) if s is not None
+                                and (not isinstance(s, _HostSeg) or k in paged))
+                            + sum(1 for d in dst if d is not None and not isinstance(d, _HostSeg))
+                            + 2)
+                    if (live + 1) * seg_b > self.dev_budget:
+                        sealed = self._seg_to_host(sealed)
+                        self.paged_out += 1
+                dst[dj] = sealed
+            if not self.audit:
+                for k in range(j):  # the walk has passed these parents for good
+                    segs[k] = None
+                    paged.pop(k, None)
+        paged.clear()
+        for dj in range(n_seg_d):  # an untouched capacity tail
+            if dst[dj] is None:
+                dst[dj] = mk.empty_frontier(self.cfg, seg_d, self.cap_m, self.device)
+        (ctl,) = fetch(torch.stack([bad, torch.stack(ovfs).any().to(I64)]), what="host_mat")
+        return dst, int(ctl[0]), bool(ctl[1])
+
+    def _materialize_fallback_segs(self, whole: Frontier, pay_dev, n_new: int):
+        """The whole-parent materialize that still emits a segment list
+        (bfs.py:2700): for payloads that are not ascending and for slices
+        whose parents pass the two-segment window."""
+        K = self.K
+        sl = self._host_slice()
+        n_slices = -(-n_new // sl)
+        cap_f = _host_cap(n_new, self.chunk)
+        if n_slices * sl > cap_f:
+            seg_d, n_seg_d = cap_f, 1  # rows past n_new are never written
+        else:
+            seg_d = SEG_ROWS if cap_f > SEG_ROWS else cap_f
+            n_seg_d = cap_f // seg_d
+        dst = [mk.empty_frontier(self.cfg, seg_d, self.cap_m, self.device)
+               for _ in range(n_seg_d)]
+        bad, ovfs = None, []
+        for si in range(n_slices):
+            a, b = si * sl, min(si * sl + sl, n_new)
+            pay = pay_dev[a:b]
+            child, _added, ovf = self.materialize(whole, torch.div(pay, K, rounding_mode="floor"),
+                                                  pay % K)
+            dj = min(a // seg_d, n_seg_d - 1)
+            mk.copy_rows(mk.rows_of(dst[dj], a - dj * seg_d, b - dj * seg_d), child, b - a)
+            bad = self.inv_scan(child, offset=a, into=bad)
+            ovfs.append(ovf.any())
+        (ctl,) = fetch(torch.stack([bad, torch.stack(ovfs).any().to(I64)]), what="host_mat")
+        return dst, int(ctl[0]), bool(ctl[1])
+
+    def _materialize_grow_segs(self, segs: list, pay_np, n_new: int):
+        """Materialize the survivors into a segment list, growing cap_m on an
+        overflow (bfs.py:2812): (new segments, first bad row or -1, the
+        parent segments).  A walk that already freed parent segments cannot
+        redo: it raises with the width to restart at (the delta log resumes
+        the run)."""
+        pay_dev = torch.from_numpy(np.ascontiguousarray(pay_np[:n_new], np.int64)).to(self.device)
+        while True:
+            retry_parent = None
+            res = self._materialize_segs(segs, pay_np, pay_dev, n_new) if pay_np is not None \
+                else None
+            segged = res is not None
+            if res is None:
+                for i, s in enumerate(segs):
+                    segs[i] = self._seg_to_dev(s)
+                whole = _concat_fields(segs)
+                res = self._materialize_fallback_segs(whole, pay_dev, n_new)
+                retry_parent = whole
+                segs = [whole]
+            out, bad, ovf = res
+            if not ovf:
+                return out, bad, segs
+            if segged and any(s is None for s in segs):
+                raise RuntimeError(
+                    f"cap_m={self.cap_m} overflowed after parent segments were released; "
+                    f"restart with TLA_RAFT_CAP_M={self.cap_m + 32} -- the delta log resumes "
+                    "the run")
+            out = None  # the overflowed level's segments go before the parents widen
+            if retry_parent is not None:
+                pay_np = None  # the retry takes the whole-parent walk again
+            segs = self._grow_cap_m_segs(segs)
+
+    def _expand_level_host_redo(self, segs: list, n_f: int, depth: int, ckdir) -> tuple:
+        """One host level with its grow-and-redo: (result, parent segments)."""
+        while True:
+            res = self._expand_level_host(segs, n_f, ckdir, depth)
+            if not (res["ovf_x"] or res["ovf_m"]):
+                return res, segs
+            if res["ovf_x"]:
+                self._grow_cap_x()
+            if res["ovf_m"]:
+                segs = self._grow_cap_m_segs(segs)
+
+    def _save_partial(self, ckdir: str, level: int, gi: int, hv, hf, hp, mult, n_f: int) -> None:
+        """A completed group's lanes (bfs.py:3922): ``partial_LLLL_GGGGG.npz``
+        with hv / hf u64, hp i64, mult i64[K] and the reference's 9-word meta
+        [level, group, chunk, cap_x, G, K, n_f, fp_def, window] (window 0:
+        the groups are read serially), through the atomic writer."""
+        resilience.commit_npz(
+            ckdir, f"partial_{level:04d}_{gi:05d}.npz",
+            dict(hv=hv, hf=hf, hp=np.asarray(hp, np.int64), mult=np.asarray(mult, np.int64),
+                 meta=np.asarray([level, gi, self.chunk, self.cap_x, self.G, self.K, n_f,
+                                  int(self.orbit), 0], np.int64)),
+            kind="partial", depth=level, run_fp=self._run_fp)
+
+    def _load_partials(self, ckdir: str, level: int, n_f: int) -> dict:
+        """This level's completed groups from an earlier, crashed run
+        (bfs.py:3948): a partial counts only when (level, group, chunk, G,
+        K, n_f, fp_def) match; cap_x and the window are not matched (a
+        completed group's lanes do not depend on them).  Stale and torn
+        partials are wiped."""
+        out, stale = {}, []
+        for f in sorted(glob.glob(os.path.join(ckdir, "partial_*.npz"))):
+            try:
+                with np.load(f) as z:
+                    meta = tuple(int(x) for x in z["meta"])
+                    fp_def = meta[7] if len(meta) > 7 else 0
+                    want = (level, meta[1], self.chunk, self.G, self.K, n_f, int(self.orbit))
+                    got = (meta[0], meta[1], meta[2], meta[4], meta[5], meta[6], fp_def)
+                    if got != want:
+                        stale.append(os.path.basename(f))
+                        continue
+                    rec = dict(hv=z["hv"].astype(np.uint64), hf=z["hf"].astype(np.uint64),
+                               hp=z["hp"].astype(np.int64), mult=z["mult"].astype(np.int64))
+            except (OSError, ValueError, KeyError, EOFError, IndexError, zipfile.BadZipFile):
+                stale.append(os.path.basename(f))  # torn by a crash mid-write
+                continue
+            out[meta[1]] = rec
+        if stale:
+            resilience.discard_artifacts(ckdir, stale)
+        return out
+
+    def _wipe_partials(self, ckdir: str) -> None:
+        """Drop every partial record (bfs.py:3997): a committed level's delta
+        record supersedes its partials."""
+        resilience.discard_artifacts(
+            ckdir, [os.path.basename(f) for f in glob.glob(os.path.join(ckdir, "partial_*.npz"))])
+
     # -- the run ------------------------------------------------------------------
 
     def _grouping(self, n_f: int) -> bool:
@@ -1546,7 +2170,9 @@ class TorchChecker:
             if bool(ovf0.any()):
                 raise RuntimeError(f"initial state's message set exceeds cap_m={self.cap_m}")
             fv, _ff = self._fp_states(frontier)
-            if self.use_hashstore:
+            if self.host_store is not None:
+                self.host_store.insert(fv.cpu().numpy().view(np.uint64))
+            elif self.use_hashstore:
                 self.hstore = DeviceHashStore.from_fps(
                     fv.cpu().numpy().view(np.uint64), device=self.device
                 )
@@ -1562,7 +2188,10 @@ class TorchChecker:
                 name = self.bad_invariant_name(frontier, 0)
                 return CheckResult(False, 1, 0, 0, (1,), (
                     f"Invariant {name} is violated", self.trace(trace_levels, 0, 0)))
-        self.frontier = mk.rows_of(frontier, 0, n_f)
+            if self.host_store is not None:
+                # the external store route's frontier is a segment list
+                frontier = [Frontier(*(_pad_axis0(x, self.chunk) for x in frontier))]
+        self._keep_frontier(frontier, n_f)
         self.trace_levels = trace_levels
 
         def commit_log(pidx, slot, fps, level_mult, n_new):
@@ -1574,6 +2203,9 @@ class TorchChecker:
             every = hashstore.dump_interval(self.hstore.cap * 8) if self.use_hashstore else 0
             if every and depth % every == 0:
                 self._dump_slab(checkpoint_dir, depth, distinct)
+            if self.host_store is not None:
+                # the level's partial records are superseded by its delta record
+                self._wipe_partials(checkpoint_dir)
 
         def note(route):
             self.routes[route] += 1
@@ -1628,7 +2260,7 @@ class TorchChecker:
                     every = hashstore.dump_interval(self.hstore.cap * 8)
                     if every and depth // every > depth0 // every:
                         self._dump_slab(checkpoint_dir, depth, distinct)
-                self.frontier = mk.rows_of(frontier, 0, n_f)
+                self._keep_frontier(frontier, n_f)
                 if hit_fixpoint:
                     break
                 skip_superstep = sres["reason"] == "stop" or (
@@ -1649,7 +2281,11 @@ class TorchChecker:
                     res = dict(n_new=mres["n_new"], abort_at=mres["abort_at"],
                                mult=mres["level_mult"], slab_live=mres["slab_live"])
                     route = "fused"
-            if mres is None and self._grouping(n_f):
+            if self.host_store is not None:
+                res, frontier = self._expand_level_host_redo(
+                    frontier, n_f, depth, checkpoint_dir if ck_on else None)
+                route = "host"
+            elif mres is None and self._grouping(n_f):
                 launches0 = self.graph_stats["group_launches"]
                 res, frontier = self._expand_level_grouped(frontier, n_f, depth)
                 route = "grouped"
@@ -1667,10 +2303,22 @@ class TorchChecker:
             generated += int(res_mult.sum())
             n_new = res["n_new"]
             if n_new == 0:
+                if self.host_store is not None and ck_on:
+                    # the empty level's partials have no delta record to supersede them
+                    self._wipe_partials(checkpoint_dir)
                 break
             if mres is not None:
                 new_frontier, bad_idx = mres["new_frontier"], mres["bad_idx"]
                 pidx, slot, fps_lvl = mres["pidx"], mres["slot"], mres["fps"]
+            elif route == "host":
+                # the survivors are host-side, ascending by payload
+                t_mat = time.perf_counter()
+                pay_np = res["new_payload"]
+                new_frontier, bad_idx, frontier = self._materialize_grow_segs(
+                    frontier, pay_np, n_new)
+                self.host_stats["materialize_s"] += time.perf_counter() - t_mat
+                pidx, slot = pay_np // K, pay_np % K
+                fps_lvl = res["new_fps"]
             else:
                 while True:
                     new_frontier, bad_idx, ovf_m = self.materialize_level(
@@ -1726,7 +2374,7 @@ class TorchChecker:
                     seconds=time.perf_counter() - t_level))
             parent_prev = frontier if self.audit else None
             frontier = new_frontier
-            if faults.fire_flag("tensor.flip"):
+            if faults.fire_flag("tensor.flip") and not isinstance(frontier, list):
                 # injected silent corruption after materialize: the recorded
                 # fingerprints disagree with the row from here on
                 frontier = self._flip_frontier_row(frontier)
@@ -1734,7 +2382,9 @@ class TorchChecker:
             distinct += n_new
             level_sizes.append(n_new)
             depth += 1
-            if not self.use_hashstore:
+            if self.host_store is not None:
+                pass  # the level's insert into the external store is done
+            elif not self.use_hashstore:
                 self._merge_level(res["new_fps"], n_new, distinct)
             else:
                 self.hstore.adopt(self.hstore.slab, n_store)
@@ -1750,10 +2400,13 @@ class TorchChecker:
                         lambda: self._slab_grow_or_demote(depth, expected=2 * n_new), depth,
                         "between levels")
             n_f = n_new
-            self.frontier = mk.rows_of(frontier, 0, n_f)
+            self._keep_frontier(frontier, n_f)
             note(route)
             if bad_idx >= 0:
-                name = self.bad_invariant_name(frontier, bad_idx)
+                if isinstance(frontier, list):
+                    name = self.bad_invariant_name(self._seg_row(frontier, bad_idx), 0)
+                else:
+                    name = self.bad_invariant_name(frontier, bad_idx)
                 return CheckResult(
                     False, distinct, generated, depth, tuple(level_sizes),
                     (f"Invariant {name} is violated", self.trace(trace_levels, depth, bad_idx)),
@@ -1772,6 +2425,15 @@ class TorchChecker:
             True, distinct, generated, depth, tuple(level_sizes), None,
             self.layout.action_counts(mult_per_slot),
         )
+
+    def _keep_frontier(self, frontier, n_f: int) -> None:
+        """The last committed level's rows: ``frontier`` (its first ``n_f``
+        rows), or on the external store route ``frontier_segs``, the
+        segment list."""
+        if isinstance(frontier, list):
+            self.frontier, self.frontier_segs = None, frontier
+        else:
+            self.frontier = mk.rows_of(frontier, 0, n_f)
 
     def _grow_cap_m(self, frontier: Frontier) -> Frontier:
         if self.cap_m >= self.uni.M:

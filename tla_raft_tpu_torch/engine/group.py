@@ -42,6 +42,14 @@ and every compaction keeps lane order, so K4 sees the lanes in the
 reference's order and the slab bytes, the counts and the traces equal
 the ungrouped chain's.
 
+The external store route (``--fpstore-dir``) has its own group program,
+``HostGroupProgram``: the reference's ``_expand_group_fused_impl``
+(bfs.py:1130), the G-chunk span expand (``_expand_span_impl`` :1091)
+followed by the group dedup ``_group_unique_impl`` (:437, the
+``group_unique`` kernel) with no store access, as one captured graph per
+group: one launch and one read of the group's unique lanes, which the host
+then filters against the external store.
+
 On the CPU every op runs its plain twin, eagerly, which is what the tests
 hold against the reference.
 """
@@ -68,6 +76,14 @@ LC_G_PAY = 20    # payload of the seat's row 0, slot 0
 LC_G_OUT = 21    # the group's first lane in the level's lane buffer
 LC_G_ABORT = 22  # first split-brain row of the seat, BIG if none
 LC_G_TOTAL = 23  # the group's unvisited lanes
+
+# the external store route's group control words (HostGroupProgram.ctl),
+# also the layout of the per-chunk path's read (bfs.py _host_group_chunks)
+HG_ABORT = 0   # first split-brain row of the group's rows, BIG if none
+HG_OVF_M = 1   # an expanded child overflowed cap_m
+HG_N_U = 2     # the group's unique lanes
+HG_N_RUN = 3   # live parent rows of the seat
+HG_MULT = 4    # mult i64[K] of the group from here on
 
 
 # -- B3 filter compaction and B19 group filter: the kernels and their twins ------------
@@ -320,3 +336,98 @@ def expand_level_grouped(eng, frontier: Frontier, n_f: int, groups_cap: int) -> 
         slab_live=int(lc[mk.LC_SLAB_LIVE]), groups=n_groups, lanes=n_groups * prog.cap_g,
         new_fps=prog.new_fps, new_payload=prog.new_pay, pidx=prog.pidx, slot=prog.slot,
     )
+
+
+# -- the external store route's group program ----------------------------------------
+
+
+def op_group_unique(cv, cf, cp, out, n_u, scratch):
+    """B19 ``_group_unique_impl`` into ``out`` = (gv, gf, gp) and ``n_u``:
+    the kernel on the card, the twin on the CPU."""
+    if cv.is_cuda:
+        kernels.group_unique(cv, cf, cp, out=out, n_u=n_u, scratch=scratch)
+        return
+    from .bfs import group_unique_plain
+
+    n, *vals = group_unique_plain(cv, cf, cp)
+    for o, v in zip(out, vals):
+        o.copy_(v)
+    n_u.fill_(int(n))
+
+
+class HostGroupProgram(mk.GraphProgram):
+    """One full group of G chunks on the external store route as a captured
+    graph: per chunk inflate, guards (K1, folding ``mult`` and the abort into
+    the control words), the order-keeping compaction to ``cap_x`` lanes,
+    materialize (K2) and fingerprints (K3) -- or the dense expand and the
+    chunk compaction under ``canon="expand"`` -- then ``group_unique`` over
+    the group's ``G * cap_x`` lanes.  Rows and payloads are the seat's: the
+    host adds the group's first row.  ``run`` seats the group's rows (a
+    device copy), writes the control words (one host-to-device copy: the
+    live rows, the abort at BIG, the overflow and ``mult`` at 0) and
+    launches; the bounds the kernels read are device words, so one graph
+    serves every full group of every level."""
+
+    kind = "host_group"
+
+    def __init__(self, eng, key):
+        super().__init__(eng, key)
+        dev = eng.device
+        K, chunk, cap_x, cap_m, G = eng.K, eng.chunk, eng.cap_x, eng.cap_m, eng.G
+        self.eng = eng
+        self.G, self.chunk, self.cap_x = G, chunk, cap_x
+        self.rows = G * chunk
+        self.cap_f = self.rows
+        self.seat = mk.empty_frontier(eng.cfg, self.rows, cap_m, dev)
+        self.msgs = torch.zeros((chunk, eng.uni.n_words), dtype=torch.int32, device=dev)
+        self.valid = torch.zeros((chunk, K), dtype=torch.bool, device=dev)
+        self.chunk_total = torch.zeros((G,), dtype=I64, device=dev)
+        n = G * cap_x
+        self.cv = torch.full((n,), SENT, dtype=I64, device=dev)
+        self.cf = torch.full((n,), SENT, dtype=I64, device=dev)
+        self.cp = torch.full((n,), -1, dtype=I64, device=dev)
+        self.children = mk.empty_frontier(eng.cfg, cap_x, cap_m, dev)
+        self.added = torch.zeros((cap_x, eng.mx.A), dtype=torch.int32, device=dev)
+        self.covf = torch.zeros((cap_x,), dtype=torch.bool, device=dev)
+        self.xs = mk.ExpandScratch(eng, chunk) if eng.canon == "expand" else None
+        self.out = tuple(torch.full((n,), pad, dtype=I64, device=dev) for pad in (SENT, SENT, -1))
+        self.ctl = torch.zeros((HG_MULT + K,), dtype=I64, device=dev)
+        self.host_ctl = torch.zeros((HG_MULT + K,), dtype=I64, pin_memory=dev.type == "cuda")
+        if dev.type == "cuda":
+            self.tile_chunk = torch.zeros((kernels.compact_tiles(chunk * K),), dtype=I64,
+                                          device=dev)
+            self.scratch = kernels.GroupUniqueScratch(n, dev)
+        else:
+            self.tile_chunk = self.scratch = None
+
+    def record(self) -> None:
+        eng, ctl, K, chunk, cap_x = self.eng, self.ctl, self.eng.K, self.chunk, self.cap_x
+        n_run, abort, mult = ctl[HG_N_RUN], ctl[HG_ABORT], ctl[HG_MULT:]
+        for i in range(self.G):
+            start = i * chunk
+            part = mk.rows_of(self.seat, start, start + chunk)
+            mk.op_inflate(eng, part.msg_ids, self.msgs, n_run, start)
+            st = RaftState(msgs=self.msgs, **core_of(part))
+            seg = slice(i * cap_x, (i + 1) * cap_x)
+            total = self.chunk_total[i]
+            if eng.canon == "expand":
+                mk.op_expand_chunk(eng, st, self.valid, self.xs, n_run, start, mult, abort, start,
+                                   (self.cv[seg], self.cf[seg], self.cp[seg]), total, cap_x)
+                continue
+            mk.op_guards(eng, st, self.valid, n_run, start, mult, abort, start)
+            mk.op_compact_chunk(self.valid.view(-1), self.cp[seg], total, n_run, start, K,
+                                start * K, self.tile_chunk)
+            mk.op_materialize(eng, part, self.cp[seg], start,
+                              (self.children, self.added, self.covf), total, 0, ctl[HG_OVF_M])
+            mk.op_fingerprints(eng, self.children, (self.cv[seg], self.cf[seg]), total, 0)
+        op_group_unique(self.cv, self.cf, self.cp, self.out, ctl[HG_N_U], self.scratch)
+
+    def run(self, seg: Frontier, off: int, n_run: int) -> None:
+        """Seat rows ``off .. off + n_run`` of the segment ``seg`` and launch
+        (the previous group's read has completed the last control copy)."""
+        mk.copy_rows(self.seat, mk.rows_of(seg, off, off + n_run), n_run)
+        self.host_ctl.zero_()
+        self.host_ctl[HG_N_RUN] = n_run
+        self.host_ctl[HG_ABORT] = mk.BIG
+        self.ctl.copy_(self.host_ctl, non_blocking=True)
+        self.launch()

@@ -256,6 +256,15 @@ MERGE_SORTED = Kernel(
     "new fingerprints)",
     {"launch_merge_sorted": [VP, I64, VP, I64, VP, I64, VP]},
 )
+GROUP_UNIQUE = Kernel(
+    "group_unique", "csrc/sortstore.cu",
+    "tla_raft_tpu/engine/bfs.py:437 (_group_unique_impl: lexsort of one group's lanes by "
+    "(fp_view, fp_full, payload), the first lane of each fp_view, SENT dropped, stable "
+    "compaction; jitted as _group_unique :465, fused into _expand_group_fused_impl :1130)",
+    {"launch_group_unique": [VP, VP, VP, I64, VP, VP, VP, VP, VP, VP, VP, VP, VP, VP, VP, VP,
+                             VP],
+     "rs_tile": [], "rs_scan_tile": []},
+)
 _BUCKET = "tla_raft_tpu/service/bucket.py"
 BUCKET_REFINE = Kernel(
     "bucket_refine", "csrc/bucket.cu",
@@ -282,7 +291,8 @@ KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMP
                                DEFLATE, INV_SCAN, LEVEL, SUPERSTEP, SIEVE, HS_PROBE,
                                FILTER_COMPACT, DROP_ROWS, MSG_FACTORED, ORBIT, ORBIT_FOLD,
                                DENSE_EXPAND, CHUNK_COMPACT, LEGACY, SORTED_MEMBER, LEVEL_DEDUP,
-                               MERGE_SORTED, BUCKET_REFINE, BUCKET_TALLY, BUCKET_CTRL)}
+                               MERGE_SORTED, BUCKET_REFINE, BUCKET_TALLY, BUCKET_CTRL,
+                               GROUP_UNIQUE)}
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
@@ -302,6 +312,8 @@ LEGACY_PATH = ("dense_expand", "legacy_materialize")
 SORTED_PATH = ("sorted_member", "level_dedup", "merge_sorted")
 # the sweep service's batched bucket core (service/bucket.py)
 BUCKET_PATH = ("bucket_refine", "bucket_tally", "bucket_ctrl")
+# the external-store route (--fpstore-dir): the group dedup, then the host
+HOST_PATH = ("group_unique",)
 
 
 def reset_launches() -> None:
@@ -1364,6 +1376,64 @@ def merge_sorted(a, b, n_out: int):
         a.data_ptr(), A, b.data_ptr(), B, out.data_ptr(), n_out, _stream()))
     MERGE_SORTED.launches += int(n_out > 0)
     return out
+
+
+class GroupUniqueScratch:
+    """``group_unique``'s scratch for ``n`` lanes, allocated once (a group
+    program's graph keeps the addresses)."""
+
+    def __init__(self, n: int, device):
+        lib = GROUP_UNIQUE.lib()
+        nb = (n + lib.rs_tile() - 1) // lib.rs_tile()
+        scan_t = lib.rs_scan_tile()
+        n_parts = (256 * nb + scan_t - 1) // scan_t
+        self.n = n
+        self.keys = torch.empty((2 * n,), dtype=torch.int64, device=device)
+        self.idx = torch.empty((2 * n,), dtype=torch.int32, device=device)
+        self.counts = torch.empty((max(256 * nb, 1),), dtype=torch.int32, device=device)
+        self.part = torch.empty((n_parts + 1,), dtype=torch.int64, device=device)
+        self.flags = torch.empty((max(n, 1),), dtype=torch.uint8, device=device)
+        self.bf = torch.empty((max(n, 1),), dtype=torch.int64, device=device)
+        self.bp = torch.empty((max(n, 1),), dtype=torch.int64, device=device)
+        self.tile = torch.empty((max((n + scan_t - 1) // scan_t, 1),), dtype=torch.int64,
+                                device=device)
+
+
+def group_unique(cv, cf, cp, *, out=None, n_u=None, scratch=None):
+    """B19 ``_group_unique_impl``: (n_u i64 0-d, gv i64[n], gf i64[n], gp
+    i64[n]) -- of every run of equal fp_view that is not SENT, the first
+    lane in (fp_view, fp_full, payload) order, packed fp_view-ascending,
+    padded SENT, SENT and -1.  ``out`` (gv, gf, gp), ``n_u`` and
+    ``scratch`` (a ``GroupUniqueScratch`` of n lanes) may be given, as a
+    captured graph does; else they are allocated."""
+    n = cv.shape[0]
+    for name, t in (("cv", cv), ("cf", cf), ("cp", cp)):
+        _need(t, name, torch.int64, (n,))
+    if n >= 1 << 31:
+        raise ValueError(f"group_unique takes fewer than 2^31 lanes, got {n}")
+    dev = cv.device
+    if out is None:
+        out = tuple(torch.empty((n,), dtype=torch.int64, device=dev) for _ in range(3))
+    for name, t in zip(("gv", "gf", "gp"), out):
+        _need(t, name, torch.int64, (n,))
+    if n_u is None:
+        n_u = torch.empty((), dtype=torch.int64, device=dev)
+    _need(n_u, "n_u", torch.int64, ())
+    if scratch is None:
+        scratch = GroupUniqueScratch(n, dev)
+    if scratch.n != n:
+        raise ValueError(f"group_unique: scratch for {scratch.n} lanes, got {n}")
+    sc = scratch
+    GROUP_UNIQUE.check(GROUP_UNIQUE.lib().launch_group_unique(
+        cv.data_ptr(), cf.data_ptr(), cp.data_ptr(), n, out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), n_u.data_ptr(), sc.keys.data_ptr(), sc.idx.data_ptr(),
+        sc.counts.data_ptr(), sc.part.data_ptr(), sc.flags.data_ptr(), sc.bf.data_ptr(),
+        sc.bp.data_ptr(), sc.tile.data_ptr(), _stream()))
+    # gu_init, 8 passes of (hist, scan_local, scan_offsets, scatter) and
+    # gu_heads; then count_tiles, scan_offsets, scatter_tiles and pad_tail
+    live = int(n > 0)
+    GROUP_UNIQUE.launches += live * (1 + 8 * 4 + 1) + 2 * live + 1 + live
+    return (n_u, *out)
 
 
 # -- B14: the batched bucket core (csrc/bucket.cu) ------------------------------------

@@ -27,8 +27,8 @@ other sites are ``level.start`` (the top of each BFS level),
 ``bucket.level`` (the top of each batched-bucket level), ``lease.renew``
 (a lease heartbeat), ``tensor.flip`` and ``hashstore.grow`` (the Nth slab
 grow: ``fail`` turns the run onto the sorted visited store).  The
-reference's mesh, tier, partial-record, pool and device sites come with
-those parts of the port.  A spec that names a site the port does not
+reference's mesh, tier, pool and device sites come with those parts of the
+port.  A spec that names a site the port does not
 poll, or an action its site cannot perform (``torn``/``flip`` need an
 artifact), is refused at parse time: a typo must not silently test
 nothing.
@@ -51,6 +51,8 @@ _RUNTIME = ("kill", "fail", "pause")
 FAULT_SITES = {
     "delta.tmp": ("single-device delta record: tmp written, not renamed", _WRITER),
     "delta.commit": ("single-device delta record: renamed, not manifested", _WRITER),
+    "partial.tmp": ("intra-level partial record: tmp written, not renamed", _WRITER),
+    "partial.commit": ("intra-level partial record: renamed, not manifested", _WRITER),
     "hslab.tmp": ("hash-slab snapshot: tmp written, not renamed", _WRITER),
     "hslab.commit": ("hash-slab snapshot: renamed, not manifested", _WRITER),
     "manifest.commit": ("manifest json: tmp written, not renamed", _WRITER),
