@@ -74,7 +74,13 @@ Phases, each printed as JSON lines:
    the sorted phase; the fpstore phases: group_unique and the staged
    chain's kernels but K4, with K4, hs_probe, filter_compact, the fused
    level's, the sieve and the sorted store's three never launched; the
-   cli, checkpoint and fpstore_kill phases run in processes of their own; the bucket phase: the three bucket kernels and the chain
+   cli, checkpoint, fpstore_kill and mesh_cli phases run in processes of
+   their own; the default phase's list now holds insert_only (the slab's
+   growth) and not route or route_back; the mesh phases: route,
+   route_back, K1-K4 and group_unique (all_gather: sorted_member and
+   merge_sorted, no route and no K4; the host stores: no K4), never the
+   fused level's, the grouped level's, level_dedup, drop_rows or the
+   bucket core's; the bucket phase: the three bucket kernels and the chain
    around them (dense_expand, chunk_compact, K4, the compactions,
    inflate, K2, inv_scan, the level and superstep control); the service
    phase: those and the fused path's eleven; the others: the fused
@@ -161,6 +167,35 @@ Phases, each printed as JSON lines:
                 then ``--recover``: golden, the level's committed attempt
                 loading the saved groups and expanding the rest, every delta
                 record equal to the paged phase's, no partial left;
+    mesh_baseline — the default path to depths 18 and 20, the witnesses of
+                the mesh and mesh_hosted phases (their slabs' fingerprints);
+    mesh      — the device mesh (parallel/sharded.py ``ShardedChecker``, its
+                8 shards placed on the one card): all_to_all on the Raft.cfg
+                constants to depth 20, every level golden (5,512,586
+                distinct), ``generated`` equal to a default-path run to 20 in
+                this process, the union of the 8 slab shards equal to that
+                run's slab and each shard holding only its own fingerprints
+                (fp % 8); the wall and per-level seconds, the last level's
+                rows a shard (the skew), the exchange's copies a level,
+                reactive grows, the final cap_x, cap_w and vcap, peak device
+                memory (at most 60 GB and 120 s, or the depth comes down);
+                route, route_back, K1-K4, group_unique launched, none of the
+                single-device route's own kernels;
+    mesh_exchange — the mesh phase's run again with CUDA events around every
+                collective: the exchange's device milliseconds beside the
+                wall;
+    mesh_gather — all_gather on 4 shards to 18 (2,008,354 distinct),
+                golden; no route, route_back or K4 launched;
+    mesh_hosted — the host-store mode (one native store per owner under
+                build/smoke/mesh_fps/) on 8 shards to 18, golden; the
+                stores' sizes sum to distinct and each holds exactly the
+                reachable fingerprints it owns; no K4 launched;
+    mesh_trace — the median-bug mutation on (3,1,2,0) over 8 shards: the
+                default path's verdict and counts, and the mesh's pinned
+                counterexample (the reference mesh's);
+    mesh_cli  — ``--mesh 1 --max-depth 16 --json`` in a subprocess, golden,
+                then ``--mesh 2`` on the one card: nonzero, with the
+                too-few-devices message;
 12. twins     — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
@@ -180,7 +215,11 @@ Phases, each printed as JSON lines:
                 inputs of its depth-25 call in a second sorted run that keeps
                 only that level's; group_unique: the fpstore phase, on the
                 lanes of level 25's last full group, and on a copy with SENT
-                lanes and ties; the rest: the default
+                lanes and ties; route and route_back: the mesh phase, on one
+                shard's lanes of its level 20, and on adversarial lanes;
+                insert_only: a 2^24-entry slab rehashed into 2^25 slots,
+                its launches the default phase's (the slab's growth); the
+                rest: the default
                 phase); then
                 the kernels again at 5 and 7 servers on the scale runs'
                 frontiers (K1 at K = 1,900 / 3,696, K2, inflate and deflate
@@ -277,6 +316,23 @@ DEPTH_FPSTORE_PAGED = 22
 FPSTORE_DEV_BYTES = 1e9  # the paged phase's TLA_RAFT_DEV_BYTES: the deep levels page
 FPSTORE_KILL_LEVEL = 22  # the kill lands in this level, after KILL_SAVED of its partials
 FPSTORE_KILL_SAVED = 6
+# the device mesh: D shards placed on the one card
+MESH_SHARDS = 8
+DEPTH_MESH = 20  # all_to_all, 5,512,586 distinct
+MESH_GATHER_SHARDS, DEPTH_MESH_GATHER = 4, 18  # all_gather, 2,008,354 distinct
+DEPTH_MESH_HOSTED = 18  # the per-owner external stores
+DEPTH_MESH_CLI = 16
+MESH_PEAK_BYTES = 60e9  # the mesh phase's reckoned ceiling of device memory
+MESH_SECONDS = 120.0  # and of its wall
+# the median-bug counterexample on 8 shards: the first owner's first bad row,
+# as the reference's ShardedChecker finds it (not the single-device path's;
+# tests/test_torch_sharded.py::test_median_bug_mesh_trace_equals_the_reference)
+MESH_MEDIAN_BUG = dict(
+    actions=["Init", "BecomeCandidate(1)", "UpdateTerm(2)", "ResponseVote(2)",
+             "BecomeLeader(1)", "ClientReq(1)", "BecomeCandidate(2)", "UpdateTerm(3)",
+             "ResponseVote(3)", "LeaderCanCommit(1)", "UpdateTerm(1)", "BecomeLeader(2)"],
+    trace_sha256="90a7d2f9ddec41c7212959b1cad1c7ebc3e2fe2c85d8cf17ad4e2d0a46b7b97a",
+)
 # TLC's Raft.cfg (the reference constants), for the cli phase's --config
 RAFT_CFG = """CONSTANTS
     MaxTerm = 3
@@ -2053,6 +2109,375 @@ def phase_cross_kernels(chk, launches: dict, seed: int) -> list:
     return out
 
 
+# -- the device mesh --------------------------------------------------------------------
+
+
+def _mesh_run(name: str, D: int, depth: int, chunk: int, **kw):
+    """The Raft.cfg constants to ``depth`` on a ``ShardedChecker`` over D
+    shards of the one card: (checker, result, progress records, seconds)."""
+    import torch
+
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.parallel import ShardedChecker, make_mesh
+
+    levels = []
+    chk = ShardedChecker(RaftConfig(), make_mesh(D, devices=["cuda"] * D), chunk=chunk,
+                         progress=levels.append, **kw)
+    check(all(d.type == "cuda" for d in chk.devices), f"{name}: a shard off the card")
+    torch.cuda.reset_peak_memory_stats()
+    WALLS["base_bytes"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = chk.run(max_depth=depth)
+    torch.cuda.synchronize()
+    return chk, res, levels, time.perf_counter() - t0
+
+
+def _mesh_out(name, chk, res, levels, secs, depth) -> dict:
+    log = chk.level_log
+    return dict(
+        phase=name, shards=chk.D, exchange=chk.exchange, **_common(res, levels, secs, depth),
+        last_level_rows=log[-1]["rows"] if log else None, straggler=chk.skew.summary(),
+        exchange_copies_per_level=[lv["exchange_copies"] for lv in log],
+        reactive_grows=chk.reactive_grows, cap_x=chk.cap_x, cap_w=chk.cap_w,
+        vcap=chk.vcap if chk.use_hashstore else None,
+        note="D shards on one card: the exchange is device-local copies; multi-GPU speed "
+             "is not measured (the card's host has one GPU)")
+
+
+def _mesh_golden(res, depth: int) -> None:
+    want = GOLDEN_LEVELS_REF[: depth + 1]
+    check(res.ok and list(res.level_sizes) == want,
+          f"level sizes {list(res.level_sizes)} != golden {want}")
+
+
+def phase_mesh_baseline(depths: tuple, chunk: int) -> dict:
+    """Default-path runs to each of ``depths``, the mesh phases' witnesses:
+    {depth: (result, the slab's live fingerprints, seconds)}."""
+    import torch
+
+    from tla_raft_tpu_torch.u64 import SENT
+
+    out = {}
+    for depth in depths:
+        base, res, _levels, secs = _run_reference(depth, chunk)
+        slab = base.hstore.slab
+        out[depth] = (res, np.sort(slab[slab != SENT].cpu().numpy().view(np.uint64)), secs)
+        base._progs.clear()
+        base = slab = None
+        torch.cuda.empty_cache()
+        emit(dict(phase="mesh_baseline", depth=depth, distinct=res.distinct,
+                  generated=res.generated, seconds=secs))
+        _mesh_golden(res, depth)
+    return out
+
+
+def phase_mesh(depth: int, chunk: int, base: dict) -> dict:
+    """all_to_all on 8 shards to ``depth``: golden level by level;
+    ``generated`` equal to the default-path run to the same depth in this
+    process (``base``), and the union of the 8 slab shards' live entries
+    equal to that run's slab, each shard holding only the fingerprints it
+    owns.  Keeps one shard's lanes of the last level (its routed
+    candidates, their owners and ranks, and the verdict tiles returned to
+    it) for the kernels line."""
+    import torch
+
+    kept = {}
+
+    def wrap(chk):
+        route, winners = chk._route_candidates, chk._winners
+
+        def route_candidates(lanes):
+            recv, meta, counts = route(lanes)
+            kept.update(lanes=lanes[0], meta=meta[0])
+            return recv, meta, counts
+
+        def keep_winners(back, lanes, meta):
+            kept["back"] = back[0]
+            return winners(back, lanes, meta)
+
+        chk._route_candidates, chk._winners = route_candidates, keep_winners
+
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.parallel import ShardedChecker, make_mesh
+
+    levels = []
+    chk = ShardedChecker(RaftConfig(), make_mesh(MESH_SHARDS, devices=["cuda"] * MESH_SHARDS),
+                         chunk=chunk, progress=levels.append)
+    wrap(chk)
+    torch.cuda.reset_peak_memory_stats()
+    WALLS["base_bytes"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = chk.run(max_depth=depth)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = _mesh_out("mesh", chk, res, levels, secs, depth)
+    out["level_log"] = chk.level_log
+    shards = chk.slab_contents()
+    chk.slabs = None
+    bres, live, bsecs = base[depth]
+    out.update(default_seconds=bsecs, default_generated=bres.generated)
+    emit(out)
+    WALLS["mesh"] = secs
+    _mesh_golden(res, depth)
+    check(res.generated == bres.generated and res.distinct == bres.distinct,
+          f"mesh generated {res.generated} / distinct {res.distinct}, default path "
+          f"{bres.generated} / {bres.distinct}")
+    for o, sh in enumerate(shards):
+        check(bool((sh % np.uint64(MESH_SHARDS) == np.uint64(o)).all()),
+              f"slab shard {o} holds a fingerprint it does not own")
+    union = np.sort(np.concatenate(shards))
+    check(np.array_equal(union, live),
+          f"the slab shards hold {len(union)} fingerprints, not the default slab's {len(live)}")
+    check(out["run_peak_bytes"] <= MESH_PEAK_BYTES and secs <= MESH_SECONDS,
+          f"mesh phase: {out['run_peak_bytes']} B at peak, {secs:.1f} s (lower its depth)")
+    check(set(kept) == {"lanes", "meta", "back"}, "no routed lanes kept")
+    kept.update(D=MESH_SHARDS, cap_r=chk.cap_r, cap_w=chk.cap_w, level=depth)
+    return kept
+
+
+def phase_mesh_exchange(depth: int, chunk: int) -> dict:
+    """The mesh phase's run again, with CUDA events around every collective
+    (the tiles' all_to_all and all_gather, and the owners' concatenation of
+    the shipped rows): the device milliseconds between each pair of events
+    are the exchange's copies, set beside the run's wall (the events add no
+    synchronization)."""
+    import torch
+
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.parallel import ShardedChecker, make_mesh
+    from tla_raft_tpu_torch.parallel import mesh as meshlib
+    from tla_raft_tpu_torch.parallel import sharded
+
+    pairs = []
+
+    def timed(fn):
+        def wrapped(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            pairs.append((e0, e1))
+            return out
+        return wrapped
+
+    saved = meshlib.all_to_all, meshlib.all_gather, sharded._cat_frontiers
+    meshlib.all_to_all, meshlib.all_gather, sharded._cat_frontiers = (timed(f) for f in saved)
+    try:
+        chk = ShardedChecker(RaftConfig(), make_mesh(MESH_SHARDS,
+                                                     devices=["cuda"] * MESH_SHARDS),
+                             chunk=chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = chk.run(max_depth=depth)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        meshlib.all_to_all, meshlib.all_gather, sharded._cat_frontiers = saved
+    ex_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    out = dict(phase="mesh_exchange", seconds=wall, exchange_device_ms=ex_ms,
+               exchange_calls=len(pairs), exchange_share=ex_ms / 1e3 / wall)
+    emit(out)
+    _mesh_golden(res, depth)
+    return out
+
+
+def phase_mesh_gather(depth: int, chunk: int) -> dict:
+    """all_gather on 4 shards to ``depth``: golden, no route and no K4."""
+    chk, res, levels, secs = _mesh_run("mesh_gather", MESH_GATHER_SHARDS, depth, chunk,
+                                       exchange="all_gather")
+    out = _mesh_out("mesh_gather", chk, res, levels, secs, depth)
+    out["store_slots"] = chk.visited[0].shape[0]
+    emit(out)
+    _mesh_golden(res, depth)
+    return out
+
+
+def mesh_gather_counts(c: dict) -> None:
+    check(c["route"] == c["route_back"] == c["hashstore"] == 0,
+          f"all_gather launched route {c['route']}, route_back {c['route_back']}, "
+          f"hashstore {c['hashstore']}")
+
+
+def phase_mesh_hosted(depth: int, chunk: int, base: dict) -> dict:
+    """The host-store mode on 8 shards to ``depth`` (one native store per
+    owner under build/smoke/mesh_fps/): golden; the stores' sizes sum to
+    distinct, and each holds exactly the reachable fingerprints it owns
+    (the default-path run's slab to the same depth, ``base``, probed in
+    every store); the conservation checks pass every level (a failure
+    raises)."""
+    d = _smoke_dir("mesh_fps")
+    chk, res, levels, secs = _mesh_run("mesh_hosted", MESH_SHARDS, depth, chunk,
+                                       host_store_dir=str(d))
+    out = _mesh_out("mesh_hosted", chk, res, levels, secs, depth)
+    stores = chk.host_stores
+    out.update(store_entries=[len(s) for s in stores], store_runs=[s.num_runs for s in stores],
+               host_filter_seconds=chk.host_seconds,
+               exchange_bytes=chk.meter.summary()["exchanged_bytes"])
+    live = base[depth][1]
+    emit(out)
+    _mesh_golden(res, depth)
+    check(sum(out["store_entries"]) == res.distinct == len(live),
+          f"stores hold {sum(out['store_entries'])}, distinct {res.distinct}")
+    for o, st in enumerate(stores):
+        mine = live % np.uint64(MESH_SHARDS) == np.uint64(o)
+        check(np.array_equal(st.contains(live), mine) and len(st) == int(mine.sum()),
+              f"store {o} does not hold exactly the fingerprints it owns")
+    for st in stores:
+        st.close()
+    return out
+
+
+def phase_mesh_trace(chunk: int) -> None:
+    """The median-bug mutation on (3,1,2,0) over 8 shards: the default
+    path's violation, counts and level sizes, and the mesh's pinned trace
+    (the reference mesh's: the first owner's first bad row)."""
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.parallel import ShardedChecker, make_mesh
+
+    cfg = RaftConfig(3, 1, 2, 0, mutations=("median-bug",))
+    res = ShardedChecker(cfg, make_mesh(MESH_SHARDS, devices=["cuda"] * MESH_SHARDS),
+                         chunk=chunk).run()
+    kind, trace = res.violation if res.violation else (None, [])
+    sha = hashlib.sha256("\n".join(f"{a!r} {s!r}" for a, s in trace).encode()).hexdigest()
+    emit(dict(phase="mesh_trace", violation=kind, depth=res.depth, distinct=res.distinct,
+              actions=[a for a, _ in trace], trace_sha256=sha))
+    check(kind == "Invariant Inv is violated", f"median-bug violation: {kind}")
+    check(res.depth == MEDIAN_BUG["depth"] and res.distinct == MEDIAN_BUG["distinct"]
+          and res.generated == MEDIAN_BUG["generated"]
+          and tuple(res.level_sizes) == MEDIAN_BUG["level_sizes"], "median-bug counts")
+    check([a for a, _ in trace] == MESH_MEDIAN_BUG["actions"], "mesh median-bug trace actions")
+    check(sha == MESH_MEDIAN_BUG["trace_sha256"], "mesh median-bug trace states")
+
+
+def phase_mesh_cli(depth: int) -> dict:
+    """``--mesh 1 --max-depth depth --json`` in a subprocess: golden; then
+    ``--mesh 2`` on the one card exits nonzero with the too-few-devices
+    message."""
+    import torch
+
+    rc, got, secs, err = _check_cli(["--mesh", "1", "--max-depth", str(depth), "--json"])
+    n_gpu = torch.cuda.device_count()
+    proc = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", "--mesh",
+                           str(n_gpu + 1), "--max-depth", "2"], capture_output=True, text=True,
+                          cwd=str(__import__("pathlib").Path(__file__).resolve().parent),
+                          timeout=600)
+    out = dict(phase="mesh_cli", rc=rc, seconds=secs, run_seconds=got.get("seconds"),
+               **{k: got.get(k) for k in ("distinct", "generated", "depth", "level_sizes",
+                                          "mesh", "exchange", "straggler")},
+               too_many_rc=proc.returncode, too_many_line=proc.stdout.strip()[-300:])
+    emit(out)
+    check(rc == 0, f"the mesh CLI exited {rc}: {err}")
+    check(got["level_sizes"] == GOLDEN_LEVELS_REF[: depth + 1] and got["mesh"] == 1,
+          f"mesh cli level sizes {got['level_sizes']}")
+    check(proc.returncode != 0 and "device(s) are visible" in proc.stdout,
+          f"--mesh {n_gpu + 1} on {n_gpu} GPU(s): rc {proc.returncode}")
+    return out
+
+
+def phase_mesh_kernels(kept: dict, launches: dict, seed: int) -> list:
+    """``route`` and ``route_back`` against their twins on one shard's lanes
+    of the mesh phase's last level (its pre-deduped candidates, the verdict
+    tiles returned to it), then on adversarial lanes: a quarter SENT, an
+    empty owner, and a capacity some owners pass (overflow set); and
+    ``insert_only`` rehashing a 2^24-entry slab into 2^25 slots against its
+    twin, and on a slab with a full probe window.  Times: the kernels, the
+    twins, the library (``route``: a stable ``torch.argsort`` by owner,
+    ``torch.bincount`` and the gathers; ``route_back``: one gather; none for
+    ``insert_only``), and the bounds: route 36 B a lane (24 B in, its owner
+    and rank out) plus every row slot written once (D * cap * 24 B: the
+    fill is written too), route_back 13 B a lane plus its tiles, insert_only
+    8 B an old slot plus one 32-B sector of the new slab a live one."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.ops import hashstore as hs
+    from tla_raft_tpu_torch.parallel import sharded
+    from tla_raft_tpu_torch.u64 import SENT
+
+    D, cap_r = kept["D"], kept["cap_r"]
+    gv, gf, gp = kept["lanes"]
+    lane_owner, lane_rank = kept["meta"]
+    back = kept["back"]
+    n = gv.shape[0]
+    fills = [SENT, SENT, -1]
+
+    def same_route(cols, cap, **kw):
+        a = kernels.route(cols, fills[:len(cols)], D, cap, **kw)
+        b = sharded.route_plain([c for c in cols], fills[:len(cols)], D, cap, **kw)
+        ok = all(_equal(x, y) for x, y in zip(a[0], b[0])) and all(
+            _equal(x, y) for x, y in zip(a[1:4], b[1:4])) and bool(a[4]) == bool(b[4])
+        return ok, bool(a[4])
+
+    ok, _ovf = same_route([gv, gf, gp], cap_r)
+    check(ok, "route differs from its twin on the mesh's lanes")
+    gen = np.random.default_rng(seed)
+    dev = gv.device
+    av = gv.clone()
+    own = sharded.owner_of_fp(av, D)
+    av[(own == D - 1) | torch.from_numpy(gen.random(n) < 0.25).to(dev)] = SENT
+    ok, ovf = same_route([av, gf, gp], max(1, n // (2 * D)))
+    check(ok and ovf, "route differs from its twin (or sets no overflow) on adversarial lanes")
+    win = kernels.route_back(back, lane_owner, lane_rank, D, cap_r)
+    check(_equal(win, sharded.route_back_plain(back, lane_owner, lane_rank, D, cap_r)),
+          "route_back differs from its twin")
+    wa = kernels.route([gp], [-1], D, kept["cap_w"], owner=lane_owner, mask=win)
+    wb = sharded.route_plain([gp], [-1], D, kept["cap_w"], owner=lane_owner, mask=win)
+    check(_equal(wa[0][0], wb[0][0]) and _equal(wa[1], wb[1]),
+          "route (the winners' grouping) differs from its twin")
+    ms = cuda_ms(lambda: kernels.route([gv, gf, gp], fills, D, cap_r), 10)
+    plain = cuda_ms(lambda: sharded.route_plain([gv, gf, gp], fills, D, cap_r), 5)
+
+    def library():
+        g = sharded.owner_of_fp(gv, D)
+        order = torch.argsort(g, stable=True)
+        counts = torch.bincount(g, minlength=D + 1)
+        return [c[order] for c in (gv, gf, gp)], counts
+
+    lib = cuda_ms(library, 5)
+    out = []
+    # each input lane read once (24 B), its owner and rank written (12 B), and
+    # every row slot written once, filled or not (D * cap * 24 B)
+    rec = _entry(out, launches, kernels.ROUTE, ms, plain, n * 36 + D * cap_r * 24 + 8 * (D + 1),
+                 lib)
+    rec.update(lanes=n, shards=D, cap=cap_r, level=kept["level"], live=int((gv != SENT).sum()))
+    ms = cuda_ms(lambda: kernels.route_back(back, lane_owner, lane_rank, D, cap_r), 10)
+    plain = cuda_ms(lambda: sharded.route_back_plain(back, lane_owner, lane_rank, D, cap_r), 5)
+    lib = cuda_ms(lambda: back[lane_owner.long().clamp(max=D - 1), lane_rank.clamp(0, cap_r - 1)],
+                  5)
+    rec = _entry(out, launches, kernels.ROUTE_BACK, ms, plain, n * 13 + D * cap_r, lib)
+    rec.update(lanes=n, tiles=D * cap_r)
+    kept.clear()
+    # insert_only: the grow of a 2^24-entry slab into 2^25 slots
+    old = hs.make_slab(1 << 25, "cuda")
+    fps = torch.from_numpy(gen.integers(-(1 << 63), (1 << 63) - 1, 1 << 24,
+                                        dtype=np.int64)).to("cuda")
+    hs.insert_only(old, fps)  # the old slab, at its 1/2 load
+    fps = None
+    a = kernels.insert_only(hs.make_slab(1 << 25, "cuda"), old)
+    got = []  # the twin's one call is both its comparison and its time
+    plain = wall_ms(lambda: got.append(hs.insert_only_plain(hs.make_slab(1 << 25, "cuda"), old)))
+    b = got[0]
+    check(_equal(a[0], b[0]) and int(a[1]) == int(b[1]) and bool(a[2]) == bool(b[2]),
+          "insert_only differs from its twin on the 2^25 rehash")
+    n_ins = int(a[1])
+    a = b = None
+    small = hs.make_slab(1 << 12, "cuda")
+    small[100:300] = torch.arange(1, 201, device="cuda")
+    f2 = torch.from_numpy(gen.integers(-(1 << 63), (1 << 63) - 1, 1800, dtype=np.int64)).cuda()
+    a = kernels.insert_only(small.clone(), f2)
+    b = hs.insert_only_plain(small.clone(), f2)
+    check(_equal(a[0], b[0]) and int(a[1]) == int(b[1]) and bool(a[2]) == bool(b[2])
+          and bool(a[2]), "insert_only differs from its twin (or no overflow) on a full window")
+    ms = _timed_insert(lambda s, x: kernels.insert_only(s, x), hs.make_slab(1 << 25, "cuda"),
+                       (old,), 5)
+    # each old slot read once (8 B), one 32-B sector of the new slab a live one
+    rec = _entry(out, launches, kernels.INSERT_ONLY, ms, plain, (1 << 25) * 8 + n_ins * 32, None)
+    rec.update(lanes=1 << 25, inserted=n_ins, slots=1 << 25)
+    old = None
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_digests(staged: list, default: list, depth: int) -> None:
     same = [a == b for a, b in zip(staged[:depth], default[:depth])]
     emit(dict(phase="digests", levels=len(same), equal=sum(same)))
@@ -3055,7 +3480,7 @@ def main() -> int:
         "default", [k for k in kernels.KERNELS
                     if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH
                     + kernels.EXPAND_PATH + kernels.LEGACY_PATH + kernels.SORTED_PATH
-                    + kernels.BUCKET_PATH + kernels.HOST_PATH],
+                    + kernels.BUCKET_PATH + kernels.HOST_PATH + kernels.MESH_PATH],
         phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
@@ -3130,7 +3555,58 @@ def main() -> int:
         run("fpstore_kill", (), phase_fpstore_kill, DEPTH_FPSTORE_PAGED, paged["ck"])
     else:
         failures.append("fpstore_kill: no clean checkpointed run to compare with")
+    # the device mesh, D shards on the one card
+    mesh_path = kernels.MESH_PATH + ("guards", "compact", "inflate", "materialize",
+                                     "fingerprint", "group_unique", "hashstore", "deflate",
+                                     "inv_scan")
+    never_mesh = ("level", "superstep", "hs_probe", "filter_compact", "level_dedup", "sieve",
+                  "drop_rows") + kernels.BUCKET_PATH
+
+    def mesh_counts(c: dict) -> None:
+        check(all(c[k] == 0 for k in never_mesh),
+              "single-device kernels launched on the mesh: "
+              + str({k: c[k] for k in never_mesh if c[k]}))
+
+    def hosted_counts(c: dict) -> None:
+        mesh_counts(c)
+        check(c["hashstore"] == 0, f"K4 launched {c['hashstore']} times on the host stores")
+
+    def gather_counts(c: dict) -> None:
+        mesh_counts(c)
+        mesh_gather_counts(c)
+
+    mesh_base, _ = run("mesh_baseline", fused, phase_mesh_baseline,
+                       (DEPTH_MESH_HOSTED, DEPTH_MESH), CHUNK)
+    mesh_kept = None
+    if mesh_base:
+        mesh_kept, mesh_launches = run("mesh", mesh_path, phase_mesh, DEPTH_MESH, CHUNK,
+                                       mesh_base, counts_check=mesh_counts)
+        launches.update({k: mesh_launches[k] for k in kernels.MESH_PATH})
+    run("mesh_exchange", mesh_path, phase_mesh_exchange, DEPTH_MESH, CHUNK,
+        counts_check=mesh_counts)
+    run("mesh_gather", ("guards", "compact", "materialize", "fingerprint", "group_unique",
+                        "sorted_member", "merge_sorted", "inv_scan"),
+        phase_mesh_gather, DEPTH_MESH_GATHER, CHUNK, counts_check=gather_counts)
+    if mesh_base:
+        run("mesh_hosted", kernels.MESH_PATH + ("guards", "compact", "materialize",
+                                                "fingerprint", "group_unique", "inv_scan"),
+            phase_mesh_hosted, DEPTH_MESH_HOSTED, CHUNK, mesh_base, counts_check=hosted_counts)
+    else:
+        failures.append("mesh, mesh_hosted: no default-path witness to compare with")
+    mesh_base = None
+    run("mesh_trace", kernels.MESH_PATH + ("hashstore", "group_unique"), phase_mesh_trace,
+        CHUNK, counts_check=mesh_counts)
+    run("mesh_cli", (), phase_mesh_cli, DEPTH_MESH_CLI)
     records, shapes, scale_times, orbit_shapes = [], None, None, None
+    if not mesh_kept:
+        failures.append("mesh_kernels: no mesh run to test on")
+    else:
+        try:
+            records += phase_mesh_kernels(mesh_kept, launches, SEED)
+        except Failed as e:
+            failures.append(f"mesh_kernels: {e}")
+            emit(dict(phase="mesh_kernels", failed=str(e)))
+    mesh_kept = None
     if not bucket_results:
         failures.append("bucket_kernels: no bucket run to test on")
     else:

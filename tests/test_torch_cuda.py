@@ -1020,3 +1020,99 @@ def test_host_store_runs_on_the_card_equal_the_cpu(run, tmp_path, monkeypatch, p
     assert counts["group_unique"] > 0
     assert all(counts[k] == 0 for k in ("hashstore", "hs_probe", "level", "superstep",
                                         "level_dedup"))
+
+
+# -- the mesh's routing, insert_only, and an 8-shard mesh on one card ------------------
+
+
+def _route_inputs(seed: int, n: int, D: int):
+    g = np.random.default_rng(seed)
+    v = g.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    v[g.random(n) < 0.25] = -1  # SENT lanes go to the virtual owner D
+    if D > 2:
+        # no lane owned by D - 1: an empty owner
+        own = (v.view(np.uint64) % np.uint64(D)).astype(np.int64)
+        v[(own == D - 1) & (v != -1)] = -1
+    f = g.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    p = g.integers(0, 1 << 40, n, dtype=np.int64)
+    return [torch.from_numpy(x).cuda() for x in (v, f, p)]
+
+
+@pytest.mark.parametrize("D", [2, 8])
+@pytest.mark.parametrize("cap", ["n", "small"])
+def test_route_kernel_equals_twin(run, D, cap):
+    """Random lanes with SENT lanes and an empty owner, at the worst-case
+    capacity and at one past which owners overflow."""
+    from tla_raft_tpu_torch.parallel import sharded
+
+    n = 50_000
+    cols = _route_inputs(D, n, D)
+    c = n if cap == "n" else n // (2 * D)
+    a = kernels.route(cols, [-1, -1, -1], D, c)
+    b = sharded.route_plain([x.cpu() for x in cols], [-1, -1, -1], D, c)
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x.cpu(), y)
+    for x, y in zip(a[1:4], b[1:4]):
+        assert torch.equal(x.cpu(), y)
+    assert bool(a[4]) == bool(b[4]) == (cap == "small")
+
+
+@pytest.mark.parametrize("D", [2, 8])
+def test_route_given_owners_and_route_back_equal_twins(run, D):
+    """The winners' grouping (given owners where a mask holds) and the
+    verdict map back."""
+    from tla_raft_tpu_torch.parallel import sharded
+
+    n = 40_000
+    cols = _route_inputs(D + 10, n, D)
+    rows, counts, lane_owner, lane_rank, _ovf = kernels.route(cols, [-1, -1, -1], D, n)
+    g = np.random.default_rng(D)
+    back = torch.from_numpy(g.random((D, n)) < 0.5).cuda()
+    win = kernels.route_back(back, lane_owner, lane_rank, D, n)
+    assert torch.equal(win.cpu(), sharded.route_back_plain(back.cpu(), lane_owner.cpu(),
+                                                            lane_rank.cpu(), D, n))
+    for cap in (n, 256):
+        a = kernels.route([cols[2]], [-1], D, cap, owner=lane_owner, mask=win)
+        b = sharded.route_plain([cols[2].cpu()], [-1], D, cap, owner=lane_owner.cpu(),
+                                mask=win.cpu())
+        assert torch.equal(a[0][0].cpu(), b[0][0]) and torch.equal(a[1].cpu(), b[1])
+        assert bool(a[4]) == bool(b[4])
+
+
+@pytest.mark.parametrize("case", ["random", "full_window", "load"])
+def test_insert_only_kernel_equals_twin(run, case):
+    g = np.random.default_rng(7)
+    cap = 1 << 12
+    slab = hs.make_slab(cap, "cuda")
+    if case == "full_window":
+        # 200 slots in a row taken: lanes homed there find their window full
+        slab[100:300] = torch.arange(1, 201, device="cuda")
+    n = {"random": 1500, "full_window": 1800, "load": 2600}[case]
+    fps = torch.from_numpy(g.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)).cuda()
+    fps[::9] = -1
+    a = kernels.insert_only(slab.clone(), fps)
+    b = hs.insert_only_plain(slab.cpu().clone(), fps.cpu())
+    assert torch.equal(a[0].cpu(), b[0])
+    assert int(a[1]) == int(b[1]) and bool(a[2]) == bool(b[2])
+    assert bool(b[2]) == (case != "random")
+
+
+def test_eight_shard_mesh_on_one_card_equals_the_cpu(run, tmp_path):
+    """(3,1,1,0) to its fixpoint on 8 shards of one card, each mode, equal
+    to the same run on the CPU; every mesh kernel launched."""
+    from tla_raft_tpu_torch.parallel import ShardedChecker, make_mesh
+
+    cfg = RaftConfig(n_servers=3, n_vals=1, max_election=1, max_restart=0)
+    for mode in ("all_to_all", "all_gather", "hosted"):
+        kw = (dict(host_store_dir=str(tmp_path / "fps")) if mode == "hosted"
+              else dict(exchange=mode))
+        kernels.reset_launches()
+        got = ShardedChecker(cfg, make_mesh(8, devices=["cuda"] * 8), cap_x=512, vcap=4096,
+                             **kw).run()
+        counts = kernels.launch_counts()
+        want = ShardedChecker(cfg, make_mesh(8, device="cpu"), cap_x=512, vcap=4096,
+                              **kw).run()
+        assert got == want
+        assert (counts["route"] > 0) == (mode != "all_gather")
+        assert (counts["hashstore"] > 0) == (mode == "all_to_all")
+        assert counts["group_unique"] > 0 and counts["materialize"] > 0

@@ -25,11 +25,17 @@ semantics), or without one from the Raft.cfg defaults; ``--servers``,
     python -m tla_raft_tpu_torch.check --max-depth 22 --checkpoint-dir ck  # delta log
     python -m tla_raft_tpu_torch.check --max-depth 22 --checkpoint-dir ck --recover ck
     python -m tla_raft_tpu_torch.check --max-depth 26 --fpstore-dir fps    # external store
+    python -m tla_raft_tpu_torch.check --mesh 8 --device cpu --servers 2 --vals 1 \
+        --max-election 1 --max-restart 1                              # an 8-shard CPU mesh
+    python -m tla_raft_tpu_torch.check --mesh 1 --max-depth 16 --json  # a 1-GPU mesh
 
 Exit code 0 when no error was found, 1 on a violation, 2 when the spec
 beside the cfg differs from the compiled semantics (or on --dev-bytes with
---checkpoint-dir and no --fpstore-dir, or on a TLA_RAFT_DEV_BYTES /
-TLA_RAFT_FSEG_BYTES setting the port does not run), 4 on an integrity
+--checkpoint-dir and no --fpstore-dir, on a TLA_RAFT_DEV_BYTES /
+TLA_RAFT_FSEG_BYTES setting the port does not run, on --mesh-deep, on
+--mesh with --checkpoint-dir, --recover, --audit or, under all_to_all
+without --fpstore-dir, --no-hashstore, and on --mesh N past the visible
+GPUs), 4 on an integrity
 fail-stop, 75 on a preemption
 (SIGTERM/SIGINT: the run stops at a level boundary, resumable with
 --recover) — the reference's, check.py:1015-1275.
@@ -176,6 +182,29 @@ def summarize(res, seconds: float, chk) -> dict:
     return out
 
 
+def summarize_mesh(res, seconds: float, chk) -> dict:
+    """The ``--json`` summary of a mesh run: the reference's keys for a
+    ``ShardedChecker`` (check.py:221-297: no megakernel or superstep, the
+    ``straggler`` block once a level ran), plus the shard devices, the
+    exchange mode, the final capacities and the reactive grows."""
+    out = dict(
+        ok=res.ok, distinct=res.distinct, generated=res.generated, depth=res.depth,
+        level_sizes=list(res.level_sizes), mxu=chk.use_mxu, megakernel=None, superstep=None,
+        seconds=round(seconds, 3), violation=res.violation[0] if res.violation else None,
+        device=str(chk.devices[0]), mesh=chk.D, exchange=chk.exchange, cap_x=chk.cap_x,
+        cap_w=chk.cap_w, vcap=chk.vcap if chk.use_hashstore else None,
+        reactive_grows=chk.reactive_grows,
+        exchange_copies=sum(lv["exchange_copies"] for lv in chk.level_log),
+    )
+    if chk.host_stores is not None:
+        out["host_store"] = dict(entries=[len(s) for s in chk.host_stores],
+                                 runs=sum(s.num_runs for s in chk.host_stores),
+                                 host_filter_s=round(chk.host_seconds, 6))
+    if chk.skew.levels:
+        out["straggler"] = chk.skew.summary()
+    return out
+
+
 def summary_public(summary: dict) -> dict:
     """The JSON-serializable view of a :func:`run_check` summary
     (check.py:311): the ``_res`` / ``_chk`` keys stripped."""
@@ -189,7 +218,8 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
               megakernel: bool | None = None, superstep: int | None = None, audit: int = 0,
               audit_retries: int = 3, dev_bytes: int | None = None, progress=None, out=None,
               install_signals: bool = False, config_path: str | None = None,
-              fpstore_dir: str | None = None, warm_bytes: int | None = None) -> dict:
+              fpstore_dir: str | None = None, warm_bytes: int | None = None, mesh: int = 0,
+              exchange: str = "all_to_all", cap_x: int = 4096) -> dict:
     """One in-process check -> the ``--json`` summary dict (check.py:316):
     the programmatic entry the sweep service and the tests call.  ``out``
     (a stream, or None) receives the CLI's informational lines, ``progress``
@@ -201,7 +231,10 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
     the visited set in the native external store there (check.py:664-680),
     its RAM buffer ``warm_bytes // 8`` fingerprints (``TLA_RAFT_WARM_BYTES``
     when not given; the native 64 MiB default when neither is set); the
-    store is cleared unless the run recovers."""
+    store is cleared unless the run recovers.  ``mesh`` N >= 1 runs the
+    ``ShardedChecker`` over N shards (``make_mesh(N, device)``: the first N
+    GPUs, or N shards of the CPU) with ``exchange`` and ``cap_x``
+    (check.py:686-733); ``fpstore_dir`` then holds one store per owner."""
     from . import resilience
     from .engine.bfs import TorchChecker
 
@@ -211,6 +244,13 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
     if warm_bytes is None and os.environ.get("TLA_RAFT_WARM_BYTES"):
         warm_bytes = int(float(os.environ["TLA_RAFT_WARM_BYTES"]))
     t0 = time.monotonic()
+    if mesh:
+        return _run_mesh(cfg, t0, max_depth=max_depth, chunk=chunk, checkpoint_dir=checkpoint_dir,
+                         checkpoint_every=checkpoint_every, recover=recover, device=device,
+                         canon=canon, use_hashstore=use_hashstore, use_mxu=use_mxu,
+                         progress=progress, out=out, config_path=config_path,
+                         fpstore_dir=fpstore_dir, warm_bytes=warm_bytes, mesh=mesh,
+                         exchange=exchange, cap_x=cap_x, dev_bytes=dev_bytes)
     host_store = None
     if fpstore_dir:
         from .native import HostFPStore
@@ -246,6 +286,58 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
     summary["_res"] = res
     summary["_chk"] = chk
     return summary
+
+
+def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, recover, device,
+              canon, use_hashstore, use_mxu, progress, out, config_path, fpstore_dir,
+              warm_bytes, mesh, exchange, cap_x, dev_bytes) -> dict:
+    """``run_check``'s mesh branch (check.py:686-733)."""
+    from .parallel import ShardedChecker, make_mesh
+
+    if out is not None and dev_bytes:
+        print("--dev-bytes applies to the single-device engine's hot slab; mesh out-of-core "
+              "runs tier through the owner-sharded external stores (--fpstore-dir) with "
+              "--warm-bytes bounding their RAM (flag ignored)", file=out)
+    chk = ShardedChecker(cfg, make_mesh(mesh, device=device), cap_x=cap_x, exchange=exchange,
+                         progress=progress, canon=canon, host_store_dir=fpstore_dir or None,
+                         use_hashstore=use_hashstore, use_mxu=use_mxu, warm_bytes=warm_bytes,
+                         chunk=chunk)
+    if out is not None:
+        print(f"tla-raft-tpu-torch checker: device={chk.devices[0]}, mesh of {chk.D} "
+              f"shard(s) ({exchange})", file=out)
+        where = f" {config_path}" if config_path else ""
+        print(f"Config{where}: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
+        if fpstore_dir:
+            print(f"Native FP store (owner-sharded x{mesh}): {fpstore_dir}", file=out)
+    res = chk.run(max_depth=max_depth, checkpoint_dir=checkpoint_dir,
+                  checkpoint_every=checkpoint_every, resume_from=recover)
+    summary = summarize_mesh(res, time.monotonic() - t0, chk)
+    summary["_res"] = res
+    summary["_chk"] = chk
+    return summary
+
+
+def mesh_refusal(args) -> str | None:
+    """Why the CLI refuses a mesh run it cannot honor, or None: the deep
+    sweep, the mesh's checkpoints and sorted shards are not ported, and
+    --audit belongs to the single-device engine (check.py:719)."""
+    from .parallel.sharded import CHECKPOINT_REFUSAL, DEEP_REFUSAL, SORTED_REFUSAL
+
+    if args.mesh_deep and not args.mesh:
+        return ("--mesh-deep requires --mesh N (the sharded deep sweep runs on a device "
+                "mesh)")
+    if not args.mesh:
+        return None
+    if args.mesh_deep:
+        return DEEP_REFUSAL
+    if (args.checkpoint_dir and args.checkpoint_every) or args.recover:
+        return CHECKPOINT_REFUSAL
+    if args.audit:
+        return ("--audit applies to the single-device engine; mesh runs keep the always-on "
+                "conservation checks (count reconciliation, store occupancy)")
+    if args.no_hashstore and args.exchange == "all_to_all" and not args.fpstore_dir:
+        return SORTED_REFUSAL
+    return None
 
 
 def _mxu_arg(args):
@@ -320,8 +412,14 @@ def main(argv=None) -> int:
                          "run to disk (unset: the native 64 MiB default; env: "
                          "TLA_RAFT_WARM_BYTES)")
     ap.add_argument("--cap-x", type=int, default=4096,
-                    help="per-device candidate capacity (distributed mode); accepted as the "
-                         "reference's CLI accepts it, read nowhere while the port has no mesh")
+                    help="per-shard candidate capacity a level on --mesh (grows on demand)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="run over an N-shard mesh, one GPU a shard (0 = one device; with "
+                         "--device cpu, N shards of the CPU)")
+    ap.add_argument("--exchange", choices=("all_to_all", "all_gather"), default="all_to_all",
+                    help="the mesh's fingerprint exchange")
+    ap.add_argument("--mesh-deep", action="store_true",
+                    help="the sharded deep sweep (not ported yet: refused)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="write a per-level delta-log checkpoint (delta_NNNN.npz, and the "
                          "hslab.npz slab snapshot at its cadence) here")
@@ -388,7 +486,7 @@ def main(argv=None) -> int:
         return 2
     from .engine.bfs import segment_settings_refusal
 
-    why = segment_settings_refusal(bool(args.fpstore_dir))
+    why = mesh_refusal(args) or segment_settings_refusal(bool(args.fpstore_dir))
     if why:
         print(f"Refusing: {why}.", file=out)
         return 2
@@ -410,9 +508,17 @@ def main(argv=None) -> int:
             dev_bytes=int(args.dev_bytes) if args.dev_bytes else None, progress=progress,
             out=out, install_signals=True, config_path=args.config,
             fpstore_dir=args.fpstore_dir,
-            warm_bytes=int(args.warm_bytes) if args.warm_bytes else None)
+            warm_bytes=int(args.warm_bytes) if args.warm_bytes else None, mesh=args.mesh,
+            exchange=args.exchange, cap_x=args.cap_x)
     except resilience.Preempted as e:
         return _report_preempted(e, out)
+    except ValueError as e:
+        if not args.mesh:
+            raise
+        # a mesh the run cannot have: too few visible GPUs, or a mode the
+        # port's mesh refuses (parallel/sharded.py)
+        print(f"Refusing: {e}.", file=out)
+        return 2
     except IntegrityError as e:
         # an audit fail-stop or a conservation check is no model verdict:
         # exit 4 (check.py:1188-1197)
@@ -440,7 +546,8 @@ def main(argv=None) -> int:
     print(f"Finished in {dt:.1f}s ({res.distinct / max(dt, 1e-9):,.0f} distinct states/s).",
           file=out)
     if args.json:
-        print(json.dumps(summarize(res, dt, chk)), file=out)
+        line = summarize_mesh(res, dt, chk) if args.mesh else summarize(res, dt, chk)
+        print(json.dumps(line), file=out)
     return 0 if res.ok else 1
 
 

@@ -45,6 +45,15 @@
 // against the slab as it was before the level (K4 inserts only in the
 // level's tail).
 //
+// hs_live counts the slab's live slots.  It is the live-count delta of
+// insert_only (B8 insert_only_impl, :325): the claim rounds above alone
+// (hs_probe_first, then hs_round until no lane claims), with no
+// representative pass and no undo; a lane whose probe window is full is
+// skipped and raises the overflow, n_inserted is the live count after
+// minus the live count before, and a load past 1/2 raises the overflow
+// too.  HashStore.grow rehashes the old slab through it, as the
+// reference's grow does (hashstore.py:511-531).
+//
 // Bound: bytes.  Each lane reads its fp, key and payload (24 B) and a
 // few slab words, and writes its fresh flag; the slab traffic is random
 // 8-byte accesses, a cache line each.  hs_probe reads 8 B a lane plus the
@@ -220,6 +229,16 @@ __global__ void undo(u64* slab, long long n, const long long* slot, const uint8_
   }
 }
 
+// The live (non-SENT) slots of the slab, added to *out.  Each thread counts
+// its grid-stride share, each warp sums by shuffles, and one atomic a warp
+// adds it: an integer sum, the same in any order.
+__global__ void live_slots(const u64* slab, long long cap, u64* out) {
+  u64 c = 0;
+  LANES(i, cap) c += slab[i] != SENT;
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, o);
+  if ((threadIdx.x & 31) == 0 && c) atomicAdd(out, c);
+}
+
 // Rounds exhausted: lanes still claim after the last round of the budget.
 __global__ void rounds_left(const u64* cur, int64_t* out) {
   if (threadIdx.x == 0 && blockIdx.x == 0) *out = *cur ? 1 : 0;
@@ -308,6 +327,14 @@ EXPORT int hs_probe(const int64_t* slab, long long cap, const int64_t* fps, long
   return (int)cudaGetLastError();
 }
 
+// *out = the slab's live slots (insert_only's counts before and after).
+EXPORT int hs_live(const int64_t* slab, long long cap, int64_t* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaMemsetAsync(out, 0, sizeof(int64_t), st);
+  if (cap > 0) live_slots<<<grid_of(cap), THREADS, 0, st>>>((const u64*)slab, cap, (u64*)out);
+  return (int)cudaGetLastError();
+}
+
 // Empties the slots this call's lanes won; with cond (i64), only when *cond.
 EXPORT int hs_undo(int64_t* slab, long long n, const int64_t* slot, const uint8_t* flags,
                    const int64_t* cnt, const int64_t* cond, void* stream) {
@@ -320,4 +347,5 @@ EXPORT int hs_undo(int64_t* slab, long long n, const int64_t* slot, const uint8_
 
 WARM((const void*)probe_first, (const void*)claim, (const void*)verify_probe,
      (const void*)rep_key, (const void*)rep_pay, (const void*)rep_fresh, (const void*)rep_reset,
-     (const void*)undo, (const void*)rounds_left, (const void*)probe_keep)
+     (const void*)undo, (const void*)rounds_left, (const void*)probe_keep,
+     (const void*)live_slots)

@@ -1189,6 +1189,10 @@ class TorchChecker:
             j = int(pidx[j])
             d -= 1
         chain.reverse()
+        return self.replay(chain)
+
+    def replay(self, chain: list) -> list:
+        """The states of a slot chain from Init: [(action, OState), ...]."""
         fr, _ovf = self.deflate(init_batch(self.cfg, 1, self.device))
         out = [("Init", to_oracle(self.cfg, self.inflate(fr))[0])]
         zero = torch.zeros((1,), dtype=I64, device=self.device)

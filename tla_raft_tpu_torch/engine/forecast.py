@@ -1,11 +1,13 @@
 """Predictive frontier-growth forecasting for capacity sizing.
 
 A copy of the JAX package's ``tla_raft_tpu/engine/forecast.py`` (which
-imports no JAX), cut to what the port's fused level and supersteps use:
-``forecast_new_states`` (the per-level new-state forecast from the
+imports no JAX), cut to what the port's fused level, supersteps and mesh
+use: ``forecast_new_states`` (the per-level new-state forecast from the
 measured growth-ratio decay), ``forecast_peak_new`` (its largest level:
-the sweep service's bucket capacities), ``cap_margin`` (the 1.25 capacity margin,
-``TLA_RAFT_CAP_MARGIN`` overrides) and ``pow2ceil``.  The reference's
+the sweep service's bucket capacities), ``horizon_forecast`` (the mesh's
+presize signal, with ``PRESIZE_HORIZON`` and the ``TLA_RAFT_PRESIZE_BYTES``
+budget), ``cap_margin`` (the 1.25 capacity margin, ``TLA_RAFT_CAP_MARGIN``
+overrides) and ``pow2ceil``.  The reference's
 ``cap_margin`` also consults an autotuner plan; the port has no tuner yet,
 so the environment and the default are all it reads.
 
@@ -26,6 +28,11 @@ DEFAULT_DECAY = 0.017
 # forecasts from fewer observed levels than this are noise (early BFS
 # ratios on the reference family swing 1.0-3.0)
 MIN_LEVELS = 6
+
+# capacity decisions trust the model at most this many levels ahead (the
+# reference's presize horizon: a short noisy prefix extrapolates to nonsense
+# at long range)
+PRESIZE_HORIZON = 8
 
 # capacity inflation over the raw forecast: the margin the fused level's
 # output capacity, the superstep's frontier seat and its ring share.
@@ -115,3 +122,15 @@ def forecast_new_states(
 def forecast_peak_new(level_sizes, target_depth: int | None) -> int:
     """Forecast the largest per-level new-state count over the run."""
     return max(forecast_new_states(level_sizes, target_depth), default=0)
+
+
+def horizon_forecast(level_sizes, distinct: int, target_depth: int | None):
+    """The mesh's presize signal: (peak_new, final_distinct, budget) over
+    the next ``PRESIZE_HORIZON`` forecast levels, the budget from
+    ``TLA_RAFT_PRESIZE_BYTES`` (default 4e9); None without a usable
+    signal (reference forecast.py:132)."""
+    fut = forecast_new_states(level_sizes, target_depth)[:PRESIZE_HORIZON]
+    if not fut:
+        return None
+    budget = int(float(os.environ.get("TLA_RAFT_PRESIZE_BYTES", "4e9")))
+    return max(fut), distinct + sum(fut), budget

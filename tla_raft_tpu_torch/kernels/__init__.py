@@ -265,6 +265,28 @@ GROUP_UNIQUE = Kernel(
                              VP],
      "rs_tile": [], "rs_scan_tile": []},
 )
+INSERT_ONLY = Kernel(
+    "insert_only", "csrc/hashstore.cu",
+    "tla_raft_tpu/ops/hashstore.py:325 (insert_only_impl: _claim_loop:226 and the two live "
+    "counts; on HashStore.grow :511-531)",
+    {"hs_probe_first": [VP, I64, VP, I64, VP, VP, VP, VP, VP, VP, VP],
+     "hs_round": [VP, I64, VP, I64, VP, VP, VP, VP, VP],
+     "hs_live": [VP, I64, VP, VP]},
+)
+_ROUTE_ARGS = [I32, VP, VP, VP, I64, I32, VP, VP, VP, VP, VP, VP, I64, I64, I64, I64, VP, VP, VP,
+               VP, VP, VP]
+ROUTE = Kernel(
+    "route", "csrc/route.cu",
+    "tla_raft_tpu/parallel/sharded.py:659-684 (_body_all_to_all's owner routing; "
+    "_body_a2a_phase1 :753-770; the winner grouping of _ship_winners_to_owners :506-518)",
+    {"route_launch": _ROUTE_ARGS, "route_tile": [], "route_max_owners": []},
+)
+ROUTE_BACK = Kernel(
+    "route_back", "csrc/route.cu",
+    "tla_raft_tpu/parallel/sharded.py:725-726 (the verdicts back to the origin's lanes: "
+    "back[owner, rank] & ok_lane; _body_a2a_phase2 :796-797)",
+    {"route_back_launch": [VP, VP, VP, I64, I32, I64, VP, VP]},
+)
 _BUCKET = "tla_raft_tpu/service/bucket.py"
 BUCKET_REFINE = Kernel(
     "bucket_refine", "csrc/bucket.cu",
@@ -292,7 +314,7 @@ KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMP
                                FILTER_COMPACT, DROP_ROWS, MSG_FACTORED, ORBIT, ORBIT_FOLD,
                                DENSE_EXPAND, CHUNK_COMPACT, LEGACY, SORTED_MEMBER, LEVEL_DEDUP,
                                MERGE_SORTED, BUCKET_REFINE, BUCKET_TALLY, BUCKET_CTRL,
-                               GROUP_UNIQUE)}
+                               GROUP_UNIQUE, INSERT_ONLY, ROUTE, ROUTE_BACK)}
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
@@ -314,6 +336,9 @@ SORTED_PATH = ("sorted_member", "level_dedup", "merge_sorted")
 BUCKET_PATH = ("bucket_refine", "bucket_tally", "bucket_ctrl")
 # the external-store route (--fpstore-dir): the group dedup, then the host
 HOST_PATH = ("group_unique",)
+# the device mesh's owner routing (parallel/sharded.py; all_to_all and the
+# host-store mode: all_gather routes nothing)
+MESH_PATH = ("route", "route_back")
 
 
 def reset_launches() -> None:
@@ -848,6 +873,104 @@ def undo_dev(slab, scratch, live, cond):
     HASHSTORE.check(lib.hs_undo(slab.data_ptr(), n, slot.data_ptr(), flags.data_ptr(),
                                 _cnt(live), _cnt(cond), _stream()))
     HASHSTORE.launches += int(n > 0)
+
+
+def insert_only(slab, fps):
+    """B8 ``insert_only_impl``: (slab, n_inserted i64 0-d, overflow bool
+    0-d).  K4's probe-and-claim rounds alone, into ``slab`` in place: a
+    lane whose probe window is full is skipped and raises the overflow, as
+    does a load past 1/2 after the insert; n_inserted is the live-count
+    delta.  No representative pass and no undo.  The rounds run until none
+    claims, with one host read a round."""
+    from ..device import fetch
+
+    cap, n = slab.shape[0], fps.shape[0]
+    if cap & (cap - 1):
+        raise ValueError(f"slab capacity must be a power of two, got {cap}")
+    _need(slab, "slab", torch.int64, (cap,))
+    _need(fps, "fps", torch.int64, (n,))
+    dev = slab.device
+    lib = INSERT_ONLY.lib()
+    st = _stream()
+    ctr = torch.zeros((3,), dtype=torch.int64, device=dev)  # claiming, overflow, spare
+    live = torch.empty((2,), dtype=torch.int64, device=dev)
+    INSERT_ONLY.check(lib.hs_live(slab.data_ptr(), cap, live[0].data_ptr(), st))
+    INSERT_ONLY.launches += 1
+    if n:
+        slot = torch.empty((n,), dtype=torch.int64, device=dev)
+        tgt = torch.empty((n,), dtype=torch.int64, device=dev)
+        flags = torch.empty((n,), dtype=torch.uint8, device=dev)
+        INSERT_ONLY.check(lib.hs_probe_first(
+            slab.data_ptr(), cap, fps.data_ptr(), n, slot.data_ptr(), tgt.data_ptr(),
+            flags.data_ptr(), ctr[0].data_ptr(), ctr[1].data_ptr(), None, st))
+        INSERT_ONLY.launches += 1
+        while int(fetch(ctr[:1], what="insert_only_round")[0][0]):
+            INSERT_ONLY.check(lib.hs_round(  # claim, then verify_probe
+                slab.data_ptr(), cap, fps.data_ptr(), n, slot.data_ptr(), tgt.data_ptr(),
+                flags.data_ptr(), ctr.data_ptr(), st))
+            INSERT_ONLY.launches += 2
+    INSERT_ONLY.check(lib.hs_live(slab.data_ptr(), cap, live[1].data_ptr(), st))
+    INSERT_ONLY.launches += 1
+    return slab, live[1] - live[0], (ctr[1] > 0) | (live[1] * 2 > cap)
+
+
+def route(cols, fills, D: int, cap: int, *, owner=None, mask=None):
+    """B15's owner routing: the stable D-way partition of a shard's lanes.
+
+    Owners are ``fp % D`` (unsigned) of ``cols[0]`` with SENT lanes to the
+    virtual owner D, or, with ``owner`` (int32[n]) and ``mask`` (bool[n]),
+    ``owner`` where ``mask`` holds and D elsewhere.  Returns (rows: one
+    i64[D, cap] per column, lane ``k`` of owner ``o`` at ``[o, k]`` in input
+    order, the rest ``fills``; counts i64[D + 1]; lane_owner int32[n];
+    lane_rank i64[n]; overflow bool 0-d, an owner below D with more than
+    ``cap`` lanes)."""
+    n = cols[0].shape[0]
+    if not 1 <= len(cols) <= 3 or len(fills) != len(cols):
+        raise ValueError("route takes one to three columns and a fill each")
+    for k, c in enumerate(cols):
+        _need(c, f"cols[{k}]", torch.int64, (n,))
+    lib = ROUTE.lib()
+    if not 1 <= D <= lib.route_max_owners():
+        raise ValueError(f"route takes 1 <= D <= {lib.route_max_owners()}, got {D}")
+    if (owner is None) != (mask is None):
+        raise ValueError("route: owner and mask come together")
+    if owner is not None:
+        _need(owner, "owner", torch.int32, (n,))
+        _need(mask, "mask", torch.bool, (n,))
+    dev = cols[0].device
+    rows = [torch.empty((D, cap), dtype=torch.int64, device=dev) for _ in cols]
+    counts = torch.empty((D + 1,), dtype=torch.int64, device=dev)
+    lane_owner = torch.empty((n,), dtype=torch.int32, device=dev)
+    lane_rank = torch.empty((n,), dtype=torch.int64, device=dev)
+    ovf = torch.empty((1,), dtype=torch.int64, device=dev)
+    n_tiles = (n + lib.route_tile() - 1) // lib.route_tile()
+    tile = torch.empty((max((D + 1) * n_tiles, 1),), dtype=torch.int64, device=dev)
+    v = [c.data_ptr() for c in cols] + [None] * (3 - len(cols))
+    o = [r.data_ptr() for r in rows] + [None] * (3 - len(cols))
+    f = list(fills) + [0] * (3 - len(cols))
+    ROUTE.check(lib.route_launch(
+        0 if owner is None else 1, cols[0].data_ptr(), _p(mask), _p(owner), n, D, *v, *o, *f,
+        cap, counts.data_ptr(), lane_owner.data_ptr(), lane_rank.data_ptr(), ovf.data_ptr(),
+        tile.data_ptr(), _stream()))
+    # count, scan, scatter, pad (the overflow word's memset is no kernel)
+    ROUTE.launches += 2 * int(n_tiles > 0) + 1 + int(D * cap > 0)
+    return rows, counts, lane_owner, lane_rank, ovf[0] > 0
+
+
+def route_back(back, lane_owner, lane_rank, D: int, cap: int):
+    """The verdicts returned to an origin (bool[D, cap], owner-major as the
+    origin sent them) mapped to its lanes: win bool[n] = back[owner, rank]
+    for a lane that was sent (owner < D, rank < cap)."""
+    n = lane_owner.shape[0]
+    _need(back, "back", torch.bool, (D, cap))
+    _need(lane_owner, "lane_owner", torch.int32, (n,))
+    _need(lane_rank, "lane_rank", torch.int64, (n,))
+    win = torch.empty((n,), dtype=torch.bool, device=back.device)
+    ROUTE_BACK.check(ROUTE_BACK.lib().route_back_launch(
+        back.data_ptr(), lane_owner.data_ptr(), lane_rank.data_ptr(), n, D, cap,
+        win.data_ptr(), _stream()))
+    ROUTE_BACK.launches += int(n > 0)
+    return win
 
 
 def compact(flags, va, pad_a, cap, vb=None, pad_b=0, want_lane=False, *, out_a=None,

@@ -19,12 +19,15 @@ byte for byte, so slabs move between the two packages:
   the slab is left as it was, and the caller grows it and redoes the batch.
 
 ``probe_and_insert`` is kernel K4 (csrc/hashstore.cu) on the card and its
-plain twin ``probe_and_insert_plain`` on the CPU; growth rehashes through
-it too.  ``probe`` (the membership test, B8 ``probe_impl``) is the
+plain twin ``probe_and_insert_plain`` on the CPU.  ``insert_only`` (B8
+``insert_only_impl``: the claim rounds alone, with the live-count delta)
+is the ``insert_only`` kernel of the same source on the card and
+``insert_only_plain`` on the CPU; growth rehashes through it, as the
+reference's does.  ``probe`` (the membership test, B8 ``probe_impl``) is the
 ``hs_probe`` kernel of the same source on the card and ``probe_plain`` on
 the CPU.  ``compact_fresh`` is the compaction kernel (csrc/compact.cu) on
 the card; ``insert_np`` (the host-side build of a slab from a fingerprint
-array) is numpy.
+array) and ``rebuild_np`` (the mesh's per-shard rebuild on it) are numpy.
 """
 
 from __future__ import annotations
@@ -183,6 +186,29 @@ def probe_and_insert(slab, fps, keys, pays):
     return kernels.probe_and_insert(slab, fps, keys, pays)
 
 
+def insert_only_plain(slab: torch.Tensor, fps: torch.Tensor):
+    """Plain twin of ``insert_only``: (slab, n_inserted i64 0-d, overflow
+    bool 0-d).  The claim loop, with n_inserted the live-count delta and the
+    overflow also set when the load passes 1/2 (hashstore.py:325-343).
+    Writes into ``slab`` in place, as the kernel does."""
+    cap = slab.shape[0]
+    before = (slab != SENT).sum()
+    new, _slot, ovf = _claim_loop(slab.clone(), fps)
+    slab.copy_(new)
+    after = (slab != SENT).sum()
+    return slab, after - before, ovf | (after * 2 > cap)
+
+
+def insert_only(slab: torch.Tensor, fps: torch.Tensor):
+    """(slab, n_inserted, overflow): the ``insert_only`` kernel on the
+    card, the plain twin on the CPU.  Inserts into ``slab`` in place; a lane
+    whose probe window is full is skipped (overflow), and nothing is
+    undone."""
+    if slab.device.type == "cpu":
+        return insert_only_plain(slab, fps)
+    return kernels.insert_only(slab, fps)
+
+
 def compact_fresh(fresh, fps, pays, n_out: int):
     """Fresh lanes packed to a prefix in lane order: (fps[n_out] SENT
     padded, pays[n_out] -1 padded).  The compaction kernel on the card,
@@ -242,6 +268,19 @@ def insert_np(slab: np.ndarray, fps: np.ndarray) -> np.ndarray:
     return slab
 
 
+def rebuild_np(per_shard, cap: int) -> np.ndarray:
+    """[D, cap] slab rows rebuilt on the host from per-shard contents (old
+    slab rows or fingerprint arrays; SENT lanes skipped): the mesh's vcap
+    growth and its rehash of the slab shards (reference hashstore.py:137)."""
+    out = np.full((len(per_shard), cap), SENT_U64, np.uint64)
+    for o, rows in enumerate(per_shard):
+        rows = np.asarray(rows, np.uint64)
+        live = rows[rows != SENT_U64]
+        if len(live):
+            insert_np(out[o], live)
+    return out
+
+
 class DeviceHashStore:
     """One slab on a device, with growth by rehash.
 
@@ -288,10 +327,10 @@ class DeviceHashStore:
 
     def grow(self, min_cap: int | None = None) -> None:
         """Rehash into a slab of twice the capacity (or ``min_cap``): the
-        old slab's slots go through ``probe_and_insert`` into an empty slab
-        as one batch (SENT slots are dead lanes) — the reference's
-        ``insert_only`` rounds, so the layout is the reference's; doubles
-        again on a probe overflow.
+        old slab's slots go through ``insert_only`` into an empty slab as
+        one batch (SENT slots are dead lanes), as the reference's grow does,
+        so the layout is the reference's; doubles again on its overflow (a
+        full probe window, or the load past 1/2).
 
         May raise (an allocation failure on a full card, or an injected
         ``hashstore.grow`` fault, reference hashstore.py:521) and leaves the
@@ -302,11 +341,8 @@ class DeviceHashStore:
         faults.fire("hashstore.grow")
         want = max(self.cap * 2, min_cap or 0)
         want = 1 << (want - 1).bit_length()
-        pays = torch.arange(self.cap, dtype=torch.int64, device=self.device)
         while True:
-            slab2, _fresh, _n, ovf = probe_and_insert(
-                make_slab(want, self.device), self.slab, self.slab, pays
-            )
+            slab2, _n, ovf = insert_only(make_slab(want, self.device), self.slab)
             if not bool(ovf):
                 break
             want *= 2

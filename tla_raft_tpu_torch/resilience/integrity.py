@@ -1,7 +1,7 @@
 """Conservation checks and the sampled recomputation audit's sample and
 fail-stop: the port's copy of ``tla_raft_tpu/resilience/integrity.py``
-(``reconcile``, ``occupancy_check``, ``audit_indices`` and the
-exceptions), without the telemetry hooks and the mesh's skew meter.
+(``reconcile``, ``occupancy_check``, ``audit_indices``, the exceptions
+and the mesh's ``SkewMeter``), without the telemetry hooks.
 
 ``--audit N``: every level, a deterministic sample of N new-frontier rows
 is re-expanded through the legacy per-lane kernels and cross-checked three
@@ -70,3 +70,59 @@ def audit_indices(n_new: int, n_sample: int) -> np.ndarray:
         return np.empty(0, np.int64)
     idx = (np.arange(n, dtype=np.int64) * n_new) // n
     return np.unique(np.clip(idx, 0, n_new - 1))
+
+
+class SkewMeter:
+    """Per-owner level size (and time) skew: the straggler metrics of the
+    mesh, the ``--json`` ``straggler`` block (reference integrity.py:98).
+    Each level notes the new rows each owner holds (and, where measured,
+    per-owner seconds); ``summary()`` gives the per-owner totals, the peak
+    max/mean skew over the run and the owner that caused each peak."""
+
+    def __init__(self, D: int):
+        self.D = int(D)
+        self.levels = 0
+        self.rows = np.zeros(self.D, np.int64)
+        self.seconds = np.zeros(self.D, np.float64)
+        self.peak_row_skew = 0.0
+        self.peak_time_skew = 0.0
+        self.worst_owner = None
+        self.worst_owner_time = None
+        self._saw_seconds = False
+
+    @staticmethod
+    def _skew(vals) -> float:
+        vals = np.asarray(vals, np.float64)
+        mean = vals.mean() if vals.size else 0.0
+        return float(vals.max() / mean) if mean > 0 else 0.0
+
+    def note(self, level: int, rows=None, seconds=None) -> None:
+        self.levels += 1
+        if rows is not None:
+            rows = np.asarray(rows, np.int64).reshape(-1)[: self.D]
+            self.rows[: len(rows)] += rows
+            s = self._skew(rows)
+            if s > self.peak_row_skew:
+                self.peak_row_skew = s
+                self.worst_owner = int(np.argmax(rows))
+        if seconds is not None:
+            self._saw_seconds = True
+            seconds = np.asarray(seconds, np.float64).reshape(-1)[: self.D]
+            self.seconds[: len(seconds)] += seconds
+            s = self._skew(seconds)
+            if s > self.peak_time_skew:
+                self.peak_time_skew = s
+                self.worst_owner_time = int(np.argmax(seconds))
+
+    def summary(self) -> dict:
+        out = dict(
+            levels=self.levels,
+            per_owner_rows=[int(x) for x in self.rows],
+            peak_row_skew=round(self.peak_row_skew, 3),
+            worst_owner=self.worst_owner,
+        )
+        if self._saw_seconds:
+            out["per_owner_seconds"] = [round(float(x), 4) for x in self.seconds]
+            out["peak_time_skew"] = round(self.peak_time_skew, 3)
+            out["worst_owner_time"] = self.worst_owner_time
+        return out
