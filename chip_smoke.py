@@ -196,6 +196,31 @@ Phases, each printed as JSON lines:
     mesh_cli  — ``--mesh 1 --max-depth 16 --json`` in a subprocess, golden,
                 then ``--mesh 2`` on the one card: nonzero, with the
                 too-few-devices message;
+    mesh_deep — the sharded deep sweep (``ShardedChecker(deep=True)``, 8
+                shards on the card, one native store per owner under
+                build/smoke/deep_fps/) at the default seg_rows (32,768),
+                the hash sieve and the packed stream, to depth 22: every
+                level golden (13,961,621 distinct), ``generated`` equal to
+                a default-path run to 22 (mesh_baseline's third depth), each
+                store holding exactly the fingerprints it owns, the sieve
+                fired, exchanged bytes below raw and every level's reduction
+                >= 1, at least three levels of more than one round; rounds a
+                level, peak_dev_rows beside the largest level, the level
+                seconds by part (phase 1, finalize and fetch, host inserts,
+                phase 2, repack, sieve), the wall beside the fpstore phase's
+                to 22, peak device memory; pack_deltas, deep_verdict,
+                deep_repack, hs_probe, insert_only, route, route_back and
+                the expand's kernels launched, K4, the fused level's,
+                level_dedup, sieve_merge and the bucket core's never;
+    mesh_deep_sorted — the sorted sieve with raw fetches to 20: golden,
+                sieve_merge and sorted_member launched, insert_only, hs_probe
+                and pack_deltas never;
+    mesh_deep_nosieve — ``sieve=False`` to 18: golden, nothing sieved, no
+                sieve kernel launched;
+    mesh_deep_trace — the median-bug mutation on (3,1,2,0), deep, 8 shards
+                at seg_rows 16: the pinned trace (the reference deep mesh's);
+    mesh_deep_cli — ``--mesh 1 --mesh-deep --fpstore-dir D --max-depth 16
+                --json`` in a subprocess: golden, with the Exchange lines;
 12. twins     — one fused level and one superstep (two levels) on the
                 card against the CPU twins from the same carried depth-9
                 frontier and slab: every output equal;
@@ -218,9 +243,12 @@ Phases, each printed as JSON lines:
                 lanes and ties; route and route_back: the mesh phase, on one
                 shard's lanes of its level 20, and on adversarial lanes;
                 insert_only: a 2^24-entry slab rehashed into 2^25 slots,
-                its launches the default phase's (the slab's growth); the
-                rest: the default
-                phase); then
+                its launches the default phase's (the slab's growth);
+                pack_deltas, deep_verdict, deep_repack: the mesh_deep
+                phase, on its deepest level's inputs; sieve_merge: the
+                mesh_deep_sorted phase, on mesh_deep's last round of
+                candidates into a sorted sieve of its capacity; the rest:
+                the default phase); then
                 the kernels again at 5 and 7 servers on the scale runs'
                 frontiers (K1 at K = 1,900 / 3,696, K2, inflate and deflate
                 with int32 ids, K3 at P = 120 and factored at P = 5,040,
@@ -328,6 +356,27 @@ MESH_SECONDS = 120.0  # and of its wall
 # as the reference's ShardedChecker finds it (not the single-device path's;
 # tests/test_torch_sharded.py::test_median_bug_mesh_trace_equals_the_reference)
 MESH_MEDIAN_BUG = dict(
+    actions=["Init", "BecomeCandidate(1)", "UpdateTerm(2)", "ResponseVote(2)",
+             "BecomeLeader(1)", "ClientReq(1)", "BecomeCandidate(2)", "UpdateTerm(3)",
+             "ResponseVote(3)", "LeaderCanCommit(1)", "UpdateTerm(1)", "BecomeLeader(2)"],
+    trace_sha256="90a7d2f9ddec41c7212959b1cad1c7ebc3e2fe2c85d8cf17ad4e2d0a46b7b97a",
+)
+# the sharded deep sweep (ShardedChecker(deep=True), --mesh-deep): 8 shards on the
+# one card at the default seg_rows, the hash sieve and the packed stream to 22
+# (13,961,621 distinct); the sorted sieve with raw fetches to 20, no sieve to 18,
+# and --mesh 1 --mesh-deep through the CLI to 16
+DEPTH_MESH_DEEP = 22
+DEPTH_MESH_DEEP_SORTED = 20
+DEPTH_MESH_DEEP_NOSIEVE = 18
+DEPTH_MESH_DEEP_CLI = 16
+MESH_DEEP_SECONDS = 120.0  # past it, mesh_deep's depth comes down to 21
+# the median-bug counterexample of the deep mesh on 8 shards at seg_rows 16, computed
+# from the reference's deep ShardedChecker on the CPU and pinned on its own: the owner
+# keeps the least (fp_full, receive index) lane of a view, not the least (fp_full,
+# payload) of the resident mesh (here the two traces happen to agree; tests/
+# test_torch_deep.py::test_deep_median_bug_trace_is_the_pinned_one)
+MESH_DEEP_MEDIAN_BUG = dict(
+    seg_rows=16,
     actions=["Init", "BecomeCandidate(1)", "UpdateTerm(2)", "ResponseVote(2)",
              "BecomeLeader(1)", "ClientReq(1)", "BecomeCandidate(2)", "UpdateTerm(3)",
              "ResponseVote(3)", "LeaderCanCommit(1)", "UpdateTerm(1)", "BecomeLeader(2)"],
@@ -1644,6 +1693,7 @@ def phase_fpstore(depth: int, chunk: int) -> dict:
                wall_to_25=next((lv["elapsed"] for lv in levels if lv["level"] == 25), None),
                default_wall_to_25=WALLS.get("default"))
     digests = level_digests(chk)
+    WALLS["fpstore_at"] = {lv["level"]: lv["elapsed"] for lv in levels}
     chk.host_store.close()  # its run files go with it
     chk = None
     torch.cuda.empty_cache()
@@ -2475,6 +2525,322 @@ def phase_mesh_kernels(kept: dict, launches: dict, seed: int) -> list:
     rec.update(lanes=1 << 25, inserted=n_ins, slots=1 << 25)
     old = None
     torch.cuda.empty_cache()
+    return out
+
+
+# -- slice 11: the sharded deep sweep (--mesh-deep) ---------------------------------------
+
+
+def _deep_golden(res, depth: int) -> None:
+    want = GOLDEN_LEVELS_REF[: depth + 1]
+    check(res.ok and list(res.level_sizes) == want,
+          f"level sizes {list(res.level_sizes)} != golden {want}")
+
+
+def _deep_run(name: str, depth: int, chunk: int, keep: dict | None = None, **kw):
+    """The Raft.cfg constants to ``depth`` on the deep sweep over 8 shards
+    of the one card, one native store per owner under build/smoke/<name>/:
+    (checker, result, progress records, seconds).  With ``keep``, the
+    inputs of the new kernels' last calls are kept for the kernels line:
+    the finalize's unique stream of the last owner of the last level
+    (pack_deltas), the verdict bits and winners (deep_verdict), the last
+    owner's repack sources and blocks (deep_repack), the last round's
+    candidates of shard 0 (sieve_merge), and its sieve."""
+    import torch
+
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.parallel import ShardedChecker, make_mesh
+    from tla_raft_tpu_torch.parallel import sharded
+
+    d = _smoke_dir(name)
+    levels = []
+    chk = ShardedChecker(RaftConfig(), make_mesh(MESH_SHARDS, devices=["cuda"] * MESH_SHARDS),
+                         chunk=chunk, progress=levels.append, deep=True,
+                         host_store_dir=str(d), **kw)
+    check(all(x.type == "cuda" for x in chk.devices), f"{name}: a shard off the card")
+    saved = sharded.pack_fp_deltas, sharded.deep_verdict, sharded.repack
+    if keep is not None:
+        def pack(fps, n):
+            keep["pack"] = (fps, n)
+            return saved[0](fps, n)
+
+        def verdict(bits, gp, n_u, n_recv):
+            keep["verdict"] = (bits, gp, n_u, n_recv)
+            return saved[1](bits, gp, n_u, n_recv)
+
+        def repack(sources, segs):
+            keep["repack"] = (sources, segs)
+            return saved[2](sources, segs)
+
+        sharded.pack_fp_deltas, sharded.deep_verdict, sharded.repack = pack, verdict, repack
+        sieve_update = chk._deep_sieve_update
+
+        def keep_sieve(rounds, depth, parts):
+            keep["cv"] = rounds[-1]["lanes"][0][0]
+            return sieve_update(rounds, depth, parts)
+
+        chk._deep_sieve_update = keep_sieve
+    torch.cuda.reset_peak_memory_stats()
+    WALLS["base_bytes"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        res = chk.run(max_depth=depth)
+        torch.cuda.synchronize()
+    finally:
+        sharded.pack_fp_deltas, sharded.deep_verdict, sharded.repack = saved
+    return chk, res, levels, time.perf_counter() - t0
+
+
+def _deep_out(name, chk, res, levels, secs, depth) -> dict:
+    s = chk.meter.summary()
+    log = chk.level_log
+    return dict(
+        phase=name, shards=chk.D, **_common(res, levels, secs, depth),
+        seg_rows=chk.seg_rows, peak_dev_rows=chk.peak_dev_rows,
+        largest_level=max(res.level_sizes), cap_x=chk.cap_x, cap_w=chk.cap_w,
+        cap_c=chk.cap_c_deep, scap=chk.scap, reactive_grows=chk.reactive_grows,
+        sieve=chk.sieve, compress=chk.compress, hash_sieve=chk.use_hashstore,
+        rounds_per_level=[lv["rounds"] for lv in log],
+        level_parts=[dict(level=lv["level"], **{k: round(v, 4) for k, v in lv["parts"].items()})
+                     for lv in log],
+        parts_total={k: sum(lv["parts"][k] for lv in log) for k in log[0]["parts"]} if log
+        else {},
+        exchange=dict((k, v) for k, v in s.items() if k != "per_level"),
+        reductions=[lv["reduction"] for lv in s["per_level"]],
+        packed=[lv["packed"] for lv in s["per_level"]],
+        store_entries=[len(x) for x in chk.host_stores],
+        store_runs=[x.num_runs for x in chk.host_stores],
+        note="8 shards on one card: the exchange is device-local copies; multi-GPU speed is "
+             "not measured (the card's host has one GPU)")
+
+
+def phase_mesh_deep(depth: int, chunk: int, base: dict) -> dict:
+    """The deep sweep on 8 shards to ``depth`` at the default seg_rows,
+    the hash sieve and the packed stream: golden; the stores' sizes sum to
+    distinct and each holds exactly the reachable fingerprints it owns (the
+    default-path run to the same depth, ``base``); the sieve fired,
+    exchanged bytes below raw, every level's reduction >= 1, at least three
+    levels of more than one round; peak_dev_rows beside the largest level,
+    the per-level seconds by part, the wall beside the fpstore phase's to
+    the same depth, peak device memory.  Keeps the new kernels' inputs."""
+    import torch
+
+    kept = {}
+    chk, res, levels, secs = _deep_run("deep_fps", depth, chunk, keep=kept)
+    out = _deep_out("mesh_deep", chk, res, levels, secs, depth)
+    out["fpstore_wall_same_depth"] = WALLS.get("fpstore_at", {}).get(depth)
+    out["resident_mesh_wall_20"] = WALLS.get("mesh")
+    bres, live, bsecs = base[depth]
+    out.update(default_seconds=bsecs, default_generated=bres.generated)
+    emit(out)
+    WALLS["mesh_deep"] = secs
+    _deep_golden(res, depth)
+    check(res.generated == bres.generated, f"deep generated {res.generated}, default path "
+                                           f"{bres.generated}")
+    check(sum(out["store_entries"]) == res.distinct == len(live),
+          f"stores hold {sum(out['store_entries'])}, distinct {res.distinct}")
+    for o, st in enumerate(chk.host_stores):
+        mine = live[live % np.uint64(MESH_SHARDS) == np.uint64(o)]
+        check(len(st) == len(mine) and bool(st.contains(mine).all()),
+              f"store {o} does not hold exactly the fingerprints it owns")
+    ex = out["exchange"]
+    check(ex["sieved"] > 0, "the sieve never fired")
+    check(ex["exchanged_bytes"] < ex["raw_bytes"], f"exchange {ex}")
+    check(all(r is not None and r >= 1 for r in out["reductions"]),
+          f"a level's reduction below 1: {out['reductions']}")
+    check(sum(r > 1 for r in out["rounds_per_level"]) >= 3,
+          f"rounds a level {out['rounds_per_level']}")
+    check(secs <= MESH_DEEP_SECONDS, f"mesh_deep took {secs:.1f} s (cut its depth to 21)")
+    check(set(kept) >= {"pack", "verdict", "repack", "cv"}, f"kept {sorted(kept)}")
+    kept["sieve"] = chk.sieves[0]
+    for st in chk.host_stores:
+        st.close()
+    chk = None
+    torch.cuda.empty_cache()
+    return kept
+
+
+def deep_counts(c: dict) -> None:
+    never = ("hashstore", "level", "superstep", "sieve", "level_dedup", "sieve_merge",
+             "drop_rows", "filter_compact", "bucket_refine", "bucket_tally", "bucket_ctrl")
+    check(all(c[k] == 0 for k in never),
+          "kernels off the deep sweep's path launched: " + str({k: c[k] for k in never if c[k]}))
+
+
+def deep_sorted_counts(c: dict) -> None:
+    never = ("insert_only", "hs_probe", "pack_deltas", "hashstore", "level", "superstep",
+             "sieve", "level_dedup")
+    check(all(c[k] == 0 for k in never),
+          "kernels off the sorted sieve's raw path launched: "
+          + str({k: c[k] for k in never if c[k]}))
+
+
+def deep_nosieve_counts(c: dict) -> None:
+    never = ("insert_only", "hs_probe", "sorted_member", "sieve_merge", "hashstore", "level",
+             "superstep", "sieve", "level_dedup")
+    check(all(c[k] == 0 for k in never),
+          "sieve kernels launched with sieve=False: " + str({k: c[k] for k in never if c[k]}))
+
+
+def phase_mesh_deep_sorted(depth: int, chunk: int) -> dict:
+    """The sorted sieve (use_hashstore=False) with raw u64 fetches
+    (compress=False) to ``depth``: golden, the sieve fired, no level
+    packed."""
+    chk, res, levels, secs = _deep_run("deep_sorted_fps", depth, chunk, use_hashstore=False,
+                                       compress=False)
+    out = _deep_out("mesh_deep_sorted", chk, res, levels, secs, depth)
+    emit(out)
+    _deep_golden(res, depth)
+    check(out["exchange"]["sieved"] > 0 and not any(out["packed"]),
+          f"sorted sieve: {out['exchange']}, packed {out['packed']}")
+    check(sum(out["store_entries"]) == res.distinct, "the stores do not hold distinct")
+    for st in chk.host_stores:
+        st.close()
+    return out
+
+
+def phase_mesh_deep_nosieve(depth: int, chunk: int) -> dict:
+    """sieve=False to ``depth``: golden, nothing sieved."""
+    chk, res, levels, secs = _deep_run("deep_nosieve_fps", depth, chunk, sieve=False)
+    out = _deep_out("mesh_deep_nosieve", chk, res, levels, secs, depth)
+    emit(out)
+    _deep_golden(res, depth)
+    check(out["exchange"]["sieved"] == 0, f"sieve=False sieved {out['exchange']['sieved']}")
+    for st in chk.host_stores:
+        st.close()
+    return out
+
+
+def phase_mesh_deep_trace(chunk: int) -> None:
+    """The median-bug mutation on (3,1,2,0), deep, 8 shards at seg_rows 16:
+    the default path's counts and the pinned trace (the reference's deep
+    mesh's, computed once on the CPU)."""
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.parallel import ShardedChecker, make_mesh
+
+    d = _smoke_dir("deep_trace_fps")
+    cfg = RaftConfig(3, 1, 2, 0, mutations=("median-bug",))
+    res = ShardedChecker(cfg, make_mesh(MESH_SHARDS, devices=["cuda"] * MESH_SHARDS),
+                         chunk=chunk, deep=True, host_store_dir=str(d),
+                         seg_rows=MESH_DEEP_MEDIAN_BUG["seg_rows"]).run()
+    kind, trace = res.violation if res.violation else (None, [])
+    sha = hashlib.sha256("\n".join(f"{a!r} {s!r}" for a, s in trace).encode()).hexdigest()
+    emit(dict(phase="mesh_deep_trace", violation=kind, depth=res.depth, distinct=res.distinct,
+              actions=[a for a, _ in trace], trace_sha256=sha))
+    check(kind == "Invariant Inv is violated", f"median-bug violation: {kind}")
+    check(res.depth == MEDIAN_BUG["depth"] and res.distinct == MEDIAN_BUG["distinct"]
+          and res.generated == MEDIAN_BUG["generated"]
+          and tuple(res.level_sizes) == MEDIAN_BUG["level_sizes"], "median-bug counts")
+    check([a for a, _ in trace] == MESH_DEEP_MEDIAN_BUG["actions"],
+          "deep median-bug trace actions")
+    check(sha == MESH_DEEP_MEDIAN_BUG["trace_sha256"], "deep median-bug trace states")
+
+
+def phase_mesh_deep_cli(depth: int) -> dict:
+    """``--mesh 1 --mesh-deep --fpstore-dir D --max-depth depth --json`` in a
+    subprocess: exit 0, golden, the Exchange lines printed."""
+    from pathlib import Path
+
+    d = _smoke_dir("deep_cli_fps")
+    args = ["--mesh", "1", "--mesh-deep", "--fpstore-dir", str(d), "--max-depth", str(depth),
+            "--json"]
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args],
+                          capture_output=True, text=True, cwd=root, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    ex_lines = [x for x in lines if x.startswith(("Exchange:", "  level "))]
+    out = dict(phase="mesh_deep_cli", rc=proc.returncode, seconds=secs,
+               run_seconds=got.get("seconds"),
+               **{k: got.get(k) for k in ("distinct", "generated", "depth", "level_sizes",
+                                          "mesh", "deep", "seg_rows", "peak_dev_rows")},
+               exchange_line=ex_lines[0] if ex_lines else None, exchange_lines=len(ex_lines))
+    emit(out)
+    check(proc.returncode == 0, f"the deep mesh CLI exited {proc.returncode}: "
+                                f"{proc.stderr[-1500:]}")
+    check(got.get("level_sizes") == GOLDEN_LEVELS_REF[: depth + 1] and got.get("deep") is True,
+          f"deep cli level sizes {got.get('level_sizes')}")
+    check(len(ex_lines) == depth + 1, f"{len(ex_lines)} Exchange lines")
+    return out
+
+
+def phase_deep_kernels(kept: dict, launches: dict) -> list:
+    """The four new kernels against their twins on the card, on the deep
+    phase's inputs of its deepest level: ``pack_deltas`` on the last
+    owner's unique stream, ``deep_verdict`` on its bits and winners,
+    ``deep_repack`` on its sources and blocks, ``sieve_merge`` on shard 0's
+    last round of candidates (holes included) into a sorted sieve of the
+    run's capacity holding the hash sieve's entries.  Times: the kernels, the twins and the
+    library calls (``deep_verdict``: ``index_put_`` of the unpacked bits on
+    a zeroed mask; ``deep_repack``: ``torch.cat`` of the blocks, field by
+    field; ``sieve_merge``: ``torch.unique`` of the sign-flipped
+    concatenation; none for ``pack_deltas``).  Bounds: bytes (each input
+    read once, each output written once)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.parallel import exchange, sharded
+    from tla_raft_tpu_torch.u64 import SENT
+
+    out = []
+    fps, n = kept["pack"]
+    n_i = int(n)
+    a = kernels.pack_deltas(fps, n)
+    b = exchange.pack_fp_deltas_plain(fps, n_i)
+    check(all(_equal(x, y) for x, y in zip(a[:2], b[:2])) and int(a[2]) == int(b[2]),
+          "pack_deltas differs from its twin")
+    ms = cuda_ms(lambda: kernels.pack_deltas(fps, n), 10)
+    plain = cuda_ms(lambda: exchange.pack_fp_deltas_plain(fps, n_i), 5)
+    cap = fps.shape[0]
+    rec = _entry(out, launches, kernels.PACK_DELTAS, ms, plain,
+                 n_i * 8 + cap * 8 + cap // 2 + 8, None)
+    rec.update(lanes=cap, unique=n_i, stream_bytes=int(a[2]))
+    bits, gp, n_u, n_recv = kept["verdict"]
+    n_u = int(n_u)
+    a = kernels.deep_verdict(bits, gp, n_u, n_recv)
+    b = sharded.deep_verdict_plain(bits, gp, n_u, n_recv)
+    check(_equal(a, b), "deep_verdict differs from its twin")
+    ms = cuda_ms(lambda: kernels.deep_verdict(bits, gp, n_u, n_recv), 10)
+    plain = cuda_ms(lambda: sharded.deep_verdict_plain(bits, gp, n_u, n_recv), 5)
+    idx = torch.arange(n_u, device=gp.device)
+    vals = ((bits.long()[idx >> 3] >> (idx & 7)) & 1).bool()
+    gpu = gp[:n_u]
+    lib = cuda_ms(lambda: torch.zeros((n_recv,), dtype=torch.bool, device=gp.device)
+                  .index_put_((gpu,), vals), 5)
+    rec = _entry(out, launches, kernels.DEEP_VERDICT, ms, plain,
+                 n_u * 8 + (n_u + 7) // 8 + n_recv, lib)
+    rec.update(unique=n_u, lanes=n_recv)
+    sources, segs = kept["repack"]
+    a = kernels.deep_repack(sources, segs)
+    b = sharded.repack_plain(sources, segs)
+    check(all(_equal(x, y) for x, y in zip(a, b)), "deep_repack differs from its twin")
+    ms = cuda_ms(lambda: kernels.deep_repack(sources, segs), 10)
+    plain = cuda_ms(lambda: sharded.repack_plain(sources, segs), 5)
+    nbytes = sum(x.numel() * x.element_size() for x in a)
+    rec = _entry(out, launches, kernels.DEEP_REPACK, ms, plain, 2 * nbytes, plain)
+    rec.update(blocks=len(segs), sources=len(sources), rows=int(a[0].shape[0]),
+               fields=len(a), bytes=nbytes,
+               library_is="torch.cat of each field's blocks (the twin)")
+    slab = kept["sieve"]
+    live = slab[slab != SENT]
+    sieve = torch.full_like(slab, SENT)
+    sieve[:live.shape[0]] = live[torch.argsort(live ^ (-(1 << 63)))]
+    cv = kept["cv"]
+    a = kernels.sieve_merge(sieve, cv)
+    b = sharded.sieve_merge_plain(sieve, cv)
+    check(_equal(a[0], b[0]) and bool(a[1]) == bool(b[1]), "sieve_merge differs from its twin")
+    ms = cuda_ms(lambda: kernels.sieve_merge(sieve, cv), 10)
+    plain = cuda_ms(lambda: sharded.sieve_merge_plain(sieve, cv), 5)
+    flip = -(1 << 63)
+    lib = cuda_ms(lambda: torch.unique(torch.cat([sieve, cv]) ^ flip), 5)
+    S = sieve.shape[0]
+    rec = _entry(out, launches, kernels.SIEVE_MERGE, ms, plain, (S + cv.shape[0]) * 8 + S * 8 + 16,
+                 lib)
+    rec.update(sieve=S, sieve_live=int(live.shape[0]), lanes=int(cv.shape[0]),
+               live_lanes=int((cv != SENT).sum()), overflow=bool(a[1]))
+    kept.clear()
     return out
 
 
@@ -3480,7 +3846,8 @@ def main() -> int:
         "default", [k for k in kernels.KERNELS
                     if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH
                     + kernels.EXPAND_PATH + kernels.LEGACY_PATH + kernels.SORTED_PATH
-                    + kernels.BUCKET_PATH + kernels.HOST_PATH + kernels.MESH_PATH],
+                    + kernels.BUCKET_PATH + kernels.HOST_PATH + kernels.MESH_PATH
+                    + kernels.DEEP_PATH],
         phase_default, DEPTH_DEFAULT, CHUNK)
     if staged_digests and default_digests:
         try:
@@ -3576,7 +3943,7 @@ def main() -> int:
         mesh_gather_counts(c)
 
     mesh_base, _ = run("mesh_baseline", fused, phase_mesh_baseline,
-                       (DEPTH_MESH_HOSTED, DEPTH_MESH), CHUNK)
+                       (DEPTH_MESH_HOSTED, DEPTH_MESH, DEPTH_MESH_DEEP), CHUNK)
     mesh_kept = None
     if mesh_base:
         mesh_kept, mesh_launches = run("mesh", mesh_path, phase_mesh, DEPTH_MESH, CHUNK,
@@ -3593,7 +3960,30 @@ def main() -> int:
             phase_mesh_hosted, DEPTH_MESH_HOSTED, CHUNK, mesh_base, counts_check=hosted_counts)
     else:
         failures.append("mesh, mesh_hosted: no default-path witness to compare with")
+    # slice 11: the sharded deep sweep
+    deep_core = kernels.MESH_PATH + ("guards", "compact", "inflate", "materialize",
+                                     "fingerprint", "group_unique", "inv_scan")
+    deep_kept = None
+    if mesh_base:
+        deep_kept, deep_launches = run(
+            "mesh_deep", deep_core + ("pack_deltas", "deep_verdict", "deep_repack", "hs_probe",
+                                      "insert_only"),
+            phase_mesh_deep, DEPTH_MESH_DEEP, CHUNK, mesh_base, counts_check=deep_counts)
+        launches.update({k: deep_launches[k] for k in ("pack_deltas", "deep_verdict",
+                                                       "deep_repack")})
+    else:
+        failures.append("mesh_deep: no default-path witness to compare with")
     mesh_base = None
+    _res, sorted_deep_launches = run(
+        "mesh_deep_sorted", deep_core + ("sieve_merge", "sorted_member", "deep_verdict",
+                                         "deep_repack"),
+        phase_mesh_deep_sorted, DEPTH_MESH_DEEP_SORTED, CHUNK, counts_check=deep_sorted_counts)
+    launches["sieve_merge"] = sorted_deep_launches["sieve_merge"]
+    run("mesh_deep_nosieve", deep_core + ("pack_deltas", "deep_verdict", "deep_repack"),
+        phase_mesh_deep_nosieve, DEPTH_MESH_DEEP_NOSIEVE, CHUNK, counts_check=deep_nosieve_counts)
+    run("mesh_deep_trace", deep_core + ("deep_verdict", "deep_repack"), phase_mesh_deep_trace,
+        CHUNK, counts_check=deep_counts)
+    run("mesh_deep_cli", (), phase_mesh_deep_cli, DEPTH_MESH_DEEP_CLI)
     run("mesh_trace", kernels.MESH_PATH + ("hashstore", "group_unique"), phase_mesh_trace,
         CHUNK, counts_check=mesh_counts)
     run("mesh_cli", (), phase_mesh_cli, DEPTH_MESH_CLI)
@@ -3607,6 +3997,15 @@ def main() -> int:
             failures.append(f"mesh_kernels: {e}")
             emit(dict(phase="mesh_kernels", failed=str(e)))
     mesh_kept = None
+    if not deep_kept:
+        failures.append("deep_kernels: no deep run to test on")
+    else:
+        try:
+            records += phase_deep_kernels(deep_kept, launches)
+        except Failed as e:
+            failures.append(f"deep_kernels: {e}")
+            emit(dict(phase="deep_kernels", failed=str(e)))
+    deep_kept = None
     if not bucket_results:
         failures.append("bucket_kernels: no bucket run to test on")
     else:

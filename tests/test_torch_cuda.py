@@ -1116,3 +1116,120 @@ def test_eight_shard_mesh_on_one_card_equals_the_cpu(run, tmp_path):
         assert (counts["route"] > 0) == (mode != "all_gather")
         assert (counts["hashstore"] > 0) == (mode == "all_to_all")
         assert counts["group_unique"] > 0 and counts["materialize"] > 0
+
+
+# -- slice 11: the sharded deep sweep's kernels (csrc/deep.cu, sortstore.cu) ---------------
+
+
+def _sorted_u64(g, n):
+    v = np.unique(g.integers(0, np.iinfo(np.uint64).max, n + 64, dtype=np.uint64,
+                             endpoint=True))[:n]
+    return torch.from_numpy(v.view(np.int64).copy())
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097, 50_000])
+def test_pack_deltas_kernel_equals_twin(run, n):
+    from tla_raft_tpu_torch.parallel.exchange import pack_fp_deltas_plain, unpack_fp_deltas
+
+    g = np.random.default_rng(n)
+    cap = 50_002
+    fps = torch.full((cap,), -1, dtype=torch.int64)
+    fps[:n] = _sorted_u64(g, n)
+    if n > 2:
+        fps[1] = fps[0] + 1  # a one-byte delta beside eight-byte ones
+    fps = fps.cuda()
+    a = kernels.pack_deltas(fps, n)
+    b = pack_fp_deltas_plain(fps.cpu(), n)
+    assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1])
+    assert int(a[2]) == int(b[2])
+    c = kernels.pack_deltas(fps, torch.tensor(n, device="cuda"))
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
+    got = unpack_fp_deltas(a[0].cpu().numpy(), a[1].cpu().numpy(), n, verify=True)
+    assert np.array_equal(got.view(np.int64), fps[:n].cpu().numpy())
+
+
+@pytest.mark.parametrize("n_u", [0, 9, 30_000])
+def test_deep_verdict_kernel_equals_twin(run, n_u):
+    from tla_raft_tpu_torch.parallel.sharded import deep_verdict_plain
+
+    g = np.random.default_rng(n_u)
+    n_recv = 40_000
+    gp = torch.full((n_recv,), -1, dtype=torch.int64)
+    gp[:n_u] = torch.from_numpy(g.permutation(n_recv)[:n_u])
+    bits = torch.from_numpy(g.integers(0, 256, (n_u + 7) // 8 + 3, dtype=np.uint8))
+    a = kernels.deep_verdict(bits.cuda(), gp.cuda(), n_u, n_recv)
+    b = deep_verdict_plain(bits, gp, n_u, n_recv)
+    assert torch.equal(a.cpu(), b)
+    c = kernels.deep_verdict(bits.cuda(), gp.cuda(), torch.tensor(n_u, device="cuda"), n_recv)
+    assert torch.equal(a, c)
+
+
+def test_deep_repack_kernel_equals_twin(run):
+    from tla_raft_tpu_torch.parallel.sharded import repack_plain
+
+    fr = run.frontier
+    n = fr.voted_for.shape[0]
+    g = np.random.default_rng(3)
+    rows = torch.arange(n, device="cuda")
+    half = n // 2
+    sources = [tuple(x[:half] for x in fr) + (rows[:half] * 7, rows[:half] % 5),
+               tuple(x[half:] for x in fr) + (rows[half:] * 7, rows[half:] % 5)]
+    segs = []
+    for _ in range(12):  # blocks of either source, any rows, in any order
+        s = int(g.integers(0, 2))
+        m = sources[s][0].shape[0]
+        a = int(g.integers(0, m))
+        segs.append((s, a, int(g.integers(0, m - a + 1))))
+    got = kernels.deep_repack(sources, segs)
+    want = repack_plain(sources, segs)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    with pytest.raises(ValueError, match="outside"):
+        kernels.deep_repack(sources, [(0, half, 5)])
+
+
+@pytest.mark.parametrize("case", ["fits", "overflow", "holes"])
+def test_sieve_merge_kernel_equals_twin(run, case):
+    from tla_raft_tpu_torch.parallel.sharded import sieve_merge_plain
+
+    g = np.random.default_rng(len(case))
+    scap = 1 << 14
+    sieve = torch.full((scap,), -1, dtype=torch.int64)
+    live = _sorted_u64(g, 9000 if case != "overflow" else scap - 100)
+    sieve[:live.shape[0]] = live[torch.argsort(live ^ (-(1 << 63)))]
+    cv = torch.cat([live[::3], _sorted_u64(g, 5000)])
+    cv = cv[torch.argsort(cv ^ (-(1 << 63)))]
+    if case == "holes":
+        cv[torch.from_numpy(g.random(cv.shape[0]) < 0.4)] = -1
+    cv = torch.cat([cv, torch.full((77,), -1, dtype=torch.int64)])
+    a = kernels.sieve_merge(sieve.cuda(), cv.cuda())
+    b = sieve_merge_plain(sieve, cv)
+    assert torch.equal(a[0].cpu(), b[0]) and bool(a[1]) == bool(b[1])
+    assert bool(b[1]) == (case == "overflow")
+
+
+@pytest.mark.parametrize("arm", ["hash", "sorted", "nosieve"])
+def test_deep_mesh_on_one_card_equals_the_cpu(run, tmp_path, arm):
+    """(3,1,1,0) to its fixpoint on the deep sweep over 8 shards of one
+    card at seg_rows 16, equal to the same run on the CPU: the result, the
+    exchange ledger and the per-owner stores; the deep kernels launched."""
+    from tla_raft_tpu_torch.parallel import ShardedChecker, make_mesh
+
+    cfg = RaftConfig(n_servers=3, n_vals=1, max_election=1, max_restart=0)
+    kw = dict(cap_x=512, deep=True, seg_rows=16, use_hashstore=arm != "sorted",
+              sieve=arm != "nosieve", compress=arm != "sorted")
+    kernels.reset_launches()
+    card = ShardedChecker(cfg, make_mesh(8, devices=["cuda"] * 8),
+                          host_store_dir=str(tmp_path / "c"), **kw)
+    got = card.run()
+    counts = kernels.launch_counts()
+    cpu = ShardedChecker(cfg, make_mesh(8, device="cpu"), host_store_dir=str(tmp_path / "p"),
+                         **kw)
+    want = cpu.run()
+    assert got == want
+    assert card.meter.summary() == cpu.meter.summary()
+    assert [len(s) for s in card.host_stores] == [len(s) for s in cpu.host_stores]
+    assert counts["deep_verdict"] > 0 and counts["deep_repack"] > 0 and counts["route"] > 0
+    assert (counts["pack_deltas"] > 0) == (arm != "sorted")
+    assert (counts["sieve_merge"] > 0) == (arm == "sorted")
+    assert (counts["insert_only"] > 0) == (arm == "hash")
+    assert counts["hashstore"] == 0

@@ -540,16 +540,24 @@ def test_legacy_kernels_on_the_mesh_equal_the_default():
 
 
 def test_refusals_name_the_roadmap(tmp_path, monkeypatch):
+    """What the port refuses: its own gaps name the ROADMAP item; the deep
+    sweep's settings the reference refuses (sharded.py:295-305) raise the
+    reference's errors, and deep runs refuse checkpoints too."""
     cfg, mesh = _cfg(CFGS["s2"]), _mesh(2)
-    for kw, what in ((dict(deep=True), "A.7"), (dict(canon="expand"), "A.7"),
+    deep = dict(deep=True, host_store_dir=str(tmp_path))
+    for kw, what in ((dict(deep=True), "requires host_store_dir"),
+                     (dict(deep, exchange="all_gather"), "requires exchange='all_to_all'"),
+                     (dict(deep, canon="expand"), "requires canon='late'"),
+                     (dict(deep, seg_rows=3), "even"),
+                     (dict(canon="expand"), "A.7"),
                      (dict(use_hashstore=False), "A.7"), (dict(watchdog=object()), "A.1"),
                      (dict(exchange="all_gather", host_store_dir=str(tmp_path)), "all_to_all")):
         with pytest.raises(ValueError, match=what):
             ShardedChecker(cfg, mesh, **kw)
-    chk = ShardedChecker(cfg, mesh)
-    for kw in (dict(checkpoint_dir=str(tmp_path)), dict(resume_from=str(tmp_path))):
-        with pytest.raises(ValueError, match="A.7"):
-            chk.run(**kw)
+    for chk in (ShardedChecker(cfg, mesh), ShardedChecker(cfg, mesh, **deep)):
+        for kw in (dict(checkpoint_dir=str(tmp_path)), dict(resume_from=str(tmp_path))):
+            with pytest.raises(ValueError, match="A.7"):
+                chk.run(**kw)
     monkeypatch.setenv("TLA_RAFT_HASHSTORE", "0")
     with pytest.raises(ValueError, match="A.7"):
         ShardedChecker(cfg, mesh)
@@ -618,7 +626,7 @@ def test_cli_mesh_line_equals_the_reference_cli(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra,needle", [
     (["--mesh-deep"], "requires --mesh N"),
-    (["--mesh", "2", "--mesh-deep"], "A.7"),
+    (["--mesh", "2", "--mesh-deep"], "--mesh-deep requires --fpstore-dir"),
     (["--mesh", "2", "--checkpoint-dir", "CK"], "A.7"),
     (["--mesh", "2", "--recover", "CK"], "A.7"),
     (["--mesh", "2", "--audit", "4"], "--audit applies to the single-device engine"),

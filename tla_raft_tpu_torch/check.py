@@ -28,14 +28,16 @@ semantics), or without one from the Raft.cfg defaults; ``--servers``,
     python -m tla_raft_tpu_torch.check --mesh 8 --device cpu --servers 2 --vals 1 \
         --max-election 1 --max-restart 1                              # an 8-shard CPU mesh
     python -m tla_raft_tpu_torch.check --mesh 1 --max-depth 16 --json  # a 1-GPU mesh
+    python -m tla_raft_tpu_torch.check --mesh 8 --device cpu --mesh-deep --fpstore-dir fps \
+        --seg-rows 128 --cap-x 512 --max-depth 8                      # the sharded deep sweep
 
 Exit code 0 when no error was found, 1 on a violation, 2 when the spec
 beside the cfg differs from the compiled semantics (or on --dev-bytes with
 --checkpoint-dir and no --fpstore-dir, on a TLA_RAFT_DEV_BYTES /
-TLA_RAFT_FSEG_BYTES setting the port does not run, on --mesh-deep, on
---mesh with --checkpoint-dir, --recover, --audit or, under all_to_all
-without --fpstore-dir, --no-hashstore, and on --mesh N past the visible
-GPUs), 4 on an integrity
+TLA_RAFT_FSEG_BYTES setting the port does not run, on --mesh-deep without
+--mesh or without --fpstore-dir, on --mesh with --checkpoint-dir,
+--recover, --audit or, under all_to_all without --fpstore-dir,
+--no-hashstore, and on --mesh N past the visible GPUs), 4 on an integrity
 fail-stop, 75 on a preemption
 (SIGTERM/SIGINT: the run stops at a level boundary, resumable with
 --recover) — the reference's, check.py:1015-1275.
@@ -186,7 +188,9 @@ def summarize_mesh(res, seconds: float, chk) -> dict:
     """The ``--json`` summary of a mesh run: the reference's keys for a
     ``ShardedChecker`` (check.py:221-297: no megakernel or superstep, the
     ``straggler`` block once a level ran), plus the shard devices, the
-    exchange mode, the final capacities and the reactive grows."""
+    exchange mode, the final capacities and the reactive grows; for the
+    deep sweep its segment rows, the per-device peak frontier rows, the
+    sieve's capacity and the exchange's byte ledger (``ExchangeMeter``)."""
     out = dict(
         ok=res.ok, distinct=res.distinct, generated=res.generated, depth=res.depth,
         level_sizes=list(res.level_sizes), mxu=chk.use_mxu, megakernel=None, superstep=None,
@@ -196,10 +200,15 @@ def summarize_mesh(res, seconds: float, chk) -> dict:
         reactive_grows=chk.reactive_grows,
         exchange_copies=sum(lv["exchange_copies"] for lv in chk.level_log),
     )
+    if chk.deep:
+        out.update(vcap=None, deep=True, seg_rows=chk.seg_rows, peak_dev_rows=chk.peak_dev_rows,
+                   scap=chk.scap, sieve=chk.sieve, compress=chk.compress,
+                   exchange_ledger=chk.meter.summary())
     if chk.host_stores is not None:
         out["host_store"] = dict(entries=[len(s) for s in chk.host_stores],
-                                 runs=sum(s.num_runs for s in chk.host_stores),
-                                 host_filter_s=round(chk.host_seconds, 6))
+                                 runs=sum(s.num_runs for s in chk.host_stores))
+        if not chk.deep:
+            out["host_store"]["host_filter_s"] = round(chk.host_seconds, 6)
     if chk.skew.levels:
         out["straggler"] = chk.skew.summary()
     return out
@@ -219,7 +228,8 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
               audit_retries: int = 3, dev_bytes: int | None = None, progress=None, out=None,
               install_signals: bool = False, config_path: str | None = None,
               fpstore_dir: str | None = None, warm_bytes: int | None = None, mesh: int = 0,
-              exchange: str = "all_to_all", cap_x: int = 4096) -> dict:
+              exchange: str = "all_to_all", cap_x: int = 4096, mesh_deep: bool = False,
+              seg_rows: int = 1 << 15, sieve: bool = True, compress: bool = True) -> dict:
     """One in-process check -> the ``--json`` summary dict (check.py:316):
     the programmatic entry the sweep service and the tests call.  ``out``
     (a stream, or None) receives the CLI's informational lines, ``progress``
@@ -234,7 +244,9 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
     store is cleared unless the run recovers.  ``mesh`` N >= 1 runs the
     ``ShardedChecker`` over N shards (``make_mesh(N, device)``: the first N
     GPUs, or N shards of the CPU) with ``exchange`` and ``cap_x``
-    (check.py:686-733); ``fpstore_dir`` then holds one store per owner."""
+    (check.py:686-733); ``fpstore_dir`` then holds one store per owner.
+    ``mesh_deep`` runs the sharded deep sweep there (``seg_rows``,
+    ``sieve``, ``compress``: check.py:700-757)."""
     from . import resilience
     from .engine.bfs import TorchChecker
 
@@ -250,7 +262,8 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
                          canon=canon, use_hashstore=use_hashstore, use_mxu=use_mxu,
                          progress=progress, out=out, config_path=config_path,
                          fpstore_dir=fpstore_dir, warm_bytes=warm_bytes, mesh=mesh,
-                         exchange=exchange, cap_x=cap_x, dev_bytes=dev_bytes)
+                         exchange=exchange, cap_x=cap_x, dev_bytes=dev_bytes,
+                         mesh_deep=mesh_deep, seg_rows=seg_rows, sieve=sieve, compress=compress)
     host_store = None
     if fpstore_dir:
         from .native import HostFPStore
@@ -290,8 +303,10 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
 
 def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, recover, device,
               canon, use_hashstore, use_mxu, progress, out, config_path, fpstore_dir,
-              warm_bytes, mesh, exchange, cap_x, dev_bytes) -> dict:
-    """``run_check``'s mesh branch (check.py:686-733)."""
+              warm_bytes, mesh, exchange, cap_x, dev_bytes, mesh_deep, seg_rows, sieve,
+              compress) -> dict:
+    """``run_check``'s mesh branch (check.py:686-757), the deep sweep's
+    ``Exchange:`` lines included."""
     from .parallel import ShardedChecker, make_mesh
 
     if out is not None and dev_bytes:
@@ -301,7 +316,8 @@ def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, re
     chk = ShardedChecker(cfg, make_mesh(mesh, device=device), cap_x=cap_x, exchange=exchange,
                          progress=progress, canon=canon, host_store_dir=fpstore_dir or None,
                          use_hashstore=use_hashstore, use_mxu=use_mxu, warm_bytes=warm_bytes,
-                         chunk=chunk)
+                         chunk=chunk, deep=mesh_deep, seg_rows=seg_rows, sieve=sieve,
+                         compress=compress)
     if out is not None:
         print(f"tla-raft-tpu-torch checker: device={chk.devices[0]}, mesh of {chk.D} "
               f"shard(s) ({exchange})", file=out)
@@ -311,25 +327,42 @@ def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, re
             print(f"Native FP store (owner-sharded x{mesh}): {fpstore_dir}", file=out)
     res = chk.run(max_depth=max_depth, checkpoint_dir=checkpoint_dir,
                   checkpoint_every=checkpoint_every, resume_from=recover)
+    if out is not None and mesh_deep and chk.meter.levels:
+        # the run's exchange ledger: the sieve-and-compress bytes against
+        # what the uncompressed exchange would have moved (check.py:734-757)
+        s = chk.meter.summary()
+        print(f"Exchange: {s['exchanged_bytes']:,} fp bytes over {s['levels']} levels "
+              f"(uncompressed equivalent {s['raw_bytes']:,}; reduction {s['reduction']}x; "
+              f"sieved {s['sieved']:,} of {s['candidates']:,} candidates)", file=out)
+        for lv in s["per_level"]:
+            print(f"  level {lv['level']}: {lv['exchanged_bytes']:,} B (raw "
+                  f"{lv['raw_bytes']:,} B, x{lv['reduction']}), sieved "
+                  f"{lv['n_sieved']:,}/{lv['n_candidates']:,}", file=out)
     summary = summarize_mesh(res, time.monotonic() - t0, chk)
     summary["_res"] = res
     summary["_chk"] = chk
     return summary
 
 
+# the reference's message, printed as it prints it (check.py:1113-1117)
+DEEP_STORE_REFUSAL = ("--mesh-deep requires --fpstore-dir (the sharded deep sweep filters "
+                      "through per-owner external stores)")
+
+
 def mesh_refusal(args) -> str | None:
     """Why the CLI refuses a mesh run it cannot honor, or None: the deep
-    sweep, the mesh's checkpoints and sorted shards are not ported, and
-    --audit belongs to the single-device engine (check.py:719)."""
-    from .parallel.sharded import CHECKPOINT_REFUSAL, DEEP_REFUSAL, SORTED_REFUSAL
+    sweep needs a mesh and the per-owner stores (check.py:1052, :1113), the
+    mesh's checkpoints and sorted shards are not ported, and --audit
+    belongs to the single-device engine (check.py:719)."""
+    from .parallel.sharded import CHECKPOINT_REFUSAL, SORTED_REFUSAL
 
     if args.mesh_deep and not args.mesh:
         return ("--mesh-deep requires --mesh N (the sharded deep sweep runs on a device "
                 "mesh)")
     if not args.mesh:
         return None
-    if args.mesh_deep:
-        return DEEP_REFUSAL
+    if args.mesh_deep and not args.fpstore_dir:
+        return DEEP_STORE_REFUSAL
     if (args.checkpoint_dir and args.checkpoint_every) or args.recover:
         return CHECKPOINT_REFUSAL
     if args.audit:
@@ -419,7 +452,16 @@ def main(argv=None) -> int:
     ap.add_argument("--exchange", choices=("all_to_all", "all_gather"), default="all_to_all",
                     help="the mesh's fingerprint exchange")
     ap.add_argument("--mesh-deep", action="store_true",
-                    help="the sharded deep sweep (not ported yet: refused)")
+                    help="the sharded deep sweep: the frontier 1/D across the shards as "
+                         "segment lists, the sieve-and-compress fingerprint exchange "
+                         "(requires --mesh and --fpstore-dir)")
+    ap.add_argument("--seg-rows", type=int, default=1 << 15,
+                    help="rows per frontier segment per shard (--mesh-deep)")
+    ap.add_argument("--no-sieve", action="store_true",
+                    help="--mesh-deep: no pre-routing visited sieve")
+    ap.add_argument("--no-compress", action="store_true",
+                    help="--mesh-deep: fetch raw u64 fingerprints instead of the delta-packed "
+                         "stream")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="write a per-level delta-log checkpoint (delta_NNNN.npz, and the "
                          "hslab.npz slab snapshot at its cadence) here")
@@ -487,6 +529,9 @@ def main(argv=None) -> int:
     from .engine.bfs import segment_settings_refusal
 
     why = mesh_refusal(args) or segment_settings_refusal(bool(args.fpstore_dir))
+    if why == DEEP_STORE_REFUSAL:
+        print(why, file=out)
+        return 2
     if why:
         print(f"Refusing: {why}.", file=out)
         return 2
@@ -509,7 +554,8 @@ def main(argv=None) -> int:
             out=out, install_signals=True, config_path=args.config,
             fpstore_dir=args.fpstore_dir,
             warm_bytes=int(args.warm_bytes) if args.warm_bytes else None, mesh=args.mesh,
-            exchange=args.exchange, cap_x=args.cap_x)
+            exchange=args.exchange, cap_x=args.cap_x, mesh_deep=args.mesh_deep,
+            seg_rows=args.seg_rows, sieve=not args.no_sieve, compress=not args.no_compress)
     except resilience.Preempted as e:
         return _report_preempted(e, out)
     except ValueError as e:

@@ -57,6 +57,19 @@
 //                  lane); the 8 passes move ~28 B a lane each, and a run's
 //                  walk is as long as the run (a few lanes at the main
 //                  path's shapes; one thread walks a run of equal views).
+//   sieve_merge    (_deep_sieve_merge_body, tla_raft_tpu/parallel/sharded.py
+//                  :1322: the sorted sieve of the deep sweep, the sort of the
+//                  sieve and a round's candidates, the dedup, SENT dropped,
+//                  the first scap kept, overflow when more are unique) the
+//                  round's live candidates (ascending once the sieve's SENT
+//                  holes are skipped) packed by the tile scan, then the merge
+//                  path below over the sieve and them, first-of-run flags,
+//                  and the tile scan again into the scap outputs: the largest
+//                  fall off the end, and the overflow is the unique count
+//                  past scap.  Duplicates across rounds, which a merge alone
+//                  keeps, are runs of equal values after it.  Bound: bytes
+//                  (each input read once, the output written once); the
+//                  passes move the merged lanes about four times.
 //   merge_sorted   merge path: each block searches its first and last
 //                  output diagonal (two binary searches), stages its slices
 //                  of both inputs in shared memory, and each thread merges
@@ -447,7 +460,52 @@ EXPORT int launch_merge_sorted(const int64_t* a, long long A, const int64_t* b, 
   return (int)cudaGetLastError();
 }
 
-WARM((const void*)sorted_member, (const void*)rs_init, (const void*)rs_gather,
+// -- the deep sweep's sorted sieve -----------------------------------------------
+
+// flags[i] = v[i] is not SENT.
+__global__ void sm_live(const u64* __restrict__ v, long long n, uint8_t* __restrict__ flags) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) flags[i] = v[i] != SENT64;
+}
+
+// flags[i] = v[i] is the first of its run and not SENT (v sorted).
+__global__ void sm_first(const u64* __restrict__ v, long long n, uint8_t* __restrict__ flags) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) flags[i] = v[i] != SENT64 && (i == 0 || v[i - 1] != v[i]);
+}
+
+// sieve u64[S] sorted (SENT-padded), cv u64[n] ascending where not SENT.
+// out u64[S] = the first S of the sorted unique non-SENT values of both,
+// SENT-padded; *n_unique = their count; *ovf = 1 when it passes S (else 0).
+// Scratch: flags u8[S + n], live u64[n], merged u64[S + n], tile
+// i64[ceil((S + n) / TILE)], n_live i64 0-d.
+EXPORT int launch_sieve_merge(const int64_t* sieve, long long S, const int64_t* cv, long long n,
+                              int64_t* out, int64_t* n_unique, int64_t* ovf, uint8_t* flags,
+                              int64_t* live, int64_t* merged, int64_t* tile, int64_t* n_live,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaMemsetAsync(ovf, 0, sizeof(int64_t), st);
+  if (n > 0) sm_live<<<blocks_of(n, THREADS), THREADS, 0, st>>>((const u64*)cv, n, flags);
+  Vals lv = {{(const long long*)cv, nullptr, nullptr}, {(long long*)live, nullptr, nullptr},
+             {-1, 0, 0}};
+  int rc = run_compact(flags, n, lv, n, nullptr, tile, n_live, nullptr, 0, 1, 0, nullptr, nullptr,
+                       nullptr, st);
+  if (rc) return rc;
+  const long long m = S + n;
+  if (m > 0) {
+    merge_sorted<<<blocks_of(m, MG_TILE), MG_THREADS, 0, st>>>((const u64*)sieve, S,
+                                                                (const u64*)live, n,
+                                                                (u64*)merged, m);
+    sm_first<<<blocks_of(m, THREADS), THREADS, 0, st>>>((const u64*)merged, m, flags);
+  }
+  Vals mv = {{(const long long*)merged, nullptr, nullptr}, {(long long*)out, nullptr, nullptr},
+             {-1, 0, 0}};
+  return run_compact(flags, m, mv, S, nullptr, tile, n_unique, nullptr, 0, 1, 0, nullptr, nullptr,
+                     ovf, st);
+}
+
+WARM((const void*)sm_live, (const void*)sm_first, (const void*)sorted_member,
+     (const void*)rs_init, (const void*)rs_gather,
      (const void*)rs_hist, (const void*)rs_scan_local, (const void*)scan_offsets,
      (const void*)rs_scatter, (const void*)dedup_flags, (const void*)count_tiles,
      (const void*)scatter_tiles, (const void*)pad_tail, (const void*)merge_sorted,

@@ -134,3 +134,21 @@ def horizon_forecast(level_sizes, distinct: int, target_depth: int | None):
         return None
     budget = int(float(os.environ.get("TLA_RAFT_PRESIZE_BYTES", "4e9")))
     return max(fut), distinct + sum(fut), budget
+
+
+def per_device_forecast(level_sizes, distinct: int, target_depth: int | None,
+                        n_devices: int):
+    """Per-device capacity signal of the sharded deep sweep (the
+    reference's forecast.py:209-239): each device owns ~1/D of a level
+    (fp % D), with a 1.35x margin for the skew and a +32 floor.  None
+    without a usable signal, else {peak_rows: the largest per-level share
+    one device owns, final_rows: its final distinct share (the deep sieve's
+    entry forecast), budget: TLA_RAFT_PRESIZE_BYTES}."""
+    sig = horizon_forecast(level_sizes, distinct, target_depth)
+    if sig is None:
+        return None
+    peak_new, final_distinct, budget = sig
+    share = peak_new / n_devices
+    peak_rows = int(share * 1.35) + 32
+    final_rows = int(final_distinct / n_devices * 1.35) + 32
+    return dict(peak_rows=peak_rows, final_rows=final_rows, budget=budget)

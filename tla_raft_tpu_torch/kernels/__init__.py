@@ -29,11 +29,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -287,6 +289,31 @@ ROUTE_BACK = Kernel(
     "back[owner, rank] & ok_lane; _body_a2a_phase2 :796-797)",
     {"route_back_launch": [VP, VP, VP, I64, I32, I64, VP, VP]},
 )
+_SHARDED = "tla_raft_tpu/parallel/sharded.py"
+PACK_DELTAS = Kernel(
+    "pack_deltas", "csrc/deep.cu",
+    "tla_raft_tpu/parallel/exchange.py:38 (pack_fp_deltas: the delta/varint stream, its "
+    "length nibbles and int64 offsets; in _deep_finalize_body, sharded.py:1156)",
+    {"launch_pack_deltas": [VP, I64, VP, I64, VP, VP, VP, VP, VP]},
+)
+DEEP_VERDICT = Kernel(
+    "deep_verdict", "csrc/deep.cu",
+    f"{_SHARDED}:1159 (_deep_verdict_body: the owner's is-new bits back on its received "
+    "lanes)",
+    {"launch_deep_verdict": [VP, I64, VP, I64, VP, I64, VP, VP]},
+)
+DEEP_REPACK = Kernel(
+    "deep_repack", "csrc/deep.cu",
+    f"{_SHARDED}:1283 (_deep_repack_body: the rounds' shipped children, round-major, into "
+    "the next level's segments with gpidx and slots)",
+    {"launch_deep_repack": [VP, VP, VP, I32, I32, I32, I64, VP], "rp_chunk": []},
+)
+SIEVE_MERGE = Kernel(
+    "sieve_merge", "csrc/sortstore.cu",
+    f"{_SHARDED}:1322 (_deep_sieve_merge_body: the sorted sieve's merge of a round's "
+    "candidates, dedup, SENT dropped, the first scap kept, the overflow)",
+    {"launch_sieve_merge": [VP, I64, VP, I64, VP, VP, VP, VP, VP, VP, VP, VP, VP]},
+)
 _BUCKET = "tla_raft_tpu/service/bucket.py"
 BUCKET_REFINE = Kernel(
     "bucket_refine", "csrc/bucket.cu",
@@ -314,7 +341,8 @@ KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMP
                                FILTER_COMPACT, DROP_ROWS, MSG_FACTORED, ORBIT, ORBIT_FOLD,
                                DENSE_EXPAND, CHUNK_COMPACT, LEGACY, SORTED_MEMBER, LEVEL_DEDUP,
                                MERGE_SORTED, BUCKET_REFINE, BUCKET_TALLY, BUCKET_CTRL,
-                               GROUP_UNIQUE, INSERT_ONLY, ROUTE, ROUTE_BACK)}
+                               GROUP_UNIQUE, INSERT_ONLY, ROUTE, ROUTE_BACK, PACK_DELTAS,
+                               DEEP_VERDICT, DEEP_REPACK, SIEVE_MERGE)}
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
@@ -339,6 +367,8 @@ HOST_PATH = ("group_unique",)
 # the device mesh's owner routing (parallel/sharded.py; all_to_all and the
 # host-store mode: all_gather routes nothing)
 MESH_PATH = ("route", "route_back")
+# the sharded deep sweep's own (--mesh-deep; sieve_merge: the sorted sieve)
+DEEP_PATH = ("pack_deltas", "deep_verdict", "deep_repack", "sieve_merge")
 
 
 def reset_launches() -> None:
@@ -1646,3 +1676,131 @@ def bucket_ctrl(phase: int, bs, lc, args, done, done1, depth, cap, gen_c, new_c,
         m_gen.data_ptr(), m_abort.data_ptr(), m_ins.data_ptr(), m_ng.data_ptr(), g_cap,
         crow_in.data_ptr(), crow_out.data_ptr(), pay.data_ptr(), K, _stream()))
     BUCKET_CTRL.launches += 1
+
+
+# -- B15's deep bodies (csrc/deep.cu) and the sorted sieve (csrc/sortstore.cu) -----------
+
+
+def _n_arg(n, cap: int):
+    """A live count given as an int (at most ``cap``) or as a 0-d int64
+    CUDA tensor (read on the device): (device pointer or None, the host
+    count, or ``cap`` for a device count)."""
+    if isinstance(n, torch.Tensor):
+        _need(n, "n", torch.int64, ())
+        return n.data_ptr(), cap
+    n = int(n)
+    if not 0 <= n <= cap:
+        raise ValueError(f"count {n} outside [0, {cap}]")
+    return None, n
+
+
+def pack_deltas(fps, n):
+    """``pack_fp_deltas`` of the ascending prefix ``fps[:n]`` (``n`` an int
+    or a 0-d int64 CUDA tensor): (stream u8[cap * 8], nibbles u8[cap // 2],
+    total i64 0-d).  ``cap`` must be even."""
+    cap = fps.shape[0]
+    if cap % 2:
+        raise ValueError(f"pack capacity must be even (nibble pairing), got {cap}")
+    _need(fps, "fps", torch.int64, (cap,))
+    n_dev, n_host = _n_arg(n, cap)
+    dev = fps.device
+    stream = torch.empty((cap * 8,), dtype=torch.uint8, device=dev)
+    nib = torch.empty((cap // 2,), dtype=torch.uint8, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    tile = torch.empty((max(compact_tiles(cap), 1),), dtype=torch.int64, device=dev)
+    PACK_DELTAS.check(PACK_DELTAS.lib().launch_pack_deltas(
+        fps.data_ptr(), cap, n_dev, n_host, stream.data_ptr(), nib.data_ptr(),
+        total.data_ptr(), tile.data_ptr(), _stream()))
+    # pd_tiles, scan_offsets, pd_write (the stream's memset is no kernel)
+    PACK_DELTAS.launches += 1 + 2 * int(cap > 0)
+    return stream, nib, total
+
+
+def deep_verdict(bits, gp, n_u, n_recv: int):
+    """The owner's verdict bits (u8, bit i = unique i is new, LSB first)
+    on its received lanes: win bool[n_recv] = bit i at lane ``gp[i]`` for
+    ``i < n_u`` (an int or a 0-d int64 CUDA tensor), False elsewhere."""
+    cap_u = gp.shape[0]
+    _need(bits, "bits", torch.uint8, (bits.shape[0],))
+    _need(gp, "gp", torch.int64, (cap_u,))
+    n_dev, n_host = _n_arg(n_u, cap_u)
+    win = torch.empty((n_recv,), dtype=torch.bool, device=gp.device)
+    # a host count bounds the lanes read: it passes as their capacity
+    DEEP_VERDICT.check(DEEP_VERDICT.lib().launch_deep_verdict(
+        bits.data_ptr(), bits.shape[0], gp.data_ptr(), n_host, n_dev, n_recv, win.data_ptr(),
+        _stream()))
+    DEEP_VERDICT.launches += int(cap_u > 0)
+    return win
+
+
+def deep_repack(sources: list, segs):
+    """Blocks of rows concatenated in order, field by field: ``sources`` is
+    a list of equal-structure tuples of CUDA tensors (each field's rows on
+    dim 0, the same trailing shape and dtype in every source), ``segs`` an
+    int array [B, 3] of (source, first row, rows), one block a row, in
+    output order.  Returns the tuple of concatenated fields."""
+    if not sources:
+        raise ValueError("deep_repack takes at least one source")
+    F = len(sources[0])
+    dev = sources[0][0].device
+    for s in sources:
+        if len(s) != F:
+            raise ValueError("deep_repack: every source has the same fields")
+        for f, (x, y) in enumerate(zip(s, sources[0])):
+            _need(x, f"field {f}", y.dtype, (s[0].shape[0], *y.shape[1:]))
+    segs = np.asarray(segs, np.int64).reshape(-1, 3)
+    B = segs.shape[0]
+    rows = np.asarray([s[0].shape[0] for s in sources], np.int64)
+    if B == 0 or (segs[:, 0] < 0).any() or (segs[:, 0] >= len(sources)).any() or (
+            segs[:, 1:] < 0).any() or (segs[:, 1] + segs[:, 2] > rows[segs[:, 0]]).any():
+        raise ValueError("deep_repack: a block outside its source's rows")
+    outs = tuple(torch.empty((int(segs[:, 2].sum()), *x.shape[1:]), dtype=x.dtype, device=dev)
+                 for x in sources[0])
+    widths = np.asarray([math.prod(x.shape[1:]) * x.element_size() for x in sources[0]],
+                        np.int64)
+    lib = DEEP_REPACK.lib()
+    chunk = lib.rp_chunk()
+    # each (block, field) pair's first chunk of the copy grid
+    per_pair = (segs[:, 2:3] * widths[None, :] + chunk - 1) // chunk
+    chunk0 = np.concatenate([[0], np.cumsum(per_pair.reshape(-1))])
+    # one upload: the source pointers, the blocks, widths, outputs and chunks
+    table = torch.from_numpy(np.concatenate([
+        np.asarray([x.data_ptr() for s in sources for x in s], np.int64),
+        segs[:, 0], segs[:, 1], segs[:, 2], widths,
+        np.asarray([o.data_ptr() for o in outs], np.int64), chunk0])).to(dev)
+    offs = torch.empty((B,), dtype=torch.int64, device=dev)
+    n_out = torch.empty((), dtype=torch.int64, device=dev)
+    DEEP_REPACK.check(lib.launch_deep_repack(
+        table.data_ptr(), offs.data_ptr(), n_out.data_ptr(), len(sources), B, F,
+        int(chunk0[-1]), _stream()))
+    # scan_offsets, rp_copy
+    DEEP_REPACK.launches += 1 + int(chunk0[-1] > 0)
+    return outs
+
+
+def sieve_merge(sieve, cv):
+    """``_deep_sieve_merge_body``: (the first ``scap`` sorted unique
+    non-SENT values of ``sieve`` (sorted) and ``cv`` (ascending where not
+    SENT), SENT-padded to ``scap``; overflow bool 0-d: more were unique)."""
+    S, n = sieve.shape[0], cv.shape[0]
+    _need(sieve, "sieve", torch.int64, (S,))
+    _need(cv, "cv", torch.int64, (n,))
+    dev = sieve.device
+    out = torch.empty((S,), dtype=torch.int64, device=dev)
+    n_unique = torch.empty((), dtype=torch.int64, device=dev)
+    ovf = torch.empty((), dtype=torch.int64, device=dev)
+    flags = torch.empty((max(S + n, 1),), dtype=torch.uint8, device=dev)
+    live = torch.empty((max(n, 1),), dtype=torch.int64, device=dev)
+    merged = torch.empty((max(S + n, 1),), dtype=torch.int64, device=dev)
+    tile = torch.empty((max(compact_tiles(S + n), 1),), dtype=torch.int64, device=dev)
+    n_live = torch.empty((), dtype=torch.int64, device=dev)
+    SIEVE_MERGE.check(SIEVE_MERGE.lib().launch_sieve_merge(
+        sieve.data_ptr(), S, cv.data_ptr(), n, out.data_ptr(), n_unique.data_ptr(),
+        ovf.data_ptr(), flags.data_ptr(), live.data_ptr(), merged.data_ptr(), tile.data_ptr(),
+        n_live.data_ptr(), _stream()))
+    # sm_live and the compaction (count_tiles, scan_offsets, scatter_tiles,
+    # pad_tail); merge_sorted and sm_first; the compaction into scap
+    t_n, t_m = compact_tiles(n), compact_tiles(S + n)
+    SIEVE_MERGE.launches += (int(n > 0) + 2 * int(t_n > 0) + 1 + int(n > 0)
+                             + 2 * int(S + n > 0) + 2 * int(t_m > 0) + 1 + int(S > 0))
+    return out, ovf > 0

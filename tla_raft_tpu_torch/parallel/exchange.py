@@ -1,18 +1,74 @@
-"""The fingerprint exchange's byte accounting and the packed stream's decoder.
+"""The fingerprint exchange: the packed stream, its decoder and the byte
+accounting.
 
-The port's copy of the jax-free parts of ``tla_raft_tpu/parallel/exchange.py``
-(:84-222): ``unpack_fp_deltas`` (the host's decoder of the delta/varint
-packed fingerprint stream), ``packed_quantum`` (the fetch-prefix ladder)
-and ``ExchangeMeter`` (per-level bytes over the links and the host leg,
-with the uncompressed equivalent beside them), without the telemetry hook.
-The mesh's host-store mode books its routed lanes through the meter, as the
-reference's does.  The device-side encoder ``pack_fp_deltas`` (:38) belongs
-to the deep sweep (``--mesh-deep``) and is ported with it (ROADMAP A.7).
+The port of ``tla_raft_tpu/parallel/exchange.py``.  The sharded deep sweep
+(``ShardedChecker(deep=True)``, ``--mesh-deep``) moves only fingerprints
+over the host link: each owner's level-unique candidates, sorted
+ascending, delta-encoded and packed on the device by ``pack_fp_deltas``
+(:38; the ``pack_deltas`` kernel on the card, the plain twin on the CPU),
+fetched as a quantized prefix and decoded on the host by
+``unpack_fp_deltas``.  ``packed_quantum`` is the fetch-prefix ladder, and
+``ExchangeMeter`` books per-level bytes over the links and the host leg,
+with the uncompressed equivalent beside them (without the reference's
+telemetry hook); the mesh's host-store mode books its routed lanes through
+it too.
+
+Encoding: entry i stores delta_i = fp_i - fp_{i-1} (fp_{-1} = 0) as 1..8
+little-endian bytes; per-entry byte lengths ride in a 4-bit nibble array
+(entry 2k in the low nibble of byte k); offsets are int64, so a stream past
+2 GB does not wrap.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .. import kernels
+from ..u64 import srl
+
+I64 = torch.int64
+
+
+def pack_fp_deltas_plain(fps: torch.Tensor, n):
+    """Plain twin of ``pack_fp_deltas``: the reference's cumsum and masked
+    scatter (exchange.py:38-81) over int64-held u64 fingerprints."""
+    cap = fps.shape[0]
+    if cap % 2:
+        raise ValueError(f"pack capacity must be even (nibble pairing), got {cap}")
+    dev = fps.device
+    if cap == 0:
+        z = torch.zeros((0,), dtype=torch.uint8, device=dev)
+        return z, z, torch.zeros((), dtype=I64, device=dev)
+    live = torch.arange(cap, dtype=I64, device=dev) < n
+    prev = torch.cat([torch.zeros((1,), dtype=I64, device=dev), fps[:-1]])
+    delta = torch.where(live, fps - prev, torch.zeros_like(fps))
+    nb = torch.ones((cap,), dtype=I64, device=dev)
+    for k in range(1, 8):  # unsigned delta >= 2^(8k): the sign bit, or the signed compare
+        nb += ((delta < 0) | (delta >= (1 << (8 * k)))).to(I64)
+    nb = torch.where(live, nb, torch.zeros_like(nb))
+    off = torch.cumsum(nb, 0) - nb
+    total = off[-1] + nb[-1]
+    stream = torch.zeros((cap * 8 + 1,), dtype=I64, device=dev)
+    for j in range(8):
+        mask = (j < nb) & live
+        idx = torch.where(mask, off + j, torch.full_like(off, cap * 8))
+        stream.scatter_add_(0, idx, torch.where(mask, srl(delta, 8 * j) & 0xFF,
+                                                torch.zeros_like(delta)))
+    nbu = nb.to(torch.uint8)
+    nibbles = nbu[0::2] | (nbu[1::2] << 4)
+    return stream[:cap * 8].to(torch.uint8), nibbles, total
+
+
+def pack_fp_deltas(fps: torch.Tensor, n):
+    """Delta-pack the ascending prefix ``fps[:n]`` (exchange.py:38): fps
+    i64[cap] (u64, cap even, SENT-padded past ``n``), ``n`` an int or a
+    0-d int64 tensor.  Returns (stream u8[cap * 8], nibbles u8[cap // 2],
+    total i64 0-d, the stream's live bytes).  The ``pack_deltas`` kernel on
+    the card, the plain twin on the CPU."""
+    if fps.device.type == "cpu":
+        return pack_fp_deltas_plain(fps, n)
+    return kernels.pack_deltas(fps, n)
 
 
 def unpack_fp_deltas(stream: np.ndarray, nibbles: np.ndarray,

@@ -10,6 +10,9 @@ The collectives move tensors between the shards' devices:
 * ``all_to_all`` -- the reference's tiled ``lax.all_to_all`` on axis 0:
   shard ``o`` receives row ``o`` of every shard's ``[D, ...]`` tiles,
   stacked in shard order (``dst[o][s] = src[s][o]``);
+* ``gather_rows`` -- the same exchange of the live lanes alone: shard
+  ``o`` receives the live prefix of row ``o`` of every shard's tile, in
+  shard order (the deep sweep's routing, which holds only live lanes);
 * ``all_gather`` -- every shard receives the concatenation of all
   shards' arrays, in shard order;
 * ``psum`` / ``pmax`` are sums and maxima of per-shard scalars, which the
@@ -82,6 +85,22 @@ def all_to_all(tiles: list, devices: list, stats: dict) -> list:
             dst[s].copy_(tiles[s][o])
         out.append(dst)
     stats["exchange_copies"] = stats.get("exchange_copies", 0) + D * D
+    return out
+
+
+def gather_rows(tiles: list, counts, devices: list, stats: dict) -> list:
+    """The all_to_all of the live lanes only: ``tiles[s]`` is shard s's
+    ``[D, cap]`` send tile whose row o holds ``counts[s][o]`` live lanes
+    first; returns ``out[o]``, the concatenation over s (shard order) of
+    those lanes of row o, on shard o's device.  The reference's tiled
+    all_to_all moves the whole rows, fill included; the lanes and their
+    order are the same."""
+    D = len(tiles)
+    out = []
+    for o in range(D):
+        parts = [tiles[s][o, :int(counts[s][o])].to(devices[o]) for s in range(D)]
+        out.append(torch.cat(parts))
+    stats["exchange_copies"] = stats.get("exchange_copies", 0) + D
     return out
 
 

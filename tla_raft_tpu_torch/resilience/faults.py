@@ -25,9 +25,10 @@ fires after the tmp file is written but before digest and rename,
 ``manifest.commit`` between the manifest's tmp write and its rename.  The
 other sites are ``level.start`` (the top of each BFS level),
 ``bucket.level`` (the top of each batched-bucket level), ``lease.renew``
-(a lease heartbeat), ``tensor.flip`` and ``hashstore.grow`` (the Nth slab
-grow: ``fail`` turns the run onto the sorted visited store).  The
-reference's mesh, tier, pool and device sites come with those parts of the
+(a lease heartbeat), ``tensor.flip``, ``hashstore.grow`` (the Nth slab
+grow: ``fail`` turns the run onto the sorted visited store) and
+``exchange.fetch`` (the deep sweep's prefix fetch: ``fail`` is retried).
+The reference's tier, pool and device sites come with those parts of the
 port.  A spec that names a site the port does not
 poll, or an action its site cannot perform (``torn``/``flip`` need an
 artifact), is refused at parse time: a typo must not silently test
@@ -77,7 +78,10 @@ FAULT_SITES = {
                     "frontier row flips on device (action `flip`; the "
                     "--audit cross-check catches it and rewinds)", ("flip",)),
     "hashstore.grow": ("the Nth visited-slab grow/rehash (action `fail`: the "
-                       "run degrades to the sorted visited store)", ("fail",)),
+                       "run degrades to the sorted visited store; on the deep "
+                       "sweep's sieve the capacity stays)", ("fail",)),
+    "exchange.fetch": ("deep-mode quantized-prefix host fetch (action `fail`: "
+                       "the fetch retries with backoff)", _RUNTIME),
 }
 
 
