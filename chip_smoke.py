@@ -50,8 +50,10 @@ Phases, each printed as JSON lines:
                 depth, whose wall is printed beside), at 5 servers to depth
                 16 and at 3 servers to depth 23 (level 23 on the grouped
                 chain, the orbit op inside the group graph), every level
-                golden; the per-level share of tied candidates of each run
-                and the launches of orbit, orbit_fold and K3's factored mode;
+                golden; the per-level share of tied candidates of each run,
+                the launches of orbit, orbit_fold and K3's factored mode,
+                and the tied fold's device ms summed over each run (CUDA
+                events around its launches; ``orbit_s7_walls``);
    Each of phases 2-11 sets every kernel's launch count to 0 just before it
    runs, prints the counts just after, and fails if a kernel of its path
    did not launch (the staged phase: the staged chain's eight; the default
@@ -114,8 +116,10 @@ Phases, each printed as JSON lines:
                 golden, levels 23-25 grouped (``group_filter``: sorted_member
                 then the filter compaction), each level deduped by
                 ``level_dedup`` and merged into the store by ``merge_sorted``;
-                K4, the fused level and the supersteps never launched; its
-                wall beside the default phase's to the same depth;
+                K4, the fused level and the supersteps never launched;
+                ``level_dedup``'s launches equal to
+                ``kernels.level_dedup_launches`` of each call's lanes (16 a
+                call); its wall beside the default phase's to the same depth;
     degrade   — the default path to depth 23 with ``hashstore.grow:fail@1``:
                 golden, the depth and route at which the slab's grow failed
                 and the run turned onto the sorted store, and no captured
@@ -840,13 +844,36 @@ def _orbit_run(S: int, depth: int, orbit: bool, tied_log: list | None = None):
             return out
 
         chk.fpr.orbit_chunk_fps = counted
+    # the tied fold's (K3's indexed mode) device time, summed over the run:
+    # CUDA events around each launch outside a graph capture
+    fold_events, fold_in_graphs = [], [0]
+    real_fp = kernels.fingerprints
+
+    def timed_fp(fpr, fr, **kw):
+        if kw.get("idx") is None:
+            return real_fp(fpr, fr, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            fold_in_graphs[0] += 1
+            return real_fp(fpr, fr, **kw)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_fp(fpr, fr, **kw)
+        ev[1].record()
+        fold_events.append(ev)
+        return out
+
     before = kernels.launch_counts()
     D.READS.clear()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = chk.run(max_depth=depth)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    kernels.fingerprints = timed_fp
+    try:
+        t0 = time.perf_counter()
+        res = chk.run(max_depth=depth)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        kernels.fingerprints = real_fp
+    fold_ms = sum(a.elapsed_time(b) for a, b in fold_events)
     after = kernels.launch_counts()
     elapsed = [lv["elapsed"] for lv in levels]
     rec = dict(servers=S, orbit=orbit, depth=res.depth, distinct=res.distinct,
@@ -857,7 +884,8 @@ def _orbit_run(S: int, depth: int, orbit: bool, tied_log: list | None = None):
                reads=dict(D.READS), grouped_levels=chk.group_log,
                captures=chk.graph_stats["captures"],
                capture_seconds=chk.graph_stats["capture_seconds"],
-               cache_release_seconds=release_s,
+               cache_release_seconds=release_s, fold_device_ms=fold_ms,
+               fold_timed_launches=len(fold_events), fold_graph_captures=fold_in_graphs[0],
                launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
                level_seconds=[b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)])
     return chk, res, rec
@@ -906,6 +934,8 @@ def phase_orbit() -> dict:
                   f"{want.level_sizes} / {want.generated}")
             emit(dict(phase="orbit_s7_walls", orbit_seconds=rec["seconds"],
                       default_seconds=base["seconds"], tied_share=[t["share"] for t in tied],
+                      fold_device_ms=rec["fold_device_ms"],
+                      fold_timed_launches=rec["fold_timed_launches"],
                       launches={k: rec["launches"].get(k, 0) for k in
                                 ("orbit", "orbit_fold", "msg_hash_factored")}))
             out[7] = chk
@@ -992,6 +1022,8 @@ def phase_orbit_kernels(chk, launches: dict) -> list:
     rec_f = _entry(out, launches, kernels.ORBIT_FOLD, ms_f, plain_f,
                    n_t * (row_b + 8 + 16) + tab_b, None, ops_ms=int8_ms + add_ms)
     rec_f.update(servers=S, tied_rows=n_t, set_ids=t_ids, P=P)
+    if fpr.factored_msgs:
+        rec_f.update(_k3_design(fpr, tied_rows.msg_ids))
     chunk_ms = cuda_ms(lambda: fpr.orbit_chunk_fps(children, chk.cap_nd, cnt, out=outs,
                                                    scratch=scr), 10)
     k3 = (torch.empty(G, dtype=torch.int64, device=dev), torch.empty(G, dtype=torch.int64,
@@ -1147,12 +1179,30 @@ def phase_sorted(depth: int, chunk: int) -> dict:
     timings (``capture_sorted_inputs`` makes those in a run of its own)."""
     import torch
 
-    chk, res, levels, secs = _run_reference(depth, chunk, use_hashstore=False)
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import bfs
+
+    lanes, real = [], bfs.level_dedup
+
+    def level_dedup(cv, *a):
+        lanes.append(cv.shape[0])
+        return real(cv, *a)
+
+    before = kernels.launch_counts()["level_dedup"]
+    bfs.level_dedup = level_dedup
+    try:
+        chk, res, levels, secs = _run_reference(depth, chunk, use_hashstore=False)
+    finally:
+        bfs.level_dedup = real
+    dedup_launches = kernels.launch_counts()["level_dedup"] - before
     default = WALLS.get("default")
     out = dict(phase="sorted", **_common(res, levels, secs, depth), routes=chk.routes,
                cap_x=chk.cap_x, cap_g=chk.cap_g, redos=chk.redos,
                store_slots=chk.visited.shape[0], default_seconds=default,
-               wall_ratio=secs / default if default else None)
+               wall_ratio=secs / default if default else None, level_dedup_calls=len(lanes),
+               level_dedup_launches=dedup_launches,
+               level_dedup_launches_per_call=sorted({kernels.level_dedup_launches(n)
+                                                     for n in lanes}))
     live = int((chk.visited != -1).sum())
     chk = None
     torch.cuda.empty_cache()
@@ -1162,6 +1212,10 @@ def phase_sorted(depth: int, chunk: int) -> dict:
     check(out["routes"]["grouped"] >= 1 and out["routes"]["staged"] >= 1
           and out["routes"]["superstep"] == out["routes"]["fused"] == 0,
           f"sorted store routes {out['routes']}")
+    check(len(lanes) >= depth and dedup_launches == sum(kernels.level_dedup_launches(n)
+                                                         for n in lanes),
+          f"level_dedup: {dedup_launches} launches over {len(lanes)} calls, not "
+          f"{kernels.level_dedup_launches(1)} a call")
     return out
 
 
@@ -2035,6 +2089,11 @@ def phase_sorted_kernels(launches: dict) -> list:
           "level_dedup differs from its twin")
     n_new = int(k[0])
     k = p = None
+    before = kernels.launch_counts()["level_dedup"]
+    bfs.level_dedup(cv, cf, cp, store)
+    per_call = kernels.launch_counts()["level_dedup"] - before
+    check(per_call == kernels.level_dedup_launches(n),
+          f"level_dedup launched {per_call} kernels a call, not {kernels.level_dedup_launches(n)}")
     ms = cuda_ms(lambda: bfs.level_dedup(cv, cf, cp, store), 5)
     plain = wall_ms(lambda: bfs.level_dedup_plain(cv, cf, cp, store))
 
@@ -2045,7 +2104,17 @@ def phase_sorted_kernels(launches: dict) -> list:
 
     lib = cuda_ms(lexsort, 5)
     rec = _entry(out, launches, kernels.LEVEL_DEDUP, ms, plain, n * 24 + V * 8 + n * 16, lib)
-    rec.update(lanes=n, store_slots=V, n_new=n_new)
+    # the design's own traffic: the keys read twice, the live pairs written,
+    # 8 passes reading and writing 12 B a live pair, the heads' reads and
+    # gathers (16 B a live lane) with one 32-B store sector a view, the
+    # survivors' pack and the 16-B pad of every lane
+    live = int((cv != -1).sum())
+    views = int(torch.unique(cv[cv != -1]).numel())
+    design = (16 * n + 12 * live + 8 * 24 * live + (12 + 16 + 1) * live + 32 * views
+              + 3 * n_new * 16 + 16 * n)
+    rec.update(lanes=n, store_slots=V, n_new=n_new, live_lanes=live, views=views,
+               launches_per_call=per_call, design_bytes=design,
+               design_ms_at_hbm=design / HBM_BYTES_PER_S * 1e3)
     cv = cf = cp = store = None
     # merge_sorted: the store after level 24 and level 25's survivor slice
     store, new, n_out = captured.pop("merge_sorted")
@@ -3057,6 +3126,37 @@ def _timed_insert(insert, slab, args, reps: int) -> float:
     return float(np.median(times[1:]))
 
 
+def _k3_design(fpr, ids) -> dict:
+    """K3's factored design's own counts for a launch over the rows whose id
+    lists are ``ids`` ([n, cap_m], -1 padded): bytes (the feature table's
+    columns each block stages, each state's gt rows once a block of its 20
+    ranges of 256 permutations, half a row a pass, the blocks' PPERM rows)
+    and operations (the int8 MMAs; the u32 adds of the R rows and of the
+    fold, one a present digit, permutation and channel)."""
+    import torch
+
+    uni, P, NP, f_pad = fpr.uni, fpr.P, fpr.NP, fpr.ktab["f_pad"]
+    n = ids.shape[0]
+    idl = ids.long()
+    live = idl >= 0
+    offs = torch.tensor(uni.type_offsets, device=ids.device)
+    strides = torch.tensor(uni.type_strides, device=ids.device)
+    t = (idl >= offs[1]).long() + (idl >= offs[2]).long() + (idl >= offs[3]).long()
+    q = torch.where(live, (idl - offs[t]) // strides[t], torch.full_like(idl, NP))
+    present = torch.zeros((n, NP + 1), dtype=torch.bool, device=ids.device)
+    present.scatter_(1, q, True)
+    n_q, n_ids = int(present[:, :NP].sum()), int(live.sum())
+    gx, tiles = -(-n // 64), -(-P // 8)
+    gy = -(-tiles // 32)
+    bytes_ = gx * tiles * 128 * f_pad + n_ids * gy * NP * 16 + gx * gy * 256 * NP
+    int8_ops = 2 * gx * 64 * f_pad * 16 * P
+    u32_ops = n_ids * gy * NP * 4 + n_q * P * 4
+    return dict(design_bytes=bytes_, design_int8_ops=int8_ops, design_u32_ops=u32_ops,
+                present_digits=n_q, design_ms=max(bytes_ / HBM_BYTES_PER_S,
+                                                  int8_ops / INT8_TENSOR_OPS_PER_S
+                                                  + u32_ops / INT_OPS_PER_S) * 1e3)
+
+
 def _entry(out: list, launches: dict, k, ms, plain_ms, bytes_, lib_ms, ops=0,
            ops_rate=None, ops_ms=None) -> dict:
     """One kernel's record of the ``kernels`` line: its bound is the larger
@@ -3635,6 +3735,8 @@ def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
                      ops_ms=int8_ms + add_ms)
         rec.update(servers=S, lanes=live, P=fpr.P, F=F, f_pad=f_pad, set_ids=n_ids,
                    feature_int_mm_ms=lib)
+        if fpr.factored_msgs:
+            rec.update(_k3_design(fpr, lv.msg_ids))
         if S == 7:
             out.append(rec)
         t["fingerprint"] = rec

@@ -1233,3 +1233,75 @@ def test_deep_mesh_on_one_card_equals_the_cpu(run, tmp_path, arm):
     assert (counts["sieve_merge"] > 0) == (arm == "sorted")
     assert (counts["insert_only"] > 0) == (arm == "hash")
     assert counts["hashstore"] == 0
+
+
+# -- the redesigned kernels on their edge inputs ------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 1 << 24])
+def test_level_dedup_edges_equal_twin(run, n):
+    """``level_dedup`` (live lanes, the one-sweep radix sort by fp_view,
+    the run heads, the pack) against its twin at 1, 4,095, 4,097 and 2^24
+    lanes on every edge kind of ``redesign_cases.dedup_case`` (all SENT, no
+    repeats, runs past a tile, ties on fp_full with payloads of both
+    signs, top-bit views, an empty store, a store hitting every head), and
+    its launches a call."""
+    from redesign_cases import DEDUP_KINDS, dedup_case
+
+    for i, kind in enumerate(DEDUP_KINDS):
+        store, cv, cf, cp = dedup_case(kind, n, 100 + i)
+        tv, tf, ts = (torch.from_numpy(x.view(np.int64).copy()).cuda() for x in (cv, cf, store))
+        tp = torch.from_numpy(cp).cuda()
+        before = kernels.launch_counts()["level_dedup"]
+        k = bfs.level_dedup(tv, tf, tp, ts)
+        assert kernels.launch_counts()["level_dedup"] - before == kernels.level_dedup_launches(n)
+        p = bfs.level_dedup_plain(tv, tf, tp, ts)
+        assert int(k[0]) == int(p[0]), kind
+        assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2]), kind
+
+
+@pytest.mark.parametrize("mode", ["full", "counted", "indexed"])
+def test_factored_kernel_edges_equal_twin(scale, mode):
+    """K3's factored message part at S=7 against the twin on the edge id
+    lists of ``redesign_cases.k3_id_lists`` (no ids, one digit carried by
+    every id, every digit present, ids >= 2^15 only, full and random
+    lists) over the frontier's rows: every row, under a device count, and
+    in the indexed mode (``orbit_fold``) with a count inside its index rows
+    and one past them (the overflow word)."""
+    from redesign_cases import k3_id_lists
+
+    chk = scale[7]
+    fr = _mixed_rows(chk.frontier, 12)
+    n, cap_m = fr.voted_for.shape[0], fr.msg_ids.shape[1]
+    ids = torch.from_numpy(k3_id_lists(chk.uni, n, cap_m, 7)).to(chk.id_dtype).cuda()
+    fr = fr._replace(msg_ids=ids)
+    want = chk.fpr.state_fingerprints_plain(fr)
+    if mode == "full":
+        got = kernels.fingerprints(chk.fpr, fr)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return
+    if mode == "counted":
+        out = (torch.zeros(n, dtype=torch.int64, device="cuda"),
+               torch.zeros(n, dtype=torch.int64, device="cuda"))
+        kernels.fingerprints(chk.fpr, fr, out=out, cnt=torch.tensor(n - 5, device="cuda"))
+        assert torch.equal(out[0][: n - 5], want[0][: n - 5])
+        assert torch.equal(out[1][: n - 5], want[1][: n - 5])
+        assert bool((out[0][n - 5:] == -1).all()) and bool((out[1][n - 5:] == -1).all())
+        return
+    g = np.random.default_rng(8)
+    idx = torch.from_numpy(g.permutation(n)[: n // 2].copy()).cuda()
+    for count, cap in ((idx.shape[0], idx.shape[0]), (idx.shape[0], idx.shape[0] // 3)):
+        out = (torch.full((n,), 7, dtype=torch.int64, device="cuda"),
+               torch.full((n,), 9, dtype=torch.int64, device="cuda"))
+        ovf = torch.zeros((), dtype=torch.int64, device="cuda")
+        before = kernels.launch_counts()
+        kernels.fingerprints(chk.fpr, fr, out=out, idx=idx[:cap].contiguous(),
+                             cnt=torch.tensor(count, device="cuda"), ovf=ovf)
+        after = kernels.launch_counts()
+        mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+        mask[idx[: min(count, cap)]] = True
+        for o, w, fill in ((out[0], want[0], 7), (out[1], want[1], 9)):
+            assert torch.equal(o[mask], w[mask]) and bool((o[~mask] == fill).all())
+        assert int(ovf) == int(count > cap)
+        assert after["orbit_fold"] - before["orbit_fold"] == 1
+        assert after["msg_hash_factored"] - before["msg_hash_factored"] == 1

@@ -39,6 +39,8 @@ from tla_raft_tpu_torch.ops.msg_universe import MsgUniverse
 from tla_raft_tpu_torch.ops.mxu_expand import MXUExpand, ids_insert
 from tla_raft_tpu_torch.u64 import _combine_planes_u32
 
+from redesign_cases import k3_id_lists
+
 # level sizes of the reference's runs at the Raft.cfg constants
 # (docs/BENCH_S5_r05.json.log, docs/BENCH_S7_r05b.log)
 GOLDEN_S5 = (1, 1, 3, 9, 24, 66, 169, 401)
@@ -261,6 +263,75 @@ def test_kernel_tables(S, forced, fprs, frontiers):
     pv, pf = fpr.state_fingerprints_plain(case)
     assert np.array_equal(v, pv.numpy().view(np.uint64))
     assert np.array_equal(f, pf.numpy().view(np.uint64))
+
+
+def _k3_factored_model(fpr: Fingerprinter, fr: Frontier, rw: int):
+    """K3's factored route in numpy u32 arithmetic, from its own tables: per
+    state and half of the channels (``gt_half``: 0-1, then 2-3), each id
+    decoded once (type, pair digit q, gt row), the partial-sum rows R[q] of
+    the digits present, ``rw`` rows a batch as a warp's shared memory holds
+    them, folded by PPERM (sum over the batch of R[q][PPERM[p][q]]), plus
+    the feature planes, then the unsigned minimum.  Returns (message sums
+    u32 [n, P, chan], fp_view, fp_full)."""
+    t = fpr.kernel_tables_np()
+    uni, P, F, NP = fpr.uni, fpr.P, fpr.spec.F, fpr.NP
+    feats = np.zeros((fr.msg_ids.shape[0], t["f_pad"]), np.float64)
+    feats[:, :F] = fpr.spec.features(fr).numpy()
+    planes = np.round(feats @ t["ct"].T.astype(np.float64)).astype(np.int64).reshape(-1, P, 4, 4)
+    h = _combine_planes_u32(torch.from_numpy(planes)).numpy().astype(np.uint64)
+    gt = t["gt_half"].astype(np.uint64)  # [rows, half, NP, 2]
+    pperm = t["pperm"].astype(np.int64)
+    offs = np.asarray(uni.type_offsets, np.int64)
+    strides = np.asarray(uni.type_strides, np.int64)
+    msum = np.zeros_like(h)
+    for i, row in enumerate(fr.msg_ids.numpy().astype(np.int64)):
+        ids = row[row >= 0]
+        ty = np.searchsorted(offs, ids, side="right") - 1
+        rel = ids - offs[ty]
+        q = rel // strides[ty]
+        grow = t["row_base"][ty] + rel - q * strides[ty]
+        present = np.unique(q)  # the digit mask's bits, ascending
+        slot = np.searchsorted(present, q)
+        for half in range(2):
+            for b0 in range(0, max(present.shape[0], 1), rw):
+                nr = min(rw, present.shape[0] - b0)
+                R = np.zeros((max(nr, 0), NP, 2), np.uint64)
+                sel = (slot >= b0) & (slot < b0 + nr)
+                np.add.at(R, slot[sel] - b0, gt[grow[sel], half])
+                R &= np.uint64(0xFFFFFFFF)
+                for s2 in range(nr):
+                    msum[i, :, 2 * half:2 * half + 2] += R[s2][pperm[:, present[b0 + s2]]]
+        msum[i] &= np.uint64(0xFFFFFFFF)
+    h = (h + msum) & np.uint64(0xFFFFFFFF)
+    view = ((h[..., 0] << np.uint64(32)) | h[..., 1]).min(-1)
+    full = ((h[..., 2] << np.uint64(32)) | h[..., 3]).min(-1)
+    return msum, view, full
+
+
+@pytest.mark.parametrize("case,rw", [("edges", 28), ("edges-batches", 4), ("frontier", 28)])
+def test_k3_factored_route_matches_reference(case, rw, fprs, frontiers):
+    """The model of K3's factored route at S=7 (R rows of the digits present,
+    folded by PPERM, in batches of ``rw`` rows; then the feature part and
+    the minimum) equals the reference's ``_msg_hash_factored`` and its
+    fingerprints (``finalize``), on the depth-6 frontier's rows with seeded
+    id lists: no ids, one digit carried by every id, every digit present,
+    ids >= 2^15 only, full and random lists; and on the frontier itself."""
+    rf, pf = fprs[7]
+    fr = frontiers[7].frontier
+    cap_m = fr.msg_ids.shape[1]
+    if case == "frontier":
+        rows = fr
+    else:
+        ids = k3_id_lists(pf.uni, 12, cap_m, 5)
+        rows = Frontier(*(x[:12] for x in fr))._replace(
+            msg_ids=torch.from_numpy(ids).to(fr.msg_ids.dtype))
+        assert (ids >= 1 << 15).any() and (ids < 0).all(1).any()
+    msum, view, full = _k3_factored_model(pf, rows, rw)
+    ref = _ref_state(rows, pf.uni)
+    want = np.asarray(rf._msg_hash_factored(ref.msgs))
+    assert np.array_equal(msum.astype(np.uint32), want)
+    wv, wf, _m = rf.state_fingerprints(ref)
+    assert np.array_equal(view, np.asarray(wv)) and np.array_equal(full, np.asarray(wf))
 
 
 # -- int32 message ids -------------------------------------------------------------

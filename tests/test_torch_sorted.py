@@ -31,6 +31,7 @@ from tla_raft_tpu_torch.engine.bfs import TorchChecker
 from tla_raft_tpu_torch.ops import hashstore as hs
 from tla_raft_tpu_torch.resilience import faults
 
+from redesign_cases import DEDUP_KINDS, dedup_case
 from test_torch_engine import _sha
 
 SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -116,6 +117,100 @@ def test_merge_sorted_equals_reference(lanes):
     for n_out in (len(want), ref_bfs._cap4(len(store) - 64 + int(_n) + 1) // 2, 0):
         got = bfs.merge_sorted(_t(store), _t(np.asarray(fps)), n_out)
         assert np.array_equal(_u(got), want[:n_out])
+
+
+# -- the level dedup's route on the card, as a model --------------------------------
+
+
+def _onesweep_pass(keys, lanes, shift, first, tile, warp):
+    """One stable pass of ``level_dedup``'s radix sort as its kernel makes
+    it: tiles of ``tile`` pairs in order, each warp's ``warp`` contiguous
+    pairs ranked in lane order among their digit, a pair placed at its
+    digit's first position (``first``, from the up-front histogram) + the
+    earlier tiles' count of the digit (the look-back's sum) + the earlier
+    warps' + its rank."""
+    dg = ((keys >> np.uint64(shift)) & np.uint64(255)).astype(np.int64)
+    out_k, out_l = np.empty_like(keys), np.empty_like(lanes)
+    earlier = np.zeros(256, np.int64)
+    for t0 in range(0, keys.shape[0], tile):
+        d = dg[t0:t0 + tile]
+        ranks = np.empty(d.shape[0], np.int64)
+        counts = []
+        for w0 in range(0, d.shape[0], warp):
+            seen = np.zeros(256, np.int64)
+            for j, x in enumerate(d[w0:w0 + warp]):
+                ranks[w0 + j] = seen[x]
+                seen[x] += 1
+            counts.append(seen)
+        wc = np.array(counts)
+        before = np.cumsum(wc, 0) - wc
+        pos = first[d] + earlier[d] + before[np.arange(d.shape[0]) // warp, d] + ranks
+        out_k[pos] = keys[t0:t0 + tile]
+        out_l[pos] = lanes[t0:t0 + tile]
+        earlier += wc.sum(0)
+    return out_k, out_l
+
+
+def _level_dedup_model(cv, cf, cp, store, tile=64, warp=16):
+    """``level_dedup``'s route in numpy: (a) the live lanes (fp_view not
+    SENT) in lane order; (b) 8 stable passes by fp_view's 8-bit digits, the
+    digit offsets of every pass from one histogram; (c) at the head of each
+    run of equal views not in the store, the run's least (fp_full
+    unsigned, payload signed) pair's payload; (d) the survivors packed in
+    view order, padded SENT and -1."""
+    n = cv.shape[0]
+    lanes = np.flatnonzero(cv != SENT).astype(np.int64)
+    keys = cv[lanes]
+    hist = [np.bincount(((keys >> np.uint64(8 * d)) & np.uint64(255)).astype(np.int64),
+                        minlength=256) for d in range(8)]
+    for d in range(8):
+        keys, lanes = _onesweep_pass(keys, lanes, 8 * d, np.cumsum(hist[d]) - hist[d], tile,
+                                     warp)
+    assert (keys[1:] >= keys[:-1]).all()
+    head = np.ones(keys.shape[0], bool)
+    head[1:] = keys[1:] != keys[:-1]
+    pos = np.clip(np.searchsorted(store, keys), 0, store.shape[0] - 1)
+    keep = head & (store[pos] != keys)
+    run = np.cumsum(head) - 1
+    order = np.lexsort((cp[lanes], cf[lanes], run))  # each run's least pair first
+    least = np.empty(int(head.sum()), np.int64)
+    first = np.ones(order.shape[0], bool)
+    first[1:] = run[order][1:] != run[order][:-1]
+    least[run[order][first]] = cp[lanes][order][first]
+    m = int(keep.sum())
+    fps = np.full(n, SENT)
+    pay = np.full(n, -1, np.int64)
+    fps[:m] = keys[keep]
+    pay[:m] = least[run[keep]]
+    return m, fps, pay
+
+
+@pytest.mark.parametrize("kind", DEDUP_KINDS)
+def test_level_dedup_route_equals_reference(kind):
+    """The model of ``level_dedup``'s kernel route (live lanes, a one-sweep
+    radix sort by fp_view alone, each run's least pair, the store, the
+    pack) equals the reference's jitted ``_level_dedup`` and the port's
+    twin, on seeded lanes of each edge kind (runs past a 4,096-lane tile,
+    ties on fp_full with payloads of both signs, top-bit views, an empty
+    store, a store hitting every head, all SENT)."""
+    store, cv, cf, cp = dedup_case(kind, 9000, DEDUP_KINDS.index(kind))
+    n_w, fps_w, pay_w = ref_bfs._level_dedup(_j(cv), _j(cf), _j(cp), _j(store))
+    m, fps, pay = _level_dedup_model(cv, cf, cp.astype(np.int64), store)
+    assert m == int(n_w)
+    assert np.array_equal(fps, np.asarray(fps_w)) and np.array_equal(pay, np.asarray(pay_w))
+    n_g, fps_g, pay_g = bfs.level_dedup(_t(cv), _t(cf), _t(cp), _t(store))
+    assert int(n_g) == m and np.array_equal(_u(fps_g), fps) and np.array_equal(pay_g.numpy(), pay)
+    live = int((cv != SENT).sum())
+    if kind == "all_sent":
+        assert m == 0 and live == 0
+    elif kind == "store_every_head":
+        assert m == 0 and live > 0
+    elif kind == "long_runs":
+        assert m > 0 and np.bincount(np.unique(cv, return_inverse=True)[1]).max() > 4096
+    else:
+        assert m > 0
+    if kind == "signed_ties":
+        assert (pay[:m] < 0).any() and (pay[:m] >= 0).any()
 
 
 # -- whole runs ------------------------------------------------------------------------

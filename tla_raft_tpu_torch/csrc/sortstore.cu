@@ -29,24 +29,55 @@
 //                  32-byte sector of the store a lane: a search needs no
 //                  more of it), but each search is ~log2(V) dependent loads,
 //                  most from L2.
-//   level_dedup    a stable LSD radix sort, 8-bit digits, of the lanes'
-//                  index by the 24-byte key: 8 passes over the payload (sign
-//                  flipped), then the index gathers fp_full and 8 passes, then
-//                  fp_view and 8 passes.  A pass moves (key word, u32 index)
-//                  pairs: a per-block digit histogram (rs_hist), the
-//                  exclusive scan of the digit-major counts (rs_scan_local +
-//                  scan.cuh's scan_offsets over the partial sums), and a
-//                  scatter that ranks each lane among the equal digits of its
-//                  block in lane order (warp match + per-warp counts in
-//                  shared memory), so every pass is stable and the result is
-//                  the lexicographic order.  Then one pass flags the first
-//                  lane of each fp_view that is not SENT and not in the store
-//                  (the same binary search) and gathers its payload, and the
-//                  tile scan of compact.cuh packs the survivors in sorted
-//                  order.  Bound: bytes; 24 passes of ~28 B a lane (8 B key
-//                  read twice, key and index read and written once).
-//   group_unique   the same radix passes over fp_view alone (8 instead of
-//                  24): runs of equal fp_view are then contiguous, and the
+//   level_dedup    (a) the live lanes (fp_view not SENT) packed in lane
+//                  order by the tile scan of scan.cuh: the first kernel
+//                  counts a tile's live lanes and builds, from the same read
+//                  of the keys, the histograms of all 8 digits of the live
+//                  fp_views; one block scans the tile counts and the 8
+//                  histograms into every pass's digit offsets; a third
+//                  kernel writes (fp_view, lane) pairs of the live lanes.
+//                  (b) A stable LSD radix sort of those pairs by fp_view
+//                  alone, 8-bit digits, one launch a pass: a block takes the
+//                  next tile of 4,096 pairs (an atomic ticket), each warp
+//                  ranks its 512 contiguous pairs in order (warp match +
+//                  per-warp digit counts), the block publishes its digit
+//                  counts and finds the counts of the tiles before it by a
+//                  decoupled look-back over per-(tile, digit) status words
+//                  (a pass's epoch in the flag bits, so the words are zeroed
+//                  once a call), places the tile's pairs in digit order in
+//                  shared memory (48 KB) and writes each digit's pairs out
+//                  contiguous at its offset + the earlier tiles' count.
+//                  (c) The thread at the head of each run of equal fp_view
+//                  tests the store (the same binary search as
+//                  sorted_member, one a run: sorted queries, so neighbours
+//                  share their search paths), and if the view is new walks
+//                  the run for the least (fp_full unsigned, payload signed)
+//                  pair through the lanes' gathers -- the lexsort's first
+//                  lane of the run, as in group_unique; a run of one lane
+//                  reads only its payload -- and writes the keep flag and
+//                  the payload.  (Staging a block's slice of the store in
+//                  shared memory for its heads, or gathering fp_full and
+//                  payload in the last pass, measured slower on the H100.)
+//                  (d) The tile scan of compact.cuh packs the survivors in
+//                  fp_view order.  16 launches a call, every pass over live
+//                  lanes only.  Bound: bytes (each input read once, the
+//                  outputs written once); the design moves the keys twice at
+//                  full width (8 B a lane), then ~12 B a live lane read and
+//                  written in each of 8 passes, the heads' gathers and
+//                  searches, and 16 B a lane out (the SENT / -1 pad).
+//                  The earlier design, an LSD radix sort of every lane over
+//                  all 24 key bytes (24 passes of 4 launches, 104 a call),
+//                  took 74.94 ms over a depth-25 level's 100,663,296 lanes,
+//                  against 40.72 ms for the lexsort's three stable
+//                  torch.argsort (H100, chip_smoke.py; PERF.md).
+//   group_unique   a stable LSD radix sort of every lane's (fp_view, lane)
+//                  pair, 8 passes of 4 launches: a per-block digit
+//                  histogram (rs_hist), the exclusive scan of the digit-major
+//                  counts (rs_scan_local + scan.cuh's scan_offsets over the
+//                  partial sums), and a scatter that ranks each lane among
+//                  the equal digits of its block in lane order (warp match +
+//                  per-warp counts in shared memory).  Runs of equal fp_view
+//                  are then contiguous, and the
 //                  thread at the head of each run that is not SENT walks it
 //                  and keeps the least (fp_full unsigned, payload signed)
 //                  pair -- the lexsort's first lane of the run, whatever
@@ -83,7 +114,6 @@
 typedef unsigned long long u64;
 
 constexpr u64 SENT64 = ~0ull;
-constexpr u64 SIGN64 = 1ull << 63;
 
 // -- membership --------------------------------------------------------------
 
@@ -131,29 +161,314 @@ EXPORT int launch_sorted_member(const int64_t* visited, long long V, const int64
   return (int)cudaGetLastError();
 }
 
-// -- the level dedup: a stable LSD radix sort, then flags and compaction ------------
+// -- the level dedup: live lanes, a one-sweep radix sort by fp_view, run heads ------
+
+constexpr int LD_PASSES = 8;                    // 8-bit digits of the 64-bit fp_view
+constexpr int OS_THREADS = 256;                 // one thread a digit in the tables
+constexpr int OS_WARPS = OS_THREADS / 32;
+constexpr int OS_ITEMS = 16;                    // pairs a thread: a warp ranks 512 in order
+constexpr int OS_TILE = OS_THREADS * OS_ITEMS;  // pairs a block
+constexpr int OS_FLAG = 58;                     // status word: epoch flag << 58 | count
+constexpr u64 OS_COUNT = (1ull << OS_FLAG) - 1;
+constexpr int LD_CT = 16;                       // scan tiles a block of ld_count
+constexpr int OS_SMEM = OS_TILE * (8 + 4);      // ld_pass's staged keys and lanes
+
+// One block LD_CT scan.cuh tiles: tile[b] = tile b's live lanes (fp_view
+// not SENT); hist[d][x] += the live lanes whose digit d is x (every digit
+// from one read of the keys, in shared memory, then one global add a bin a
+// block); the look-back's status words are zeroed.
+__global__ void ld_count(const u64* __restrict__ cv, long long n, long long* __restrict__ tile,
+                         unsigned long long* __restrict__ hist, u64* __restrict__ status,
+                         long long n_status) {
+  __shared__ unsigned h[LD_PASSES * 256];
+  for (int i = threadIdx.x; i < LD_PASSES * 256; i += THREADS) h[i] = 0;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n_status;
+       i += (long long)gridDim.x * THREADS)
+    status[i] = 0;
+  __syncthreads();
+  const long long n_tiles = (n + TILE - 1) / TILE;
+  for (long long tb = (long long)blockIdx.x * LD_CT; tb < (long long)(blockIdx.x + 1) * LD_CT &&
+                                                     tb < n_tiles; ++tb) {
+    const long long base = tb * TILE + (long long)threadIdx.x * ITEMS;
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const long long i = base + k;
+      if (i < n) {
+        const u64 x = cv[i];
+        if (x != SENT64) {
+          ++c;
+#pragma unroll
+          for (int d = 0; d < LD_PASSES; ++d)
+            atomicAdd(&h[d * 256 + (int)((x >> (8 * d)) & 255)], 1u);
+        }
+      }
+    }
+    int total;
+    block_exclusive_scan(c, &total);
+    if (threadIdx.x == 0) tile[tb] = total;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < LD_PASSES * 256; i += THREADS)
+    if (h[i]) atomicAdd(&hist[i], (unsigned long long)h[i]);
+}
+
+// One block: the tile counts to exclusive offsets in place and their sum to
+// *n_live; hist[d][x] to the exclusive offset of digit x in pass d, in
+// place; the passes' tickets to 0.
+__global__ void ld_scan(long long* __restrict__ tile, long long n_tiles,
+                        long long* __restrict__ n_live, unsigned long long* __restrict__ hist,
+                        int* __restrict__ ticket) {
+  __shared__ long long carry;
+  __shared__ long long part[THREADS];
+#pragma unroll 1
+  for (int d = 0; d < LD_PASSES; ++d) {  // THREADS == 256: a thread a digit
+    const int x = (int)hist[d * 256 + threadIdx.x];
+    int total;
+    const int ex = block_exclusive_scan(x, &total);
+    hist[d * 256 + threadIdx.x] = (unsigned long long)ex;
+  }
+  if (threadIdx.x < LD_PASSES) ticket[threadIdx.x] = 0;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (long long b = 0; b < n_tiles; b += THREADS) {
+    const long long i = b + threadIdx.x;
+    const long long v = i < n_tiles ? tile[i] : 0;
+    part[threadIdx.x] = v;
+    __syncthreads();
+    for (int o = 1; o < THREADS; o <<= 1) {  // Hillis-Steele inclusive scan
+      const long long y = threadIdx.x >= o ? part[threadIdx.x - o] : 0;
+      __syncthreads();
+      part[threadIdx.x] += y;
+      __syncthreads();
+    }
+    if (i < n_tiles) tile[i] = carry + part[threadIdx.x] - v;
+    __syncthreads();
+    if (threadIdx.x == 0) carry += part[THREADS - 1];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *n_live = carry;
+}
+
+// The live lanes' (fp_view, lane) pairs, packed in lane order.
+__global__ void ld_live(const u64* __restrict__ cv, long long n,
+                        const long long* __restrict__ tile_off, u64* __restrict__ keys,
+                        unsigned* __restrict__ idx) {
+  const long long base = thread_base();
+  int c = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const long long i = base + k;
+    c += (i < n && cv[i] != SENT64) ? 1 : 0;
+  }
+  int total;
+  long long r = tile_off[blockIdx.x] + block_exclusive_scan(c, &total);
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const long long i = base + k;
+    if (i < n) {
+      const u64 x = cv[i];
+      if (x != SENT64) {
+        keys[r] = x;
+        idx[r] = (unsigned)i;
+        ++r;
+      }
+    }
+  }
+}
+
+// One stable pass over the *n_live pairs by digit `pass`: off[x] is the
+// digit's first position, status [tiles][256] the look-back's words, ticket
+// the pass's tile counter.  The tile's pairs are placed in digit order in
+// shared memory first (OS_SMEM dynamic bytes), so the writes of a digit's
+// pairs go out contiguous.
+__global__ void __launch_bounds__(OS_THREADS)
+    ld_pass(const u64* __restrict__ kin, const unsigned* __restrict__ iin,
+            const long long* __restrict__ n_live, int pass,
+            const unsigned long long* __restrict__ off, u64* status, int* ticket,
+            u64* __restrict__ kout, unsigned* __restrict__ iout) {
+  extern __shared__ __align__(16) uint8_t os_smem[];
+  u64* sk = (u64*)os_smem;                   // [OS_TILE] keys in the tile's digit order
+  unsigned* si = (unsigned*)(sk + OS_TILE);  // [OS_TILE] their lanes
+  __shared__ int s_tile;
+  __shared__ int s_w[OS_WARPS][256];  // a warp's digit counts, then the earlier warps'
+  __shared__ int s_loc[256];          // a digit's first position in the tile
+  __shared__ long long s_base[256];   // global position of tile position 0 of the digit
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) s_tile = atomicAdd(ticket + pass, 1);
+#pragma unroll
+  for (int w = 0; w < OS_WARPS; ++w) s_w[w][t] = 0;
+  __syncthreads();
+  const long long nl = *n_live;
+  const long long tile = s_tile;
+  if (tile * OS_TILE >= nl) return;  // uniform
+  const int shift = 8 * pass;
+  const long long base = tile * OS_TILE + (long long)warp * (OS_ITEMS * 32);
+  const unsigned below = (1u << lane) - 1u;
+  u64 k[OS_ITEMS];
+  unsigned ix[OS_ITEMS];
+  int rk[OS_ITEMS];
+#pragma unroll
+  for (int j = 0; j < OS_ITEMS; ++j) {
+    const long long i = base + j * 32 + lane;
+    int dg = 256;  // past every digit: a dead lane matches no live one
+    k[j] = 0;
+    ix[j] = 0;
+    if (i < nl) {
+      k[j] = kin[i];
+      ix[j] = iin[i];
+      dg = (int)((k[j] >> shift) & 255);
+    }
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, dg);
+    const int before = dg < 256 ? s_w[warp][dg] : 0;
+    rk[j] = before + __popc(peers & below);
+    __syncwarp();
+    if (dg < 256 && lane == __ffs(peers) - 1) s_w[warp][dg] = before + __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  // thread t = digit t: the earlier warps' counts, the tile's count and the
+  // digit's first position in the tile
+  int cnt = 0;
+#pragma unroll
+  for (int w = 0; w < OS_WARPS; ++w) {
+    const int c = s_w[w][t];
+    s_w[w][t] = cnt;
+    cnt += c;
+  }
+  int tile_n;
+  const int loc = block_exclusive_scan(cnt, &tile_n);
+  s_loc[t] = loc;
+  // decoupled look-back: publish the tile's count, add the earlier tiles'
+  const u64 agg = (u64)(2 * pass + 1) << OS_FLAG, pre = (u64)(2 * pass + 2) << OS_FLAG;
+  long long ex = 0;
+  if (tile == 0) {
+    atomicExch((unsigned long long*)&status[t], (unsigned long long)(pre | (u64)cnt));
+  } else {
+    atomicExch((unsigned long long*)&status[tile * 256 + t], (unsigned long long)(agg | (u64)cnt));
+    for (long long b = tile - 1;;) {
+      const u64 v = *(volatile const u64*)&status[b * 256 + t];
+      const u64 fl = v >> OS_FLAG;
+      if (fl < (u64)(2 * pass + 1)) continue;  // not yet published in this pass
+      ex += (long long)(v & OS_COUNT);
+      if (fl == (u64)(2 * pass + 2)) break;
+      --b;
+    }
+    atomicExch((unsigned long long*)&status[tile * 256 + t],
+               (unsigned long long)(pre | (u64)(ex + cnt)));
+  }
+  s_base[t] = (long long)off[pass * 256 + t] + ex - loc;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < OS_ITEMS; ++j) {
+    const long long i = base + j * 32 + lane;
+    if (i < nl) {
+      const int dg = (int)((k[j] >> shift) & 255);
+      const int lp = s_loc[dg] + s_w[warp][dg] + rk[j];
+      sk[lp] = k[j];
+      si[lp] = ix[j];
+    }
+  }
+  __syncthreads();
+  for (int q = t; q < tile_n; q += OS_THREADS) {
+    const u64 x = sk[q];
+    const long long pos = s_base[(int)((x >> shift) & 255)] + q;
+    kout[pos] = x;
+    iout[pos] = si[q];
+  }
+}
+
+// After the sort (sv = the live fp_views ascending, idx their lanes): at the
+// head of each run of equal views that is not in the store, flags[i] = 1 and
+// sp[i] = the payload of the run's least (fp_full unsigned, payload signed)
+// pair (a run of one lane reads no fp_full); other lanes below *n_live get
+// flags[i] = 0.
+__global__ void ld_heads(const u64* __restrict__ sv, const unsigned* __restrict__ idx,
+                         const long long* __restrict__ n_live, const int64_t* __restrict__ cf,
+                         const int64_t* __restrict__ cp, const u64* __restrict__ visited,
+                         long long V, uint8_t* __restrict__ flags, int64_t* __restrict__ sp) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nl = *n_live;
+  if (i >= nl) return;
+  const u64 x = sv[i];
+  if ((i > 0 && sv[i - 1] == x) || member(visited, V, x)) {
+    flags[i] = 0;
+    return;
+  }
+  unsigned lane = idx[i];
+  long long p = cp[lane];
+  if (i + 1 < nl && sv[i + 1] == x) {  // a run of more than one lane
+    u64 f = (u64)cf[lane];
+    for (long long j = i + 1; j < nl && sv[j] == x; ++j) {
+      lane = idx[j];
+      const u64 f2 = (u64)cf[lane];
+      const long long p2 = cp[lane];
+      if (f2 < f || (f2 == f && p2 < p)) {
+        f = f2;
+        p = p2;
+      }
+    }
+  }
+  flags[i] = 1;
+  sp[i] = p;
+}
+
+EXPORT long long ld_tile() { return OS_TILE; }
+EXPORT long long ld_passes() { return LD_PASSES; }
+
+// cv, cf, cp i64[n] (u64, u64, signed); visited u64[V] sorted.  Out:
+// new_fps i64[n] (the survivors' fp_view in sorted order, SENT past
+// *n_new), new_pay i64[n] (their payloads, -1 past it), *n_new.  Scratch:
+// keys u64[2][n], idx u32[2][n], status u64[256 * ceil(n / OS_TILE)], aux
+// i64[2048 + 8] (the digit histograms and offsets, the passes' tickets as
+// 8 i32, the live count), flags u8[n], sp i64[n], tile i64[ceil(n / TILE)].
+// n < 2^31.
+EXPORT int launch_level_dedup(const int64_t* cv, const int64_t* cf, const int64_t* cp, long long n,
+                              const int64_t* visited, long long V, int64_t* new_fps,
+                              int64_t* new_pay, int64_t* n_new, int64_t* keys, int32_t* idx,
+                              int64_t* status, int64_t* aux, uint8_t* flags, int64_t* sp,
+                              int64_t* tile, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  u64* kb[2] = {(u64*)keys, (u64*)keys + n};
+  unsigned* ib[2] = {(unsigned*)idx, (unsigned*)idx + n};
+  unsigned long long* hist = (unsigned long long*)aux;
+  int* ticket = (int*)(aux + LD_PASSES * 256);
+  long long* n_live = (long long*)(aux + LD_PASSES * 256 + LD_PASSES / 2);
+  const long long n_tiles = n_tiles_of(n);
+  const long long nb = (n + OS_TILE - 1) / OS_TILE;
+  int cur = 0;
+  if (n > 0) {
+    cudaMemsetAsync(hist, 0, LD_PASSES * 256 * sizeof(unsigned long long), st);
+    ld_count<<<blocks_of(n_tiles, LD_CT), THREADS, 0, st>>>((const u64*)cv, n, (long long*)tile, hist,
+                                                     (u64*)status, nb * 256);
+    ld_scan<<<1, THREADS, 0, st>>>((long long*)tile, n_tiles, n_live, hist, ticket);
+    ld_live<<<(unsigned)n_tiles, THREADS, 0, st>>>((const u64*)cv, n, (const long long*)tile,
+                                                    kb[0], ib[0]);
+    cudaFuncSetAttribute((const void*)ld_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         OS_SMEM);
+    for (int pass = 0; pass < LD_PASSES; ++pass) {
+      ld_pass<<<(unsigned)nb, OS_THREADS, OS_SMEM, st>>>(kb[cur], ib[cur], n_live, pass, hist,
+                                                         (u64*)status, ticket, kb[cur ^ 1],
+                                                         ib[cur ^ 1]);
+      cur ^= 1;
+    }
+    ld_heads<<<blocks_of(n, THREADS), THREADS, 0, st>>>(kb[cur], ib[cur], n_live, cf, cp,
+                                                        (const u64*)visited, V, flags, sp);
+  }
+  Vals vs = {{(const long long*)kb[cur], (const long long*)sp, nullptr},
+             {(long long*)new_fps, (long long*)new_pay, nullptr},
+             {-1, -1, 0}};
+  return run_compact(flags, n, vs, n, nullptr, tile, n_new, (const int64_t*)n_live, 0, 1, 0,
+                     nullptr, nullptr, nullptr, st);
+}
+
+// -- the group dedup's radix passes (per-block histograms, scans, stable scatter) ---
 
 constexpr int RS_THREADS = 256;  // one thread a digit in the block's tables
 constexpr int RS_ITEMS = 16;
 constexpr int RS_TILE = RS_THREADS * RS_ITEMS;
 constexpr int RS_WARPS = RS_THREADS / 32;
-
-// keys = payload with its sign bit flipped (signed order as unsigned), idx = lane.
-__global__ void rs_init(const int64_t* __restrict__ cp, long long n, u64* __restrict__ keys,
-                        unsigned* __restrict__ idx) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    keys[i] = (u64)cp[i] ^ SIGN64;
-    idx[i] = (unsigned)i;
-  }
-}
-
-// keys[i] = src[idx[i]]: the next key word in the current order.
-__global__ void rs_gather(const u64* __restrict__ src, const unsigned* __restrict__ idx,
-                          long long n, u64* __restrict__ keys) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) keys[i] = src[idx[i]];
-}
 
 // counts[digit * nb + block] = the block tile's lanes with that digit.
 __global__ void rs_hist(const u64* __restrict__ keys, long long n, int shift,
@@ -246,69 +561,8 @@ __global__ void rs_scatter(const u64* __restrict__ kin, const unsigned* __restri
   }
 }
 
-// After the sort (sv = fp_view in sorted order, idx the lanes): flags[i] =
-// the first lane of its fp_view, not SENT, not in the store; sp[i] = its
-// payload.
-__global__ void dedup_flags(const u64* __restrict__ sv, const unsigned* __restrict__ idx,
-                            long long n, const int64_t* __restrict__ cp,
-                            const u64* __restrict__ visited, long long V,
-                            uint8_t* __restrict__ flags, int64_t* __restrict__ sp) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const u64 x = sv[i];
-  const bool first = i == 0 || sv[i - 1] != x;
-  flags[i] = first && x != SENT64 && !member(visited, V, x);
-  sp[i] = cp[idx[i]];
-}
-
 EXPORT long long rs_tile() { return RS_TILE; }
 EXPORT long long rs_scan_tile() { return TILE; }
-
-// cv, cf, cp i64[n] (u64, u64, signed); visited u64[V] sorted.  Out:
-// new_fps i64[n] (the survivors' fp_view in sorted order, SENT past
-// *n_new), new_pay i64[n] (their payloads, -1 past it), *n_new.  Scratch:
-// keys u64[2][n], idx u32[2][n], counts i32[256 * nb] (nb = ceil(n /
-// RS_TILE)), part i64[ceil(256 * nb / TILE) + 1], flags u8[n], sp i64[n],
-// tile i64[ceil(n / TILE)].  n < 2^31.
-EXPORT int launch_level_dedup(const int64_t* cv, const int64_t* cf, const int64_t* cp, long long n,
-                              const int64_t* visited, long long V, int64_t* new_fps,
-                              int64_t* new_pay, int64_t* n_new, int64_t* keys, int32_t* idx,
-                              int32_t* counts, int64_t* part, uint8_t* flags, int64_t* sp,
-                              int64_t* tile, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  u64* kb[2] = {(u64*)keys, (u64*)keys + n};
-  unsigned* ib[2] = {(unsigned*)idx, (unsigned*)idx + n};
-  const long long nb = (n + RS_TILE - 1) / RS_TILE;
-  const long long m = 256 * nb;
-  const long long n_parts = (m + TILE - 1) / TILE;
-  const unsigned eb = blocks_of(n, THREADS);
-  int cur = 0;
-  if (n > 0) {
-    rs_init<<<eb, THREADS, 0, st>>>(cp, n, kb[0], ib[0]);
-    const u64* words[3] = {nullptr, (const u64*)cf, (const u64*)cv};
-    for (int w = 0; w < 3; ++w) {
-      if (words[w]) rs_gather<<<eb, THREADS, 0, st>>>(words[w], ib[cur], n, kb[cur]);
-      for (int shift = 0; shift < 64; shift += 8) {
-        rs_hist<<<(unsigned)nb, RS_THREADS, 0, st>>>(kb[cur], n, shift, counts, nb);
-        rs_scan_local<<<(unsigned)n_parts, THREADS, 0, st>>>(counts, m, (long long*)part);
-        scan_offsets<<<1, THREADS, 0, st>>>((long long*)part, n_parts,
-                                            (long long*)part + n_parts);
-        rs_scatter<<<(unsigned)nb, RS_THREADS, 0, st>>>(kb[cur], ib[cur], n, shift, counts,
-                                                         (const long long*)part, nb,
-                                                         kb[cur ^ 1], ib[cur ^ 1]);
-        cur ^= 1;
-      }
-    }
-    dedup_flags<<<eb, THREADS, 0, st>>>(kb[cur], ib[cur], n, cp, (const u64*)visited, V, flags,
-                                        sp);
-  }
-  Vals vs = {{(const long long*)kb[cur], (const long long*)sp, nullptr},
-             {(long long*)new_fps, (long long*)new_pay, nullptr},
-             {-1, -1, 0}};
-  return run_compact(flags, n, vs, n, nullptr, tile, n_new, nullptr, 0, 1, 0, nullptr, nullptr,
-                     nullptr, st);
-}
 
 // -- the group dedup: 8 radix passes on fp_view, then each run's least pair ----------
 
@@ -505,8 +759,8 @@ EXPORT int launch_sieve_merge(const int64_t* sieve, long long S, const int64_t* 
 }
 
 WARM((const void*)sm_live, (const void*)sm_first, (const void*)sorted_member,
-     (const void*)rs_init, (const void*)rs_gather,
-     (const void*)rs_hist, (const void*)rs_scan_local, (const void*)scan_offsets,
-     (const void*)rs_scatter, (const void*)dedup_flags, (const void*)count_tiles,
+     (const void*)ld_count, (const void*)ld_scan, (const void*)ld_live, (const void*)ld_pass,
+     (const void*)ld_heads, (const void*)rs_hist, (const void*)rs_scan_local,
+     (const void*)scan_offsets, (const void*)rs_scatter, (const void*)count_tiles,
      (const void*)scatter_tiles, (const void*)pad_tail, (const void*)merge_sorted,
      (const void*)gu_init, (const void*)gu_heads)

@@ -250,7 +250,7 @@ LEVEL_DEDUP = Kernel(
     "first of each fp_view, searchsorted against the store, stable compaction)",
     {"launch_level_dedup": [VP, VP, VP, I64, VP, I64, VP, VP, VP, VP, VP, VP, VP, VP, VP, VP,
                             VP],
-     "rs_tile": [], "rs_scan_tile": []},
+     "ld_tile": [], "ld_passes": [], "rs_scan_tile": []},
 )
 MERGE_SORTED = Kernel(
     "merge_sorted", "csrc/sortstore.cu",
@@ -721,6 +721,9 @@ def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0, idx=None, ovf=None):
     _need(fpf, "fp_full", torch.int64, (N,))
     eff, pperm, tdims = _msg_table(fpr, uni)
     tab = fpr.ktab
+    if pperm is not None:  # the factored form reads a gt row's channel halves apart
+        eff = tab["gt_half"]
+        _need(eff, "gt_half", torch.int32, (sum(uni.type_strides), 2, fpr.NP, 2))
     lib = FINGERPRINT.lib()
     FINGERPRINT.check(lib.launch_fingerprints(
         core, fr.msg_ids.data_ptr(), id_bytes, cap_m, G, tab["ct"].data_ptr(), tab["f_pad"],
@@ -1490,30 +1493,34 @@ def level_dedup(cv, cf, cp, visited):
         raise ValueError(f"level_dedup takes fewer than 2^31 lanes, got {n}")
     dev = cv.device
     lib = LEVEL_DEDUP.lib()
-    nb = (n + lib.rs_tile() - 1) // lib.rs_tile()
+    nb = (n + lib.ld_tile() - 1) // lib.ld_tile()
     scan_t = lib.rs_scan_tile()
-    n_parts = (256 * nb + scan_t - 1) // scan_t
+    passes = lib.ld_passes()
     new_fps = torch.empty((n,), dtype=torch.int64, device=dev)
     new_pay = torch.empty((n,), dtype=torch.int64, device=dev)
     n_new = torch.empty((), dtype=torch.int64, device=dev)
     keys = torch.empty((2 * n,), dtype=torch.int64, device=dev)
     idx = torch.empty((2 * n,), dtype=torch.int32, device=dev)
-    counts = torch.empty((max(256 * nb, 1),), dtype=torch.int32, device=dev)
-    part = torch.empty((n_parts + 1,), dtype=torch.int64, device=dev)
+    status = torch.empty((max(256 * nb, 1),), dtype=torch.int64, device=dev)
+    aux = torch.empty((passes * 256 + 8,), dtype=torch.int64, device=dev)
     flags = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
     sp = torch.empty((max(n, 1),), dtype=torch.int64, device=dev)
     tile = torch.empty((max((n + scan_t - 1) // scan_t, 1),), dtype=torch.int64, device=dev)
     LEVEL_DEDUP.check(lib.launch_level_dedup(
         cv.data_ptr(), cf.data_ptr(), cp.data_ptr(), n, visited.data_ptr(), V,
         new_fps.data_ptr(), new_pay.data_ptr(), n_new.data_ptr(), keys.data_ptr(),
-        idx.data_ptr(), counts.data_ptr(), part.data_ptr(), flags.data_ptr(), sp.data_ptr(),
+        idx.data_ptr(), status.data_ptr(), aux.data_ptr(), flags.data_ptr(), sp.data_ptr(),
         tile.data_ptr(), _stream()))
-    # rs_init, two gathers, 24 passes of (hist, scan_local, scan_offsets,
-    # scatter) and dedup_flags; then count_tiles, scan_offsets,
-    # scatter_tiles and pad_tail
-    sort = 1 + 2 + 24 * 4 + 1 if n > 0 else 0
-    LEVEL_DEDUP.launches += sort + 2 * int(n > 0) + 1 + int(n > 0)
+    LEVEL_DEDUP.launches += level_dedup_launches(n, passes)
     return n_new, new_fps, new_pay
+
+
+def level_dedup_launches(n: int, passes: int = 8) -> int:
+    """The CUDA kernels one ``level_dedup`` call of ``n`` lanes launches:
+    ld_count, ld_scan, ld_live, a pass a digit and ld_heads, then the
+    compaction's count_tiles, scan_offsets, scatter_tiles and pad_tail (of
+    an empty call, scan_offsets alone)."""
+    return 3 + passes + 1 + 4 if n > 0 else 1
 
 
 def merge_sorted(a, b, n_out: int):

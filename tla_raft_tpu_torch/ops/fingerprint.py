@@ -435,7 +435,9 @@ class Fingerprinter:
           coefficient of message m under permutation p;
         * factored: ``gt_eff`` u32 [sum of strides, NP, chan] (type t's
           rows from ``row_base[t]``: the effective coefficient of the id
-          with pair digit q' and rest r) and ``pperm`` u8 [P, NP]."""
+          with pair digit q' and rest r), the same as ``gt_half`` u32
+          [sum of strides, 2, NP, 2] (a row's channels 0-1, then 2-3: K3
+          reads one half a pass) and ``pperm`` u8 [P, NP]."""
         F = self.spec.F
         f_pad = -(-F // 32) * 32
         ct = np.zeros((self.P * self.N_CHAN * 4, f_pad), np.int8)
@@ -449,7 +451,10 @@ class Fingerprinter:
                 r = np.arange(stride, dtype=np.uint32)[:, None]
                 rows.append(_effective_u32_np(self.raw_msg_coef_np(
                     np.uint32(off) + q * np.uint32(stride) + r)))  # [stride, NP, chan]
-            out.update(gt_eff=np.ascontiguousarray(np.concatenate(rows)),
+            gt = np.ascontiguousarray(np.concatenate(rows))
+            out.update(gt_eff=gt,
+                       gt_half=np.ascontiguousarray(
+                           gt.reshape(gt.shape[0], NP, 2, 2).transpose(0, 2, 1, 3)),
                        pperm=self.pair_perm.astype(np.uint8),
                        row_base=np.concatenate([[0], np.cumsum(uni.type_strides)[:-1]]))
         else:
@@ -464,6 +469,7 @@ class Fingerprinter:
         out = dict(ct=torch.from_numpy(t["ct"]).to(dev), f_pad=t["f_pad"])
         if self.factored_msgs:
             out.update(gt_eff=torch.from_numpy(t["gt_eff"].view(np.int32)).to(dev),
+                       gt_half=torch.from_numpy(t["gt_half"].view(np.int32)).to(dev),
                        pperm=torch.from_numpy(t["pperm"]).to(dev),
                        row_base=[int(x) for x in t["row_base"]])
         else:
