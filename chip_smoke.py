@@ -230,7 +230,12 @@ Phases, each printed as JSON lines:
                 frontier and slab: every output equal;
 13. kernels   — each kernel against its plain torch twin on the card, at
                 the main path's shapes, with times, bounds and the launches
-                of its phase (drop_rows: the tiered phase; K3's factored
+                of its phase (K1 also in the counted form every fused level
+                launches, held against the twin's summed mult and first
+                abort, and K2 at both of a fused level's passes: the
+                chunk's candidates at cap_x and one 8-chunk survivor slice,
+                ``k1k2_forms``, timed by CUDA-graph replay; drop_rows: the
+                tiered phase; K3's factored
                 mode: the scale phase; orbit and orbit_fold: the orbit
                 phase, on a chunk of its 7-server run's last frontier,
                 with K3's full fold of the same chunk timed beside;
@@ -454,6 +459,39 @@ def cuda_ms(fn, reps: int) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_ms(fn, reps: int, inner: int = 20) -> float:
+    """Median device milliseconds of one ``fn`` call: ``inner`` calls
+    captured into one CUDA graph, replayed ``reps`` times between CUDA
+    events, so no host gap between launches counts (``cuda_ms`` times one
+    call from the host, which for a kernel of tens of microseconds is
+    mostly the wrapper's own launch time)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    tally = kernels.Tally()
+    with torch.cuda.graph(g):
+        for _ in range(inner):
+            fn()
+    tally.take()  # a timing replay is not a launch of the main path
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    del g
     return float(np.median(times))
 
 
@@ -3173,6 +3211,108 @@ def _entry(out: list, launches: dict, k, ms, plain_ms, bytes_, lib_ms, ops=0,
     return out[-1]
 
 
+def k1k2_forms(chk, reps: int = 10) -> dict:
+    """K1 and K2 in the forms a fused level launches them, on ``chk``'s
+    frontier: K1's counted form (``valid``, ``mult_acc``, ``abort_acc``,
+    ``cnt``) over its first chunk, held against the twin's summed mult and
+    first abort, beside the same launch without the sums and the per-row
+    form; K2's candidate pass (that chunk's candidates as payloads, cap_x
+    lanes under a count) and one ``mat_slice_width`` slice of the level's
+    survivors (payloads into the whole frontier, under n_new), each held
+    against the twin.  Device ms (``graph_ms``) and each form's byte bound;
+    ``inputs`` holds the tensors for callers that time them again."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import bfs
+    from tla_raft_tpu_torch.models.raft import Frontier
+
+    dev = torch.device("cuda")
+    fr, mx, uni = chk.frontier, chk.mx, chk.uni
+    n, K, B, G = fr.voted_for.shape[0], chk.K, chk.chunk, chk.cap_x
+    real = _frontier_rows(fr, torch.arange(min(B, n), device=dev))
+    nb = real.voted_for.shape[0]
+    st = chk.inflate(real)
+    core_b = _core_bytes(fr)
+    parts = [mx.guards_plain(chk.inflate(Frontier(*(x[i:i + 2048] for x in real))))
+             for i in range(0, nb, 2048)]
+    pv, pm, pa = (torch.cat(x) for x in zip(*parts))
+    big = 1 << 62
+    valid = torch.zeros((nb, K), dtype=torch.bool, device=dev)
+    acc = torch.zeros((K,), dtype=torch.int64, device=dev)
+    first = torch.full((), big, dtype=torch.int64, device=dev)
+    cnt = torch.tensor(nb + 3, dtype=torch.int64, device=dev)  # live rows: cnt - sub
+
+    def counted(sums=True):
+        kernels.guards(mx, st, valid=valid, per_row=False, cnt=cnt, sub=3,
+                       mult_acc=acc if sums else None, abort_acc=first if sums else None)
+
+    counted()
+    want_first = int(torch.nonzero(pa)[0, 0]) if bool(pa.any()) else big
+    check(_equal(valid, pv) and _equal(acc, pm.to(torch.int64).sum(0))
+          and int(first) == want_first, "K1's counted form differs from its twin")
+    out = dict(parents=nb, slots=K, valid_slots=int(pv.sum()), aborts=int(pa.sum()))
+    out["guards_counted_ms"] = graph_ms(counted, reps)
+    out["guards_valid_only_ms"] = graph_ms(lambda: counted(False), reps)
+    out["guards_per_row_ms"] = graph_ms(lambda: mx.guards(st), reps)
+    # each parent's fields and mask read once, its valid row written once;
+    # the sums' K words
+    out["guards_counted_bound_ms"] = (nb * (core_b + uni.n_words * 4 + K) + K * 8) \
+        / HBM_BYTES_PER_S * 1e3
+
+    # K2, candidate pass: the chunk's valid lanes at cap_x, payloads into the chunk
+    payload = (torch.arange(nb, device=dev)[:, None] * K
+               + torch.arange(K, device=dev)).reshape(-1)
+    cp, lane, _o = bfs.compact_payloads(pv.reshape(-1), payload, G)
+    live = int(lane.sum())
+    row_b = core_b + fr.msg_ids.element_size() * fr.msg_ids.shape[1]
+
+    def mat_bound_ms(pay):
+        # each distinct parent's row read once (a block's lanes share their
+        # parents); per live lane its payload read, its child row, added ids
+        # and ovf flag written
+        parents = int(torch.unique(torch.div(pay, K, rounding_mode="floor")).numel())
+        return (parents * row_b + pay.numel() * (row_b + 8 + 4 * mx.A + 1)) \
+            / HBM_BYTES_PER_S * 1e3
+
+    def mat_pass(parents, pay, lanes, total):
+        child = Frontier(*(torch.empty((lanes, *x.shape[1:]), dtype=x.dtype, device=dev)
+                           for x in parents))
+        buf = (child, torch.empty((lanes, mx.A), dtype=torch.int32, device=dev),
+               torch.empty((lanes,), dtype=torch.bool, device=dev))
+        t = torch.tensor(total, dtype=torch.int64, device=dev)
+        ovf = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def call():
+            kernels.materialize(mx, parents, None, None, pay=pay, out=buf, cnt=t, ovf_any=ovf)
+
+        call()
+        p = pay[:total]
+        pc, pad, po = mx.materialize_plain(parents, torch.div(p, K, rounding_mode="floor"),
+                                           torch.remainder(p, K))
+        ok = all(_equal(x[:total], y) for x, y in zip(buf[0], pc))
+        ok &= _equal(buf[1][:total], pad) and _equal(buf[2][:total], po)
+        ok &= int(ovf) == int(po.any())
+        return ok, graph_ms(call, reps)
+
+    ok, out["materialize_candidates_ms"] = mat_pass(real, cp, G, live)
+    check(ok, "K2's candidate pass differs from its twin")
+    out.update(candidate_lanes=G, candidates=live,
+               materialize_candidates_bound_ms=mat_bound_ms(cp[:live]))
+    # K2, survivor pass: a level's fresh payloads into the whole frontier,
+    # one slice of mat_slice_width's width past 8 chunks (8 * chunk)
+    res = chk.expand_level(fr, n, chk.hstore.slab.clone())
+    sl = 8 * B
+    surv = res["new_payload"][:sl].contiguous()
+    surv_live = min(sl, res["n_new"])
+    ok, out["materialize_survivors_ms"] = mat_pass(fr, surv, sl, surv_live)
+    check(ok, "K2's survivor pass differs from its twin")
+    out.update(survivor_lanes=sl, level_new=res["n_new"],
+               materialize_survivors_bound_ms=mat_bound_ms(surv[:surv_live]))
+    out["inputs"] = dict(st=st, real=real, cp=cp, live=live, surv=surv, surv_live=surv_live)
+    return out
+
+
 def phase_kernels(chk, launches: dict, seed: int):
     """Each kernel against its plain twin on real and seeded random inputs:
     (the kernels' records, the shapes)."""
@@ -3213,12 +3353,20 @@ def phase_kernels(chk, launches: dict, seed: int):
     st_real, ok1 = guards_case(real)
     _st, ok2 = guards_case(rand)
     check(ok1 and ok2, "K1 guards differs from its twin")
-    ms = cuda_ms(lambda: mx.guards(st_real), 10)
+    # K1 and K2 are timed by CUDA-graph replay (``graph_ms``): their device
+    # time is tens of microseconds, below the wrappers' own launch time that
+    # ``cuda_ms`` also counts (kept as events_ms)
+    forms = k1k2_forms(chk)
+    forms.pop("inputs")
+    events = cuda_ms(lambda: mx.guards(st_real), 10)
     plain = wall_ms(lambda: [mx.guards_plain(chk.inflate(Frontier(*(x[i:i + 2048] for x in real))))
                              for i in range(0, real.voted_for.shape[0], 2048)])
     nb = real.voted_for.shape[0]
-    entry(kernels.GUARDS, True, ms, plain,
+    entry(kernels.GUARDS, True, forms["guards_per_row_ms"], plain,
           nb * (core_b + uni.n_words * 4) + K * 24 + nb * K * 5 + nb, nb * K * 32, None)
+    out[-1].update(events_ms=events, counted_ms=forms["guards_counted_ms"],
+                   counted_bound_ms=forms["guards_counted_bound_ms"],
+                   valid_only_ms=forms["guards_valid_only_ms"])
 
     # compaction (B3 shape): the real chunk's valid lanes to cap_x lanes;
     # random flags over the same lanes into a smaller cap (overflow); and
@@ -3261,11 +3409,19 @@ def phase_kernels(chk, launches: dict, seed: int):
         ok &= all(_equal(x, y) for x, y in zip(kc, pc)) and _equal(ka, pa) and _equal(ko, po)
     check(ok, "K2 materialize differs from its twin")
     children = mx.materialize(real, lidx, slots)[0]
-    ms = cuda_ms(lambda: mx.materialize(real, lidx, slots), 10)
+    ms = graph_ms(lambda: mx.materialize(real, lidx, slots), 10)
+    events = cuda_ms(lambda: mx.materialize(real, lidx, slots), 10)
     plain = wall_ms(lambda: mx.materialize_plain(real, lidx, slots))
-    row_b = core_b + 2 * cap_m
-    entry(kernels.MATERIALIZE, True, ms, plain, G * (2 * row_b + 16 + 4 * mx.A + 1),
+    # each distinct parent's row read once, each lane's (pidx, slot) read and
+    # child row, added ids and ovf flag written
+    row_b = core_b + fr.msg_ids.element_size() * cap_m
+    entry(kernels.MATERIALIZE, True, ms, plain,
+          int(torch.unique(lidx).numel()) * row_b + G * (row_b + 16 + 4 * mx.A + 1),
           G * (cap_m * 4 + 64), None)
+    out[-1]["events_ms"] = events
+    out[-1].update({k: forms[k] for k in (
+        "materialize_candidates_ms", "materialize_candidates_bound_ms", "candidates",
+        "materialize_survivors_ms", "materialize_survivors_bound_ms", "survivor_lanes")})
 
     # K3 fingerprints: the real children, and random states with random ids
     rnd_core = [torch.from_numpy(gen.integers(0, 256, x.shape, dtype=np.uint8)).to(dev)
@@ -3684,7 +3840,8 @@ def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
         kv, km, ka = mx.guards(st)
         check(_equal(kv, torch.cat(pv)) and _equal(km, torch.cat(pm)) and _equal(ka, torch.cat(pa)),
               f"S={S}: K1 guards differs from its twin")
-        t["guards_ms"] = cuda_ms(lambda: mx.guards(st), 10)
+        t["guards_ms"] = graph_ms(lambda: mx.guards(st), 10)
+        t["guards_events_ms"] = cuda_ms(lambda: mx.guards(st), 10)
         # the compaction and K2 (real candidates and random lanes over random ids)
         vflat = kv.reshape(-1)
         payload = (torch.arange(nb, device=dev)[:, None] * K + torch.arange(K, device=dev)).reshape(-1)
@@ -3702,7 +3859,8 @@ def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
             check(all(_equal(x, y) for x, y in zip(kc, pc)) and _equal(kad, pad_)
                   and _equal(ko, po), f"S={S}: K2 materialize differs from its twin")
         children = mx.materialize(real, lidx, slots)[0]
-        t["materialize_ms"] = cuda_ms(lambda: mx.materialize(real, lidx, slots), 10)
+        t["materialize_ms"] = graph_ms(lambda: mx.materialize(real, lidx, slots), 10)
+        t["materialize_events_ms"] = cuda_ms(lambda: mx.materialize(real, lidx, slots), 10)
         # K3, counted as the fused level counts it: the live candidates
         cnt = torch.tensor(live, device=dev)
         outv = (torch.empty(G, dtype=torch.int64, device=dev),

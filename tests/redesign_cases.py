@@ -1,9 +1,13 @@
-"""Seeded edge-case inputs of the two redesigned kernels, in numpy (no JAX:
-the ``cuda`` tests import them on a machine without it).
+"""Seeded edge-case inputs of the redesigned kernels, and numpy models of
+their routes, in numpy (no JAX and no port module: the ``cuda`` tests
+import them on a machine without JAX).
 
 ``dedup_case``: a level's lanes and a sorted store for B19's
 ``_level_dedup`` (``level_dedup``); ``k3_id_lists``: S=7 message id lists
-for K3's factored message part (``msg_hash_factored`` / ``orbit_fold``).
+for K3's factored message part (``msg_hash_factored`` / ``orbit_fold``);
+``K2_MERGE_CASES`` / ``k2_merge_case`` and ``ids_merge_by_rank``: K2's id
+lists (csrc/materialize.cu); ``k1_group_parents`` and ``k1_group_model``:
+K1's groups, count tables and family-7 runs (csrc/guards.cu).
 """
 
 import numpy as np
@@ -128,3 +132,283 @@ def k3_id_lists(uni, rows: int, cap_m: int, seed: int) -> np.ndarray:
         ids = np.sort(np.asarray(ids, np.int64))
         out[i, : ids.shape[0]] = ids
     return out
+
+
+# -- K2: the child's id list as a merge by rank ---------------------------------------
+
+K2_MERGE_CASES = ("empty", "full_drops_largest", "already_present", "two_past_last",
+                  "s7_int32_high", "random")
+
+
+def k2_merge_case(kind: str, M: int, cap_m: int, A: int, seed: int):
+    """(parent ids i64 [n, cap_m] ascending and -1-padded, sent ids i64
+    [n, A] (-1 pads)) of one kind: ``empty`` parent lists; ``full`` lists
+    where a sent id below the largest makes it drop; ``already_present``
+    sent ids; ``two_past_last`` two sent ids past the list's last id;
+    ``s7_int32_high`` A sent ids at and past 2^15 (M > 2^15); ``random``
+    lists of every length, sent ids of every kind, ids at or past M (a
+    garbage lane's) included."""
+    g = np.random.default_rng(seed)
+    n = 64
+    ids = np.full((n, cap_m), -1, np.int64)
+    sent = np.full((n, A), -1, np.int64)
+    for r in range(n):
+        if kind == "empty":
+            par = np.zeros(0, np.int64)
+            k = int(g.integers(1, A + 1))
+            sent[r, :k] = g.choice(M, k, replace=False)
+        elif kind == "full_drops_largest":
+            par = np.sort(g.choice(M - 1, cap_m, replace=False)) + 1
+            sent[r, 0] = int(g.choice(np.setdiff1d(np.arange(par[-1]), par)))
+        elif kind == "already_present":
+            par = np.sort(g.choice(M, int(g.integers(1, cap_m + 1)), replace=False))
+            k = min(A, par.shape[0])
+            sent[r, :k] = g.choice(par, k, replace=False)
+        elif kind == "two_past_last":
+            m = int(g.integers(0, cap_m - 1))
+            par = np.sort(g.choice(M // 2, m, replace=False))
+            sent[r, :2] = M // 2 + g.choice(M // 2, 2, replace=False)
+        elif kind == "s7_int32_high":
+            par = np.sort(g.choice(M, int(g.integers(0, cap_m + 1)), replace=False))
+            sent[r] = (1 << 15) + g.choice(M - (1 << 15), A, replace=False)
+        else:
+            par = np.sort(g.choice(M, int(g.integers(0, cap_m + 1)), replace=False))
+            for a in range(A):
+                x = g.random()
+                sent[r, a] = (-1 if x < 0.2 else int(g.choice(par)) if x < 0.4 and par.size
+                              else M + int(g.integers(0, 3)) if x < 0.45
+                              else int(g.integers(0, M)))
+        ids[r, : par.shape[0]] = par
+    return ids, sent
+
+
+def ids_merge_by_rank(ids: np.ndarray, sent: np.ndarray, M: int):
+    """numpy model of K2's id lists: the child's list is the cap_m smallest
+    ids of (parent ids U new ids), ascending and -1-padded, where the new
+    ids are the sent ids in [0, M) neither in the parent's list nor sent
+    before; a new id goes to lower_bound(parent, id) + (new ids below it),
+    parent id q to q + (new ranks at or below it).  Overflow: n_parent +
+    n_new > cap_m, or a sent id at or past M meeting a full list at its
+    turn.  Returns (child ids i64 [n, cap_m], overflow bool [n])."""
+    n, cap_m = ids.shape
+    out = np.full((n, cap_m), -1, np.int64)
+    ovf = np.zeros(n, bool)
+    for r in range(n):
+        par = ids[r][ids[r] >= 0]
+        n_par = par.shape[0]
+        new, of = [], False
+        for a_i, a in enumerate(sent[r]):
+            if a < 0:
+                continue
+            if a >= M:
+                of |= n_par + len(new) >= cap_m
+                continue
+            if a in sent[r][:a_i] or a in par:
+                continue
+            new.append(int(a))
+        rank = [int(np.searchsorted(par, a)) + sum(b < a for b in new) for a in new]
+        ovf[r] = of or n_par + len(new) > cap_m
+        for j in range(cap_m):
+            hit = [a for a, rk in zip(new, rank) if rk == j]
+            q = j - sum(rk < j for rk in rank)
+            out[r, j] = hit[0] if hit else (par[q] if q < n_par else -1)
+    return out, ovf
+
+
+# -- K1: groups of parents, (pair, term) count tables, family-7 runs ----------------
+
+# the C ``Dims`` struct's fields (csrc/common.cuh), in order
+DIMS = ("S", "T", "L", "V", "E", "NPLI", "ap_pli_min", "vq_off", "vp_off", "aq_off", "ap_off",
+        "M", "n_words", "majority", "median_index", "max_election", "max_restart",
+        "double_vote", "legacy_append", "become_follower")
+FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
+
+
+def k1_group_parents(d: dict, K: int, n7: int, per_row: bool) -> int:
+    """The parents a block of K1 takes (csrc/guards.cu ``group_parents``):
+    the most, up to 16, whose shared memory fits 48 KB; ``n7`` family 7's
+    slots."""
+    S, T, L, V = d["S"], d["T"], d["L"], d["V"]
+    row = 5 * S + 2 * S * L + 3 * S * S + 2 + V
+    a16 = lambda x: (x + 15) & ~15  # noqa: E731
+
+    def size(np_):
+        core_off = a16(K * 4) + np_ * d["n_words"] * 4 + np_ * S * (S - 1) * T * 8 + np_ * 4
+        v_off = a16(core_off + np_ * row)
+        return a16(v_off + np_ * K) + np_ * (K - n7) * 4 if per_row else v_off + np_ * K
+
+    np_ = 16
+    while np_ > 1 and size(np_) > 48 * 1024:
+        np_ -= 1
+    return np_
+
+
+def k1_group_model(d: dict, f: dict, bits: np.ndarray, slot_table: np.ndarray,
+                   accept_runs: tuple, np_: int, live: int):
+    """numpy model of K1's route (csrc/guards.cu) over ``live`` parents in
+    groups of ``np_``: the per-parent (pair, term) count tables (any
+    message to dst; AppendReqs), family 7 as runs of E * L consecutive mask
+    bits under one condition, every other slot on its family, then each
+    group's per-slot sums of the multiplicities and its first abort.
+
+    ``d``: the config's constants (S, T, L, V, E, NPLI, ap_pli_min, the
+    four type offsets, majority, median_index, max_election, max_restart,
+    the three mutation flags); ``f``: the core fields (numpy, rows first);
+    ``bits``: the message sets u8 [B, M]; ``accept_runs``: family 7's
+    (first slot, slots), as ``SlotLayout.accept_runs`` gives them.  Returns (valid bool [live, K],
+    mult i32 [live, K], abort bool [live], group sums i64 [groups, K], the
+    first aborting row or -1)."""
+    S, T, L, V, E = d["S"], d["T"], d["L"], d["V"], d["E"]
+    B = live
+    K = slot_table.shape[0]
+    bits = bits[:B].astype(np.int64)
+    f = {k: np.asarray(v[:B]).astype(np.int64) for k, v in f.items()}
+    csum = np.concatenate([np.zeros((B, 1), np.int64), np.cumsum(bits, 1)], 1)
+    rows = np.arange(B)
+
+    def pair(a, b):
+        return a * (S - 1) + (b - (b > a))
+
+    def vq(p, term, lli, llt):
+        return d["vq_off"] + ((p * T + term - 1) * L + lli - 1) * T + llt
+
+    def vp(p, term):
+        return d["vp_off"] + p * T + term - 1
+
+    def aq(p, term, pli, plt, entry, lc):
+        x = ((((p * T + term - 1) * L + pli - 1) * (T + 1) + plt) * E + entry) * L + lc - 1
+        return d["aq_off"] + x
+
+    def ap(p, term, pli, succ):
+        return d["ap_off"] + ((p * T + term - 1) * d["NPLI"] + pli - d["ap_pli_min"]) * 2 + succ
+
+    def bit(ids):
+        return bits[rows, np.broadcast_to(ids, (B,))]
+
+    def popc(a, n):
+        a = np.broadcast_to(a, (B,))
+        return csum[rows, a + n] - csum[rows, a]
+
+    # family 7's runs: slots [k7, k7 + n7), E * L a run
+    k7, n7 = accept_runs
+    el = E * L
+
+    # the (pair, term) tables
+    npair = S * (S - 1)
+    anyc = np.zeros((B, npair, T), np.int64)
+    aqc = np.zeros((B, npair, T), np.int64)
+    for p in range(npair):
+        for tt in range(T):
+            aqc[:, p, tt] = popc(aq(p, tt + 1, 1, 0, 0, 1), L * (T + 1) * E * L)
+            anyc[:, p, tt] = (aqc[:, p, tt] + popc(vq(p, tt + 1, 1, 0), L * T)
+                              + bit(vp(p, tt + 1))
+                              + popc(d["ap_off"] + (p * T + tt) * d["NPLI"] * 2, d["NPLI"] * 2))
+
+    def med(r):  # rank-select median of rows r [B, S]
+        pos = ((r[:, None, :] < r[:, :, None]).sum(2)
+               + np.tril((r[:, None, :] == r[:, :, None]), -1).sum(2))
+        return np.where(pos == d["median_index"], r, 0).sum(1)
+
+    valid = np.zeros((B, K), bool)
+    mult = np.zeros((B, K), np.int64)
+    abort = np.zeros(B, bool)
+    for k in list(range(k7)) + list(range(k7 + n7, K)):
+        fam, s, c1, c2, c3, c4 = (int(x) for x in slot_table[k])
+        ct, role, ll, ci = (f[x][:, s] for x in ("current_term", "role", "log_len",
+                                                   "commit_index"))
+        lt = f["log_term"][:, s]
+        tix = np.clip(ct - 1, 0, T - 1)
+        ht = ct >= 1
+        m = np.ones(B, np.int64)
+        if fam == 0:
+            ok = ((role == FOLLOWER) | (role == CANDIDATE)) & (f["election_count"]
+                                                                < d["max_election"])
+        elif fam == 1:
+            m = sum(anyc[:, pair(src, s), c1] for src in range(S) if src != s)
+            ok = (c1 + 1 > ct) & (m > 0)
+        elif fam == 2:
+            m = sum(aqc[rows, pair(src, s), tix] for src in range(S) if src != s)
+            ok = (role == CANDIDATE) & ht & (m > 0)
+            abort |= (not d["become_follower"]) & ht & (m > 0) & (role == LEADER)
+        elif fam == 3:
+            vf = f["voted_for"][:, s]
+            vf_ok = d["double_vote"] | (vf == 0) | (vf == c1 + 1)
+            qual = np.zeros(B, np.int64)
+            grant = np.zeros(B, np.int64)
+            if c1 != s:
+                lpos = np.clip(ll - 1, 0, L - 1)
+                myllt = np.clip(lt[rows, lpos], 0, T)
+                for l0 in range(L):
+                    for k2 in range(T):
+                        use = (k2 > myllt) | ((k2 == myllt) & (l0 >= lpos))
+                        qual += use * bit(vq(pair(c1, s), tix + 1, l0 + 1, k2))
+                grant = bit(vp(pair(s, c1), tix + 1))
+            m = qual
+            ok = (role == FOLLOWER) & ht & vf_ok & (c1 != s) & (qual > 0) & (grant == 0)
+        elif fam == 4:
+            votes = sum(bit(vp(pair(src, s), tix + 1)) for src in range(S) if src != s)
+            ok = (role == CANDIDATE) & (votes + 1 >= d["majority"])
+        elif fam == 5:
+            ok = (role == LEADER) & (f["val_sent"][:, c1] == 0) & (ll < L)
+        elif fam == 6:
+            nsd = f["next_index"][:, s, c1]
+            present = np.zeros(B, bool)
+            if c1 != s:
+                lv = f["log_val"][:, s]
+                pli = np.clip(nsd - 1, 1, L)
+                plt = np.clip(lt[rows, np.clip(nsd - 2, 0, L - 1)], 0, T)
+                epos = np.clip(nsd - 1, 0, L - 1)
+                et = np.clip(lt[rows, epos], 1, T)
+                ev = np.clip(lv[rows, epos], 1, V)
+                ecode = np.where(nsd <= ll, 1 + (et - 1) * V + (ev - 1), 0)
+                present = bit(aq(pair(s, c1), np.clip(ct, 1, T), pli, plt, ecode,
+                                 np.clip(ci, 1, L))) > 0
+            ok = ((role == LEADER) & (f["pending"][:, s, c1] == 0) & (nsd <= ll + 1)
+                  & (c1 != s) & ~present)
+        elif fam == 8:
+            n = np.zeros(B, np.int64)
+            rej = np.zeros(B, np.int64)
+            if c1 != s:
+                p = pair(c1, s)
+                tot = popc(aq(p, tix + 1, c2 + 1, 0, 0, 1), (T + 1) * E * L)
+                mplt = np.clip(lt[:, c2], 0, T)
+                match = popc(aq(p, tix + 1, c2 + 1, mplt, 0, 1), E * L)
+                n = tot - np.where(c2 + 1 <= ll, match, 0)
+                rej = bit(ap(pair(s, c1), tix + 1, c2 + d["ap_pli_min"], 0))
+            m = n
+            ok = (role == FOLLOWER) & ht & (c1 != s) & (n > 0) & (rej == 0)
+        elif fam == 9:
+            pli = c2 + 1
+            msd, nsd = f["match_index"][:, s, c1], f["next_index"][:, s, c1]
+            st_ok = msd < pli if c3 == 1 else (pli + 1 == nsd) & (pli > msd)
+            present = (bit(ap(pair(c1, s), tix + 1, pli, c3)) > 0) if c1 != s else False
+            ok = (role == LEADER) & ht & (f["pending"][:, s, c1] == 1) & st_ok & present
+        elif fam == 10:
+            ok = (role == LEADER) & (med(f["match_index"][:, s]) > ci)
+        else:
+            ok = (role == LEADER) & (f["restart_count"] < d["max_restart"])
+        valid[:, k] = ok
+        mult[:, k] = np.where(ok, m, 0)
+    for r_ in range(n7 // el):  # family 7's runs, (s, src, l0) from the run's first slot
+        s, src, l0 = (int(x) for x in slot_table[k7 + r_ * el, 1:4])
+        if src == s:  # no message to oneself: the run stays invalid
+            continue
+        ct, ll, ci = (f[x][:, s] for x in ("current_term", "log_len", "commit_index"))
+        tix = np.clip(ct - 1, 0, T - 1)
+        cond = (f["role"][:, s] == FOLLOWER) & (ct >= 1) & (l0 + 1 <= ll)
+        plt = np.clip(f["log_term"][:, s, l0], 0, T)
+        id0 = np.where(cond, aq(pair(src, s), tix + 1, l0 + 1, plt, 0, 1), 0)
+        for qq in range(el):
+            ok = cond & (bit(id0 + qq) > 0)
+            if d["legacy_append"]:
+                e, h0 = qq // L, qq % L
+                nl = l0 + 1 + (e > 0)
+                resp = bit(ap(pair(s, src), tix + 1, min(nl, L), 1)) > 0
+                ok &= ~resp | (min(h0 + 1, nl) > ci)
+            valid[:, k7 + r_ * el + qq] = ok
+            mult[:, k7 + r_ * el + qq] = ok
+    groups = -(-B // np_)
+    sums = np.stack([mult[g * np_:(g + 1) * np_].sum(0) for g in range(groups)])
+    firsts = [g * np_ + int(np.argmax(abort[g * np_:(g + 1) * np_])) for g in range(groups)
+              if abort[g * np_:(g + 1) * np_].any()]
+    return valid, mult.astype(np.int32), abort, sums, min(firsts, default=-1)

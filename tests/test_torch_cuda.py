@@ -21,6 +21,7 @@ from tla_raft_tpu_torch.engine.invariants import INVARIANT_KERNELS, inv_scan_pla
 from tla_raft_tpu_torch.models.raft import Frontier
 from tla_raft_tpu_torch.ops import hashstore as hs
 from tla_raft_tpu_torch.ops.hashstore import probe_and_insert, probe_and_insert_plain
+from tla_raft_tpu_torch.ops.mxu_expand import MXUExpand
 
 pytestmark = pytest.mark.cuda
 
@@ -1305,3 +1306,146 @@ def test_factored_kernel_edges_equal_twin(scale, mode):
         assert int(ovf) == int(count > cap)
         assert after["orbit_fold"] - before["orbit_fold"] == 1
         assert after["msg_hash_factored"] - before["msg_hash_factored"] == 1
+
+
+# -- K1 and K2 as redesigned: a group of parents a block, the merge by rank ---------
+
+
+def _rows(fr, n, seed):
+    """``n`` rows drawn from ``fr`` (repeats allowed), contiguous."""
+    g = np.random.default_rng(seed)
+    idx = torch.from_numpy(g.integers(0, fr.voted_for.shape[0], n)).cuda()
+    return Frontier(*(x[idx].contiguous() for x in fr))
+
+
+def _guards_twin(chk, part):
+    """The twin's (valid, mult, abort), in row slices."""
+    n = part.voted_for.shape[0]
+    out = [chk.mx.guards_plain(chk.inflate(Frontier(*(x[i:i + 2048] for x in part))))
+           for i in range(0, n, 2048)]
+    return [torch.cat(x) for x in zip(*out)]
+
+
+@pytest.fixture(scope="module")
+def double_vote():
+    """A double-vote run on the card to its abort: the frontier holds an
+    aborting parent (the split-brain Assert)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    chk = TorchChecker(RaftConfig(n_vals=1, max_election=2, max_restart=1,
+                                  mutations=("double-vote",)), device="cuda", chunk=256)
+    res = chk.run(max_depth=30)
+    assert not res.ok
+    return chk
+
+
+@pytest.fixture(scope="module")
+def mutated():
+    """Runs on the card under the become-follower mutation (with
+    double-vote, so that two leaders of one term occur: to depth 12) and
+    the legacy-append mutation (to depth 16); their last frontiers are
+    K1's inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    out = {}
+    for name, muts, depth in (("become-follower", ("double-vote", "become-follower"), 12),
+                              ("legacy-append", ("legacy-append",), 16)):
+        chk = TorchChecker(RaftConfig(n_vals=1, max_election=2, max_restart=1, mutations=muts),
+                           device="cuda", chunk=256)
+        assert chk.run(max_depth=depth).ok
+        out[name] = chk
+    return out
+
+
+@pytest.mark.parametrize("S", [3, 5, 7, "double-vote", "become-follower", "legacy-append"])
+def test_guards_edges_equal_twin(run, scale, double_vote, mutated, S):
+    """K1 against its twin in both forms at B = 1, 7, one block's parents
+    (of either form) -1, +0, +1 and 16,384 rows: the per-row form whole; the counted form
+    with rows past the device count dead (their valid rows untouched),
+    ``mult_acc`` added onto nonzero words, and the first abort (+ base).
+    The mutations' cases show their branches taken: under become-follower
+    rows that would abort without it; under legacy-append valid
+    FollowerAppendEntry slots."""
+    chk = {3: run, "double-vote": double_vote}.get(S) or {**scale, **mutated}[S]
+    mx, K = chk.mx, chk.K
+    from redesign_cases import DIMS, k1_group_parents
+
+    d = dict(zip(DIMS, kernels.dims_array(chk.cfg, chk.uni)))
+    edges = {1, 7, 16384}
+    for per_row in (True, False):
+        per_block = kernels.guards_group_parents(mx, per_row)
+        assert per_block == k1_group_parents(d, K, mx.layout.accept_runs[1], per_row)
+        edges |= {max(per_block - 1, 1), per_block, per_block + 1}
+    for B in sorted(edges):
+        part = _rows(chk.frontier, B, B)
+        st = chk.inflate(part)
+        want = _guards_twin(chk, part)
+        got = kernels.guards(mx, st)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (S, B)
+        live = max(B - 5, 1)
+        valid = torch.ones((B, K), dtype=torch.bool, device="cuda")
+        acc = torch.full((K,), 3, dtype=torch.int64, device="cuda")
+        first = torch.full((), 1 << 62, dtype=torch.int64, device="cuda")
+        kernels.guards(mx, st, valid=valid, per_row=False, cnt=torch.tensor(live + 11).cuda(),
+                       sub=11, mult_acc=acc, abort_acc=first, base=1000)
+        assert torch.equal(valid[:live], want[0][:live]) and bool(valid[live:].all()), (S, B)
+        assert torch.equal(acc, want[1][:live].to(torch.int64).sum(0) + 3), (S, B)
+        ab = want[2][:live]
+        wf = 1000 + int(torch.nonzero(ab)[0, 0]) if bool(ab.any()) else 1 << 62
+        assert int(first) == wf, (S, B)
+    if S == "double-vote":
+        assert bool(_guards_twin(chk, chk.frontier)[2].any())  # the abort was exercised
+    if S == "become-follower":
+        st = chk.inflate(chk.frontier)
+        without = MXUExpand(RaftConfig(n_vals=1, max_election=2, max_restart=1,
+                                       mutations=("double-vote",)), device="cuda")
+        assert bool(without.guards_plain(st)[2].any()) and not bool(mx.guards(st)[2].any())
+    if S == "legacy-append":
+        k7, n7 = mx.layout.accept_runs
+        assert bool(_guards_twin(chk, chk.frontier)[0][:, k7:k7 + n7].any())
+
+
+@pytest.mark.parametrize("S", [3, 7])
+def test_materialize_edges_equal_twin(run, scale, S):
+    """K2 against its twin at G = 1, 127, 129 and cap_x lanes on int16
+    (S=3) and int32 (S=7) ids, on the frontier's lists and on lists cut to
+    the widest one (full lists: the largest id drops, ``ovf`` set): the
+    (pidx, slot) form; payloads (parent + base) * K + slot with a negative
+    base (negative payloads, floor division); and lanes past a device count
+    dead (untouched), with ``ovf_any``."""
+    chk = run if S == 3 else scale[S]
+    mx, K, A = chk.mx, chk.K, chk.mx.A
+    fr = chk.frontier
+    n = fr.voted_for.shape[0]
+    widest = int((fr.msg_ids >= 0).sum(1).max())
+    full = fr._replace(msg_ids=fr.msg_ids[:, :widest].contiguous())
+    g = np.random.default_rng(S)
+    overflowed = False
+    for par in (fr, full):
+        for G in (1, 127, 129, chk.cap_x):
+            pi = torch.from_numpy(g.integers(0, n, G)).cuda()
+            sl = torch.from_numpy(g.integers(0, K, G)).cuda()
+            want = mx.materialize_plain(par, pi, sl)
+            got = mx.materialize(par, pi, sl)
+            assert all(torch.equal(a, b) for a, b in zip(got[0], want[0])), (S, G)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), (S, G)
+            base = -(n // 2)
+            got = kernels.materialize(mx, par, None, None, pay=(pi + base) * K + sl,
+                                      pay_base=base)
+            assert all(torch.equal(a, b) for a, b in zip(got[0], want[0])), (S, G)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), (S, G)
+            live = G - G // 3
+            out = (Frontier(*(torch.full((G, *x.shape[1:]), 0x5A, dtype=x.dtype, device="cuda")
+                              for x in par)),
+                   torch.full((G, A), 77, dtype=torch.int32, device="cuda"),
+                   torch.zeros((G,), dtype=torch.bool, device="cuda"))
+            ovf_any = torch.zeros((), dtype=torch.int64, device="cuda")
+            kernels.materialize(mx, par, pi, sl, out=out, cnt=torch.tensor(live + 4).cuda(),
+                                sub=4, ovf_any=ovf_any)
+            for a, b in zip(out[0], want[0]):
+                assert torch.equal(a[:live], b[:live]) and bool((a[live:] == 0x5A).all())
+            assert torch.equal(out[1][:live], want[1][:live]) and bool((out[1][live:] == 77).all())
+            assert torch.equal(out[2][:live], want[2][:live]) and not bool(out[2][live:].any())
+            assert int(ovf_any) == int(want[2][:live].any())
+            overflowed |= bool(want[2].any())
+    assert overflowed  # the full lists overflowed somewhere

@@ -2,6 +2,7 @@
 against the reference on the same reachable states, exactly."""
 
 import torch_threads  # noqa: F401  (one torch thread a worker)
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -49,3 +50,71 @@ def test_guards_match_reference(args, muts):
     assert np.array_equal(pv.numpy(), np.asarray(rv)), np.argwhere(pv.numpy() != np.asarray(rv))[:5]
     assert np.array_equal(pm.numpy(), np.asarray(rm))
     assert np.array_equal(pa.numpy(), np.asarray(ra))
+
+
+# -- K1 as the card computes it: groups, count tables, family-7 runs -------------
+
+K1_MODEL_CASES = [(3, ()), (5, ()), (7, ()), (3, ("double-vote",)), (3, ("become-follower",)),
+                  (3, ("legacy-append",))]
+
+
+def _random_states(rc, pc, rows, seed):
+    """Reachable field values in new combinations (each field from its own
+    randomly chosen reachable state) and random message sets of several
+    densities: (reference RaftState, port fields, bits u8 [rows, M])."""
+    from tla_raft_tpu.models.raft import from_oracle as ref_from_oracle
+    from tla_raft_tpu.oracle.explicit import collect_reachable
+    from tla_raft_tpu_torch.models.raft import Frontier
+    from tla_raft_tpu_torch.ops.msg_universe import get_universe
+
+    g = np.random.default_rng(seed)
+    ref = ref_from_oracle(rc, collect_reachable(rc, 300))
+    n = np.asarray(ref.role).shape[0]
+    fields = {f: np.asarray(getattr(ref, f))[g.integers(0, n, rows)]
+              for f in Frontier._fields[:-1]}
+    uni = get_universe(pc)
+    dens = g.choice([0.0, 0.002, 0.01, 0.05], rows)[:, None]
+    bits = (g.random((rows, uni.n_words * 32)) < dens).astype(np.uint8)
+    bits[:, uni.M:] = 0
+    words = (bits.reshape(rows, -1, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    st = type(ref)(msgs=jnp.asarray(words), **{f: jnp.asarray(v) for f, v in fields.items()})
+    return st, fields, bits[:, : uni.M]
+
+
+@pytest.mark.parametrize("S,muts", K1_MODEL_CASES,
+                         ids=["s3", "s5", "s7", "double-vote", "become-follower",
+                              "legacy-append"])
+def test_k1_group_model_matches_reference(S, muts):
+    """The numpy model of K1's route (``redesign_cases.k1_group_model``:
+    groups of ``k1_group_parents`` parents, the (pair, term) count tables,
+    family 7 as runs of E * L mask bits, every other slot on its family,
+    per-group sums of the multiplicities, the first abort) equals the
+    reference's ``MXUExpand.guards`` on random states at S = 3, 5 and 7
+    and under the double_vote, become_follower and legacy_append
+    mutations, with the last rows dead (past the device count)."""
+    from tla_raft_tpu.config import RaftConfig as RefConfig
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.ops.msg_universe import get_universe
+    from tla_raft_tpu_torch.ops.successor import get_layout
+    from redesign_cases import DIMS, k1_group_model, k1_group_parents
+
+    rc, pc = RefConfig(n_servers=S, mutations=muts), RaftConfig(n_servers=S, mutations=muts)
+    rows = 90
+    st, fields, bits = _random_states(rc, pc, rows, S + len(muts))
+    rv, rm, ra = (np.asarray(x) for x in get_kernel(rc, mxu=True).expand_guards(st))
+    d = dict(zip(DIMS, kernels.dims_array(pc, get_universe(pc))))
+    lay = get_layout(pc)
+    tab = lay.slot_table_np
+    live = rows - 3
+    for per_row in (False, True):
+        group = k1_group_parents(d, tab.shape[0], lay.accept_runs[1], per_row)
+        valid, mult, abort, sums, first = k1_group_model(d, fields, bits, tab, lay.accept_runs,
+                                                         group, live)
+        assert np.array_equal(valid, rv[:live]), np.argwhere(valid != rv[:live])[:5]
+        assert np.array_equal(mult, rm[:live])
+        assert np.array_equal(abort, ra[:live])
+        assert np.array_equal(sums.sum(0), rm[:live].astype(np.int64).sum(0))
+        assert first == (int(np.argmax(ra[:live])) if ra[:live].any() else -1)
+    assert rv.any() and ra[:live].any() == bool(abort.any())

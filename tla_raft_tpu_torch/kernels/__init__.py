@@ -90,7 +90,9 @@ GUARDS = Kernel(
     "guards", "csrc/guards.cu",
     "tla_raft_tpu/ops/mxu_expand.py:398 (MXUExpand.guards + _guard_features:342, "
     "dense_expand.py:184 msg_guard_parts)",
-    {"launch_guards": [VP, VP, I32, VP, I32, VP, VP, VP, VP, VP, I64, VP, VP, I64, VP]},
+    {"launch_guards": [VP, VP, I32, VP, I32, I32, I32, VP, VP, VP, VP, VP, I64, VP, VP, I64,
+                       VP],
+     "guards_group_parents": [VP, I32, I32, I32, I32]},
 )
 MATERIALIZE = Kernel(
     "materialize", "csrc/materialize.cu",
@@ -607,12 +609,21 @@ def guards(mx, st, *, valid=None, per_row=True, cnt=None, sub=0, mult_acc=None, 
         _need(abort_acc, "abort_acc", torch.int64, ())
     lib = GUARDS.lib()
     GUARDS.check(lib.launch_guards(
-        core, st.msgs.data_ptr(), B, mx.slot_table.data_ptr(), K, dims_array(cfg, uni),
+        core, st.msgs.data_ptr(), B, mx.slot_table.data_ptr(), K, *mx.layout.accept_runs,
+        dims_array(cfg, uni),
         valid.data_ptr(), _p(mult), _p(abort), _cnt(cnt), sub, _p(mult_acc), _p(abort_acc), base,
         _stream(),
     ))
     GUARDS.launches += int(B > 0)
     return valid, mult, abort
+
+
+def guards_group_parents(mx, per_row: bool = True) -> int:
+    """The parents one block of K1 takes for ``mx``'s config in the per-row
+    or the counted form (from the shared-memory budget; 16 at the
+    reference constants)."""
+    return int(GUARDS.lib().guards_group_parents(dims_array(mx.cfg, mx.uni), mx.K,
+                                                 *mx.layout.accept_runs, int(per_row)))
 
 
 def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None, sub=0,

@@ -141,6 +141,16 @@ class SlotLayout:
         )
         self.slot_coords = np.concatenate([c for _, c in self.families])
         self.K = int(self.slot_family.shape[0])
+        # (first slot, slots) of FollowerAcceptEntry: the K1 kernel takes them
+        # as runs of E * L slots of one (s, src, pli), (entry, lc) row-major
+        k7 = int(np.searchsorted(self.slot_family, 7))
+        acc = self.slot_coords[self.slot_family == 7]
+        q = np.arange(acc.shape[0]) % (E * L)
+        if not ((self.slot_family[k7:k7 + acc.shape[0]] == 7).all()
+                and (acc[:, 3] == q // L).all() and (acc[:, 4] == q % L).all()
+                and (acc[:, :3] == acc[q == 0][:, :3].repeat(E * L, axis=0)).all()):
+            raise AssertionError("FollowerAcceptEntry's slots are not runs of E * L")
+        self.accept_runs = (k7, int(acc.shape[0]))
         # [K, 6] = (family, c0..c4): the slot table the kernels read
         self.slot_table_np = np.ascontiguousarray(
             np.concatenate([self.slot_family[:, None], self.slot_coords], axis=1),
