@@ -118,7 +118,7 @@ Phases, each printed as JSON lines:
                 ``level_dedup`` and merged into the store by ``merge_sorted``;
                 K4, the fused level and the supersteps never launched;
                 ``level_dedup``'s launches equal to
-                ``kernels.level_dedup_launches`` of each call's lanes (16 a
+                ``kernels.level_dedup_launches`` of each call's lanes (14 a
                 call); its wall beside the default phase's to the same depth;
     degrade   — the default path to depth 23 with ``hashstore.grow:fail@1``:
                 golden, the depth and route at which the slab's grow failed
@@ -3313,6 +3313,127 @@ def k1k2_forms(chk, reps: int = 10) -> dict:
     return out
 
 
+def k3_compact_forms(chk, reps: int = 10, seed: int = 3) -> dict:
+    """K3 and the order-keeping compaction in the forms a fused level
+    launches them, on ``chk``'s frontier's first chunk: the compaction of
+    the chunk's K1 flags (rows * K lanes under a row count, ``mul`` = K)
+    into cap_x payload lanes (B3 ``_compact_payloads``); K3 counted over the
+    materialized candidates at cap_x lanes (dead lanes SENT); B9's
+    two-array form over those lanes' fingerprints (seeded fresh flags
+    under the live count); and the filter form (B3 ``_filter_compact``:
+    three arrays, a device lane offset, a payload offset, the overflow
+    word).  Each is held against its twin; device ms by ``graph_ms`` with
+    each form's byte bound; ``inputs`` holds the calls for callers that
+    profile them again."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import bfs
+    from tla_raft_tpu_torch.models.raft import Frontier
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    gen = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    fr, mx, fpr = chk.frontier, chk.mx, chk.fpr
+    n, K, B, G = fr.voted_for.shape[0], chk.K, chk.chunk, chk.cap_x
+    real = _frontier_rows(fr, torch.arange(min(B, n), device=dev))
+    nb = real.voted_for.shape[0]
+    valid = mx.guards(chk.inflate(real))[0].reshape(-1)
+    payload = (torch.arange(nb, device=dev)[:, None] * K
+               + torch.arange(K, device=dev)).reshape(-1)
+    rows_t = torch.tensor(nb, dtype=torch.int64, device=dev)
+    cp = torch.empty((G,), dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    tile = torch.zeros((kernels.compact_tiles(nb * K),), dtype=torch.int64, device=dev)
+
+    def chunk_flags():
+        kernels.compact(valid, None, -1, G, out_a=cp, total=total, cnt=rows_t, mul=K, tile=tile)
+
+    chunk_flags()
+    want, _lane, _o = bfs.compact_payloads_plain(valid, payload, G)
+    kept = int(valid.sum())
+    check(_equal(cp, want) and int(total) == kept, "the chunk compaction differs from its twin")
+    live = min(kept, G)
+    out = dict(parents=nb, flag_lanes=nb * K, candidates=live, cap_x=G)
+    out["compact_chunk_ms"] = graph_ms(chunk_flags, reps)
+    # the flags read once, the cap_x payload lanes written once
+    out["compact_chunk_bound_ms"] = (nb * K + G * 8) / HBM_BYTES_PER_S * 1e3
+
+    # K3 over the materialized candidates, counted at cap_x lanes
+    children = mx.materialize(real, torch.div(cp, K, rounding_mode="floor").clamp(0, nb - 1),
+                              cp % K)[0]
+    live_t = torch.tensor(live, dtype=torch.int64, device=dev)
+    fps = (torch.empty((G,), dtype=torch.int64, device=dev),
+           torch.empty((G,), dtype=torch.int64, device=dev))
+
+    def k3():
+        kernels.fingerprints(fpr, children, out=fps, cnt=live_t)
+
+    k3()
+    pv, pf = fpr.state_fingerprints_plain(Frontier(*(x[:live] for x in children)))
+    check(_equal(fps[0][:live], pv) and _equal(fps[1][:live], pf)
+          and bool((fps[0][live:] == -1).all()) and bool((fps[1][live:] == -1).all()),
+          "K3's counted launch differs from its twin")
+    out["k3_ms"] = graph_ms(k3, reps)
+    out["k3_events_ms"] = cuda_ms(k3, reps)
+    row_b = _core_bytes(fr) + fr.msg_ids.element_size() * fr.msg_ids.shape[1]
+    ids_set = int((children.msg_ids[:live] >= 0).sum())
+    # each live state's row read once, 16 B out a lane, the tables once
+    out["k3_bound_ms"] = (live * row_b + G * 16 + fpr.ktab["ct"].numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    out["k3_ids_a_state"] = ids_set / max(live, 1)
+
+    # B9: the candidates' fresh lanes (fingerprints, payloads) packed
+    fresh = torch.from_numpy(gen.random(G) < 0.4).to(dev) & (torch.arange(G, device=dev) < live)
+    nf, np_ = (torch.empty((G,), dtype=torch.int64, device=dev) for _ in range(2))
+    ftot = torch.empty((), dtype=torch.int64, device=dev)
+    ftile = torch.zeros((kernels.compact_tiles(G),), dtype=torch.int64, device=dev)
+
+    def b9():
+        kernels.compact(fresh, fps[0], -1, G, vb=cp, pad_b=-1, out_a=nf, out_b=np_,
+                        total=ftot, cnt=live_t, tile=ftile)
+
+    b9()
+    wf, wp = hs.compact_fresh_plain(fresh[:live], fps[0][:live], cp[:live], G)
+    check(_equal(nf, wf) and _equal(np_, wp), "B9's compaction differs from its twin")
+    nfresh = int(fresh.sum())
+    out["b9_ms"] = graph_ms(b9, reps)
+    # the flags read once, the kept lanes' two values read, cap_x lanes of two written
+    out["b9_bound_ms"] = (live + nfresh * 16 + G * 16) / HBM_BYTES_PER_S * 1e3
+
+    # the filter form: keep flags over the candidates, written at a device
+    # lane offset of a larger buffer, payloads offset, into half of cap_x
+    cap = G // 2
+    keep = torch.from_numpy(gen.random(G) < 0.45).to(dev)
+    bufs = tuple(torch.full((3 * cap,), 5, dtype=torch.int64, device=dev) for _ in range(3))
+    off = torch.tensor(cap, dtype=torch.int64, device=dev)
+    pay_off = torch.tensor(1 << 33, dtype=torch.int64, device=dev)
+    ovf = torch.zeros((), dtype=torch.int64, device=dev)
+    ktot = torch.empty((), dtype=torch.int64, device=dev)
+    ktile = torch.zeros((kernels.compact_tiles(G),), dtype=torch.int64, device=dev)
+
+    def filt():
+        kernels.filter_compact(keep, fps[0], fps[1], cp, cap, out=bufs, total=ktot, out_off=off,
+                               pay_off=pay_off, ovf=ovf, tile=ktile)
+
+    filt()
+    kidx = torch.nonzero(keep).reshape(-1)
+    nk = kidx.shape[0]
+    ok = int(ktot) == nk and int(ovf) == int(nk > cap)
+    for b, v, pad, add in ((bufs[0], fps[0], -1, 0), (bufs[1], fps[1], -1, 0),
+                           (bufs[2], cp, -1, 1 << 33)):
+        w = torch.full((cap,), pad, dtype=torch.int64, device=dev)
+        k = min(nk, cap)
+        w[:k] = v[kidx[:k]] + add
+        ok &= _equal(b[cap:2 * cap], w) and bool((b[:cap] == 5).all()) \
+            and bool((b[2 * cap:] == 5).all())
+    check(ok, "the filter compaction differs from its twin")
+    out["filter_ms"] = graph_ms(filt, reps)
+    out["filter_bound_ms"] = (G + min(nk, cap) * 24 + cap * 24) / HBM_BYTES_PER_S * 1e3
+    out["inputs"] = dict(chunk_flags=chunk_flags, k3=k3, b9=b9, filter=filt)
+    return out
+
+
 def phase_kernels(chk, launches: dict, seed: int):
     """Each kernel against its plain twin on real and seeded random inputs:
     (the kernels' records, the shapes)."""
@@ -3389,12 +3510,24 @@ def phase_kernels(chk, launches: dict, seed: int):
         b = hs.compact_fresh_plain(fresh, rfp, payload, n_out)
         ok &= all(_equal(x, y) for x, y in zip(a, b))
     check(ok, "compaction differs from its twin")
-    ms = cuda_ms(lambda: bfs.compact_payloads(vflat, payload, G), 10)
+    # the compaction and K3 are timed by CUDA-graph replay as K1 and K2 are
+    # (CUDA events kept as events_ms); k3_compact_forms adds the forms a
+    # fused level launches (the chunk's flags under a row count, B9's and
+    # the filter form, K3 counted over the candidates)
+    k3c = k3_compact_forms(chk)
+    k3c.pop("inputs")
+    ms = graph_ms(lambda: bfs.compact_payloads(vflat, payload, G), 10)
+    events = cuda_ms(lambda: bfs.compact_payloads(vflat, payload, G), 10)
     plain = wall_ms(lambda: bfs.compact_payloads_plain(vflat, payload, G))
     lib = cuda_ms(lambda: torch.masked_select(payload, vflat), 10)
     kept = int(vflat.sum())
     entry(kernels.COMPACT, True, ms, plain, vflat.shape[0] + kept * 8 + G * 9,
           vflat.shape[0] * 4, lib)
+    out[-1].update(events_ms=events, chunk_form_ms=k3c["compact_chunk_ms"],
+                   chunk_form_bound_ms=k3c["compact_chunk_bound_ms"],
+                   fresh_form_ms=k3c["b9_ms"], fresh_form_bound_ms=k3c["b9_bound_ms"],
+                   filter_form_ms=k3c["filter_ms"], filter_form_bound_ms=k3c["filter_bound_ms"],
+                   launches_per_call=kernels.compact_launches(vflat.shape[0]))
 
     # K2 materialize: the real chunk's compacted candidates, and random lanes
     cp, lane, _o = bfs.compact_payloads(vflat, payload, G)
@@ -3436,7 +3569,8 @@ def phase_kernels(chk, launches: dict, seed: int):
         pv, pf = fpr.state_fingerprints_plain(case)
         ok &= _equal(kv, pv) and _equal(kf, pf)
     check(ok, "K3 fingerprints differ from the twin")
-    ms = cuda_ms(lambda: fpr.state_fingerprints(children), 10)
+    ms = graph_ms(lambda: fpr.state_fingerprints(children), 10)
+    events = cuda_ms(lambda: fpr.state_fingerprints(children), 10)
     plain = wall_ms(lambda: fpr.state_fingerprints_plain(children))
     F, ncols = fpr.C_planes.shape
     n_ids = int((children.msg_ids >= 0).sum())
@@ -3448,6 +3582,9 @@ def phase_kernels(chk, launches: dict, seed: int):
     entry(kernels.FINGERPRINT, True, ms, plain,
           G * (row_b + 16) + F * ncols + fpr.G_planes.numel(),
           2 * (G * F + n_ids) * ncols, lib, ops_rate=INT8_TENSOR_OPS_PER_S)
+    out[-1].update(events_ms=events, counted_ms=k3c["k3_ms"],
+                   counted_events_ms=k3c["k3_events_ms"], counted_bound_ms=k3c["k3_bound_ms"],
+                   candidates=k3c["candidates"], ids_a_state=k3c["k3_ids_a_state"])
 
     # inflate / deflate: the whole last frontier, random id lists, and
     # random masks with rows over cap_m (deflate's overflow)
@@ -3558,7 +3695,8 @@ def phase_kernels(chk, launches: dict, seed: int):
     b9_bytes = 2 * N + kept * 16 + N * 16
     comp = next(e for e in out if e["name"] == "compact")
     comp["b9"] = dict(
-        ms=cuda_ms(lambda: hs.compact_fresh(fresh, cv, cp_, N), 10),
+        ms=graph_ms(lambda: hs.compact_fresh(fresh, cv, cp_, N), 10),
+        events_ms=cuda_ms(lambda: hs.compact_fresh(fresh, cv, cp_, N), 10),
         plain_ms=wall_ms(lambda: hs.compact_fresh_plain(fresh, cv, cp_, N)),
         bound_ms=b9_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=cuda_ms(lambda: (torch.masked_select(cv, fresh),
@@ -3598,13 +3736,15 @@ def phase_kernels(chk, launches: dict, seed: int):
     lib = cuda_ms(lambda: torch.isin(cv, slab, invert=True), 10)
     entry(kernels.HS_PROBE, True, ms, plain, N * 9 + n_words_touched * 32, N * 40, lib)
     kept = int(keep.sum())
-    ms = cuda_ms(lambda: kernels.filter_compact(keep, cv, cf, cp_, cap_g), 10)
+    ms = graph_ms(lambda: kernels.filter_compact(keep, cv, cf, cp_, cap_g), 10)
+    events = cuda_ms(lambda: kernels.filter_compact(keep, cv, cf, cp_, cap_g), 10)
     plain = wall_ms(lambda: group.filter_compact_plain(hit, cv, cf, cp_, cap_g))
     lib = cuda_ms(lambda: (torch.masked_select(cv, keep), torch.masked_select(cf, keep),
                            torch.masked_select(cp_, keep)), 10)
     entry(kernels.FILTER_COMPACT, True, ms, plain, N + min(kept, cap_g) * 24 + cap_g * 24,
           N * 4, lib)
     fc = out[-1]
+    fc["events_ms"] = events
     fc["b19"] = dict(
         ms=cuda_ms(lambda: group.group_filter_hash(cv, cf, cp_, slab, cap_g), 10),
         plain_ms=wall_ms(lambda: group.filter_compact_plain(hs.probe_plain(slab, cv), cv, cf,
@@ -3875,7 +4015,8 @@ def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
             ok &= all(_equal(x, y) for x, y in zip(fpr.state_fingerprints(case),
                                                    fpr.state_fingerprints_plain(case)))
         check(ok, f"S={S}: K3 differs from its twin")
-        ms = cuda_ms(lambda: kernels.fingerprints(fpr, children, out=outv, cnt=cnt), 10)
+        ms = graph_ms(lambda: kernels.fingerprints(fpr, children, out=outv, cnt=cnt), 10)
+        events = cuda_ms(lambda: kernels.fingerprints(fpr, children, out=outv, cnt=cnt), 10)
         plain = wall_ms(lambda: fpr.state_fingerprints_plain(lv))
         F, ncols = fpr.C_planes.shape
         f_pad = fpr.ktab["f_pad"]
@@ -3892,7 +4033,7 @@ def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
                      ms, plain, live * (row_b + 16) + tab_b, None if S == 7 else lib,
                      ops_ms=int8_ms + add_ms)
         rec.update(servers=S, lanes=live, P=fpr.P, F=F, f_pad=f_pad, set_ids=n_ids,
-                   feature_int_mm_ms=lib)
+                   feature_int_mm_ms=lib, events_ms=events)
         if fpr.factored_msgs:
             rec.update(_k3_design(fpr, lv.msg_ids))
         if S == 7:

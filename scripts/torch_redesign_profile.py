@@ -22,9 +22,23 @@ calls), and what the deep levels and the default path's wall make of it:
 * ``dedup``: ``level_dedup`` over the level-25 lanes against the store
   after level 24 (the sorted kernels phase's inputs);
 * ``k3``: K3 with its factored message part at 7 servers over one chunk of
-  candidates of a depth-9 frontier.
+  candidates of a depth-9 frontier;
+* ``k3s3``: K3 at 3 servers as a fused level launches it: counted over the
+  first 16,384-parent chunk's candidates of the depth-20 frontier at cap_x
+  lanes (``chip_smoke.k3_compact_forms``, held against its twin first);
+* ``compact``: the order-keeping compaction on that chunk: its K1 flags
+  into cap_x payload lanes (B3), B9's two-array form, the filter form and
+  ``chunk_compact`` over the chunk's fan-out lanes (their fp_view, SENT
+  where K1 finds no valid slot);
+* ``k3s5``: K3 at 5 servers (the tiled form) counted over the first
+  chunk's candidates of the depth-16 frontier, as ``k3s3``;
+* ``k3phases``: where that K3 launch spends its time, by ablation: the
+  tree's ``csrc/fingerprint.cu`` rebuilt with the feature staging, the
+  feature table's column staging, the message part or the MMAs and
+  epilogue left out, or all four, each timed on the same launch (outputs
+  then wrong; only the full build is the kernel).
 
-    python scripts/torch_redesign_profile.py [--tree DIR] [--parts k1k2,levels,wall]
+    python scripts/torch_redesign_profile.py [--tree DIR] [--parts levels,k3s3,compact]
                                              [--reps N]
 
 ``--tree`` runs the ``tla_raft_tpu_torch`` package of another checkout (a
@@ -42,36 +56,79 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("k1k2", "k1phases", "levels", "wall", "dedup", "k3")
+PARTS = ("k1k2", "k1phases", "levels", "wall", "dedup", "k3", "k3s3", "compact", "k3phases",
+         "k3s5")
 # K1's phase loops (csrc/guards.cu), by the header each ablation empties
-K1_LOOPS = dict(
-    off_family_7="for (int i = t; i < np * n_other; i += TPB) {",
-    family_7_runs="for (int i = t; i < np * n_runs; i += TPB) {",
-    count_tables="for (int i = t; i < np * g.npt; i += TPB) {",
+K1_LOOPS = {
+    name: [(h, h.replace("i < np *", "i < 0 *"))]
+    for name, h in dict(
+        off_family_7="for (int i = t; i < np * n_other; i += TPB) {",
+        family_7_runs="for (int i = t; i < np * n_runs; i += TPB) {",
+        count_tables="for (int i = t; i < np * g.npt; i += TPB) {",
+    ).items()
+}
+# K3's phases at S=3 (csrc/fingerprint.cu), each emptied the same way: a
+# phase's loop headers in the tiled form of the earlier design, or in the
+# S <= 3 form (every one that is in the source).  The S <= 3 form's
+# feature_staging empties the features' build from the staged fields; the
+# fields' and id lists' copy stays (the message part reads the ids there)
+K3_LOOPS = dict(
+    feature_staging=[
+        ("for (int i = threadIdx.x; i < TB_STATES * f_pad; i += NT) {",
+         "for (int i = threadIdx.x; i < 0 * f_pad; i += NT) {"),
+        ("for (int i = t; i < TB_STATES * n_cw; i += NT) {",
+         "for (int i = t; i < 0 * n_cw; i += NT) {"),
+    ],
+    column_staging=[
+        ("for (int i = threadIdx.x; i < ncol * vec_per_row; i += NT) {",
+         "for (int i = threadIdx.x; i < 0 * vec_per_row; i += NT) {"),
+        ("for (int i = t; i < ncols * vec; i += S3_THREADS) {",
+         "for (int i = t; i < 0 * vec; i += S3_THREADS) {"),
+    ],
+    message_part=[
+        ("for (int r = 0; r < 16; ++r) {", "for (int r = 0; r < 0; ++r) {"),
+        ("for (int it = t; it < TB_STATES * nperm; it += S3_THREADS) {",
+         "for (int it = t; it < 0 * nperm; it += S3_THREADS) {"),
+    ],
+    mma_epilogue=[
+        ("for (int pl = 0; pl < TB_PERMS; ++pl) {", "for (int pl = 0; pl < 0; ++pl) {"),
+        ("for (int p = pset; p < nperm; p += S3_PSETS) {",
+         "for (int p = pset; p < 0; p += S3_PSETS) {"),
+    ],
 )
 
 
-def _k1_ablations(kernels, out_dir: Path) -> dict:
-    """{variant: ctypes library} of csrc/guards.cu with each of K1_LOOPS
-    emptied, and all of them ("staging_and_write_out"), built by nvcc in
-    parallel into ``out_dir``.  Raises when the source lacks one of the
-    loops (another tree's design)."""
+def _ablations(kernels, kern, loops: dict, out_dir: Path, every: str) -> dict:
+    """{variant: ctypes library} of ``kern``'s source with each phase of
+    ``loops`` emptied (its first header that is in the source), and all of
+    them (``every``), built by nvcc in parallel into ``out_dir``.  Raises
+    when the source has none of a phase's headers (another design)."""
     import ctypes
 
-    src = (kernels.CSRC / "guards.cu").read_text()
-    missing = [k for k, h in K1_LOOPS.items() if h not in src]
-    if missing:
-        raise RuntimeError(f"{kernels.CSRC / 'guards.cu'} has no loop for {missing}: "
-                           "k1phases ablates the grouped design's loops only")
-    cut = {k: src.replace(h, h.replace("i < np *", "i < 0 *")) for k, h in K1_LOOPS.items()}
-    every = src
-    for h in K1_LOOPS.values():
-        every = every.replace(h, h.replace("i < np *", "i < 0 *"))
-    cut["staging_and_write_out"] = every
+    path = kernels.CSRC / Path(kern.source).name
+    src = path.read_text()
+    cuts = {}
+    for name, alts in loops.items():
+        hit = [(h, r) for h, r in alts if h in src]
+        if not hit:
+            raise RuntimeError(f"{path} has no loop for {name}: this ablation knows "
+                               f"{[h for h, _r in alts]}")
+        cuts[name] = hit
+    cut = {}
+    for name, hit in cuts.items():
+        text = src
+        for h, r in hit:
+            text = text.replace(h, r)
+        cut[name] = text
+    text = src
+    for hit in cuts.values():
+        for h, r in hit:
+            text = text.replace(h, r)
+    cut[every] = text
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in cut.items():
-        (out_dir / f"{name}.cu").write_text(text)
+    for name, body in cut.items():
+        (out_dir / f"{name}.cu").write_text(body)
         procs[name] = subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
              str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")],
@@ -79,15 +136,67 @@ def _k1_ablations(kernels, out_dir: Path) -> dict:
     libs = {}
     for name, proc in procs.items():
         if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on the {name} ablation of guards.cu")
+            raise RuntimeError(f"nvcc failed on the {name} ablation of {path.name}")
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        for fn, args in kernels.GUARDS.entries.items():
+        for fn, args in kern.entries.items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
+        lib.lib_warm.restype = ctypes.c_int
+        if lib.lib_warm() != 0:
+            raise RuntimeError(f"the {name} ablation of {path.name} failed to load")
         libs[name] = lib
     return libs
+
+
+def _variant_ms(cs, kern, libs: dict, call) -> dict:
+    """graph_ms of ``call`` with ``kern`` bound to each library in turn
+    (the package's own first, as ``full``)."""
+    full = kern.lib()
+    ms = {}
+    try:
+        for name, lib in [("full", full), *libs.items()]:
+            kern._lib = lib
+            ms[name] = cs.graph_ms(call, 10)
+    finally:
+        kern._lib = full
+    return ms
+
+
+def _fan_out_compact(cs, chk, kernels, bfs) -> dict:
+    """B3 ``_chunk_compact`` (canon="expand") at the fused level's shape:
+    the first chunk's fan-out lanes with a fingerprint where K1 finds the
+    slot valid (seeded values), SENT elsewhere, packed into cap_x under a
+    row count; held against the twin; graph-replay ms and its byte bound
+    (8 B of fp_view a lane read, the kept lanes' fp_full read, cap_x lanes
+    of three written)."""
+    import numpy as np
+    import torch
+
+    fr, K, B, G = chk.frontier, chk.K, chk.chunk, chk.cap_x
+    real = cs._frontier_rows(fr, torch.arange(min(B, fr.voted_for.shape[0]), device="cuda"))
+    nb = real.voted_for.shape[0]
+    valid = chk.mx.guards(chk.inflate(real))[0].reshape(-1)
+    g = np.random.default_rng(4)
+    vals = torch.from_numpy(g.integers(0, (1 << 63) - 1, valid.shape[0], dtype=np.int64)).cuda()
+    fpv = torch.where(valid, vals, torch.full_like(vals, -1))
+    out = tuple(torch.empty((G,), dtype=torch.int64, device="cuda") for _ in range(3))
+    total = torch.empty((), dtype=torch.int64, device="cuda")
+    rows = torch.tensor(nb, dtype=torch.int64, device="cuda")
+    tile = torch.zeros((kernels.compact_tiles(fpv.shape[0]),), dtype=torch.int64, device="cuda")
+
+    def call():
+        kernels.chunk_compact(fpv, fpv, G, out=out, total=total, cnt=rows, mul=K, tile=tile)
+
+    call()
+    want = bfs.chunk_compact_plain(fpv, fpv, G)
+    kept = int(valid.sum())
+    cs.check(all(cs._equal(a, b) for a, b in zip(out, want[:3])) and int(total) == kept,
+             "chunk_compact differs from its twin")
+    bound = (fpv.shape[0] * 8 + min(kept, G) * 8 + G * 24) / cs.HBM_BYTES_PER_S * 1e3
+    return dict(call=call, times=dict(fan_out_ms=cs.graph_ms(call, 10),
+                                      fan_out_bound_ms=bound, fan_out_lanes=fpv.shape[0]))
 
 
 def _by_kernel(prof, reps: int) -> dict:
@@ -151,24 +260,41 @@ def main() -> int:
     def release():
         cs._release_cache()
 
-    if "k1k2" in parts or "k1phases" in parts or "levels" in parts:
+    if any(p in parts for p in ("k1k2", "k1phases", "levels", "k3s3", "compact", "k3phases")):
         chk, _res, _lv, _s = cs._run_reference(cs.DEPTH, cs.CHUNK, megakernel=False)
+        if any(p in parts for p in ("k3s3", "compact", "k3phases")):
+            f = cs.k3_compact_forms(chk)
+            calls = f.pop("inputs")
+            if "k3s3" in parts:
+                f3 = {k: v for k, v in f.items() if not k.startswith(("compact", "b9", "filter"))}
+                print(json.dumps(dict(part="k3s3", **head, **f3,
+                                      by_kernel=run(calls["k3"]))), flush=True)
+            if "compact" in parts:
+                fc = {k: v for k, v in f.items() if not k.startswith("k3")}
+                fan = _fan_out_compact(cs, chk, kernels, bfs)
+                fc.update(fan.pop("times"))
+                calls["fan_out"] = fan.pop("call")
+                fc["by_kernel"] = {k: run(calls[k]) for k in ("chunk_flags", "b9", "filter",
+                                                              "fan_out")}
+                print(json.dumps(dict(part="compact", **head, **fc)), flush=True)
+            if "k3phases" in parts:
+                libs = _ablations(kernels, kernels.FINGERPRINT, K3_LOOPS,
+                                  tree / "build" / "k3phases", "launch_and_stores")
+                ms = _variant_ms(cs, kernels.FINGERPRINT, libs, calls["k3"])
+                print(json.dumps(dict(part="k3phases", **head, lanes=f["cap_x"],
+                                      live=f["candidates"], ms_by_variant=ms)), flush=True)
+            calls = None
         if "k1phases" in parts:
-            libs = _k1_ablations(kernels, tree / "build" / "k1phases")
+            libs = _ablations(kernels, kernels.GUARDS, K1_LOOPS, tree / "build" / "k1phases",
+                              "staging_and_write_out")
             real = cs._frontier_rows(chk.frontier, torch.arange(cs.CHUNK, device="cuda"))
             st, K = chk.inflate(real), chk.K
             valid = torch.zeros((cs.CHUNK, K), dtype=torch.bool, device="cuda")
             acc = torch.zeros((K,), dtype=torch.int64, device="cuda")
             first = torch.full((), 1 << 62, dtype=torch.int64, device="cuda")
             cnt = torch.tensor(cs.CHUNK, dtype=torch.int64, device="cuda")
-            full = kernels.GUARDS.lib()
-            ms = {}
-            for name, lib in [("full", full), *libs.items()]:
-                kernels.GUARDS._lib = lib
-                ms[name] = cs.graph_ms(lambda: kernels.guards(
-                    chk.mx, st, valid=valid, per_row=False, cnt=cnt, mult_acc=acc,
-                    abort_acc=first), 10)
-            kernels.GUARDS._lib = full
+            ms = _variant_ms(cs, kernels.GUARDS, libs, lambda: kernels.guards(
+                chk.mx, st, valid=valid, per_row=False, cnt=cnt, mult_acc=acc, abort_acc=first))
             print(json.dumps(dict(part="k1phases", **head, parents=cs.CHUNK,
                                   counted_ms_by_variant=ms)), flush=True)
             st = valid = None
@@ -236,6 +362,17 @@ def main() -> int:
                               live_lanes=int((cv != -1).sum()), store_slots=store.shape[0],
                               reps=reps, **rec)), flush=True)
         cv = cf = cp = store = None
+        release()
+
+    if "k3s5" in parts:
+        chk = TorchChecker(RaftConfig(n_servers=5), device="cuda")
+        chk.run(max_depth=16)
+        f = cs.k3_compact_forms(chk)
+        calls = f.pop("inputs")
+        f3 = {k: v for k, v in f.items() if not k.startswith(("compact", "b9", "filter"))}
+        print(json.dumps(dict(part="k3s5", **head, servers=5, **f3,
+                              by_kernel=run(calls["k3"]))), flush=True)
+        chk = calls = None
         release()
 
     if "k3" in parts:

@@ -7,7 +7,10 @@ import them on a machine without JAX).
 for K3's factored message part (``msg_hash_factored`` / ``orbit_fold``);
 ``K2_MERGE_CASES`` / ``k2_merge_case`` and ``ids_merge_by_rank``: K2's id
 lists (csrc/materialize.cu); ``k1_group_parents`` and ``k1_group_model``:
-K1's groups, count tables and family-7 runs (csrc/guards.cu).
+K1's groups, count tables and family-7 runs (csrc/guards.cu);
+``compact_model``: the one-pass compaction (csrc/compact.cuh);
+``k3s3_id_lists`` and ``k3s3_model``: K3's S <= 3 form (csrc/fingerprint.cu
+``fingerprint_s3``).
 """
 
 import numpy as np
@@ -412,3 +415,268 @@ def k1_group_model(d: dict, f: dict, bits: np.ndarray, slot_table: np.ndarray,
     firsts = [g * np_ + int(np.argmax(abort[g * np_:(g + 1) * np_])) for g in range(groups)
               if abort[g * np_:(g + 1) * np_].any()]
     return valid, mult.astype(np.int32), abort, sums, min(firsts, default=-1)
+
+
+# -- the one-pass compaction (csrc/compact.cuh) -------------------------------------
+
+CP_THREADS, CP_ITEMS = 256, 32
+CP_LARGE = 1 << 22  # from here a thread takes 64 lanes
+CP_COUNT_BITS = 36
+CP_EPOCHS = 1 << 26
+CP_AGG, CP_INC = 1, 2
+
+
+def cp_word(epoch: int, flag: int, count: int) -> int:
+    """A status word: epoch << 38 | flag << 36 | count."""
+    return (epoch << (CP_COUNT_BITS + 2)) | (flag << CP_COUNT_BITS) | count
+
+
+def cp_scratch_words(n: int, threads: int = CP_THREADS) -> int:
+    """``compact_scratch_words``: the ticket, the epoch and a status word
+    each ``threads * CP_ITEMS`` lanes (the smaller tile), so the count grows
+    with ``n`` and covers the larger tiles' fewer words too."""
+    return 2 + -(-n // (threads * CP_ITEMS))
+
+
+def cp_stale_scratch(n_tiles: int, epoch: int, seed: int) -> np.ndarray:
+    """The scratch an earlier call left: the ticket 0, ``epoch``, and status
+    words of earlier epochs (aggregates and inclusive prefixes with random
+    counts, and zeros)."""
+    g = np.random.default_rng(seed)
+    words = []
+    for _ in range(n_tiles):
+        e = int((epoch - g.integers(1, 4)) % CP_EPOCHS)
+        words.append(0 if g.random() < 0.2 else
+                     cp_word(e, int(g.integers(1, 3)), int(g.integers(0, 1 << 20))))
+    return np.asarray([0, epoch] + words, np.uint64)
+
+
+def compact_model(flags, vals, pads, cap: int, *, outs=None, out_off: int = 0, add: int = 0,
+                  iota_base: int = 0, live=None, scratch=None, ovf: int = 0,
+                  threads: int = CP_THREADS, items=None, seed: int = 0):
+    """numpy model of one compaction call (compact_pass, then compact_pad):
+    ``flags`` bool [n] (only the first ``live`` count), ``vals`` the value
+    arrays (None: ``iota_base`` + lane), their ``outs`` (i64 arrays written
+    from ``out_off``; cap long when not given) and ``pads``; ``add`` goes on
+    the third array's kept values.  Tiles of ``threads * items`` lanes
+    (``items`` 32, or 64 from ``CP_LARGE`` lanes, as the kernel picks) are
+    taken by ticket and then run in a seeded random interleaving: a tile
+    publishes its count, looks back over the status words of the tiles
+    before it 32 at a time (spinning on a window while a word there is not
+    of this call's epoch), publishes its inclusive prefix and writes its
+    kept values; ranks in a tile come from each thread's ``items``-lane
+    mask and the warps' ballots.  Returns dict(outs, lane, total, ovf, scratch)."""
+    g = np.random.default_rng(seed)
+    flags = np.asarray(flags, bool)
+    n = flags.shape[0]
+    nl = n if live is None else max(0, min(n, int(live)))
+    if items is None:
+        items = 64 if n >= CP_LARGE else CP_ITEMS
+    tile = threads * items
+    nt = -(-n // tile)
+    if scratch is None:
+        scratch = np.zeros(cp_scratch_words(n, threads), np.uint64)
+    if scratch.shape[0] < 2 + nt:  # the kernel would write past the scratch
+        raise ValueError(f"a scratch of {scratch.shape[0]} words for {2 + nt}")
+    scratch = scratch.copy()
+    if outs is None:
+        outs = [np.full(cap, 7, np.int64) for _ in vals]
+    outs = [o.copy() for o in outs]
+    epoch = int(scratch[1])
+    status = scratch[2:]
+    count_mask = (1 << CP_COUNT_BITS) - 1
+
+    def word_fields(w: int):
+        w = int(w)
+        return w >> (CP_COUNT_BITS + 2), (w >> CP_COUNT_BITS) & 3, w & count_mask
+
+    live_tiles = -(-nl // tile)
+    order = {}  # a tile's kept lanes (tile offsets) at their ranks
+    tile_n = {}
+    for j in range(live_tiles):
+        base = j * tile
+        f = np.zeros(tile, bool)
+        hi = min(nl, base + tile)
+        f[: hi - base] = flags[base:hi]
+        m = f.reshape(threads, items)  # a thread's lanes
+        c = m.sum(1)
+        ws = min(32, threads)  # a warp's threads (fewer in a narrowed model)
+        ex = np.zeros(threads, np.int64)
+        wsum = np.zeros(threads // ws, np.int64)
+        for b in range(6):  # the warps' ballots of the counts' bits (c <= 32)
+            bits = ((c >> b) & 1).reshape(-1, ws)
+            ex += ((np.cumsum(bits, 1) - bits) << b).reshape(-1)
+            wsum += bits.sum(1) << b
+        before = np.repeat(np.cumsum(wsum) - wsum, ws)
+        pos = np.full(tile, -1, np.int64)
+        for t in range(threads):
+            r = before[t] + ex[t]
+            for k in np.flatnonzero(m[t]):
+                pos[r] = t * items + k
+                r += 1
+        tile_n[j] = int(wsum.sum())
+        order[j] = pos[: tile_n[j]]
+
+    phase = {j: 0 for j in range(live_tiles)}
+    look = {j: j - 1 for j in range(live_tiles)}
+    excl = {j: 0 for j in range(live_tiles)}
+    while any(p < 2 for p in phase.values()):
+        j = int(g.choice([k for k, p in phase.items() if p < 2]))
+        if phase[j] == 0:
+            status[j] = cp_word(epoch, CP_INC if j == 0 else CP_AGG, tile_n[j])
+            phase[j] = 2 if j == 0 else 1
+            continue
+        idx = look[j] - np.arange(32)
+        words = [cp_word(epoch, CP_INC, 0) if i < 0 else int(status[i]) for i in idx]
+        fl = [f if e == epoch else 0 for e, f, _c in map(word_fields, words)]
+        if not all(fl):
+            continue  # spin: a word of this window is not published in this call
+        inc = [k for k, f in enumerate(fl) if f == CP_INC]
+        stop = inc[0] if inc else 31
+        excl[j] += sum(word_fields(w)[2] for w in words[: stop + 1])
+        if inc:
+            status[j] = cp_word(epoch, CP_INC, excl[j] + tile_n[j])
+            phase[j] = 2
+        else:
+            look[j] -= 32
+    for j in g.permutation(live_tiles):
+        n_out = min(tile_n[j], cap - excl[j])
+        for q in range(max(n_out, 0)):
+            i = j * tile + int(order[j][q])
+            o = out_off + excl[j] + q
+            for a, (v, out) in enumerate(zip(vals, outs)):
+                x = iota_base + i if v is None else int(v[i])
+                out[o] = x + (add if a == 2 else 0)
+    total = word_fields(status[live_tiles - 1])[2] if live_tiles else 0
+    lane = np.arange(cap) < total
+    for out, pad in zip(outs, pads):
+        out[out_off + total: out_off + cap] = pad
+    if total > cap:
+        ovf = 1
+    scratch[0] = 0
+    scratch[1] = (epoch + 1) % CP_EPOCHS
+    return dict(outs=outs, lane=lane, total=total, ovf=ovf, scratch=scratch)
+
+
+# -- K3 at S <= 3 (csrc/fingerprint.cu fingerprint_s3) ------------------------------
+
+# the core fields in the kernels' order (csrc/common.cuh ``Field``)
+CORE_FIELDS = ("voted_for", "current_term", "role", "log_term", "log_val", "log_len",
+               "match_index", "next_index", "commit_index", "election_count", "restart_count",
+               "pending", "val_sent")
+VF, CT, ROLE, LT, LV, LL, MI, NI, CI, EC, RC, PEND, VS = range(13)
+K3S3_KINDS = ("no_ids", "full", "random", "high_ids", "one_id")
+S3_STATES, S3_PSETS, S3_IDS = 64, 3, 8
+
+
+def feature_codes(S: int, L: int, F: int) -> list:
+    """Where each feature lives (csrc/fingerprint.cu ``feature_code``):
+    (field, byte of the state's row, votedFor one-hot value + 1 or 0)."""
+    out = []
+    for e in range(F):
+        j, cmp = e, 0
+        for f, w in ((CT, S), (ROLE, S), (LT, S * L), (LV, S * L), (LL, S), (MI, S * S),
+                     (NI, S * S), (CI, S)):
+            if j < w:
+                break
+            j -= w
+        else:
+            if j < S * (S + 1):
+                f, cmp, j = VF, j % (S + 1) + 1, j // (S + 1)
+            elif (j := j - S * (S + 1)) < 2:
+                f, j = (RC if j else EC), 0
+            elif (j := j - 2) < S * S:
+                f = PEND
+            else:
+                f, j = VS, j - S * S
+        out.append((f, j, cmp))
+    return out
+
+
+def k3s3_id_lists(M: int, rows: int, cap_m: int, seed: int) -> np.ndarray:
+    """Ascending -1-padded id lists i64 [rows, cap_m] cycling through
+    ``K3S3_KINDS``: no ids; cap_m ids (a full list); a random count; the
+    highest ids of the universe; a single id."""
+    g = np.random.default_rng(seed)
+    out = np.full((rows, cap_m), -1, np.int64)
+    for i in range(rows):
+        kind = K3S3_KINDS[i % len(K3S3_KINDS)]
+        if kind == "no_ids":
+            ids = np.zeros(0, np.int64)
+        elif kind == "full":
+            ids = g.choice(M, min(cap_m, M), replace=False)
+        elif kind == "high_ids":
+            ids = np.arange(M - min(cap_m, M), M)
+        elif kind == "one_id":
+            ids = g.integers(0, M, 1)
+        else:
+            ids = g.choice(M, int(g.integers(1, min(cap_m, M) + 1)), replace=False)
+        ids = np.sort(np.asarray(ids, np.int64))
+        out[i, : ids.shape[0]] = ids
+    return out
+
+
+def k3s3_model(fields: dict, ids: np.ndarray, ct: np.ndarray, eff: np.ndarray, S: int, L: int,
+               F: int, live: int, id_bytes: int = 2, idx=None, out=None):
+    """numpy model of fingerprint_s3 over the rows of ``fields`` (the
+    Frontier's core fields, uint8 arrays) and ``ids`` (-1-padded ascending
+    lists): groups of 64 states (launch row r is state r, or ``idx[r]``);
+    each group's fields staged field-major and its id lists as ``id_bytes``
+    wide words; each feature read through its code from the staged rows;
+    the planes of the feature table's used columns (``ct`` i8 [16 P, f_pad])
+    combined into u32 a (permutation, channel); the message part of each
+    (state, permutation), its four channels summed from ``eff`` u32 [M, P,
+    4] an id at a time in runs of 8 that stop after the first -1; each of
+    the three permutation sets' minima of the two 64-bit pairs, then their
+    minimum.  Rows from ``live`` are SENT outside the indexed mode; in it
+    only the outputs at ``idx[r]``, r < live, are written (``out``: the
+    outputs before the call).  Returns (fp_view u64, fp_full u64)."""
+    sent = np.uint64(0xFFFFFFFFFFFFFFFF)
+    n = ids.shape[0] if idx is None else len(idx)
+    P = eff.shape[1]
+    f_pad = ct.shape[1]
+    codes = feature_codes(S, L, F)
+    fsz = [int(np.prod(fields[f].shape[1:], dtype=np.int64)) for f in CORE_FIELDS]
+    if out is None:
+        out = (np.full(ids.shape[0], sent), np.full(ids.shape[0], sent))
+    fv, ff = (x.copy() for x in out)
+    itype = np.int16 if id_bytes == 2 else np.int32
+    m32 = np.int64(0xFFFFFFFF)
+    for base in range(0, n, S3_STATES):
+        rows = np.arange(base, min(base + S3_STATES, n))
+        if idx is None:
+            fv[rows[rows >= live]] = sent
+            ff[rows[rows >= live]] = sent
+        rows = rows[rows < live]
+        if not rows.shape[0]:
+            continue
+        states = rows if idx is None else np.asarray(idx)[rows]
+        raw = [np.ascontiguousarray(fields[f][states]).reshape(len(states), -1).view(np.uint8)
+               for f in CORE_FIELDS]
+        assert [r.shape[1] for r in raw] == fsz
+        staged_ids = np.ascontiguousarray(ids[states].astype(itype)).view(np.uint8)
+        sid = staged_ids.view(itype).astype(np.int64)
+        A = np.zeros((len(states), f_pad), np.int64)
+        for e, (f, j, cmp) in enumerate(codes):
+            v = raw[f][:, j].astype(np.int64)
+            A[:, e] = (v == cmp - 1) if cmp else v.astype(np.uint8).view(np.int8)
+        planes = (A @ ct.astype(np.int64).T).reshape(len(states), P, 4, 4)
+        h = (planes * (np.int64(1) << (8 * np.arange(4, dtype=np.int64)))).sum(-1) & m32
+        msum = np.zeros((len(states), P, 4), np.int64)
+        for r in range(len(states)):
+            for j0 in range(0, sid.shape[1], S3_IDS):
+                run = sid[r, j0:j0 + S3_IDS]
+                for i in run[run >= 0]:
+                    msum[r] = (msum[r] + eff[i].astype(np.int64)) & m32
+                if run.shape[0] < S3_IDS or run[-1] < 0:
+                    break
+        h = ((h + msum) & m32).astype(np.uint64)
+        view = (h[..., 0] << np.uint64(32)) | h[..., 1]
+        full = (h[..., 2] << np.uint64(32)) | h[..., 3]
+        sets_v = [view[:, k::S3_PSETS].min(1) if k < P else np.full(len(states), sent)
+                  for k in range(S3_PSETS)]
+        sets_f = [full[:, k::S3_PSETS].min(1) if k < P else np.full(len(states), sent)
+                  for k in range(S3_PSETS)]
+        fv[states] = np.minimum.reduce(sets_v)
+        ff[states] = np.minimum.reduce(sets_f)
+    return fv, ff

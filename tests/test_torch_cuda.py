@@ -1188,19 +1188,28 @@ def test_deep_repack_kernel_equals_twin(run):
         kernels.deep_repack(sources, [(0, half, 5)])
 
 
-@pytest.mark.parametrize("case", ["fits", "overflow", "holes"])
+@pytest.mark.parametrize("case", ["fits", "overflow", "holes", "large"])
 def test_sieve_merge_kernel_equals_twin(run, case):
+    """``large``: scap 2^20 and 3.5 M candidate lanes (half a million of
+    them live, spread among holes), so the first compaction (the
+    candidates' live lanes, 8,192-lane tiles) takes more status words than
+    the S + n merge's 16,384-lane tiles on the same scratch."""
     from tla_raft_tpu_torch.parallel.sharded import sieve_merge_plain
 
     g = np.random.default_rng(len(case))
-    scap = 1 << 14
+    scap = 1 << (20 if case == "large" else 14)
     sieve = torch.full((scap,), -1, dtype=torch.int64)
-    live = _sorted_u64(g, 9000 if case != "overflow" else scap - 100)
+    n_live = {"overflow": scap - 100, "large": 600_000}.get(case, 9000)
+    live = _sorted_u64(g, n_live)
     sieve[:live.shape[0]] = live[torch.argsort(live ^ (-(1 << 63)))]
-    cv = torch.cat([live[::3], _sorted_u64(g, 5000)])
+    cv = torch.cat([live[::3], _sorted_u64(g, 300_000 if case == "large" else 5000)])
     cv = cv[torch.argsort(cv ^ (-(1 << 63)))]
     if case == "holes":
         cv[torch.from_numpy(g.random(cv.shape[0]) < 0.4)] = -1
+    if case == "large":
+        spread = torch.full((3_500_000,), -1, dtype=torch.int64)
+        spread[torch.from_numpy(np.sort(g.choice(3_500_000, cv.shape[0], replace=False)))] = cv
+        cv = spread
     cv = torch.cat([cv, torch.full((77,), -1, dtype=torch.int64)])
     a = kernels.sieve_merge(sieve.cuda(), cv.cuda())
     b = sieve_merge_plain(sieve, cv)
@@ -1449,3 +1458,222 @@ def test_materialize_edges_equal_twin(run, scale, S):
             assert int(ovf_any) == int(want[2][:live].any())
             overflowed |= bool(want[2].any())
     assert overflowed  # the full lists overflowed somewhere
+
+
+# -- K3's S <= 3 form and the one-pass compaction (slice 14) -------------------------
+
+
+@pytest.fixture(scope="module")
+def small():
+    """Default-path runs on the card at 2 and 4 servers (short depths):
+    their frontiers' rows are K3's inputs at S = 2 and 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    out = {}
+    for S, args, depth in ((2, dict(n_vals=1, max_election=1, max_restart=1), 8),
+                           (4, {}, 7)):
+        chk = TorchChecker(RaftConfig(n_servers=S, **args), device="cuda")
+        chk.run(max_depth=depth)
+        out[S] = chk
+    return out
+
+
+def _k3_case(chk, n, seed):
+    """``n`` rows of ``chk``'s frontier with edge id lists
+    (``redesign_cases.k3s3_id_lists``: none, cap_m of them, random, the
+    universe's highest ids, one) in the frontier's id width."""
+    from redesign_cases import k3s3_id_lists
+
+    fr = _rows(chk.frontier, n, seed)
+    ids = k3s3_id_lists(chk.uni.M, n, fr.msg_ids.shape[1], seed)
+    return fr._replace(msg_ids=torch.from_numpy(ids).to(fr.msg_ids.dtype).cuda())
+
+
+@pytest.mark.parametrize("S", [2, 3, 4, 5])
+@pytest.mark.parametrize("mode", ["full", "counted", "indexed"])
+def test_k3_written_once_equals_twin(run, scale, small, S, mode):
+    """K3 at S = 2 and 3 (``fingerprint_s3``: a persistent grid of 64-state
+    groups, staged fields and id lists, a thread a (state, permutation) on
+    the message part, each state written once) and at S = 4 and 5 (the
+    tiled form: outputs set to SENT, minima folded by atomicMin) against the twin on the
+    frontier's rows with edge id lists: every row; under a device count
+    (the rows past it, whole 64-state groups among them, SENT over a buffer
+    that held other values); and at S = 3 in the indexed mode (only the
+    outputs at the index rows below the count change; the overflow word)."""
+    chk = {2: small[2], 3: run, 4: small[4], 5: scale[5]}[S]
+    if mode == "indexed" and S != 3:
+        pytest.skip("the indexed mode's S <= 3 form is held at S = 3")
+    n = 1000
+    fr = _k3_case(chk, n, S)
+    want = chk.fpr.state_fingerprints_plain(fr)
+    before = kernels.launch_counts()
+    if mode == "full":
+        got = kernels.fingerprints(chk.fpr, fr)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    elif mode == "counted":
+        live = n // 3  # 667 of 1,000 rows dead: groups 6-15 wholly past live
+        out = (torch.full((n,), 7, dtype=torch.int64, device="cuda"),
+               torch.full((n,), 9, dtype=torch.int64, device="cuda"))
+        kernels.fingerprints(chk.fpr, fr, out=out, cnt=torch.tensor(live + 4, device="cuda"),
+                             sub=4)
+        assert torch.equal(out[0][:live], want[0][:live])
+        assert torch.equal(out[1][:live], want[1][:live])
+        assert bool((out[0][live:] == -1).all()) and bool((out[1][live:] == -1).all())
+    else:
+        g = np.random.default_rng(8)
+        idx = torch.from_numpy(g.permutation(n)[: n // 2].copy()).cuda()
+        for count, cap in ((idx.shape[0] - 3, idx.shape[0]), (idx.shape[0], idx.shape[0] // 3)):
+            out = (torch.full((n,), 7, dtype=torch.int64, device="cuda"),
+                   torch.full((n,), 9, dtype=torch.int64, device="cuda"))
+            ovf = torch.zeros((), dtype=torch.int64, device="cuda")
+            kernels.fingerprints(chk.fpr, fr, out=out, idx=idx[:cap].contiguous(),
+                                 cnt=torch.tensor(count, device="cuda"), ovf=ovf)
+            mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+            mask[idx[: min(count, cap)]] = True
+            for o, w, fill in ((out[0], want[0], 7), (out[1], want[1], 9)):
+                assert torch.equal(o[mask], w[mask]) and bool((o[~mask] == fill).all())
+            assert int(ovf) == int(count > cap)
+    after = kernels.launch_counts()
+    name = "orbit_fold" if mode == "indexed" else "fingerprint"
+    assert after[name] - before[name] == (2 if mode == "indexed" else 1)
+
+
+def test_compaction_under_graph_replay_equals_twin(run):
+    """The one-pass compaction captured in a CUDA graph (its scratch's
+    ticket and status words carried from replay to replay, never reset by
+    the host) and replayed with three different live counts: the B3 chunk
+    form (rows * K flag lanes under a row count), B9's two-array form and
+    the filter form (device lane and payload offsets, the overflow word),
+    each equal to its twin after every replay."""
+    g = np.random.default_rng(14)
+    K, rows, cap = 97, 3000, 40_000
+    n = rows * K
+    flags = torch.from_numpy(g.random(n) < 0.12).cuda()
+    pay = torch.arange(n, dtype=torch.int64, device="cuda")
+    fps = torch.from_numpy(g.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)).cuda()
+    cnt = torch.zeros((), dtype=torch.int64, device="cuda")
+    outs = [torch.empty((cap,), dtype=torch.int64, device="cuda") for _ in range(3)]
+    bufs = [torch.full((3 * cap,), 5, dtype=torch.int64, device="cuda") for _ in range(3)]
+    totals = [torch.empty((), dtype=torch.int64, device="cuda") for _ in range(3)]
+    off = torch.tensor(cap, dtype=torch.int64, device="cuda")
+    pay_off = torch.tensor(1 << 33, dtype=torch.int64, device="cuda")
+    ovf = torch.zeros((), dtype=torch.int64, device="cuda")
+    tiles = [torch.zeros((kernels.compact_tiles(n),), dtype=torch.int64, device="cuda")
+             for _ in range(3)]
+    keep = flags.clone()
+
+    def calls():
+        kernels.compact(flags, None, -1, cap, out_a=outs[0], total=totals[0], cnt=cnt, mul=K,
+                        tile=tiles[0])
+        kernels.compact(flags, fps, -1, cap, vb=pay, pad_b=-1, out_a=outs[1], out_b=outs[2],
+                        total=totals[1], cnt=cnt, mul=K, tile=tiles[1])
+        kernels.filter_compact(keep, fps, fps, pay, cap, out=bufs, total=totals[2],
+                               out_off=off, pay_off=pay_off, ovf=ovf, tile=tiles[2])
+
+    cnt.fill_(rows)
+    calls()  # warm, outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        calls()
+    for live_rows in (rows, 1234, 2999):
+        cnt.fill_(live_rows)
+        ovf.zero_()
+        for b in bufs:
+            b.fill_(5)
+        graph.replay()
+        torch.cuda.synchronize()
+        m = live_rows * K
+        a = bfs.compact_payloads_plain(flags[:m], pay[:m], cap)
+        assert torch.equal(outs[0], a[0]) and int(totals[0]) == int(flags[:m].sum())
+        f, p = hs.compact_fresh_plain(flags[:m], fps[:m], pay[:m], cap)
+        assert torch.equal(outs[1], f) and torch.equal(outs[2], p)
+        w = _keep_twin(keep, (fps, fps, pay + (1 << 33)), (-1, -1, -1), cap)
+        for buf, x in zip(bufs, w):
+            assert torch.equal(buf[cap:2 * cap], x)
+            assert bool((buf[:cap] == 5).all()) and bool((buf[2 * cap:] == 5).all())
+        assert int(ovf) == int(int(keep.sum()) > cap)
+    del graph
+
+
+def test_compaction_one_scratch_across_tile_sizes(run):
+    """One scratch sized by ``compact_tiles`` for the largest call, through
+    compactions on both sides of 2^22 lanes (16,384-lane tiles above it,
+    8,192-lane tiles below it: more status words than the larger call's),
+    each equal to its twin, and the words past the scratch untouched."""
+    g = np.random.default_rng(22)
+    big, under = (1 << 22) + 16384 + 9, (1 << 22) - 1
+    flags = torch.from_numpy(g.random(big) < 0.01).cuda()
+    pay = torch.from_numpy(g.integers(0, 1 << 40, big)).cuda()
+    words = kernels.compact_tiles(big)
+    assert all(kernels.compact_tiles(m) <= words for m in (under, big - 1, 1, 0))
+    guard = torch.zeros((words + 64,), dtype=torch.int64, device="cuda")
+    guard[words:] = 12345
+    tile = guard[:words]
+    for n in (big, under, big, (1 << 21) + 3, under):
+        a = kernels.compact(flags[:n], pay[:n], -1, 60_000, tile=tile)
+        p = bfs.compact_payloads_plain(flags[:n], pay[:n], 60_000)
+        assert torch.equal(a[0], p[0]) and int(a[3]) == int(flags[:n].sum())
+        assert bool((guard[words:] == 12345).all())
+
+
+def _keep_twin(keep, vals, pads, cap):
+    """The kept lanes' values in lane order into ``cap`` lanes, each array
+    padded with its pad past them."""
+    idx = torch.nonzero(keep).reshape(-1)[:cap]
+    outs = []
+    for v, pad in zip(vals, pads):
+        o = torch.full((cap,), pad, dtype=torch.int64, device=v.device)
+        o[: idx.shape[0]] = v[idx]
+        outs.append(o)
+    return outs
+
+
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 300_001])
+def test_compaction_callers_equal_twins(run, n):
+    """Every form of the one-pass compaction against its twin at tile edges:
+    ``compact`` with one and two arrays (a lane mask, a live count with
+    ``mul``), ``filter_compact`` with device offsets and the overflow word,
+    ``chunk_compact`` (flags read from fp_view), and each call's launches
+    (``kernels.compact_launches``); flags from unaligned views too."""
+    from tla_raft_tpu_torch.engine.group import filter_compact_plain
+
+    g = np.random.default_rng(n)
+    raw = torch.from_numpy(g.random(n + 3) < 0.4).cuda()
+    flags = raw[3:]  # a view 3 bytes past the allocation: the bytewise loads
+    flags_c = flags.contiguous()
+    pay = torch.from_numpy(g.integers(0, 1 << 40, n)).cuda()
+    fps = torch.from_numpy(g.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)).cuda()
+    fps[torch.from_numpy(g.random(n) < 0.3).cuda()] = -1
+    for cap in (max(n // 3, 1), n + 5):
+        for fl in (flags, flags_c):
+            before = kernels.launch_counts()
+            a = kernels.compact(fl, pay, -1, cap, want_lane=True)
+            assert kernels.launch_counts()["compact"] - before["compact"] == \
+                kernels.compact_launches(n)
+            p = bfs.compact_payloads_plain(fl, pay, cap)
+            assert torch.equal(a[0], p[0]) and torch.equal(a[2], p[1])
+            assert int(a[3]) == int(fl.sum())
+        f, q = hs.compact_fresh(flags, fps, pay, cap)
+        wf, wq = hs.compact_fresh_plain(flags, fps, pay, cap)
+        assert torch.equal(f, wf) and torch.equal(q, wq)
+        live = n // 2
+        c = kernels.compact(flags_c, None, -1, cap, cnt=torch.tensor(live, device="cuda"),
+                            iota_base=11)
+        p = bfs.compact_payloads_plain(flags_c[:live], 11 + torch.arange(
+            live, dtype=torch.int64, device="cuda"), cap)
+        assert torch.equal(c[0], p[0]) and int(c[3]) == int(flags_c[:live].sum())
+        hit = torch.from_numpy(g.random(n) < 0.3).cuda()
+        outs = tuple(torch.full((2 * cap + 1,), 5, dtype=torch.int64, device="cuda")
+                     for _ in range(3))
+        ovf = torch.zeros((), dtype=torch.int64, device="cuda")
+        kernels.filter_compact((fps != -1) & ~hit, fps, fps, pay, cap, out=outs,
+                               out_off=torch.tensor(cap, device="cuda"),
+                               pay_off=torch.tensor(7, device="cuda"), ovf=ovf)
+        wv, wf2, wp, wo = filter_compact_plain(hit, fps, fps, pay, cap)
+        for o, w in zip(outs, (wv, wf2, torch.where(wp >= 0, wp + 7, wp))):
+            assert torch.equal(o[cap:2 * cap], w) and bool((o[:cap] == 5).all())
+        assert int(ovf) == int(bool(wo))
+        k = bfs.chunk_compact(fps, fps, cap, 5)
+        w = bfs.chunk_compact_plain(fps, fps, cap, 5)
+        assert all(torch.equal(x, y) for x, y in zip(k[:3], w[:3]))
+        assert bool(k[3]) == (int(w[3]) > cap)

@@ -118,3 +118,70 @@ def test_k1_group_model_matches_reference(S, muts):
         assert np.array_equal(sums.sum(0), rm[:live].astype(np.int64).sum(0))
         assert first == (int(np.argmax(ra[:live])) if ra[:live].any() else -1)
     assert rv.any() and ra[:live].any() == bool(abort.any())
+
+
+# -- K3 at S <= 3 as the card computes it: staged fields, codes, (state, perm) sums ---
+
+K3S3_CASES = [("s2", "frontier", 2), ("s2", "edges", 2), ("ref", "frontier", 2),
+              ("ref", "edges", 2), ("ref", "edges", 4), ("ref", "dead", 2),
+              ("ref", "indexed", 2)]
+
+
+@pytest.mark.parametrize("cfg,case,id_bytes", K3S3_CASES,
+                         ids=["s2", "s2-edges", "s3", "s3-edges", "s3-int32", "s3-dead",
+                              "s3-indexed"])
+def test_k3s3_model_matches_reference(cfg, case, id_bytes):
+    """The numpy model of K3's S <= 3 form (``redesign_cases.k3s3_model``:
+    groups of 64 states, the fields staged field-major and read through the
+    features' codes, the feature table's used columns, the message part a
+    (state, permutation) at a time with its four channels from one eff row,
+    the three permutation sets' minima) equals the reference's
+    ``Fingerprinter.state_fingerprints`` at S = 2 and 3: on mixed reachable
+    rows with their own id lists; with edge id lists (none, cap_m of them,
+    random, the universe's highest ids, one) as int16 and as int32 words;
+    under a live count (the rows past it SENT, a whole group of 64 among
+    them); and in the indexed mode (rows at a permutation of the states,
+    the other outputs kept)."""
+    import torch
+
+    from tla_raft_tpu.models.raft import RaftState as RefState
+    from tla_raft_tpu_torch.engine import bfs
+    from tla_raft_tpu_torch.models.raft import Frontier
+    from redesign_cases import CORE_FIELDS, k3s3_id_lists, k3s3_model
+
+    rc, pc = configs(CONFIGS[cfg])
+    _ref, _port, fr = batches(CONFIGS[cfg], n=300, tail=200 if cfg == "ref" else 0)
+    g = np.random.default_rng(len(case) + id_bytes)
+    n = fr.voted_for.shape[0]
+    rows = torch.from_numpy(g.integers(0, n, n))
+    fr = Frontier(*(x[torch.from_numpy(g.integers(0, n, n))] for x in fr[:-1]),
+                  fr.msg_ids[rows])
+    fpr = Fingerprinter(pc, device="cpu")
+    uni, cap_m = fpr.uni, fr.msg_ids.shape[1]
+    if case in ("edges", "dead", "indexed"):
+        ids = k3s3_id_lists(uni.M, n, cap_m, 11)
+        fr = fr._replace(msg_ids=torch.from_numpy(ids).to(fr.msg_ids.dtype))
+    msgs = bfs.ids_to_msgs_plain(fr.msg_ids, uni.n_words).numpy().view(np.uint32)
+    ref = RefState(msgs=jnp.asarray(msgs),
+                   **{f: jnp.asarray(getattr(fr, f).numpy()) for f in Frontier._fields[:-1]})
+    rv, rf, _m = get_kernel(rc, mxu=True).fpr.state_fingerprints(ref)
+    rv, rf = np.asarray(rv), np.asarray(rf)
+    t = fpr.kernel_tables_np()
+    fields = {f: getattr(fr, f).numpy() for f in CORE_FIELDS}
+    ids = fr.msg_ids.numpy().astype(np.int64)
+    args = (t["ct"], t["msg_eff"], pc.S, pc.L, fpr.spec.F)
+    sent = np.uint64(0xFFFFFFFFFFFFFFFF)
+    if case == "indexed":
+        idx = g.permutation(n)[: n // 2]
+        before = (np.full(n, 7, np.uint64), np.full(n, 9, np.uint64))
+        live = idx.shape[0] - 5
+        v, f = k3s3_model(fields, ids, *args, live, id_bytes, idx=idx, out=before)
+        hit = np.zeros(n, bool)
+        hit[idx[:live]] = True
+        assert np.array_equal(v[hit], rv[hit]) and np.array_equal(f[hit], rf[hit])
+        assert (v[~hit] == 7).all() and (f[~hit] == 9).all()
+        return
+    live = n - 70 if case == "dead" else n
+    v, f = k3s3_model(fields, ids, *args, live, id_bytes)
+    assert np.array_equal(v[:live], rv[:live]) and np.array_equal(f[:live], rf[:live])
+    assert (v[live:] == sent).all() and (f[live:] == sent).all()

@@ -223,6 +223,7 @@ EXPORT int launch_deep_verdict(const uint8_t* bits, long long n_bits_bytes, cons
 }
 
 EXPORT long long rp_chunk() { return RP_CHUNK; }
+EXPORT long long pd_tile() { return TILE; }
 
 // S sources and B blocks of F fields, in one i64 table: srcs [S * F]
 // (device pointers), src [B], row [B] and counts [B] (each block's source,

@@ -7,8 +7,9 @@
 // form _msg_hash_factored, :424) and finalize (the unsigned minimum over the
 // P server permutations of the two 64-bit channel pairs).
 //
-// Design: one tiled form for any symmetry group (S = 3: P = 6, S = 5:
-//   P = 120, S = 7: P = 5,040).  A grid over (64 states, a range of
+// Design: a tiled form for any symmetry group (S = 5: P = 120, S = 7:
+//   P = 5,040), and at S <= 3 (P <= 8: every permutation in one tile; F_pad
+//   <= 128) a form of its own (below).  A grid over (64 states, a range of
 //   permutation tiles of 8 permutations = 128 plane columns).  The
 //   block computes its states' features (i8, F padded to a multiple of 32)
 //   once and keeps them as MMA A fragments in registers.  Per tile it stages
@@ -27,9 +28,28 @@
 //   plane combine is linear mod 2^32, so adding combined coefficients equals
 //   combining the plane sums.
 //
-//   Monolithic (S = 3, 5; fingerprint_kernel, 128 threads): eff[id][p][chan]
+//   Monolithic (S = 4, 5, 6, and S <= 3 with F_pad > 128; fingerprint_kernel,
+//   128 threads): eff[id][p][chan]
 //   is the folded table; per tile each lane (permutation, channel) of a warp
-//   sums its states' entries over their ids.
+//   sums its states' entries over their ids.  S = 4-6 keep this form by
+//   design: their P passes one tile.
+//
+//   S <= 3 (fingerprint_s3, 384 threads, a persistent grid of as many
+//   blocks as stay resident): the feature table's P * 16 used columns and
+//   the features' packed codes are staged once a block; then each group of
+//   64 states has its fields (field-major, each field's rows one contiguous
+//   span) and id lists copied to shared memory as 16-B cp.async vectors
+//   while the previous group computes; its features are read there through
+//   the codes; the message part takes a thread a (state, permutation), its
+//   four channels one 16-B load of eff an id, 8 ids' loads in flight (a
+//   state's id row is 4 P u32: P 16-B vectors); warp w runs the MMAs of row
+//   group w & 3 for permutations w / 4, + 3, + 6, and the three sets'
+//   minima meet in shared memory: each state is written once (SENT past
+//   the live count), with no memset and no atomic.  Its earlier form, the
+//   tiled one with every feature read byte by byte through a 13-branch
+//   chain and 128 columns staged per block, took 0.144 ms for a fused
+//   level's chunk (75,206 live of 98,304 lanes) on an H100, half of it the
+//   feature staging (PERF.md).
 //
 //   Factored (S = 7, B7 _msg_hash_factored; fingerprint_factored, 256
 //   threads): a permutation moves only the pair digit q of id = off_t +
@@ -76,9 +96,9 @@
 //   overflow word when the count passes the index budget.
 //
 //   An earlier form (a warp per state, the 16 P plane columns over its lanes
-//   in int32 on the CUDA cores) took 0.76 ms where this one takes 0.25 ms at
-//   the S = 3 main path's shapes on an H100 (chip_smoke.py), and could not
-//   hold S >= 4.
+//   in int32 on the CUDA cores) took 0.76 ms where the tiled one took 0.25
+//   ms at the S = 3 main path's shapes on an H100 (chip_smoke.py), and could
+//   not hold S >= 4.
 //
 // Bound: the int8 tensor rate for the feature part
 // (2 F_pad * 16 P operations a state) and the 32-bit adds of the message
@@ -106,9 +126,15 @@ constexpr int FX_MS_ROW = FX_PERMS * 2 + 2;    // u32 stride of a state's sums o
 constexpr int FX_HCOLS = TB_PERMS * 8;   // a tile's plane columns of one half
 constexpr int FX_CC = 3;                 // half-row words a lane: np <= 48 (S <= 7)
 constexpr int FX_IDS = 8;                // ids whose gt rows a lane loads at once
-constexpr int FX_COPY = 16;              // bytes a thread loads at once staging a field
 constexpr int FX_CHAINS = 8;             // permutations whose MMAs a warp interleaves
 constexpr int FX_SMEM_MAX = 227 * 1024;
+constexpr int S3_THREADS = 384;          // the S <= 3 form: 12 warps
+constexpr int S3_PSETS = 3;              // warps a row group: permutations p = w / 4 (mod 3)
+constexpr int S3_MAX_PERMS = 8;          // every permutation in one tile (S <= 3)
+constexpr int S3_MAX_KS = 4;             // F_pad <= 128 (the reference's S <= 3 constants: 96)
+constexpr int S3_IDS = 8;                // eff loads a thread keeps in flight
+constexpr int S3_IDS_SMEM = 32 * 1024;   // id lists staged when a buffer's fit
+constexpr int S3_SMEM_MAX = 120 * 1024;
 
 // The message-part table: monolithic eff [M][P][4] (pperm null), or the
 // factored gt_half [rows][2][NP][2] with PPERM [P][NP] and the type layout.
@@ -141,14 +167,16 @@ __device__ inline void stage_features(int8_t* As, int row_b, const Core& P, long
   }
 }
 
-// A warp's A fragments (rows rg*16 + gq and + 8), every k-step.
-__device__ inline void load_a(uint32_t (&a)[MAX_KS][4], const int8_t* As, int row_b, int rg,
+// A warp's A fragments (rows rg*16 + gq and + 8), every k-step (KS of
+// them at most).
+template <int KS>
+__device__ inline void load_a(uint32_t (&a)[KS][4], const int8_t* As, int row_b, int rg,
                               int ks_n) {
   const int lane = threadIdx.x & 31, gq = lane >> 2, t4 = lane & 3;
   const int8_t* r0 = As + (rg * 16 + gq) * row_b + t4 * 4;
   const int8_t* r1 = r0 + 8 * row_b;
 #pragma unroll
-  for (int ks = 0; ks < MAX_KS; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     if (ks < ks_n) {
       a[ks][0] = *(const uint32_t*)(r0 + ks * 32);
       a[ks][1] = *(const uint32_t*)(r1 + ks * 32);
@@ -177,7 +205,8 @@ __device__ inline void stage_cols(int8_t* Bs, int row_b, const int8_t* __restric
 // permutation's 16 staged plane columns (bt), the planes combined, the
 // message part m[j][r] (this lane's channel 2 j + (t4 >> 1) of row gq + 8 r)
 // added, and the running minima of the two 64-bit pairs (lanes t4 == 0).
-__device__ inline void fold_perm(const uint32_t (&a)[MAX_KS][4], const int8_t* bt, int row_b,
+template <int KS>
+__device__ inline void fold_perm(const uint32_t (&a)[KS][4], const int8_t* bt, int row_b,
                                  int ks_n, const uint32_t (&m)[2][2], uint64_t (&minv)[2],
                                  uint64_t (&minf)[2]) {
   const int lane = threadIdx.x & 31, gq = lane >> 2, t4 = lane & 3;
@@ -185,7 +214,7 @@ __device__ inline void fold_perm(const uint32_t (&a)[MAX_KS][4], const int8_t* b
   const int8_t* b0p = bt + gq * row_b + t4 * 4;
   const int8_t* b1p = b0p + 8 * row_b;
 #pragma unroll
-  for (int ks = 0; ks < MAX_KS; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     if (ks < ks_n) {
       mma_s8(acc0, a[ks], *(const uint32_t*)(b0p + ks * 32),
              *(const uint32_t*)(b0p + ks * 32 + 16));
@@ -220,7 +249,8 @@ __device__ inline void fold_perm(const uint32_t (&a)[MAX_KS][4], const int8_t* b
   }
 }
 
-// The block's minima into the outputs (rows rg*16 + gq and + 8).
+// The block's minima into the outputs (rows rg*16 + gq and + 8): an
+// atomicMin onto the launch's SENT.
 __device__ inline void store_min(const uint64_t (&minv)[2], const uint64_t (&minf)[2], int rg,
                                  long long base, long long live, const int64_t* idx,
                                  unsigned long long* fp_view, unsigned long long* fp_full) {
@@ -237,7 +267,8 @@ __device__ inline void store_min(const uint64_t (&minv)[2], const uint64_t (&min
     }
 }
 
-// The monolithic form (eff [M][P][4]).
+// The monolithic form (eff [M][P][4]; S = 4, 5, 6, and S <= 3 when the
+// feature table passes S3_MAX_KS k-steps).
 template <typename Id>
 __global__ void __launch_bounds__(TB_THREADS)
     fingerprint_kernel(Core P, const Id* __restrict__ ids, int cap_m, long long G,
@@ -369,6 +400,145 @@ __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The spans a block stages (stage_rows): the core
+// fields, then (with the id lists) the ids; each its source, its
+// destination's offset in a staging buffer and its bytes a row.
+struct Segs {
+  const uint8_t* src[N_FIELDS + 1];
+  int dst[N_FIELDS + 1];
+  int rb[N_FIELDS + 1];
+  int n;
+};
+
+// A block's segment table in shared memory (thread s writes segment s):
+// field f's rows at foff[f] of a buffer (64 rows a field, field after
+// field), then the id lists at ids_off when ids_off >= 0.
+template <typename Id>
+__device__ inline void seg_table(Segs* sg, const Core& P, const Id* ids, int cap_m,
+                                 const int* foff, const int* fsz, int ids_off) {
+  const int t = threadIdx.x;
+  if (t < N_FIELDS) {
+    sg->src[t] = P.f[t];
+    sg->dst[t] = foff[t];
+    sg->rb[t] = fsz[t];
+  } else if (t == N_FIELDS && ids_off >= 0) {
+    sg->src[t] = (const uint8_t*)ids;
+    sg->dst[t] = ids_off;
+    sg->rb[t] = cap_m * (int)sizeof(Id);
+  }
+  if (t == 0) sg->n = ids_off >= 0 ? N_FIELDS + 1 : N_FIELDS;
+}
+
+// The rows [base, base + nrows) of a block (row r is state base + r, or
+// idx[base + r] in the indexed mode) of every segment copied to the staging
+// buffer buf, a warp a segment (segments w, w + NW, ...): outside the
+// indexed mode a segment's rows are one contiguous span, its 16-B vectors
+// spread over the warp's lanes where its start is 16-B aligned, the rest
+// bytewise; in it, each row's vectors where a row is a whole number of
+// them.  ASYNC: the vectors go by cp.async (the caller commits and waits),
+// else through registers, four loads in flight a lane.  buf and the
+// destinations are 16-B aligned; no barrier inside.
+template <int NT, bool ASYNC>
+__device__ inline void stage_rows(uint8_t* buf, const Segs* sg, long long base, int nrows,
+                                  const int64_t* idx) {
+  constexpr int NW = NT / 32;
+  const int lane = threadIdx.x & 31;
+  for (int s = threadIdx.x >> 5; s < sg->n; s += NW) {
+    const int rb = sg->rb[s], nb = nrows * rb;
+    uint8_t* dst = buf + sg->dst[s];
+    const uint8_t* src = sg->src[s];
+    const bool rows16 = rb % 16 == 0 && ((uintptr_t)src & 15) == 0;
+    int nv = 0;  // the vectors
+    if (!idx) {
+      src += base * rb;
+      nv = ((uintptr_t)src & 15) == 0 ? nb / 16 : 0;
+    } else if (rows16) {
+      nv = nb / 16;
+    }
+    const int vr = rb / 16;
+    for (int v0 = lane; v0 < nv; v0 += 4 * 32) {
+      uint4 x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int v = v0 + u * 32;
+        if (v < nv) {
+          const uint4* from;
+          if (idx) {
+            const int r = v / vr;
+            from = (const uint4*)(src + idx[base + r] * rb) + (v - r * vr);
+          } else {
+            from = (const uint4*)src + v;
+          }
+          if (ASYNC) cp_async16(dst + 16 * v, from, 16);
+          else x[u] = __ldg(from);
+        }
+      }
+      if (!ASYNC)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (v0 + u * 32 < nv) ((uint4*)dst)[v0 + u * 32] = x[u];
+    }
+    const int done = idx ? (nv ? nb : 0) : nv * 16;  // the bytes past the vectors
+    for (int i = done + lane; i < nb; i += 32) {
+      if (idx) {
+        const int r = i / rb;
+        dst[i] = sg->src[s][idx[base + r] * rb + (i - r * rb)];
+      } else {
+        dst[i] = src[i];
+      }
+    }
+  }
+}
+
+// The block's features As [64][row_b] (4 a thread at once), each read from
+// the staged fields through its packed code (feature_tables; -1 past F:
+// 0); rows at or past nrows are 0.
+template <int NT>
+__device__ inline void build_features(int8_t* As, int row_b, const uint8_t* raw,
+                                      const int* pcode, int nrows, int f_pad) {
+  const int t = threadIdx.x, n_cw = f_pad / 4;
+  for (int i = t; i < TB_STATES * n_cw; i += NT) {
+    const int r = i / n_cw, e0 = (i - r * n_cw) * 4;
+    uint32_t w = 0;
+    if (r < nrows)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = pcode[e0 + k];
+        if (c >= 0) {
+          const uint8_t v = raw[(c & 0xFFFF) + r * ((c >> 16) & 0xFF)];
+          const int cmp = c >> 24;
+          w |= (uint32_t)(cmp ? (uint8_t)(v == cmp - 1) : v) << (8 * k);
+        }
+      }
+    *(uint32_t*)(As + r * row_b + e0) = w;
+  }
+}
+
+// The fields' offsets in the staged rows (64 rows a field, field after
+// field) and row bytes, and each feature's packed code pcode[f_pad]: where
+// feature_code puts it in those rows (its field's offset + the byte | the
+// field's row bytes << 16 | the votedFor one-hot value + 1 << 24), -1 past
+// F.
+__device__ inline void feature_tables(int* pcode, int* foff, int* fsz, int f_pad, int F,
+                                      const Dims& d) {
+  if (threadIdx.x < N_FIELDS) {
+    int o = 0;
+    for (int f = 0; f < (int)threadIdx.x; ++f) o += field_bytes(f, d);
+    foff[threadIdx.x] = TB_STATES * o;
+    fsz[threadIdx.x] = field_bytes(threadIdx.x, d);
+  }
+  for (int e = threadIdx.x; e < f_pad; e += blockDim.x) {
+    int c = -1;
+    if (e < F) {
+      const int code = feature_code(e, d), f = code & 15;
+      int o = 0;
+      for (int g = 0; g < f; ++g) o += field_bytes(g, d);
+      c = (TB_STATES * o + ((code >> 4) & 4095)) | field_bytes(f, d) << 16 | (code >> 16) << 24;
+    }
+    pcode[e] = c;
+  }
+}
+
 // The factored form's shared regions: the sums of one half [64][FX_MS_ROW]
 // u32; region B (the B tiles of two rounds, or the warps' R rows, or the A
 // tile and the states' fields); the block's PPERM rows [FX_PERMS][np]; the
@@ -406,8 +576,8 @@ __global__ void __launch_bounds__(FX_THREADS, 1)
   uint8_t* pp = rb + region_b;                                       // [FX_PERMS][np]
   unsigned long long* masks = (unsigned long long*)(pp + fx_pp_bytes(np));
   uint8_t* qs = (uint8_t*)(masks + TB_STATES);                      // [FX_WARPS][MAX_NP]
-  int* fcode = (int*)(qs + FX_WARPS * MAX_NP);                       // [f_pad]
-  int* foff = fcode + MAX_KS * 32;                                   // [N_FIELDS]: 64 rows each
+  int* pcode = (int*)(qs + FX_WARPS * MAX_NP);                       // [f_pad]
+  int* foff = pcode + MAX_KS * 32;                                   // [N_FIELDS]: 64 rows each
   int* fsz = foff + N_FIELDS;
   const long long live = live_count(cnt, sub, 1, G);
   const long long base = (long long)blockIdx.x * TB_STATES;
@@ -429,47 +599,17 @@ __global__ void __launch_bounds__(FX_THREADS, 1)
     cp_async_commit();
     for (int i = n16 * 16 + threadIdx.x; i < nb; i += FX_THREADS) pp[i] = src[i];
   }
-  if (threadIdx.x < N_FIELDS) {
-    int o = 0;
-    for (int f = 0; f < (int)threadIdx.x; ++f) o += field_bytes(f, d);
-    foff[threadIdx.x] = TB_STATES * o;
-    fsz[threadIdx.x] = field_bytes(threadIdx.x, d);
-  }
-  for (int e = threadIdx.x; e < f_pad; e += FX_THREADS) fcode[e] = e < F ? feature_code(e, d) : -1;
+  feature_tables(pcode, foff, fsz, f_pad, F, d);
   __syncthreads();
-  // the states' fields (a field's 64 rows after another's), a field's
-  // loads in flight together
+  // the states' fields (a field's 64 rows after another's), then the features
+  Segs* sg = (Segs*)(pp + fx_pp_bytes(np));  // the state masks' room until the message part
+  seg_table(sg, P, ids, cap_m, foff, fsz, -1);
+  __syncthreads();
   int8_t* As = (int8_t*)rb;               // [64][row_b]
   uint8_t* raw = rb + TB_STATES * row_b;  // [fields][64][its bytes]
-  for (int f = 0; f < N_FIELDS; ++f) {
-    const int sz = fsz[f], nb = nrows * sz;
-    const uint8_t* fld = P.f[f];
-    for (int i0 = threadIdx.x; i0 < nb; i0 += FX_THREADS * FX_COPY) {
-      uint8_t v[FX_COPY];
-#pragma unroll
-      for (int u = 0; u < FX_COPY; ++u) {
-        const int i = i0 + u * FX_THREADS, r = i / sz;
-        v[u] = i < nb ? fld[(idx ? idx[base + r] : base + r) * sz + i - r * sz] : 0;
-      }
-#pragma unroll
-      for (int u = 0; u < FX_COPY; ++u) {
-        const int i = i0 + u * FX_THREADS;
-        if (i < nb) raw[foff[f] + i] = v[u];
-      }
-    }
-  }
+  stage_rows<FX_THREADS, false>(raw, sg, base, nrows, idx);
   __syncthreads();
-  for (int i = threadIdx.x; i < TB_STATES * f_pad; i += FX_THREADS) {
-    const int r = i / f_pad, e = i - r * f_pad;
-    const int c = fcode[e];
-    int8_t x = 0;
-    if (c >= 0 && r < nrows) {
-      const int f = c & 15, cmp = c >> 16;
-      const uint8_t v = raw[foff[f] + r * fsz[f] + ((c >> 4) & 4095)];
-      x = cmp ? (int8_t)(v == cmp - 1) : (int8_t)v;
-    }
-    As[r * row_b + e] = x;
-  }
+  build_features<FX_THREADS>(As, row_b, raw, pcode, nrows, f_pad);
   __syncthreads();
   const int rg = w & 3, half_w = w >> 2;
   uint32_t a[MAX_KS][4];
@@ -678,6 +818,179 @@ __global__ void __launch_bounds__(FX_THREADS, 1)
   store_min(minv, minf, rg, base, live, idx, fp_view, fp_full);
 }
 
+// -- the S <= 3 form -----------------------------------------------------------------
+
+// The shared regions of fingerprint_s3, byte offsets (each 16-B aligned):
+// the feature table's used columns [nperm * 16][row_b]; the features
+// [64][row_b]; two buffers (a group's, and the next group's in flight) of
+// the staged fields [fields][64][their bytes] and the id lists [64][cap_m]
+// (when they fit in S3_IDS_SMEM), ids at offset ids_off of a buffer; the
+// message sums [64][ms] u32; the permutation sets' minima [S3_PSETS][64][2]
+// u64; the segment table; the features' packed codes and the fields'
+// offsets and sizes.
+struct S3Layout {
+  int bs, as, buf, buf_b, ids_off, msum, mins, segs, pcode, total;
+};
+
+__host__ __device__ inline int up16(int x) { return (x + 15) / 16 * 16; }
+
+__host__ __device__ inline S3Layout s3_layout(int f_pad, int nperm, int cap_m, int id_bytes,
+                                              const Dims& d) {
+  S3Layout L;
+  const int row_b = f_pad + 16, ids_b = TB_STATES * cap_m * id_bytes;
+  L.bs = 0;
+  L.as = L.bs + up16(nperm * 16 * row_b);
+  L.buf = L.as + up16(TB_STATES * row_b);
+  L.ids_off = ids_b <= S3_IDS_SMEM ? up16(TB_STATES * state_bytes(d)) : -1;
+  L.buf_b = up16(TB_STATES * state_bytes(d)) + (L.ids_off >= 0 ? up16(ids_b) : 0);
+  L.msum = L.buf + 2 * L.buf_b;
+  L.mins = L.msum + up16(TB_STATES * (nperm * 4 + 4) * 4);
+  L.segs = L.mins + S3_PSETS * TB_STATES * 16;
+  L.pcode = L.segs + up16((int)sizeof(Segs));
+  L.total = L.pcode + up16((f_pad + 2 * N_FIELDS) * 4);
+  return L;
+}
+
+// The S <= 3 form (nperm <= 8: every permutation in one tile; eff
+// [M][nperm][4]).  A persistent grid: each block stages the feature table's
+// nperm * 16 used columns and the features' codes once, then loops over
+// groups of 64 states, the next group's fields and id lists copied in by
+// cp.async (stage_rows) while this one computes: the features through
+// their codes (build_features); the message part with a thread a (state,
+// permutation), its four channels one 16-B load of eff an id, S3_IDS ids'
+// loads in flight; then warp w's MMAs for row group w & 3 over
+// permutations w / 4, + 3, + 6; the three permutation sets' minima met in
+// shared memory and stored once a state (SENT past live; groups of states
+// wholly past live store SENT only).
+template <typename Id>
+__global__ void __launch_bounds__(S3_THREADS, 2)
+    fingerprint_s3(Core P, const Id* __restrict__ ids, int cap_m, long long G,
+                   const int8_t* __restrict__ ct, int f_pad, int F, int nperm,
+                   const uint32_t* __restrict__ eff, Dims d, unsigned long long* __restrict__ fp_view,
+                   unsigned long long* __restrict__ fp_full, const int64_t* cnt, long long sub,
+                   const int64_t* __restrict__ idx) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const S3Layout L = s3_layout(f_pad, nperm, cap_m, (int)sizeof(Id), d);
+  const int row_b = f_pad + 16, ncols = nperm * 16, vec = f_pad / 16, ms = nperm * 4 + 4;
+  int8_t* Bs = (int8_t*)(smem + L.bs);
+  int8_t* As = (int8_t*)(smem + L.as);
+  uint32_t* msum = (uint32_t*)(smem + L.msum);
+  unsigned long long* mins = (unsigned long long*)(smem + L.mins);
+  int* pcode = (int*)(smem + L.pcode);
+  int* foff = pcode + f_pad;
+  int* fsz = foff + N_FIELDS;
+  const uint4* eff4 = (const uint4*)eff;
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31, gq = lane >> 2, t4 = lane & 3;
+  const int rg = w & 3, pset = w >> 2, ks_n = f_pad / 32;
+  const long long live = live_count(cnt, sub, 1, G);
+  const long long n_groups = (G + TB_STATES - 1) / TB_STATES;
+  for (int i = t; i < ncols * vec; i += S3_THREADS) {
+    const int c = i / vec, v = i - c * vec;
+    *(uint4*)(Bs + c * row_b + v * 16) = __ldg((const uint4*)(ct + (long long)c * f_pad) + v);
+  }
+  feature_tables(pcode, foff, fsz, f_pad, F, d);
+  __syncthreads();
+  Segs* sg = (Segs*)(smem + L.segs);
+  seg_table(sg, P, ids, cap_m, foff, fsz, L.ids_off);
+  __syncthreads();
+  // group gi's rows into buffer k (one cp.async group a call, empty when
+  // the group is past live)
+  auto stage = [&](long long gi, int k) {
+    const long long base = gi * TB_STATES;
+    if (gi < n_groups && base < live)
+      stage_rows<S3_THREADS, true>(smem + L.buf + k * L.buf_b, sg, base,
+                                   (int)(live - base < TB_STATES ? live - base : TB_STATES), idx);
+    cp_async_commit();
+  };
+  stage(blockIdx.x, 0);
+  int k = 0;
+  for (long long gi = blockIdx.x; gi < n_groups; gi += gridDim.x, k ^= 1) {
+    const long long base = gi * TB_STATES;
+    if (base >= live) {  // uniform: a group wholly past live (and every later one)
+      if (!idx && t < TB_STATES && base + t < G) {
+        fp_view[base + t] = ~0ull;
+        fp_full[base + t] = ~0ull;
+      }
+      continue;
+    }
+    const int nrows = live - base < TB_STATES ? (int)(live - base) : TB_STATES;
+    stage(gi + gridDim.x, k ^ 1);
+    cp_async_wait<1>();  // this group's rows
+    __syncthreads();
+    const uint8_t* raw = smem + L.buf + k * L.buf_b;
+    const Id* ids_s = L.ids_off >= 0 ? (const Id*)(raw + L.ids_off) : nullptr;
+    build_features<S3_THREADS>(As, row_b, raw, pcode, nrows, f_pad);
+    // the message sums, a thread a (state, permutation): its four channels
+    for (int it = t; it < TB_STATES * nperm; it += S3_THREADS) {
+      const int r = it / nperm, p = it - r * nperm;
+      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows) {
+        const Id* sid = ids_s ? ids_s + r * cap_m : ids + (idx ? idx[base + r] : base + r) * cap_m;
+        for (int j0 = 0; j0 < cap_m; j0 += S3_IDS) {
+          int id[S3_IDS];
+#pragma unroll
+          for (int u = 0; u < S3_IDS; ++u) id[u] = j0 + u < cap_m ? (int)sid[j0 + u] : -1;
+          uint4 x[S3_IDS];
+#pragma unroll
+          for (int u = 0; u < S3_IDS; ++u)
+            x[u] = id[u] >= 0 ? __ldg(eff4 + (long long)id[u] * nperm + p)
+                              : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+          for (int u = 0; u < S3_IDS; ++u) {
+            acc.x += x[u].x;
+            acc.y += x[u].y;
+            acc.z += x[u].z;
+            acc.w += x[u].w;
+          }
+          if (id[S3_IDS - 1] < 0) break;  // ascending ids, then -1 pads
+        }
+      }
+      *(uint4*)(msum + r * ms + p * 4) = acc;
+    }
+    __syncthreads();
+    uint32_t a[S3_MAX_KS][4];
+    load_a(a, As, row_b, rg, ks_n);
+    uint64_t minv[2] = {~0ull, ~0ull}, minf[2] = {~0ull, ~0ull};
+    for (int p = pset; p < nperm; p += S3_PSETS) {
+      uint32_t m[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          m[j][r] = msum[(rg * 16 + gq + 8 * r) * ms + p * 4 + 2 * j + (t4 >> 1)];
+      fold_perm(a, Bs + p * 16 * row_b, row_b, ks_n, m, minv, minf);
+    }
+    if (t4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        unsigned long long* o = mins + (pset * TB_STATES + rg * 16 + gq + 8 * r) * 2;
+        o[0] = minv[r];
+        o[1] = minf[r];
+      }
+    __syncthreads();
+    if (t < TB_STATES) {
+      const long long g = base + t;
+      if (t < nrows) {
+        unsigned long long v = ~0ull, f = ~0ull;
+#pragma unroll
+        for (int q = 0; q < S3_PSETS; ++q) {
+          const unsigned long long* o = mins + (q * TB_STATES + t) * 2;
+          v = o[0] < v ? o[0] : v;
+          f = o[1] < f ? o[1] : f;
+        }
+        const long long st = idx ? idx[g] : g;
+        fp_view[st] = v;
+        fp_full[st] = f;
+      } else if (!idx && g < G) {
+        fp_view[g] = ~0ull;
+        fp_full[g] = ~0ull;
+      }
+    }
+    __syncthreads();  // the group's shared data is consumed
+  }
+  cp_async_wait<0>();
+}
+
 // The indexed mode's outputs to SENT (the rows below the count), and
 // *ovf = 1 when the count passes the G index rows.
 __global__ void sent_at_idx(const int64_t* __restrict__ idx, long long G, const int64_t* cnt,
@@ -696,13 +1009,39 @@ static Core core_of(const void* const* core) {
   return P;
 }
 
+// fingerprint_s3's grid: as many blocks as stay resident on the card, at
+// most one a group of 64 states.
+static unsigned s3_grid(const void* fn, size_t smem, long long groups) {
+  int dev = 0, sms = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, S3_THREADS, smem);
+  const long long b = (long long)sms * (per > 0 ? per : 1);
+  return (unsigned)(groups < b ? groups : b);
+}
+
+template <typename Id>
+static void launch_s3(const Core& P, const void* ids, int cap_m, long long G, const int8_t* ct,
+                      int f_pad, int F, int nperm, const uint32_t* eff, const Dims& d,
+                      unsigned long long* fv, unsigned long long* ff, const int64_t* cnt,
+                      long long sub, const int64_t* idx, size_t smem, cudaStream_t st) {
+  const long long groups = (G + TB_STATES - 1) / TB_STATES;
+  const void* fn = (const void*)fingerprint_s3<Id>;
+  fingerprint_s3<Id><<<s3_grid(fn, smem, groups), S3_THREADS, smem, st>>>(
+      P, (const Id*)ids, cap_m, G, ct, f_pad, F, nperm, eff, d, fv, ff, cnt, sub, idx);
+}
+
 // ct: i8 [16 nperm][f_pad]; eff: u32 [M][nperm][4]
 // (pperm null) or [rows][2][np][2] with pperm u8 [nperm][np] and type_dims =
-// off[4], stride[4], row_base[4].  Both outputs are set to SENT first; lanes
-// at or past live_count(cnt, sub, 1, G) stay SENT.  With idx (i64 [G], the
-// indexed mode; cnt then required) launch row i is state idx[i], only the
-// outputs at idx[i] are set and folded, and ovf (nullable) is set to 1 when
-// the count passes G.
+// off[4], stride[4], row_base[4].  Lanes at or past live_count(cnt, sub, 1,
+// G) get SENT.  With idx (i64 [G], the indexed mode; cnt then required)
+// launch row i is state idx[i], only the outputs at idx[i] are set (to SENT
+// first) and folded, and ovf (nullable) is set to 1 when the count passes G.
+// The form: nperm <= 8 (S <= 3) with f_pad <= 128 fingerprint_s3, each
+// state written once; the factored message part (pperm)
+// fingerprint_factored; else the tiled monolithic form (S = 4, 5, 6, and
+// S <= 3 with a wider feature table).  Outside fingerprint_s3 both outputs
+// are set to SENT first and the blocks' minima fold in by atomicMin.
 EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_bytes,
                                int cap_m, long long G, const int8_t* ct, int f_pad, int F,
                                int nperm, const uint32_t* eff, const uint8_t* pperm, int np,
@@ -710,22 +1049,41 @@ EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_
                                int64_t* fp_full, const int64_t* cnt, long long sub,
                                const int64_t* idx, int64_t* ovf, void* stream) {
   const Dims d = load_dims(dims);
+  const bool s3 = !pperm && nperm <= S3_MAX_PERMS && f_pad <= S3_MAX_KS * 32;
   const size_t smem = pperm ? fx_smem(f_pad, np, d)
+                      : s3  ? (size_t)s3_layout(f_pad, nperm, cap_m, id_bytes, d).total
                             : (size_t)(TB_STATES + TB_COLS) * (f_pad + 16) +
                                   TB_STATES * MS_STRIDE * sizeof(uint32_t);
   if (f_pad % 32 || f_pad / 32 > MAX_KS || F > f_pad || np > MAX_NP || np < 1 ||
       (pperm && 2 * np > 32 * FX_CC) ||
-      smem > (size_t)(pperm ? FX_SMEM_MAX : TB_SMEM_MAX) ||
+      smem > (size_t)(pperm ? FX_SMEM_MAX : s3 ? S3_SMEM_MAX : TB_SMEM_MAX) ||
+      (s3 && (((uintptr_t)eff | (uintptr_t)ct) & 15)) ||
       (id_bytes != 2 && id_bytes != 4) || nperm < 1 || (idx && !cnt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (G <= 0) return (int)cudaGetLastError();
+  const int n_tiles = (nperm + TB_PERMS - 1) / TB_PERMS;
+  const int tiles_a_block = pperm ? FX_TILES : TB_TILES;
+  const dim3 grid((unsigned)((G + TB_STATES - 1) / TB_STATES),
+                  (unsigned)((n_tiles + tiles_a_block - 1) / tiles_a_block));
   if (idx) {
     sent_at_idx<<<(unsigned)((G + 255) / 256), 256, 0, st>>>(idx, G, cnt, sub, fp_view, fp_full,
                                                              ovf);
-  } else {
+  } else if (!s3) {
     cudaMemsetAsync(fp_view, 0xFF, (size_t)G * sizeof(int64_t), st);
     cudaMemsetAsync(fp_full, 0xFF, (size_t)G * sizeof(int64_t), st);
+  }
+  const Core P = core_of(core);
+  unsigned long long* fv = (unsigned long long*)fp_view;
+  unsigned long long* ff = (unsigned long long*)fp_full;
+  if (s3) {
+    if (id_bytes == 2)
+      launch_s3<int16_t>(P, ids, cap_m, G, ct, f_pad, F, nperm, eff, d, fv, ff, cnt, sub, idx,
+                         smem, st);
+    else
+      launch_s3<int32_t>(P, ids, cap_m, G, ct, f_pad, F, nperm, eff, d, fv, ff, cnt, sub, idx,
+                         smem, st);
+    return (int)cudaGetLastError();
   }
   MsgTab mt;
   mt.eff = eff;
@@ -736,13 +1094,6 @@ EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_
     mt.stride[i] = pperm ? type_dims[4 + i] : 1;
     mt.row_base[i] = pperm ? type_dims[8 + i] : 0;
   }
-  const Core P = core_of(core);
-  const int n_tiles = (nperm + TB_PERMS - 1) / TB_PERMS;
-  const int tiles_a_block = pperm ? FX_TILES : TB_TILES;
-  const dim3 grid((unsigned)((G + TB_STATES - 1) / TB_STATES),
-                  (unsigned)((n_tiles + tiles_a_block - 1) / tiles_a_block));
-  unsigned long long* fv = (unsigned long long*)fp_view;
-  unsigned long long* ff = (unsigned long long*)fp_full;
   if (pperm) {
     const int rb = (int)fx_region_b(f_pad, np, d);
     if (id_bytes == 2)
@@ -769,6 +1120,8 @@ EXPORT int lib_warm() {
                         (const void*)fingerprint_kernel<int32_t>};
   const void* fact[] = {(const void*)fingerprint_factored<int16_t>,
                         (const void*)fingerprint_factored<int32_t>};
+  const void* s3[] = {(const void*)fingerprint_s3<int16_t>,
+                      (const void*)fingerprint_s3<int32_t>};
   for (const void* f : mono) {
     cudaFuncGetAttributes(&a, f);
     cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM_MAX);
@@ -776,6 +1129,10 @@ EXPORT int lib_warm() {
   for (const void* f : fact) {
     cudaFuncGetAttributes(&a, f);
     cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, FX_SMEM_MAX);
+  }
+  for (const void* f : s3) {
+    cudaFuncGetAttributes(&a, f);
+    cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, S3_SMEM_MAX);
   }
   cudaFuncGetAttributes(&a, (const void*)sent_at_idx);
   return (int)cudaGetLastError();

@@ -1,5 +1,7 @@
-// The order-keeping tile scan shared by the compactions (compact.cu) and
-// the frontier row compaction (tiered.cu).
+// The three-pass tile scan of the frontier row compaction (tiered.cu
+// drop_rows), the delta stream's and the repack's offsets (deep.cu) and the
+// group dedup's digit offsets (sortstore.cu).  The order-keeping value
+// compactions are compact.cuh's one-pass scan.
 //
 // A flag array of n lanes is cut into tiles of TILE lanes; each thread of
 // a tile's block takes ITEMS adjacent lanes.

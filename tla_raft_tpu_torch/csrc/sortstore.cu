@@ -58,8 +58,9 @@
 //                  the payload.  (Staging a block's slice of the store in
 //                  shared memory for its heads, or gathering fp_full and
 //                  payload in the last pass, measured slower on the H100.)
-//                  (d) The tile scan of compact.cuh packs the survivors in
-//                  fp_view order.  16 launches a call, every pass over live
+//                  (d) The one-pass compaction of compact.cuh packs the
+//                  survivors in fp_view order.  14 launches a call (16 before
+//                  that compaction took two), every pass over live
 //                  lanes only.  Bound: bytes (each input read once, the
 //                  outputs written once); the design moves the keys twice at
 //                  full width (8 B a lane), then ~12 B a live lane read and
@@ -83,7 +84,7 @@
 //                  pair -- the lexsort's first lane of the run, whatever
 //                  order the run's lanes came in (the values, not the lane,
 //                  are the output, and equal pairs give equal values).  The
-//                  tile scan packs the heads in sorted order.  Bound: bytes
+//                  one-pass compaction packs the heads in sorted order.  Bound: bytes
 //                  (each input read once, the outputs written once: 48 B a
 //                  lane); the 8 passes move ~28 B a lane each, and a run's
 //                  walk is as long as the run (a few lanes at the main
@@ -93,9 +94,9 @@
 //                  sieve and a round's candidates, the dedup, SENT dropped,
 //                  the first scap kept, overflow when more are unique) the
 //                  round's live candidates (ascending once the sieve's SENT
-//                  holes are skipped) packed by the tile scan, then the merge
-//                  path below over the sieve and them, first-of-run flags,
-//                  and the tile scan again into the scap outputs: the largest
+//                  holes are skipped) packed by the one-pass compaction, then
+//                  the merge path below over the sieve and them, first-of-run
+//                  flags, and the compaction again into the scap outputs: the largest
 //                  fall off the end, and the overflow is the unique count
 //                  past scap.  Duplicates across rounds, which a merge alone
 //                  keeps, are runs of equal values after it.  Bound: bytes
@@ -421,13 +422,14 @@ EXPORT long long ld_passes() { return LD_PASSES; }
 // *n_new), new_pay i64[n] (their payloads, -1 past it), *n_new.  Scratch:
 // keys u64[2][n], idx u32[2][n], status u64[256 * ceil(n / OS_TILE)], aux
 // i64[2048 + 8] (the digit histograms and offsets, the passes' tickets as
-// 8 i32, the live count), flags u8[n], sp i64[n], tile i64[ceil(n / TILE)].
+// 8 i32, the live count), flags u8[n], sp i64[n], tile i64[ceil(n / TILE)],
+// cscr i64[compact_scratch_words(n)] (the compaction's, compact.cuh).
 // n < 2^31.
 EXPORT int launch_level_dedup(const int64_t* cv, const int64_t* cf, const int64_t* cp, long long n,
                               const int64_t* visited, long long V, int64_t* new_fps,
                               int64_t* new_pay, int64_t* n_new, int64_t* keys, int32_t* idx,
                               int64_t* status, int64_t* aux, uint8_t* flags, int64_t* sp,
-                              int64_t* tile, void* stream) {
+                              int64_t* tile, int64_t* cscr, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   u64* kb[2] = {(u64*)keys, (u64*)keys + n};
@@ -459,8 +461,8 @@ EXPORT int launch_level_dedup(const int64_t* cv, const int64_t* cf, const int64_
   Vals vs = {{(const long long*)kb[cur], (const long long*)sp, nullptr},
              {(long long*)new_fps, (long long*)new_pay, nullptr},
              {-1, -1, 0}};
-  return run_compact(flags, n, vs, n, nullptr, tile, n_new, (const int64_t*)n_live, 0, 1, 0,
-                     nullptr, nullptr, nullptr, st);
+  return run_compact(flags, FLAG_BYTES, n, vs, n, nullptr, cscr, n_new, (const int64_t*)n_live, 0,
+                     1, 0, nullptr, nullptr, nullptr, st);
 }
 
 // -- the group dedup's radix passes (per-block histograms, scans, stable scatter) ---
@@ -613,7 +615,7 @@ __global__ void gu_heads(const u64* __restrict__ sv, const unsigned* __restrict_
 // (the least pair's payload, -1 past it), *n_u.  Scratch: keys u64[2][n],
 // idx u32[2][n], counts i32[256 * nb] (nb = ceil(n / RS_TILE)), part
 // i64[ceil(256 * nb / TILE) + 1], flags u8[n], bf i64[n], bp i64[n], tile
-// i64[ceil(n / TILE)].  n < 2^31.
+// i64[compact_scratch_words(n)] (the compaction's, compact.cuh).  n < 2^31.
 EXPORT int launch_group_unique(const int64_t* cv, const int64_t* cf, const int64_t* cp,
                                long long n, int64_t* gv, int64_t* gf, int64_t* gp,
                                int64_t* n_u, int64_t* keys, int32_t* idx, int32_t* counts,
@@ -644,8 +646,8 @@ EXPORT int launch_group_unique(const int64_t* cv, const int64_t* cf, const int64
   Vals vs = {{(const long long*)kb[cur], (const long long*)bf, (const long long*)bp},
              {(long long*)gv, (long long*)gf, (long long*)gp},
              {-1, -1, -1}};
-  return run_compact(flags, n, vs, n, nullptr, tile, n_u, nullptr, 0, 1, 0, nullptr, nullptr,
-                     nullptr, st);
+  return run_compact(flags, FLAG_BYTES, n, vs, n, nullptr, tile, n_u, nullptr, 0, 1, 0, nullptr,
+                     nullptr, nullptr, st);
 }
 
 // -- the merge ----------------------------------------------------------------------
@@ -732,7 +734,8 @@ __global__ void sm_first(const u64* __restrict__ v, long long n, uint8_t* __rest
 // out u64[S] = the first S of the sorted unique non-SENT values of both,
 // SENT-padded; *n_unique = their count; *ovf = 1 when it passes S (else 0).
 // Scratch: flags u8[S + n], live u64[n], merged u64[S + n], tile
-// i64[ceil((S + n) / TILE)], n_live i64 0-d.
+// i64[compact_scratch_words(S + n)] (both compactions', compact.cuh), n_live
+// i64 0-d.
 EXPORT int launch_sieve_merge(const int64_t* sieve, long long S, const int64_t* cv, long long n,
                               int64_t* out, int64_t* n_unique, int64_t* ovf, uint8_t* flags,
                               int64_t* live, int64_t* merged, int64_t* tile, int64_t* n_live,
@@ -742,8 +745,8 @@ EXPORT int launch_sieve_merge(const int64_t* sieve, long long S, const int64_t* 
   if (n > 0) sm_live<<<blocks_of(n, THREADS), THREADS, 0, st>>>((const u64*)cv, n, flags);
   Vals lv = {{(const long long*)cv, nullptr, nullptr}, {(long long*)live, nullptr, nullptr},
              {-1, 0, 0}};
-  int rc = run_compact(flags, n, lv, n, nullptr, tile, n_live, nullptr, 0, 1, 0, nullptr, nullptr,
-                       nullptr, st);
+  int rc = run_compact(flags, FLAG_BYTES, n, lv, n, nullptr, tile, n_live, nullptr, 0, 1, 0,
+                       nullptr, nullptr, nullptr, st);
   if (rc) return rc;
   const long long m = S + n;
   if (m > 0) {
@@ -754,13 +757,12 @@ EXPORT int launch_sieve_merge(const int64_t* sieve, long long S, const int64_t* 
   }
   Vals mv = {{(const long long*)merged, nullptr, nullptr}, {(long long*)out, nullptr, nullptr},
              {-1, 0, 0}};
-  return run_compact(flags, m, mv, S, nullptr, tile, n_unique, nullptr, 0, 1, 0, nullptr, nullptr,
-                     ovf, st);
+  return run_compact(flags, FLAG_BYTES, m, mv, S, nullptr, tile, n_unique, nullptr, 0, 1, 0,
+                     nullptr, nullptr, ovf, st);
 }
 
 WARM((const void*)sm_live, (const void*)sm_first, (const void*)sorted_member,
      (const void*)ld_count, (const void*)ld_scan, (const void*)ld_live, (const void*)ld_pass,
      (const void*)ld_heads, (const void*)rs_hist, (const void*)rs_scan_local,
-     (const void*)scan_offsets, (const void*)rs_scatter, (const void*)count_tiles,
-     (const void*)scatter_tiles, (const void*)pad_tail, (const void*)merge_sorted,
+     (const void*)scan_offsets, (const void*)rs_scatter, COMPACT_KERNELS, (const void*)merge_sorted,
      (const void*)gu_init, (const void*)gu_heads)

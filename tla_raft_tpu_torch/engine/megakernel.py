@@ -248,17 +248,16 @@ def op_fingerprints(eng, children, out, cnt, sub):
 class ExpandScratch:
     """One chunk's canon="expand" buffers: the fan-out's fingerprints
     fp_view / fp_full i64[chunk, K] (SENT where invalid) and the
-    compaction's flags and tiles (allocated once per program)."""
+    compaction's scratch (allocated once per program)."""
 
     def __init__(self, eng, rows: int):
         dev, K = eng.device, eng.K
         self.fpv = torch.full((rows, K), SENT, dtype=I64, device=dev)
         self.fpf = torch.full((rows, K), SENT, dtype=I64, device=dev)
         if dev.type == "cuda":
-            self.flags = torch.zeros((rows * K,), dtype=torch.uint8, device=dev)
             self.tile = torch.zeros((kernels.compact_tiles(rows * K),), dtype=I64, device=dev)
         else:
-            self.flags = self.tile = None
+            self.tile = None
 
 
 def op_expand_chunk(eng, st, valid, xs: ExpandScratch, cnt, sub, mult_acc, abort_acc, base,
@@ -277,7 +276,7 @@ def op_expand_chunk(eng, st, valid, xs: ExpandScratch, cnt, sub, mult_acc, abort
                              abort_acc=abort_acc, base=base)
         kernels.chunk_compact(xs.fpv.view(-1), xs.fpf.view(-1), cap_x, iota_base=base * K,
                               out=(cv, cf, cp), total=total, cnt=cnt, sub=sub, mul=K,
-                              flags=xs.flags, tile=xs.tile)
+                              tile=xs.tile)
         return
     n = _live(cnt, sub, st.msgs.shape[0])
     cv.fill_(SENT)

@@ -151,7 +151,7 @@ COMPACT = Kernel(
     "tla_raft_tpu/ops/hashstore.py:351 (compact_fresh)",
     {"launch_compact": [VP, I64, VP, VP, I64, I64, I64, VP, VP, VP, VP, VP, VP, I64, I64, I64,
                         VP],
-     "compact_tile": []},
+     "compact_scratch": [I64]},
 )
 INFLATE = Kernel(
     "inflate", "csrc/msgset.cu",
@@ -211,7 +211,7 @@ FILTER_COMPACT = Kernel(
     "tla_raft_tpu/engine/bfs.py:338 (_filter_compact; after hs_probe it is "
     "_group_filter_hash:374)",
     {"launch_filter_compact": [VP, I64, VP, VP, VP, I64, VP, VP, VP, VP, VP, VP, VP, VP, VP],
-     "compact_tile": []},
+     "compact_scratch": [I64]},
 )
 DROP_ROWS = Kernel(
     "drop_rows", "csrc/tiered.cu",
@@ -229,9 +229,8 @@ DENSE_EXPAND = Kernel(
 CHUNK_COMPACT = Kernel(
     "chunk_compact", "csrc/compact.cu",
     "tla_raft_tpu/engine/bfs.py:313 (_chunk_compact)",
-    {"launch_chunk_compact": [VP, VP, I64, I64, VP, VP, VP, VP, VP, VP, VP, VP, I64, I64, I64,
-                              VP],
-     "compact_tile": []},
+    {"launch_chunk_compact": [VP, VP, I64, I64, VP, VP, VP, VP, VP, VP, VP, I64, I64, I64, VP],
+     "compact_scratch": [I64]},
 )
 LEGACY = Kernel(
     "legacy_materialize", "csrc/legacy.cu",
@@ -251,7 +250,7 @@ LEVEL_DEDUP = Kernel(
     "tla_raft_tpu/engine/bfs.py:407 (_level_dedup: lexsort by (fp_view, fp_full, payload), "
     "first of each fp_view, searchsorted against the store, stable compaction)",
     {"launch_level_dedup": [VP, VP, VP, I64, VP, I64, VP, VP, VP, VP, VP, VP, VP, VP, VP, VP,
-                            VP],
+                            VP, VP],
      "ld_tile": [], "ld_passes": [], "rs_scan_tile": []},
 )
 MERGE_SORTED = Kernel(
@@ -296,7 +295,7 @@ PACK_DELTAS = Kernel(
     "pack_deltas", "csrc/deep.cu",
     "tla_raft_tpu/parallel/exchange.py:38 (pack_fp_deltas: the delta/varint stream, its "
     "length nibbles and int64 offsets; in _deep_finalize_body, sharded.py:1156)",
-    {"launch_pack_deltas": [VP, I64, VP, I64, VP, VP, VP, VP, VP]},
+    {"launch_pack_deltas": [VP, I64, VP, I64, VP, VP, VP, VP, VP], "pd_tile": []},
 )
 DEEP_VERDICT = Kernel(
     "deep_verdict", "csrc/deep.cu",
@@ -1023,7 +1022,9 @@ def compact(flags, va, pad_a, cap, vb=None, pad_b=0, want_lane=False, *, out_a=N
     lanes: (out_a i64[cap] (pad_a past the kept prefix), out_b or None,
     lane bool[cap] or None, total i64 0-d = the number of flagged lanes).
     ``va`` None means the values are ``iota_base + lane``; with ``cnt``
-    only the first ``(cnt - sub) * mul`` flag lanes count."""
+    only the first ``(cnt - sub) * mul`` flag lanes count.  ``tile`` (the
+    scratch of ``compact_tiles(n)`` words, zero when allocated and kept for
+    compactions alone) may be given, as a captured graph does."""
     n = flags.shape[0]
     _need(flags, "flags", torch.bool, (n,))
     if va is not None:
@@ -1032,8 +1033,6 @@ def compact(flags, va, pad_a, cap, vb=None, pad_b=0, want_lane=False, *, out_a=N
         _need(vb, "vb", torch.int64, (n,))
     dev = flags.device
     lib = COMPACT.lib()
-    tile_n = lib.compact_tile()
-    n_tiles = (n + tile_n - 1) // tile_n
     oa = torch.empty((cap,), dtype=torch.int64, device=dev) if out_a is None else out_a
     ob = out_b
     if vb is not None and ob is None:
@@ -1042,19 +1041,15 @@ def compact(flags, va, pad_a, cap, vb=None, pad_b=0, want_lane=False, *, out_a=N
     if ob is not None:
         _need(ob, "out_b", torch.int64, (cap,))
     lane = torch.empty((cap,), dtype=torch.bool, device=dev) if want_lane else None
-    if tile is None:
-        tile = torch.empty((max(n_tiles, 1),), dtype=torch.int64, device=dev)
+    tile = _compact_scratch(COMPACT, tile, n, dev)
     if total is None:
         total = torch.empty((), dtype=torch.int64, device=dev)
     _need(total, "total", torch.int64, ())
-    if tile.numel() < max(n_tiles, 1):
-        raise ValueError("compact: tile scratch too small")
     COMPACT.check(lib.launch_compact(
         flags.data_ptr(), n, _p(va), _p(vb), pad_a, pad_b, cap, oa.data_ptr(), _p(ob),
         _p(lane), tile.data_ptr(), total.data_ptr(), _cnt(cnt), sub, mul, iota_base, _stream(),
     ))
-    # count_tiles and scatter_tiles per tile pass, scan_offsets, pad_tail
-    COMPACT.launches += 2 * int(n_tiles > 0) + 1 + int(cap > 0)
+    COMPACT.launches += compact_launches(n)
     return oa, ob, lane, total
 
 
@@ -1129,7 +1124,11 @@ def chunk_compact(fpv, fpf, cap, *, iota_base=0, out=None, total=None, ovf=None,
     lane order, to ``cap`` lanes (ov, of, op) padded (SENT, SENT, -1), the
     payload of lane i being ``iota_base + i``; returns (ov, of, op, total
     i64 0-d).  ``ovf`` (int64 0-d) is set to 1 when more than ``cap`` lanes
-    live; with ``cnt`` only the first ``(cnt - sub) * mul`` lanes count."""
+    live; with ``cnt`` only the first ``(cnt - sub) * mul`` lanes count.
+    ``tile``: as ``compact``'s.  The kernel reads its flags from ``fpv``
+    (not SENT), so ``flags``, a flag scratch the earlier design wrote, is
+    taken and not used."""
+    del flags
     n = fpv.shape[0]
     _need(fpv, "fp_view", torch.int64, (n,))
     _need(fpf, "fp_full", torch.int64, (n,))
@@ -1139,15 +1138,7 @@ def chunk_compact(fpv, fpf, cap, *, iota_base=0, out=None, total=None, ovf=None,
     for name, t in zip(("ov", "of", "op"), out):
         _need(t, name, torch.int64, (cap,))
     lib = CHUNK_COMPACT.lib()
-    n_tiles = max((n + lib.compact_tile() - 1) // lib.compact_tile(), 1)
-    if tile is None:
-        tile = torch.empty((n_tiles,), dtype=torch.int64, device=dev)
-    if tile.numel() < n_tiles:
-        raise ValueError("chunk_compact: tile scratch too small")
-    if flags is None:
-        flags = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
-    if flags.numel() < n or flags.dtype != torch.uint8:
-        raise ValueError("chunk_compact: flag scratch too small")
+    tile = _compact_scratch(CHUNK_COMPACT, tile, n, dev)
     if total is None:
         total = torch.empty((), dtype=torch.int64, device=dev)
     _need(total, "total", torch.int64, ())
@@ -1155,17 +1146,37 @@ def chunk_compact(fpv, fpf, cap, *, iota_base=0, out=None, total=None, ovf=None,
         _need(ovf, "ovf", torch.int64, ())
     CHUNK_COMPACT.check(lib.launch_chunk_compact(
         fpv.data_ptr(), fpf.data_ptr(), n, cap, out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), flags.data_ptr(), tile.data_ptr(), total.data_ptr(), _p(ovf),
-        _cnt(cnt), sub, mul, iota_base, _stream()))
-    # live_flags, count_tiles, scan_offsets, scatter_tiles, pad_tail
-    CHUNK_COMPACT.launches += 3 * int(n > 0) + 1 + int(cap > 0)
+        out[2].data_ptr(), tile.data_ptr(), total.data_ptr(), _p(ovf), _cnt(cnt), sub, mul,
+        iota_base, _stream()))
+    CHUNK_COMPACT.launches += compact_launches(n)
     return (*out, total)
 
 
 def compact_tiles(n: int) -> int:
-    """Scratch words ``compact`` needs for ``n`` flag lanes."""
-    t = COMPACT.lib().compact_tile()
-    return max((n + t - 1) // t, 1)
+    """Scratch words a compaction of ``n`` lanes needs (``compact``,
+    ``chunk_compact``, ``filter_compact``): its ticket, epoch and a status
+    word each 8,192 lanes (csrc/compact.cuh).  The count grows with ``n``,
+    so a scratch sized for ``n`` serves every compaction of at most ``n``
+    lanes.  Allocate them zeroed, and use them for compactions alone: the
+    words carry over from call to call."""
+    return int(COMPACT.lib().compact_scratch(n))
+
+
+def compact_launches(n: int) -> int:
+    """The CUDA kernels one compaction of ``n`` lanes launches:
+    compact_pass (over at least one lane) and compact_pad."""
+    return int(n > 0) + 1
+
+
+def _compact_scratch(kern: Kernel, tile, n: int, dev):
+    """A compaction's scratch: ``tile`` checked, or a zeroed new one."""
+    words = int(kern.lib().compact_scratch(n))
+    if tile is None:
+        return torch.zeros((words,), dtype=torch.int64, device=dev)
+    _need(tile, "tile", torch.int64, (tile.shape[0],))
+    if tile.numel() < words:
+        raise ValueError(f"{kern.name}: tile scratch of {tile.numel()} words, needs {words}")
+    return tile
 
 
 def inflate(ids, n_words: int, *, out=None, cnt=None, sub=0):
@@ -1395,11 +1406,7 @@ def filter_compact(keep, cv, cf, cp, cap, *, out=None, total=None, out_off=None,
         if t is not None:
             _need(t, name, torch.int64, ())
     lib = FILTER_COMPACT.lib()
-    n_tiles = max((n + lib.compact_tile() - 1) // lib.compact_tile(), 1)
-    if tile is None:
-        tile = torch.empty((n_tiles,), dtype=torch.int64, device=dev)
-    if tile.numel() < n_tiles:
-        raise ValueError("filter_compact: tile scratch too small")
+    tile = _compact_scratch(FILTER_COMPACT, tile, n, dev)
     if total is None:
         total = torch.empty((), dtype=torch.int64, device=dev)
     _need(total, "total", torch.int64, ())
@@ -1407,8 +1414,7 @@ def filter_compact(keep, cv, cf, cp, cap, *, out=None, total=None, out_off=None,
         keep.data_ptr(), n, cv.data_ptr(), cf.data_ptr(), cp.data_ptr(), cap, out[0].data_ptr(),
         out[1].data_ptr(), out[2].data_ptr(), tile.data_ptr(), total.data_ptr(), _p(out_off),
         _p(pay_off), _p(ovf), _stream()))
-    # count_tiles, scan_offsets, scatter_tiles, pad_tail
-    FILTER_COMPACT.launches += 2 * int(n > 0) + 1 + int(cap > 0)
+    FILTER_COMPACT.launches += compact_launches(n)
     return (*out, total)
 
 
@@ -1517,11 +1523,12 @@ def level_dedup(cv, cf, cp, visited):
     flags = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
     sp = torch.empty((max(n, 1),), dtype=torch.int64, device=dev)
     tile = torch.empty((max((n + scan_t - 1) // scan_t, 1),), dtype=torch.int64, device=dev)
+    cscr = torch.zeros((compact_tiles(n),), dtype=torch.int64, device=dev)
     LEVEL_DEDUP.check(lib.launch_level_dedup(
         cv.data_ptr(), cf.data_ptr(), cp.data_ptr(), n, visited.data_ptr(), V,
         new_fps.data_ptr(), new_pay.data_ptr(), n_new.data_ptr(), keys.data_ptr(),
         idx.data_ptr(), status.data_ptr(), aux.data_ptr(), flags.data_ptr(), sp.data_ptr(),
-        tile.data_ptr(), _stream()))
+        tile.data_ptr(), cscr.data_ptr(), _stream()))
     LEVEL_DEDUP.launches += level_dedup_launches(n, passes)
     return n_new, new_fps, new_pay
 
@@ -1529,9 +1536,8 @@ def level_dedup(cv, cf, cp, visited):
 def level_dedup_launches(n: int, passes: int = 8) -> int:
     """The CUDA kernels one ``level_dedup`` call of ``n`` lanes launches:
     ld_count, ld_scan, ld_live, a pass a digit and ld_heads, then the
-    compaction's count_tiles, scan_offsets, scatter_tiles and pad_tail (of
-    an empty call, scan_offsets alone)."""
-    return 3 + passes + 1 + 4 if n > 0 else 1
+    compaction's two (of an empty call, its pad alone)."""
+    return 3 + passes + 1 + compact_launches(n) if n > 0 else compact_launches(0)
 
 
 def merge_sorted(a, b, n_out: int):
@@ -1566,8 +1572,7 @@ class GroupUniqueScratch:
         self.flags = torch.empty((max(n, 1),), dtype=torch.uint8, device=device)
         self.bf = torch.empty((max(n, 1),), dtype=torch.int64, device=device)
         self.bp = torch.empty((max(n, 1),), dtype=torch.int64, device=device)
-        self.tile = torch.empty((max((n + scan_t - 1) // scan_t, 1),), dtype=torch.int64,
-                                device=device)
+        self.tile = torch.zeros((compact_tiles(n),), dtype=torch.int64, device=device)
 
 
 def group_unique(cv, cf, cp, *, out=None, n_u=None, scratch=None):
@@ -1601,9 +1606,8 @@ def group_unique(cv, cf, cp, *, out=None, n_u=None, scratch=None):
         sc.counts.data_ptr(), sc.part.data_ptr(), sc.flags.data_ptr(), sc.bf.data_ptr(),
         sc.bp.data_ptr(), sc.tile.data_ptr(), _stream()))
     # gu_init, 8 passes of (hist, scan_local, scan_offsets, scatter) and
-    # gu_heads; then count_tiles, scan_offsets, scatter_tiles and pad_tail
-    live = int(n > 0)
-    GROUP_UNIQUE.launches += live * (1 + 8 * 4 + 1) + 2 * live + 1 + live
+    # gu_heads; then the compaction's
+    GROUP_UNIQUE.launches += int(n > 0) * (1 + 8 * 4 + 1) + compact_launches(n)
     return (n_u, *out)
 
 
@@ -1725,8 +1729,9 @@ def pack_deltas(fps, n):
     stream = torch.empty((cap * 8,), dtype=torch.uint8, device=dev)
     nib = torch.empty((cap // 2,), dtype=torch.uint8, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
-    tile = torch.empty((max(compact_tiles(cap), 1),), dtype=torch.int64, device=dev)
-    PACK_DELTAS.check(PACK_DELTAS.lib().launch_pack_deltas(
+    lib = PACK_DELTAS.lib()
+    tile = torch.empty((max(-(-cap // lib.pd_tile()), 1),), dtype=torch.int64, device=dev)
+    PACK_DELTAS.check(lib.launch_pack_deltas(
         fps.data_ptr(), cap, n_dev, n_host, stream.data_ptr(), nib.data_ptr(),
         total.data_ptr(), tile.data_ptr(), _stream()))
     # pd_tiles, scan_offsets, pd_write (the stream's memset is no kernel)
@@ -1810,15 +1815,14 @@ def sieve_merge(sieve, cv):
     flags = torch.empty((max(S + n, 1),), dtype=torch.uint8, device=dev)
     live = torch.empty((max(n, 1),), dtype=torch.int64, device=dev)
     merged = torch.empty((max(S + n, 1),), dtype=torch.int64, device=dev)
-    tile = torch.empty((max(compact_tiles(S + n), 1),), dtype=torch.int64, device=dev)
+    tile = torch.zeros((compact_tiles(S + n),), dtype=torch.int64, device=dev)
     n_live = torch.empty((), dtype=torch.int64, device=dev)
     SIEVE_MERGE.check(SIEVE_MERGE.lib().launch_sieve_merge(
         sieve.data_ptr(), S, cv.data_ptr(), n, out.data_ptr(), n_unique.data_ptr(),
         ovf.data_ptr(), flags.data_ptr(), live.data_ptr(), merged.data_ptr(), tile.data_ptr(),
         n_live.data_ptr(), _stream()))
-    # sm_live and the compaction (count_tiles, scan_offsets, scatter_tiles,
-    # pad_tail); merge_sorted and sm_first; the compaction into scap
-    t_n, t_m = compact_tiles(n), compact_tiles(S + n)
-    SIEVE_MERGE.launches += (int(n > 0) + 2 * int(t_n > 0) + 1 + int(n > 0)
-                             + 2 * int(S + n > 0) + 2 * int(t_m > 0) + 1 + int(S > 0))
+    # sm_live and the compaction; merge_sorted and sm_first; the compaction
+    # into scap
+    SIEVE_MERGE.launches += (int(n > 0) + compact_launches(n) + 2 * int(S + n > 0)
+                             + compact_launches(S + n))
     return out, ovf > 0

@@ -261,8 +261,7 @@ def op_chunk_compact(B, i: int, base: int, cnt, sub: int, K: int) -> None:
     out = (B.cv[seg], B.cf[seg], B.cp[seg])
     if B.fpv.is_cuda:
         kernels.chunk_compact(B.fpv.view(-1), B.fpf.view(-1), cap_x, iota_base=base, out=out,
-                              total=B.chunk_total[i], cnt=cnt, sub=sub, mul=K, flags=B.flags,
-                              tile=B.tile_chunk)
+                              total=B.chunk_total[i], cnt=cnt, sub=sub, mul=K, tile=B.tile_chunk)
         return
     from ..engine.bfs import chunk_compact_plain
 
@@ -337,12 +336,11 @@ class BucketBuffers:
         self.madded = torch.zeros((self.sl, eng.mx.A), dtype=torch.int32, device=dev)
         self.movf = torch.zeros((self.sl,), dtype=torch.bool, device=dev)
         if dev.type == "cuda":
-            self.flags = torch.zeros((chunk * K,), dtype=torch.uint8, device=dev)
             self.tile_chunk = torch.zeros((kernels.compact_tiles(chunk * K),), dtype=I64,
                                           device=dev)
             self.tile_lanes = torch.zeros((kernels.compact_tiles(N),), dtype=I64, device=dev)
         else:
-            self.flags = self.tile_chunk = self.tile_lanes = None
+            self.tile_chunk = self.tile_lanes = None
 
 
 def bucket_level_core(eng, B: BucketBuffers, V: BucketVecs, fr_in, crow_in, fr_out,
