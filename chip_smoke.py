@@ -434,6 +434,7 @@ WALLS: dict = {}  # seconds of the phases' runs, by phase
 CHUNK = 16384  # parents per guard launch on the main path
 SEED = 0  # of the random kernel inputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+DEPTH_S4_K3 = 14  # K3 at 4 servers: the first chunk (8,192 parents) of the depth-14 frontier
 INT_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate
 INT8_TENSOR_OPS_PER_S = 1979e12
 
@@ -720,11 +721,12 @@ def phase_grouped(depth: int, chunk: int) -> None:
     wall = wall_ms(level)
     timing = dict(split)
     D.READS.clear()
-    n_new, pwall, busy, top = _profiled(level)
+    n_new, pwall, busy, top, launches = _profiled(level)
     emit(dict(phase="profile", path="grouped", parents=n, n_new=n_new, wall_ms=wall,
               host_seconds=timing, profiled_wall_ms=pwall, device_busy_ms=busy,
               device_idle_share=max(0.0, 1 - busy / wall), reads=_reads_total(D.READS),
-              recaptures=chk.graph_stats["captures"] - captures, top=top))
+              recaptures=chk.graph_stats["captures"] - captures, top=top,
+              launches=launches))
     # K4 over the warm level's tail (its filtered lanes), by graph replay
     lanes, live, budget, slab0 = k4_grouped_tail(chk, fr, n, depth, base[0])
     rec, _call = k4_level_timing(slab0, lanes, live, budget)
@@ -1067,15 +1069,11 @@ def phase_orbit_kernels(chk, launches: dict) -> list:
     tied_rows = Frontier(*(x[rows] for x in children))
     plain_f = wall_ms(lambda: fpr.state_fingerprints_plain(tied_rows))
     t_ids = int((tied_rows.msg_ids >= 0).sum())
-    tab = fpr.ktab
-    tab_b = tab["ct"].numel() + (tab["gt_eff"].numel() * 4 + tab["pperm"].numel()
-                                 if fpr.factored_msgs else tab["msg_eff"].numel() * 4)
-    int8_ms = 2 * n_t * f_pad * P * 16 / INT8_TENSOR_OPS_PER_S * 1e3
-    add_ms = t_ids * P * 4 / INT_OPS_PER_S * 1e3
+    tab_b, ops_ms = _k3_bound_terms(fpr, n_t, t_ids)
     rec_f = _entry(out, launches, kernels.ORBIT_FOLD, ms_f, plain_f,
-                   n_t * (row_b + 8 + 16) + tab_b, None, ops_ms=int8_ms + add_ms)
+                   n_t * (row_b + 8 + 16) + tab_b, None, ops_ms=ops_ms)
     rec_f.update(servers=S, tied_rows=n_t, set_ids=t_ids, P=P)
-    if fpr.factored_msgs:
+    if fpr.ktab["form"] == "factored":
         rec_f.update(_k3_design(fpr, tied_rows.msg_ids))
     chunk_ms = cuda_ms(lambda: fpr.orbit_chunk_fps(children, chk.cap_nd, cnt, out=outs,
                                                    scratch=scr), 10)
@@ -3313,6 +3311,26 @@ def k4_grouped_tail(chk, fr, n: int, depth: int, base_slab):
     return got["lanes"], got["live"], got["budget"], got["slab"]
 
 
+# the message tables each K3 form reads (``Fingerprinter.kernel_tables_np``)
+K3_MSG_TABLES = {"s3": ("msg_eff",), "pairs": ("gt_eff", "pperm"),
+                 "factored": ("gt_half", "pperm")}
+
+
+def _k3_bound_terms(fpr, lanes: int, n_ids: int) -> tuple[int, float]:
+    """K3's bound terms for ``lanes`` live states carrying ``n_ids`` ids:
+    the tables' bytes (the feature table and the message tables of the
+    form the launch takes, each read once) and the operations' ms (the
+    feature MMAs, 2 * F_pad * 16 P a state at the int8 tensor rate, and
+    the message sums, 4 channels an id and permutation at the integer
+    rate: separate pipes, so the larger of the two)."""
+    tab = fpr.ktab
+    tab_b = tab["ct"].numel() + sum(tab[k].numel() * tab[k].element_size()
+                                    for k in K3_MSG_TABLES[tab["form"]])
+    int8_ms = 2 * lanes * tab["f_pad"] * 16 * fpr.P / INT8_TENSOR_OPS_PER_S * 1e3
+    add_ms = n_ids * fpr.P * 4 / INT_OPS_PER_S * 1e3
+    return tab_b, max(int8_ms, add_ms)
+
+
 def _k3_design(fpr, ids) -> dict:
     """K3's factored design's own counts for a launch over the rows whose id
     lists are ``ids`` ([n, cap_m], -1 padded): bytes (the feature table's
@@ -3340,8 +3358,8 @@ def _k3_design(fpr, ids) -> dict:
     u32_ops = n_ids * gy * NP * 4 + n_q * P * 4
     return dict(design_bytes=bytes_, design_int8_ops=int8_ops, design_u32_ops=u32_ops,
                 present_digits=n_q, design_ms=max(bytes_ / HBM_BYTES_PER_S,
-                                                  int8_ops / INT8_TENSOR_OPS_PER_S
-                                                  + u32_ops / INT_OPS_PER_S) * 1e3)
+                                                  int8_ops / INT8_TENSOR_OPS_PER_S,
+                                                  u32_ops / INT_OPS_PER_S) * 1e3)
 
 
 def _entry(out: list, launches: dict, k, ms, plain_ms, bytes_, lib_ms, ops=0,
@@ -3360,16 +3378,21 @@ def _entry(out: list, launches: dict, k, ms, plain_ms, bytes_, lib_ms, ops=0,
     return out[-1]
 
 
-def k1k2_forms(chk, reps: int = 10) -> dict:
+def k1k2_forms(chk, reps: int = 10, ids_form: bool = True) -> dict:
     """K1 and K2 in the forms a fused level launches them, on ``chk``'s
     frontier: K1's counted form (``valid``, ``mult_acc``, ``abort_acc``,
-    ``cnt``) over its first chunk, held against the twin's summed mult and
-    first abort, beside the same launch without the sums and the per-row
-    form; K2's candidate pass (that chunk's candidates as payloads, cap_x
-    lanes under a count) and one ``mat_slice_width`` slice of the level's
-    survivors (payloads into the whole frontier, under n_new), each held
-    against the twin.  Device ms (``graph_ms``) and each form's byte bound;
-    ``inputs`` holds the tensors for callers that time them again."""
+    ``cnt``) over its first chunk from the parents' id lists (the inflate
+    folded in: what every fused, superstep and grouped level launches) and
+    from their inflated masks, each held against the twin's summed mult
+    and first abort, beside the mask form without the sums, the per-row
+    form, and the inflate kernel with the mask form after it (the two
+    launches the id-list form replaces); K2's candidate pass (that chunk's
+    candidates as payloads, cap_x lanes under a count) and one
+    ``mat_slice_width`` slice of the level's survivors (payloads into the
+    whole frontier, under n_new), each held against the twin.  Device ms
+    (``graph_ms``) and each form's byte bound; ``inputs`` holds the tensors
+    for callers that time them again.  ``ids_form=False`` leaves out the
+    id-list form (for a package whose K1 reads only masks)."""
     import torch
 
     from tla_raft_tpu_torch import kernels
@@ -3392,21 +3415,40 @@ def k1k2_forms(chk, reps: int = 10) -> dict:
     first = torch.full((), big, dtype=torch.int64, device=dev)
     cnt = torch.tensor(nb + 3, dtype=torch.int64, device=dev)  # live rows: cnt - sub
 
-    def counted(sums=True):
-        kernels.guards(mx, st, valid=valid, per_row=False, cnt=cnt, sub=3,
+    msgs = torch.empty((nb, uni.n_words), dtype=torch.int32, device=dev)
+
+    def counted(sums=True, src=st):
+        kernels.guards(mx, src, valid=valid, per_row=False, cnt=cnt, sub=3,
                        mult_acc=acc if sums else None, abort_acc=first if sums else None)
 
-    counted()
+    def inflate_then_counted():
+        kernels.inflate(real.msg_ids, uni.n_words, out=msgs, cnt=cnt, sub=3)
+        counted(src=st._replace(msgs=msgs))
+
+    def ids_counted():
+        counted(src=real)
+
     want_first = int(torch.nonzero(pa)[0, 0]) if bool(pa.any()) else big
-    check(_equal(valid, pv) and _equal(acc, pm.to(torch.int64).sum(0))
-          and int(first) == want_first, "K1's counted form differs from its twin")
+    forms = [counted, ids_counted] if ids_form else [counted]
+    for form in forms:
+        valid.zero_()
+        acc.zero_()
+        first.fill_(big)
+        form()
+        check(_equal(valid, pv) and _equal(acc, pm.to(torch.int64).sum(0))
+              and int(first) == want_first, "K1's counted form differs from its twin")
     out = dict(parents=nb, slots=K, valid_slots=int(pv.sum()), aborts=int(pa.sum()))
     out["guards_counted_ms"] = graph_ms(counted, reps)
+    out["guards_ids_counted_ms"] = graph_ms(ids_counted, reps) if ids_form else None
+    out["inflate_then_counted_ms"] = graph_ms(inflate_then_counted, reps)
     out["guards_valid_only_ms"] = graph_ms(lambda: counted(False), reps)
     out["guards_per_row_ms"] = graph_ms(lambda: mx.guards(st), reps)
-    # each parent's fields and mask read once, its valid row written once;
-    # the sums' K words
+    # each parent's fields and mask (or id list) read once, its valid row
+    # written once; the sums' K words
     out["guards_counted_bound_ms"] = (nb * (core_b + uni.n_words * 4 + K) + K * 8) \
+        / HBM_BYTES_PER_S * 1e3
+    id_b = real.msg_ids.element_size() * real.msg_ids.shape[1]
+    out["guards_ids_counted_bound_ms"] = (nb * (core_b + id_b + K) + K * 8) \
         / HBM_BYTES_PER_S * 1e3
 
     # K2, candidate pass: the chunk's valid lanes at cap_x, payloads into the chunk
@@ -3527,9 +3569,12 @@ def k3_compact_forms(chk, reps: int = 10, seed: int = 3) -> dict:
     out["k3_events_ms"] = cuda_ms(k3, reps)
     row_b = _core_bytes(fr) + fr.msg_ids.element_size() * fr.msg_ids.shape[1]
     ids_set = int((children.msg_ids[:live] >= 0).sum())
-    # each live state's row read once, 16 B out a lane, the tables once
-    out["k3_bound_ms"] = (live * row_b + G * 16 + fpr.ktab["ct"].numel()) \
-        / HBM_BYTES_PER_S * 1e3
+    # each live state's row read once, 16 B out a lane, the form's tables
+    # once; or the operations
+    tab_b, ops_ms = _k3_bound_terms(fpr, live, ids_set)
+    b_ms = (live * row_b + G * 16 + tab_b) / HBM_BYTES_PER_S * 1e3
+    out["k3_bound_ms"] = max(b_ms, ops_ms)
+    out["k3_bound_by"] = "bytes" if b_ms >= ops_ms else "operations"
     out["k3_ids_a_state"] = ids_set / max(live, 1)
 
     # B9: the candidates' fresh lanes (fingerprints, payloads) packed
@@ -3628,6 +3673,7 @@ def phase_kernels(chk, launches: dict, seed: int):
     # ``cuda_ms`` also counts (kept as events_ms)
     forms = k1k2_forms(chk)
     forms.pop("inputs")
+    check(forms["guards_ids_counted_ms"] is not None, "K1's id-list form was not timed")
     events = cuda_ms(lambda: mx.guards(st_real), 10)
     plain = wall_ms(lambda: [mx.guards_plain(chk.inflate(Frontier(*(x[i:i + 2048] for x in real))))
                              for i in range(0, real.voted_for.shape[0], 2048)])
@@ -3636,6 +3682,9 @@ def phase_kernels(chk, launches: dict, seed: int):
           nb * (core_b + uni.n_words * 4) + K * 24 + nb * K * 5 + nb, nb * K * 32, None)
     out[-1].update(events_ms=events, counted_ms=forms["guards_counted_ms"],
                    counted_bound_ms=forms["guards_counted_bound_ms"],
+                   ids_counted_ms=forms["guards_ids_counted_ms"],
+                   ids_counted_bound_ms=forms["guards_ids_counted_bound_ms"],
+                   inflate_then_counted_ms=forms["inflate_then_counted_ms"],
                    valid_only_ms=forms["guards_valid_only_ms"])
 
     # compaction (B3 shape): the real chunk's valid lanes to cap_x lanes;
@@ -4109,14 +4158,18 @@ def phase_kernels(chk, launches: dict, seed: int):
 def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
     """The kernels at 5 and 7 servers against their twins, on the scale
     runs' last frontiers and on random id lists (ids >= 2^15 at S=7): K1 at
-    K = 1,900 / 3,696, the compaction, K2, K3 (monolithic at S=5, factored
-    at S=7), inflate and deflate with the config's id width, the invariant
-    scan, K4, the grouped level's probe and filter, and the fused level's
-    control: (the record of K3's factored mode (S=7), per-kernel times at
-    both shapes with K3's at S=5 in full)."""
+    K = 1,900 / 3,696, the compaction, K2, K3 (the pair-digit form at S=5,
+    factored at S=7; at S=5 also the whole function's library form),
+    inflate and deflate with the config's id width, the invariant scan, K4,
+    the grouped level's probe and filter, and the fused level's control;
+    then K3's pair-digit form at 4 servers on a depth-14 run's first
+    chunk: (the record of K3's factored mode (S=7), per-kernel times at
+    each shape with K3's at S=4 and 5 in full)."""
     import torch
 
     from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.config import RaftConfig
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
     from tla_raft_tpu_torch.engine import bfs, group
     from tla_raft_tpu_torch.engine import megakernel as mk
     from tla_raft_tpu_torch.engine.invariants import INVARIANT_KERNELS, inv_scan_plain
@@ -4184,23 +4237,20 @@ def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
         ms = graph_ms(lambda: kernels.fingerprints(fpr, children, out=outv, cnt=cnt), 10)
         events = cuda_ms(lambda: kernels.fingerprints(fpr, children, out=outv, cnt=cnt), 10)
         plain = wall_ms(lambda: fpr.state_fingerprints_plain(lv))
-        F, ncols = fpr.C_planes.shape
-        f_pad = fpr.ktab["f_pad"]
+        F, tab = fpr.C_planes.shape[0], fpr.ktab
+        f_pad = tab["f_pad"]
         n_ids = int((lv.msg_ids >= 0).sum())
-        int8_ms = 2 * live * f_pad * ncols / INT8_TENSOR_OPS_PER_S * 1e3
-        add_ms = n_ids * fpr.P * 4 / INT_OPS_PER_S * 1e3
-        tab = fpr.ktab
-        tab_b = tab["ct"].numel() + (tab["gt_eff"].numel() * 4 + tab["pperm"].numel()
-                                     if fpr.factored_msgs else tab["msg_eff"].numel() * 4)
+        tab_b, ops_ms = _k3_bound_terms(fpr, live, n_ids)
         feats = torch.nn.functional.pad(fpr.spec.features(lv), (0, f_pad - F))
         ct_t = tab["ct"].t().contiguous()
         lib = cuda_ms(lambda: torch._int_mm(feats, ct_t), 10) if live > 16 else None
+        whole = _k3_library_ms(fpr, lv) if S != 7 and live > 16 else None
         rec = _entry([], launches, kernels.MSG_FACTORED if S == 7 else kernels.FINGERPRINT,
-                     ms, plain, live * (row_b + 16) + tab_b, None if S == 7 else lib,
-                     ops_ms=int8_ms + add_ms)
+                     ms, plain, live * (row_b + 16) + tab_b, None if S == 7 else whole,
+                     ops_ms=ops_ms)
         rec.update(servers=S, lanes=live, P=fpr.P, F=F, f_pad=f_pad, set_ids=n_ids,
-                   feature_int_mm_ms=lib, events_ms=events)
-        if fpr.factored_msgs:
+                   feature_int_mm_ms=lib, events_ms=events, form=tab["form"])
+        if tab["form"] == "factored":
             rec.update(_k3_design(fpr, lv.msg_ids))
         if S == 7:
             out.append(rec)
@@ -4269,16 +4319,63 @@ def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
             fns[4](lc, ctrl, cpp, K, pidx, slot)
             res.append((lc, mult, ctrl, pidx, slot))
         check(all(_equal(x, y) for x, y in zip(*res)), f"S={S}: level control differs")
+    # K3's pair-digit form at 4 servers too (P = 24), counted over the first
+    # chunk's candidates of a depth-14 frontier, as at 5
+    chk = TorchChecker(RaftConfig(n_servers=4), device="cuda")
+    chk.run(max_depth=DEPTH_S4_K3)
+    fpr, fr = chk.fpr, chk.frontier
+    f = k3_compact_forms(chk)
+    f.pop("inputs")
+    times[4] = dict(frontier_rows=fr.voted_for.shape[0], chunk=chk.chunk, cap_x=chk.cap_x,
+                    cap_m=chk.cap_m, fingerprint=dict(
+                        ms=f["k3_ms"], events_ms=f["k3_events_ms"], lanes=f["candidates"],
+                        P=fpr.P, f_pad=fpr.ktab["f_pad"], form=fpr.ktab["form"],
+                        bound_ms=f["k3_bound_ms"], bound_by=f["k3_bound_by"]))
+    chk = fr = fpr = None
     return out, times
 
 
+def _k3_library_ms(fpr, fr) -> float:
+    """K3's whole function at 3 to 5 servers in the reference's own form,
+    timed by CUDA events: one ``torch._int_mm`` of the features with the
+    message set's one-hot [G, M] against the feature and message plane
+    tables [F_pad + M, 16 P], the planes combined to u32, and the
+    minimum over P (used nowhere in the port)."""
+    import torch
+
+    from tla_raft_tpu_torch.u64 import _combine_planes_u32
+
+    tab = fpr.ktab
+    f_pad, P = tab["f_pad"], fpr.P
+    x8 = torch.cat([torch.nn.functional.pad(fpr.spec.features(fr), (0, f_pad - fpr.spec.F)),
+                    fpr.ids_to_bits(fr.msg_ids)], 1)
+    pad = (-x8.shape[1]) % 8
+    x8 = torch.nn.functional.pad(x8, (0, pad))
+    y8 = torch.nn.functional.pad(torch.cat([tab["ct"].t(), fpr.G_planes]), (0, 0, 0, pad))
+    y8 = y8.contiguous()
+    want = fpr.state_fingerprints(fr)
+
+    def call():
+        h = torch._int_mm(x8, y8).view(-1, P, 4, 4).to(torch.int64)
+        return fpr.finalize(_combine_planes_u32(h))
+
+    got = call()
+    check(_equal(got[0], want[0]) and _equal(got[1], want[1]),
+          "K3's library form differs from the kernel")
+    return cuda_ms(call, 10)
+
+
 def _profiled(fn):
-    """(result, wall ms, device busy ms, top kernels) of ``fn`` under
-    torch.profiler; busy = the sum of kernel times (graph-launched
-    kernels included)."""
+    """(result, wall ms, device busy ms, top kernels, launches) of ``fn``
+    under torch.profiler; busy = the sum of kernel times (graph-launched
+    kernels included); launches = the wrappers' launch counts of the call
+    (graph replays included), by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from tla_raft_tpu_torch import kernels
+
+    before = kernels.launch_counts()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4297,7 +4394,9 @@ def _profiled(fn):
         if dev_us > 0:
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    return res, wall, sum(r[1] for r in rows), [[k, round(ms, 4), c] for k, ms, c in rows[:14]]
+    after = kernels.launch_counts()
+    return (res, wall, sum(r[1] for r in rows), [[k, round(ms, 4), c] for k, ms, c in rows[:14]],
+            {k: after[k] - before[k] for k in after if after[k] > before[k]})
 
 
 def phase_profile(chk) -> None:
@@ -4308,9 +4407,6 @@ def phase_profile(chk) -> None:
     (1 - kernel time / the timed wall; the profiler's own tracing slows the
     host, so its wall is printed apart).  Reported, not gated."""
     from tla_raft_tpu_torch import device as D
-    from tla_raft_tpu_torch.config import RaftConfig
-    from tla_raft_tpu_torch.engine.bfs import TorchChecker
-    from tla_raft_tpu_torch.ops import hashstore as hs
 
     fr = chk.frontier
     n = fr.voted_for.shape[0]
@@ -4324,19 +4420,34 @@ def phase_profile(chk) -> None:
     staged()  # warm
     wall = wall_ms(staged)
     D.READS.clear()
-    res, pwall, busy, top = _profiled(staged)
+    res, pwall, busy, top, launches = _profiled(staged)
     emit(dict(phase="profile", path="staged", parents=n, n_new=res["n_new"],
               overflow=[res["ovf_x"], res["ovf_h"], res["ovf_m"]], wall_ms=wall,
               profiled_wall_ms=pwall, device_busy_ms=busy,
               device_idle_share=max(0.0, 1 - busy / wall), reads=_reads_total(D.READS),
-              top=top))
+              top=top, launches=launches))
 
-    fchk = TorchChecker(RaftConfig(), device="cuda", chunk=chk.chunk, cap_x=chk.cap_x,
+    emit(profile_fused_level(chk, GOLDEN_LEVELS_REF[: DEPTH + 1]))
+
+
+def profile_fused_level(chk, sizes: list) -> dict:
+    """One more level from a staged run's frontier (``chk``; ``sizes`` its
+    level sizes) as one fused-level graph of a checker of the same config
+    and budgets (captured first), on a copy of the slab restored in place
+    after each run: the wall of a timed run, then kernel time by name under
+    torch.profiler, the device's idle share and the launches by kernel (the
+    ``profile`` record of ``path: fused``)."""
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch.engine.bfs import TorchChecker
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    fr = chk.frontier
+    n = fr.voted_for.shape[0]
+    fchk = TorchChecker(chk.cfg, device="cuda", chunk=chk.chunk, cap_x=chk.cap_x,
                         cap_m=chk.cap_m, superstep=1)
     fchk.hstore = hs.DeviceHashStore(chk.hstore.cap, chk.hstore.count, "cuda")
     fchk.hstore.slab = chk.hstore.slab.clone()
     slab0 = fchk.hstore.slab.clone()
-    sizes = GOLDEN_LEVELS_REF[: DEPTH + 1]
 
     def fused():
         out = fchk._expand_level_mega(fr, n, None, sizes)
@@ -4353,14 +4464,17 @@ def phase_profile(chk) -> None:
     timing = dict(fchk.level_timing)
     D.READS.clear()
     launches = fchk.graph_stats["level_launches"]
-    (res, _t), pwall, busy, top = _profiled(fused)
-    emit(dict(phase="profile", path="fused", parents=n, n_new=res["n_new"], wall_ms=wall,
-              profiled_wall_ms=pwall, device_busy_ms=busy,
-              device_idle_share=max(0.0, 1 - busy / wall),
-              host_seconds=timing, graph_launches=fchk.graph_stats["level_launches"] - launches,
-              reads=_reads_total(D.READS), captures=captures,
-              recaptures=fchk.graph_stats["captures"] - captures,
-              capture_seconds=fchk.graph_stats["capture_seconds"], top=top))
+    (res, _t), pwall, busy, top, by_kernel = _profiled(fused)
+    rec = dict(phase="profile", path="fused", servers=chk.cfg.S, parents=n, n_new=res["n_new"],
+               wall_ms=wall, profiled_wall_ms=pwall, device_busy_ms=busy,
+               device_idle_share=max(0.0, 1 - busy / wall),
+               host_seconds=timing, graph_launches=fchk.graph_stats["level_launches"] - launches,
+               reads=_reads_total(D.READS), captures=captures,
+               recaptures=fchk.graph_stats["captures"] - captures,
+               capture_seconds=fchk.graph_stats["capture_seconds"], top=top,
+               launches=by_kernel)
+    fchk._progs.clear()
+    return rec
 
 
 def main() -> int:
@@ -4407,23 +4521,31 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=sorted(kernels.KERNELS)))
     fused = kernels.FUSED
-    staged, _ = run("staged", kernels.STAGED, phase_staged, DEPTH, CHUNK)
+    staged, staged_launches = run("staged", kernels.STAGED, phase_staged, DEPTH, CHUNK)
     chk, staged_digests = staged if staged else (None, None)
+
+    def default_counts(c: dict) -> None:
+        # supersteps, fused and grouped levels: K1 reads the id lists
+        check(c["inflate"] == 0, f"inflate launched {c['inflate']} times on the default path")
+
     default_digests, launches = run(
         "default", [k for k in kernels.KERNELS
-                    if k not in ("drop_rows",) + kernels.SCALE + kernels.ORBIT_PATH
+                    if k not in ("drop_rows", "inflate") + kernels.SCALE + kernels.ORBIT_PATH
                     + kernels.EXPAND_PATH + kernels.LEGACY_PATH + kernels.SORTED_PATH
                     + kernels.BUCKET_PATH + kernels.HOST_PATH + kernels.MESH_PATH
                     + kernels.DEEP_PATH],
-        phase_default, DEPTH_DEFAULT, CHUNK)
+        phase_default, DEPTH_DEFAULT, CHUNK, counts_check=default_counts)
+    # the inflate kernel's own path: the staged chain
+    launches = dict(launches, inflate=staged_launches["inflate"])
     if staged_digests and default_digests:
         try:
             phase_digests(staged_digests, default_digests, DEPTH)
         except Failed as e:
             failures.append(f"digests: {e}")
     run("fixpoint", fused, phase_fixpoint, CHUNK)
-    run("trace", fused, phase_trace, CHUNK)
-    run("drill", fused, phase_drill)
+    # the trace's rebuilding and the drill's stops still inflate (eager steps)
+    run("trace", fused + ("inflate",), phase_trace, CHUNK)
+    run("drill", fused + ("inflate",), phase_drill)
     run("grouped", kernels.STAGED + ("level",) + kernels.GROUPED, phase_grouped, DEPTH_GROUPED,
         CHUNK)
     _res, tier_launches = run("tiered", fused + ("drop_rows",), phase_tiered, DEPTH_TIERED, CHUNK,
@@ -4475,7 +4597,8 @@ def main() -> int:
     bucket_results, bucket_launches = run("bucket", bucket_path, phase_bucket, CHUNK)
     launches.update({k: bucket_launches[k] for k in kernels.BUCKET_PATH})
     if bucket_results:
-        run("bucket_sequential", fused, phase_bucket_sequential, CHUNK, bucket_results)
+        run("bucket_sequential", fused + ("inflate",), phase_bucket_sequential, CHUNK,
+            bucket_results)
     run("service", bucket_path + fused, phase_service, CHUNK)
     # slice 9: the external store route (--fpstore-dir)
     host_path = kernels.HOST_PATH + ("guards", "compact", "inflate", "materialize",
@@ -4615,6 +4738,12 @@ def main() -> int:
             records += res
     runs = orbit_runs = fps_out = None  # free the runs' frontiers, slabs and lanes
     torch.cuda.empty_cache()
+    fp = next((r for r in records if r["name"] == "fingerprint"), None)
+    for S in (5, 4):  # K3's pair-digit form beside its S <= 3 form's record
+        k = (scale_times or {}).get(S, {}).get("fingerprint")
+        if fp is not None and k:
+            fp.update({f"s{S}_{key}": k.get(key) for key in (
+                "ms", "events_ms", "bound_ms", "bound_by", "library_ms", "lanes", "form")})
     emit(dict(kernels=records, shapes=shapes, scale=scale_times, orbit=orbit_shapes))
     if chk is not None:
         phase_profile(chk)

@@ -4,15 +4,21 @@ launch by kernel launch (torch.profiler's device times, averaged over
 calls), and what the deep levels and the default path's wall make of it:
 
 * ``k1k2``: K1 ``guards`` in its counted form (as every fused, grouped and
-  superstep level launches it), the same launch without the sums, and its
-  per-row form, over the first 16,384-parent chunk of the reference
+  superstep level launches it: from the parents' id lists where the
+  package's K1 takes them, and from their inflated masks), the inflate
+  kernel with the mask form after it, the mask form without the sums, and
+  its per-row form, over the first 16,384-parent chunk of the reference
   constants' depth-20 frontier; K2 ``materialize``'s two passes of a fused
   level, that chunk's candidates at cap_x lanes and one 8-chunk slice of
   the level's survivors (``chip_smoke.k1k2_forms``, each held against its
   twin first);
 * ``levels``: the deep fused level (from depth 20, 2,150,466 parents) and
-  the warm grouped level (from depth 22, 5,099,018 parents), with K1's and
-  K2's device ms (``chip_smoke.phase_profile`` / ``phase_grouped``);
+  the warm grouped level (from depth 22, 5,099,018 parents), with K1's,
+  K2's and inflate's device ms and the launches by kernel
+  (``chip_smoke.phase_profile`` / ``phase_grouped``);
+* ``levels5``: the deep fused level at 5 servers (level 16 from the
+  depth-15 frontier, 629,645 parents) split by kernel
+  (``chip_smoke.profile_fused_level``), with K3's device ms;
 * ``k1phases``: where K1's counted form spends its time, by ablation: the
   package's ``csrc/guards.cu`` rebuilt with the slots off family 7, the
   family-7 runs, the count tables, or all three left out (their loops run
@@ -30,8 +36,10 @@ calls), and what the deep levels and the default path's wall make of it:
   into cap_x payload lanes (B3), B9's two-array form, the filter form and
   ``chunk_compact`` over the chunk's fan-out lanes (their fp_view, SENT
   where K1 finds no valid slot);
-* ``k3s5``: K3 at 5 servers (the tiled form) counted over the first
-  chunk's candidates of the depth-16 frontier, as ``k3s3``;
+* ``k3s5``, ``k3s4``: K3 at 5 servers (P = 120) and 4 servers (P = 24)
+  counted over the first chunk's candidates of the depth-16 and depth-14
+  frontiers, as ``k3s3`` (the pair-digit form; the tiled form in trees
+  before it);
 * ``k4``: K4 probe-and-insert as a level's program runs it (no host
   read), by CUDA-graph replay and split by kernel (torch.profiler, the
   slab's restoring copy included), over the deep fused level's lane buffer
@@ -48,11 +56,15 @@ calls), and what the deep levels and the default path's wall make of it:
   but for the wider grid and the 10 rounds; only the full build is the
   kernel), with the registers ptxas gave each kernel; and the 2^24-entry
   rehash of ``insert_only`` with 6 and with 10 grid rounds;
-* ``k3phases``: where that K3 launch spends its time, by ablation: the
-  tree's ``csrc/fingerprint.cu`` rebuilt with the feature staging, the
-  feature table's column staging, the message part or the MMAs and
-  epilogue left out, or all four, each timed on the same launch (outputs
-  then wrong; only the full build is the kernel).
+* ``k3variants5``: the ``k3s5`` launch with the pair-digit form's other
+  settings (ids gathered at once, warps a block; outputs unchanged), each
+  timed on the same launch;
+* ``k3phases``, ``k3phases5``: where that K3 launch (at 3 servers; at 5,
+  the ``k3s5`` launch) spends its time, by ablation: the tree's
+  ``csrc/fingerprint.cu`` rebuilt with the feature staging, the feature
+  table's column staging, the message part or the MMAs and epilogue left
+  out, or all four, each timed on the same launch (outputs then wrong;
+  only the full build is the kernel).
 
     python scripts/torch_redesign_profile.py [--tree DIR] [--parts levels,k3s3,compact]
                                              [--reps N]
@@ -60,7 +72,10 @@ calls), and what the deep levels and the default path's wall make of it:
 ``--tree`` runs the ``tla_raft_tpu_torch`` package of another checkout (a
 parent commit unpacked with ``git archive``, say) under this checkout's
 ``chip_smoke.py``, so two trees are measured by the same code in one call;
-each builds its kernels into its own ``build/kernels``.  One JSON line a
+each builds its kernels into its own ``build/kernels``.  The ``k3*`` parts
+need a tree whose K3 tables carry their form (``ktab["form"]``); ``k1k2``
+times K1's id-list form where the tree's package has ``kernels.k3_form``
+(the two came together).  One JSON line a
 part, then the card's name and power limit.  Exits 2 without a CUDA device.
 """
 
@@ -72,8 +87,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("k1k2", "k1phases", "levels", "wall", "dedup", "k3", "k3s3", "compact", "k3phases",
-         "k3s5", "k4", "k4phases")
+PARTS = ("k1k2", "k1phases", "levels", "levels5", "wall", "dedup", "k3", "k3s3", "compact",
+         "k3phases", "k3s5", "k3s4", "k3phases5", "k3variants5", "k4", "k4phases")
 # K1's phase loops (csrc/guards.cu), by the header each ablation empties
 K1_LOOPS = {
     name: [(h, h.replace("i < np *", "i < 0 *"))]
@@ -93,11 +108,11 @@ K4_CUTS = dict(
     wide_grid=[("constexpr unsigned ROUND_BLOCKS = 1056;", "constexpr unsigned ROUND_BLOCKS = 4096;")],
     grid_rounds_10=[("constexpr int GRID_ROUNDS = 6;", "constexpr int GRID_ROUNDS = 10;")],
 )
-# K3's phases at S=3 (csrc/fingerprint.cu), each emptied the same way: a
-# phase's loop headers in the tiled form of the earlier design, or in the
-# S <= 3 form (every one that is in the source).  The S <= 3 form's
-# feature_staging empties the features' build from the staged fields; the
-# fields' and id lists' copy stays (the message part reads the ids there)
+# K3's phases (csrc/fingerprint.cu), each emptied the same way: a phase's
+# loop headers in the tiled form of earlier trees, in the S <= 3 form and
+# in the pair-digit form (every one that is in the source).  feature_staging
+# empties the features' build from the staged fields; the fields' and id
+# lists' copy stays (the message part reads the ids there)
 K3_LOOPS = dict(
     feature_staging=[
         ("for (int i = threadIdx.x; i < TB_STATES * f_pad; i += NT) {",
@@ -115,12 +130,35 @@ K3_LOOPS = dict(
         ("for (int r = 0; r < 16; ++r) {", "for (int r = 0; r < 0; ++r) {"),
         ("for (int it = t; it < TB_STATES * nperm; it += S3_THREADS) {",
          "for (int it = t; it < 0 * nperm; it += S3_THREADS) {"),
+        ("for (int r = w; r < nrows; r += PR_WARPS) {", "for (int r = w; r < 0; r += PR_WARPS) {"),
+        ("for (int r = w * (TB_STATES / PR_WARPS); r < r_end; ++r) {",
+         "for (int r = w * (TB_STATES / PR_WARPS); r < 0; ++r) {"),
     ],
     mma_epilogue=[
         ("for (int pl = 0; pl < TB_PERMS; ++pl) {", "for (int pl = 0; pl < 0; ++pl) {"),
         ("for (int p = pset; p < nperm; p += S3_PSETS) {",
          "for (int p = pset; p < 0; p += S3_PSETS) {"),
+        ("for (int p = w; p < nperm; p += PR_WARPS) {", "for (int p = w; p < 0; p += PR_WARPS) {"),
     ],
+)
+
+
+# the pair-digit form's message part (csrc/fingerprint.cu fingerprint_pairs),
+# by part: every state's sums rebuilt from its own ids (no update from the
+# last state's), the gathers of the ids' parts left out (their values a
+# function of the indices)
+K3PAIRS_CUTS = dict(
+    rebuild_each=[("const bool rebuild = !prid || n_cur + n_prev - 2 * common >= n_cur;",
+                   "const bool rebuild = true;")],
+    gathers=[("__ldg(gt4 + (long long)rk * mt.np + pperm_byte(ppw[i], qk))",
+              "make_uint4(rk, qk, i, 0)")],
+)
+# other settings of the pair-digit form (outputs unchanged): ids gathered at
+# once, and the block's warps
+K3PAIRS_VARIANTS = dict(
+    ids_1=[("constexpr int PR_IDS = 2;", "constexpr int PR_IDS = 1;")],
+    ids_4=[("constexpr int PR_IDS = 2;", "constexpr int PR_IDS = 4;")],
+    threads_256=[("constexpr int PR_THREADS = 512;", "constexpr int PR_THREADS = 256;")],
 )
 
 
@@ -327,7 +365,8 @@ def main() -> int:
                                   counted_ms_by_variant=ms)), flush=True)
             st = valid = None
         if "k1k2" in parts:
-            f = cs.k1k2_forms(chk, reps=10)
+            # K1 reads id lists in the trees whose K3 tables carry their form
+            f = cs.k1k2_forms(chk, reps=10, ids_form=hasattr(kernels, "k3_form"))
             x = f.pop("inputs")
             mx, K, G = chk.mx, chk.K, chk.cap_x
             st, fr = x["st"], chk.frontier
@@ -369,7 +408,8 @@ def main() -> int:
                         device_idle_share=rec["device_idle_share"],
                         guards_ms=_kernel_ms(rec["top"], "guards"),
                         materialize_ms=_kernel_ms(rec["top"], "materialize"),
-                        top=rec["top"])), flush=True)
+                        inflate_ms=_kernel_ms(rec["top"], "inflate"),
+                        launches=rec.get("launches"), top=rec["top"])), flush=True)
         chk = None
         release()
 
@@ -479,15 +519,46 @@ def main() -> int:
         cv = cf = cp = store = None
         release()
 
-    if "k3s5" in parts:
-        chk = TorchChecker(RaftConfig(n_servers=5), device="cuda")
-        chk.run(max_depth=16)
+    for part, S, depth in (("k3s5", 5, 16), ("k3s4", 4, cs.DEPTH_S4_K3)):
+        if part not in parts and not (S == 5 and ("k3phases5" in parts
+                                                  or "k3variants5" in parts)):
+            continue
+        chk = TorchChecker(RaftConfig(n_servers=S), device="cuda")
+        chk.run(max_depth=depth)
         f = cs.k3_compact_forms(chk)
         calls = f.pop("inputs")
         f3 = {k: v for k, v in f.items() if not k.startswith(("compact", "b9", "filter"))}
-        print(json.dumps(dict(part="k3s5", **head, servers=5, **f3,
-                              by_kernel=run(calls["k3"]))), flush=True)
+        if part in parts:
+            print(json.dumps(dict(part=part, **head, servers=S, P=chk.fpr.P, **f3,
+                                  by_kernel=run(calls["k3"]))), flush=True)
+        if S == 5 and "k3phases5" in parts:
+            libs = _ablations(kernels, kernels.FINGERPRINT, {**K3_LOOPS, **K3PAIRS_CUTS},
+                              tree / "build" / "k3phases5", "launch_and_stores")
+            ms = _variant_ms(cs, kernels.FINGERPRINT, libs, calls["k3"])
+            print(json.dumps(dict(part="k3phases5", **head, lanes=f["cap_x"],
+                                  live=f["candidates"], ms_by_variant=ms)), flush=True)
+        if S == 5 and "k3variants5" in parts:
+            libs = _ablations(kernels, kernels.FINGERPRINT, K3PAIRS_VARIANTS,
+                              tree / "build" / "k3variants5", None)
+            ms = _variant_ms(cs, kernels.FINGERPRINT, libs, calls["k3"])
+            print(json.dumps(dict(part="k3variants5", **head, lanes=f["cap_x"],
+                                  live=f["candidates"], ms_by_variant=ms)), flush=True)
         chk = calls = None
+        release()
+
+    if "levels5" in parts:
+        want = cs.SCALE_GOLDEN[5]["levels"]
+        chk = TorchChecker(RaftConfig(n_servers=5), device="cuda", megakernel=False)
+        res = chk.run(max_depth=15)
+        cs.check(list(res.level_sizes) == want[:16], "levels5: the S=5 staged run")
+        rec = cs.profile_fused_level(chk, want[:16])
+        cs.check(rec["n_new"] == want[16], f"levels5: level 16 gave {rec['n_new']}")
+        print(json.dumps(dict(part="levels5", **head, **{k: v for k, v in rec.items()
+                                                          if k != "phase"},
+                              fingerprint_ms=_kernel_ms(rec["top"], "fingerprint"),
+                              guards_ms=_kernel_ms(rec["top"], "guards"),
+                              inflate_ms=_kernel_ms(rec["top"], "inflate"))), flush=True)
+        chk = None
         release()
 
     if "k3" in parts:

@@ -10,7 +10,10 @@ lists (csrc/materialize.cu); ``k1_group_parents`` and ``k1_group_model``:
 K1's groups, count tables and family-7 runs (csrc/guards.cu);
 ``compact_model``: the one-pass compaction (csrc/compact.cuh);
 ``k3s3_id_lists`` and ``k3s3_model``: K3's S <= 3 form (csrc/fingerprint.cu
-``fingerprint_s3``).
+``fingerprint_s3``); ``k3pairs_id_lists``, ``k3pairs_sibling_lists`` and
+``k3pairs_model``: its
+pair-digit form (``fingerprint_pairs``, S = 4, 5); ``k1_ids_words``: K1's
+masks built from id lists (csrc/guards.cu, the inflate folded in).
 """
 
 import numpy as np
@@ -680,6 +683,176 @@ def k3s3_model(fields: dict, ids: np.ndarray, ct: np.ndarray, eff: np.ndarray, S
         fv[states] = np.minimum.reduce(sets_v)
         ff[states] = np.minimum.reduce(sets_f)
     return fv, ff
+
+
+# -- K3's pair-digit form (csrc/fingerprint.cu fingerprint_pairs) --------------------
+
+PR_WARPS = 16
+PR_RUN = 64 // PR_WARPS  # consecutive states a warp takes
+K3PAIRS_KINDS = K3S3_KINDS + ("one_digit", "every_digit")
+
+
+def k3pairs_id_lists(M: int, offs, strides, rows: int, cap_m: int, seed: int) -> np.ndarray:
+    """Ascending -1-padded id lists i64 [rows, cap_m] cycling through
+    ``K3PAIRS_KINDS``: ``K3S3_KINDS`` (none, cap_m of them, random, the
+    universe's highest ids, one), then ids of a single pair digit (type
+    2's, as many as fit) and every pair digit present (one id each, of a
+    random type, then random ids up to cap_m)."""
+    g = np.random.default_rng(seed)
+    NP = (offs[1] - offs[0]) // strides[0]
+    out = k3s3_id_lists(M, rows, cap_m, seed)
+    for i in range(rows):
+        kind = K3PAIRS_KINDS[i % len(K3PAIRS_KINDS)]
+        if kind == "one_digit":
+            q = int(g.integers(0, NP))
+            ids = offs[2] + q * strides[2] + g.choice(strides[2], min(cap_m, strides[2]),
+                                                      replace=False)
+        elif kind == "every_digit":
+            t = g.integers(0, 4, NP)
+            ids = np.array([offs[k] + q * strides[k] + g.integers(0, strides[k])
+                            for q, k in enumerate(t)], np.int64)
+            extra = g.choice(M, max(0, cap_m - NP), replace=False)
+            ids = np.unique(np.concatenate([ids, extra]))[:cap_m]
+        else:
+            continue
+        ids = np.sort(np.asarray(ids, np.int64))
+        out[i] = -1
+        out[i, : ids.shape[0]] = ids
+    return out
+
+
+def k3pairs_sibling_lists(M: int, rows: int, cap_m: int, seed: int) -> np.ndarray:
+    """Ascending -1-padded id lists i64 [rows, cap_m] in runs of 1 to 12
+    siblings, as a level's candidates come: a run's parent list (0 to
+    cap_m - 2 random ids), each child the parent's list with one or two
+    ids added (its list cut to cap_m), now and then the parent's own list
+    or one with an id taken out."""
+    g = np.random.default_rng(seed)
+    out = np.full((rows, cap_m), -1, np.int64)
+    i = 0
+    while i < rows:
+        parent = np.sort(g.choice(M, int(g.integers(0, cap_m - 1)), replace=False))
+        for _ in range(int(g.integers(1, 13))):
+            if i == rows:
+                break
+            kind = g.integers(0, 8)
+            if kind == 0:
+                ids = parent
+            elif kind == 1 and parent.shape[0]:
+                ids = np.delete(parent, g.integers(0, parent.shape[0]))
+            else:
+                ids = np.union1d(parent, g.integers(0, M, int(g.integers(1, 3))))[:cap_m]
+            out[i, : ids.shape[0]] = ids
+            i += 1
+    return out
+
+
+def k3pairs_model(fields: dict, ids: np.ndarray, ct: np.ndarray, gt: np.ndarray,
+                  pperm: np.ndarray, offs, strides, row_base, S: int, L: int, F: int, live: int,
+                  id_bytes: int = 2, idx=None, out=None):
+    """numpy model of fingerprint_pairs over the rows of ``fields`` and
+    ``ids`` (-1-padded ascending lists): groups of 64 states (launch row r
+    is state r, or ``idx[r]``), their fields staged field-major and their
+    id lists as ``id_bytes`` wide words, each feature read through its code;
+    the message part: warp w takes the group's states 4 w .. 4 w + 3 in
+    turn, each permutation's sums (four channels) carried from state to
+    state; a state's valid ids are its list up to the first -1; the sums
+    are updated by the ids only the state has (+) and only the last state
+    had (-), or, for the warp's first state or where that touches at least
+    as many ids as the state has, rebuilt from its own ids; an id (type,
+    pair digit q, gt row) adds ``gt[row, pperm[p, q]]`` (``gt`` u32 [rows,
+    NP, 4]) to permutation p's sums, the ids two at a time in mask order,
+    u32 mod 2^32; the feature part from
+    the feature table's columns (``ct`` i8 [16 P, f_pad]), the planes
+    combined a (permutation, channel); each warp's minima over its
+    permutations (warp w takes w, w + 16, ...), then the warps' minimum.
+    Rows from ``live`` are SENT outside the indexed mode; in it only the
+    outputs at ``idx[r]``, r < live, are written (``out``: the outputs
+    before the call).  Returns (fp_view u64, fp_full u64)."""
+    sent = np.uint64(0xFFFFFFFFFFFFFFFF)
+    m32 = np.uint64(0xFFFFFFFF)
+    n = ids.shape[0] if idx is None else len(idx)
+    P, NP = pperm.shape
+    f_pad = ct.shape[1]
+    codes = feature_codes(S, L, F)
+    if out is None:
+        out = (np.full(ids.shape[0], sent), np.full(ids.shape[0], sent))
+    fv, ff = (x.copy() for x in out)
+    itype = np.int16 if id_bytes == 2 else np.int32
+    gt = gt.astype(np.uint64)
+    sets = [np.arange(w, P, PR_WARPS) for w in range(PR_WARPS)]
+    for base in range(0, n, S3_STATES):
+        rows = np.arange(base, min(base + S3_STATES, n))
+        if idx is None:
+            fv[rows[rows >= live]] = sent
+            ff[rows[rows >= live]] = sent
+        rows = rows[rows < live]
+        if not rows.shape[0]:
+            continue
+        states = rows if idx is None else np.asarray(idx)[rows]
+        raw = [np.ascontiguousarray(fields[f][states]).reshape(len(states), -1).view(np.uint8)
+               for f in CORE_FIELDS]
+        sid = np.ascontiguousarray(ids[states].astype(itype)).astype(np.int64)
+        A = np.zeros((len(states), f_pad), np.int64)
+        for e, (f, j, cmp) in enumerate(codes):
+            v = raw[f][:, j].astype(np.int64)
+            A[:, e] = (v == cmp - 1) if cmp else v.astype(np.uint8).view(np.int8)
+        planes = (A @ ct.astype(np.int64).T).reshape(len(states), P, 4, 4)
+        h = ((planes * (np.int64(1) << (8 * np.arange(4, dtype=np.int64)))).sum(-1)
+             & np.int64(0xFFFFFFFF)).astype(np.uint64)
+        msum = np.zeros((len(states), P, 4), np.uint64)
+        def part(i):  # an id's part of every permutation's sums [P, 4]
+            ty = int(i >= offs[1]) + int(i >= offs[2]) + int(i >= offs[3])
+            q, rest = divmod(int(i) - offs[ty], strides[ty])
+            return gt[row_base[ty] + rest][pperm[:, q]]
+
+        for w in range(PR_WARPS):
+            acc, prev = None, None
+            for r in range(PR_RUN * w, min(len(states), PR_RUN * (w + 1))):
+                row = sid[r]
+                cur = row[: int(np.argmax(row < 0)) if (row < 0).any() else row.shape[0]]
+                if prev is not None:
+                    add = cur[~np.isin(cur, prev)]
+                    sub = prev[~np.isin(prev, cur)]
+                if prev is None or add.shape[0] + sub.shape[0] >= cur.shape[0]:
+                    acc = np.zeros((P, 4), np.uint64)
+                    add, sub = cur, cur[:0]
+                for i in add:
+                    acc = (acc + part(i)) & m32
+                for i in sub:
+                    acc = (acc - part(i)) & m32
+                msum[r] = acc
+                prev = cur
+        h = (h + msum) & m32
+        view = (h[..., 0] << np.uint64(32)) | h[..., 1]
+        full = (h[..., 2] << np.uint64(32)) | h[..., 3]
+        mv = [view[:, s_].min(1) if s_.shape[0] else np.full(len(states), sent) for s_ in sets]
+        mf = [full[:, s_].min(1) if s_.shape[0] else np.full(len(states), sent) for s_ in sets]
+        fv[states] = np.minimum.reduce(mv)
+        ff[states] = np.minimum.reduce(mf)
+    return fv, ff
+
+
+# -- K1's masks from id lists (csrc/guards.cu, the inflate folded in) ---------------
+
+
+def k1_ids_words(ids: np.ndarray, n_words: int, np_: int) -> np.ndarray:
+    """The masks K1 builds in shared memory from id lists i64 [B, cap_m],
+    a group of ``np_`` parents at a time: the group's words zeroed, then
+    each id with id >= 0 and id >> 5 < n_words ORed in, in the order the
+    block's threads take the group's ids (OR is order-free).  Returns u32
+    [B, n_words]."""
+    B, cap_m = ids.shape
+    out = np.zeros((B, n_words), np.uint32)
+    for b0 in range(0, B, np_):
+        grp = ids[b0:b0 + np_].reshape(-1)
+        words = np.zeros((grp.shape[0] // cap_m, n_words), np.uint32)
+        for i in np.random.default_rng(b0).permutation(grp.shape[0]):
+            v = int(grp[i])
+            if v >= 0 and (v >> 5) < n_words:
+                words[i // cap_m, v >> 5] |= np.uint32(1 << (v & 31))
+        out[b0:b0 + np_] = words
+    return out
 
 
 # -- K4's claim rounds over pending-lane lists (csrc/hashstore.cu) ------------------

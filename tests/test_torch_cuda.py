@@ -18,7 +18,7 @@ from tla_raft_tpu_torch.config import RaftConfig
 from tla_raft_tpu_torch.engine import bfs
 from tla_raft_tpu_torch.engine.bfs import TorchChecker, compact_payloads
 from tla_raft_tpu_torch.engine.invariants import INVARIANT_KERNELS, inv_scan_plain
-from tla_raft_tpu_torch.models.raft import Frontier
+from tla_raft_tpu_torch.models.raft import Frontier, RaftState, core_of
 from tla_raft_tpu_torch.ops import hashstore as hs
 from tla_raft_tpu_torch.ops.hashstore import probe_and_insert, probe_and_insert_plain
 from tla_raft_tpu_torch.ops.mxu_expand import MXUExpand
@@ -512,9 +512,9 @@ def _random_ids(uni, n, cap_m, dtype, seed):
 
 @pytest.mark.parametrize("S", [5, 7])
 def test_scale_fingerprint_kernel_equals_twin(scale, S):
-    """K3 (monolithic at S=5, factored at S=7) on the frontier, on mixed
-    rows and on random id lists equals the plain twin, and the launches
-    land on its counters."""
+    """K3 (the pair-digit form at S=5, factored at S=7) on the frontier, on
+    mixed rows and on random id lists equals the plain twin, and the
+    launches land on its counters."""
     from tla_raft_tpu_torch import kernels
 
     chk = scale[S]
@@ -1616,13 +1616,19 @@ def small():
 
 
 def _k3_case(chk, n, seed):
-    """``n`` rows of ``chk``'s frontier with edge id lists
-    (``redesign_cases.k3s3_id_lists``: none, cap_m of them, random, the
-    universe's highest ids, one) in the frontier's id width."""
-    from redesign_cases import k3s3_id_lists
+    """``n`` rows of ``chk``'s frontier with runs of sibling id lists
+    (``redesign_cases.k3pairs_sibling_lists``: a parent's list with ids
+    added or taken out) in the first half and edge id lists
+    (``k3pairs_id_lists``: none, cap_m of them, random, the universe's
+    highest ids, one, one pair digit only, every digit) in the second, in
+    the frontier's id width."""
+    from redesign_cases import k3pairs_id_lists, k3pairs_sibling_lists
 
     fr = _rows(chk.frontier, n, seed)
-    ids = k3s3_id_lists(chk.uni.M, n, fr.msg_ids.shape[1], seed)
+    uni, cap_m = chk.uni, fr.msg_ids.shape[1]
+    ids = np.concatenate([k3pairs_sibling_lists(uni.M, n // 2, cap_m, seed),
+                          k3pairs_id_lists(uni.M, uni.type_offsets, uni.type_strides,
+                                           n - n // 2, cap_m, seed)])
     return fr._replace(msg_ids=torch.from_numpy(ids).to(fr.msg_ids.dtype).cuda())
 
 
@@ -1631,15 +1637,20 @@ def _k3_case(chk, n, seed):
 def test_k3_written_once_equals_twin(run, scale, small, S, mode):
     """K3 at S = 2 and 3 (``fingerprint_s3``: a persistent grid of 64-state
     groups, staged fields and id lists, a thread a (state, permutation) on
-    the message part, each state written once) and at S = 4 and 5 (the
-    tiled form: outputs set to SENT, minima folded by atomicMin) against the twin on the
-    frontier's rows with edge id lists: every row; under a device count
-    (the rows past it, whole 64-state groups among them, SENT over a buffer
-    that held other values); and at S = 3 in the indexed mode (only the
-    outputs at the index rows below the count change; the overflow word)."""
+    the message part, each state written once) and at S = 4 and 5
+    (``fingerprint_pairs``: the same groups, the message part a warp a
+    state through the R rows of its pair digits and the PPERM fold, every
+    permutation in one block, each state written once) against the twin on
+    the frontier's rows with edge id lists (at S = 4, 5 also one pair
+    digit only and every digit): every row; under a device count (the rows
+    past it, whole 64-state groups among them and a group cut by it, SENT
+    over a buffer that held other values); and at S = 3, 4 and 5 in the
+    indexed mode (only the outputs at the index rows below the count
+    change; the overflow word)."""
     chk = {2: small[2], 3: run, 4: small[4], 5: scale[5]}[S]
-    if mode == "indexed" and S != 3:
+    if mode == "indexed" and S == 2:
         pytest.skip("the indexed mode's S <= 3 form is held at S = 3")
+    assert chk.fpr.ktab["form"] == ("s3" if S <= 3 else "pairs")
     n = 1000
     fr = _k3_case(chk, n, S)
     want = chk.fpr.state_fingerprints_plain(fr)
@@ -1648,7 +1659,7 @@ def test_k3_written_once_equals_twin(run, scale, small, S, mode):
         got = kernels.fingerprints(chk.fpr, fr)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     elif mode == "counted":
-        live = n // 3  # 667 of 1,000 rows dead: groups 6-15 wholly past live
+        live = n // 3  # 667 of 1,000 rows dead: group 5 cut, groups 6-15 wholly past live
         out = (torch.full((n,), 7, dtype=torch.int64, device="cuda"),
                torch.full((n,), 9, dtype=torch.int64, device="cuda"))
         kernels.fingerprints(chk.fpr, fr, out=out, cnt=torch.tensor(live + 4, device="cuda"),
@@ -1673,6 +1684,84 @@ def test_k3_written_once_equals_twin(run, scale, small, S, mode):
     after = kernels.launch_counts()
     name = "orbit_fold" if mode == "indexed" else "fingerprint"
     assert after[name] - before[name] == (2 if mode == "indexed" else 1)
+
+
+@pytest.mark.parametrize("S,form", [(5, "s3"), (7, "pairs")])
+def test_k3_refuses_a_form_past_its_limits(scale, S, form):
+    """``launch_fingerprints`` takes its form from the caller and refuses
+    one asked past that form's limits (the S <= 3 form at S=5's 120
+    permutations, the pair-digit form at S=7's 5,040) rather than read the
+    table it was given in another layout; nothing is launched."""
+    chk = scale[S]
+    fr = _k3_case(chk, 64, S)
+    saved = chk.fpr.ktab
+    chk.fpr.ktab = dict(saved, form=form)
+    before = kernels.launch_counts()
+    try:
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            kernels.fingerprints(chk.fpr, fr)
+    finally:
+        chk.fpr.ktab = saved
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("S", [3, 5, 7])
+def test_guards_from_ids_under_graph_replay_equals_inflate_and_k1(run, scale, S):
+    """K1's id-list form (the inflate folded into its staging: int16 ids at
+    S = 3 and 5, int32 ids >= 2^15 at S = 7) in the counted form a fused
+    level launches, captured once into a CUDA graph with a device count and
+    replayed at three live counts (a block's group cut, whole groups dead,
+    every row), against the inflate kernel followed by K1 on the mask under
+    the same counts: the same valid rows (dead rows untouched), per-slot
+    sums and first abort; the per-row form from the id lists equals the
+    twin's; and each replay adds one ``guards`` launch and no inflate."""
+    chk = run if S == 3 else scale[S]
+    mx, K, uni = chk.mx, chk.K, chk.uni
+    n = 3000
+    fr = _rows(chk.frontier, n, S)
+    if S == 7:
+        fr = fr._replace(msg_ids=_random_ids(uni, n, fr.msg_ids.shape[1], chk.id_dtype, 70))
+        assert int(fr.msg_ids.max()) >= 1 << 15
+    want = _guards_twin(chk, fr)
+    got = kernels.guards(mx, fr)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    st = RaftState(msgs=bfs.ids_to_msgs(fr.msg_ids, uni.n_words), **core_of(fr))
+    cnt = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def buffers():
+        return (torch.ones((n, K), dtype=torch.bool, device="cuda"),
+                torch.full((K,), 3, dtype=torch.int64, device="cuda"),
+                torch.full((), 1 << 62, dtype=torch.int64, device="cuda"))
+
+    ids_bufs, mask_bufs = buffers(), buffers()
+    g = torch.cuda.CUDAGraph()
+    tally = kernels.Tally()
+    with torch.cuda.graph(g):
+        kernels.guards(mx, fr, valid=ids_bufs[0], per_row=False, cnt=cnt, sub=5,
+                       mult_acc=ids_bufs[1], abort_acc=ids_bufs[2], base=100)
+    tally.take()
+    per_block = kernels.guards_group_parents(mx, False)
+    for live in (per_block + 3, n // 2, n):
+        cnt.fill_(live + 5)
+        for b, fresh in zip(ids_bufs + mask_bufs, buffers() + buffers()):
+            b.copy_(fresh)
+        before = kernels.launch_counts()
+        g.replay()
+        tally.replay()
+        after = kernels.launch_counts()
+        assert after["guards"] - before["guards"] == 1
+        assert after["inflate"] == before["inflate"]
+        msgs = kernels.inflate(fr.msg_ids, uni.n_words, cnt=cnt, sub=5)
+        kernels.guards(mx, st._replace(msgs=msgs), valid=mask_bufs[0], per_row=False, cnt=cnt,
+                       sub=5, mult_acc=mask_bufs[1], abort_acc=mask_bufs[2], base=100)
+        torch.cuda.synchronize()
+        assert torch.equal(ids_bufs[0], mask_bufs[0]), (S, live)
+        assert torch.equal(ids_bufs[0][:live], want[0][:live]) and bool(ids_bufs[0][live:].all())
+        assert torch.equal(ids_bufs[1], mask_bufs[1]), (S, live)
+        assert torch.equal(ids_bufs[1], want[1][:live].to(torch.int64).sum(0) + 3), (S, live)
+        ab = want[2][:live]
+        wf = 100 + int(torch.nonzero(ab)[0, 0]) if bool(ab.any()) else 1 << 62
+        assert int(ids_bufs[2]) == int(mask_bufs[2]) == wf, (S, live)
 
 
 def test_compaction_under_graph_replay_equals_twin(run):

@@ -7,32 +7,68 @@
 // form _msg_hash_factored, :424) and finalize (the unsigned minimum over the
 // P server permutations of the two 64-bit channel pairs).
 //
-// Design: a tiled form for any symmetry group (S = 5: P = 120, S = 7:
-//   P = 5,040), and at S <= 3 (P <= 8: every permutation in one tile; F_pad
-//   <= 128) a form of its own (below).  A grid over (64 states, a range of
-//   permutation tiles of 8 permutations = 128 plane columns).  The
-//   block computes its states' features (i8, F padded to a multiple of 32)
-//   once and keeps them as MMA A fragments in registers.  Per tile it stages
-//   the tile's columns of the transposed feature table in shared memory and
-//   runs int8 tensor-core MMAs (mma.sync m16n8k32, s8 x s8 -> s32) for the
-//   feature part, one warp per 16 states.  The epilogue combines the planes
-//   of each (state, permutation, channel) into a u32 in registers, adds the
-//   message part, and keeps the running unsigned minimum of the two 64-bit
-//   pairs; at the end one atomicMin per state and output folds the block's
-//   minimum into fp_view / fp_full, which the launch first sets to all ones
-//   (SENT).  The minimum is order-free, so the bytes do not depend on thread
-//   timing.  No [G, P, chan] hash is written anywhere.
+// Design: three forms, by the symmetry group's size.  Each computes its
+//   states' features (i8, F padded to a multiple of 32) once and keeps them
+//   as MMA A fragments in registers, and runs the feature part as int8
+//   tensor-core MMAs (mma.sync m16n8k32, s8 x s8 -> s32) over columns of
+//   the transposed feature table staged in shared memory, one warp per 16
+//   states; the epilogue combines the planes of each (state, permutation,
+//   channel) into a u32 in registers, adds the message part, and keeps the
+//   running unsigned minimum of the two 64-bit pairs.  The minimum is
+//   order-free, so the bytes do not depend on thread timing.  No [G, P,
+//   chan] hash is written anywhere.
 //
 //   The message part adds effective u32 coefficients (the four signed byte
 //   planes of a coefficient combined, ops/fingerprint.py kernel_tables): the
 //   plane combine is linear mod 2^32, so adding combined coefficients equals
 //   combining the plane sums.
 //
-//   Monolithic (S = 4, 5, 6, and S <= 3 with F_pad > 128; fingerprint_kernel,
-//   128 threads): eff[id][p][chan]
-//   is the folded table; per tile each lane (permutation, channel) of a warp
-//   sums its states' entries over their ids.  S = 4-6 keep this form by
-//   design: their P passes one tile.
+//   A permutation moves only the pair digit q of id = off_t + q * stride_t
+//   + r, so the message part of permutation p is the sum over the digits q
+//   the state carries of R[q][PPERM[p][q]], where R[q][q'] = sum over its
+//   ids of digit q of gt[row_base_t + r][q'] -- the reference's own partial
+//   sums (_msg_hash_factored), exact in u32 arithmetic mod 2^32, which is
+//   what the reference's exact f32 fold gives after the plane combine.  The
+//   pair-digit forms read gt (804 rows of NP * 4 u32: 0.26 MB at S = 5)
+//   instead of the folded table eff[id][p] (P * 16 B an id: 30.9 MB at
+//   S = 5): id's part for permutation p is gt[row][PPERM[p][q]].
+//
+//   Pair-digit form (nperm <= 120: S = 4, 5, and S <= 3 when the S <= 3
+//   form does not take them; fingerprint_pairs, 512 threads, a persistent
+//   grid of one block an SM): every permutation in one block, the four
+//   channels in one pass.  The PPERM rows and the features' packed codes
+//   are staged once a block; then each group of 64 states has its fields
+//   and id lists copied to shared memory by cp.async (issued while the
+//   previous group's MMAs run); its features are built there through the
+//   codes; the message part takes a warp a run of 4 consecutive states
+//   and a lane 4 of the permutations: the lane's sums (four channels) are
+//   carried from state to state and updated by the ids that differ from
+//   the last state's (+ gt[row][PPERM[p][q]] for each id only the state
+//   has, - for each id only the last one had: one 16-B gather each, two
+//   ids' gathers in flight), or rebuilt from the state's own ids where
+//   that touches fewer (the ids that differ found through a bitmap of the
+//   universe a warp: the state's ids toggled in leave the ids of one state
+//   only); u32 sums and differences are exact mod 2^32.
+//   Consecutive candidates are mostly children of one parent, whose lists
+//   differ from the parent's by the one or two ids their action added, so
+//   a state costs a few gathers where building it alone costs one per id
+//   and permutation; the sums go to the group's [64][P][4] (123 KB at S =
+//   5); then the feature part
+//   with the operands swapped: warp w takes permutations w, w + 16, ..., its
+//   16 plane columns the MMAs' A operand read from the table into
+//   registers (the next permutation's while this one's epilogue runs), the
+//   64 states' features B from shared memory, 8 n-tiles of 8 states side
+//   by side, so no tile of columns is staged and no block barrier falls
+//   inside the loop; the planes of a (state, channel) sit on 4 lanes, which
+//   a reduce-scatter of 3 shuffles combines; each warp keeps its lanes'
+//   minima in registers, the warps' minima meet in shared memory and each
+//   state is written once (SENT past the live count), with no memset and
+//   no atomic on the outputs.  The form it replaces
+//   (a tiled grid over (64 states, 16 tiles), each lane gathering one u32
+//   of eff an id and permutation, the id rows read again in every tile,
+//   the outputs set to SENT and folded by atomicMin) took 0.82 ms for a
+//   depth-16 S = 5 chunk's 34,513 candidates on an H100, where this form
+//   takes 0.24 ms (PERF.md).
 //
 //   S <= 3 (fingerprint_s3, 384 threads, a persistent grid of as many
 //   blocks as stay resident): the feature table's P * 16 used columns and
@@ -51,13 +87,9 @@
 //   level's chunk (75,206 live of 98,304 lanes) on an H100, half of it the
 //   feature staging (PERF.md).
 //
-//   Factored (S = 7, B7 _msg_hash_factored; fingerprint_factored, 256
-//   threads): a permutation moves only the pair digit q of id = off_t +
-//   q * stride_t + r, so the message part of permutation p is
-//   sum over the digits q the state carries of R[q][PPERM[p][q]], where
-//   R[q][q'] = sum over its ids of digit q of gt[row_base_t + r][q'] -- the
-//   reference's own partial sums, exact in u32 arithmetic mod 2^32, which is
-//   what the reference's exact f32 fold gives after the plane combine.  The
+//   Factored (nperm > 120: S >= 6; S = 7 is B7 _msg_hash_factored;
+//   fingerprint_factored, 256 threads, a grid over (64 states, ranges of
+//   256 permutations)): the pair-digit identity above.  The
 //   two 64-bit pairs are independent minima, so the block runs twice, for
 //   channels 0-1 (fp_view) and 2-3 (fp_full), on a half of gt's channels a
 //   pass (gt_half [sum of strides, 2, NP, 2] u32, 543 KB at S = 7): half the
@@ -100,24 +132,21 @@
 //   ms at the S = 3 main path's shapes on an H100 (chip_smoke.py), and could
 //   not hold S >= 4.
 //
-// Bound: the int8 tensor rate for the feature part
-// (2 F_pad * 16 P operations a state) and the 32-bit adds of the message
-// part (P * 4 per set id); the bytes are the states' core fields and id
-// lists (~2-4 B * cap_m) and 16 B out.  The tables stay in L2 (30.9 MB
-// eff + 0.3 MB features at S = 5; 23 MB features + 0.5 MB gt at S = 7).
+// Bound: the int8 tensor rate for the feature part (2 F_pad * 16 P
+// operations a state) and the 32-bit adds of the message part (P * 4 per
+// set id in the reference's form; the pair-digit form adds P * 4 a
+// differing id, the factored 4 NP an id and 4 P a present digit); the
+// bytes are the states' core fields and id lists (~2-4 B * cap_m) and 16 B
+// out.  The tables stay in L2 (0.3 MB features + 0.26 MB gt at S = 5; 23 MB
+// features + 0.5 MB gt at S = 7).
 #include "common.cuh"
 
 // -- the kernels --------------------------------------------------------------------
 
 constexpr int TB_STATES = 64;            // states per block: 4 row groups x 16 MMA rows
-constexpr int TB_THREADS = 128;          // the monolithic form: 4 warps
 constexpr int TB_PERMS = 8;              // permutations per tile
-constexpr int TB_COLS = TB_PERMS * 16;   // plane columns per tile
-constexpr int TB_TILES = 16;             // tiles per block (grid.y splits the rest)
 constexpr int MAX_KS = 12;               // F_pad / 32, F <= 384
 constexpr int MAX_NP = 56;               // S * (S - 1), S <= 8
-constexpr int MS_STRIDE = 34;            // u32 row stride of the monolithic message sums
-constexpr int TB_SMEM_MAX = 96 * 1024;   // the monolithic launch's dynamic shared memory
 constexpr int FX_THREADS = 256;          // the factored form: 8 warps
 constexpr int FX_WARPS = FX_THREADS / 32;
 constexpr int FX_TILES = 32;             // tiles a block
@@ -135,9 +164,22 @@ constexpr int S3_MAX_KS = 4;             // F_pad <= 128 (the reference's S <= 3
 constexpr int S3_IDS = 8;                // eff loads a thread keeps in flight
 constexpr int S3_IDS_SMEM = 32 * 1024;   // id lists staged when a buffer's fit
 constexpr int S3_SMEM_MAX = 120 * 1024;
+constexpr int PR_THREADS = 512;          // the pair-digit form: 16 warps
+constexpr int PR_WARPS = PR_THREADS / 32;
+constexpr int PR_MAX_PERMS = 120;        // every permutation in one block (S <= 5)
+constexpr int PR_PL = (PR_MAX_PERMS + 31) / 32;  // permutations a lane sums
+constexpr int PR_NPQ = 24;               // pair digits at most (S <= 5: np <= 20)
+constexpr int PR_NPW = PR_NPQ / 4;       // a permutation's PPERM bytes, packed: words
+constexpr int PR_IDS = 2;                // ids whose parts a lane gathers at once
+constexpr int PR_KS[3] = {4, 6, MAX_KS};  // the pair-digit form's k-step bounds (instances)
+constexpr int PR_IDS_SMEM = 24 * 1024;   // id lists staged when a group's fit
+constexpr int PR_SMEM_MAX = 227 * 1024;
+// launch_fingerprints' form codes (kernels.K3_FORMS)
+constexpr int K3_S3 = 0, K3_PAIRS = 1, K3_FACTORED = 2;
 
-// The message-part table: monolithic eff [M][P][4] (pperm null), or the
-// factored gt_half [rows][2][NP][2] with PPERM [P][NP] and the type layout.
+// The message-part table of the pair-digit forms: gt_eff [rows][NP][4]
+// (fingerprint_pairs) or gt_half [rows][2][NP][2] (fingerprint_factored),
+// with PPERM [P][NP] and the type layout.
 struct MsgTab {
   const uint32_t* eff;
   const uint8_t* pperm;
@@ -151,20 +193,6 @@ __device__ inline void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The block's 64 states' features into As [64][row_b] (zero past F and for
-// rows at or past live); launch row g is state g, or idx[g] in the indexed mode.
-template <int NT>
-__device__ inline void stage_features(int8_t* As, int row_b, const Core& P, long long base,
-                                      long long live, int f_pad, int F, const Dims& d,
-                                      const int64_t* idx) {
-  for (int i = threadIdx.x; i < TB_STATES * f_pad; i += NT) {
-    const int r = i / f_pad, e = i - r * f_pad;
-    const long long g = base + r;
-    As[r * row_b + e] =
-        (g < live && e < F) ? (int8_t)feature(P, idx ? idx[g] : g, e, d) : (int8_t)0;
-  }
 }
 
 // A warp's A fragments (rows rg*16 + gq and + 8), every k-step (KS of
@@ -183,21 +211,6 @@ __device__ inline void load_a(uint32_t (&a)[KS][4], const int8_t* As, int row_b,
       a[ks][2] = *(const uint32_t*)(r0 + ks * 32 + 16);
       a[ks][3] = *(const uint32_t*)(r1 + ks * 32 + 16);
     }
-  }
-}
-
-// ncol columns of the transposed feature table from column col0 into Bs
-// [ncol][row_b] (zero past the table's ncols).
-template <int NT>
-__device__ inline void stage_cols(int8_t* Bs, int row_b, const int8_t* __restrict__ ct, int f_pad,
-                                  int col0, int ncol, int ncols) {
-  const int vec_per_row = f_pad / 16;
-  for (int i = threadIdx.x; i < ncol * vec_per_row; i += NT) {
-    const int c = i / vec_per_row, v = i - c * vec_per_row;
-    const int col = col0 + c;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (col < ncols) x = *(const uint4*)(ct + (long long)col * f_pad + v * 16);
-    *(uint4*)(Bs + c * row_b + v * 16) = x;
   }
 }
 
@@ -265,78 +278,6 @@ __device__ inline void store_min(const uint64_t (&minv)[2], const uint64_t (&min
         atomicMin(fp_full + s, minf[r]);
       }
     }
-}
-
-// The monolithic form (eff [M][P][4]; S = 4, 5, 6, and S <= 3 when the
-// feature table passes S3_MAX_KS k-steps).
-template <typename Id>
-__global__ void __launch_bounds__(TB_THREADS)
-    fingerprint_kernel(Core P, const Id* __restrict__ ids, int cap_m, long long G,
-                       const int8_t* __restrict__ ct, int f_pad, int F, int nperm, MsgTab mt,
-                       Dims d, unsigned long long* __restrict__ fp_view,
-                       unsigned long long* __restrict__ fp_full, const int64_t* cnt,
-                       long long sub, const int64_t* __restrict__ idx) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int row_b = f_pad + 16;  // shared row stride (bytes): spreads the fragment loads' banks
-  int8_t* As = (int8_t*)smem;                                 // [64][row_b] features
-  int8_t* Bs = As + TB_STATES * row_b;                        // [128][row_b] tile columns
-  uint32_t* msum = (uint32_t*)(Bs + TB_COLS * row_b);         // [64][MS_STRIDE]
-  const long long live = live_count(cnt, sub, 1, G);
-  const long long base = (long long)blockIdx.x * TB_STATES;
-  if (base >= live) return;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ks_n = f_pad / 32;
-
-  stage_features<TB_THREADS>(As, row_b, P, base, live, f_pad, F, d, idx);
-  __syncthreads();
-  uint32_t a[MAX_KS][4];
-  load_a(a, As, row_b, w, ks_n);
-  uint64_t minv[2] = {~0ull, ~0ull}, minf[2] = {~0ull, ~0ull};
-  const int n_tiles = (nperm + TB_PERMS - 1) / TB_PERMS;
-  const int t_lo = blockIdx.y * TB_TILES;
-  const int t_hi = min(n_tiles, t_lo + TB_TILES);
-  const int gq = lane >> 2, t4 = lane & 3;
-  for (int tile = t_lo; tile < t_hi; ++tile) {
-    const int p0 = tile * TB_PERMS;
-    __syncthreads();  // the previous tile's columns and sums are consumed
-    stage_cols<TB_THREADS>(Bs, row_b, ct, f_pad, p0 * 16, TB_COLS, nperm * 16);
-    __syncthreads();
-    // the message sums of the warp's own 16 states: lane = (perm in tile, channel)
-    {
-      const int pl = lane >> 2, ch = lane & 3, p = p0 + pl;
-      for (int r = 0; r < 16; ++r) {
-        const int row = w * 16 + r;
-        const long long g = base + row;
-        uint32_t acc = 0;
-        if (g < live) {
-          const Id* rid = ids + (idx ? idx[g] : g) * cap_m;
-          for (int j0 = 0; j0 < cap_m; j0 += 32) {  // the ids, 32 at a time
-            const int mine = j0 + lane < cap_m ? (int)rid[j0 + lane] : -1;
-            const int n = __popc(__ballot_sync(0xFFFFFFFFu, mine >= 0));
-#pragma unroll 4
-            for (int k = 0; k < n; ++k) {
-              const int id = __shfl_sync(0xFFFFFFFFu, mine, k);
-              if (p < nperm) acc += mt.eff[((long long)id * nperm + p) * 4 + ch];
-            }
-            if (n < 32) break;  // ascending ids, then -1 pads
-          }
-        }
-        msum[row * MS_STRIDE + lane] = acc;
-      }
-    }
-    __syncwarp();
-    for (int pl = 0; pl < TB_PERMS; ++pl) {
-      if (p0 + pl >= nperm) break;  // uniform
-      uint32_t m[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          m[j][r] = msum[(w * 16 + gq + 8 * r) * MS_STRIDE + pl * 4 + 2 * j + (t4 >> 1)];
-      fold_perm(a, Bs + pl * 16 * row_b, row_b, ks_n, m, minv, minf);
-    }
-  }
-  store_min(minv, minf, w, base, live, idx, fp_view, fp_full);
 }
 
 // A state's bytes of field f (the Core layout of common.cuh).
@@ -991,6 +932,333 @@ __global__ void __launch_bounds__(S3_THREADS, 2)
   cp_async_wait<0>();
 }
 
+// -- the pair-digit form (S = 4, 5) ------------------------------------------------
+
+// Byte q of a permutation's packed PPERM row (static register selects, no
+// local memory).
+__device__ inline int pperm_byte(const uint32_t (&pw)[PR_NPW], int q) {
+  uint32_t wd = pw[0];
+#pragma unroll
+  for (int k = 1; k < PR_NPW; ++k)
+    if ((q >> 2) == k) wd = pw[k];
+  return (wd >> (8 * (q & 3))) & 0xFFu;
+}
+
+// The parts of the ids of mask's lanes (lane l's id x) added to (NEG:
+// subtracted from) the lane's sums of its permutations (the first npl of
+// PR_PL): id = off_t + q * stride_t + r, whose part for permutation p is
+// gt[row_base_t + r][PPERM[p][q]]; PR_IDS ids' gathers in flight.
+// Uniform in mask and npl.
+template <bool NEG>
+__device__ inline void pr_apply(uint4 (&acc)[PR_PL], const uint32_t (&ppw)[PR_PL][PR_NPW],
+                                unsigned mask, int x, const MsgTab& mt, const uint4* gt4,
+                                int npl) {
+  int q = 0, grow = 0;
+  if (x >= 0) {
+    const int ty = (x >= mt.off[1]) + (x >= mt.off[2]) + (x >= mt.off[3]);
+    const int rel = x - mt.off[ty];
+    q = rel / mt.stride[ty];
+    grow = mt.row_base[ty] + rel - q * mt.stride[ty];
+  }
+  while (mask) {
+    uint4 v[PR_IDS][PR_PL];
+#pragma unroll
+    for (int u = 0; u < PR_IDS; ++u) {
+      const bool on = mask != 0;  // uniform
+      const int k = on ? __ffs(mask) - 1 : 0;
+      mask &= mask - 1u;
+      const int qk = __shfl_sync(0xFFFFFFFFu, q, k);
+      const int rk = __shfl_sync(0xFFFFFFFFu, grow, k);
+#pragma unroll
+      for (int i = 0; i < PR_PL; ++i)
+        v[u][i] = on && i < npl ? __ldg(gt4 + (long long)rk * mt.np + pperm_byte(ppw[i], qk))
+                                : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < PR_IDS; ++u)
+#pragma unroll
+      for (int i = 0; i < PR_PL; ++i) {
+        if (NEG) {
+          acc[i].x -= v[u][i].x;
+          acc[i].y -= v[u][i].y;
+          acc[i].z -= v[u][i].z;
+          acc[i].w -= v[u][i].w;
+        } else {
+          acc[i].x += v[u][i].x;
+          acc[i].y += v[u][i].y;
+          acc[i].z += v[u][i].z;
+          acc[i].w += v[u][i].w;
+        }
+      }
+  }
+}
+
+// The shared regions of fingerprint_pairs, byte offsets (each 16-B
+// aligned): the message sums [64][ms] u32 (ms = 4 nperm + 4); the features
+// [64][row_b]; the staged fields [fields][64][their bytes] and id lists
+// [64][cap_m] (when they fit in PR_IDS_SMEM; ids at offset ids_off); the
+// warps' id bitmaps [PR_WARPS][bm_w] u32 (a bit an id of the universe);
+// the PPERM rows [nperm][np]; the warps' minima [PR_WARPS][64][2] u64; the
+// segment table; the features' packed codes and the fields' offsets and
+// sizes.
+struct PrLayout {
+  int ms, msum, as, raw, ids_off, bm, bm_w, pp, mins, segs, pcode, total;
+};
+
+__host__ __device__ inline PrLayout pr_layout(int f_pad, int nperm, int np, int cap_m,
+                                              int id_bytes, const Dims& d) {
+  PrLayout L;
+  const int row_b = f_pad + 16, ids_b = TB_STATES * cap_m * id_bytes;
+  L.ms = nperm * 4 + 4;  // +4: the rows' banks shift by 4 words
+  L.msum = 0;
+  L.as = L.msum + up16(TB_STATES * L.ms * 4);
+  L.raw = L.as + up16(TB_STATES * row_b);
+  L.ids_off = ids_b <= PR_IDS_SMEM ? up16(TB_STATES * state_bytes(d)) : -1;
+  L.bm = L.raw + up16(TB_STATES * state_bytes(d)) + (L.ids_off >= 0 ? up16(ids_b) : 0);
+  L.bm_w = (d.n_words + 3) / 4 * 4;
+  L.pp = L.bm + PR_WARPS * L.bm_w * 4;
+  L.mins = L.pp + up16(nperm * np);
+  L.segs = L.mins + PR_WARPS * TB_STATES * 16;
+  L.pcode = L.segs + up16((int)sizeof(Segs));
+  L.total = L.pcode + up16((f_pad + 2 * N_FIELDS) * 4);
+  return L;
+}
+
+// The pair-digit form (nperm <= PR_MAX_PERMS; gt [rows][np][4] with PPERM
+// [nperm][np]).  A persistent grid: each block stages the PPERM rows and
+// the features' codes once, then loops over groups of 64 states: their
+// fields and id lists (copied in by cp.async while the previous group's
+// MMAs ran), the features through their codes (build_features), the
+// message part a warp a run of 4 consecutive states (each lane's sums of
+// its 4 permutations carried from state to state and updated by the ids
+// that differ), then the feature part a warp a permutation at a
+// time (permutations w, w + 16, ...: its plane columns the MMAs' A operand
+// from the table, the group's features B from shared memory); the warps'
+// minima met in shared memory and stored once a state (SENT past live;
+// groups of states wholly past live store SENT only).
+template <typename Id, int KS>
+__global__ void __launch_bounds__(PR_THREADS, 1)
+    fingerprint_pairs(Core P, const Id* __restrict__ ids, int cap_m, long long G,
+                      const int8_t* __restrict__ ct, int f_pad, int F, int nperm, MsgTab mt,
+                      Dims d, unsigned long long* __restrict__ fp_view,
+                      unsigned long long* __restrict__ fp_full, const int64_t* cnt, long long sub,
+                      const int64_t* __restrict__ idx) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int np = mt.np;
+  const PrLayout L = pr_layout(f_pad, nperm, np, cap_m, (int)sizeof(Id), d);
+  const int row_b = f_pad + 16, ms = L.ms, ks_n = f_pad / 32;
+  uint32_t* msum = (uint32_t*)(smem + L.msum);
+  int8_t* As = (int8_t*)(smem + L.as);
+  uint8_t* raw = smem + L.raw;
+  uint8_t* pp = smem + L.pp;
+  uint32_t* bm = (uint32_t*)(smem + L.bm) + (threadIdx.x >> 5) * L.bm_w;  // this warp's
+  unsigned long long* mins = (unsigned long long*)(smem + L.mins);
+  int* pcode = (int*)(smem + L.pcode);
+  int* foff = pcode + f_pad;
+  int* fsz = foff + N_FIELDS;
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31, gq = lane >> 2, t4 = lane & 3;
+  const long long live = live_count(cnt, sub, 1, G);
+  const long long n_groups = (G + TB_STATES - 1) / TB_STATES;
+  for (int i = t; i < nperm * np; i += PR_THREADS) pp[i] = mt.pperm[i];
+  for (int i = t; i < PR_WARPS * L.bm_w; i += PR_THREADS) ((uint32_t*)(smem + L.bm))[i] = 0u;
+  feature_tables(pcode, foff, fsz, f_pad, F, d);
+  __syncthreads();
+  Segs* sg = (Segs*)(smem + L.segs);
+  seg_table(sg, P, ids, cap_m, foff, fsz, L.ids_off);
+  __syncthreads();
+  // group gi's rows into the staging buffer (one cp.async group a call,
+  // empty when the group is past live)
+  auto stage_group = [&](long long gi) {
+    const long long base = gi * TB_STATES;
+    if (gi < n_groups && base < live)
+      stage_rows<PR_THREADS, true>(raw, sg, base,
+                                   (int)(live - base < TB_STATES ? live - base : TB_STATES), idx);
+    cp_async_commit();
+  };
+  stage_group(blockIdx.x);
+  for (long long gi = blockIdx.x; gi < n_groups; gi += gridDim.x) {
+    const long long base = gi * TB_STATES;
+    if (base >= live) {  // uniform: a group wholly past live (and every later one)
+      if (!idx && t < TB_STATES && base + t < G) {
+        fp_view[base + t] = ~0ull;
+        fp_full[base + t] = ~0ull;
+      }
+      continue;
+    }
+    const int nrows = live - base < TB_STATES ? (int)(live - base) : TB_STATES;
+    cp_async_wait<0>();
+    __syncthreads();  // this group's rows are in; the last group's sums are consumed
+    build_features<PR_THREADS>(As, row_b, raw, pcode, nrows, f_pad);
+    const Id* ids_s = L.ids_off >= 0 ? (const Id*)(raw + L.ids_off) : nullptr;
+    // the message part, warp w on states 4 w .. 4 w + 3 in turn: lane l's
+    // sums of permutations l + 32 i (acc, the four channels) carried from
+    // state to state, each updated by the ids that differ from the last
+    // state's (+ the ids only the state has, - those only the last one
+    // had), or rebuilt from the state's own ids where that is fewer; an
+    // id's part for permutation p is gt[row][PPERM[p][q]], one 16-B gather
+    // (sums and differences mod 2^32 are exact)
+    uint32_t ppw[PR_PL][PR_NPW];  // PPERM bytes of the lane's permutations, packed
+#pragma unroll
+    for (int i = 0; i < PR_PL; ++i) {
+      const int pl = lane + 32 * i;
+#pragma unroll
+      for (int k = 0; k < PR_NPW; ++k) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int q = 4 * k + b;
+          if (pl < nperm && q < np) x |= (uint32_t)pp[pl * np + q] << (8 * b);
+        }
+        ppw[i][k] = x;
+      }
+    }
+    const uint4* gt4 = (const uint4*)mt.eff;
+    const int npl = (nperm + 31) / 32;
+    uint4 acc[PR_PL];
+    // the warp's bitmap holds the last state's ids (empty before the first):
+    // a state's ids toggled in, it holds the ids of one state and not the
+    // other, which are the ids an update adds (the state's) and subtracts
+    // (the last one's); the last state's ids toggled out, it holds the
+    // state's
+    auto bit = [&](int x) { return (bm[x >> 5] >> (x & 31)) & 1u; };
+    auto toggle = [&](int x) { atomicXor(bm + (x >> 5), 1u << (x & 31)); };
+    const Id* prid = nullptr;  // the last state's ids
+    int n_prev = 0;
+    const int r_end = min(nrows, (w + 1) * (TB_STATES / PR_WARPS));
+    for (int r = w * (TB_STATES / PR_WARPS); r < r_end; ++r) {
+      const Id* rid =
+          ids_s ? ids_s + r * cap_m : ids + (idx ? idx[base + r] : base + r) * cap_m;
+      int n_cur = 0, common = 0;  // the state's ids (ascending, then -1); those the last had
+      for (int j0 = 0; j0 < cap_m; j0 += 32) {
+        const int x = j0 + lane < cap_m ? (int)rid[j0 + lane] : -1;
+        bool in = false;
+        if (x >= 0) {
+          in = bit(x);
+          toggle(x);
+        }
+        const int c = __popc(__ballot_sync(0xFFFFFFFFu, x >= 0));
+        common += __popc(__ballot_sync(0xFFFFFFFFu, in));
+        n_cur += c;
+        if (c < 32) break;
+      }
+      __syncwarp();
+      // rebuilt where the update would touch as many ids as the state has
+      const bool rebuild = !prid || n_cur + n_prev - 2 * common >= n_cur;  // uniform
+      if (rebuild)
+#pragma unroll
+        for (int i = 0; i < PR_PL; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
+      for (int j0 = 0; j0 < n_cur; j0 += 32) {
+        const int x = j0 + lane < n_cur ? (int)rid[j0 + lane] : -1;
+        pr_apply<false>(acc, ppw, __ballot_sync(0xFFFFFFFFu, x >= 0 && (rebuild || bit(x))), x,
+                        mt, gt4, npl);
+      }
+      if (!rebuild)
+        for (int j0 = 0; j0 < n_prev; j0 += 32) {
+          const int x = j0 + lane < n_prev ? (int)prid[j0 + lane] : -1;
+          pr_apply<true>(acc, ppw, __ballot_sync(0xFFFFFFFFu, x >= 0 && bit(x)), x, mt, gt4,
+                         npl);
+        }
+      __syncwarp();
+      for (int j0 = 0; j0 < n_prev; j0 += 32)  // the bitmap to the state's ids
+        if (j0 + lane < n_prev) toggle(prid[j0 + lane]);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < PR_PL; ++i) {
+        const int pl = lane + 32 * i;
+        if (pl < nperm) *(uint4*)(msum + r * ms + pl * 4) = acc[i];
+      }
+      prid = rid;
+      n_prev = n_cur;
+    }
+    for (int j0 = 0; j0 < n_prev; j0 += 32)  // the bitmap emptied for the next group
+      if (j0 + lane < n_prev) toggle(prid[j0 + lane]);
+    __syncthreads();  // the sums are in; the staged rows are consumed
+    stage_group(gi + gridDim.x);  // the next group's rows, while the MMAs run
+    // the feature part, warp w on permutations w, w + 16, ...: A the
+    // permutation's 16 plane columns (from the table, the next one's loaded
+    // while this one's epilogue runs), B the 64 states' features, 8 n-tiles
+    // of 8 states side by side; lane (gq, t4) holds rows gq, gq + 8 (plane
+    // column gq: channel gq >> 2, byte gq & 3; gq + 8: channel 2 + (gq >> 2))
+    // at states 2 t4, + 1 of each n-tile
+    uint32_t a[KS][4];
+    auto load_perm = [&](int p) {
+      const int8_t* r0 = ct + (long long)(p * 16 + gq) * f_pad + t4 * 4;
+      const int8_t* r1 = r0 + 8LL * f_pad;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        if (ks < ks_n) {
+          a[ks][0] = __ldg((const uint32_t*)(r0 + ks * 32));
+          a[ks][1] = __ldg((const uint32_t*)(r1 + ks * 32));
+          a[ks][2] = __ldg((const uint32_t*)(r0 + ks * 32 + 16));
+          a[ks][3] = __ldg((const uint32_t*)(r1 + ks * 32 + 16));
+        }
+    };
+    // lane's running minimum of n-tile j: lanes 0-15, state 8 j + 2 t4 + b1,
+    // fp_view (b0 = 0) or fp_full (b0 = 1)
+    const int b0 = (lane >> 2) & 1, b1 = (lane >> 3) & 1, cl = lane >> 4;
+    uint64_t mn[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mn[j] = ~0ull;
+    if (w < nperm) load_perm(w);
+    for (int p = w; p < nperm; p += PR_WARPS) {
+      int dd[8][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        if (ks < ks_n)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int8_t* bp = As + (j * 8 + gq) * row_b + t4 * 4 + ks * 32;
+            mma_s8(dd[j], a[ks], *(const uint32_t*)bp, *(const uint32_t*)(bp + 16));
+          }
+      if (p + PR_WARPS < nperm) load_perm(p + PR_WARPS);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // the planes combined over the byte lanes (gq & 3) by a
+        // reduce-scatter: lane ends with quantity 2 b0 + b1 (row gq + 8 b0,
+        // state 2 t4 + b1)
+        uint32_t h[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) h[k] = (uint32_t)dd[j][k] << (8 * (gq & 3));
+        uint32_t H[2];
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {
+          const uint32_t mine = b0 ? h[2 + k2] : h[k2], other = b0 ? h[k2] : h[2 + k2];
+          H[k2] = mine + __shfl_xor_sync(0xFFFFFFFFu, other, 4);
+        }
+        uint32_t g = (b1 ? H[1] : H[0]) + __shfl_xor_sync(0xFFFFFFFFu, b1 ? H[0] : H[1], 8);
+        const int st = j * 8 + 2 * t4 + b1;
+        g += msum[st * ms + p * 4 + 2 * b0 + cl];
+        const uint32_t o = __shfl_xor_sync(0xFFFFFFFFu, g, 16);  // the pair's other channel
+        const uint64_t v = ((uint64_t)g << 32) | o;            // lanes 0-15
+        mn[j] = v < mn[j] ? v : mn[j];
+      }
+    }
+    if (lane < 16)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mins[(w * TB_STATES + j * 8 + 2 * t4 + b1) * 2 + b0] = mn[j];
+    __syncthreads();
+    if (t < TB_STATES) {
+      const long long g = base + t;
+      if (t < nrows) {
+        unsigned long long v = ~0ull, f = ~0ull;
+#pragma unroll
+        for (int k = 0; k < PR_WARPS; ++k) {
+          const unsigned long long* o = mins + (k * TB_STATES + t) * 2;
+          v = o[0] < v ? o[0] : v;
+          f = o[1] < f ? o[1] : f;
+        }
+        const long long st = idx ? idx[g] : g;
+        fp_view[st] = v;
+        fp_full[st] = f;
+      } else if (!idx && g < G) {
+        fp_view[g] = ~0ull;
+        fp_full[g] = ~0ull;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // The indexed mode's outputs to SENT (the rows below the count), and
 // *ovf = 1 when the count passes the G index rows.
 __global__ void sent_at_idx(const int64_t* __restrict__ idx, long long G, const int64_t* cnt,
@@ -1009,14 +1277,15 @@ static Core core_of(const void* const* core) {
   return P;
 }
 
-// fingerprint_s3's grid: as many blocks as stay resident on the card, at
-// most one a group of 64 states.
-static unsigned s3_grid(const void* fn, size_t smem, long long groups) {
+// A persistent grid (fingerprint_s3, fingerprint_pairs): as many blocks as
+// stay resident on the card, at most one a group of 64 states.
+static unsigned resident_grid(const void* fn, int threads, size_t smem, long long G) {
   int dev = 0, sms = 0, per = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, S3_THREADS, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, threads, smem);
   const long long b = (long long)sms * (per > 0 ? per : 1);
+  const long long groups = (G + TB_STATES - 1) / TB_STATES;
   return (unsigned)(groups < b ? groups : b);
 }
 
@@ -1025,51 +1294,63 @@ static void launch_s3(const Core& P, const void* ids, int cap_m, long long G, co
                       int f_pad, int F, int nperm, const uint32_t* eff, const Dims& d,
                       unsigned long long* fv, unsigned long long* ff, const int64_t* cnt,
                       long long sub, const int64_t* idx, size_t smem, cudaStream_t st) {
-  const long long groups = (G + TB_STATES - 1) / TB_STATES;
   const void* fn = (const void*)fingerprint_s3<Id>;
-  fingerprint_s3<Id><<<s3_grid(fn, smem, groups), S3_THREADS, smem, st>>>(
+  fingerprint_s3<Id><<<resident_grid(fn, S3_THREADS, smem, G), S3_THREADS, smem, st>>>(
       P, (const Id*)ids, cap_m, G, ct, f_pad, F, nperm, eff, d, fv, ff, cnt, sub, idx);
 }
 
-// ct: i8 [16 nperm][f_pad]; eff: u32 [M][nperm][4]
-// (pperm null) or [rows][2][np][2] with pperm u8 [nperm][np] and type_dims =
-// off[4], stride[4], row_base[4].  Lanes at or past live_count(cnt, sub, 1,
-// G) get SENT.  With idx (i64 [G], the indexed mode; cnt then required)
-// launch row i is state idx[i], only the outputs at idx[i] are set (to SENT
-// first) and folded, and ovf (nullable) is set to 1 when the count passes G.
-// The form: nperm <= 8 (S <= 3) with f_pad <= 128 fingerprint_s3, each
-// state written once; the factored message part (pperm)
-// fingerprint_factored; else the tiled monolithic form (S = 4, 5, 6, and
-// S <= 3 with a wider feature table).  Outside fingerprint_s3 both outputs
-// are set to SENT first and the blocks' minima fold in by atomicMin.
+template <typename Id, int KS>
+static void launch_pairs(const Core& P, const void* ids, int cap_m, long long G,
+                         const int8_t* ct, int f_pad, int F, int nperm, const MsgTab& mt,
+                         const Dims& d, unsigned long long* fv, unsigned long long* ff,
+                         const int64_t* cnt, long long sub, const int64_t* idx, size_t smem,
+                         cudaStream_t st) {
+  const void* fn = (const void*)fingerprint_pairs<Id, KS>;
+  fingerprint_pairs<Id, KS><<<resident_grid(fn, PR_THREADS, smem, G), PR_THREADS, smem, st>>>(
+      P, (const Id*)ids, cap_m, G, ct, f_pad, F, nperm, mt, d, fv, ff, cnt, sub, idx);
+}
+
+// The caller names the form (K3_S3, K3_PAIRS, K3_FACTORED) and hands over
+// that form's table; a form asked past its limits is refused
+// (cudaErrorInvalidValue), never read in another form's layout.
+// ct: i8 [16 nperm][f_pad]; K3_S3 (fingerprint_s3, nperm <= 8, f_pad <=
+// 128): eff u32 [M][nperm][4], pperm unused; K3_PAIRS (fingerprint_pairs,
+// nperm <= PR_MAX_PERMS, np <= PR_NPQ): eff = gt [rows][np][4]; K3_FACTORED
+// (fingerprint_factored): eff = gt_half [rows][2][np][2]; the pair-digit
+// forms take pperm u8 [nperm][np] and type_dims = off[4], stride[4],
+// row_base[4].  Lanes at or past live_count(cnt, sub, 1, G) get SENT.
+// With idx (i64 [G], the indexed mode; cnt then required) launch row i is
+// state idx[i], only the outputs at idx[i] are set (to SENT first) and
+// folded, and ovf (nullable) is set to 1 when the count passes G.  The S3
+// and pair-digit forms write each state once; the factored form's outputs
+// are set to SENT first and its blocks' minima folded in by atomicMin.
 EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_bytes,
-                               int cap_m, long long G, const int8_t* ct, int f_pad, int F,
-                               int nperm, const uint32_t* eff, const uint8_t* pperm, int np,
-                               const int* type_dims, const int* dims, int64_t* fp_view,
+                               int cap_m, long long G, int form, const int8_t* ct, int f_pad,
+                               int F, int nperm, const uint32_t* eff, const uint8_t* pperm,
+                               int np, const int* type_dims, const int* dims, int64_t* fp_view,
                                int64_t* fp_full, const int64_t* cnt, long long sub,
                                const int64_t* idx, int64_t* ovf, void* stream) {
   const Dims d = load_dims(dims);
-  const bool s3 = !pperm && nperm <= S3_MAX_PERMS && f_pad <= S3_MAX_KS * 32;
-  const size_t smem = pperm ? fx_smem(f_pad, np, d)
-                      : s3  ? (size_t)s3_layout(f_pad, nperm, cap_m, id_bytes, d).total
-                            : (size_t)(TB_STATES + TB_COLS) * (f_pad + 16) +
-                                  TB_STATES * MS_STRIDE * sizeof(uint32_t);
+  const bool s3 = form == K3_S3, pairs = form == K3_PAIRS;
+  const size_t smem =
+      s3 ? (size_t)s3_layout(f_pad, nperm, cap_m, id_bytes, d).total
+      : pairs ? (size_t)pr_layout(f_pad, nperm, np, cap_m, id_bytes, d).total
+              : fx_smem(f_pad, np, d);
   if (f_pad % 32 || f_pad / 32 > MAX_KS || F > f_pad || np > MAX_NP || np < 1 ||
-      (pperm && 2 * np > 32 * FX_CC) ||
-      smem > (size_t)(pperm ? FX_SMEM_MAX : s3 ? S3_SMEM_MAX : TB_SMEM_MAX) ||
-      (s3 && (((uintptr_t)eff | (uintptr_t)ct) & 15)) ||
+      (form != K3_S3 && form != K3_PAIRS && form != K3_FACTORED) || (!s3 && !pperm) ||
+      (s3 && (nperm > S3_MAX_PERMS || f_pad > S3_MAX_KS * 32)) ||
+      (pairs && (nperm > PR_MAX_PERMS || np > PR_NPQ)) ||
+      (form == K3_FACTORED && 2 * np > 32 * FX_CC) ||
+      smem > (size_t)(s3 ? S3_SMEM_MAX : pairs ? PR_SMEM_MAX : FX_SMEM_MAX) ||
+      (((uintptr_t)eff | (uintptr_t)ct) & 15) ||
       (id_bytes != 2 && id_bytes != 4) || nperm < 1 || (idx && !cnt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (G <= 0) return (int)cudaGetLastError();
-  const int n_tiles = (nperm + TB_PERMS - 1) / TB_PERMS;
-  const int tiles_a_block = pperm ? FX_TILES : TB_TILES;
-  const dim3 grid((unsigned)((G + TB_STATES - 1) / TB_STATES),
-                  (unsigned)((n_tiles + tiles_a_block - 1) / tiles_a_block));
   if (idx) {
     sent_at_idx<<<(unsigned)((G + 255) / 256), 256, 0, st>>>(idx, G, cnt, sub, fp_view, fp_full,
                                                              ovf);
-  } else if (!s3) {
+  } else if (!s3 && !pairs) {
     cudaMemsetAsync(fp_view, 0xFF, (size_t)G * sizeof(int64_t), st);
     cudaMemsetAsync(fp_full, 0xFF, (size_t)G * sizeof(int64_t), st);
   }
@@ -1090,25 +1371,38 @@ EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_
   mt.pperm = pperm;
   mt.np = np;
   for (int i = 0; i < 4; ++i) {
-    mt.off[i] = pperm ? type_dims[i] : 0;
-    mt.stride[i] = pperm ? type_dims[4 + i] : 1;
-    mt.row_base[i] = pperm ? type_dims[8 + i] : 0;
+    mt.off[i] = type_dims[i];
+    mt.stride[i] = type_dims[4 + i];
+    mt.row_base[i] = type_dims[8 + i];
   }
-  if (pperm) {
-    const int rb = (int)fx_region_b(f_pad, np, d);
-    if (id_bytes == 2)
-      fingerprint_factored<int16_t><<<grid, FX_THREADS, smem, st>>>(
-          P, (const int16_t*)ids, cap_m, G, ct, f_pad, F, nperm, mt, rb, d, fv, ff, cnt, sub, idx);
-    else
-      fingerprint_factored<int32_t><<<grid, FX_THREADS, smem, st>>>(
-          P, (const int32_t*)ids, cap_m, G, ct, f_pad, F, nperm, mt, rb, d, fv, ff, cnt, sub, idx);
-  } else if (id_bytes == 2) {
-    fingerprint_kernel<int16_t><<<grid, TB_THREADS, smem, st>>>(
-        P, (const int16_t*)ids, cap_m, G, ct, f_pad, F, nperm, mt, d, fv, ff, cnt, sub, idx);
-  } else {
-    fingerprint_kernel<int32_t><<<grid, TB_THREADS, smem, st>>>(
-        P, (const int32_t*)ids, cap_m, G, ct, f_pad, F, nperm, mt, d, fv, ff, cnt, sub, idx);
+  if (pairs) {
+    // the A fragments' k-steps as a compile-time bound (PR_KS), which keeps
+    // the 16 warps' registers within 128 a thread
+    const int ks_n = f_pad / 32;
+#define PR_LAUNCH(Id, K)                                                                   \
+  launch_pairs<Id, K>(P, ids, cap_m, G, ct, f_pad, F, nperm, mt, d, fv, ff, cnt, sub, idx, smem, \
+                      st)
+    if (id_bytes == 2) {
+      if (ks_n <= PR_KS[0]) PR_LAUNCH(int16_t, PR_KS[0]);
+      else if (ks_n <= PR_KS[1]) PR_LAUNCH(int16_t, PR_KS[1]);
+      else PR_LAUNCH(int16_t, PR_KS[2]);
+    } else {
+      if (ks_n <= PR_KS[0]) PR_LAUNCH(int32_t, PR_KS[0]);
+      else if (ks_n <= PR_KS[1]) PR_LAUNCH(int32_t, PR_KS[1]);
+      else PR_LAUNCH(int32_t, PR_KS[2]);
+    }
+#undef PR_LAUNCH
+    return (int)cudaGetLastError();
   }
+  const dim3 grid((unsigned)((G + TB_STATES - 1) / TB_STATES),
+                  (unsigned)(((nperm + TB_PERMS - 1) / TB_PERMS + FX_TILES - 1) / FX_TILES));
+  const int rb = (int)fx_region_b(f_pad, np, d);
+  if (id_bytes == 2)
+    fingerprint_factored<int16_t><<<grid, FX_THREADS, smem, st>>>(
+        P, (const int16_t*)ids, cap_m, G, ct, f_pad, F, nperm, mt, rb, d, fv, ff, cnt, sub, idx);
+  else
+    fingerprint_factored<int32_t><<<grid, FX_THREADS, smem, st>>>(
+        P, (const int32_t*)ids, cap_m, G, ct, f_pad, F, nperm, mt, rb, d, fv, ff, cnt, sub, idx);
   return (int)cudaGetLastError();
 }
 
@@ -1116,23 +1410,21 @@ EXPORT int launch_fingerprints(const void* const* core, const void* ids, int id_
 // lets them take more than 48 KB of dynamic shared memory.
 EXPORT int lib_warm() {
   cudaFuncAttributes a;
-  const void* mono[] = {(const void*)fingerprint_kernel<int16_t>,
-                        (const void*)fingerprint_kernel<int32_t>};
-  const void* fact[] = {(const void*)fingerprint_factored<int16_t>,
-                        (const void*)fingerprint_factored<int32_t>};
-  const void* s3[] = {(const void*)fingerprint_s3<int16_t>,
-                      (const void*)fingerprint_s3<int32_t>};
-  for (const void* f : mono) {
-    cudaFuncGetAttributes(&a, f);
-    cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM_MAX);
-  }
-  for (const void* f : fact) {
-    cudaFuncGetAttributes(&a, f);
-    cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, FX_SMEM_MAX);
-  }
-  for (const void* f : s3) {
-    cudaFuncGetAttributes(&a, f);
-    cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, S3_SMEM_MAX);
+  const void* fns[] = {(const void*)fingerprint_s3<int16_t>,
+                       (const void*)fingerprint_s3<int32_t>,
+                       (const void*)fingerprint_factored<int16_t>,
+                       (const void*)fingerprint_factored<int32_t>,
+                       (const void*)fingerprint_pairs<int16_t, PR_KS[0]>,
+                       (const void*)fingerprint_pairs<int16_t, PR_KS[1]>,
+                       (const void*)fingerprint_pairs<int16_t, PR_KS[2]>,
+                       (const void*)fingerprint_pairs<int32_t, PR_KS[0]>,
+                       (const void*)fingerprint_pairs<int32_t, PR_KS[1]>,
+                       (const void*)fingerprint_pairs<int32_t, PR_KS[2]>};
+  const int smem[] = {S3_SMEM_MAX, S3_SMEM_MAX, FX_SMEM_MAX, FX_SMEM_MAX, PR_SMEM_MAX,
+                      PR_SMEM_MAX, PR_SMEM_MAX, PR_SMEM_MAX, PR_SMEM_MAX, PR_SMEM_MAX};
+  for (int i = 0; i < 10; ++i) {
+    cudaFuncGetAttributes(&a, fns[i]);
+    cudaFuncSetAttribute(fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[i]);
   }
   cudaFuncGetAttributes(&a, (const void*)sent_at_idx);
   return (int)cudaGetLastError();

@@ -7,17 +7,27 @@
 // reductions over the 4,824-bit mask).  The TPU wanted a matmul; on this
 // card a switch on the slot's family is the natural form.
 //
-// Bound: bytes.  A parent's fields and packed message mask are read once
-// (64 + 604 B at the reference constants) and its valid row written once
-// (K = 696 B): 1,364 B a parent in the counted form every fused, grouped
-// and superstep level launches (the per-slot sums are K words a launch),
-// 0.0067 ms for a 16,384-parent chunk at 3.35 TB/s; the per-row form adds
-// the i32 mult row (4 * K B).
+// Bound: bytes.  A parent's fields and its message set are read once (64
+// B, and 604 B of packed mask, or 192 B of int16 id list at cap_m = 96, at
+// the reference constants) and its valid row written once (K = 696 B):
+// 952 B a parent in the id-list form every fused, grouped and superstep
+// level launches (1,364 B from the mask; the per-slot sums are K words a
+// launch), 0.0047 ms for a 16,384-parent chunk at 3.35 TB/s; the per-row
+// form adds the i32 mult row (4 * K B).
 //
 // Design: a block of 256 threads takes NP parents (a group; NP from the
 // shared-memory budget, 16 at S = 3).
-// 1. The group's masks and core rows are consecutive rows of the inputs:
-//    the block copies them into shared memory as contiguous spans.
+// 1. The group's message sets and core rows are consecutive rows of the
+//    inputs: the block copies the core rows into shared memory as
+//    contiguous spans, and the masks either as a span of words or, in the
+//    id-list form, builds them there: it zeroes the group's words and ORs
+//    each live id in (id >= 0 and id / 32 < n_words, as the inflate
+//    kernel of csrc/msgset.cu; OR is order-free, so the words equal
+//    inflate's).  The id-list form is the inflate of
+//    tla_raft_tpu/engine/bfs.py _ids_to_msgs (:833) folded into K1: the
+//    fused, superstep and grouped levels launch no inflate and hold no
+//    mask buffer (the inflate kernel took about 0.009 ms a chunk there and
+//    K1 read its 604 B a parent back).
 // 2. Per parent and (pair, term), the message counts families 1 and 2 read
 //    (any message, AppendReqs) are summed once into a small table, so no
 //    slot runs a long popcount loop.
@@ -199,8 +209,10 @@ __device__ inline bool eval_slot(const Dims& d, const GroupLayout& g, int fam, i
   }
 }
 
+template <typename Id>
 __global__ void __launch_bounds__(TPB)
-guards_kernel(Core P, const int32_t* __restrict__ msgs, int B, int NP,
+guards_kernel(Core P, const int32_t* __restrict__ msgs, const Id* __restrict__ ids, int cap_m,
+              int B, int NP,
               const int32_t* __restrict__ slot_tab, int K, int k7, int n7, Dims d,
               bool* __restrict__ valid,
               int32_t* __restrict__ mult, bool* __restrict__ abort_out, const int64_t* cnt,
@@ -223,10 +235,20 @@ guards_kernel(Core P, const int32_t* __restrict__ msgs, int B, int NP,
   const int t = threadIdx.x;
   const int words = d.n_words;
 
-  // 1. the group's masks and core rows
+  // 1. the group's masks (copied, or ORed from the id lists) and core rows
   {
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(msgs) + (size_t)b0 * words;
-    for (int i = t; i < np * words; i += TPB) bits[i] = src[i];
+    if (ids) {
+      for (int i = t; i < np * words; i += TPB) bits[i] = 0u;
+      __syncthreads();
+      const Id* src = ids + (size_t)b0 * cap_m;
+      for (int i = t; i < np * cap_m; i += TPB) {
+        const int id = src[i], j = i / cap_m;
+        if (id >= 0 && (id >> 5) < words) atomicOr(&bits[j * words + (id >> 5)], 1u << (id & 31));
+      }
+    } else {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(msgs) + (size_t)b0 * words;
+      for (int i = t; i < np * words; i += TPB) bits[i] = src[i];
+    }
 #pragma unroll
     for (int f = 0; f < N_FIELDS; ++f) {
       const int w = field_width(d, f);
@@ -359,7 +381,9 @@ EXPORT int guards_group_parents(const int* dims, int K, int k7, int n7, int per_
   return group_parents(load_dims(dims), K, k7, n7, per_row != 0);
 }
 
-// mult and abort_out may be null.  With cnt, rows at or past
+// The message sets: packed words msgs [B][n_words], or (ids non-null,
+// msgs ignored) ascending -1-padded id lists [B][cap_m] of id_bytes (2 or
+// 4) each.  mult and abort_out may be null.  With cnt, rows at or past
 // live_count(cnt, sub, 1, B) are dead (nothing written); with mult_acc
 // (i64[K]) each live row's per-slot multiplicities add into it, and with
 // abort_acc the first aborting row (+ base) is an unsigned atomic minimum
@@ -367,7 +391,8 @@ EXPORT int guards_group_parents(const int* dims, int K, int k7, int n7, int per_
 // minima are order-free).  Family 7's slots are [k7, k7 + n7) of the slot
 // table, runs of E * L slots of one (s, src, pli), (entry, leaderCommit)
 // row-major (SlotLayout.accept_runs).
-EXPORT int launch_guards(const void* const* core, const int32_t* msgs, int B,
+EXPORT int launch_guards(const void* const* core, const int32_t* msgs, const void* ids,
+                         int id_bytes, int cap_m, int B,
                          const int32_t* slot_tab, int K, int k7, int n7, const int* dims,
                          bool* valid,
                          int32_t* mult, bool* abort_out, const int64_t* cnt, long long sub,
@@ -375,18 +400,30 @@ EXPORT int launch_guards(const void* const* core, const int32_t* msgs, int B,
   Core P;
   for (int i = 0; i < N_FIELDS; ++i) P.f[i] = (const uint8_t*)core[i];
   Dims d = load_dims(dims);
+  if (ids && id_bytes != 2 && id_bytes != 4) return (int)cudaErrorInvalidValue;
   if (B > 0) {
     const int np = group_parents(d, K, k7, n7, mult != nullptr);
     const int smem = GroupLayout(d, K, k7, n7, np, mult != nullptr).bytes;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute((const void*)guards_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     const unsigned blocks = (unsigned)((B + np - 1) / np);
-    guards_kernel<<<blocks, TPB, smem, (cudaStream_t)stream>>>(
-        P, msgs, B, np, slot_tab, K, k7, n7, d, valid, mult, abort_out, cnt, sub,
-        (unsigned long long*)mult_acc, (unsigned long long*)abort_acc, base);
+    if (smem > 48 * 1024) {
+      cudaFuncSetAttribute((const void*)guards_kernel<int16_t>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute((const void*)guards_kernel<int32_t>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    }
+    cudaStream_t st = (cudaStream_t)stream;
+    unsigned long long* ma = (unsigned long long*)mult_acc;
+    unsigned long long* aa = (unsigned long long*)abort_acc;
+    if (ids && id_bytes == 4)
+      guards_kernel<int32_t><<<blocks, TPB, smem, st>>>(
+          P, msgs, (const int32_t*)ids, cap_m, B, np, slot_tab, K, k7, n7, d, valid, mult,
+          abort_out, cnt, sub, ma, aa, base);
+    else
+      guards_kernel<int16_t><<<blocks, TPB, smem, st>>>(
+          P, msgs, (const int16_t*)ids, cap_m, B, np, slot_tab, K, k7, n7, d, valid, mult,
+          abort_out, cnt, sub, ma, aa, base);
   }
   return (int)cudaGetLastError();
 }
 
-WARM((const void*)guards_kernel)
+WARM((const void*)guards_kernel<int16_t>, (const void*)guards_kernel<int32_t>)

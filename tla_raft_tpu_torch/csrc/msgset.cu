@@ -18,7 +18,10 @@
 //            is below cap_m; the rest of the row is -1, and the row
 //            overflows when it holds more than cap_m ids.
 // Both keep ascending order by construction: ids are written at their
-// rank among the set bits.
+// rank among the set bits.  On the fused, superstep and grouped levels K1
+// builds its masks from the id lists itself (csrc/guards.cu), so inflate
+// runs for the staged chain, the dense expand (canon="expand",
+// use_mxu=False), the bucket, the mesh and trace rebuilding.
 //
 // Bound: bytes.  Inflate reads 2 * cap_m B (4 * cap_m with int32 ids) and
 // writes 4 * n_words B a row; deflate reads 4 * n_words B and writes

@@ -13,10 +13,12 @@ states (deep levels are at most about half fresh), not by the fan-out.
 
 Here a group is G chunks of parents seated in a buffer of ``G * chunk``
 rows and run as one captured CUDA graph (``GroupProgram``): per chunk
-inflate, guards (K1, folding ``mult`` into the level and the abort into
-the group), the order-keeping compaction to ``cap_x`` lanes, materialize
-(K2) and fingerprints (K3) -- or under ``canon="expand"`` the dense expand
-with fingerprints and the chunk compaction (``mk.op_expand_chunk``); then the membership probe ``hs_probe`` (B8
+guards (K1 from the parents' id lists, folding ``mult`` into the level
+and the abort into the group), the order-keeping compaction to ``cap_x``
+lanes, materialize (K2) and fingerprints (K3) -- or under
+``canon="expand"`` the inflate and the dense expand with fingerprints and
+the chunk compaction (``mk.op_expand_chunk``); then the membership probe
+``hs_probe`` (B8
 ``probe_impl``) against the slab **as it was before the level** (K4 runs
 only in the tail), and the filter compaction (B3 ``_filter_compact``)
 of the unvisited lanes into the group's ``cap_g`` slice of the level's
@@ -216,7 +218,7 @@ class GroupProgram(mk.GraphProgram):
         self.budget = eng.k4_rounds
         self.slab = eng.hstore.slab
         self.seat = mk.empty_frontier(eng.cfg, self.rows, cap_m, dev)
-        self.msgs = torch.zeros((chunk, eng.uni.n_words), dtype=torch.int32, device=dev)
+        self.msgs = mk.mask_buffer(eng, chunk, dev)
         self.valid = torch.zeros((chunk, K), dtype=torch.bool, device=dev)
         self.chunk_total = torch.zeros((G,), dtype=I64, device=dev)
         n = G * cap_x
@@ -260,16 +262,17 @@ class GroupProgram(mk.GraphProgram):
         for i in range(self.G):
             start = i * chunk
             part = mk.rows_of(self.seat, start, start + chunk)
-            mk.op_inflate(eng, part.msg_ids, self.msgs, n_run, start)
-            st = RaftState(msgs=self.msgs, **core_of(part))
             seg = slice(i * cap_x, (i + 1) * cap_x)
             total = self.chunk_total[i]
             if eng.canon == "expand":
+                mk.op_inflate(eng, part.msg_ids, self.msgs, n_run, start)
+                st = RaftState(msgs=self.msgs, **core_of(part))
                 mk.op_expand_chunk(eng, st, self.valid, self.xs, n_run, start, self.mult,
                                    lc[LC_G_ABORT], start, (self.cv[seg], self.cf[seg],
                                                            self.cp[seg]), total, cap_x)
                 continue
-            mk.op_guards(eng, st, self.valid, n_run, start, self.mult, lc[LC_G_ABORT], start)
+            mk.op_guards(eng, part, self.msgs, self.valid, n_run, start, self.mult,
+                         lc[LC_G_ABORT], start)
             mk.op_compact_chunk(self.valid.view(-1), self.cp[seg], total, n_run, start, K,
                                 start * K, self.tile_chunk)
             mk.op_materialize(eng, part, self.cp[seg], start,
@@ -357,10 +360,10 @@ def op_group_unique(cv, cf, cp, out, n_u, scratch):
 
 class HostGroupProgram(mk.GraphProgram):
     """One full group of G chunks on the external store route as a captured
-    graph: per chunk inflate, guards (K1, folding ``mult`` and the abort into
-    the control words), the order-keeping compaction to ``cap_x`` lanes,
-    materialize (K2) and fingerprints (K3) -- or the dense expand and the
-    chunk compaction under ``canon="expand"`` -- then ``group_unique`` over
+    graph: per chunk guards (K1 from the parents' id lists, folding
+    ``mult`` and the abort into the control words), the order-keeping compaction to ``cap_x`` lanes,
+    materialize (K2) and fingerprints (K3) -- or the inflate, the dense
+    expand and the chunk compaction under ``canon="expand"`` -- then ``group_unique`` over
     the group's ``G * cap_x`` lanes.  Rows and payloads are the seat's: the
     host adds the group's first row.  ``run`` seats the group's rows (a
     device copy), writes the control words (one host-to-device copy: the
@@ -379,7 +382,7 @@ class HostGroupProgram(mk.GraphProgram):
         self.rows = G * chunk
         self.cap_f = self.rows
         self.seat = mk.empty_frontier(eng.cfg, self.rows, cap_m, dev)
-        self.msgs = torch.zeros((chunk, eng.uni.n_words), dtype=torch.int32, device=dev)
+        self.msgs = mk.mask_buffer(eng, chunk, dev)
         self.valid = torch.zeros((chunk, K), dtype=torch.bool, device=dev)
         self.chunk_total = torch.zeros((G,), dtype=I64, device=dev)
         n = G * cap_x
@@ -406,15 +409,15 @@ class HostGroupProgram(mk.GraphProgram):
         for i in range(self.G):
             start = i * chunk
             part = mk.rows_of(self.seat, start, start + chunk)
-            mk.op_inflate(eng, part.msg_ids, self.msgs, n_run, start)
-            st = RaftState(msgs=self.msgs, **core_of(part))
             seg = slice(i * cap_x, (i + 1) * cap_x)
             total = self.chunk_total[i]
             if eng.canon == "expand":
+                mk.op_inflate(eng, part.msg_ids, self.msgs, n_run, start)
+                st = RaftState(msgs=self.msgs, **core_of(part))
                 mk.op_expand_chunk(eng, st, self.valid, self.xs, n_run, start, mult, abort, start,
                                    (self.cv[seg], self.cf[seg], self.cp[seg]), total, cap_x)
                 continue
-            mk.op_guards(eng, st, self.valid, n_run, start, mult, abort, start)
+            mk.op_guards(eng, part, self.msgs, self.valid, n_run, start, mult, abort, start)
             mk.op_compact_chunk(self.valid.view(-1), self.cp[seg], total, n_run, start, K,
                                 start * K, self.tile_chunk)
             mk.op_materialize(eng, part, self.cp[seg], start,

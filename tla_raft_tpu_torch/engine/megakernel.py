@@ -7,8 +7,9 @@ fixed sequence of hand-written kernels captured once into a
 ``torch.cuda.CUDAGraph`` per static shape and replayed:
 
 1. **chunked expand** over ``cap_f / chunk`` chunks of the parent buffer:
-   inflate, guards (K1, folding each live row's ``mult`` into the level's
-   ``mult i64[K]`` and its split-brain abort into a minimum), the
+   guards (K1 from the parents' id lists, the inflate to the bitmask
+   folded into its staging; each live row's ``mult`` folded into the
+   level's ``mult i64[K]`` and its split-brain abort into a minimum), the
    order-keeping compaction of the valid (parent, slot) lanes to
    ``cap_x`` lanes, materialize (K2) and fingerprints (K3), written into a
    level lane buffer of ``n_chunks * cap_x`` lanes at stride ``cap_x``;
@@ -42,10 +43,12 @@ stops for any reason gives its claims back inside the same graph (K4's
 undo gated on the device flag ``LC_UNDO``), so the slab after the graph is
 the slab before it plus exactly the committed level's fresh states.
 
-Under ``canon="expand"`` step 1's chunk is the dense expand with
-fingerprints and the chunk compaction (``op_expand_chunk``); under
-``use_mxu=False`` ``op_guards`` and ``op_materialize`` launch the legacy
-kernels (the guards-only dense expand, ``legacy_materialize``).
+Under ``canon="expand"`` step 1's chunk is the inflate, then the dense
+expand with fingerprints and the chunk compaction (``op_expand_chunk``);
+under ``use_mxu=False`` ``op_guards`` inflates and launches the
+guards-only dense expand and ``op_materialize`` the legacy kernel
+(``legacy_materialize``).  Only those two chunk bodies read the bitmask,
+so only they keep a chunk's mask buffer (``mask_buffer``).
 
 On the CPU the same sequence runs eagerly through the plain twins (each
 ``op_*`` below sends CPU tensors to its twin and CUDA tensors to the
@@ -171,22 +174,37 @@ def op_inflate(eng, ids, out, cnt, sub):
         out[:n] = ids_to_msgs_plain(ids[:n], eng.uni.n_words)
 
 
-def op_guards(eng, st, valid, cnt, sub, mult_acc, abort_acc, base):
-    """The chunk's guards: K1, or under ``use_mxu=False`` the guards-only
-    ``dense_expand`` (the legacy guard)."""
-    if st.msgs.is_cuda:
+def mask_buffer(eng, rows: int, device):
+    """A chunk's packed message words, where a chunk body reads them
+    (canon="expand", use_mxu=False); None where K1 reads the id lists."""
+    if eng.canon == "expand" or not eng.use_mxu:
+        return torch.zeros((rows, eng.uni.n_words), dtype=torch.int32, device=device)
+    return None
+
+
+def op_guards(eng, part, msgs, valid, cnt, sub, mult_acc, abort_acc, base):
+    """The chunk's guards from its parents ``part`` (a Frontier): K1 from
+    their id lists, or under ``use_mxu=False`` the inflate into ``msgs``
+    and the guards-only ``dense_expand`` (the legacy guard).  The CPU twin
+    inflates with the plain twin and runs the plain guards."""
+    if part.msg_ids.is_cuda:
         if eng.use_mxu:
-            kernels.guards(eng.mx, st, valid=valid, per_row=False, cnt=cnt, sub=sub,
+            kernels.guards(eng.mx, part, valid=valid, per_row=False, cnt=cnt, sub=sub,
                            mult_acc=mult_acc, abort_acc=abort_acc, base=base)
         else:
-            kernels.dense_expand(eng.dx, st, False, valid=valid, per_row=False, cnt=cnt, sub=sub,
+            op_inflate(eng, part.msg_ids, msgs, cnt, sub)
+            kernels.dense_expand(eng.dx, RaftState(msgs=msgs, **core_of(part)), False,
+                                 valid=valid, per_row=False, cnt=cnt, sub=sub,
                                  mult_acc=mult_acc, abort_acc=abort_acc, base=base)
         return
-    n = _live(cnt, sub, st.msgs.shape[0])
+    n = _live(cnt, sub, part.msg_ids.shape[0])
     if not n:
         return
-    part = RaftState(*(x[:n] for x in st))
-    v, m, a = eng.mx.guards_plain(part) if eng.use_mxu else eng.dx.guards_plain(part)
+    from .bfs import ids_to_msgs_plain
+
+    rows = rows_of(part, 0, n)
+    st = RaftState(msgs=ids_to_msgs_plain(rows.msg_ids, eng.uni.n_words), **core_of(rows))
+    v, m, a = eng.mx.guards_plain(st) if eng.use_mxu else eng.dx.guards_plain(st)
     valid[:n] = v
     mult_acc += m.to(I64).sum(0)
     if bool(a.any()):
@@ -445,7 +463,7 @@ class LaneBuffers:
         self.n_chunks = cap_f // chunk
         N = self.n_chunks * cap_x
         self.N = N
-        self.msgs = torch.zeros((chunk, eng.uni.n_words), dtype=torch.int32, device=dev)
+        self.msgs = mask_buffer(eng, chunk, dev)
         self.valid = torch.zeros((chunk, K), dtype=torch.bool, device=dev)
         self.chunk_total = torch.zeros((self.n_chunks,), dtype=I64, device=dev)
         self.cv = torch.full((N,), SENT, dtype=I64, device=dev)
@@ -497,15 +515,15 @@ def level_core(eng, B: LaneBuffers, fr_in: Frontier, fr_out: Frontier, cap_out: 
     for i in range(B.n_chunks):
         start = i * chunk
         part = rows_of(fr_in, start, start + chunk)
-        op_inflate(eng, part.msg_ids, B.msgs, n_run, start)
-        st = RaftState(msgs=B.msgs, **core_of(part))
         seg = slice(i * cap_x, (i + 1) * cap_x)
         total = B.chunk_total[i]
         if eng.canon == "expand":
+            op_inflate(eng, part.msg_ids, B.msgs, n_run, start)
+            st = RaftState(msgs=B.msgs, **core_of(part))
             op_expand_chunk(eng, st, B.valid, B.xs, n_run, start, mult, lc[LC_ABORT], start,
                             (B.cv[seg], B.cf[seg], B.cp[seg]), total, cap_x)
             continue
-        op_guards(eng, st, B.valid, n_run, start, mult, lc[LC_ABORT], start)
+        op_guards(eng, part, B.msgs, B.valid, n_run, start, mult, lc[LC_ABORT], start)
         op_compact_chunk(B.valid.view(-1), B.cp[seg], total, n_run, start, K, start * K,
                          B.tile_chunk)
         op_materialize(eng, part, B.cp[seg], start, (B.children, B.added, B.covf), total, 0,

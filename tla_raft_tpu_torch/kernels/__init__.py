@@ -91,8 +91,8 @@ GUARDS = Kernel(
     "guards", "csrc/guards.cu",
     "tla_raft_tpu/ops/mxu_expand.py:398 (MXUExpand.guards + _guard_features:342, "
     "dense_expand.py:184 msg_guard_parts)",
-    {"launch_guards": [VP, VP, I32, VP, I32, I32, I32, VP, VP, VP, VP, VP, I64, VP, VP, I64,
-                       VP],
+    {"launch_guards": [VP, VP, VP, I32, I32, I32, VP, I32, I32, I32, VP, VP, VP, VP, VP, I64,
+                       VP, VP, I64, VP],
      "guards_group_parents": [VP, I32, I32, I32, I32]},
 )
 MATERIALIZE = Kernel(
@@ -102,18 +102,18 @@ MATERIALIZE = Kernel(
     {"launch_materialize": [VP, VP, I32, I32, I64, VP, VP, I64, VP, I32, VP, VP, VP, VP, VP,
                             VP, I64, VP, I64, VP, VP]},
 )
-_K3_ARGS = [VP, VP, I32, I32, I64, VP, I32, I32, I32, VP, VP, I32, VP, VP, VP, VP, VP, I64, VP, VP,
-            VP]
-# K3, every launch but the indexed mode's (any symmetry group: P = 6, 120,
-# 5,040 at S = 3, 5, 7)
+_K3_ARGS = [VP, VP, I32, I32, I64, I32, VP, I32, I32, I32, VP, VP, I32, VP, VP, VP, VP, VP, I64,
+            VP, VP, VP]
+# K3, every launch but the indexed mode's (any symmetry group: P = 6, 24,
+# 120, 5,040 at S = 3, 4, 5, 7; its form by ``k3_form``)
 FINGERPRINT = Kernel(
     "fingerprint", "csrc/fingerprint.cu",
     "tla_raft_tpu/ops/fingerprint.py:517 (Fingerprinter.state_fingerprints: "
     "features:102, _plane_matmul:398, msg_hash:418, finalize:505)",
     {"launch_fingerprints": _K3_ARGS},
 )
-# K3's launches whose message part is the pair-block factored hash (S = 7),
-# the indexed mode's included
+# K3's launches in its factored form (``k3_form``: past 120 permutations,
+# S = 7), the indexed mode's included
 MSG_FACTORED = Kernel(
     "msg_hash_factored", "csrc/fingerprint.cu",
     "tla_raft_tpu/ops/fingerprint.py:424 (_msg_hash_factored, tables "
@@ -341,8 +341,9 @@ KERNELS = {k.name: k for k in (GUARDS, MATERIALIZE, FINGERPRINT, HASHSTORE, COMP
 # the kernels the staged chain launches below the grouping limit
 STAGED = ("guards", "materialize", "fingerprint", "hashstore", "compact", "inflate", "deflate",
           "inv_scan")
-# the kernels of the fused level and the supersteps
-FUSED = STAGED + ("level", "superstep", "sieve")
+# the kernels of the fused level and the supersteps (K1 reads the parents'
+# id lists there: no inflate)
+FUSED = tuple(k for k in STAGED if k != "inflate") + ("level", "superstep", "sieve")
 # the grouped level's own (levels past 16 * G chunks)
 GROUPED = ("hs_probe", "filter_compact")
 # K3's factored message part (where the folded table passes 64 MiB: S = 7)
@@ -584,7 +585,9 @@ def _cnt(cnt):
 
 def guards(mx, st, *, valid=None, per_row=True, cnt=None, sub=0, mult_acc=None, abort_acc=None,
            base=0):
-    """K1: (valid bool[B,K], mult i32[B,K], abort bool[B]) of a RaftState.
+    """K1: (valid bool[B,K], mult i32[B,K], abort bool[B]) of a RaftState
+    (its packed message words ``msgs``) or of a Frontier (its id lists
+    ``msg_ids``: K1 ORs them into its shared masks, the inflate folded in).
 
     Counted form (the fused level): ``valid`` given, ``per_row=False``
     (no per-row mult/abort), rows past the device count ``cnt - sub``
@@ -592,11 +595,18 @@ def guards(mx, st, *, valid=None, per_row=True, cnt=None, sub=0, mult_acc=None, 
     abort (+ ``base``) minimizes into ``abort_acc`` (int64 0-d)."""
     cfg, uni = mx.cfg, mx.uni
     _check_cfg(cfg, uni)
-    B, K = st.msgs.shape[0], mx.K
+    K = mx.K
+    from_ids = hasattr(st, "msg_ids")
+    if from_ids:
+        B, cap_m = st.msg_ids.shape
+        id_bytes = _ids(st.msg_ids, "msg_ids", (B, cap_m))
+        msgs, ids, dev = None, st.msg_ids, st.msg_ids.device
+    else:
+        B, cap_m, id_bytes = st.msgs.shape[0], 0, 0
+        _need(st.msgs, "msgs", torch.int32, (B, uni.n_words))
+        msgs, ids, dev = st.msgs, None, st.msgs.device
     core = _core_ptrs(st, B, _field_shapes(cfg))
-    _need(st.msgs, "msgs", torch.int32, (B, uni.n_words))
     _need(mx.slot_table, "slot_table", torch.int32, (K, 6))
-    dev = st.msgs.device
     if valid is None:
         valid = torch.empty((B, K), dtype=torch.bool, device=dev)
     _need(valid, "valid", torch.bool, (B, K))
@@ -608,8 +618,8 @@ def guards(mx, st, *, valid=None, per_row=True, cnt=None, sub=0, mult_acc=None, 
         _need(abort_acc, "abort_acc", torch.int64, ())
     lib = GUARDS.lib()
     GUARDS.check(lib.launch_guards(
-        core, st.msgs.data_ptr(), B, mx.slot_table.data_ptr(), K, *mx.layout.accept_runs,
-        dims_array(cfg, uni),
+        core, _p(msgs), _p(ids), id_bytes, cap_m, B, mx.slot_table.data_ptr(), K,
+        *mx.layout.accept_runs, dims_array(cfg, uni),
         valid.data_ptr(), _p(mult), _p(abort), _cnt(cnt), sub, _p(mult_acc), _p(abort_acc), base,
         _stream(),
     ))
@@ -681,8 +691,10 @@ def materialize(mx, fr, pidx, slots, *, pay=None, pay_base=0, out=None, cnt=None
 
 
 def _msg_table(fpr, uni):
-    """K3's message-part table (``fpr.ktab``), checked: (eff, pperm or None,
-    the type layout off[4], stride[4], row_base[4] as a ctypes array)."""
+    """The orbit kernel's message-part table (``fpr.ktab``), checked: (eff,
+    pperm or None, the type layout off[4], stride[4], row_base[4] as a
+    ctypes array): the pair-digit table under the factored hash, else the
+    folded table."""
     tab = fpr.ktab
     _need(tab["ct"], "ct", torch.int8, (fpr.P * fpr.N_CHAN * 4, tab["f_pad"]))
     if fpr.factored_msgs:
@@ -696,11 +708,30 @@ def _msg_table(fpr, uni):
     return eff, pperm, (I32 * 12)(*uni.type_offsets, *uni.type_strides, *row_base)
 
 
+# K3's forms, by launch_fingerprints' form code (csrc/fingerprint.cu
+# refuses a form asked past its limits)
+K3_FORMS = ("s3", "pairs", "factored")
+
+
+def k3_form(factored: bool, P: int, f_pad: int) -> str:
+    """K3's form for a hash of P permutations with an f_pad-wide feature
+    table (``Fingerprinter.kernel_tables_np`` keeps it as ``ktab["form"]``
+    and builds that form's tables): ``"s3"`` (the folded table: at most 8
+    permutations, 128 feature columns, the monolithic hash; S <= 3),
+    ``"pairs"`` (the pair-digit fold with every permutation in one block,
+    at most 120: S = 4, 5, and S <= 3 under the factored hash or a wide
+    feature table) or ``"factored"`` (the pair-digit fold in ranges of 256
+    permutations and channel halves, S >= 6)."""
+    if not factored and P <= 8 and f_pad <= 128:
+        return "s3"
+    return "pairs" if P <= 120 else "factored"
+
+
 def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0, idx=None, ovf=None):
     """K3: (fp_view i64[N], fp_full i64[N]) of a Frontier batch of N rows,
-    from the Fingerprinter's kernel tables (``fpr.ktab``); lanes past the
-    device count ``cnt - sub`` get SENT.  Launches with the factored
-    message hash also count as ``msg_hash_factored``.
+    from the Fingerprinter's kernel tables (``fpr.ktab``) in the form
+    they were built for (``k3_form``); lanes past the device count ``cnt - sub`` get SENT.
+    Launches of the factored form also count as ``msg_hash_factored``.
 
     Indexed mode (``idx`` i64[G], with ``cnt``, into ``out``; counted as
     ``orbit_fold``): launch row i < ``cnt - sub`` folds state ``idx[i]``
@@ -729,19 +760,30 @@ def fingerprints(fpr, fr, *, out=None, cnt=None, sub=0, idx=None, ovf=None):
     fpv, fpf = out
     _need(fpv, "fp_view", torch.int64, (N,))
     _need(fpf, "fp_full", torch.int64, (N,))
-    eff, pperm, tdims = _msg_table(fpr, uni)
-    tab = fpr.ktab
-    if pperm is not None:  # the factored form reads a gt row's channel halves apart
-        eff = tab["gt_half"]
-        _need(eff, "gt_half", torch.int32, (sum(uni.type_strides), 2, fpr.NP, 2))
+    tab, rows = fpr.ktab, sum(uni.type_strides)
+    form = tab["form"]
+    _need(tab["ct"], "ct", torch.int8, (fpr.P * fpr.N_CHAN * 4, tab["f_pad"]))
+    if form == "s3":
+        eff, pperm = tab["msg_eff"], None
+        _need(eff, "msg_eff", torch.int32, (uni.M, fpr.P, fpr.N_CHAN))
+    else:
+        pperm = tab["pperm"]
+        _need(pperm, "pperm", torch.uint8, (fpr.P, fpr.NP))
+        if form == "pairs":
+            eff = tab["gt_eff"]
+            _need(eff, "gt_eff", torch.int32, (rows, fpr.NP, fpr.N_CHAN))
+        else:  # the factored form reads a gt row's channel halves apart
+            eff = tab["gt_half"]
+            _need(eff, "gt_half", torch.int32, (rows, 2, fpr.NP, 2))
+    tdims = (I32 * 12)(*uni.type_offsets, *uni.type_strides, *tab["row_base"])
     lib = FINGERPRINT.lib()
     FINGERPRINT.check(lib.launch_fingerprints(
-        core, fr.msg_ids.data_ptr(), id_bytes, cap_m, G, tab["ct"].data_ptr(), tab["f_pad"],
-        fpr.spec.F, fpr.P, eff.data_ptr(), _p(pperm), fpr.NP, tdims, dims_array(cfg, uni),
-        fpv.data_ptr(), fpf.data_ptr(), _cnt(cnt), sub, _p(idx), _p(ovf), _stream(),
+        core, fr.msg_ids.data_ptr(), id_bytes, cap_m, G, K3_FORMS.index(form),
+        tab["ct"].data_ptr(), tab["f_pad"], fpr.spec.F, fpr.P, eff.data_ptr(), _p(pperm), fpr.NP,
+        tdims, dims_array(cfg, uni), fpv.data_ptr(), fpf.data_ptr(), _cnt(cnt), sub, _p(idx), _p(ovf), _stream(),
     ))
     (ORBIT_FOLD if idx is not None else FINGERPRINT).launches += int(G > 0)
-    if fpr.factored_msgs:
+    if form == "factored":
         MSG_FACTORED.launches += int(G > 0)
     return fpv, fpf
 

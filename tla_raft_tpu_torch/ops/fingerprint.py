@@ -431,20 +431,26 @@ class Fingerprinter:
 
         * ``ct``: the feature planes transposed, i8 [P * 16, F_pad] (F
           padded with zeros to a multiple of 32, the MMA depth);
-        * monolithic: ``msg_eff`` u32 [M, P, chan] = the effective
-          coefficient of message m under permutation p;
-        * factored: ``gt_eff`` u32 [sum of strides, NP, chan] (type t's
-          rows from ``row_base[t]``: the effective coefficient of the id
-          with pair digit q' and rest r), the same as ``gt_half`` u32
-          [sum of strides, 2, NP, 2] (a row's channels 0-1, then 2-3: K3
-          reads one half a pass) and ``pperm`` u8 [P, NP]."""
+        * ``form``: K3's form (``kernels.k3_form``), whose tables follow;
+        * the pair-digit tables, for the pair-digit and factored forms
+          (0.26 MB at S=5): ``gt_eff`` u32 [sum of strides, NP, chan] (type
+          t's rows from ``row_base[t]``: the effective coefficient of the
+          id with pair digit q' and rest r; the orbit kernel reads it under
+          the factored hash) and ``pperm`` u8 [P, NP]; the factored form
+          reads ``gt_half`` u32 [sum of strides, 2, NP, 2] (the same rows,
+          channels 0-1, then 2-3: one half a pass);
+        * monolithic (not ``factored_msgs``): ``msg_eff`` u32 [M, P, chan]
+          = the effective coefficient of message m under permutation p
+          (K3's S <= 3 form and the orbit kernel read it)."""
         F = self.spec.F
         f_pad = -(-F // 32) * 32
         ct = np.zeros((self.P * self.N_CHAN * 4, f_pad), np.int8)
         ct[:, :F] = self.C_planes_np.T
-        out = dict(ct=ct, f_pad=f_pad)
-        if self.factored_msgs:
-            uni, NP = self.uni, self.NP
+        uni, NP = self.uni, self.NP
+        form = kernels.k3_form(self.factored_msgs, self.P, f_pad)
+        out = dict(ct=ct, f_pad=f_pad, form=form,
+                   row_base=np.concatenate([[0], np.cumsum(uni.type_strides)[:-1]]))
+        if form != "s3":
             rows = []
             for off, stride in zip(uni.type_offsets, uni.type_strides):
                 q = np.arange(NP, dtype=np.uint32)[None, :]
@@ -452,28 +458,26 @@ class Fingerprinter:
                 rows.append(_effective_u32_np(self.raw_msg_coef_np(
                     np.uint32(off) + q * np.uint32(stride) + r)))  # [stride, NP, chan]
             gt = np.ascontiguousarray(np.concatenate(rows))
-            out.update(gt_eff=gt,
-                       gt_half=np.ascontiguousarray(
-                           gt.reshape(gt.shape[0], NP, 2, 2).transpose(0, 2, 1, 3)),
-                       pperm=self.pair_perm.astype(np.uint8),
-                       row_base=np.concatenate([[0], np.cumsum(uni.type_strides)[:-1]]))
-        else:
-            out.update(msg_eff=np.ascontiguousarray(
-                _effective_u32_np(self._Gp_np).transpose(2, 0, 1)))  # [M, P, chan]
+            out.update(gt_eff=gt, pperm=self.pair_perm.astype(np.uint8))
+            if form == "factored":
+                out["gt_half"] = np.ascontiguousarray(
+                    gt.reshape(gt.shape[0], NP, 2, 2).transpose(0, 2, 1, 3))
+        if not self.factored_msgs:
+            out["msg_eff"] = np.ascontiguousarray(
+                _effective_u32_np(self._Gp_np).transpose(2, 0, 1))  # [M, P, chan]
         return out
 
     def _kernel_tables_on(self, dev) -> dict:
         """``kernel_tables_np`` on ``dev`` (the u32 tables as int32 bit
         patterns)."""
         t = self.kernel_tables_np()
-        out = dict(ct=torch.from_numpy(t["ct"]).to(dev), f_pad=t["f_pad"])
-        if self.factored_msgs:
-            out.update(gt_eff=torch.from_numpy(t["gt_eff"].view(np.int32)).to(dev),
-                       gt_half=torch.from_numpy(t["gt_half"].view(np.int32)).to(dev),
-                       pperm=torch.from_numpy(t["pperm"]).to(dev),
-                       row_base=[int(x) for x in t["row_base"]])
-        else:
-            out["msg_eff"] = torch.from_numpy(t["msg_eff"].view(np.int32)).to(dev)
+        out = dict(t, ct=torch.from_numpy(t["ct"]).to(dev),
+                   row_base=[int(x) for x in t["row_base"]])
+        for k in ("gt_eff", "gt_half", "msg_eff"):
+            if k in t:
+                out[k] = torch.from_numpy(t[k].view(np.int32)).to(dev)
+        if "pperm" in t:
+            out["pperm"] = torch.from_numpy(t["pperm"]).to(dev)
         return out
 
     def state_fingerprints(self, fr: Frontier) -> tuple[torch.Tensor, torch.Tensor]:
