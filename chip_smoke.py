@@ -600,8 +600,24 @@ def phase_default(depth: int, chunk: int):
 
     from tla_raft_tpu_torch import device as D
     from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import megakernel as mk
 
-    chk, res, levels, secs = _run_reference(depth, chunk)
+    # the launches each kind of program makes a replay (its tally), as
+    # its graphs launch (a grown slab drops the programs captured before)
+    per = {}
+    launch = mk.GraphProgram.launch
+
+    def tallied(prog):
+        launch(prog)
+        per.setdefault(prog.kind, set()).add((prog.tally.per_replay["inv_scan"],
+                                              prog.tally.per_replay["level"],
+                                              getattr(prog, "span", 1)))
+
+    mk.GraphProgram.launch = tallied
+    try:
+        chk, res, levels, secs = _run_reference(depth, chunk)
+    finally:
+        mk.GraphProgram.launch = launch
     reads = dict(D.READS)
     g, ss, mg = chk.graph_stats, chk._ss_stats, chk._mega_stats
     fused_runs = mg["levels"] + g["level_redo_launches"]
@@ -639,6 +655,26 @@ def phase_default(depth: int, chunk: int):
     WALLS["default"] = secs
     chk._progs.clear()  # free the captured programs' buffers for the phases after
     _check_golden(out, res, depth)
+    # one inv_scan a fused level and a superstep level, none in a group's
+    # graph; one level-control launch a group's graph
+    check(len(per.get("group", ())) == 1 and {(i, lv) for i, lv, _s in per["group"]} == {(0, 1)},
+          f"a group's graph: (inv_scan, level) launches a replay {per.get('group')}")
+    check(len(per.get("superstep", ())) == 1 and all(i == s for i, _l, s in per["superstep"]),
+          f"a superstep's graph: (inv_scan, level, span) a replay {per.get('superstep')}")
+    check(len(per.get("level", ())) <= 1 and all(i == 1 for i, _l, _s in per.get("level", ())),
+          f"a fused level's graph: (inv_scan, level) launches a replay {per.get('level')}")
+    # the phase's whole counts (default_counts): the graphs' replays, and
+    # the eager scans (the initial state, each materialize_level: one read
+    # "staged_mat" a call) and group control (a grouped level's begin and
+    # tail: lv_begin, lv_tail_gate, lv_decide, slab_live, lv_finalize)
+    (ss_inv, ss_lv, _s), = per["superstep"]
+    lv_inv, lv_lv, _s = next(iter(per.get("level", {(1, 5, 1)})))
+    attempts = sum(lv["graph_launches"] // lv["groups"] for lv in chk.group_log)
+    EXPECT["default"] = dict(
+        inv_scan=g["superstep_launches"] * ss_inv + g["level_launches"] * lv_inv
+        + reads.get("staged_mat", 0) + 1,
+        level=g["superstep_launches"] * ss_lv + g["level_launches"] * lv_lv
+        + sum(lv["graph_launches"] for lv in chk.group_log) + 5 * attempts)
     # every level past the fused limit ran grouped: one graph launch per
     # group and attempt, one control read per attempt, then the materialize
     # and trace reads (none per K4 claim round; the slab's growth between
@@ -732,6 +768,8 @@ def phase_grouped(depth: int, chunk: int) -> None:
     rec, _call = k4_level_timing(slab0, lanes, live, budget)
     K4_FORMS["grouped_tail"] = dict(rec, parents=n, level=depth + 1)
     emit(dict(phase="k4_grouped_tail", **K4_FORMS["grouped_tail"]))
+    INV_FORMS.update(grouped_level_forms(chk, fr, n, depth, chunk, base[0]))
+    emit(dict(phase="inv_grouped", **INV_FORMS))
 
 
 def phase_tiered(depth: int, chunk: int, dev_bytes: int) -> None:
@@ -3195,6 +3233,7 @@ def _timed_insert(insert, slab, args, reps: int) -> float:
 
 
 K4_FORMS: dict = {}  # K4 over the warm grouped level's tail (phase_grouped), for the kernels line
+EXPECT: dict = {}  # a phase's launch counts as its programs and eager steps make them
 
 
 def k4_level_lanes(chk):
@@ -3309,6 +3348,244 @@ def k4_grouped_tail(chk, fr, n: int, depth: int, base_slab):
     chk.hstore.slab.copy_(base_slab)
     check("lanes" in got, "the grouped level ran no K4")
     return got["lanes"], got["live"], got["budget"], got["slab"]
+
+
+INV_FORMS: dict = {}  # inv_scan and level control over the warm grouped level (phase_grouped)
+
+# the state fields each invariant or probe reads (csrc/invariants.cu
+# fields_of); NoAllCommit also reads the id lists
+INV_FIELDS = {
+    "Inv": ("role", "current_term", "commit_index", "log_len", "log_term", "log_val"),
+    "RaftCanCommt": ("commit_index",), "CommitAll": ("commit_index",),
+    "FollowerCanCommit": ("role", "commit_index"), "NoSplitVote": ("role", "current_term"),
+    "NoAllCommit": ("role", "current_term", "commit_index", "match_index"),
+    "ExistLeaderAndCandidate": ("role",),
+}
+INV_FIELDS["LeaderHasAllCommittedEntries"] = INV_FIELDS["Inv"]
+
+
+def inv_row_bytes(fr, names) -> int:
+    """The bytes of one state that the scan of ``names`` must read: each
+    field its predicates read once (the id list for NoAllCommit)."""
+    need = {f for nm in names for f in INV_FIELDS[nm.lstrip("~")]}
+    b = sum(getattr(fr, f)[0].numel() for f in need)
+    if any(nm.lstrip("~") == "NoAllCommit" for nm in names):
+        b += fr.msg_ids[0].numel() * fr.msg_ids.element_size()
+    return b
+
+
+def deep_level_survivors(chk, cap_out: int = 1 << 22):
+    """The deep fused level's survivors from ``chk``'s frontier (level 21
+    from the depth-20 frontier): the lane buffer K4 takes
+    (``k4_level_lanes``), its fresh lanes compacted, materialized into a
+    frontier buffer of ``cap_out`` rows as the fused level lays them:
+    (buffer, n_new, payload lanes [cap_out], -1 past n_new)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import megakernel as mk
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    cv, cf, cp = k4_level_lanes(chk)
+    _s, fresh, n_new, _o = kernels.probe_and_insert(chk.hstore.slab.clone(), cv, cf, cp)
+    n_new = int(n_new)
+    _fps, pay = hs.compact_fresh(fresh, cv, cp, cv.shape[0])
+    cv = cf = cp = fresh = _s = _fps = None
+    new, _bad, _ovf = chk.materialize_level(chk.frontier, pay, n_new)
+    rows = mk.empty_frontier(chk.cfg, cap_out, chk.cap_m, "cuda")
+    mk.copy_rows(rows, new, n_new)
+    lanes = torch.full((cap_out,), -1, dtype=torch.int64, device="cuda")
+    lanes[:n_new] = pay[:n_new]
+    return rows, n_new, lanes
+
+
+def inv_scan_forms(chk, rows, n_live: int, sl: int, reps: int = 10, calls=None) -> dict:
+    """inv_scan over ``rows`` (a frontier buffer whose first ``n_live`` rows
+    are a level's survivors), each form held to the twin over the live
+    rows first, as they are and with one violating row (a mix of real
+    rows' fields) planted in a later block's tile and in the last tile,
+    then timed by CUDA-graph replay with CUDA events beside: ``one``, one
+    launch over the buffer bounded by the device count (the fused level
+    and ``materialize_level``); ``slices``, a launch a slice of ``sl`` rows
+    to the buffer's end, each bounded by the same count (the host-segment
+    walks, the bucket and the mesh); ``slice``, one slice of ``sl`` live
+    rows.  Bound: ``n_live`` (or the slice's rows) times the bytes a row
+    the configured predicates read.  ``calls`` (a dict) gets the three
+    calls by form."""
+    import numpy as np
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import megakernel as mk
+    from tla_raft_tpu_torch.engine.invariants import inv_scan_plain, needs_msgs
+
+    cfg, uni = chk.cfg, chk.uni
+    names = list(cfg.invariants)
+    cap = rows.voted_for.shape[0]
+    cnt = torch.tensor(n_live, dtype=torch.int64, device="cuda")
+    into = torch.full((), -1, dtype=torch.int64, device="cuda")
+    head = mk.rows_of(rows, 0, min(sl, n_live))
+
+    def one():
+        kernels.inv_scan(cfg, uni, rows, names, 0, into, cnt=cnt)
+
+    def slices():
+        for a in range(0, cap, sl):
+            kernels.inv_scan(cfg, uni, mk.rows_of(rows, a, min(a + sl, cap)), names, a, into,
+                             cnt=cnt, sub=a)
+
+    def slice1():
+        kernels.inv_scan(cfg, uni, head, names, 0, into)
+
+    def twin():
+        live = mk.rows_of(rows, 0, n_live)
+        return int(inv_scan_plain(cfg, chk.inflate(live) if any(needs_msgs(nm) for nm in names)
+                                  else live, names, chk.tables))
+
+    def forms():
+        got = {}
+        for name, fn in (("one", one), ("slices", slices)):
+            into.fill_(-1)
+            fn()
+            got[name] = int(into)
+        return got
+
+    want, got = twin(), forms()
+    check(got["one"] == got["slices"] == want,
+          f"inv_scan over {n_live} survivors: {got}, the twin {want}")
+    # a violating row: the first bad one of mixed rows from the first tiles
+    mixed = _mix_rows(mk.rows_of(rows, 0, min(n_live, 1 << 16)), np.random.default_rng(17))
+    m_bad = int(inv_scan_plain(cfg, chk.inflate(mixed) if any(needs_msgs(nm) for nm in names)
+                               else mixed, names, chk.tables))
+    check(m_bad >= 0, "no violating row among mixed rows")
+    for at in (n_live * 3 // 4, n_live - 3):  # a later tile of some block, the last tile
+        saved = [x[at].clone() for x in rows]
+        for x, m in zip(rows, mixed):
+            x[at] = m[m_bad]
+        p_want, p_got = twin(), forms()
+        for x, v in zip(rows, saved):
+            x[at] = v
+        check(p_got["one"] == p_got["slices"] == p_want == (at if want < 0 else min(want, at)),
+              f"inv_scan over {n_live} survivors, row {at} planted: {p_got}, the twin {p_want}")
+    mixed = None
+    rb = inv_row_bytes(rows, names)
+    rec = dict(rows=cap, live=n_live, slice_rows=sl, slices=-(-cap // sl), row_bytes=rb,
+               first_bad=want, bound_ms=n_live * rb / HBM_BYTES_PER_S * 1e3,
+               slice_bound_ms=min(sl, n_live) * rb / HBM_BYTES_PER_S * 1e3)
+    if calls is not None:
+        calls.update(one=one, slices=slices, slice=slice1)
+    for name, fn in (("one", one), ("slices", slices), ("slice", slice1)):
+        rec[f"{name}_ms"] = graph_ms(fn, reps)
+        rec[f"{name}_events_ms"] = cuda_ms(fn, reps)
+    rec["ms"], rec["events_ms"] = rec["one_ms"], rec["one_events_ms"]
+    return rec
+
+
+def grouped_level_forms(chk, fr, n: int, depth: int, chunk: int, base_slab) -> dict:
+    """One grouped level from ``fr`` (``n`` parents) against ``base_slab``
+    (restored in place before and after), then: the invariant scan over its
+    survivors as ``materialize_level`` issues it (``inv_scan_forms``:
+    slices of 8 chunks), and the level's control after its groups (lv_begin,
+    then lv_decide, slab_live and lv_finalize over the tail's payload
+    lanes), each held to its twin and timed by graph replay, events beside:
+    {"inv_scan": ..., "tail": ...}."""
+    chk.hstore.slab.copy_(base_slab)
+    out, _fr = chk._expand_level_grouped(fr, n, depth)
+    n_new, pay = out["n_new"], out["new_payload"]
+    new, _bad, _ovf = chk.materialize_level(fr, pay, n_new)
+    inv = dict(inv_scan_forms(chk, new, n_new, 8 * chunk), level=depth + 1)
+    new = None
+    slab = chk.hstore.slab
+    kgo, kout = level_ctl_call(True, slab, pay, n_new, chk.K, n)
+    pgo, pout = level_ctl_call(False, slab, pay, n_new, chk.K, n)
+    kgo()
+    pgo()
+    check(all(_equal(x, y) for x, y in zip(kout, pout)),
+          "the grouped level's control differs from its twin")
+    kout = pout = None
+    ctl_bytes = slab.shape[0] * 8 + n_new * 14 + chk.K * 16
+    tail = dict(ms=graph_ms(kgo, 10), events_ms=cuda_ms(kgo, 10), plain_ms=wall_ms(pgo),
+                bound_ms=ctl_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", lanes=pay.shape[0],
+                survivors=n_new, slab_slots=slab.shape[0], level=depth + 1)
+    chk.hstore.slab.copy_(base_slab)
+    return dict(inv_scan=inv, tail=tail)
+
+
+def level_ctl_call(kern: bool, slab, pay, n_new: int, K: int, n_run: int, gate=None):
+    """A level's control as its program issues it: lv_begin, lv_gate (the
+    fused level: ``gate`` = (chunk totals, cap_x, chunk); the grouped tail
+    gates in its group control), then with ``n_new`` survivors lv_decide,
+    slab_live and lv_finalize over the payload lanes ``pay``; the kernels,
+    or (``kern`` False) their twins: (call, its outputs)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    if kern:
+        ops = (kernels.level_begin, kernels.level_gate, kernels.level_decide, kernels.slab_live,
+               kernels.level_finalize)
+    else:
+        ops = (mk.level_begin_plain, mk.level_gate_plain, mk.level_decide_plain,
+               mk.slab_live_plain, mk.level_finalize_plain)
+    begin, gate_op, decide, live, fin = ops
+    cap = pay.shape[0]
+    lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device="cuda")
+    mult = torch.ones((K,), dtype=torch.int64, device="cuda")
+    ctrl = torch.zeros((8,), dtype=torch.int64, device="cuda")
+    pidx = torch.zeros((cap,), dtype=torch.int32, device="cuda")
+    slot = torch.zeros((cap,), dtype=torch.int16, device="cuda")
+    n_run_t = torch.tensor(n_run, device="cuda")
+
+    def go():
+        begin(lc, mult, n_run_t)
+        if gate is not None:
+            gate_op(lc, *gate)
+        lc[mk.LC_N_NEW].fill_(n_new)
+        decide(lc, cap)
+        live(slab, lc[mk.LC_SLAB_LIVE])
+        fin(lc, ctrl, pay, K, pidx, slot)
+
+    return go, (lc, mult, ctrl, pidx, slot)
+
+
+def group_ctl_call(kern: bool, K: int, n_par: int, rows_g: int, cap_g: int, cap_x: int, totals,
+                   abort=None):
+    """A grouped level's group control as its graphs and tail issue it:
+    lv_begin, then a group at a time ``lv_group_step``, each group's chunk
+    totals after it (``totals`` [n_groups, G]: copied into the program's
+    buffer after each step; [G]: one buffer for every group), ``abort`` =
+    (group, row) a split-brain row, then lv_tail_gate; the kernels, or
+    their twins: (call, the control words, groups)."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import group
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    if kern:
+        begin, step, tail = kernels.level_begin, kernels.group_step, kernels.tail_gate
+    else:
+        begin, step, tail = mk.level_begin_plain, group.group_step_plain, group.tail_gate_plain
+    n_groups = -(-n_par // rows_g)
+    lanes = n_groups * cap_g
+    lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device="cuda")
+    mult = torch.zeros((K,), dtype=torch.int64, device="cuda")
+    n_t = torch.tensor(n_par, device="cuda")
+    per_group = totals.dim() == 2
+    buf = totals[0].clone() if per_group else totals
+
+    def go():
+        begin(lc, mult, n_t)
+        for g in range(n_groups):
+            step(lc, buf, cap_x, rows_g, K, cap_g)
+            if per_group:
+                buf.copy_(totals[g])
+            if abort is not None and g == abort[0]:
+                lc[group.LC_G_ABORT].fill_(abort[1])
+        tail(lc, buf, cap_x, rows_g, lanes)
+
+    return go, lc, n_groups
 
 
 # the message tables each K3 form reads (``Fingerprinter.kernel_tables_np``)
@@ -3835,15 +4112,23 @@ def phase_kernels(chk, launches: dict, seed: int):
     a = chk.inv_scan(mixed, offset=7)
     ok &= int(a) >= 7 and int(a) == int(inv_scan_plain(chk.cfg, mixed, ["Inv"], chk.tables, 7))
     check(ok, "inv_scan differs from its twin")
-    # timed at the main path's shape: one materialize slice of 8 chunks
-    sl = _frontier_rows(fr, torch.arange(min(8 * B, n), device=dev))
-    ns = sl.voted_for.shape[0]
-    ms = cuda_ms(lambda: chk.inv_scan(sl), 10)
-    plain = wall_ms(lambda: inv_scan_plain(chk.cfg, sl, ["Inv"], chk.tables))
-    read_b = sum(getattr(fr, f)[0].numel() for f in
-                 ("role", "current_term", "commit_index", "log_len", "log_term", "log_val"))
+    # timed by graph replay at the main path's shape: the deep fused level's
+    # survivors (level 21 from this depth-20 frontier, 3,350,017 rows of a
+    # 2^22-row buffer) as the tree's level issues the scan, one 8-chunk
+    # slice, and (phase_grouped) the warm grouped level's survivors; the
+    # bound charged on the live rows
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    deep_rows, deep_new, deep_pay = deep_level_survivors(chk)
+    inv = inv_scan_forms(chk, deep_rows, deep_new, mk.mat_slice_width(1 << 22, B))
+    live_rows = mk.rows_of(deep_rows, 0, deep_new)
+    plain = wall_ms(lambda: inv_scan_plain(chk.cfg, live_rows, chk.cfg.invariants, chk.tables))
+    deep_rows = live_rows = None
     S, L = chk.cfg.S, chk.cfg.L
-    entry(kernels.INV_SCAN, True, ms, plain, ns * read_b + 8, ns * S * S * L * 4, None)
+    entry(kernels.INV_SCAN, True, inv["ms"], plain, deep_new * inv["row_bytes"] + 8,
+          deep_new * S * S * L * 4, None)
+    out[-1].update(events_ms=inv["events_ms"], deep_fused_level=dict(inv, level=DEPTH + 1),
+                   grouped_level=INV_FORMS.get("inv_scan"))
 
     # K4 probe-and-insert: a real level's candidates into the real slab,
     # and random fingerprints (duplicates, SENT lanes, slab members); each
@@ -3969,93 +4254,60 @@ def phase_kernels(chk, launches: dict, seed: int):
         cap_g=cap_g, slab_words_touched=n_words_touched)
 
     # B11 level control at the deep fused level's shapes: 256 chunks, the
-    # run's slab, the survivors of a level of 2,150,466 (cap_out 2^22)
-    from tla_raft_tpu_torch.engine import megakernel as mk
+    # run's slab, the 3,350,017 survivors of level 21 in 2^22 payload lanes
+    # (deep_level_survivors); by graph replay, events beside; bound: the
+    # slab read once and 14 B a survivor (its payload in, pidx and slot out)
     from tla_raft_tpu_torch.engine import superstep as ss
     from tla_raft_tpu_torch.ops import sieve
 
     cap_out = 1 << 22
-    pidx_l, slot_l = chk.trace_levels[-1]
-    n_lvl = len(pidx_l)
-    pay = torch.full((cap_out,), -1, dtype=torch.int64, device=dev)
-    pay[:n_lvl] = torch.from_numpy(pidx_l * K + slot_l).to(dev)
     totals = torch.from_numpy(gen.integers(0, G + 1, 256)).to(dev)
     n_run = torch.tensor(n, device=dev)
-
-    def level_ctl(begin, gate, decide, live, fin):
-        lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=dev)
-        mult = torch.ones((K,), dtype=torch.int64, device=dev)
-        ctrl = torch.zeros((8,), dtype=torch.int64, device=dev)
-        pidx = torch.zeros((cap_out,), dtype=torch.int32, device=dev)
-        slot = torch.zeros((cap_out,), dtype=torch.int16, device=dev)
-
-        def go():
-            begin(lc, mult, n_run)
-            gate(lc, totals, G, B)
-            lc[mk.LC_N_NEW] = n_lvl
-            decide(lc, cap_out)
-            live(slab, lc[mk.LC_SLAB_LIVE])
-            fin(lc, ctrl, pay, K, pidx, slot)
-
-        return go, (lc, mult, ctrl, pidx, slot)
-
-    kgo, kout = level_ctl(kernels.level_begin, kernels.level_gate, kernels.level_decide,
-                          kernels.slab_live, kernels.level_finalize)
-    pgo, pout = level_ctl(mk.level_begin_plain, mk.level_gate_plain, mk.level_decide_plain,
-                          mk.slab_live_plain, mk.level_finalize_plain)
+    gate = (totals, G, B)
+    kgo, kout = level_ctl_call(True, slab, deep_pay, deep_new, K, n, gate)
+    pgo, pout = level_ctl_call(False, slab, deep_pay, deep_new, K, n, gate)
     kgo()
     pgo()
     check(all(_equal(x, y) for x, y in zip(kout, pout))
           and int(kout[0][mk.LC_SLAB_LIVE]) == chk.hstore.count,
           "B11 level control differs from its twin")
-    ms = cuda_ms(kgo, 10)
-    plain = wall_ms(pgo)
-    entry(kernels.LEVEL, True, ms, plain, slab.shape[0] * 8 + cap_out * 14 + 256 * 8 + K * 16,
-          slab.shape[0] + cap_out * 4, None)
+    ctl_bytes = slab.shape[0] * 8 + deep_new * 14 + 256 * 8 + K * 16
+    entry(kernels.LEVEL, True, graph_ms(kgo, 10), wall_ms(pgo), ctl_bytes,
+          slab.shape[0] + deep_new * 4, None)
+    out[-1].update(events_ms=cuda_ms(kgo, 10), survivors=deep_new, lanes=cap_out,
+                   slab_slots=slab.shape[0], grouped_tail=INV_FORMS.get("tail"))
+    deep_pay = kout = pout = None
 
-    # the grouped level's control (lv_group_begin, lv_group_end per group,
-    # then lv_tail_gate) over a depth-23 level's 20 groups of 16 chunks,
-    # with the 16 real chunk totals above; then with one group's totals
-    # past cap_x and another group's abort, which close the tail's gate
+    # the grouped level's group control (a step a group, the tail gate
+    # closing the last) over a depth-23 level's 20 groups of 16 chunks, with
+    # the 16 real chunk totals above; then with one group's totals past
+    # cap_x and another group's abort, which close the tail's gate
     rows_g, n_par = 16 * B, GOLDEN_LEVELS_REF[22]
-    n_groups = -(-n_par // rows_g)
     real_tot = (cp_.view(-1, G) >= 0).sum(1)
-    bad_tot = real_tot.clone()
-    bad_tot[3] = G + 1
-    n_par_t = torch.tensor(n_par, device=dev)
-
-    def group_ctl(level_begin, begin, end, gate, bad):
-        lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=dev)
-        mult = torch.zeros((K,), dtype=torch.int64, device=dev)
-
-        def go():
-            level_begin(lc, mult, n_par_t)
-            for g in range(n_groups):
-                begin(lc, rows_g, K, cap_g)
-                if bad and g == 7:
-                    lc[group.LC_G_ABORT] = 12_345
-                end(lc, bad_tot if bad and g == 5 else real_tot, G, rows_g)
-            gate(lc, n_groups * cap_g)
-
-        return go, lc
-
-    kern = (kernels.level_begin, kernels.group_begin, kernels.group_end, kernels.tail_gate)
-    twin = (mk.level_begin_plain, group.group_begin_plain, group.group_end_plain,
-             group.tail_gate_plain)
+    per_group = real_tot.repeat(-(-n_par // rows_g), 1)
+    per_group[5, 3] = G + 1
     ok = True
     for bad in (False, True):
-        (kgo, klc), (pgo, plc) = group_ctl(*kern, bad), group_ctl(*twin, bad)
+        args = (K, n_par, rows_g, cap_g, G, per_group if bad else real_tot,
+                (7, 12_345) if bad else None)
+        (kgo, klc, n_groups), (pgo, plc, _g) = group_ctl_call(True, *args), \
+            group_ctl_call(False, *args)
         kgo()
         pgo()
         ok &= _equal(klc, plc) and int(klc[group.LC_GROUP]) == n_groups
         ok &= int(klc[mk.LC_LIVE_LANES]) == (0 if bad else n_groups * cap_g)
+        ok &= not bad or (int(klc[mk.LC_OVF_X]) == 1 and int(klc[mk.LC_ABORT]) == 7 * rows_g
+                          + 12_345)
     check(ok, "grouped level control differs from its twin")
-    kgo, pgo = group_ctl(*kern, False)[0], group_ctl(*twin, False)[0]
+    kgo, _lc, n_groups = group_ctl_call(True, K, n_par, rows_g, cap_g, G, real_tot)
+    pgo = group_ctl_call(False, K, n_par, rows_g, cap_g, G, real_tot)[0]
     # per group: the control words read and written, the 16 totals read
     ctl_b = n_groups * (2 * mk.LC_LEN * 8 + 16 * 8) + 2 * mk.LC_LEN * 8 + K * 8
+    g_ms = graph_ms(kgo, 10)
     out[-1]["group"] = dict(
-        ms=cuda_ms(kgo, 10), plain_ms=wall_ms(pgo), bound_ms=ctl_b / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None, groups=n_groups, rows=rows_g, cap_g=cap_g)
+        ms=g_ms, ms_a_group=g_ms / n_groups, events_ms=cuda_ms(kgo, 10), plain_ms=wall_ms(pgo),
+        bound_ms=ctl_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+        groups=n_groups, rows=rows_g, cap_g=cap_g, launches_a_group=1)
 
     # B12 commit, ring append and frontier settle at the deep superstep's
     # shapes: cap_f 2^22, a committed level of 3,350,017 after one of
@@ -4108,6 +4360,7 @@ def phase_kernels(chk, launches: dict, seed: int):
 
     # B13 sieve probe over a fused level's fresh lanes (cap_out, SENT past
     # n_new): the main path's all-miss sentinel, and a 2^20-word filter
+    n_lvl = len(chk.trace_levels[-1][0])  # level 20's survivors
     fps3 = torch.full((cap_out,), -1, dtype=torch.int64, device=dev)
     fps3[:n_lvl] = torch.from_numpy(gen.integers(-(1 << 63), (1 << 63) - 1, n_lvl,
                                                  dtype=np.int64)).to(dev)
@@ -4280,6 +4533,9 @@ def phase_scale_kernels(runs: dict, launches: dict, seed: int) -> list:
         check(ok, f"S={S}: inv_scan differs from its twin")
         sl = _frontier_rows(fr, torch.arange(min(8 * B, n), device=dev))
         t["inv_scan_ms"] = cuda_ms(lambda: chk.inv_scan(sl), 10)
+        t["inv_scan_graph_ms"] = graph_ms(lambda: chk.inv_scan(sl), 10)
+        t["inv_scan_bound_ms"] = sl.voted_for.shape[0] * inv_row_bytes(
+            sl, chk.cfg.invariants) / HBM_BYTES_PER_S * 1e3
         # K4, the grouped level's probe and filter, over up to 16 chunks' candidates
         slab = chk.hstore.slab
         lanes = [chk._expand_chunk(Frontier(*(x[a:a + B] for x in fr)), a)[:3]
@@ -4365,6 +4621,11 @@ def _k3_library_ms(fpr, fr) -> float:
     return cuda_ms(call, 10)
 
 
+# kernels a profile record lists whatever their rank (csrc/invariants.cu,
+# csrc/level.cu)
+PROFILE_ALWAYS = ("inv_scan", "lv_", "slab_live")
+
+
 def _profiled(fn):
     """(result, wall ms, device busy ms, top kernels, launches) of ``fn``
     under torch.profiler; busy = the sum of kernel times (graph-launched
@@ -4395,7 +4656,9 @@ def _profiled(fn):
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     after = kernels.launch_counts()
-    return (res, wall, sum(r[1] for r in rows), [[k, round(ms, 4), c] for k, ms, c in rows[:14]],
+    # the 14 largest, and every invariant-scan and level-control kernel
+    top = rows[:14] + [r for r in rows[14:] if any(w in r[0] for w in PROFILE_ALWAYS)]
+    return (res, wall, sum(r[1] for r in rows), [[k, round(ms, 4), c] for k, ms, c in top],
             {k: after[k] - before[k] for k in after if after[k] > before[k]})
 
 
@@ -4527,6 +4790,11 @@ def main() -> int:
     def default_counts(c: dict) -> None:
         # supersteps, fused and grouped levels: K1 reads the id lists
         check(c["inflate"] == 0, f"inflate launched {c['inflate']} times on the default path")
+        # one inv_scan a level; one level-control launch a group
+        want = EXPECT.get("default")
+        check(want is not None and all(c[k] == v for k, v in want.items()),
+              f"default path: launches {({k: c[k] for k in ('inv_scan', 'level')})}, "
+              f"expected {want}")
 
     default_digests, launches = run(
         "default", [k for k in kernels.KERNELS

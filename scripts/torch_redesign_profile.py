@@ -14,7 +14,8 @@ calls), and what the deep levels and the default path's wall make of it:
   twin first);
 * ``levels``: the deep fused level (from depth 20, 2,150,466 parents) and
   the warm grouped level (from depth 22, 5,099,018 parents), with K1's,
-  K2's and inflate's device ms and the launches by kernel
+  K2's, inflate's, the invariant scan's and the level control's device ms
+  and the launches by kernel
   (``chip_smoke.phase_profile`` / ``phase_grouped``);
 * ``levels5``: the deep fused level at 5 servers (level 16 from the
   depth-15 frontier, 629,645 parents) split by kernel
@@ -24,7 +25,8 @@ calls), and what the deep levels and the default path's wall make of it:
   family-7 runs, the count tables, or all three left out (their loops run
   no iteration), each timed on the same chunk (outputs then wrong; only
   the full build is the kernel);
-* ``wall``: the default path's wall to depth 25 (graph captures included);
+* ``wall``: the default path's wall to depth 25 (graph captures included,
+  their count and seconds by program kind);
 * ``dedup``: ``level_dedup`` over the level-25 lanes against the store
   after level 24 (the sorted kernels phase's inputs);
 * ``k3``: K3 with its factored message part at 7 servers over one chunk of
@@ -59,6 +61,27 @@ calls), and what the deep levels and the default path's wall make of it:
 * ``k3variants5``: the ``k3s5`` launch with the pair-digit form's other
   settings (ids gathered at once, warps a block; outputs unchanged), each
   timed on the same launch;
+* ``inv``: the invariant scan (csrc/invariants.cu) over the deep fused
+  level's survivors (level 21 from the depth-20 frontier: 3,350,017 rows of
+  a 2^22-row buffer, ``chip_smoke.deep_level_survivors``) and over the warm
+  grouped level's (level 23: 7,596,394 rows), each as one launch bounded by
+  the device count, as a launch a slice of 8 chunks to the buffer's end,
+  and over one slice, by CUDA-graph replay with CUDA events beside
+  (``chip_smoke.inv_scan_forms``; ``level_form`` names the form the tree's
+  levels take), with the bound on the live rows;
+* ``ctl``: B11 level control (csrc/level.cu): the deep fused level's
+  (lv_begin, lv_gate, lv_decide, slab_live, lv_finalize over those
+  survivors' 2^22 payload lanes), the grouped level's group control (a
+  depth-23 level's 20 groups of 16 chunks: ``lv_group_step`` a group and
+  the tail gate, or in trees before it lv_group_begin and lv_group_end a
+  group) and its tail (lv_begin, lv_decide, slab_live, lv_finalize over
+  level 23's 37,748,736 payload lanes, 7,596,394 survivors), each by
+  graph replay, events beside, with the bound on the live work;
+* ``invvariants``: the ``inv`` part's deep-level launch (one over the
+  buffer) with other settings of the tree's ``csrc/invariants.cu``
+  (outputs unchanged): tiles of 256 or 1,024 states, 4 blocks an SM (32
+  registers a thread), 3 tiles in flight a block; and with its evaluation or its staging copies left
+  out (outputs then wrong); each timed by graph replay on the same launch;
 * ``k3phases``, ``k3phases5``: where that K3 launch (at 3 servers; at 5,
   the ``k3s5`` launch) spends its time, by ablation: the tree's
   ``csrc/fingerprint.cu`` rebuilt with the feature staging, the feature
@@ -88,7 +111,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PARTS = ("k1k2", "k1phases", "levels", "levels5", "wall", "dedup", "k3", "k3s3", "compact",
-         "k3phases", "k3s5", "k3s4", "k3phases5", "k3variants5", "k4", "k4phases")
+         "k3phases", "k3s5", "k3s4", "k3phases5", "k3variants5", "k4", "k4phases", "inv", "ctl",
+         "invvariants")
 # K1's phase loops (csrc/guards.cu), by the header each ablation empties
 K1_LOOPS = {
     name: [(h, h.replace("i < np *", "i < 0 *"))]
@@ -159,6 +183,21 @@ K3PAIRS_VARIANTS = dict(
     ids_1=[("constexpr int PR_IDS = 2;", "constexpr int PR_IDS = 1;")],
     ids_4=[("constexpr int PR_IDS = 2;", "constexpr int PR_IDS = 4;")],
     threads_256=[("constexpr int PR_THREADS = 512;", "constexpr int PR_THREADS = 256;")],
+)
+
+# other settings of the invariant scan (csrc/invariants.cu; outputs unchanged)
+INV_VARIANTS = dict(
+    rows_256=[("constexpr int IV_ROWS = 512;", "constexpr int IV_ROWS = 256;")],
+    rows_1024=[("constexpr int IV_ROWS = 512;", "constexpr int IV_ROWS = 1024;")],
+    stages_3=[("constexpr int IV_STAGES = 2;", "constexpr int IV_STAGES = 3;")],
+    blocks_4=[("__launch_bounds__(IV_ROWS)\n", "__launch_bounds__(IV_ROWS, 4)\n")],
+)
+# and its parts, each left out (outputs then wrong): the predicates'
+# evaluation, the staging copies
+INV_CUTS = dict(
+    no_evaluation=[("    if (base + t < live) {", "    if (false) {")],
+    no_staging=[("    stage_rows<IV_ROWS, true>(smem + k * buf_b,",
+                 "    if (0) stage_rows<IV_ROWS, true>(smem + k * buf_b,")],
 )
 
 
@@ -263,6 +302,42 @@ def _fan_out_compact(cs, chk, kernels, bfs) -> dict:
     bound = (fpv.shape[0] * 8 + min(kept, G) * 8 + G * 24) / cs.HBM_BYTES_PER_S * 1e3
     return dict(call=call, times=dict(fan_out_ms=cs.graph_ms(call, 10),
                                       fan_out_bound_ms=bound, fan_out_lanes=fpv.shape[0]))
+
+
+def _level_form(kernels, rec: dict) -> dict:
+    """``rec`` (``chip_smoke.inv_scan_forms``) with ``level_form``, the form
+    the tree's levels issue (one launch a level where the package has
+    ``kernels.INV_ROWS``, a launch a slice in earlier trees), and that
+    form's ``ms`` and ``events_ms``."""
+    form = "one" if hasattr(kernels, "INV_ROWS") else "slices"
+    return dict(rec, level_form=form, ms=rec[f"{form}_ms"], events_ms=rec[f"{form}_events_ms"])
+
+
+def _group_ctl(cs, kernels, K: int, n_par: int, rows_g: int, cap_g: int, cap_x: int, totals):
+    """The grouped level's group control as the tree issues it:
+    ``chip_smoke.group_ctl_call``'s kernel form (lv_group_step a group), or
+    in trees before it lv_begin, then lv_group_begin and lv_group_end a
+    group, then their tail gate: (call, groups, launches a group)."""
+    if hasattr(kernels, "group_step"):
+        go, _lc, n_groups = cs.group_ctl_call(True, K, n_par, rows_g, cap_g, cap_x, totals)
+        return go, n_groups, 1
+    import torch
+
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    n_groups = -(-n_par // rows_g)
+    lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device="cuda")
+    mult = torch.zeros((K,), dtype=torch.int64, device="cuda")
+    n_t = torch.tensor(n_par, device="cuda")
+
+    def go():
+        kernels.level_begin(lc, mult, n_t)
+        for _g in range(n_groups):
+            kernels.group_begin(lc, rows_g, K, cap_g)
+            kernels.group_end(lc, totals, cap_x, rows_g)
+        kernels.tail_gate(lc, n_groups * cap_g)
+
+    return go, n_groups, 2
 
 
 def _by_kernel(prof, reps: int) -> dict:
@@ -409,6 +484,9 @@ def main() -> int:
                         guards_ms=_kernel_ms(rec["top"], "guards"),
                         materialize_ms=_kernel_ms(rec["top"], "materialize"),
                         inflate_ms=_kernel_ms(rec["top"], "inflate"),
+                        inv_scan_ms=_kernel_ms(rec["top"], "inv_scan"),
+                        level_control_ms=_kernel_ms(rec["top"], "lv_")
+                        + _kernel_ms(rec["top"], "slab_live"),
                         launches=rec.get("launches"), top=rec["top"])), flush=True)
         chk = None
         release()
@@ -500,12 +578,80 @@ def main() -> int:
         old = new = None
         release()
 
+    if any(p in parts for p in ("inv", "ctl", "invvariants")):
+        import numpy as np
+
+        from tla_raft_tpu_torch.engine import megakernel as mk
+
+        chk, _res, _lv, _s = cs._run_reference(cs.DEPTH, cs.CHUNK, megakernel=False)
+        rows, n_new, pay = cs.deep_level_survivors(chk)
+        if "inv" in parts or "invvariants" in parts:
+            calls = {}
+            rec = _level_form(kernels, cs.inv_scan_forms(
+                chk, rows, n_new, mk.mat_slice_width(1 << 22, cs.CHUNK), calls=calls))
+            if "inv" in parts:
+                print(json.dumps(dict(part="inv", **head, form="deep_fused_level",
+                                      level=cs.DEPTH + 1, **rec,
+                                      by_kernel=run(calls[rec["level_form"]]))), flush=True)
+            if "invvariants" in parts:
+                libs = _ablations(kernels, kernels.INV_SCAN, {**INV_VARIANTS, **INV_CUTS},
+                                  tree / "build" / "invvariants", None)
+                ms = _variant_ms(cs, kernels.INV_SCAN, libs, calls["one"])
+                print(json.dumps(dict(part="invvariants", **head, rows=rec["rows"],
+                                      live=n_new, ms_by_variant=ms)), flush=True)
+            calls = None
+        rows = None
+        if "ctl" in parts:
+            K, B, G, slab = chk.K, chk.chunk, chk.cap_x, chk.hstore.slab
+            n = chk.frontier.voted_for.shape[0]
+            totals = torch.from_numpy(np.random.default_rng(5).integers(0, G + 1, 256)).cuda()
+            go, _o = cs.level_ctl_call(True, slab, pay, n_new, K, n, (totals, G, B))
+            nb = slab.shape[0] * 8 + n_new * 14 + 256 * 8 + K * 16
+            print(json.dumps(dict(part="ctl", **head, form="deep_fused_level", lanes=pay.shape[0],
+                                  survivors=n_new, slab_slots=slab.shape[0],
+                                  ms=cs.graph_ms(go, 10), events_ms=cs.cuda_ms(go, 10),
+                                  bound_ms=nb / cs.HBM_BYTES_PER_S * 1e3, by_kernel=run(go))),
+                  flush=True)
+            rows_g, n_par, cap_g = 16 * B, cs.GOLDEN_LEVELS_REF[22], 16 * G // 2
+            go, n_groups, a_group = _group_ctl(cs, kernels, K, n_par, rows_g, cap_g, G,
+                                               totals[:16])
+            nb = n_groups * (2 * mk.LC_LEN * 8 + 16 * 8) + 2 * mk.LC_LEN * 8 + K * 8
+            ms = cs.graph_ms(go, 10)
+            print(json.dumps(dict(part="ctl", **head, form="group_control", groups=n_groups,
+                                  rows=rows_g, ms=ms, ms_a_group=ms / n_groups,
+                                  events_ms=cs.cuda_ms(go, 10),
+                                  launches_a_group=a_group,
+                                  bound_ms=nb / cs.HBM_BYTES_PER_S * 1e3, by_kernel=run(go))),
+                  flush=True)
+        chk = pay = None
+        release()
+    if "inv" in parts or "ctl" in parts:
+        chk, _res, _lv, _s = cs._run_reference(cs.DEPTH_GROUPED, cs.CHUNK, megakernel=False)
+        fr = chk.frontier
+        forms = cs.grouped_level_forms(chk, fr, fr.voted_for.shape[0], cs.DEPTH_GROUPED,
+                                       cs.CHUNK, chk.hstore.slab.clone())
+        if "inv" in parts:
+            print(json.dumps(dict(part="inv", **head, form="grouped_level",
+                                  **_level_form(kernels, forms["inv_scan"]))), flush=True)
+        if "ctl" in parts:
+            print(json.dumps(dict(part="ctl", **head, form="grouped_tail", **forms["tail"])),
+                  flush=True)
+        chk = fr = forms = None
+        release()
+
     if "wall" in parts:
         chk, res, _lv, secs = cs._run_reference(cs.DEPTH_DEFAULT, cs.CHUNK)
         check = list(res.level_sizes) == cs.GOLDEN_LEVELS_REF[: cs.DEPTH_DEFAULT + 1]
+        by_kind = {}
+        for kind, _cap_f, c_secs, _n in chk.graph_stats["capture_log"]:
+            k = by_kind.setdefault(kind, dict(captures=0, seconds=0.0, max_seconds=0.0))
+            k["captures"] += 1
+            k["seconds"] += c_secs
+            k["max_seconds"] = max(k["max_seconds"], c_secs)
         print(json.dumps(dict(part="wall", **head, depth=res.depth, distinct=res.distinct,
                               golden=check, seconds=secs, routes=chk.routes,
-                              capture_seconds=chk.graph_stats["capture_seconds"])), flush=True)
+                              capture_seconds=chk.graph_stats["capture_seconds"],
+                              captures_by_kind=by_kind)), flush=True)
         chk = None
         release()
 

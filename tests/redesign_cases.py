@@ -13,7 +13,9 @@ K1's groups, count tables and family-7 runs (csrc/guards.cu);
 ``fingerprint_s3``); ``k3pairs_id_lists``, ``k3pairs_sibling_lists`` and
 ``k3pairs_model``: its
 pair-digit form (``fingerprint_pairs``, S = 4, 5); ``k1_ids_words``: K1's
-masks built from id lists (csrc/guards.cu, the inflate folded in).
+masks built from id lists (csrc/guards.cu, the inflate folded in);
+``inv_tiles_model``: the invariant scan's persistent tiled walk
+(csrc/invariants.cu ``inv_scan_tiles``).
 """
 
 import numpy as np
@@ -1025,3 +1027,48 @@ def hs_rounds_model(slab, fps, keys=None, pays=None, *, words=None, epoch: int =
                 left=left, grid=grid, lists=lists, words=words, epoch=epoch,
                 bad_pay=st["bad_pay"], live=int((fps != SENT).sum()), group=group, won=won,
                 dead=dead, n_inserted=after - before)
+
+
+IV_ROWS = 512  # csrc/invariants.cu: the states of a tile, a thread a state
+ALL_ONES = (1 << 64) - 1
+
+
+def inv_tiles_model(bad: np.ndarray, offset: int = 0, first_bad: int = -1, *, cnt=None,
+                    sub: int = 0, grid: int = 1, rows: int = IV_ROWS, seed: int = 0):
+    """csrc/invariants.cu ``inv_scan_tiles`` over a batch whose per-row
+    verdicts are ``bad`` (bool[n]: the row violates a configured
+    predicate).  The live count is ``min(n, max(0, cnt - sub))`` (``n``
+    without ``cnt``, as common.cuh ``live_count``); ``grid`` blocks (those
+    past the live tiles exit) each walk their tiles ``b, b + grid, ...`` in
+    ascending order, the blocks' steps interleaved in a seeded random order
+    (blocks run in no order); a block stops at its first tile whose first
+    row plus ``offset`` is at or past the word's current value (its later
+    tiles start later still); a tile's first bad row is the minimum of its
+    warps' minima, and the block folds it plus ``offset`` into the word by
+    an unsigned minimum, only when the tile has one.  ``first_bad`` is the
+    word before the launch (an earlier result, -1 = all ones: none).
+    Returns (the word as an int64, -1 for none; tiles evaluated)."""
+    n = bad.shape[0]
+    word = ALL_ONES if first_bad < 0 else first_bad
+    live = n if cnt is None else min(n, max(0, cnt - sub))
+    n_tiles = -(-live // rows)
+    nxt = {b: b for b in range(min(grid, n_tiles))}
+    g = np.random.default_rng(seed)
+    evaluated = 0
+    while nxt:
+        b = sorted(nxt)[int(g.integers(len(nxt)))]
+        ti = nxt[b]
+        base = ti * rows
+        if base + offset >= word:  # this tile and every later one of the block
+            del nxt[b]
+            continue
+        evaluated += 1
+        seg = bad[base:min(base + rows, live)]
+        warp_mins = [w + int(np.flatnonzero(seg[w:w + 32])[0])
+                     for w in range(0, seg.shape[0], 32) if seg[w:w + 32].any()]
+        if warp_mins:
+            word = min(word, base + min(warp_mins) + offset)
+        nxt[b] = ti + grid
+        if nxt[b] >= n_tiles:
+            del nxt[b]
+    return (-1 if word == ALL_ONES else word), evaluated

@@ -415,26 +415,264 @@ def test_probe_and_filter_kernels_equal_twins(run):
 
 
 def test_group_control_kernels_equal_twins(run):
+    """``lv_group_step`` a group (the previous group closed: one with its
+    chunk totals past cap_x, another with an abort) and the tail gate that
+    closes the last group, against their twins, word for word after every
+    launch."""
     from tla_raft_tpu_torch.engine import group
     from tla_raft_tpu_torch.engine import megakernel as mk
 
-    totals = torch.tensor([10, 300, 5])
+    group_totals = ([10, 0, 0], [10, 200, 5], [10, 300, 5], [7, 0, 0])
     outs = []
     for device in ("cuda", "cpu"):
         lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=device)
         mk.op_level_begin(lc, torch.zeros(7, dtype=torch.int64, device=device),
-                          torch.tensor(2500, device=device))
+                          torch.tensor(3500, device=device))
+        buf = torch.zeros(3, dtype=torch.int64, device=device)  # the program's chunk totals
         rows = []
-        for g in range(3):
-            group.op_group_begin(lc, 1000, 7, 64)
-            lc[group.LC_G_ABORT] = 900 if g == 1 else mk.BIG
-            group.op_group_end(lc, totals.to(device) if g == 2 else totals[:1].to(device), 256,
-                               1000)
+        for g, tot in enumerate(group_totals):
+            group.op_group_step(lc, buf, 256, 1000, 7, 64)
             rows.append(lc.clone())
-        group.op_tail_gate(lc, 192)
+            # the group's chunks: its totals and its abort
+            buf.copy_(torch.tensor(tot, device=device))
+            lc[group.LC_G_ABORT] = 900 if g == 1 else mk.BIG
+        group.op_tail_gate(lc, buf, 256, 1000, len(group_totals) * 64)
         outs.append([x.cpu() for x in rows + [lc]])
-    assert int(outs[0][-1][mk.LC_ABORT]) == 1900 and int(outs[0][-1][mk.LC_OVF_X]) == 1
+    last = outs[0][-1]
+    assert int(last[mk.LC_ABORT]) == 1900 and int(last[mk.LC_OVF_X]) == 1
+    assert int(last[group.LC_GROUP]) == 4 and int(last[mk.LC_LIVE_LANES]) == 0
+    assert [int(r[group.LC_G_RUN]) for r in outs[0][:4]] == [1000, 1000, 1000, 500]
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_level_finalize_writes_only_the_survivors(run):
+    """The bounded ``lv_finalize``: pidx / slot of the first n_new lanes from
+    their payloads, the lanes past n_new as they were, as its twin."""
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    g = np.random.default_rng(9)
+    pay = torch.from_numpy(g.integers(-5, 1 << 40, 70_000))
+    outs = []
+    for n_new in (0, 300, 65_537, 90_000):
+        for device in ("cuda", "cpu"):
+            lc = torch.zeros((mk.LC_LEN,), dtype=torch.int64, device=device)
+            lc[mk.LC_N_NEW] = n_new
+            ctrl = torch.zeros(8, dtype=torch.int64, device=device)
+            pidx = torch.full((pay.shape[0],), 12_345, dtype=torch.int32, device=device)
+            slot = torch.full((pay.shape[0],), 77, dtype=torch.int16, device=device)
+            mk.op_level_finalize(lc, ctrl, pay.to(device), 696, pidx, slot)
+            outs.append([x.cpu() for x in (ctrl, pidx, slot)])
+        (kc, kp, ks), (pc, pp, ps) = outs[-2:]
+        assert torch.equal(kc, pc) and torch.equal(kp, pp) and torch.equal(ks, ps)
+        live = min(n_new, pay.shape[0])
+        assert bool((kp[live:] == 12_345).all()) and bool((ks[live:] == 77).all())
+        q = torch.div(pay[:live], 696, rounding_mode="floor")
+        assert torch.equal(kp[:live], q.to(torch.int32))
+
+
+def _plant(fr, src, at: int, row: int):
+    """``fr`` with row ``at`` replaced by row ``row`` of ``src``."""
+    out = Frontier(*(x.clone() for x in fr))
+    for o, s in zip(out, src):
+        o[at] = s[row]
+    return out
+
+
+def test_inv_scan_graph_replay_equals_twin(run):
+    """inv_scan captured once in a CUDA graph with its live count a device
+    word, replayed at live counts 0, < one tile, many tiles, and around a
+    bad row planted in the last tile, with int16 and int32 ids, the id
+    lists staged (narrow) and read from device memory (wide), against the
+    twin over the live rows."""
+    fr = run.frontier
+    assert int(inv_scan_plain(run.cfg, run.inflate(fr), ["Inv"], run.tables)) == -1
+    mixed = _mixed_rows(fr, 11)
+    bad = int(inv_scan_plain(run.cfg, run.inflate(mixed), ["Inv"], run.tables))
+    assert bad >= 0
+    big = Frontier(*(torch.cat([x] * 8).contiguous() for x in fr))  # 92 tiles of 512
+    N = big.voted_for.shape[0]
+    big = _plant(big, mixed, N - 5, bad)
+    counts = (0, 100, 256, 3000, N - 6, N - 5, N - 4, N)
+    cases = {
+        "int16": big,
+        "int32": big._replace(msg_ids=big.msg_ids.to(torch.int32)),
+        "narrow_ids": big._replace(msg_ids=big.msg_ids[:, :16].contiguous()),
+    }
+    for label, case in cases.items():
+        st = run.inflate(case)
+        for names in (["Inv"], ["NoAllCommit"], ["~CommitAll", "Inv"]):
+            cnt = torch.zeros((), dtype=torch.int64, device="cuda")
+            into = torch.full((), -1, dtype=torch.int64, device="cuda")
+
+            def call():
+                into.fill_(-1)
+                kernels.inv_scan(run.cfg, run.uni, case, names, 7, into, cnt=cnt)
+
+            call()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                call()
+            for c in counts:
+                cnt.fill_(c)
+                graph.replay()
+                torch.cuda.synchronize()
+                sub = RaftState(*(x[:c] for x in st))
+                want = int(inv_scan_plain(run.cfg, sub, names, run.tables, 7)) if c else -1
+                assert int(into) == want, (label, names, c)
+    # the planted row is found where it is, and the earlier result folds in
+    assert int(run.inv_scan(big, names=["Inv"])) == N - 5
+    earlier = torch.tensor(40, dtype=torch.int64, device="cuda")
+    assert int(run.inv_scan(big, offset=9, into=earlier)) == 40
+
+
+def test_inv_scan_persistent_tiles(run):
+    """A block's later tiles: over 1,176,200 rows (more than four tiles a
+    block of the largest persistent grid, so every block walks several,
+    the next tile's copy in flight), one bad row planted in a block's
+    later tile, in the last partial tile, or both (the later blocks stop
+    past the first), replayed at live counts before, at and past it,
+    against the known answer (the run's frontier has no bad row) and the
+    twin."""
+    fr = run.frontier
+    mixed = _mixed_rows(fr, 11)
+    bad = int(inv_scan_plain(run.cfg, run.inflate(mixed), ["Inv"], run.tables))
+    assert bad >= 0
+    big = Frontier(*(torch.cat([x] * 200).contiguous() for x in fr))
+    N, R = big.voted_for.shape[0], kernels.INV_ROWS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert N // R >= 4 * (2048 // R) * sms and N % R
+    later, last = (N // R * 3 // 4) * R + 17, N - 2
+    for planted in ((later,), (last,), (later, last)):
+        case = big
+        for at in planted:
+            case = _plant(case, mixed, at, bad)
+        first = planted[0]
+        cnt = torch.zeros((), dtype=torch.int64, device="cuda")
+        into = torch.full((), -1, dtype=torch.int64, device="cuda")
+
+        def call():
+            into.fill_(-1)
+            kernels.inv_scan(run.cfg, run.uni, case, ["Inv"], 3, into, cnt=cnt)
+
+        call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            call()
+        for c in (R * sms, first - 1, first, first + 1, N - 1, N):
+            cnt.fill_(c)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert int(into) == (first + 3 if c > first else -1), (planted, c)
+        assert int(inv_scan_plain(run.cfg, case, ["Inv"], run.tables, 3)) == first + 3
+        assert int(run.inv_scan(case, offset=3, names=["Inv"])) == first + 3
+
+
+def _synthetic_frontier(cfg, uni, n: int, cap_m: int, seed: int):
+    """``n`` rows of plausible field values for ``cfg``: no leader in most
+    (Inv holds there), one leader in 2 % of them and the pattern
+    NoAllCommit's message test starts from (a leader, two followers, the
+    commit and match indices it names) in 1 %; random int32 id lists."""
+    from tla_raft_tpu_torch.config import CANDIDATE, FOLLOWER, LEADER
+    from tla_raft_tpu_torch.kernels import _field_shapes
+
+    g = np.random.default_rng(seed)
+    S, L, T = cfg.S, cfg.L, cfg.T
+    f = {k: g.integers(0, 4, (n, *sh)).astype(np.uint8) for k, sh in _field_shapes(cfg).items()}
+    f["current_term"] = g.integers(0, T + 1, (n, S)).astype(np.uint8)
+    f["log_term"] = g.integers(0, 2, (n, S, L)).astype(np.uint8)
+    f["log_val"] = g.integers(0, 2, (n, S, L)).astype(np.uint8)
+    f["log_len"] = g.integers(1, L + 1, (n, S)).astype(np.uint8)
+    f["commit_index"] = g.integers(0, L + 1, (n, S)).astype(np.uint8)
+    f["role"] = np.where(g.random((n, S)) < 0.9, FOLLOWER, CANDIDATE).astype(np.uint8)
+    rows = np.flatnonzero(g.random(n) < 0.02)
+    f["role"][rows, g.integers(0, S, rows.size)] = LEADER
+    for r in np.flatnonzero(g.random(n) < 0.01):
+        s1, s2, s3 = g.choice(S, 3, replace=False)
+        f["role"][r, [s1, s2, s3]] = LEADER, FOLLOWER, FOLLOWER
+        f["current_term"][r, s3] = f["current_term"][r, s1]
+        f["commit_index"][r, [s1, s2, s3]] = 2, 2, 1
+        f["match_index"][r, s1, [s2, s3]] = 2
+    ids = _random_ids(uni, n, cap_m, torch.int32, seed)
+    return Frontier(msg_ids=ids, **{k: torch.from_numpy(v).cuda() for k, v in f.items()})
+
+
+@pytest.mark.parametrize("V", [2, 4])
+def test_inv_scan_wide_dims(V):
+    """Dimensions whose fields do not all fit the stage buffers: at 7
+    servers Inv with ~NoAllCommit (matchIndex, 49 B a state, read from
+    device memory at V = 2, the log's 5 entries a server at V = 4), and
+    Inv alone at V = 4 (commitIndex from device memory), with wide
+    (device memory) and narrow (staged) id lists, on views at odd row
+    offsets; every bad row found: the scan restarted past each one finds
+    the next, as the twin's predicates mark them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    from tla_raft_tpu_torch.engine.invariants import resolve_invariant_kernel
+    from tla_raft_tpu_torch.ops.msg_universe import get_universe
+    from tla_raft_tpu_torch.ops.successor import GuardTables
+
+    cfg = RaftConfig(n_servers=7, n_vals=V)
+    uni, tables = get_universe(cfg), GuardTables(cfg, "cuda")
+    n = 4 * kernels.INV_ROWS + 77
+    for cap_m in (24, 4):
+        fr = _synthetic_frontier(cfg, uni, n, cap_m, V + cap_m)
+        # the twin's message sets by the plain inflate: the kernel's rows in
+        # shared memory do not fit the universe of 7 servers at V = 4
+        st = RaftState(msgs=bfs.ids_to_msgs_plain(fr.msg_ids, uni.n_words), **core_of(fr))
+        for names in (["Inv", "~NoAllCommit"], ["Inv"],
+                      ["NoSplitVote", "~ExistLeaderAndCandidate", "Inv"]):
+            mask = torch.zeros((n,), dtype=torch.bool, device="cuda")
+            for nm in names:
+                mask |= ~resolve_invariant_kernel(nm)(cfg, st, tables)
+            bad = torch.nonzero(mask).flatten().tolist()
+            assert 0 < len(bad) < n // 4, (names, len(bad))
+            for a in [0, 1, 3] + [b + 1 for b in bad]:
+                view = Frontier(*(x[a:] for x in fr))
+                nxt = next((b for b in bad if b >= a), None)
+                got = int(kernels.inv_scan(cfg, uni, view, names, 5))
+                assert got == (-1 if nxt is None else nxt - a + 5), (cap_m, names, a)
+            assert int(inv_scan_plain(cfg, st, names, tables)) == bad[0]
+
+
+def test_one_inv_scan_and_one_group_control_launch_a_level(run, monkeypatch):
+    """Launch counts by path: one inv_scan a fused level, a superstep level
+    and a grouped level (its materialize), none in a group's graph; one
+    level-control launch a group's graph, plus the level's begin and its
+    tail (gate, decide, slab count, finalize)."""
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    per_kind = {}
+    launch = mk.GraphProgram.launch
+
+    def tallied(prog):  # each program's launches a replay, as it launches
+        launch(prog)
+        per_kind.setdefault(prog.kind, set()).add(
+            (prog.tally.per_replay["inv_scan"], prog.tally.per_replay["level"],
+             getattr(prog, "span", 1)))
+
+    monkeypatch.setattr(mk.GraphProgram, "launch", tallied)
+    for arm in ({}, dict(superstep=1)):
+        chk = TorchChecker(RaftConfig(3, 1, 2, 1), device="cuda", chunk=64, **arm)
+        chk.G = 2
+        chk.cap_g = chk.G * chk.cap_x // 2
+        res = chk.run(max_depth=16)
+        assert res.ok and chk.routes["grouped"] == 3
+    assert per_kind["group"] == {(0, 1, 1)}
+    assert {(i, s) for i, _l, s in per_kind["superstep"]} == {(4, 4)}
+    assert {i for i, _l, _s in per_kind["level"]} == {1}
+    # one grouped level from the last frontier, warm (its programs captured)
+    fr, n = chk.frontier, chk.frontier.voted_for.shape[0]
+    groups = -(-n // (chk.G * chk.chunk))
+    before, replays = kernels.launch_counts(), chk.graph_stats["group_launches"]
+    out, fr = chk._expand_level_grouped(fr, n, 16)
+    chk.materialize_level(fr, out["new_payload"], out["n_new"])
+    after = kernels.launch_counts()
+    attempts = (chk.graph_stats["group_launches"] - replays) // groups
+    assert attempts >= 1 and out["n_new"] > 0
+    assert after["inv_scan"] - before["inv_scan"] == 1
+    assert after["level"] - before["level"] == attempts * (groups + 5)
 
 
 def test_drop_rows_kernel_equals_twin(run):

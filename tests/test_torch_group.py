@@ -109,7 +109,7 @@ def test_group_program_writes_its_slice_with_global_payloads(lanes):
         lc = torch.zeros(mk.LC_LEN, dtype=torch.int64)
         lc[group.LC_GROUP] = 1
         lc[mk.LC_N_RUN] = 10_000
-        group.group_begin_plain(lc, 1000, 7, cap_g)
+        group.group_step_plain(lc, torch.zeros(1, dtype=torch.int64), 1, 1000, 7, cap_g)
         group.op_filter_compact(keep, cv, cf, cp, out, cap_g, lc, None)
         gv, gf, gp, o = group.filter_compact_plain(~keep, cv, cf, cp, cap_g)
         n = min(int(keep.sum()), cap_g)

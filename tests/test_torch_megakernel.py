@@ -96,8 +96,11 @@ def test_one_level_equals_build_level_program(carried_level, cap_out):
     got = prog.ctrl.numpy()
     assert np.array_equal(prog.mult.numpy(), np.asarray(mult))
     assert np.array_equal(prog.fps_out.numpy().view(np.uint64), np.asarray(fps))
-    assert np.array_equal(prog.pidx.numpy().view(np.uint32), np.asarray(pidx))
-    assert np.array_equal(prog.slot.numpy().view(np.uint16), np.asarray(slot))
+    # the survivors' pidx / slot: lanes past n_new are left as they were
+    # (every reader takes [:n_new])
+    live = min(n_new, cap_out)
+    assert np.array_equal(prog.pidx.numpy().view(np.uint32)[:live], np.asarray(pidx)[:live])
+    assert np.array_equal(prog.slot.numpy().view(np.uint16)[:live], np.asarray(slot)[:live])
     if n_new <= cap_out:
         assert np.array_equal(got, ctrl)  # all 8 slots
         assert np.array_equal(carry.slab_to_numpy(port.hstore.slab), np.asarray(slab2))

@@ -140,6 +140,7 @@
 // out.  The tables stay in L2 (0.3 MB features + 0.26 MB gt at S = 5; 23 MB
 // features + 0.5 MB gt at S = 7).
 #include "common.cuh"
+#include "stage.cuh"
 
 // -- the kernels --------------------------------------------------------------------
 
@@ -328,29 +329,6 @@ __device__ inline int feature_code(int e, const Dims& d) {
   return f | j << 4 | cmp << 16;
 }
 
-// 16 bytes global -> shared without a register round trip (zeros when
-// src_bytes is 0), and the group waits.
-__device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The spans a block stages (stage_rows): the core
-// fields, then (with the id lists) the ids; each its source, its
-// destination's offset in a staging buffer and its bytes a row.
-struct Segs {
-  const uint8_t* src[N_FIELDS + 1];
-  int dst[N_FIELDS + 1];
-  int rb[N_FIELDS + 1];
-  int n;
-};
-
 // A block's segment table in shared memory (thread s writes segment s):
 // field f's rows at foff[f] of a buffer (64 rows a field, field after
 // field), then the id lists at ids_off when ids_off >= 0.
@@ -368,67 +346,6 @@ __device__ inline void seg_table(Segs* sg, const Core& P, const Id* ids, int cap
     sg->rb[t] = cap_m * (int)sizeof(Id);
   }
   if (t == 0) sg->n = ids_off >= 0 ? N_FIELDS + 1 : N_FIELDS;
-}
-
-// The rows [base, base + nrows) of a block (row r is state base + r, or
-// idx[base + r] in the indexed mode) of every segment copied to the staging
-// buffer buf, a warp a segment (segments w, w + NW, ...): outside the
-// indexed mode a segment's rows are one contiguous span, its 16-B vectors
-// spread over the warp's lanes where its start is 16-B aligned, the rest
-// bytewise; in it, each row's vectors where a row is a whole number of
-// them.  ASYNC: the vectors go by cp.async (the caller commits and waits),
-// else through registers, four loads in flight a lane.  buf and the
-// destinations are 16-B aligned; no barrier inside.
-template <int NT, bool ASYNC>
-__device__ inline void stage_rows(uint8_t* buf, const Segs* sg, long long base, int nrows,
-                                  const int64_t* idx) {
-  constexpr int NW = NT / 32;
-  const int lane = threadIdx.x & 31;
-  for (int s = threadIdx.x >> 5; s < sg->n; s += NW) {
-    const int rb = sg->rb[s], nb = nrows * rb;
-    uint8_t* dst = buf + sg->dst[s];
-    const uint8_t* src = sg->src[s];
-    const bool rows16 = rb % 16 == 0 && ((uintptr_t)src & 15) == 0;
-    int nv = 0;  // the vectors
-    if (!idx) {
-      src += base * rb;
-      nv = ((uintptr_t)src & 15) == 0 ? nb / 16 : 0;
-    } else if (rows16) {
-      nv = nb / 16;
-    }
-    const int vr = rb / 16;
-    for (int v0 = lane; v0 < nv; v0 += 4 * 32) {
-      uint4 x[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int v = v0 + u * 32;
-        if (v < nv) {
-          const uint4* from;
-          if (idx) {
-            const int r = v / vr;
-            from = (const uint4*)(src + idx[base + r] * rb) + (v - r * vr);
-          } else {
-            from = (const uint4*)src + v;
-          }
-          if (ASYNC) cp_async16(dst + 16 * v, from, 16);
-          else x[u] = __ldg(from);
-        }
-      }
-      if (!ASYNC)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (v0 + u * 32 < nv) ((uint4*)dst)[v0 + u * 32] = x[u];
-    }
-    const int done = idx ? (nv ? nb : 0) : nv * 16;  // the bytes past the vectors
-    for (int i = done + lane; i < nb; i += 32) {
-      if (idx) {
-        const int r = i / rb;
-        dst[i] = sg->src[s][idx[base + r] * rb + (i - r * rb)];
-      } else {
-        dst[i] = src[i];
-      }
-    }
-  }
 }
 
 // The block's features As [64][row_b] (4 a thread at once), each read from
@@ -772,8 +689,6 @@ __global__ void __launch_bounds__(FX_THREADS, 1)
 struct S3Layout {
   int bs, as, buf, buf_b, ids_off, msum, mins, segs, pcode, total;
 };
-
-__host__ __device__ inline int up16(int x) { return (x + 15) / 16 * 16; }
 
 __host__ __device__ inline S3Layout s3_layout(int f_pad, int nperm, int cap_m, int id_bytes,
                                               const Dims& d) {
@@ -1280,13 +1195,7 @@ static Core core_of(const void* const* core) {
 // A persistent grid (fingerprint_s3, fingerprint_pairs): as many blocks as
 // stay resident on the card, at most one a group of 64 states.
 static unsigned resident_grid(const void* fn, int threads, size_t smem, long long G) {
-  int dev = 0, sms = 0, per = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fn, threads, smem);
-  const long long b = (long long)sms * (per > 0 ? per : 1);
-  const long long groups = (G + TB_STATES - 1) / TB_STATES;
-  return (unsigned)(groups < b ? groups : b);
+  return resident_blocks(fn, threads, smem, (G + TB_STATES - 1) / TB_STATES);
 }
 
 template <typename Id>

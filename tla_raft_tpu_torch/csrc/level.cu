@@ -26,26 +26,33 @@
 //   slab_live    grid-stride count of the slab's live slots, a block
 //                reduction and one atomic add per block;
 //   lv_finalize  ctrl i64[8] in the reference's layout, and the
-//                survivors' pidx u32 / slot u16 from their payloads.
+//                survivors' pidx u32 / slot u16 from their payloads: a
+//                grid-stride loop bounded by the device word LC_N_NEW
+//                (lanes past it are left as they were; every reader
+//                takes [:n_new]).
 //
 // The grouped level (engine/group.py, the counterpart of bfs.py's
 // _expand_group_gfused_impl :1144 and the grouped tail of
 // _expand_level_device :3522-3690) replays one captured group program per
 // group of G chunks; its control kernels keep the group's words in the
-// same control vector:
-//   lv_group_begin  one thread: the group's live rows (the level's n_f
-//                   less the rows before the group, clamped to the seat),
-//                   its payload base and its lane offset, from the group
-//                   index the previous replay left;
-//   lv_group_end    one block: the group's chunk totals into OVF_X, its
-//                   split-brain row into the level's ABORT (as a level row),
-//                   and the group index advanced for the next replay;
-//   lv_tail_gate    one thread: LIVE_LANES for the level's one
-//                   probe-and-insert, 0 when the level aborted or
-//                   overflowed cap_x, cap_m or cap_g (nothing is inserted).
+// same control vector, one control launch a group:
+//   lv_group_step  one block, at the head of each group's graph: closes
+//                  the previous group (its chunk totals, which stay in
+//                  the chunk-total buffer until this group's chunks
+//                  overwrite them, into OVF_X; its split-brain row into
+//                  the level's ABORT, as a level row), then opens this
+//                  one (its live rows: the level's n_f less the rows
+//                  before the group, clamped to the seat; its payload
+//                  base and lane offset) from the group index the
+//                  previous replay left, and advances the index;
+//   lv_tail_gate   one block: closes the last group as lv_group_step
+//                  does, then LIVE_LANES for the level's one
+//                  probe-and-insert, 0 when the level aborted or
+//                  overflowed cap_x, cap_m or cap_g (nothing is inserted).
 //
 // Bound: bytes.  slab_live reads the slab once (8 B a slot); lv_finalize
-// reads 8 B and writes 6 B a survivor lane; the rest is O(K + chunks).
+// reads 8 B and writes 6 B a survivor (n_new of them, not the buffer's
+// lanes); the rest is O(K + chunks).
 #include "common.cuh"
 
 __global__ void lv_begin(int64_t* lc, int64_t* mult, int K, const int64_t* n_run) {
@@ -115,7 +122,8 @@ __global__ void lv_finalize(const int64_t* lc, int64_t* ctrl, const int64_t* pay
     ctrl[6] = lc[LC_SLAB_LIVE];
     ctrl[7] = lc[LC_TIER_HITS];
   }
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+  const long long live = live_count(lc + LC_N_NEW, 0, 1, n);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < live;
        i += (long long)gridDim.x * blockDim.x) {
     const long long y = pay[i];
     const long long q = y >= 0 ? y / K : -((-y + K - 1) / K);
@@ -124,8 +132,32 @@ __global__ void lv_finalize(const int64_t* lc, int64_t* ctrl, const int64_t* pay
   }
 }
 
-__global__ void lv_group_begin(int64_t* lc, long long rows, int K, long long cap_g) {
-  if (threadIdx.x || blockIdx.x) return;
+// Close group g - 1 of the level (g = lc[LC_GROUP], 0: none yet): its chunk
+// totals past cap_x into OVF_X, its abort row into ABORT.  Called by one
+// whole block.
+__device__ void close_group(int64_t* lc, const int64_t* chunk_total, int n_chunks,
+                            long long cap_x, long long rows) {
+  __shared__ int ovf;
+  const long long g = lc[LC_GROUP];
+  if (threadIdx.x == 0) ovf = 0;
+  __syncthreads();
+  if (g > 0)
+    for (int i = threadIdx.x; i < n_chunks; i += blockDim.x)
+      if (chunk_total[i] > cap_x) ovf = 1;
+  __syncthreads();
+  if (threadIdx.x == 0 && g > 0) {
+    if (ovf) lc[LC_OVF_X] = 1;
+    if (lc[LC_G_ABORT] < LC_BIG) {
+      const long long row = (g - 1) * rows + lc[LC_G_ABORT];
+      if (row < lc[LC_ABORT]) lc[LC_ABORT] = row;
+    }
+  }
+}
+
+__global__ void lv_group_step(int64_t* lc, const int64_t* chunk_total, int n_chunks,
+                              long long cap_x, long long rows, int K, long long cap_g) {
+  close_group(lc, chunk_total, n_chunks, cap_x, rows);
+  if (threadIdx.x) return;
   const long long g = lc[LC_GROUP];
   long long run = lc[LC_N_RUN] - g * rows;
   run = run < 0 ? 0 : (run > rows ? rows : run);
@@ -134,29 +166,13 @@ __global__ void lv_group_begin(int64_t* lc, long long rows, int K, long long cap
   lc[LC_G_OUT] = g * cap_g;
   lc[LC_G_ABORT] = LC_BIG;
   lc[LC_G_TOTAL] = 0;
+  lc[LC_GROUP] = g + 1;
 }
 
-__global__ void lv_group_end(int64_t* lc, const int64_t* chunk_total, int n_chunks,
-                             long long cap_x, long long rows) {
-  __shared__ int ovf;
-  if (threadIdx.x == 0) ovf = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_chunks; i += blockDim.x)
-    if (chunk_total[i] > cap_x) ovf = 1;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const long long g = lc[LC_GROUP];
-    if (ovf) lc[LC_OVF_X] = 1;
-    if (lc[LC_G_ABORT] < LC_BIG) {
-      const long long row = g * rows + lc[LC_G_ABORT];
-      if (row < lc[LC_ABORT]) lc[LC_ABORT] = row;
-    }
-    lc[LC_GROUP] = g + 1;
-  }
-}
-
-__global__ void lv_tail_gate(int64_t* lc, long long lanes) {
-  if (threadIdx.x || blockIdx.x) return;
+__global__ void lv_tail_gate(int64_t* lc, const int64_t* chunk_total, int n_chunks,
+                             long long cap_x, long long rows, long long lanes) {
+  close_group(lc, chunk_total, n_chunks, cap_x, rows);
+  if (threadIdx.x) return;
   const bool gate = lc[LC_OVF_X] || lc[LC_OVF_MX] || lc[LC_OVF_G] || lc[LC_ABORT] < lc[LC_N_RUN];
   lc[LC_LIVE_LANES] = gate ? 0 : lanes;
 }
@@ -196,25 +212,24 @@ EXPORT int lv_finalize_launch(const int64_t* lc, int64_t* ctrl, const int64_t* p
   return (int)cudaGetLastError();
 }
 
-// rows = the group's seat (G * chunk parent rows), cap_g its lane slice.
-EXPORT int lv_group_begin_launch(int64_t* lc, long long rows, int K, long long cap_g,
-                                 void* stream) {
-  lv_group_begin<<<1, 32, 0, (cudaStream_t)stream>>>(lc, rows, K, cap_g);
-  return (int)cudaGetLastError();
-}
-
-EXPORT int lv_group_end_launch(int64_t* lc, const int64_t* chunk_total, int n_chunks,
-                               long long cap_x, long long rows, void* stream) {
-  lv_group_end<<<1, 256, 0, (cudaStream_t)stream>>>(lc, chunk_total, n_chunks, cap_x, rows);
+// rows = the group's seat (G * chunk parent rows), cap_g its lane slice;
+// chunk_total[n_chunks] the group program's chunk totals.
+EXPORT int lv_group_step_launch(int64_t* lc, const int64_t* chunk_total, int n_chunks,
+                                long long cap_x, long long rows, int K, long long cap_g,
+                                void* stream) {
+  lv_group_step<<<1, 256, 0, (cudaStream_t)stream>>>(lc, chunk_total, n_chunks, cap_x, rows, K,
+                                                     cap_g);
   return (int)cudaGetLastError();
 }
 
 // lanes = the level's groups * cap_g.
-EXPORT int lv_tail_gate_launch(int64_t* lc, long long lanes, void* stream) {
-  lv_tail_gate<<<1, 32, 0, (cudaStream_t)stream>>>(lc, lanes);
+EXPORT int lv_tail_gate_launch(int64_t* lc, const int64_t* chunk_total, int n_chunks,
+                               long long cap_x, long long rows, long long lanes, void* stream) {
+  lv_tail_gate<<<1, 256, 0, (cudaStream_t)stream>>>(lc, chunk_total, n_chunks, cap_x, rows,
+                                                    lanes);
   return (int)cudaGetLastError();
 }
 
 WARM((const void*)lv_begin, (const void*)lv_gate, (const void*)lv_decide,
-     (const void*)slab_live, (const void*)lv_finalize, (const void*)lv_group_begin,
-     (const void*)lv_group_end, (const void*)lv_tail_gate)
+     (const void*)slab_live, (const void*)lv_finalize, (const void*)lv_group_step,
+     (const void*)lv_tail_gate)

@@ -891,20 +891,20 @@ class TorchChecker:
         return out
 
     def materialize_level(self, frontier: Frontier, new_payload: torch.Tensor, n_new: int):
-        """The next frontier from the survivors' payloads, slice by slice:
-        (frontier, first bad row or -1, cap_m overflow)."""
+        """The next frontier from the survivors' payloads, slice by slice,
+        then one invariant scan over it: (frontier, first bad row or -1,
+        cap_m overflow)."""
         K = self.K
         sl = 8 * self.chunk
         parts, ovfs = [], []
-        bad = None
         for a in range(0, n_new, sl):
             pay = new_payload[a : min(a + sl, n_new)]
             pidx = torch.div(pay, K, rounding_mode="floor")
             child, _added, ovf = self.materialize(frontier, pidx, pay % K)
             parts.append(child)
-            bad = self.inv_scan(child, offset=a, into=bad)
             ovfs.append(ovf.any())
         new = Frontier(*(torch.cat([getattr(p, f) for p in parts]) for f in Frontier._fields))
+        bad = self.inv_scan(new)
         (ctl,) = fetch(torch.stack([bad, torch.stack(ovfs).any().to(I64)]), what="staged_mat")
         return new, int(ctl[0]), bool(ctl[1])
 

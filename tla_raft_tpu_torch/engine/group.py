@@ -23,8 +23,10 @@ the chunk compaction (``mk.op_expand_chunk``); then the membership probe
 only in the tail), and the filter compaction (B3 ``_filter_compact``)
 of the unvisited lanes into the group's ``cap_g`` slice of the level's
 lane buffer, in lane order, with the group's payload base added on the
-device.  The group's control kernels (csrc/level.cu) read the group index
-that the previous replay left in the level's control words, so one graph
+device.  The group's one control kernel (csrc/level.cu ``lv_group_step``,
+at the head of its graph) closes the previous group and opens this one
+from the group index that the previous replay left in the level's control
+words (the tail closes the last group), so one graph
 serves every group of every level that fits its shapes, the last,
 partial group included (rows past ``n_f`` are dead by device count).  The
 host seats each group's rows (a device copy) and replays the graph.  Under
@@ -160,37 +162,40 @@ def op_filter_compact(keep, cv, cf, cp, out, cap_g: int, lc, tile):
         lc[LC_OVF_G] = 1
 
 
-def op_group_begin(lc, rows: int, K: int, cap_g: int):
-    (kernels.group_begin if lc.is_cuda else group_begin_plain)(lc, rows, K, cap_g)
+def op_group_step(lc, chunk_total, cap_x: int, rows: int, K: int, cap_g: int):
+    (kernels.group_step if lc.is_cuda else group_step_plain)(lc, chunk_total, cap_x, rows, K,
+                                                             cap_g)
 
 
-def group_begin_plain(lc, rows: int, K: int, cap_g: int):
+def close_group_plain(lc, chunk_total, cap_x: int, rows: int):
+    """Close group ``lc[LC_GROUP] - 1`` (none while the index is 0): its
+    chunk totals past cap_x into OVF_X, its abort into the level's."""
+    g = int(lc[LC_GROUP]) - 1
+    if g < 0:
+        return
+    if bool((chunk_total > cap_x).any()):
+        lc[mk.LC_OVF_X] = 1
+    if int(lc[LC_G_ABORT]) < mk.BIG:
+        lc[mk.LC_ABORT] = min(int(lc[mk.LC_ABORT]), g * rows + int(lc[LC_G_ABORT]))
+
+
+def group_step_plain(lc, chunk_total, cap_x: int, rows: int, K: int, cap_g: int):
+    close_group_plain(lc, chunk_total, cap_x, rows)
     g = int(lc[LC_GROUP])
     lc[LC_G_RUN] = max(0, min(rows, int(lc[mk.LC_N_RUN]) - g * rows))
     lc[LC_G_PAY] = g * rows * K
     lc[LC_G_OUT] = g * cap_g
     lc[LC_G_ABORT] = mk.BIG
     lc[LC_G_TOTAL] = 0
-
-
-def op_group_end(lc, chunk_total, cap_x: int, rows: int):
-    (kernels.group_end if lc.is_cuda else group_end_plain)(lc, chunk_total, cap_x, rows)
-
-
-def group_end_plain(lc, chunk_total, cap_x: int, rows: int):
-    g = int(lc[LC_GROUP])
-    if bool((chunk_total > cap_x).any()):
-        lc[mk.LC_OVF_X] = 1
-    if int(lc[LC_G_ABORT]) < mk.BIG:
-        lc[mk.LC_ABORT] = min(int(lc[mk.LC_ABORT]), g * rows + int(lc[LC_G_ABORT]))
     lc[LC_GROUP] = g + 1
 
 
-def op_tail_gate(lc, lanes: int):
-    (kernels.tail_gate if lc.is_cuda else tail_gate_plain)(lc, lanes)
+def op_tail_gate(lc, chunk_total, cap_x: int, rows: int, lanes: int):
+    (kernels.tail_gate if lc.is_cuda else tail_gate_plain)(lc, chunk_total, cap_x, rows, lanes)
 
 
-def tail_gate_plain(lc, lanes: int):
+def tail_gate_plain(lc, chunk_total, cap_x: int, rows: int, lanes: int):
+    close_group_plain(lc, chunk_total, cap_x, rows)
     gate = (bool(lc[mk.LC_OVF_X]) or bool(lc[mk.LC_OVF_MX]) or bool(lc[LC_OVF_G])
             or int(lc[mk.LC_ABORT]) < int(lc[mk.LC_N_RUN]))
     lc[mk.LC_LIVE_LANES] = 0 if gate else lanes
@@ -257,7 +262,9 @@ class GroupProgram(mk.GraphProgram):
     def record(self) -> None:
         """One group: G chunks, the probe, the filter compaction."""
         eng, lc, K, chunk, cap_x = self.eng, self.lc, self.eng.K, self.chunk, self.cap_x
-        op_group_begin(lc, self.rows, K, self.cap_g)
+        # the previous group closed (its chunk totals are still in
+        # chunk_total) and this one opened: one control launch a group
+        op_group_step(lc, self.chunk_total, cap_x, self.rows, K, self.cap_g)
         n_run = lc[LC_G_RUN]
         for i in range(self.G):
             start = i * chunk
@@ -286,7 +293,6 @@ class GroupProgram(mk.GraphProgram):
         op_probe_keep(self.slab, self.cv, self.keep)
         op_filter_compact(self.keep, self.cv, self.cf, self.cp, self.lanes, self.cap_g, lc,
                           self.tile_group)
-        op_group_end(lc, self.chunk_total, cap_x, self.rows)
 
     def begin(self, n_f: int) -> None:
         """The level's control words, with n_f written by one host-to-device
@@ -296,11 +302,11 @@ class GroupProgram(mk.GraphProgram):
         mk.op_level_begin(self.lc, self.mult, self.n_f)
 
     def tail(self, n_groups: int) -> None:
-        """The level's probe-and-insert over its ``n_groups * cap_g`` lanes,
-        the fresh compaction, the gated undo, the slab's live count and the
-        survivors' pidx / slot."""
+        """The last group closed, then the level's probe-and-insert over its
+        ``n_groups * cap_g`` lanes, the fresh compaction, the gated undo, the
+        slab's live count and the survivors' pidx / slot."""
         lc, k4, (cv, cf, cp) = self.lc, self.k4, self.lanes
-        op_tail_gate(lc, n_groups * self.cap_g)
+        op_tail_gate(lc, self.chunk_total, self.cap_x, self.rows, n_groups * self.cap_g)
         mk.op_k4(self.slab, cv, cf, cp, lc, k4, self.budget)
         mk.op_compact_fresh(k4.fresh, cv, cp, self.new_fps, self.new_pay, lc[mk.LC_N_NEW],
                             lc[mk.LC_LIVE_LANES], self.tile_fresh)

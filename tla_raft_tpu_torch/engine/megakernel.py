@@ -22,16 +22,17 @@ fixed sequence of hand-written kernels captured once into a
    (= payload) order;
 3. **the sieve probe** (B13) over the fresh lanes, against the engine's
    sieve words (the all-miss sentinel until the tiered store demotes);
-4. **materialize + invariant scan** of the survivors in slices of
-   ``mat_slice_width`` rows into the new frontier buffer of ``cap_out``
-   rows;
+4. **materialize** of the survivors in slices of ``mat_slice_width``
+   rows into the new frontier buffer of ``cap_out`` rows, then **one
+   invariant scan** over that buffer, bounded by the survivor count;
 5. **control**: the undo flag, K4's gated undo, the slab's live-slot count
    and ``ctrl i64[8]`` in the reference's layout, plus the survivors'
-   pidx u32 / slot u16.
+   pidx u32 / slot u16 (the first ``n_new`` lanes).
 
 Every grid is sized at its static capacity; every kernel reads its live
 count from the level's control words (``LC_*``, common.cuh), so chunks
-past ``n_f`` and slices past ``n_new`` cost one near-empty launch each —
+past ``n_f`` and slices past ``n_new`` cost one near-empty launch each
+(the invariant scan's persistent grid stops at ``n_new`` itself) —
 the reference's data-bounded ``while_loop`` and ``lax.cond`` — and one
 graph serves every level that fits its shapes.  The host writes ``n_f``
 (one host-to-device copy), launches the graph, and reads the control
@@ -443,9 +444,10 @@ def level_finalize_plain(lc, ctrl, pay, K: int, pidx, slot):
     ctrl.copy_(torch.tensor([n_new, int(lc[LC_ABORT]), int(lc[LC_OVF_X]), int(lc[LC_OVF_SLAB]),
                              int(ovf_m), int(lc[LC_BAD]), int(lc[LC_SLAB_LIVE]),
                              int(lc[LC_TIER_HITS])], dtype=I64, device=ctrl.device))
-    q = torch.div(pay, K, rounding_mode="floor")
-    pidx.copy_(q.to(torch.int32))
-    slot.copy_((pay - q * K).to(torch.int16))
+    n = max(0, min(n_new, pay.shape[0]))  # lanes past n_new are left as they were
+    q = torch.div(pay[:n], K, rounding_mode="floor")
+    pidx[:n] = q.to(torch.int32)
+    slot[:n] = (pay[:n] - q * K).to(torch.int16)
 
 
 # -- the level body -------------------------------------------------------------------
@@ -540,7 +542,7 @@ def level_core(eng, B: LaneBuffers, fr_in: Frontier, fr_out: Frontier, cap_out: 
         rows = rows_of(fr_out, a, a + sl)
         op_materialize(eng, fr_in, pay_out[a:a + sl], 0, (rows, B.madded, B.movf),
                        lc[LC_N_NEW], a, lc[LC_OVF_M])
-        op_inv_scan(eng, rows, a, lc[LC_BAD], lc[LC_N_NEW], a)
+    op_inv_scan(eng, rows_of(fr_out, 0, cap_out), 0, lc[LC_BAD], lc[LC_N_NEW], 0)
     return fps_out, pay_out
 
 

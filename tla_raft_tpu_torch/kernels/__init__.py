@@ -176,9 +176,8 @@ LEVEL = Kernel(
         "lv_decide_launch": [VP, I64, VP],
         "slab_live_launch": [VP, I64, VP, VP],
         "lv_finalize_launch": [VP, VP, VP, I64, I32, VP, VP, VP],
-        "lv_group_begin_launch": [VP, I64, I32, I64, VP],
-        "lv_group_end_launch": [VP, VP, I32, I64, I64, VP],
-        "lv_tail_gate_launch": [VP, I64, VP],
+        "lv_group_step_launch": [VP, VP, I32, I64, I64, I32, I64, VP],
+        "lv_tail_gate_launch": [VP, VP, I32, I64, I64, I64, VP],
     },
 )
 SUPERSTEP = Kernel(
@@ -1279,12 +1278,18 @@ INV_CODES = {
 }
 
 
+# the invariant scan's tile: states a block stages and evaluates at once
+# (csrc/invariants.cu IV_ROWS)
+INV_ROWS = 512
+
+
 def inv_scan(cfg, uni, fr, names, offset: int = 0, into=None, *, cnt=None, sub=0):
     """First row (+ ``offset``) of a Frontier that violates one of the
     invariants ``names`` (``~Name`` negates), or -1: an int64 0-d tensor.
     With ``into`` (an earlier result) the smaller bad row of the two is
     kept, in ``into`` itself; rows past the device count ``cnt - sub`` are
-    not scanned."""
+    not scanned.  One launch of a persistent grid over tiles of
+    ``INV_ROWS`` rows, however many rows are live."""
     _check_cfg(cfg, uni)
     names = list(names)
     if not 1 <= len(names) <= 8:
@@ -1347,7 +1352,8 @@ def slab_live(slab, out) -> None:
 
 def level_finalize(lc, ctrl, pay, K: int, pidx, slot) -> None:
     """ctrl i64[8] (the reference's layout) and the survivors' pidx u32 /
-    slot u16 (int32 / int16 bit patterns) from their payloads."""
+    slot u16 (int32 / int16 bit patterns) from their payloads, for the
+    first ``lc[LC_N_NEW]`` lanes only (the rest are left as they were)."""
     n = pay.shape[0]
     _need(ctrl, "ctrl", torch.int64, (8,))
     _need(pay, "pay", torch.int64, (n,))
@@ -1481,26 +1487,26 @@ def filter_compact(keep, cv, cf, cp, cap, *, out=None, total=None, out_off=None,
     return (*out, total)
 
 
-def group_begin(lc, rows: int, K: int, cap_g: int) -> None:
-    """The group's live rows, payload base and lane offset, from the group
-    index in ``lc`` (``LC_GROUP``)."""
-    LEVEL.check(LEVEL.lib().lv_group_begin_launch(lc.data_ptr(), rows, K, cap_g, _stream()))
-    LEVEL.launches += 1
-
-
-def group_end(lc, chunk_total, cap_x: int, rows: int) -> None:
-    """OVF_X from the group's chunk totals, its abort into the level's, and
-    the group index advanced."""
+def group_step(lc, chunk_total, cap_x: int, rows: int, K: int, cap_g: int) -> None:
+    """One control launch at the head of a group: the previous group closed
+    (its ``chunk_total`` past cap_x into OVF_X, its abort into the
+    level's), then this group's live rows, payload base and lane offset
+    from the group index in ``lc`` (``LC_GROUP``), and the index advanced."""
     _need(chunk_total, "chunk_total", torch.int64, (chunk_total.shape[0],))
-    LEVEL.check(LEVEL.lib().lv_group_end_launch(lc.data_ptr(), chunk_total.data_ptr(),
-                                                chunk_total.shape[0], cap_x, rows, _stream()))
+    LEVEL.check(LEVEL.lib().lv_group_step_launch(lc.data_ptr(), chunk_total.data_ptr(),
+                                                 chunk_total.shape[0], cap_x, rows, K, cap_g,
+                                                 _stream()))
     LEVEL.launches += 1
 
 
-def tail_gate(lc, lanes: int) -> None:
-    """LIVE_LANES of the grouped level's probe-and-insert: ``lanes``, or 0
-    when the level aborted or overflowed cap_x, cap_m or cap_g."""
-    LEVEL.check(LEVEL.lib().lv_tail_gate_launch(lc.data_ptr(), lanes, _stream()))
+def tail_gate(lc, chunk_total, cap_x: int, rows: int, lanes: int) -> None:
+    """The last group closed as ``group_step`` closes one, then LIVE_LANES
+    of the grouped level's probe-and-insert: ``lanes``, or 0 when the
+    level aborted or overflowed cap_x, cap_m or cap_g."""
+    _need(chunk_total, "chunk_total", torch.int64, (chunk_total.shape[0],))
+    LEVEL.check(LEVEL.lib().lv_tail_gate_launch(lc.data_ptr(), chunk_total.data_ptr(),
+                                                chunk_total.shape[0], cap_x, rows, lanes,
+                                                _stream()))
     LEVEL.launches += 1
 
 
