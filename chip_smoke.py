@@ -611,7 +611,10 @@ def phase_default(depth: int, chunk: int):
         launch(prog)
         per.setdefault(prog.kind, set()).add((prog.tally.per_replay["inv_scan"],
                                               prog.tally.per_replay["level"],
-                                              getattr(prog, "span", 1)))
+                                              getattr(prog, "span", 1),
+                                              prog.tally.per_replay["sieve"],
+                                              prog.tally.per_replay["hs_probe"],
+                                              prog.tally.per_replay["filter_compact"]))
 
     mk.GraphProgram.launch = tallied
     try:
@@ -655,26 +658,36 @@ def phase_default(depth: int, chunk: int):
     WALLS["default"] = secs
     chk._progs.clear()  # free the captured programs' buffers for the phases after
     _check_golden(out, res, depth)
-    # one inv_scan a fused level and a superstep level, none in a group's
-    # graph; one level-control launch a group's graph
-    check(len(per.get("group", ())) == 1 and {(i, lv) for i, lv, _s in per["group"]} == {(0, 1)},
-          f"a group's graph: (inv_scan, level) launches a replay {per.get('group')}")
-    check(len(per.get("superstep", ())) == 1 and all(i == s for i, _l, s in per["superstep"]),
-          f"a superstep's graph: (inv_scan, level, span) a replay {per.get('superstep')}")
-    check(len(per.get("level", ())) <= 1 and all(i == 1 for i, _l, _s in per.get("level", ())),
-          f"a fused level's graph: (inv_scan, level) launches a replay {per.get('level')}")
+    # one inv_scan and one sieve a fused level and a superstep level, none
+    # in a group's graph; one level-control launch, one hs_probe and one
+    # filter compaction (its pass and pad) a group's graph
+    head = "(inv_scan, level, span, sieve, hs_probe, filter_compact) launches a replay"
+    check(len(per.get("group", ())) == 1
+          and {(i, lv, sv, hp, fc) for i, lv, _s, sv, hp, fc in per["group"]} == {(0, 1, 0, 1, 2)},
+          f"a group's graph: {head} {per.get('group')}")
+    check(len(per.get("superstep", ())) == 1
+          and all(i == s == sv and hp == fc == 0 for i, _l, s, sv, hp, fc in per["superstep"]),
+          f"a superstep's graph: {head} {per.get('superstep')}")
+    check(len(per.get("level", ())) <= 1
+          and all(i == sv == 1 and hp == fc == 0 for i, _l, _s, sv, hp, fc in per.get("level", ())),
+          f"a fused level's graph: {head} {per.get('level')}")
     # the phase's whole counts (default_counts): the graphs' replays, and
     # the eager scans (the initial state, each materialize_level: one read
     # "staged_mat" a call) and group control (a grouped level's begin and
     # tail: lv_begin, lv_tail_gate, lv_decide, slab_live, lv_finalize)
-    (ss_inv, ss_lv, _s), = per["superstep"]
-    lv_inv, lv_lv, _s = next(iter(per.get("level", {(1, 5, 1)})))
+    (ss_inv, ss_lv, _s, ss_sv, _h, _f), = per["superstep"]
+    lv_inv, lv_lv, _s, lv_sv, _h, _f = next(iter(per.get("level", {(1, 5, 1, 1, 0, 0)})))
     attempts = sum(lv["graph_launches"] // lv["groups"] for lv in chk.group_log)
+    group_replays = sum(lv["graph_launches"] for lv in chk.group_log)
     EXPECT["default"] = dict(
         inv_scan=g["superstep_launches"] * ss_inv + g["level_launches"] * lv_inv
         + reads.get("staged_mat", 0) + 1,
         level=g["superstep_launches"] * ss_lv + g["level_launches"] * lv_lv
-        + sum(lv["graph_launches"] for lv in chk.group_log) + 5 * attempts)
+        + group_replays + 5 * attempts,
+        # the sieve: every fused and superstep level run; the pre-filter:
+        # hs_probe and the filter compaction (pass and pad) a group
+        sieve=g["superstep_launches"] * ss_sv + g["level_launches"] * lv_sv,
+        hs_probe=group_replays, filter_compact=2 * group_replays)
     # every level past the fused limit ran grouped: one graph launch per
     # group and attempt, one control read per attempt, then the materialize
     # and trace reads (none per K4 claim round; the slab's growth between
@@ -770,6 +783,11 @@ def phase_grouped(depth: int, chunk: int) -> None:
     emit(dict(phase="k4_grouped_tail", **K4_FORMS["grouped_tail"]))
     INV_FORMS.update(grouped_level_forms(chk, fr, n, depth, chunk, base[0]))
     emit(dict(phase="inv_grouped", **INV_FORMS))
+    # the visited pre-filter over the warm level's first group (its G
+    # chunks' lanes against the slab before the level), by graph replay
+    PROBE_FORMS["grouped_level"] = dict(
+        probe_filter_forms(base[0], chunk_lanes(chk, 0, chk.G), chk.cap_g), level=depth + 1)
+    emit(dict(phase="probe_grouped", **PROBE_FORMS["grouped_level"]))
 
 
 def phase_tiered(depth: int, chunk: int, dev_bytes: int) -> None:
@@ -3238,20 +3256,9 @@ EXPECT: dict = {}  # a phase's launch counts as its programs and eager steps mak
 
 def k4_level_lanes(chk):
     """The deep fused level's lane buffer from ``chk``'s frontier: every
-    chunk expanded by the staged chain (K1, the compaction, K2, K3: cap_x
-    lanes a chunk, SENT past its candidates), at stride cap_x as the fused
-    level lays them: (cv, cf, cp)."""
-    import torch
-
-    from tla_raft_tpu_torch.models.raft import Frontier
-
-    fr, B = chk.frontier, chk.chunk
-    cols = [[], [], []]
-    for start in range(0, fr.voted_for.shape[0], B):
-        part = Frontier(*(x[start:start + B] for x in fr))
-        for col, x in zip(cols, chk._expand_chunk(part, start)[:3]):
-            col.append(x)
-    return tuple(torch.cat(c) for c in cols)
+    chunk as ``chunk_lanes`` expands it, at stride cap_x as the fused level
+    lays them: (cv, cf, cp)."""
+    return chunk_lanes(chk, 0, -(-chk.frontier.voted_for.shape[0] // chk.chunk))
 
 
 def k4_level_timing(slab, lanes, live: int, budget: int, reps: int = 10):
@@ -3350,7 +3357,177 @@ def k4_grouped_tail(chk, fr, n: int, depth: int, base_slab):
     return got["lanes"], got["live"], got["budget"], got["slab"]
 
 
+def chunk_lanes(chk, first: int, chunks: int):
+    """Chunks ``first .. first + chunks`` of ``chk``'s frontier expanded by
+    the staged chain (K1, the compaction, K2, K3: cap_x lanes a chunk, SENT
+    past its candidates), at stride cap_x as a group's program lays them,
+    payloads global: (cv, cf, cp)."""
+    import torch
+
+    from tla_raft_tpu_torch.models.raft import Frontier
+
+    fr, B = chk.frontier, chk.chunk
+    cols = [[], [], []]
+    for start in range(first * B, min(fr.voted_for.shape[0], (first + chunks) * B), B):
+        part = Frontier(*(x[start:start + B] for x in fr))
+        for col, x in zip(cols, chk._expand_chunk(part, start)[:3]):
+            col.append(x)
+    return tuple(torch.cat(c) for c in cols)
+
+
+def probe_sectors(slab, fps) -> dict:
+    """What the membership probe of ``fps`` against ``slab`` must touch: the
+    live lanes, the slots their walks pass (from the home slot to the one
+    that ends the walk, or PROBE_DEPTH of them) and the distinct 32-B
+    sectors of those slots (lanes of one fingerprint walk the same ones)."""
+    import torch
+
+    from tla_raft_tpu_torch.ops import hashstore as hs
+    from tla_raft_tpu_torch.u64 import mix64
+
+    cap = slab.shape[0]
+    live = fps != -1
+    idx, _found, settled = hs._probe_rounds(slab, fps)
+    h0 = mix64(fps) & (cap - 1)
+    walk = torch.where(settled, ((idx - h0) & (cap - 1)) + 1,
+                       torch.full_like(idx, hs.PROBE_DEPTH))[live]
+    h0 = h0[live]
+    lane = torch.repeat_interleave(torch.arange(walk.shape[0], device=fps.device), walk)
+    step = torch.arange(lane.shape[0], device=fps.device) - (torch.cumsum(walk, 0) - walk)[lane]
+    sectors = int(torch.unique(((h0[lane] + step) & (cap - 1)) >> 2).shape[0])
+    return dict(live_lanes=int(walk.shape[0]), walk_slots=int(lane.shape[0]), sectors=sectors)
+
+
+def probe_filter_forms(slab, lanes, cap_g: int, reps: int = 10, calls=None) -> dict:
+    """The grouped level's visited pre-filter over one group's ``lanes`` =
+    (cv, cf, cp) against ``slab``: ``probe``, hs_probe writing the keep
+    flags; ``pair``, hs_probe then the filter compaction into a cap_g slice
+    of a larger buffer at a device offset, with a device payload base, as
+    the group program runs them (B19 ``_group_filter_hash``).  Each is held
+    against the twins, the pair also into half the kept count (an
+    overflow), then timed by CUDA-graph replay with CUDA events beside.
+    Bounds on the live work: the probe 9 B a lane and a 32-B sector for
+    each distinct sector a live lane's walk touches; the pair 8 B a lane,
+    those sectors, the kept lanes' fp_full and payload read (16 B) and
+    cap_g lanes of three written (the keep flags are no part of the
+    function).  ``calls`` (a dict) gets the calls by form."""
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.engine import group
+    from tla_raft_tpu_torch.ops import hashstore as hs
+
+    cv, cf, cp = lanes
+    n, dev = cv.shape[0], cv.device
+    hit = hs.probe_plain(slab, cv)
+    want_keep = (cv != -1) & ~hit
+    kept = int(want_keep.sum())
+    keep = torch.empty((n,), dtype=torch.bool, device=dev)
+    kh = torch.empty((n,), dtype=torch.bool, device=dev)
+    kernels.hs_probe(slab, cv, hit=kh, keep=keep)
+    ok = _equal(kh, hit) and _equal(keep, want_keep)
+    pay_base = 12_345
+    tile = torch.zeros((kernels.compact_tiles(n),), dtype=torch.int64, device=dev)
+
+    def pair_of(cap):
+        """The pair into a 2 * cap buffer at lane cap, and its outputs."""
+        bufs = tuple(torch.full((2 * cap,), 9, dtype=torch.int64, device=dev) for _ in range(3))
+        total, ovf = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+        off = torch.tensor(cap, dtype=torch.int64, device=dev)
+        pay = torch.tensor(pay_base, dtype=torch.int64, device=dev)
+
+        def pair():
+            kernels.hs_probe(slab, cv, keep=keep)
+            kernels.filter_compact(keep, cv, cf, cp, cap, out=bufs, total=total, out_off=off,
+                                   pay_off=pay, ovf=ovf, tile=tile)
+
+        return pair, (bufs, total, ovf)
+
+    for cap in (cap_g, max(kept // 2, 1)):
+        gv, gf, gp, o = group.filter_compact_plain(hit, cv, cf, cp, cap)
+        gp = torch.where(torch.arange(cap, device=dev) < min(kept, cap), gp + pay_base, gp)
+        pair, (bufs, total, ovf) = pair_of(cap)
+        pair()
+        ok &= all(_equal(b[:cap], torch.full_like(b[:cap], 9)) for b in bufs)
+        ok &= all(_equal(b[cap:], w) for b, w in zip(bufs, (gv, gf, gp)))
+        ok &= int(total) == kept and bool(ovf) == bool(o)
+    check(ok, "hs_probe / the group filter differ from their twins")
+    walk = probe_sectors(slab, cv)
+    sect = walk["sectors"] * 32
+    fns = dict(pair=pair_of(cap_g)[0], probe=lambda: kernels.hs_probe(slab, cv, keep=keep))
+    rec = dict(lanes=n, kept=kept, cap_g=cap_g, slab_slots=slab.shape[0], **walk,
+               probe_bound_ms=(n * 9 + sect) / HBM_BYTES_PER_S * 1e3,
+               filter_bound_ms=(n * 8 + sect + min(kept, cap_g) * 16 + cap_g * 24)
+               / HBM_BYTES_PER_S * 1e3)
+    for name, fn in fns.items():
+        rec[f"{name}_ms"] = graph_ms(fn, reps)
+        rec[f"{name}_events_ms"] = cuda_ms(fn, reps)
+    if calls is not None:
+        calls.update(fns)
+    return rec
+
+
+def sieve_forms(fps, n_lives, reps: int = 10, seed: int = 6, calls=None) -> dict:
+    """B13 over a fused level's ``new_fps[:cap_out]`` (``fps``), under each
+    live count of ``n_lives`` (the lanes past it SENT, as past the level's
+    n_new), against the all-miss sentinel, a 2^20-word filter of random
+    words (each the AND of two: a quarter of the bits set) and an all-ones
+    filter (every live lane hits), as the tree's fused level issues it:
+    bounded by the device count where the package's wrapper takes one
+    (``cnt``), over the whole buffer before.  Each is held against the
+    twin's count and hit flags, then timed by CUDA-graph replay (events
+    beside) with the sentinel and the 2^20-word filter.  Bound: 8 B a lane
+    below the live count, and past the sentinel 8 B for each distinct word
+    the live lanes gather."""
+    import inspect
+
+    import torch
+
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.ops import sieve
+
+    dev = fps.device
+    g = np.random.default_rng(seed)
+    m = 1 << 20
+    words = torch.from_numpy(g.integers(-(1 << 63), (1 << 63) - 1, m, dtype=np.int64)
+                             & g.integers(-(1 << 63), (1 << 63) - 1, m, dtype=np.int64)).to(dev)
+    filters = dict(sentinel=sieve.empty_sieve(dev), random_2e20=words,
+                   all_ones=torch.full((m,), -1, dtype=torch.int64, device=dev))
+    bounded = "cnt" in inspect.signature(kernels.sieve_probe).parameters
+    rec = dict(lanes=fps.shape[0], bounded=bounded, forms=[])
+    ok = True
+    for n_live in n_lives:
+        f = fps.clone()
+        f[n_live:] = -1
+        live_t = torch.tensor(n_live, dtype=torch.int64, device=dev)
+        for name, w in filters.items():
+            count = torch.zeros((), dtype=torch.int64, device=dev)
+            kw = dict(cnt=live_t) if bounded else {}
+
+            def call(w=w, count=count, kw=kw, f=f):
+                kernels.sieve_probe(w, f, count=count, **kw)
+
+            call()
+            hit = sieve.probe_plain(w, f)
+            want = int((hit & (f != -1)).sum())
+            ok &= int(count) == want and _equal(sieve.probe(w, f), hit)
+            ok &= name != "all_ones" or want == n_live
+            if name == "all_ones":
+                continue
+            gathered = 1 if w.shape[0] == 1 else int(torch.unique(
+                sieve.word_and_mask(f[:n_live])[0] & (w.shape[0] - 1)).shape[0])
+            form = dict(filter=name, words=w.shape[0], live=n_live, hits=want,
+                        ms=graph_ms(call, reps), events_ms=cuda_ms(call, reps),
+                        bound_ms=(n_live * 8 + gathered * 8) / HBM_BYTES_PER_S * 1e3)
+            rec["forms"].append(form)
+            if calls is not None:
+                calls[(name, n_live)] = call
+    check(ok, "B13 sieve probe differs from its twin")
+    return rec
+
+
 INV_FORMS: dict = {}  # inv_scan and level control over the warm grouped level (phase_grouped)
+PROBE_FORMS: dict = {}  # its visited pre-filter (phase_grouped)
 
 # the state fields each invariant or probe reads (csrc/invariants.cu
 # fields_of); NoAllCommit also reads the id lists
@@ -3374,23 +3551,29 @@ def inv_row_bytes(fr, names) -> int:
     return b
 
 
-def deep_level_survivors(chk, cap_out: int = 1 << 22):
-    """The deep fused level's survivors from ``chk``'s frontier (level 21
+def deep_level_fresh(chk):
+    """The deep fused level's fresh lanes from ``chk``'s frontier (level 21
     from the depth-20 frontier): the lane buffer K4 takes
-    (``k4_level_lanes``), its fresh lanes compacted, materialized into a
-    frontier buffer of ``cap_out`` rows as the fused level lays them:
-    (buffer, n_new, payload lanes [cap_out], -1 past n_new)."""
-    import torch
-
+    (``k4_level_lanes``), its fresh lanes compacted in lane order, SENT / -1
+    past n_new: (fps, payloads, n_new)."""
     from tla_raft_tpu_torch import kernels
-    from tla_raft_tpu_torch.engine import megakernel as mk
     from tla_raft_tpu_torch.ops import hashstore as hs
 
     cv, cf, cp = k4_level_lanes(chk)
     _s, fresh, n_new, _o = kernels.probe_and_insert(chk.hstore.slab.clone(), cv, cf, cp)
-    n_new = int(n_new)
-    _fps, pay = hs.compact_fresh(fresh, cv, cp, cv.shape[0])
-    cv = cf = cp = fresh = _s = _fps = None
+    fps, pay = hs.compact_fresh(fresh, cv, cp, cv.shape[0])
+    return fps, pay, int(n_new)
+
+
+def deep_level_survivors(chk, cap_out: int = 1 << 22):
+    """The deep fused level's survivors (``deep_level_fresh``) materialized
+    into a frontier buffer of ``cap_out`` rows as the fused level lays them:
+    (buffer, n_new, payload lanes [cap_out], -1 past n_new)."""
+    import torch
+
+    from tla_raft_tpu_torch.engine import megakernel as mk
+
+    _fps, pay, n_new = deep_level_fresh(chk)
     new, _bad, _ovf = chk.materialize_level(chk.frontier, pay, n_new)
     rows = mk.empty_frontier(chk.cfg, cap_out, chk.cap_m, "cuda")
     mk.copy_rows(rows, new, n_new)
@@ -4204,37 +4387,33 @@ def phase_kernels(chk, launches: dict, seed: int):
         lanes=N, kept=kept)
 
     # B8 probe and B3 filter compaction at a grouped level's shapes: one
-    # group's lanes (G * cap_x, the 16 chunks above) against the run's
-    # slab into cap_g = G * cap_x / 2 lanes; B19 is the two in sequence
+    # group's lanes (G * cap_x, the 16 chunks above) against the run's slab
+    # into cap_g = G * cap_x / 2 lanes; B19 is the two in sequence
+    # (probe_filter_forms: held against the twins, also overflowing, then
+    # timed by CUDA-graph replay, events beside); bounds on the live work
+    # (the distinct slab sectors the live lanes' walks touch)
     from tla_raft_tpu_torch.engine import group
-    from tla_raft_tpu_torch.u64 import mix64
 
     cap_g = 16 * G // 2
     ok = True
     for lanes_v in (cv, rf):
         ok &= _equal(hs.probe(slab, lanes_v), hs.probe_plain(slab, lanes_v))
+    check(ok, "hs_probe differs from its twin")
+    pf = probe_filter_forms(slab, (cv, cf, cp_), cap_g)
     hit = hs.probe(slab, cv)
     keep = (cv != -1) & ~hit
-    for cap in (cap_g, int(keep.sum()) // 2):  # fits; overflows
-        ok &= all(_equal(a, b) for a, b in zip(group.filter_compact(hit, cv, cf, cp_, cap),
-                                                group.filter_compact_plain(hit, cv, cf, cp_, cap)))
-        ok &= all(_equal(a, b) for a, b in zip(
-            group.group_filter_hash(cv, cf, cp_, slab, cap),
-            group.filter_compact_plain(hs.probe_plain(slab, cv), cv, cf, cp_, cap)))
-    check(ok, "hs_probe / filter_compact / group_filter_hash differ from their twins")
-    keep_buf = torch.empty_like(keep)
-    ms = cuda_ms(lambda: kernels.hs_probe(slab, cv, keep=keep_buf), 10)
-    plain = wall_ms(lambda: hs.probe_plain(slab, cv))
-    # the slab words each live lane's walk touches (one 32-B sector each)
-    live_l = cv != -1
-    idx = hs._probe_rounds(slab, cv)[0]
-    walk = (((idx - (mix64(cv) & (slab.shape[0] - 1))) & (slab.shape[0] - 1)) + 1)[live_l]
-    n_words_touched = int(walk.sum())
+    check(all(_equal(a, b) for a, b in zip(group.group_filter_hash(cv, cf, cp_, slab, cap_g),
+                                           group.filter_compact_plain(hit, cv, cf, cp_, cap_g))),
+          "group_filter_hash differs from its twin")
+    sect = pf["sectors"] * 32
     # the library's membership test gives the same keep flags: SENT lanes
     # are never kept, since the slab (at most half full) holds SENT slots
     check(_equal(torch.isin(cv, slab, invert=True), keep), "isin differs from hs_probe's keep")
     lib = cuda_ms(lambda: torch.isin(cv, slab, invert=True), 10)
-    entry(kernels.HS_PROBE, True, ms, plain, N * 9 + n_words_touched * 32, N * 40, lib)
+    entry(kernels.HS_PROBE, True, pf["probe_ms"], wall_ms(lambda: hs.probe_plain(slab, cv)),
+          N * 9 + sect, N * 40, lib)
+    out[-1].update(events_ms=pf["probe_events_ms"], lanes=N, live_lanes=pf["live_lanes"],
+                   walk_slots=pf["walk_slots"], sectors=pf["sectors"])
     kept = int(keep.sum())
     ms = graph_ms(lambda: kernels.filter_compact(keep, cv, cf, cp_, cap_g), 10)
     events = cuda_ms(lambda: kernels.filter_compact(keep, cv, cf, cp_, cap_g), 10)
@@ -4243,15 +4422,14 @@ def phase_kernels(chk, launches: dict, seed: int):
                            torch.masked_select(cp_, keep)), 10)
     entry(kernels.FILTER_COMPACT, True, ms, plain, N + min(kept, cap_g) * 24 + cap_g * 24,
           N * 4, lib)
-    fc = out[-1]
-    fc["events_ms"] = events
-    fc["b19"] = dict(
-        ms=cuda_ms(lambda: group.group_filter_hash(cv, cf, cp_, slab, cap_g), 10),
+    out[-1]["events_ms"] = events
+    out[-1]["b19"] = dict(
+        ms=pf["pair_ms"], events_ms=pf["pair_events_ms"],
         plain_ms=wall_ms(lambda: group.filter_compact_plain(hs.probe_plain(slab, cv), cv, cf,
                                                             cp_, cap_g)),
-        bound_ms=(N * 8 + n_words_touched * 32 + min(kept, cap_g) * 24 + cap_g * 24)
-        / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None, lanes=N, kept=kept,
-        cap_g=cap_g, slab_words_touched=n_words_touched)
+        bound_ms=(N * 8 + sect + min(kept, cap_g) * 16 + cap_g * 24) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, lanes=N, kept=kept, cap_g=cap_g,
+        sectors=pf["sectors"], grouped_level=PROBE_FORMS.get("grouped_level"))
 
     # B11 level control at the deep fused level's shapes: 256 chunks, the
     # run's slab, the 3,350,017 survivors of level 21 in 2^22 payload lanes
@@ -4358,27 +4536,24 @@ def phase_kernels(chk, launches: dict, seed: int):
     del src, kout, pout
     torch.cuda.empty_cache()
 
-    # B13 sieve probe over a fused level's fresh lanes (cap_out, SENT past
-    # n_new): the main path's all-miss sentinel, and a 2^20-word filter
-    n_lvl = len(chk.trace_levels[-1][0])  # level 20's survivors
-    fps3 = torch.full((cap_out,), -1, dtype=torch.int64, device=dev)
-    fps3[:n_lvl] = torch.from_numpy(gen.integers(-(1 << 63), (1 << 63) - 1, n_lvl,
-                                                 dtype=np.int64)).to(dev)
-    words = torch.from_numpy(gen.integers(-(1 << 63), (1 << 63) - 1, 1 << 20, dtype=np.int64)
-                             & gen.integers(-(1 << 63), (1 << 63) - 1, 1 << 20,
-                                            dtype=np.int64)).to(dev)
-    ok = True
-    for w in (sieve.empty_sieve(dev), words):
-        kc = torch.zeros((), dtype=torch.int64, device=dev)
-        pc = torch.zeros((), dtype=torch.int64, device=dev)
-        kernels.sieve_probe(w, fps3, count=kc)
-        pc += (sieve.probe_plain(w, fps3) & (fps3 != -1)).sum()
-        ok &= int(kc) == int(pc) and _equal(sieve.probe(w, fps3), sieve.probe_plain(w, fps3))
-    check(ok, "B13 sieve probe differs from its twin")
-    empty, cnt = sieve.empty_sieve(dev), torch.zeros((), dtype=torch.int64, device=dev)
-    ms = cuda_ms(lambda: kernels.sieve_probe(empty, fps3, count=cnt), 10)
-    plain = wall_ms(lambda: (sieve.probe_plain(empty, fps3) & (fps3 != -1)).sum())
-    entry(kernels.SIEVE, True, ms, plain, cap_out * 8 + 8, cap_out * 40, None)
+    # B13 sieve probe over the deep fused level's new_fps[:cap_out] (level
+    # 21: 3,350,017 live, SENT past n_new) as the level issues it, bounded
+    # by n_new: the main path's all-miss sentinel (the entry), a 2^20-word
+    # filter, all-ones words, and the buffer cut to level 18 (a superstep
+    # level), held against the twin, by graph replay (sieve_forms)
+    deep_fps, _p, deep_n = deep_level_fresh(chk)
+    deep_fps, _p = deep_fps[:cap_out].clone(), None
+    sv = sieve_forms(deep_fps, (deep_n, GOLDEN_LEVELS_REF[18]))
+    main_form = sv["forms"][0]
+    check(main_form["filter"] == "sentinel" and main_form["live"] == deep_n,
+          f"B13's first form {main_form}")
+    empty = sieve.empty_sieve(dev)
+    plain = wall_ms(lambda: (sieve.probe_plain(empty, deep_fps[:deep_n])
+                             & (deep_fps[:deep_n] != -1)).sum())
+    entry(kernels.SIEVE, True, main_form["ms"], plain, deep_n * 8 + 8, deep_n * 40, None)
+    out[-1].update(events_ms=main_form["events_ms"], lanes=cap_out, live=deep_n,
+                   forms=sv["forms"])
+    deep_fps = None
 
     # B16 drop_rows over the depth-20 frontier (2,150,466 rows, a fused
     # level's output size) with 90 % of its rows kept, and the edge cases
@@ -4793,8 +4968,7 @@ def main() -> int:
         # one inv_scan a level; one level-control launch a group
         want = EXPECT.get("default")
         check(want is not None and all(c[k] == v for k, v in want.items()),
-              f"default path: launches {({k: c[k] for k in ('inv_scan', 'level')})}, "
-              f"expected {want}")
+              f"default path: launches {({k: c[k] for k in (want or {})})}, expected {want}")
 
     default_digests, launches = run(
         "default", [k for k in kernels.KERNELS

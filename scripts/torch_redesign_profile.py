@@ -87,7 +87,24 @@ calls), and what the deep levels and the default path's wall make of it:
   ``csrc/fingerprint.cu`` rebuilt with the feature staging, the feature
   table's column staging, the message part or the MMAs and epilogue left
   out, or all four, each timed on the same launch (outputs then wrong;
-  only the full build is the kernel).
+  only the full build is the kernel);
+* ``probe``: the grouped level's visited pre-filter over one group of the
+  warm grouped level (the first 16 chunks of the depth-22 frontier at cap_x
+  lanes each, level 23) against the slab after level 22
+  (``chip_smoke.probe_filter_forms``): ``hs_probe`` alone, and ``hs_probe``
+  then the filter compaction into cap_g as the group program runs them,
+  each held against the twins, by CUDA-graph replay with CUDA events
+  beside, with the bounds on the live work (the distinct slab sectors the
+  live lanes' walks touch);
+* ``sieve``: B13 over the deep fused level's ``new_fps[:2^22]`` (level 21,
+  3,350,017 live) and the same buffer cut to level 18's 839,797 (a
+  superstep level), against the sentinel and a 2^20-word filter, as the
+  tree's fused level issues it (``chip_smoke.sieve_forms``), by graph
+  replay, events beside;
+* ``sievevariants`` (with ``sieve``): those calls with other settings of
+  the tree's ``csrc/sieve.cu`` (a fixed grid, a register cap; outputs
+  unchanged, each variant's count held against the twin's), by graph
+  replay.
 
     python scripts/torch_redesign_profile.py [--tree DIR] [--parts levels,k3s3,compact]
                                              [--reps N]
@@ -112,7 +129,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PARTS = ("k1k2", "k1phases", "levels", "levels5", "wall", "dedup", "k3", "k3s3", "compact",
          "k3phases", "k3s5", "k3s4", "k3phases5", "k3variants5", "k4", "k4phases", "inv", "ctl",
-         "invvariants")
+         "invvariants", "probe", "sieve", "sievevariants")
 # K1's phase loops (csrc/guards.cu), by the header each ablation empties
 K1_LOOPS = {
     name: [(h, h.replace("i < np *", "i < 0 *"))]
@@ -184,6 +201,18 @@ K3PAIRS_VARIANTS = dict(
     ids_4=[("constexpr int PR_IDS = 2;", "constexpr int PR_IDS = 4;")],
     threads_256=[("constexpr int PR_THREADS = 512;", "constexpr int PR_THREADS = 256;")],
 )
+
+# other settings of the sieve probe (csrc/sieve.cu; outputs unchanged): a
+# fixed grid of 1,056 or 528 blocks in place of one wave of resident ones,
+# and a register cap of 8 blocks an SM
+_SV_GRID = ("const unsigned grid = resident_blocks((const void*)fn, SV_THREADS, 0, "
+            "(n + span - 1) / span);")
+SIEVE_VARIANTS = {
+    f"blocks_{b}": [(_SV_GRID, "const long long tiles = (n + span - 1) / span; const unsigned "
+                               f"grid = (unsigned)(tiles < {b} ? tiles : {b});")]
+    for b in (1056, 528)}
+SIEVE_VARIANTS["bounds_8"] = [("__global__ void __launch_bounds__(SV_THREADS)\n",
+                               "__global__ void __launch_bounds__(SV_THREADS, 8)\n")]
 
 # other settings of the invariant scan (csrc/invariants.cu; outputs unchanged)
 INV_VARIANTS = dict(
@@ -637,6 +666,49 @@ def main() -> int:
             print(json.dumps(dict(part="ctl", **head, form="grouped_tail", **forms["tail"])),
                   flush=True)
         chk = fr = forms = None
+        release()
+
+    if "probe" in parts:
+        chk, _res, _lv, _s = cs._run_reference(cs.DEPTH_GROUPED, cs.CHUNK, megakernel=False)
+        calls = {}
+        rec = cs.probe_filter_forms(chk.hstore.slab, cs.chunk_lanes(chk, 0, chk.G), chk.cap_g,
+                                    calls=calls)
+        print(json.dumps(dict(part="probe", **head, level=cs.DEPTH_GROUPED + 1, **rec,
+                              by_kernel={k: run(c) for k, c in calls.items()})), flush=True)
+        chk = calls = None
+        release()
+
+    if "sieve" in parts:
+        chk, _res, _lv, _s = cs._run_reference(cs.DEPTH, cs.CHUNK, megakernel=False)
+        fps, _pay, n_new = cs.deep_level_fresh(chk)
+        fps, chk = fps[:1 << 22], None
+        calls = {}
+        rec = cs.sieve_forms(fps, (n_new, cs.GOLDEN_LEVELS_REF[18]), calls=calls)
+        print(json.dumps(dict(part="sieve", **head, level=cs.DEPTH + 1, **rec,
+                              by_kernel={f"{k[0]}_{k[1]}": run(c) for k, c in calls.items()})),
+              flush=True)
+        if "sievevariants" in parts:
+            from tla_raft_tpu_torch.ops import sieve
+
+            libs = _ablations(kernels, kernels.SIEVE, SIEVE_VARIANTS,
+                              tree / "build" / "sievevariants", None)
+            full = kernels.SIEVE.lib()
+            f = fps.clone()
+            f[n_new:] = -1
+            words = torch.full((1 << 20,), -1, dtype=torch.int64, device="cuda")
+            want = int((f[:n_new] != -1).sum())
+            for name, lib in libs.items():  # each variant's count, against the twin's
+                kernels.SIEVE._lib = lib
+                try:
+                    count = torch.zeros((), dtype=torch.int64, device="cuda")
+                    sieve.count_hits(words, f, count, torch.tensor(n_new, device="cuda"))
+                finally:
+                    kernels.SIEVE._lib = full
+                cs.check(int(count) == want, f"sieve variant {name} counts {int(count)}")
+            ms = {f"{k[0]}_{k[1]}_{v}": t for k, c in calls.items()
+                  for v, t in _variant_ms(cs, kernels.SIEVE, libs, c).items()}
+            print(json.dumps(dict(part="sievevariants", **head, ms_by_variant=ms)), flush=True)
+        fps = calls = None
         release()
 
     if "wall" in parts:

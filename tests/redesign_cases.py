@@ -15,7 +15,11 @@ K1's groups, count tables and family-7 runs (csrc/guards.cu);
 pair-digit form (``fingerprint_pairs``, S = 4, 5); ``k1_ids_words``: K1's
 masks built from id lists (csrc/guards.cu, the inflate folded in);
 ``inv_tiles_model``: the invariant scan's persistent tiled walk
-(csrc/invariants.cu ``inv_scan_tiles``).
+(csrc/invariants.cu ``inv_scan_tiles``); ``probe_case`` and
+``probe_model``: slabs and lanes for the slab probe's edge cases and its
+walk (hs_probe, csrc/hashstore.cu); ``sieve_blocks_model``: the sieve
+probe's groups of 4 lanes and per-block counts under a live count
+(csrc/sieve.cu).
 """
 
 import numpy as np
@@ -1072,3 +1076,215 @@ def inv_tiles_model(bad: np.ndarray, offset: int = 0, first_bad: int = -1, *, cn
         if nxt[b] >= n_tiles:
             del nxt[b]
     return (-1 if word == ALL_ONES else word), evaluated
+
+
+# -- B8 hs_probe and the grouped level's pre-filter (csrc/hashstore.cu) ---------------
+
+
+def probe_walk(slab: np.ndarray, fp: int) -> tuple:
+    """(found, slots passed) of fp's walk, slot by slot from its home slot:
+    until fp, an empty slot or HS_PROBE_DEPTH slots, wrapping at the slab's
+    end (hs_probe's walk, one thread a lane)."""
+    cap = slab.shape[0]
+    h0 = _mix64(fp) & (cap - 1)
+    for j in range(HS_PROBE_DEPTH):
+        v = int(slab[(h0 + j) & (cap - 1)])
+        if v == fp:
+            return True, j
+        if v == int(SENT):
+            return False, j
+    return False, HS_PROBE_DEPTH
+
+
+def probe_model(slab, fps, *, live=None) -> dict:
+    """numpy model of hs_probe (csrc/hashstore.cu probe_keep): a lane below
+    the live count and not SENT walks (``probe_walk``); hit = found, keep =
+    live and not found; lanes past the live count are neither.  Returns
+    dict(hit, keep, steps: the slots each lane's walk passed)."""
+    slab = np.asarray(slab, np.uint64)
+    fps = np.asarray(fps, np.uint64)
+    n = fps.shape[0]
+    nl = n if live is None else max(0, min(n, int(live)))
+    hit = np.zeros(n, bool)
+    keep = np.zeros(n, bool)
+    steps = np.zeros(n, np.int64)
+    for i in range(nl):
+        if fps[i] != SENT:
+            hit[i], steps[i] = probe_walk(slab, int(fps[i]))
+            keep[i] = not hit[i]
+    return dict(hit=hit, keep=keep, steps=steps)
+
+
+PROBE_CAP = 4096
+PROBE_KINDS = ("half", "near_depth", "wrap", "top_bit", "full_window")
+
+
+def probe_homes(keys: np.ndarray, cap: int) -> np.ndarray:
+    """The home slots of ``keys`` in a slab of ``cap`` slots."""
+    return np.asarray([_mix64(int(k)) & (cap - 1) for k in keys], np.int64)
+
+
+def probe_keys_homed(g, cap: int, lo: int, hi: int, n: int, top: bool = False) -> np.ndarray:
+    """n distinct keys whose home slots lie in [lo, hi) (mod cap)."""
+    out = []
+    while len(out) < n:
+        k = g.integers(1, 1 << 63, 4096, dtype=np.uint64)
+        if top:
+            k |= TOP
+        h = probe_homes(k, cap)
+        out += [int(x) for x, s in zip(k, h) if (s - lo) % cap < (hi - lo) % cap
+                and int(x) not in out]
+    return np.asarray(out[:n], np.uint64)
+
+
+def _probe_lanes(g, members: np.ndarray, n: int, chunk: int, top: bool = False):
+    """n candidate lanes in chunks of ``chunk`` lanes, each chunk's tail
+    dead (SENT past a random count), 45 % slab members (hits), the rest
+    fresh keys (misses), a few SENT lanes inside the live part; fp_full
+    keys and global payloads (-1 on SENT lanes)."""
+    cv = g.integers(1, 1 << 63, n, dtype=np.uint64)
+    if top:
+        cv |= TOP
+    take = g.random(n) < 0.45
+    cv[take] = members[g.integers(0, len(members), int(take.sum()))]
+    cv[g.random(n) < 0.03] = SENT
+    for c0 in range(0, n, chunk):
+        cv[c0 + int(g.integers(chunk // 2, chunk + 1)):c0 + chunk] = SENT
+    cf = g.integers(1, 1 << 63, n, dtype=np.uint64)
+    cf[cv == SENT] = SENT
+    cp = np.where(cv == SENT, -1, np.arange(n) * 7 + 3).astype(np.int64)
+    return cv, cf, cp
+
+
+def probe_case(kind: str, insert):
+    """(slab u64[PROBE_CAP], probe lanes (cv, cf, cp)) of one of
+    ``PROBE_KINDS``: ``half`` a slab at load about 1/2; ``near_depth`` one
+    run of 58 keys homed in 2 slots, walks near PROBE_DEPTH; ``wrap`` a run
+    across the slab's last slot, walks that wrap; ``top_bit`` every
+    fingerprint with the top bit; ``full_window`` 70 full slots with no
+    empty one, walks that stop at PROBE_DEPTH (a key at step 63 found, one
+    at step 64 not).  ``insert(slab, keys)`` builds the slab (the
+    reference's insert in the CPU tests)."""
+    CAP = PROBE_CAP  # noqa: N806
+    g = np.random.default_rng(PROBE_KINDS.index(kind))
+    slab = np.full(CAP, SENT, np.uint64)
+    top = kind == "top_bit"
+    members = g.integers(1, 1 << 63, CAP // 2 - 80, dtype=np.uint64)
+    if top:
+        members |= TOP
+    if kind == "near_depth":  # one run of 58 keys homed in 2 slots, nothing near it
+        h = probe_homes(members, CAP)
+        members = np.concatenate([probe_keys_homed(g, CAP, 2000, 2002, 58),
+                                  members[(h < 1936) | (h >= 2200)]])
+    if kind == "wrap":  # a run across the slab's last slot
+        h = probe_homes(members, CAP)
+        members = np.concatenate([probe_keys_homed(g, CAP, CAP - 6, CAP, 40),
+                                  members[(h < CAP - 70) & (h >= 70)]])
+    if kind == "full_window":
+        h = probe_homes(members, CAP)
+        members = members[(h < 900) | (h >= 1200)]
+    slab = insert(slab, members)
+    if kind == "full_window":
+        # 70 slots from 1000 full of other fingerprints, no empty slot on
+        # them: walks homed there stop after PROBE_DEPTH slots (a key at
+        # step 63 is found, one at step 64 is not)
+        slab[1000:1070] = g.integers(1, 1 << 63, 70, dtype=np.uint64)
+        at = probe_keys_homed(g, CAP, 1000, 1001, 3)
+        slab[1000 + 63], slab[1000 + 64] = at[0], at[1]
+    cv, cf, cp = _probe_lanes(g, members, 3072, 768, top=top)
+    if kind == "full_window":
+        cv[:3] = at  # found, not found (past the depth), not found (walks 64)
+    if kind == "near_depth":
+        cv[:40] = np.concatenate([members[:20], probe_keys_homed(g, CAP, 2000, 2002, 20)])
+    if kind == "wrap":
+        cv[:40] = np.concatenate([members[:20], probe_keys_homed(g, CAP, CAP - 3, CAP, 20)])
+    cf[:40], cp[:40] = 5, np.arange(40) * 7 + 3
+    return slab, (cv, cf, cp)
+
+
+# -- B13 sieve probe (csrc/sieve.cu) --------------------------------------------------
+
+SV_THREADS = 256
+SV_LANES = 4
+SV_BLOCKS = 660  # one wave of resident blocks on an H100 (the kernel asks the card)
+_SV_C2 = 0x94D9ECA592EAF335
+_SV_SALT = 0x9E3779B97F4A7C15
+
+
+def _sieve_mix(x: int) -> int:
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * _SV_C2) & _M64
+    return x ^ (x >> 31)
+
+
+def _sieve_hit(words: np.ndarray, fp: int) -> bool:
+    h2 = _sieve_mix(fp ^ _SV_SALT)
+    mask = 0
+    for b in range(4):
+        mask |= 1 << ((h2 >> (6 * b)) & 63)
+    w = int(words[0]) if words.shape[0] == 1 else int(words[_sieve_mix(fp) & (words.shape[0] - 1)])
+    return (w & mask) == mask
+
+
+def sieve_blocks_model(words, fps, *, live=None, offset: int = 0, with_hit: bool = True,
+                       threads: int = SV_THREADS, blocks: int = SV_BLOCKS, seed: int = 0) -> dict:
+    """numpy model of csrc/sieve.cu's schedule: ``fps`` is a view whose
+    first lane sits ``offset`` lanes past a 16-B boundary, so an odd offset
+    gives one scalar head lane; then groups of 4 consecutive lanes, a
+    thread a group, warp-uniform grid-stride trips over a grid of
+    min(``blocks``, n / 1024) blocks; the scalar tail (at most 3 lanes) and
+    the head in the first warp of block 0.  Lanes at or past ``live`` are not probed and
+    their flags are 0 (with hit, every lane is written; without, only up to
+    live).  A warp's hits (live, not SENT) are counted by ballots, the
+    block's summed, one atomic a block with hits.  Blocks run in a seeded
+    order.  Returns dict(hit, count, block_counts, atomics, vector_groups:
+    the groups read as two 16-B loads)."""
+    g = np.random.default_rng(seed)
+    words = np.asarray(words, np.uint64)
+    fps = np.asarray(fps, np.uint64)
+    n = fps.shape[0]
+    nl = n if live is None else max(0, min(n, int(live)))
+    end = n if with_hit else nl
+    head = 1 if offset % 2 and end > 0 else 0
+    groups = (end - head) // SV_LANES
+    tail0 = head + groups * SV_LANES
+    grid = max(1, min(blocks, -(-n // (threads * SV_LANES))))
+    nth = grid * threads
+    hit = np.zeros(n, bool)
+    written = np.zeros(n, np.int64)
+    block_counts = np.zeros(grid, np.int64)
+    vector = 0
+
+    def probe(i: int) -> tuple:
+        if i >= nl:
+            return False, False
+        fp = int(fps[i])
+        h = _sieve_hit(words, fp)
+        return h, h and fp != int(SENT)
+
+    for b in g.permutation(grid):
+        for w in range(threads // 32):
+            for g0 in range(b * threads + w * 32, groups, nth):
+                for lane in range(32):
+                    gi = g0 + lane
+                    if gi >= groups:
+                        continue
+                    i0 = head + gi * SV_LANES
+                    vector += i0 + SV_LANES <= nl
+                    for k in range(SV_LANES):
+                        h, c = probe(i0 + k)
+                        hit[i0 + k] = h
+                        written[i0 + k] += 1
+                        block_counts[b] += c
+        if b == 0:
+            scalar = ([0] if head else []) + list(range(tail0, end))
+            assert len(scalar) <= 4
+            for i in scalar:
+                h, c = probe(i)
+                hit[i] = h
+                written[i] += 1
+                block_counts[b] += c
+    assert (written[:end] == 1).all() and (written[end:] == 0).all()
+    return dict(hit=hit if with_hit else None, count=int(block_counts.sum()),
+                block_counts=block_counts, atomics=int((block_counts > 0).sum()),
+                vector_groups=vector)

@@ -414,6 +414,134 @@ def test_probe_and_filter_kernels_equal_twins(run):
             assert torch.equal(a.cpu(), b)
 
 
+def _port_insert(slab: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """A slab built by the port's insert (its CPU twin)."""
+    t = torch.from_numpy(slab.view(np.int64).copy())
+    hs.insert_only(t, torch.from_numpy(np.asarray(keys, np.uint64).view(np.int64).copy()))
+    return t.numpy().view(np.uint64)
+
+
+def _replayed(fn) -> None:
+    """``fn`` captured into a CUDA graph and replayed (after one eager call
+    that loads its kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+
+
+def _dev(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)).view(np.int64).copy()).cuda()
+
+
+@pytest.mark.parametrize("live", ["all", "odd", "one", "none"])
+@pytest.mark.parametrize("kind", ["half", "near_depth", "wrap", "top_bit", "full_window"])
+def test_probe_kernel_edges_equal_twin(run, kind, live):
+    """hs_probe under graph replay with a device live count: slabs at load
+    1/2, walks near and at PROBE_DEPTH, walks that wrap past the last slot,
+    top-bit fingerprints, SENT lanes and dead chunk tails
+    (redesign_cases.probe_case), against the numpy model of the walk and
+    the twin."""
+    from redesign_cases import probe_case, probe_model
+
+    slab, (cv, _cf, _cp) = probe_case(kind, _port_insert)
+    n = cv.shape[0]
+    nl = dict(all=n, odd=n // 2 + 1, one=1, none=0)[live]
+    s, f = _dev(slab), _dev(cv)
+    hit = torch.zeros(n, dtype=torch.bool, device="cuda")
+    keep = torch.zeros(n, dtype=torch.bool, device="cuda")
+    cnt = torch.tensor(nl, dtype=torch.int64, device="cuda")
+    _replayed(lambda: kernels.hs_probe(s, f, hit=hit, keep=keep, cnt=cnt))
+    m = probe_model(slab, cv, live=nl)
+    assert np.array_equal(hit.cpu().numpy(), m["hit"])
+    assert np.array_equal(keep.cpu().numpy(), m["keep"])
+    twin = hs.probe_plain(s.cpu(), f.cpu()).numpy() & (np.arange(n) < nl)
+    assert np.array_equal(m["hit"], twin)
+    # odd views: the lanes from 1, and the slab's whole width
+    odd = f[1:]
+    assert torch.equal(hs.probe(s, odd).cpu(), hs.probe_plain(s.cpu(), odd.cpu()))
+
+
+@pytest.mark.parametrize("fit", ["fits", "overflows"])
+@pytest.mark.parametrize("kind", ["half", "near_depth", "wrap", "top_bit", "full_window"])
+def test_group_filter_kernels_edges_equal_twin(run, kind, fit):
+    """The grouped level's pre-filter as its graph runs it (hs_probe's keep
+    flags, then the filter compaction into a slice of a larger buffer at a
+    device offset with a device payload base) under graph replay, on the
+    probe's edge cases, against the twins."""
+    from tla_raft_tpu_torch.engine import group
+    from redesign_cases import probe_case
+
+    slab, (cv, cf, cp) = probe_case(kind, _port_insert)
+    s, v, ff, p = _dev(slab), _dev(cv), _dev(cf), _dev(cp)
+    kept = int(((v != -1) & ~hs.probe_plain(s, v)).sum())
+    cap = kept + 5 if fit == "fits" else kept // 3
+    off, pay = 11, 1_000
+    bufs = tuple(torch.full((cap + 2 * off,), 9, dtype=torch.int64, device="cuda")
+                 for _ in range(3))
+    keep = torch.zeros(v.shape[0], dtype=torch.bool, device="cuda")
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    ovf = torch.zeros((), dtype=torch.int64, device="cuda")
+    off_t = torch.tensor(off, device="cuda")
+    pay_t = torch.tensor(pay, device="cuda")
+    tile = torch.zeros((kernels.compact_tiles(v.shape[0]),), dtype=torch.int64, device="cuda")
+
+    def call():
+        kernels.hs_probe(s, v, keep=keep)
+        kernels.filter_compact(keep, v, ff, p, cap, out=bufs, total=total, out_off=off_t,
+                               pay_off=pay_t, ovf=ovf, tile=tile)
+
+    _replayed(call)
+    gv, gf, gp, o = group.filter_compact_plain(hs.probe_plain(s, v), v, ff, p, cap)
+    n = min(kept, cap)
+    assert torch.equal(bufs[0][off:off + cap], gv) and torch.equal(bufs[1][off:off + cap], gf)
+    assert torch.equal(bufs[2][off:off + n], gp[:n] + pay)
+    assert bool((bufs[2][off + n:off + cap] == -1).all())
+    assert all(bool((b[:off] == 9).all()) and bool((b[off + cap:] == 9).all()) for b in bufs)
+    assert int(total) == kept and bool(o) == bool(ovf) == (fit == "overflows")
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("live", ["none", "one", "odd", "all"])
+@pytest.mark.parametrize("words", ["sentinel", "random_2e20", "all_ones"])
+def test_sieve_kernel_edges_equal_twin(run, words, live, offset):
+    """B13 under graph replay, bounded by a device live count: the
+    sentinel, 2^20 random words and all-ones words; live counts of 0, 1,
+    odd and the whole buffer; views at an odd offset (a scalar head lane)
+    and hit flags at odd byte offsets; the hit flags and the count against
+    the numpy model of the blocks and against the twin."""
+    from redesign_cases import SENT, sieve_blocks_model
+    from tla_raft_tpu_torch.ops import sieve
+
+    g = np.random.default_rng(12)
+    w = dict(sentinel=np.zeros(1, np.uint64), all_ones=np.full(1024, SENT, np.uint64),
+             random_2e20=g.integers(0, 1 << 64, 1 << 20, dtype=np.uint64)
+             & g.integers(0, 1 << 64, 1 << 20, dtype=np.uint64))[words]
+    base = g.integers(0, 1 << 64, 50_003, dtype=np.uint64)
+    base[g.random(base.shape[0]) < 0.02] = SENT
+    n = 50_000
+    nl = dict(none=0, one=1, odd=33_333, all=n)[live]
+    fps = base[offset:offset + n]
+    wd, bd = _dev(w), _dev(base)
+    fd = bd[offset:offset + n]
+    hit_buf = torch.zeros(n + 1, dtype=torch.bool, device="cuda")
+    hit = hit_buf[offset:offset + n]
+    count = torch.zeros((), dtype=torch.int64, device="cuda")
+    cnt = torch.tensor(nl, dtype=torch.int64, device="cuda")
+    _replayed(lambda: kernels.sieve_probe(wd, fd, hit=hit, count=count, cnt=cnt))
+    m = sieve_blocks_model(w, fps, live=nl, offset=offset)
+    assert np.array_equal(hit.cpu().numpy(), m["hit"])
+    assert int(count) == 2 * m["count"]  # the eager call and the replay
+    want = torch.zeros((), dtype=torch.int64)
+    sieve.count_hits(_dev(w).cpu(), fd.cpu(), want, torch.tensor(nl))
+    assert int(want) == m["count"]
+    if words == "all_ones":
+        assert m["count"] == int((fps[:nl] != SENT).sum())
+
+
 def test_group_control_kernels_equal_twins(run):
     """``lv_group_step`` a group (the previous group closed: one with its
     chunk totals past cap_x, another with an abort) and the tail gate that

@@ -20,8 +20,9 @@ fixed sequence of hand-written kernels captured once into a
    exiting at once once the list is short, then a one-block finisher that
    runs the rest), then the fresh lanes compacted to a prefix in lane
    (= payload) order;
-3. **the sieve probe** (B13) over the fresh lanes, against the engine's
-   sieve words (the all-miss sentinel until the tiered store demotes);
+3. **the sieve probe** (B13) over the fresh lanes, bounded by the level's
+   n_new, against the engine's sieve words (the all-miss sentinel until
+   the tiered store demotes);
 4. **materialize** of the survivors in slices of ``mat_slice_width``
    rows into the new frontier buffer of ``cap_out`` rows, then **one
    invariant scan** over that buffer, bounded by the survivor count;
@@ -536,7 +537,7 @@ def level_core(eng, B: LaneBuffers, fr_in: Frontier, fr_out: Frontier, cap_out: 
     op_compact_fresh(B.k4.fresh, B.cv, B.cp, B.new_fps, B.new_pay, lc[LC_N_NEW],
                      lc[LC_LIVE_LANES], B.tile_fresh)
     fps_out, pay_out = B.new_fps[:cap_out], B.new_pay[:cap_out]
-    sieve_ops.count_hits(B.sieve, fps_out, lc[LC_TIER_HITS])
+    sieve_ops.count_hits(B.sieve, fps_out, lc[LC_TIER_HITS], lc[LC_N_NEW])
     sl = B.sl
     for a in range(0, cap_out, sl):
         rows = rows_of(fr_out, a, a + sl)

@@ -194,7 +194,7 @@ SUPERSTEP = Kernel(
 SIEVE = Kernel(
     "sieve", "csrc/sieve.cu",
     "tla_raft_tpu/ops/sieve.py:194 (probe_impl over _word_and_mask:80)",
-    {"sieve_probe_launch": [VP, I64, VP, I64, VP, VP, VP]},
+    {"sieve_probe_launch": [VP, I64, VP, I64, VP, VP, VP, VP]},
 )
 HS_PROBE = Kernel(
     "hs_probe", "csrc/hashstore.cu",
@@ -1416,16 +1416,18 @@ def ss_settle(ss, src, dst) -> None:
 # -- B13: sieve probe (csrc/sieve.cu) -------------------------------------------
 
 
-def sieve_probe(words, fps, *, hit=None, count=None) -> None:
-    """Blocked-bloom probe of every lane of ``fps``: ``hit`` bool[n] per
-    lane and/or ``count`` (int64 0-d) += the live lanes that hit."""
+def sieve_probe(words, fps, *, hit=None, count=None, cnt=None) -> None:
+    """Blocked-bloom probe of the lanes of ``fps``: ``hit`` bool[n] per
+    lane and/or ``count`` (int64 0-d) += the live lanes (not SENT) that
+    hit.  With ``cnt`` (int64 0-d, the level's n_new) only the first
+    ``cnt`` lanes are probed; the flags past it are 0."""
     m, n = words.shape[0], fps.shape[0]
     _need(words, "words", torch.int64, (m,))
     _need(fps, "fps", torch.int64, (n,))
     if hit is not None:
         _need(hit, "hit", torch.bool, (n,))
     SIEVE.check(SIEVE.lib().sieve_probe_launch(words.data_ptr(), m, fps.data_ptr(), n, _p(hit),
-                                               _cnt(count), _stream()))
+                                               _cnt(count), _cnt(cnt), _stream()))
     SIEVE.launches += int(n > 0)
 
 

@@ -13,10 +13,11 @@ revisits nothing that was spilled.
   (:95) sizes it from the hot tier's device budget.
 * ``probe`` (``probe_impl`` :194): kernel B13 (csrc/sieve.cu) on the card,
   ``probe_plain`` on the CPU.  The fused level probes its fresh lanes
-  every level (engine/megakernel.py) and counts the hits into its control
-  words: against the 1-word all-zero sentinel ``empty_sieve()`` while
-  nothing is spilled (every lane misses), and against the device copy of
-  the spill sieve's words after the first demotion (engine/bfs.py).
+  every level (engine/megakernel.py), bounded by its device n_new, and
+  counts the hits into its control words: against the 1-word all-zero
+  sentinel ``empty_sieve()`` while nothing is spilled (every lane misses),
+  and against the device copy of the spill sieve's words after the first
+  demotion (engine/bfs.py).
 """
 
 from __future__ import annotations
@@ -71,12 +72,16 @@ def probe(words: torch.Tensor, fps: torch.Tensor) -> torch.Tensor:
     return hit
 
 
-def count_hits(words: torch.Tensor, fps: torch.Tensor, count: torch.Tensor) -> None:
-    """``count`` (int64 0-d) += the live lanes (fp != SENT) that hit."""
+def count_hits(words: torch.Tensor, fps: torch.Tensor, count: torch.Tensor,
+               live: torch.Tensor | None = None) -> None:
+    """``count`` (int64 0-d) += the live lanes (fp != SENT) that hit; with
+    ``live`` (int64 0-d, the level's n_new) only the first ``live`` lanes
+    are probed."""
     if fps.device.type == "cpu":
-        count += (probe_plain(words, fps) & (fps != SENT)).sum()
+        n = fps.shape[0] if live is None else max(0, min(fps.shape[0], int(live)))
+        count += (probe_plain(words, fps[:n]) & (fps[:n] != SENT)).sum()
     else:
-        kernels.sieve_probe(words, fps, count=count)
+        kernels.sieve_probe(words, fps, count=count, cnt=live)
 
 
 def empty_sieve(device) -> torch.Tensor:
