@@ -17,7 +17,19 @@ Phases, each printed as JSON lines:
                 the fused size limit: levels 23-25) on the same constants to
                 depth 25, every level golden (48,760,187 distinct); then the
                 per-level pidx/slot digests of its depth-20 prefix held
-                against the staged phase's;
+                against the staged phase's.  The card's defaults run the
+                forecast prewarm (programs captured on a thread of their own
+                ahead of their levels) and the presize (the slab reserved to
+                the forecast); default_off, default_on2, default_off2,
+                default_on3 and default_off3 run the same depth with
+                TLA_RAFT_PRESIZE=0 TLA_RAFT_PREWARM=0, both 1, both 0, both
+                1, both 0 (each golden, with exact counts, its records
+                equal to the default phase's), each
+                arm printing a ``prewarm`` line (captures and seconds by
+                thread, recaptures by cause, hits, misses, wasted programs,
+                waits, slab grows, peak memory, wall), then a
+                ``prewarm_arms`` line with the walls; an arm fails if a
+                prewarm thunk failed;
 4. fixpoint   — (3,1,2,1) to its fixpoint on the default path: 180,582
                 distinct, 747,500 generated, depth 35;
 5. trace      — the median-bug mutation on (3,1,2,0), default path: the
@@ -161,7 +173,12 @@ Phases, each printed as JSON lines:
                 per-level seconds (the depth-25 wall beside the default
                 phase's), peak device memory, host seconds by part (the
                 groups on the card, the reads, the lexsort, the store's
-                insert, the materialize walk), runs and bloom skips;
+                insert, the materialize walk), runs and bloom skips; the
+                group reads go through the async window (2 in flight);
+    fpstore_serial — the same route to depth 22 with the pipeline off
+                (every group read serial): golden, its (pidx, slot) digests
+                equal to the fpstore phase's, its host seconds by part to
+                depth 22 beside the pipelined run's;
     fpstore_paged — the same route to depth 22 under TLA_RAFT_DEV_BYTES =
                 1e9, with checkpoints: golden, segments paged out to host
                 RAM, the per-level (pidx, slot) digests equal to the fpstore
@@ -593,9 +610,23 @@ def phase_staged(depth: int, chunk: int):
     return chk, level_digests(chk)
 
 
-def phase_default(depth: int, chunk: int):
+# the default phase's arms: the forecast prewarm and the presize on (the
+# card's defaults), and both off (the path as it was before them)
+PREWARM_ON = {"TLA_RAFT_PRESIZE": "1", "TLA_RAFT_PREWARM": "1"}
+PREWARM_OFF = {"TLA_RAFT_PRESIZE": "0", "TLA_RAFT_PREWARM": "0"}
+
+
+def phase_default(depth: int, chunk: int, name: str = "default", env: dict | None = None):
     """The default path to ``depth``: level digests.  Steady state is one
-    graph launch and one read per superstep and per fused level."""
+    graph launch and one read per superstep and per fused level.  ``env``
+    (set while the checker is built) picks the arm: none is the card's
+    defaults (the forecast prewarm and the presize on), ``PREWARM_ON``
+    both on, ``PREWARM_OFF`` both off.  Each arm prints a ``prewarm`` line
+    (captures and capture seconds by thread, recaptures by cause, the prewarm's hits, misses and
+    wasted programs, the main thread's waits, slab grows, peak device
+    memory, the wall) and fails if a prewarm thunk failed."""
+    import os
+
     import torch
 
     from tla_raft_tpu_torch import device as D
@@ -617,10 +648,17 @@ def phase_default(depth: int, chunk: int):
                                               prog.tally.per_replay["filter_compact"]))
 
     mk.GraphProgram.launch = tallied
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
     try:
         chk, res, levels, secs = _run_reference(depth, chunk)
     finally:
         mk.GraphProgram.launch = launch
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     reads = dict(D.READS)
     g, ss, mg = chk.graph_stats, chk._ss_stats, chk._mega_stats
     fused_runs = mg["levels"] + g["level_redo_launches"]
@@ -628,7 +666,7 @@ def phase_default(depth: int, chunk: int):
     staged_rounds = list(kernels.K4_ROUNDS)
     staged_levels = chk.routes["staged"]
     out = dict(
-        phase="default", **_common(res, levels, secs, depth),
+        phase=name, **_common(res, levels, secs, depth),
         routes=chk.routes, superstep_stats=ss, mega_stats=mg, graph_stats=g, reads=reads,
         per_superstep=dict(graph_launches=g["superstep_launches"] / max(ss["supersteps"], 1),
                            reads=reads.get("superstep", 0) / max(ss["supersteps"], 1),
@@ -655,9 +693,19 @@ def phase_default(depth: int, chunk: int):
         memory_reserved=torch.cuda.memory_reserved(),
     )
     emit(out)
-    WALLS["default"] = secs
+    pw = chk.pipeline_stats()
+    emit(dict(phase="prewarm", arm=name, env=env or {}, **pw, wall=secs,
+              peak_bytes=out["peak_bytes"], run_peak_bytes=out["run_peak_bytes"],
+              capture_log=g["capture_log"], presize_log=chk.presize_log,
+              misses_log=[[list(k), how] for k, how in chk._progs.misses],
+              failures=[[repr(k), e] for k, e in chk.prewarm_failures]))
+    WALLS.setdefault("default", secs)
+    WALLS.setdefault("default_arms", {}).setdefault(name, []).append(secs)
     chk._progs.clear()  # free the captured programs' buffers for the phases after
     _check_golden(out, res, depth)
+    check(pw["failed"] == 0, f"{pw['failed']} prewarm thunk(s) failed: {chk.prewarm_failures}")
+    on = (env or {}).get("TLA_RAFT_PREWARM", "1") == "1"
+    check(pw["prewarm"] == pw["presize"] == on, f"{name}: prewarm {pw['prewarm']} under {env}")
     # one inv_scan and one sieve a fused level and a superstep level, none
     # in a group's graph; one level-control launch, one hs_probe and one
     # filter compaction (its pass and pad) a group's graph
@@ -679,7 +727,7 @@ def phase_default(depth: int, chunk: int):
     lv_inv, lv_lv, _s, lv_sv, _h, _f = next(iter(per.get("level", {(1, 5, 1, 1, 0, 0)})))
     attempts = sum(lv["graph_launches"] // lv["groups"] for lv in chk.group_log)
     group_replays = sum(lv["graph_launches"] for lv in chk.group_log)
-    EXPECT["default"] = dict(
+    EXPECT[name] = dict(
         inv_scan=g["superstep_launches"] * ss_inv + g["level_launches"] * lv_inv
         + reads.get("staged_mat", 0) + 1,
         level=g["superstep_launches"] * ss_lv + g["level_launches"] * lv_lv
@@ -1755,12 +1803,14 @@ def host_counts(c: dict) -> None:
 
 
 def _fpstore_run(name: str, depth: int, chunk: int, dev_bytes: float = 0,
-                 checkpoint: bool = False, keep_level: int | None = None):
+                 checkpoint: bool = False, keep_level: int | None = None,
+                 pipeline: bool | None = None):
     """The Raft.cfg constants to ``depth`` on the external store route (a
     native store under build/smoke/<name>/, ``TLA_RAFT_DEV_BYTES`` =
-    ``dev_bytes`` while the checker is built): (checker, result, levels,
-    seconds, the phase directory, the group program's lanes of the last
-    full group of level ``keep_level``)."""
+    ``dev_bytes`` while the checker is built; ``pipeline`` False: the group
+    reads serial): (checker, result, levels, seconds, the phase directory,
+    the group program's lanes of the last full group of level
+    ``keep_level``)."""
     import os
 
     import torch
@@ -1778,7 +1828,7 @@ def _fpstore_run(name: str, depth: int, chunk: int, dev_bytes: float = 0,
         os.environ["TLA_RAFT_DEV_BYTES"] = repr(dev_bytes)
     try:
         chk = TorchChecker(RaftConfig(), device="cuda", chunk=chunk, progress=levels.append,
-                           host_store=store)
+                           host_store=store, pipeline=pipeline)
     finally:
         os.environ.pop("TLA_RAFT_DEV_BYTES", None)
         if old is not None:
@@ -1818,6 +1868,7 @@ def _host_out(chk, res, levels, secs, depth) -> dict:
         candidates=hs["candidates"], unique=hs["unique"],
         graph_captures=chk.graph_stats["captures"],
         capture_seconds=chk.graph_stats["capture_seconds"],
+        pipeline=chk.pipeline, window=chk.pipeline_window if chk.pipeline else 0,
         level_log=hs["level_log"])
 
 
@@ -1865,7 +1916,37 @@ def phase_fpstore(depth: int, chunk: int) -> dict:
     check(set(kept) == {"cv", "cf", "cp"}, "no group program lanes kept at level 25")
     kept["level"] = min(25, depth)
     WALLS["fpstore"] = secs
-    return dict(digests=digests, lanes=kept)
+    return dict(digests=digests, lanes=kept, level_log=out["level_log"])
+
+
+HOST_PARTS = ("group_s", "fetch_s", "lexsort_s", "insert_s")
+
+
+def phase_fpstore_serial(depth: int, chunk: int, pipelined: dict | None) -> dict:
+    """The external store route to ``depth`` with the pipeline off (every
+    group read serial): golden, its per-level (pidx, slot) digests equal to
+    the pipelined fpstore phase's, and the host seconds by part to ``depth``
+    beside the pipelined run's (its level log summed to the same depth)."""
+    import torch
+
+    chk, res, levels, secs, d, _ = _fpstore_run("fpstore_serial", depth, chunk, pipeline=False)
+    out = dict(phase="fpstore_serial", **_host_out(chk, res, levels, secs, depth))
+    mine = level_digests(chk)
+    chk.host_store.close()
+    chk = None
+    torch.cuda.empty_cache()
+    log = (pipelined or {}).get("level_log") or []
+    piped = {k: sum(lv[k] for lv in log if lv["level"] <= depth) for k in HOST_PARTS}
+    serial = {k: sum(lv[k] for lv in out["level_log"]) for k in HOST_PARTS}
+    out["host_seconds_to_depth"] = dict(serial=serial, pipelined=piped,
+                                        serial_wall=secs,
+                                        pipelined_wall=WALLS.get("fpstore_at", {}).get(depth))
+    emit(out)
+    _check_host_run(out, res, depth)
+    check(not out["pipeline"], "the serial arm ran pipelined")
+    check(pipelined is None or mine == pipelined["digests"][:depth],
+          "the serial run's (pidx, slot) records differ from the pipelined fpstore phase's")
+    return out
 
 
 def phase_fpstore_paged(depth: int, chunk: int, digests: list) -> dict:
@@ -4962,21 +5043,43 @@ def main() -> int:
     staged, staged_launches = run("staged", kernels.STAGED, phase_staged, DEPTH, CHUNK)
     chk, staged_digests = staged if staged else (None, None)
 
-    def default_counts(c: dict) -> None:
-        # supersteps, fused and grouped levels: K1 reads the id lists
-        check(c["inflate"] == 0, f"inflate launched {c['inflate']} times on the default path")
-        # one inv_scan a level; one level-control launch a group
-        want = EXPECT.get("default")
-        check(want is not None and all(c[k] == v for k, v in want.items()),
-              f"default path: launches {({k: c[k] for k in (want or {})})}, expected {want}")
+    def default_counts(name):
+        def counts(c: dict) -> None:
+            # supersteps, fused and grouped levels: K1 reads the id lists
+            check(c["inflate"] == 0, f"inflate launched {c['inflate']} times on the default path")
+            # one inv_scan a level; one level-control launch a group
+            want = EXPECT.get(name)
+            check(want is not None and all(c[k] == v for k, v in want.items()),
+                  f"{name}: launches {({k: c[k] for k in (want or {})})}, expected {want}")
+        return counts
 
-    default_digests, launches = run(
-        "default", [k for k in kernels.KERNELS
+    default_need = [k for k in kernels.KERNELS
                     if k not in ("drop_rows", "inflate") + kernels.SCALE + kernels.ORBIT_PATH
                     + kernels.EXPAND_PATH + kernels.LEGACY_PATH + kernels.SORTED_PATH
                     + kernels.BUCKET_PATH + kernels.HOST_PATH + kernels.MESH_PATH
-                    + kernels.DEEP_PATH],
-        phase_default, DEPTH_DEFAULT, CHUNK, counts_check=default_counts)
+                    + kernels.DEEP_PATH]
+    default_digests, launches = run("default", default_need, phase_default, DEPTH_DEFAULT,
+                                    CHUNK, counts_check=default_counts("default"))
+    # the prewarm and the presize off (the path before them), then each arm
+    # again: on (the defaults), off, on, off, on, off in one call, every run
+    # golden with exact counts; three of each, so the first run's warm-up
+    # (the allocator's first blocks of the path's sizes) is one of three
+    for arm, env in (("default_off", PREWARM_OFF), ("default_on2", PREWARM_ON),
+                     ("default_off2", PREWARM_OFF), ("default_on3", PREWARM_ON),
+                     ("default_off3", PREWARM_OFF)):
+        digests, _ = run(arm, default_need, phase_default, DEPTH_DEFAULT, CHUNK, arm, env,
+                         counts_check=default_counts(arm))
+        if digests is not None and default_digests is not None and digests != default_digests:
+            failures.append(f"{arm}: (pidx, slot) records differ from the default phase's")
+    arms = WALLS.get("default_arms", {})
+    emit(dict(phase="prewarm_arms", walls=arms,
+              median_on=float(np.median([w for a in ("default", "default_on2", "default_on3")
+                                          for w in arms.get(a, [])]))
+              if arms.get("default") else None,
+              median_off=float(np.median([w for a in ("default_off", "default_off2",
+                                                      "default_off3")
+                                          for w in arms.get(a, [])]))
+              if arms.get("default_off") else None))
     # the inflate kernel's own path: the staged chain
     launches = dict(launches, inflate=staged_launches["inflate"])
     if staged_digests and default_digests:
@@ -5048,6 +5151,8 @@ def main() -> int:
     fps_out, fps_launches = run("fpstore", host_path, phase_fpstore, DEPTH_FPSTORE, CHUNK,
                                 counts_check=host_counts)
     launches.update({k: fps_launches[k] for k in kernels.HOST_PATH})
+    run("fpstore_serial", host_path, phase_fpstore_serial, DEPTH_FPSTORE_PAGED, CHUNK, fps_out,
+        counts_check=host_counts)
     paged, _ = run("fpstore_paged", host_path, phase_fpstore_paged, DEPTH_FPSTORE_PAGED, CHUNK,
                    fps_out["digests"] if fps_out else None, counts_check=host_counts)
     if paged:

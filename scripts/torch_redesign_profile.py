@@ -715,7 +715,7 @@ def main() -> int:
         chk, res, _lv, secs = cs._run_reference(cs.DEPTH_DEFAULT, cs.CHUNK)
         check = list(res.level_sizes) == cs.GOLDEN_LEVELS_REF[: cs.DEPTH_DEFAULT + 1]
         by_kind = {}
-        for kind, _cap_f, c_secs, _n in chk.graph_stats["capture_log"]:
+        for kind, _cap_f, c_secs, *_rest in chk.graph_stats["capture_log"]:
             k = by_kind.setdefault(kind, dict(captures=0, seconds=0.0, max_seconds=0.0))
             k["captures"] += 1
             k["seconds"] += c_secs

@@ -16,6 +16,7 @@ import torch
 from tla_raft_tpu_torch import kernels
 from tla_raft_tpu_torch.config import RaftConfig
 from tla_raft_tpu_torch.engine import bfs
+from tla_raft_tpu_torch.engine import megakernel as mk
 from tla_raft_tpu_torch.engine.bfs import TorchChecker, compact_payloads
 from tla_raft_tpu_torch.engine.invariants import INVARIANT_KERNELS, inv_scan_plain
 from tla_raft_tpu_torch.models.raft import Frontier, RaftState, core_of
@@ -2269,3 +2270,164 @@ def test_compaction_callers_equal_twins(run, n):
         w = bfs.chunk_compact_plain(fps, fps, cap, 5)
         assert all(torch.equal(x, y) for x, y in zip(k[:3], w[:3]))
         assert bool(k[3]) == (int(w[3]) > cap)
+
+
+# -- captures on the prewarm thread (engine/megakernel.py, engine/bfs.py) -------------------
+
+
+def _level_case(depth: int = 10):
+    """A reference-constants checker run to ``depth`` on the card (prewarm
+    off), with its frontier, the key and builder of the next fused level's
+    program, and the programs' signature."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graph captures have no CPU mode)")
+    chk = TorchChecker(RaftConfig(), device="cuda", chunk=1024, prewarm=False)
+    chk.run(max_depth=depth)
+    fr = chk.frontier
+    n_f = fr.voted_for.shape[0]
+    cap_f = chk._rows_cap(fr)
+    cap_out = chk._mega_cap_out(n_f, [1] * (depth + 1), None, (cap_f // chk.chunk) * chk.cap_x, 0)
+    key = ("level", cap_f, cap_out, chk.chunk)
+
+    def make(eng, k):
+        return mk.LevelProgram(eng, k, cap_f, cap_out, eng.k4_rounds)
+
+    sig = chk._sig()
+    chk._progs.drop_stale(sig)  # the signature as the next launch would set it
+    return chk, fr, n_f, key, make, sig
+
+
+def _level_outputs(chk, prog, fr, n_f, slab0):
+    """One launch of a fused-level program from ``fr`` against the slab as it
+    was (restored in place after): its control words and survivors."""
+    mk.copy_rows(prog.fr_in, fr, n_f)
+    prog.run(n_f)
+    out = [x.clone() for x in (prog.ctrl, prog.mult, prog.fps_out, prog.pidx, prog.slot)]
+    chk.hstore.slab.copy_(slab0)
+    return out
+
+
+def test_prewarm_thread_capture_keeps_counts_exact():
+    """A fused level captured on the prewarm thread while the main thread
+    replays an in-line-captured graph of the same shape and launches kernels
+    eagerly: the process-wide launch counts are exactly the main thread's
+    (the capture's launches go to its own tally), the two graphs launch the
+    same kernels a replay, and the prewarmed graph's outputs equal the in-line
+    graph's."""
+    import threading
+
+    chk, fr, n_f, key, make, sig = _level_case()
+    slab0 = chk.hstore.slab.clone()
+    inline = make(chk, key + sig)
+    inline.capture("main")
+    want = _level_outputs(chk, inline, fr, n_f, slab0)
+    kernels.reset_launches()
+    th = threading.Thread(target=chk._plan_entry(key, make, sig)[1])
+    th.start()
+    replays = eager = 0
+    while th.is_alive() or replays < 3:
+        _level_outputs(chk, inline, fr, n_f, slab0)
+        replays += 1
+        chk.inv_scan(fr)  # one eager launch of inv_scan
+        eager += 1
+    th.join()
+    counts = kernels.launch_counts()
+    expect = {k: replays * v for k, v in inline.tally.per_replay.items()}
+    expect["inv_scan"] += eager
+    assert counts == expect
+    pre = chk._progs.progs[key + sig]
+    assert pre.graph is not None and pre.tally.per_replay == inline.tally.per_replay
+    assert chk.graph_stats["prewarm_captures"] == 1
+    got = _level_outputs(chk, pre, fr, n_f, slab0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert chk._progs.get(key + sig, lambda: None, set()) is pre
+    assert chk._progs.stats["prewarm_hits"] == 1
+
+
+def test_drop_stale_during_a_prewarm_capture():
+    """``drop_stale`` while the prewarm thread is capturing: the capture
+    ends, the program is found stale and released (counted wasted), nothing
+    waits to be released, and the device memory the program took is given
+    back."""
+    import threading
+
+    chk, fr, n_f, key, make, sig = _level_case()
+    chk._progs.clear()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    in_capture, go_on = threading.Event(), threading.Event()
+
+    def slow_make(eng, k):
+        prog = make(eng, k)
+        record = prog.record
+
+        def held():
+            in_capture.set()
+            go_on.wait(60)
+            record()
+
+        prog.record = held
+        return prog
+
+    th = threading.Thread(target=chk._plan_entry(key, slow_make, sig)[1])
+    th.start()
+    assert in_capture.wait(60)
+    chk._progs.drop_stale(("another",) + sig[1:])
+    go_on.set()
+    th.join(120)
+    assert not th.is_alive()
+    assert key + sig not in chk._progs.progs and not chk._progs.capturing
+    assert chk._progs.stats["prewarm_wasted"] == 1 and chk.graph_stats["prewarm_captures"] == 1
+    assert not mk._RELEASE
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= before
+
+
+def test_main_capture_goes_first():
+    """The main thread wants the capture lock while the prewarm thread is
+    inside a capture: the prewarm capture gives way at its next launch
+    (nothing filed, one yield counted), the main thread's capture runs,
+    no launch is counted by either capture, and the main thread's graph
+    gives the in-line graph's outputs."""
+    import threading
+
+    chk, fr, n_f, key, make, sig = _level_case()
+    slab0 = chk.hstore.slab.clone()
+    in_capture, go_on = threading.Event(), threading.Event()
+    got = {}
+
+    def slow_make(eng, k):
+        prog = make(eng, k)
+        record = prog.record
+
+        def held():
+            in_capture.set()
+            go_on.wait(60)
+            record()
+
+        prog.record = held
+        return prog
+
+    def pre():
+        got["res"] = chk._progs.prewarm(key + sig, lambda: slow_make(chk, key + sig))
+
+    kernels.reset_launches()
+    mains = chk.graph_stats["main_captures"]  # the run's own
+    th = threading.Thread(target=pre)
+    th.start()
+    assert in_capture.wait(60)
+    threading.Timer(0.5, go_on.set).start()
+    mine = make(chk, key + sig)
+    assert mine.capture("main")
+    th.join(120)
+    assert got["res"] == "yielded" and key + sig not in chk._progs.progs
+    assert chk.graph_stats["prewarm_yields"] == 1
+    assert chk.graph_stats["main_captures"] == mains + 1
+    assert all(v == 0 for v in kernels.launch_counts().values())
+    ref = make(chk, ("ref",) + sig)
+    ref.capture("main")
+    want = _level_outputs(chk, ref, fr, n_f, slab0)
+    assert all(torch.equal(a, b) for a, b in zip(_level_outputs(chk, mine, fr, n_f, slab0), want))

@@ -4,11 +4,15 @@ chain, megakernel.py:91-94), ``TLA_RAFT_SUPERSTEP=N`` (the superstep span;
 <= 1 per-level fused levels, superstep.py:133-142), ``TLA_RAFT_CAP_M``
 (replaces only the default cap_m of 96, bfs.py:536-546) and
 ``TLA_RAFT_MXU=0`` (the legacy per-lane kernels, mxu_expand.py:72) and
-``TLA_RAFT_HASHSTORE=0`` (the sorted visited store, hashstore.py:116); and
-the CLI's reference flags: ``--config`` (TLC's Raft.cfg, through the port's
-copy of cfgparse.py, the spec beside it validated by its copy of
+``TLA_RAFT_HASHSTORE=0`` (the sorted visited store, hashstore.py:116),
+``TLA_RAFT_PIPELINE``, ``TLA_RAFT_PIPELINE_WINDOW``, ``TLA_RAFT_PREWARM``
+and ``TLA_RAFT_PRESIZE`` (bfs.py:651-714, against ``JaxChecker``'s); and
+the CLI's reference flags: ``--config`` (TLC's Raft.cfg, through the
+port's copy of cfgparse.py, the spec beside it validated by its copy of
 tla_frontend.py), ``--invariant``, ``--no-symmetry``, ``--no-view``,
-``--no-hashstore``, each against the reference's ``check.py --json``."""
+``--no-hashstore``, each against the reference's ``check.py --json``,
+and ``--no-pipeline``, ``--pipeline-window`` and ``--prewarm`` (refused
+with ``--mesh``)."""
 
 import torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
@@ -212,3 +216,69 @@ def test_cli_cap_x(capsys, monkeypatch):
     got = _json_of(capsys.readouterr().out)
     assert rc == 0 and (got["distinct"], got["generated"], got["depth"]) == GOLD
     assert len(kws) == 1 and "cap_x" not in kws[0]
+
+
+# -- the async pipeline, the prewarm and the presize (bfs.py:651-714) ---------------------
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"TLA_RAFT_PIPELINE": "0"}, {"TLA_RAFT_PIPELINE_WINDOW": "4"},
+    {"TLA_RAFT_PIPELINE_WINDOW": "0"}, {"TLA_RAFT_PREWARM": "1", "TLA_RAFT_PRESIZE": "1"},
+    {"TLA_RAFT_PREWARM": "0", "TLA_RAFT_PRESIZE": "0"},
+], ids=["unset", "pipeline-0", "window-4", "window-0", "on", "off"])
+def test_pipeline_prewarm_presize_settings_are_the_references(monkeypatch, env):
+    """``TLA_RAFT_PIPELINE``, ``TLA_RAFT_PIPELINE_WINDOW``,
+    ``TLA_RAFT_PREWARM`` and ``TLA_RAFT_PRESIZE`` resolve as the reference
+    resolves them (bfs.py:651-714) on the CPU, where the reference's
+    default for the last two (a tunneled backend) is off, as the port's is
+    off the card; an explicit argument wins."""
+    from tla_raft_tpu.config import RaftConfig as RefConfig
+    from tla_raft_tpu.engine.bfs import JaxChecker
+
+    for k in ("TLA_RAFT_PIPELINE", "TLA_RAFT_PIPELINE_WINDOW", "TLA_RAFT_PREWARM",
+              "TLA_RAFT_PRESIZE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ref = JaxChecker(RefConfig(2, 1, 1, 1), chunk=64)
+    chk = TorchChecker(S2, device="cpu", chunk=64)
+    assert (chk.pipeline, chk.pipeline_window, chk.prewarm, chk.presize) == \
+        (ref.pipeline, ref.pipeline_window, ref.prewarm, ref.presize)
+    arg = TorchChecker(S2, device="cpu", pipeline=True, pipeline_window=3, prewarm=True,
+                       presize=False)
+    assert (arg.pipeline, arg.pipeline_window, arg.prewarm, arg.presize) == (True, 3, True, False)
+
+
+@pytest.mark.parametrize("flags,want", [
+    ([], dict(pipeline=True, pipeline_window=2, prewarm=False)),
+    (["--no-pipeline"], dict(pipeline=False, pipeline_window=0, prewarm=False)),
+    (["--pipeline-window", "4"], dict(pipeline=True, pipeline_window=4, prewarm=False)),
+    (["--pipeline-window", "0"], dict(pipeline=False, pipeline_window=0, prewarm=False)),
+    (["--prewarm", "1"], dict(pipeline=True, pipeline_window=2, prewarm=True)),
+], ids=["default", "no-pipeline", "window-4", "window-0", "prewarm"])
+def test_cli_pipeline_flags(capsys, monkeypatch, flags, want):
+    """``--no-pipeline``, ``--pipeline-window`` and ``--prewarm`` (check.py:
+    907-920, :1157-1160) reach the checker, and the counts stay the run's."""
+    from tla_raft_tpu_torch.check import main
+
+    for k in ("TLA_RAFT_PIPELINE", "TLA_RAFT_PIPELINE_WINDOW", "TLA_RAFT_PREWARM"):
+        monkeypatch.delenv(k, raising=False)
+    rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+               "--device", "cpu", "--chunk", "64", "--json", *flags])
+    got = _json_of(capsys.readouterr().out)
+    assert rc == 0 and (got["distinct"], got["generated"], got["depth"]) == GOLD
+    assert {k: got[k] for k in want} == want
+
+
+def test_cli_refuses_prewarm_on_a_mesh(capsys):
+    """``--prewarm 1`` with ``--mesh`` is refused (exit 2): the mesh's level
+    loops capture their programs in line (check.py:1109-1111)."""
+    from tla_raft_tpu_torch.check import PREWARM_MESH_REFUSAL, main
+
+    rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+               "--device", "cpu", "--mesh", "2", "--prewarm", "1"])
+    assert rc == 2 and PREWARM_MESH_REFUSAL in capsys.readouterr().out
+    rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+               "--device", "cpu", "--mesh", "2", "--cap-x", "512", "--prewarm", "0",
+               "--no-pipeline", "--json"])
+    assert rc == 0 and _json_of(capsys.readouterr().out)["distinct"] == GOLD[0]

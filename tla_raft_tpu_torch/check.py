@@ -36,7 +36,7 @@ beside the cfg differs from the compiled semantics (or on --dev-bytes with
 --checkpoint-dir and no --fpstore-dir, on a TLA_RAFT_DEV_BYTES /
 TLA_RAFT_FSEG_BYTES setting the port does not run, on --mesh-deep without
 --mesh or without --fpstore-dir, on --mesh with --checkpoint-dir,
---recover, --audit or, under all_to_all without --fpstore-dir,
+--recover, --audit, --prewarm 1 or, under all_to_all without --fpstore-dir,
 --no-hashstore, and on --mesh N past the visible GPUs), 4 on an integrity
 fail-stop, 75 on a preemption
 (SIGTERM/SIGINT: the run stops at a level boundary, resumable with
@@ -151,6 +151,10 @@ def summarize(res, seconds: float, chk) -> dict:
         device=str(chk.device),
         routes=dict(chk.routes),
         hashstore=chk.use_hashstore,
+        pipeline=chk.pipeline,
+        pipeline_window=chk.pipeline_window if chk.pipeline else 0,
+        prewarm=chk.prewarm,
+        presize=chk.presize,
     )
     if chk.degraded_at is not None:
         out["degraded_at"] = chk.degraded_at
@@ -229,7 +233,9 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
               install_signals: bool = False, config_path: str | None = None,
               fpstore_dir: str | None = None, warm_bytes: int | None = None, mesh: int = 0,
               exchange: str = "all_to_all", cap_x: int = 4096, mesh_deep: bool = False,
-              seg_rows: int = 1 << 15, sieve: bool = True, compress: bool = True) -> dict:
+              seg_rows: int = 1 << 15, sieve: bool = True, compress: bool = True,
+              pipeline: bool | None = None, pipeline_window: int | None = None,
+              prewarm: bool | None = None) -> dict:
     """One in-process check -> the ``--json`` summary dict (check.py:316):
     the programmatic entry the sweep service and the tests call.  ``out``
     (a stream, or None) receives the CLI's informational lines, ``progress``
@@ -246,7 +252,11 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
     GPUs, or N shards of the CPU) with ``exchange`` and ``cap_x``
     (check.py:686-733); ``fpstore_dir`` then holds one store per owner.
     ``mesh_deep`` runs the sharded deep sweep there (``seg_rows``,
-    ``sieve``, ``compress``: check.py:700-757)."""
+    ``sieve``, ``compress``: check.py:700-757).  ``pipeline`` and
+    ``pipeline_window`` set the async pipeline (None: the environment's
+    ``TLA_RAFT_PIPELINE`` / ``TLA_RAFT_PIPELINE_WINDOW``), ``prewarm`` the
+    single-device engine's forecast prewarm (None: ``TLA_RAFT_PREWARM``,
+    else on on the card, off on the CPU); a mesh takes no prewarm."""
     from . import resilience
     from .engine.bfs import TorchChecker
 
@@ -257,7 +267,10 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
         warm_bytes = int(float(os.environ["TLA_RAFT_WARM_BYTES"]))
     t0 = time.monotonic()
     if mesh:
-        return _run_mesh(cfg, t0, max_depth=max_depth, chunk=chunk, checkpoint_dir=checkpoint_dir,
+        if prewarm:
+            raise ValueError(PREWARM_MESH_REFUSAL)
+        return _run_mesh(cfg, t0, pipeline=pipeline, pipeline_window=pipeline_window,
+                         max_depth=max_depth, chunk=chunk, checkpoint_dir=checkpoint_dir,
                          checkpoint_every=checkpoint_every, recover=recover, device=device,
                          canon=canon, use_hashstore=use_hashstore, use_mxu=use_mxu,
                          progress=progress, out=out, config_path=config_path,
@@ -277,7 +290,8 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
                        megakernel=megakernel, superstep=superstep,
                        store_bytes=int(dev_bytes) if dev_bytes else None, canon=canon,
                        use_mxu=use_mxu, audit=audit, audit_retries=audit_retries,
-                       use_hashstore=use_hashstore, host_store=host_store)
+                       use_hashstore=use_hashstore, host_store=host_store, pipeline=pipeline,
+                       pipeline_window=pipeline_window, prewarm=prewarm)
     if out is not None:
         print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
         where = f" {config_path}" if config_path else ""
@@ -304,7 +318,7 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
 def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, recover, device,
               canon, use_hashstore, use_mxu, progress, out, config_path, fpstore_dir,
               warm_bytes, mesh, exchange, cap_x, dev_bytes, mesh_deep, seg_rows, sieve,
-              compress) -> dict:
+              compress, pipeline, pipeline_window) -> dict:
     """``run_check``'s mesh branch (check.py:686-757), the deep sweep's
     ``Exchange:`` lines included."""
     from .parallel import ShardedChecker, make_mesh
@@ -317,7 +331,7 @@ def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, re
                          progress=progress, canon=canon, host_store_dir=fpstore_dir or None,
                          use_hashstore=use_hashstore, use_mxu=use_mxu, warm_bytes=warm_bytes,
                          chunk=chunk, deep=mesh_deep, seg_rows=seg_rows, sieve=sieve,
-                         compress=compress)
+                         compress=compress, pipeline=pipeline, pipeline_window=pipeline_window)
     if out is not None:
         print(f"tla-raft-tpu-torch checker: device={chk.devices[0]}, mesh of {chk.D} "
               f"shard(s) ({exchange})", file=out)
@@ -344,6 +358,10 @@ def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, re
     return summary
 
 
+# the mesh's level loops capture their programs in line (check.py:1109-1111)
+PREWARM_MESH_REFUSAL = ("--prewarm applies to the single-device engine only; the mesh level "
+                        "loops capture their programs in line")
+
 # the reference's message, printed as it prints it (check.py:1113-1117)
 DEEP_STORE_REFUSAL = ("--mesh-deep requires --fpstore-dir (the sharded deep sweep filters "
                       "through per-owner external stores)")
@@ -352,8 +370,8 @@ DEEP_STORE_REFUSAL = ("--mesh-deep requires --fpstore-dir (the sharded deep swee
 def mesh_refusal(args) -> str | None:
     """Why the CLI refuses a mesh run it cannot honor, or None: the deep
     sweep needs a mesh and the per-owner stores (check.py:1052, :1113), the
-    mesh's checkpoints and sorted shards are not ported, and --audit
-    belongs to the single-device engine (check.py:719)."""
+    mesh's checkpoints and sorted shards are not ported, and --audit and
+    --prewarm belong to the single-device engine (check.py:719, :1109)."""
     from .parallel.sharded import CHECKPOINT_REFUSAL, SORTED_REFUSAL
 
     if args.mesh_deep and not args.mesh:
@@ -363,6 +381,8 @@ def mesh_refusal(args) -> str | None:
         return None
     if args.mesh_deep and not args.fpstore_dir:
         return DEEP_STORE_REFUSAL
+    if args.prewarm:
+        return PREWARM_MESH_REFUSAL
     if (args.checkpoint_dir and args.checkpoint_every) or args.recover:
         return CHECKPOINT_REFUSAL
     if args.audit:
@@ -472,6 +492,17 @@ def main(argv=None) -> int:
                     help="resume from a checkpoint directory (delta log); corrupt, torn or "
                          "unmanifested records are quarantined or adopted and the run resumes "
                          "from the last good contiguous prefix")
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="turn the async pipeline off: every device-to-host read serial "
+                         "(counts are the same either way; env TLA_RAFT_PIPELINE=0)")
+    ap.add_argument("--pipeline-window", type=int, default=None, metavar="N",
+                    help="read groups the async pipeline keeps in flight (default 2; 0 = "
+                         "serial; env TLA_RAFT_PIPELINE_WINDOW)")
+    ap.add_argument("--prewarm", type=int, choices=(0, 1), default=None,
+                    help="the forecast prewarm: build and capture the forecast levels' "
+                         "programs on a thread of their own ahead of the levels (default: on "
+                         "on the card, off on the CPU; env TLA_RAFT_PREWARM; single-device "
+                         "engine only: refused with --mesh)")
     ap.add_argument("--fault", action="append", default=None, metavar="SITE:ACTION[@N]",
                     help="deterministic fault injection (repeatable): kill/torn/flip/fail/pause "
                          "at a named site's Nth hit, e.g. delta.commit:kill@3 (env "
@@ -555,7 +586,9 @@ def main(argv=None) -> int:
             fpstore_dir=args.fpstore_dir,
             warm_bytes=int(args.warm_bytes) if args.warm_bytes else None, mesh=args.mesh,
             exchange=args.exchange, cap_x=args.cap_x, mesh_deep=args.mesh_deep,
-            seg_rows=args.seg_rows, sieve=not args.no_sieve, compress=not args.no_compress)
+            seg_rows=args.seg_rows, sieve=not args.no_sieve, compress=not args.no_compress,
+            pipeline=False if args.no_pipeline else None, pipeline_window=args.pipeline_window,
+            prewarm=None if args.prewarm is None else bool(args.prewarm))
     except resilience.Preempted as e:
         return _report_preempted(e, out)
     except ValueError as e:

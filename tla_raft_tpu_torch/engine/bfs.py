@@ -142,6 +142,7 @@ from ..u64 import SENT, ukey
 from . import forecast
 from . import group
 from . import megakernel as mk
+from . import pipeline as gpipe
 from . import superstep as ss
 from .invariants import inv_scan_plain, needs_msgs, resolve_invariant_kernel
 
@@ -159,6 +160,15 @@ class CheckResult(NamedTuple):
     level_sizes: tuple
     violation: tuple | None  # (kind, [(action, OState), ...])
     action_counts: dict | None = None
+
+
+def _setting(env: str, value, default: bool) -> bool:
+    """An on/off setting: the argument, else ``env`` ("0" or "1"), else
+    ``default``."""
+    if value is not None:
+        return bool(value)
+    v = os.environ.get(env)
+    return bool(int(v)) if v else bool(default)
 
 
 def _pow2(n: int) -> int:
@@ -538,6 +548,21 @@ class TorchChecker:
         host; the frontier is a list of ``SEG_ROWS``-row segments, which
         page to host RAM under ``dev_budget`` (``TLA_RAFT_DEV_BYTES``).  No
         hash slab, fused level, superstep or grouped chain.
+      pipeline, pipeline_window: the async pipeline (engine/pipeline.py;
+        ``None``: ``TLA_RAFT_PIPELINE``, on unless "0", and
+        ``TLA_RAFT_PIPELINE_WINDOW``, default 2; a window below 1 is the
+        serial chain): the external store route's group reads go through
+        an ``AsyncFetchWindow``, the fused level's and the superstep's
+        reads through a ``DeferredFetch``.  Counts, traces and checkpoint
+        bytes are the same either way.
+      prewarm, presize: the forecast prewarm (the programs of the
+        forecast's shapes built and captured on a thread of their own,
+        ahead of the levels that need them) and the presize (the slab
+        reserved to the forecast's entries, the sorted store's width and
+        merge input floored): ``None`` reads ``TLA_RAFT_PREWARM`` /
+        ``TLA_RAFT_PRESIZE`` ("0" or "1"), else on where the engine's
+        device is CUDA (a program's first build there is a graph capture)
+        and off on the CPU.  Neither changes what is counted.
 
     The reference's settings are read where it reads them, an explicit
     argument winning: ``TLA_RAFT_MEGAKERNEL=0`` (the staged chain),
@@ -565,6 +590,10 @@ class TorchChecker:
         audit_retries: int = 3,
         use_hashstore: bool | None = None,
         host_store=None,
+        pipeline: bool | None = None,
+        pipeline_window: int | None = None,
+        prewarm: bool | None = None,
+        presize: bool | None = None,
     ):
         self.cfg = cfg
         if orbit is None:
@@ -688,7 +717,30 @@ class TorchChecker:
             self.routes = dict(host=0)  # every level takes the external store route
         self.k4_round_log: list = []  # claim rounds of every fused level run
         self.group_log: list = []  # one record per grouped level
-        self._progs = mk.ProgramCache()
+        # the async pipeline (bfs.py:651-662)
+        if pipeline is None:
+            pipeline = gpipe.enabled_by_env()
+        if pipeline_window is None:
+            pipeline_window = gpipe.window_from_env()
+        self.pipeline_window = int(pipeline_window)
+        self.pipeline = bool(pipeline) and self.pipeline_window >= 1
+        # the forecast prewarm and the presize (bfs.py:663-714): on where a
+        # program's first build is a costly host step -- on the card, its
+        # graph capture (the depth-25 wall measured better with them on:
+        # PERF.md §5-§6)
+        on_card = self.device.type == "cuda"
+        self.prewarm = _setting("TLA_RAFT_PREWARM", prewarm, on_card)
+        self.presize = _setting("TLA_RAFT_PRESIZE", presize, on_card)
+        self._prewarmer: gpipe.Prewarmer | None = None  # built at the first plan
+        self._planned: set | None = None  # the keys the plans named (None: no plan yet)
+        self._presize_vcap = 0     # the sorted store's width floor (pow4)
+        self._presize_entries = 0  # the slab's entry forecast
+        self._presize_merge = 0    # the sorted store's merge-input floor (pow2)
+        self.presize_log: list = []  # [depth, slab slots before, after] of each presize grow
+        self.slab_grows = 0  # the slab's grows and reserves that moved it, on every route
+        self.prewarm_failures: list = []  # (key, error) of each failed prewarm thunk
+        self.prewarm_thunks = 0
+        self._progs = mk.ProgramCache(forecast.presize_budget())
 
     # -- sparse <-> dense message sets ------------------------------------
 
@@ -1245,6 +1297,17 @@ class TorchChecker:
             span = min(span, max_depth - depth)
         return span
 
+    def _superstep_key(self, cap_f: int) -> tuple:
+        return ("superstep", cap_f, self.superstep_span, self.chunk)
+
+    def _superstep_make(self, cap_f: int):
+        """The builder of a superstep program at ``cap_f`` (its ring holds
+        span * cap_f entries, rounded up to a power of two: the ring size
+        is a device word, so one program per cap_f serves every ring)."""
+        span = self.superstep_span
+        ring_max = forecast.pow2ceil(span * cap_f)
+        return lambda eng, k: ss.SuperstepProgram(eng, k, cap_f, ring_max, span, eng.k4_rounds)
+
     def _superstep_shapes(self, fut, span, n_rows, cap_cur):
         """One superstep's static (cap_f, ring) (bfs.py:1645)."""
         if fut:
@@ -1258,21 +1321,28 @@ class TorchChecker:
         ring = ss.ring_capacity(fut, span, cap_f, forecast.pow2ceil)
         return cap_f, ring
 
-    def _program(self, key, build):
+    def _sig(self) -> tuple:
+        """The programs' signature: the budgets, slab and sieve words a
+        program binds at build time."""
+        return self._sig_of(self.cap_x, self.cap_m, self.k4_rounds, self.hstore.slab,
+                            self._sieve_operand())
+
+    def _sig_of(self, cap_x, cap_m, rounds, slab, sieve) -> tuple:
+        return (self.canon, self.use_mxu, cap_x, cap_m, rounds, slab.data_ptr(), slab.shape[0],
+                sieve.data_ptr(), sieve.shape[0])
+
+    def _program(self, key, make):
         """The captured program of ``key`` at the current budgets, slab and
-        sieve words (a program built for others is dropped: its graph
-        holds their addresses)."""
-        slab = self.hstore.slab
-        sieve = self._sieve_operand()
-        sig = (self.canon, self.use_mxu, self.cap_x, self.cap_m, self.k4_rounds,
-               slab.data_ptr(), slab.shape[0], sieve.data_ptr(), sieve.shape[0])
+        sieve words, built by ``make(engine, full key)`` (a program built
+        for others is dropped: its graph holds their addresses)."""
+        sig = self._sig()
         self._progs.drop_stale(sig)
 
         def built():
             self.graph_stats["programs"] += 1
-            return build(sig)
+            return make(self, key + sig)
 
-        return self._progs.get(key + sig, built)
+        return self._progs.get(key + sig, built, self._planned)
 
     def _seat(self, dst: Frontier, src: Frontier, n: int) -> None:
         """The parents into a program's input buffer (a device copy, none
@@ -1326,8 +1396,8 @@ class TorchChecker:
             n_lanes = (cap_f // self.chunk) * self.cap_x
             cap_out = self._mega_cap_out(n_f, level_sizes, max_depth, n_lanes, out_floor)
             key = ("level", cap_f, cap_out, self.chunk)
-            prog = self._program(key, lambda sig: mk.LevelProgram(
-                self, key + sig, cap_f, cap_out, self.k4_rounds))
+            prog = self._program(key, lambda eng, k: mk.LevelProgram(
+                eng, k, cap_f, cap_out, eng.k4_rounds))
             self._seat(prog.fr_in, frontier, n_f)
             # the parents from here on: the launch rewrites its output buffer,
             # which may be where they came from
@@ -1335,8 +1405,9 @@ class TorchChecker:
             t1 = time.perf_counter()
             prog.run(n_f)
             t2 = time.perf_counter()
-            ctrl, lc, mult, fps, pidx, slot = fetch(
-                prog.ctrl, prog.lc, prog.mult, prog.fps_out, prog.pidx, prog.slot, what="level")
+            ctrl, lc, mult, fps, pidx, slot = gpipe.DeferredFetch(
+                self.pipeline, (prog.ctrl, prog.lc, prog.mult, prog.fps_out, prog.pidx,
+                                prog.slot), what="level").get()
             t3 = time.perf_counter()
             t["seat"] += t1 - t0
             t["launch"] += t2 - t1
@@ -1406,18 +1477,14 @@ class TorchChecker:
                 self.hstore.count + max(ins_bound, 2 * max(n_f, 1))),
                 depth, "superstep") == "degraded":
             return dict(degraded=True, frontier=frontier)
-        # the ring size is a device word: one program per cap_f serves
-        # every ring up to its span * cap_f ceiling
-        key = ("superstep", cap_f, self.superstep_span, self.chunk)
-        ring_max = forecast.pow2ceil(self.superstep_span * cap_f)
-        prog = self._program(key, lambda sig: ss.SuperstepProgram(
-            self, key + sig, cap_f, ring_max, self.superstep_span, self.k4_rounds))
+        key = self._superstep_key(cap_f)
+        prog = self._program(key, self._superstep_make(cap_f))
         self._seat(prog.fr[0], frontier, n_f)
         prog.run(n_f, span, ring)
-        ctrl, mn, mm, mr, rf, rp, rs = fetch(
-            prog.ss[: ss.SS_CTRL], prog.meta_n, prog.meta_mult, prog.meta_rounds,
-            prog.ring_fps[:ring], prog.ring_pidx[:ring], prog.ring_slot[:ring],
-            what="superstep")
+        ctrl, mn, mm, mr, rf, rp, rs = gpipe.DeferredFetch(
+            self.pipeline, (prog.ss[: ss.SS_CTRL], prog.meta_n, prog.meta_mult, prog.meta_rounds,
+                            prog.ring_fps[:ring], prog.ring_pidx[:ring], prog.ring_slot[:ring]),
+            what="superstep").get()
         recs, reason, n_f_out, slab_live, flags = ss.unpack_ring(ctrl, mn, mm, rf, rp, rs)
         self._log_launch(prog, len(recs))
         ran = min(len(recs) + int(reason == "stop" or reason == "ring"), span)
@@ -1458,6 +1525,216 @@ class TorchChecker:
         if flags & ss.FLAG_TIER:
             self._ss_stats["sieve_stops"] = self._ss_stats.get("sieve_stops", 0) + 1
         return frontier
+
+    # -- the presize and the forecast prewarm (bfs.py:2248-2560, 4289-4324) --------------
+
+    def _update_presize(self, level_sizes, distinct: int, max_depth) -> None:
+        """Ratchet the forecast floors over the next ``PRESIZE_HORIZON``
+        levels (bfs.py:2248): the slab's entries (each level counted at most
+        at the fused limit), the sorted store's width and its merge input,
+        each clamped by ``TLA_RAFT_PRESIZE_BYTES``.
+        Floors only grow.  (The reference's frontier-capacity floor is not
+        taken: a superstep's graph launches every chunk of its capacity, so
+        a floored capacity costs launches on every shallower level.)"""
+        fut = forecast.forecast_new_states(level_sizes, max_depth)[:forecast.PRESIZE_HORIZON]
+        if not fut:
+            return
+        peak, budget = max(fut), forecast.presize_budget()
+        self._presize_vcap = max(self._presize_vcap,
+                                 min(_cap4(distinct + sum(fut) + 1), _cap4(budget // 8)))
+        # the slab's entries count a level at most at the fused limit: a
+        # larger one runs grouped, whose programs are cheap to capture again,
+        # so its inserts are left to the between-level grow (the reference's
+        # uncapped sum reserved again under the 4,194,304-row superstep at
+        # depth 21 and recaptured it: PERF.md §6)
+        limit = 16 * self.G * self.chunk
+        self._presize_entries = max(self._presize_entries,
+                                    min(distinct + sum(min(f, limit) for f in fut), budget // 16))
+        self._presize_merge = max(self._presize_merge,
+                                  min(_pow2(int(peak * 1.05) + 1), _pow2(budget // 16)))
+
+    def _presize_step(self, level_sizes, distinct: int, max_depth, depth: int) -> None:
+        """After a superstep or level, before the next, past
+        ``forecast.MIN_LEVELS`` levels: the slab reserved to the forecast's
+        entries x 1.1 (a failed reserve degrades as any grow does), or the
+        sorted store SENT-padded to its width floor (bfs.py:4289-4315)."""
+        if (not self.presize or self.host_store is not None
+                or len(level_sizes) <= forecast.MIN_LEVELS):
+            return
+        self._update_presize(level_sizes, distinct, max_depth)
+        if self.use_hashstore:
+            if self._presize_entries:
+                before = self.hstore.cap
+                self._grow_or_degrade(lambda: self._tier_reserve(
+                    int(self._presize_entries * 1.1)), depth, "presize")
+                if self.hstore is not None and self.hstore.cap != before:
+                    self.presize_log.append([depth, before, self.hstore.cap])
+        elif self._presize_vcap > self.visited.shape[0]:
+            # SENT sorts last: the padded store stays sorted
+            pad = torch.full((self._presize_vcap - self.visited.shape[0],), SENT, dtype=I64,
+                             device=self.device)
+            self.visited = torch.cat([self.visited, pad])
+
+    def _snapshot(self):
+        """(signature, engine view) of the budgets as they stand, read on
+        the prewarm thread (reads only: nothing is created here); None when
+        there is no slab or sieve operand to build against."""
+        hs = self.hstore
+        sieve = self._sieve_dev if self._tier_active() else self._sieve_empty
+        if hs is None or sieve is None:
+            return None
+        slab, cap_x, cap_m, rounds = hs.slab, self.cap_x, self.cap_m, self.k4_rounds
+        return self._sig_of(cap_x, cap_m, rounds, slab, sieve), mk.EngineView(
+            self, cap_x=cap_x, cap_m=cap_m, cap_g=self.cap_g, k4_rounds=rounds, slab=slab,
+            sieve=sieve)
+
+    def _plan_entry(self, key: tuple, make, sig: tuple) -> tuple:
+        """One (key, thunk) pair of the plan: the thunk builds the program of
+        ``key`` against the budgets as they stand when it runs and captures
+        it, unless they are no longer ``sig`` (the plan's) -- the main
+        thread grew one meanwhile, and the program would be stale."""
+        def thunk():
+            snap = self._snapshot()
+            if snap is None or snap[0] != sig:
+                return
+            view = snap[1]
+            if key[0] == "group" and key[3] != view.cap_g:
+                return
+            if self._progs.prewarm(key + sig, lambda: make(view, key + sig)) == "yielded":
+                pw = self._prewarmer
+                if pw is not None:
+                    pw.forget(key + sig)  # gave way to the main thread: the next plan retries
+
+        return key + sig, thunk
+
+    def _prewarm_plan(self, level_sizes, max_depth, frontier) -> list:
+        """(key, thunk) pairs that build and capture the programs of the
+        forecast's levels (bfs.py:2308), walking the forecast as the run
+        loop will route it: superstep windows through ``_superstep_shapes``
+        (the next window, and later ones at the fused limit's capacity; a
+        window whose forecast passes its capacity stops there, and that
+        level runs fused from the window's buffer: ``_rows_cap`` and
+        ``_mega_cap_out``), fused levels where supersteps are off or the
+        span is down to 1, and grouped levels past the fused limit
+        (``group.group_key``).  The plan is submitted after a superstep or
+        level, so its first program is captured while the loop commits.  A
+        CUDA graph binds the slab's address, so every program is planned
+        against the slab that exists (the presize reserved it); the
+        reference's ladder of slab capacities collapses to that one."""
+        if (not self.megakernel or not self.use_hashstore or self.host_store is not None
+                or self.orbit or self.hstore is None or isinstance(frontier, list)):
+            return []
+        fut = forecast.forecast_new_states(level_sizes, max_depth)[:forecast.PRESIZE_HORIZON]
+        if not fut:
+            return []
+        sig = self._sig()
+        plan, seen = [], set()
+
+        def add(key, make):
+            if key not in seen:
+                seen.add(key)
+                plan.append(self._plan_entry(key, make, sig))
+
+        depth = len(level_sizes) - 1
+        sizes = list(level_sizes)
+        limit = 16 * self.G * self.chunk  # the fused size limit: a window's largest capacity
+        n_par = max(int(level_sizes[-1]), 1)
+        cap_in = self._rows_cap(frontier)
+        k = 0
+
+        def fused(n_par, cap_in, k):
+            n_lanes = (cap_in // self.chunk) * self.cap_x
+            cap_out = self._mega_cap_out(n_par, sizes + fut[:k], max_depth, n_lanes, 0)
+            add(("level", cap_in, cap_out, self.chunk),
+                lambda e, key, a=cap_in, b=cap_out: mk.LevelProgram(e, key, a, b, e.k4_rounds))
+            return cap_out
+
+        while k < len(fut):
+            if self._grouping(n_par):
+                gk = group.group_key(self, n_par)
+                add(gk, group.group_make(gk[1]))
+                n_par, cap_in, k = fut[k], self.chunk, k + 1
+                continue
+            span_at = self._superstep_span_at(max_depth, depth + k)
+            if span_at > 1:
+                fut_w = fut[k:k + span_at]
+                cap_f, _ring = self._superstep_shapes(fut_w, self.superstep_span, n_par, cap_in)
+                if k == 0 or cap_f >= limit:
+                    # past the next window only the fused limit's capacity:
+                    # the forecast's overshoot makes a later window under it
+                    # a shape the run rarely uses (PERF.md §6)
+                    add(self._superstep_key(cap_f), self._superstep_make(cap_f))
+                cap_in = cap_f
+                stop = False
+                for f in fut_w:
+                    if f > cap_f:
+                        stop = True  # FLAG_OVF_OUT: this level runs fused next
+                        break
+                    n_par, k = f, k + 1
+                if stop:
+                    cap_in = fused(n_par, cap_in, k)
+                    n_par, k = fut[k], k + 1
+                continue
+            cap_in = fused(n_par, cap_in, k)
+            n_par, k = fut[k], k + 1
+        return plan
+
+    def _submit_prewarm(self, level_sizes, max_depth, frontier) -> None:
+        """Queue the plan on the prewarm thread (after every superstep and
+        level with forecast signal; the thread dedupes keys, so only a
+        sharper forecast or a new signature queues anything)."""
+        if not self.prewarm or len(level_sizes) <= forecast.MIN_LEVELS or self.hstore is None:
+            return
+        # the signature the plan keys on is the one the next launch will use
+        self._progs.drop_stale(self._sig())
+        plan = self._prewarm_plan(level_sizes, max_depth, frontier)
+        if not plan:
+            if self._prewarmer is not None:
+                self._prewarmer.retain(())
+            self._progs.retain_fresh(())
+            return
+        if self._planned is None:
+            self._planned = set()
+        self._planned.update(k[:-len(self._progs.sig)] for k, _t in plan)
+        if self._prewarmer is None or self._prewarmer.stopped:
+            self._prewarmer = gpipe.Prewarmer()
+        # what the newest forecast no longer expects goes: queued or built
+        keys = [k for k, _t in plan]
+        self._prewarmer.retain(keys)
+        self._progs.retain_fresh(keys)
+        self._prewarmer.submit(plan)
+
+    def _stop_prewarm(self) -> None:
+        """Drop the prewarm's queue and wait out its capture in flight (the
+        run's end, a degrade); its failures stay in ``prewarm_failures``."""
+        if self._prewarmer is not None:
+            self._prewarmer.shutdown()
+            self.prewarm_failures += self._prewarmer.failures
+            self.prewarm_thunks += self._prewarmer.n_ok + self._prewarmer.n_failed
+            self._prewarmer = None
+
+    def pipeline_stats(self) -> dict:
+        """The captures by thread, the recaptures by cause, the prewarm's
+        hits, misses, waits and wasted programs, the presize's and the
+        slab's grows."""
+        g, c = self.graph_stats, self._progs.stats
+        return dict(
+            prewarm=self.prewarm, presize=self.presize, pipeline=self.pipeline,
+            window=self.pipeline_window if self.pipeline else 0,
+            main_captures=g.get("main_captures", 0),
+            main_capture_seconds=g.get("main_capture_seconds", 0.0),
+            main_lock_seconds=g.get("main_lock_seconds", 0.0),
+            prewarm_captures=g.get("prewarm_captures", 0),
+            prewarm_capture_seconds=g.get("prewarm_capture_seconds", 0.0),
+            recaptures=dict(g.get("recaptures", {})),
+            hits=c["prewarm_hits"], misses=c["prewarm_misses"],
+            misses_unplanned=sum(1 for _k, how in self._progs.misses if how == "unplanned"),
+            wasted=c["prewarm_wasted"], unused=len(self._progs.fresh),
+            yields=g.get("prewarm_yields", 0), yield_seconds=g.get("prewarm_yield_seconds", 0.0),
+            skipped=c["prewarm_skipped"], over_budget=c["prewarm_over_budget"],
+            waits=c["prewarm_waits"], wait_seconds=c["prewarm_wait_seconds"],
+            thunks=self.prewarm_thunks, failed=len(self.prewarm_failures),
+            slab_grows=self.slab_grows, presize_grows=len(self.presize_log))
 
     # -- the tiered visited store (bfs.py:3207-3375) ---------------------------------
 
@@ -1522,6 +1799,7 @@ class TorchChecker:
             print(f"[tiered] level {depth}: the fresh set exceeds the hot budget even after "
                   f"demotion; seating it at {want} slots", file=sys.stderr)
         self.hstore.grow(min_cap=min_cap)
+        self.slab_grows += 1
         return "grew"
 
     def _tier_drain(self, depth: int, n_next: int) -> None:
@@ -1538,7 +1816,9 @@ class TorchChecker:
         """``hstore.reserve`` clamped to the budget's entries."""
         if self._tier_on() and self.tiered.max_hot_entries:
             entries = min(entries, self.tiered.max_hot_entries)
+        before = self.hstore.cap
         self.hstore.reserve(int(entries))
+        self.slab_grows += int(self.hstore.cap != before)
 
     def _tier_filter_level(self, depth: int, n_new: int, fps_np, new_frontier: Frontier):
         """The level tail's generation probe: the fresh rows that revisit a
@@ -1598,6 +1878,7 @@ class TorchChecker:
         print(f"[resilience] hash-store grow failed ({why}); degrading to the sort-based "
               "visited path (--no-hashstore equivalent) for the rest of the run",
               file=sys.stderr)
+        self._stop_prewarm()  # no capture may be in flight while the programs go
         (vb,) = fetch(self.hstore.slab, what="degrade")
         vb = vb.view(np.uint64)
         vb = vb[vb != hashstore.SENT_U64]
@@ -1624,7 +1905,10 @@ class TorchChecker:
         power-of-4 capacity past ``distinct`` (bfs.py:4912-4925: the merge
         input is the first max(pow2(n_new), chunk) lanes)."""
         w = min(max(_pow2(n_new), self.chunk), new_fps.shape[0])
-        n_out = min(self.visited.shape[0] + w, _cap4(distinct + 1))
+        if self._presize_merge:
+            # the presize floors pin both widths (bfs.py:4916-4924)
+            w = max(w, min(self._presize_merge, new_fps.shape[0]))
+        n_out = min(self.visited.shape[0] + w, max(_cap4(distinct + 1), self._presize_vcap))
         self.visited = merge_sorted(self.visited, new_fps[:w], n_out)
 
     # -- the external store route (--fpstore-dir; bfs.py:3713-4000, 2562-2830) -----------
@@ -1690,16 +1974,22 @@ class TorchChecker:
         holds (a full group inside one segment at chunks of at least
         ``span_min_chunk`` rows, not under orbit), else chunk by chunk and
         padded to G chunks (the tail group, orbit, small chunks); then one
-        counted read of (n_u, abort, overflows, mult, gv, gf, gp).  The
-        groups are read one after another: the reference's
-        ``AsyncFetchWindow`` with window 0 gives the same bytes
-        (bfs.py:3742-3749), and the window itself waits in ROADMAP A.4.  A
-        completed group's lanes are saved as a partial record when the run
+        counted read of (n_u, abort, overflows, mult, gv, gf, gp) through the
+        pipeline's ``AsyncFetchWindow`` (bfs.py:3739-3790): a group's copies
+        are queued behind its launches, and the card runs the next groups
+        while up to ``pipeline_window`` reads are open; the groups complete
+        in order.  ``group_s`` is the groups' device seconds by CUDA events
+        (the host's seconds issuing them on the CPU), ``fetch_s`` the host's
+        seconds in the window (its waits and the groups' consumes).  A completed
+        group's lanes are saved as a partial record when the run
         checkpoints, and a matching partial of an earlier, crashed run
         stands in for its group.
 
         An abort (split brain) or a cap_x / cap_m overflow stops the walk
-        before anything reaches the store (bfs.py:3752-3785).  Otherwise the
+        before anything reaches the store (bfs.py:3752-3785); the groups
+        already issued past it are read and dropped (``discard``), as the
+        serial chain never reached them.  The window drains before the
+        store's insert.  Otherwise the
         host makes the level-wide choice: the groups' lanes lexsorted by
         (fp_view, fp_full, payload), the first of each fp_view kept, the
         store's insert keeps the unvisited ones, and the survivors come out
@@ -1731,9 +2021,51 @@ class TorchChecker:
                 page["j"], page["dev"] = sj, self._seg_to_dev(s)
             return page["dev"]
 
-        stop = None
+        stop: dict = {}
+        win = gpipe.AsyncFetchWindow(self.pipeline_window if self.pipeline else 0)
+        on_card = self.device.type == "cuda"
+
+        def consume(gi, base, timing, host):
+            """A completed group's read (in group order): the serial chain's
+            stop rule, then its unique lanes kept and saved as a partial."""
+            if on_card:  # the group's device seconds (its events are behind the read)
+                level_stats["group_s"] += timing[0].elapsed_time(timing[1]) / 1e3
+            if stop:
+                return  # a group before it stopped the level
+            ctl, chunk_total, gv, gf, gp = host
+            hs["groups"] += 1
+            n_u = int(ctl[group.HG_N_U])
+            abort = int(ctl[group.HG_ABORT])
+            mult_g = ctl[group.HG_MULT:].astype(np.int64)
+            mult[:] += mult_g
+            ovf_x = bool((chunk_total > self.cap_x).any())
+            ovf_m = bool(ctl[group.HG_OVF_M])
+            if abort < BIG or ovf_x or ovf_m:
+                # nothing reached the store: the caller reports the trace or
+                # grows the budget and redoes the level; completed groups'
+                # partials stay valid for the redo (_load_partials)
+                stop.update(abort_at=base + abort if abort < BIG else BIG, ovf_x=ovf_x,
+                            ovf_m=ovf_m)
+                return
+            gv_c = gv[:n_u].view(np.uint64).copy()
+            gf_c = gf[:n_u].view(np.uint64).copy()
+            gp_c = gp[:n_u] + base * K
+            hv.append(gv_c)
+            hf.append(gf_c)
+            hp.append(gp_c)
+            if ckdir:
+                self._save_partial(ckdir, level, gi, gv_c, gf_c, gp_c, mult_g, n_f)
+
         for gi in range(n_groups):
+            if stop:
+                break
             if gi in saved:
+                # in group order: the open groups before it complete first
+                t0 = time.perf_counter()
+                win.drain()
+                level_stats["fetch_s"] += time.perf_counter() - t0
+                if stop:
+                    break
                 z = saved[gi]
                 hv.append(z["hv"])
                 hf.append(z["hf"])
@@ -1746,6 +2078,11 @@ class TorchChecker:
             span_ok = (chunk >= self.span_min_chunk and not self.orbit
                        and (gi + 1) * G <= n_chunks and g_lo // seg_len == (g_hi - 1) // seg_len)
             t0 = time.perf_counter()
+            timing = None
+            if on_card:
+                timing = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                timing[0].record()
             if span_ok:
                 sj, off = divmod(g_lo, seg_len)
                 prog = self._host_program()
@@ -1755,43 +2092,30 @@ class TorchChecker:
             else:
                 want = self._host_group_chunks(seg_dev, seg_len, gi, n_f, n_chunks)
                 hs["chunk_groups"] += 1
-            if self.device.type == "cuda":
-                torch.cuda.current_stream().synchronize()
-            t1 = time.perf_counter()
-            ctl, chunk_total, gv, gf, gp = fetch(*want, what="host_group")
-            t2 = time.perf_counter()
-            level_stats["group_s"] += t1 - t0
-            level_stats["fetch_s"] += t2 - t1
-            hs["groups"] += 1
-            n_u = int(ctl[group.HG_N_U])
-            abort = int(ctl[group.HG_ABORT])
+            if on_card:
+                timing[1].record()
+            else:
+                level_stats["group_s"] += time.perf_counter() - t0
+            # the copies are queued behind the group's launches and before the
+            # next group's, which overwrite the program's output buffers
             base = g_lo if span_ok else 0  # the program's rows and payloads are seat-relative
-            mult_g = ctl[group.HG_MULT:].astype(np.int64)
-            mult += mult_g
-            ovf_x = bool((chunk_total > self.cap_x).any())
-            ovf_m = bool(ctl[group.HG_OVF_M])
-            if abort < BIG or ovf_x or ovf_m:
-                # nothing reached the store: the caller reports the trace or
-                # grows the budget and redoes the level; completed groups'
-                # partials stay valid for the redo (_load_partials)
-                stop = dict(abort_at=base + abort if abort < BIG else BIG, ovf_x=ovf_x,
-                            ovf_m=ovf_m)
-                break
-            gv_c = gv[:n_u].view(np.uint64).copy()
-            gf_c = gf[:n_u].view(np.uint64).copy()
-            gp_c = gp[:n_u] + base * K
-            hv.append(gv_c)
-            hf.append(gf_c)
-            hp.append(gp_c)
-            if ckdir:
-                self._save_partial(ckdir, level, gi, gv_c, gf_c, gp_c, mult_g, n_f)
+            t0 = time.perf_counter()
+            win.submit(want, lambda host, gi=gi, base=base, timing=timing:
+                       consume(gi, base, timing, host), what="host_group")
+            level_stats["fetch_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if stop:
+            win.discard()
+        else:
+            win.drain()  # the level barrier: every group is on the host before the store
+        level_stats["fetch_s"] += time.perf_counter() - t0
         page["dev"] = None
         hs["graph_groups"] += graph_groups
         hs["group_s"] += level_stats["group_s"]
         hs["fetch_s"] += level_stats["fetch_s"]
         out = dict(abort_at=BIG, ovf_x=False, ovf_m=False, mult=mult, n_new=0, new_fps=None,
                    new_payload=None)
-        if stop is not None:
+        if stop:
             out.update(stop)
             return out
         # the level-wide representative choice and the store's filter
@@ -2091,11 +2415,9 @@ class TorchChecker:
         (engine/group.py), on the sorted store the eager chain of
         ``expand_level(grouped=True)``; a slab grow that fails degrades and
         the redo runs on the latter."""
-        groups = -(-max(n_f, 1) // (self.G * self.chunk))
         while True:
             if self.use_hashstore:
-                # the lane buffer's groups, quantized: one program serves nearby levels
-                res = group.expand_level_grouped(self, frontier, n_f, _cap_steps(groups))
+                res = group.expand_level_grouped(self, frontier, n_f)
             else:
                 res = self.expand_level(frontier, n_f, self.visited, grouped=True)
                 res.update(ovf_rounds=False, rounds=0)
@@ -2148,7 +2470,10 @@ class TorchChecker:
         ``resilience.Preempted`` at a level boundary after a preemption
         request."""
         self._audit_strikes, self._audit_strike_depth = 0, None
-        return self._run(max_depth, checkpoint_dir, checkpoint_every, resume_from)
+        try:
+            return self._run(max_depth, checkpoint_dir, checkpoint_every, resume_from)
+        finally:
+            self._stop_prewarm()  # done, raised or preempted (bfs.py:4030-4038)
 
     def _run(self, max_depth, checkpoint_dir, checkpoint_every, resume_from) -> CheckResult:
         cfg, K = self.cfg, self.K
@@ -2218,6 +2543,14 @@ class TorchChecker:
                                    generated=generated, route=route,
                                    elapsed=time.monotonic() - t0))
 
+        def between(frontier):
+            """After every superstep and level, before the next: the presize,
+            then the prewarm plan against the slab it left (bfs.py:4289-4324),
+            so the plan's first program is captured while the loop commits."""
+            if max_depth is None or depth < max_depth:
+                self._presize_step(level_sizes, distinct, max_depth, depth)
+                self._submit_prewarm(level_sizes, max_depth, frontier)
+
         # a stopped superstep routes its level once through the per-level
         # paths before supersteps engage again
         skip_superstep = False
@@ -2271,6 +2604,7 @@ class TorchChecker:
                     sres["reason"] == "ring" and not sres["recs"])
                 if sres["reason"] == "stop":
                     frontier = self._grow_for_stop(sres["flags"], frontier, depth, n_f)
+                between(frontier)
                 continue
             # a superstep that degraded to the sorted store runs its level per level
             skip_superstep = False
@@ -2425,6 +2759,7 @@ class TorchChecker:
             # only invariant-clean, audited levels reach the log: a resumed
             # run never re-checks its replayed frontier
             commit_log(pidx, slot, fps_lvl, res_mult, n_new)
+            between(frontier)
         return CheckResult(
             True, distinct, generated, depth, tuple(level_sizes), None,
             self.layout.action_counts(mult_per_slot),

@@ -1,13 +1,14 @@
 """Predictive frontier-growth forecasting for capacity sizing.
 
 A copy of the JAX package's ``tla_raft_tpu/engine/forecast.py`` (which
-imports no JAX), cut to what the port's fused level, supersteps and mesh
+imports no JAX), cut to what the port's fused level, supersteps, presize, prewarm and mesh
 use: ``forecast_new_states`` (the per-level new-state forecast from the
 measured growth-ratio decay), ``forecast_peak_new`` (its largest level:
-the sweep service's bucket capacities), ``horizon_forecast`` (the mesh's
-presize signal, with ``PRESIZE_HORIZON`` and the ``TLA_RAFT_PRESIZE_BYTES``
-budget), ``cap_margin`` (the 1.25 capacity margin, ``TLA_RAFT_CAP_MARGIN``
-overrides) and ``pow2ceil``.  The reference's
+the sweep service's bucket capacities), ``forecast_final_distinct``,
+``horizon_forecast`` (the presize signal, with ``PRESIZE_HORIZON`` and the
+``TLA_RAFT_PRESIZE_BYTES`` budget), ``shape_plan`` and ``pow2_ladder`` (the
+prewarm's rows and capacity steps), ``cap_margin`` (the 1.25 capacity
+margin, ``TLA_RAFT_CAP_MARGIN`` overrides) and ``pow2ceil``.  The reference's
 ``cap_margin`` also consults an autotuner plan; the port has no tuner yet,
 so the environment and the default are all it reads.
 
@@ -124,6 +125,43 @@ def forecast_peak_new(level_sizes, target_depth: int | None) -> int:
     return max(forecast_new_states(level_sizes, target_depth), default=0)
 
 
+def forecast_final_distinct(level_sizes, distinct: int, target_depth: int | None) -> int:
+    """Forecast total distinct states at the end of the run."""
+    return distinct + sum(forecast_new_states(level_sizes, target_depth))
+
+
+def presize_budget() -> int:
+    """``TLA_RAFT_PRESIZE_BYTES`` (default 4e9): the device bytes a presize
+    or a prewarm may commit ahead of the levels that need them."""
+    return int(float(os.environ.get("TLA_RAFT_PRESIZE_BYTES", "4e9")))
+
+
+def shape_plan(level_sizes, target_depth: int | None, margin: float | None = None) -> list:
+    """Margin-inflated per-level row forecast over the presize horizon,
+    the prewarm's input (reference forecast.py:150): one entry a forecast
+    level, the rows it is expected to need inflated by the capacity
+    margin; empty without a usable signal."""
+    if margin is None:
+        margin = cap_margin()
+    fut = forecast_new_states(level_sizes, target_depth)[:PRESIZE_HORIZON]
+    return [int(f * margin) + 1 for f in fut]
+
+
+def pow2_ladder(lo: int, hi: int) -> list:
+    """Powers of two strictly above ``lo`` up to pow2ceil(``hi``): the
+    capacity steps a growing structure visits on its way from ``lo`` to a
+    forecast peak (reference forecast.py:169)."""
+    out = []
+    c = pow2ceil(max(1, lo))
+    if c <= lo:
+        c <<= 1
+    top = pow2ceil(max(1, hi))
+    while c <= top:
+        out.append(c)
+        c <<= 1
+    return out
+
+
 def horizon_forecast(level_sizes, distinct: int, target_depth: int | None):
     """The mesh's presize signal: (peak_new, final_distinct, budget) over
     the next ``PRESIZE_HORIZON`` forecast levels, the budget from
@@ -132,8 +170,7 @@ def horizon_forecast(level_sizes, distinct: int, target_depth: int | None):
     fut = forecast_new_states(level_sizes, target_depth)[:PRESIZE_HORIZON]
     if not fut:
         return None
-    budget = int(float(os.environ.get("TLA_RAFT_PRESIZE_BYTES", "4e9")))
-    return max(fut), distinct + sum(fut), budget
+    return max(fut), distinct + sum(fut), presize_budget()
 
 
 def per_device_forecast(level_sizes, distinct: int, target_depth: int | None,

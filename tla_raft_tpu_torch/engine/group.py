@@ -316,10 +316,27 @@ class GroupProgram(mk.GraphProgram):
         mk.op_level_finalize(lc, self.ctrl, self.new_pay, self.eng.K, self.pidx, self.slot)
 
 
-def expand_level_grouped(eng, frontier: Frontier, n_f: int, groups_cap: int) -> dict:
+def group_key(eng, n_f: int) -> tuple:
+    """The grouped level's program key for ``n_f`` parents: its lane buffer
+    holds the level's groups quantized (``_cap_steps``), so one program
+    serves nearby levels; ``expand_level_grouped`` and the prewarm plan
+    both key on it."""
+    from .bfs import _cap_steps
+
+    groups = -(-max(n_f, 1) // (eng.G * eng.chunk))
+    return ("group", _cap_steps(groups), eng.G, eng.cap_g, eng.chunk)
+
+
+def group_make(groups_cap: int):
+    """The builder of a grouped level's program of ``groups_cap`` groups."""
+    return lambda e, k: GroupProgram(e, k, groups_cap)
+
+
+def expand_level_grouped(eng, frontier: Frontier, n_f: int, groups_cap: int | None = None) -> dict:
     """One grouped level from ``frontier`` (``n_f`` parent rows) against the
     engine's slab: every group's graph, the tail, one control read; the
-    program's lane buffer holds ``groups_cap`` groups (its shape key).
+    program's lane buffer holds ``groups_cap`` groups (its shape key; by
+    default the level's groups quantized, ``group_key``).
 
     Returns host-side control values (n_new, abort_at, the overflow flags,
     mult, the slab's live slots, K4's rounds) and the device-side survivors
@@ -329,8 +346,10 @@ def expand_level_grouped(eng, frontier: Frontier, n_f: int, groups_cap: int) -> 
     overflowed the slab or K4's rounds gave its claims back."""
     rows = eng.G * eng.chunk
     n_groups = -(-max(n_f, 1) // rows)
-    key = ("group", groups_cap, eng.G, eng.cap_g, eng.chunk)
-    prog = eng._program(key, lambda sig: GroupProgram(eng, key + sig, groups_cap))
+    key = group_key(eng, n_f)
+    if groups_cap is not None:
+        key = (key[0], groups_cap) + key[2:]
+    prog = eng._program(key, group_make(key[1]))
     prog.begin(n_f)
     for g in range(n_groups):
         n = min(rows, n_f - g * rows)
@@ -401,7 +420,11 @@ class HostGroupProgram(mk.GraphProgram):
         self.xs = mk.ExpandScratch(eng, chunk) if eng.canon == "expand" else None
         self.out = tuple(torch.full((n,), pad, dtype=I64, device=dev) for pad in (SENT, SENT, -1))
         self.ctl = torch.zeros((HG_MULT + K,), dtype=I64, device=dev)
-        self.host_ctl = torch.zeros((HG_MULT + K,), dtype=I64, pin_memory=dev.type == "cuda")
+        # the control words' host side, one a group in flight: a group's
+        # copy may still be queued when the next group writes its own
+        self.host_ctl = [torch.zeros((HG_MULT + K,), dtype=I64, pin_memory=dev.type == "cuda")
+                         for _ in range(eng.pipeline_window + 2 if eng.pipeline else 1)]
+        self._ctl_slot = 0
         if dev.type == "cuda":
             self.tile_chunk = torch.zeros((kernels.compact_tiles(chunk * K),), dtype=I64,
                                           device=dev)
@@ -432,11 +455,15 @@ class HostGroupProgram(mk.GraphProgram):
         op_group_unique(self.cv, self.cf, self.cp, self.out, ctl[HG_N_U], self.scratch)
 
     def run(self, seg: Frontier, off: int, n_run: int) -> None:
-        """Seat rows ``off .. off + n_run`` of the segment ``seg`` and launch
-        (the previous group's read has completed the last control copy)."""
+        """Seat rows ``off .. off + n_run`` of the segment ``seg`` and launch.
+        The control words go through the next of the program's host buffers:
+        the buffer comes round again only after the window has completed
+        the group that last used it (and with it its copy)."""
         mk.copy_rows(self.seat, mk.rows_of(seg, off, off + n_run), n_run)
-        self.host_ctl.zero_()
-        self.host_ctl[HG_N_RUN] = n_run
-        self.host_ctl[HG_ABORT] = mk.BIG
-        self.ctl.copy_(self.host_ctl, non_blocking=True)
+        host = self.host_ctl[self._ctl_slot]
+        self._ctl_slot = (self._ctl_slot + 1) % len(self.host_ctl)
+        host.zero_()
+        host[HG_N_RUN] = n_run
+        host[HG_ABORT] = mk.BIG
+        self.ctl.copy_(host, non_blocking=True)
         self.launch()

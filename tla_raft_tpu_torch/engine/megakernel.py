@@ -55,13 +55,27 @@ so only they keep a chunk's mask buffer (``mask_buffer``).
 On the CPU the same sequence runs eagerly through the plain twins (each
 ``op_*`` below sends CPU tensors to its twin and CUDA tensors to the
 kernel), which is what the tests hold against the reference.
+
+Captures may run on two threads: the main thread's in-line capture at a
+program's first launch, and the forecast prewarm's thread (engine/bfs.py
+``_prewarm_plan``), which builds and captures programs before their level
+arrives.  Every capture runs under one lock (captures never overlap), on
+a stream of the capturing thread's own, with
+``capture_error_mode="thread_local"`` (the main thread's launches, reads
+and allocations go on while another thread captures), with the cyclic
+collector held off by a counted switch (``gc_paused``), and with its
+launches counted into the capturing thread's ``kernels.Tally``.
+``ProgramCache`` is shared by both threads under its own lock.
 """
 
 from __future__ import annotations
 
 import gc
 import os
+import threading
 import time
+from contextlib import contextmanager
+from types import SimpleNamespace
 
 import torch
 
@@ -550,11 +564,82 @@ def level_core(eng, B: LaneBuffers, fr_in: Frontier, fr_out: Frontier, cap_out: 
 # -- captured programs --------------------------------------------------------------
 
 
+# one capture at a time, on any thread; the main thread goes first: a
+# prewarm capture gives way (``kernels.CaptureYield``) when the main thread
+# waits for the lock, and starts none while it does
+_CAPTURE_LOCK = threading.Lock()
+_MAIN_WAITING = threading.Event()
+_GC_LOCK = threading.Lock()
+_GC = dict(holds=0, was_enabled=False)
+_STATS_LOCK = threading.Lock()  # the engine's graph_stats, written by both threads
+_STREAMS = threading.local()  # each capturing thread's own capture stream
+# the fields of a program's signature (``TorchChecker._program``), by the
+# name a recapture's cause gives them
+SIG_FIELDS = ("canon", "use_mxu", "cap_x", "cap_m", "rounds", "slab", "slab", "sieve", "sieve")
+
+
+@contextmanager
+def gc_paused():
+    """Hold the cyclic collector off (a collected graph or pinned buffer
+    would break a capture); counted, so nested or overlapping holders
+    re-enable it only when the last one ends, and only if it was on."""
+    with _GC_LOCK:
+        if _GC["holds"] == 0:
+            _GC["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _GC["holds"] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC["holds"] -= 1
+            if _GC["holds"] == 0 and _GC["was_enabled"]:
+                gc.enable()
+
+
+def _capture_stream():
+    s = getattr(_STREAMS, "stream", None)
+    if s is None:
+        s = _STREAMS.stream = torch.cuda.Stream()
+    return s
+
+
+_RELEASE: list = []  # dropped programs waiting for no capture to be in flight
+
+
+def release_programs(progs) -> None:
+    """Free dropped programs' graphs and buffers, at once unless a capture
+    is in flight on another thread (then at that capture's end): no graph
+    is destroyed while one is being recorded."""
+    _RELEASE.extend(progs)
+    if _CAPTURE_LOCK.acquire(blocking=False):
+        try:
+            _flush_release()
+        finally:
+            _CAPTURE_LOCK.release()
+
+
+def _flush_release() -> None:
+    while _RELEASE:
+        _RELEASE.pop().release()
+
+
+def recapture_cause(old: tuple, new: tuple) -> str:
+    """Why a program captured before under ``old`` is captured again under
+    ``new``: the first signature field that differs, or "evicted"."""
+    for name, a, b in zip(SIG_FIELDS, old, new):
+        if a != b:
+            return name
+    return "evicted"
+
+
 class GraphProgram:
     """A fused program over static buffers: ``record`` issues its kernels;
-    on the card the first ``launch`` captures them into a CUDA graph and
-    every launch replays it (a failed capture raises: there is no eager
-    fallback); on the CPU every launch runs ``record`` through the twins."""
+    on the card ``capture`` records them into a CUDA graph (at the first
+    ``launch`` on the main thread, or ahead of it on the prewarm thread)
+    and every launch replays it (a failed capture raises: there is no
+    eager fallback); on the CPU every launch runs ``record`` through the
+    twins."""
 
     kind = "program"
 
@@ -564,46 +649,122 @@ class GraphProgram:
         self.graph = None
         self.tally = None
         self.stats = eng.graph_stats
+        self.cache = getattr(eng, "_progs", None)
 
     def record(self) -> None:  # pragma: no cover - overridden
         raise NotImplementedError
+
+    def capture(self, thread: str = "main") -> bool:
+        """Record the program into its CUDA graph (``thread``: "main" or
+        "prewarm", for the logs).  On the CPU nothing is recorded.  The
+        main thread's capture goes first: a "prewarm" capture waits while
+        the main thread wants the lock and gives way when it comes to want
+        it (the graph is dropped, ``prewarm_yields`` counts it); returns
+        whether the program has its graph."""
+        if self.device.type != "cuda" or self.graph is not None:
+            return True
+        t_lock = time.perf_counter()
+        if thread == "main":
+            if not _CAPTURE_LOCK.acquire(blocking=False):
+                _MAIN_WAITING.set()
+                _CAPTURE_LOCK.acquire()
+                _MAIN_WAITING.clear()
+        else:
+            while True:
+                while _MAIN_WAITING.is_set():
+                    time.sleep(0.001)
+                _CAPTURE_LOCK.acquire()
+                if not _MAIN_WAITING.is_set():
+                    break
+                _CAPTURE_LOCK.release()
+        try:
+            t0 = time.perf_counter()
+            g = torch.cuda.CUDAGraph()
+            stream = _capture_stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            tally = kernels.Tally(yield_if=None if thread == "main" else _MAIN_WAITING.is_set)
+            try:
+                with gc_paused(), torch.cuda.stream(stream):
+                    g.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self.record()
+                    finally:
+                        g.capture_end()
+            except kernels.CaptureYield:
+                with _STATS_LOCK:
+                    self.stats["prewarm_yields"] = self.stats.get("prewarm_yields", 0) + 1
+                    self.stats["prewarm_yield_seconds"] = (
+                        self.stats.get("prewarm_yield_seconds", 0.0) + time.perf_counter() - t0)
+                g = None
+            finally:
+                tally.take()
+            torch.cuda.current_stream().wait_stream(stream)
+            secs = time.perf_counter() - t0
+            _flush_release()
+        finally:
+            _CAPTURE_LOCK.release()
+        if g is None:
+            return False
+        self.graph, self.tally = g, tally
+        cause = self.cache.note_capture(self) if self.cache is not None else None
+        with _STATS_LOCK:
+            self.stats["captures"] += 1
+            self.stats["capture_seconds"] += secs
+            self.stats[f"{thread}_captures"] = self.stats.get(f"{thread}_captures", 0) + 1
+            self.stats[f"{thread}_capture_seconds"] = (
+                self.stats.get(f"{thread}_capture_seconds", 0.0) + secs)
+            # waiting for the other thread's capture to end
+            self.stats[f"{thread}_lock_seconds"] = (
+                self.stats.get(f"{thread}_lock_seconds", 0.0) + t0 - t_lock)
+            if cause is not None:
+                rc = self.stats.setdefault("recaptures", {})
+                rc[cause] = rc.get(cause, 0) + 1
+            self.stats["capture_log"].append(
+                [self.kind, getattr(self, "cap_f", None), round(secs, 4),
+                 sum(tally.per_replay.values()), thread, cause])
+        return True
 
     def launch(self) -> None:
         if self.device.type != "cuda":
             self.record()
             return
         if self.graph is None:
-            t0 = time.perf_counter()
-            tally = kernels.Tally()
-            g = torch.cuda.CUDAGraph()
-            # no collection while the stream captures (a collected graph or
-            # pinned buffer would invalidate the capture); evicted programs
-            # free theirs at once (``release``)
-            gc.disable()
-            try:
-                with torch.cuda.graph(g):
-                    self.record()
-            finally:
-                gc.enable()
-            tally.take()
-            self.graph, self.tally = g, tally
-            secs = time.perf_counter() - t0
-            self.stats["captures"] += 1
-            self.stats["capture_seconds"] += secs
-            self.stats["capture_log"].append(
-                [self.kind, getattr(self, "cap_f", None), round(secs, 4),
-                 sum(tally.per_replay.values())])
+            self.capture("main")
         self.graph.replay()
         self.tally.replay()
         self.stats[f"{self.kind}_launches"] += 1
 
     def nbytes(self) -> int:
         """Device bytes of the program's own buffers (not the slab)."""
-        return sum(_device_bytes(v) for k, v in vars(self).items() if k != "slab")
+        return sum(_device_bytes(v) for k, v in vars(self).items()
+                   if k not in ("slab", "eng", "cache", "stats"))
 
     def release(self) -> None:
         """Free the graph and every buffer now (evicted from the cache)."""
         self.__dict__.clear()
+
+
+class EngineView:
+    """The engine as one program build sees it: the budgets a program
+    takes at build time (cap_x, cap_m, cap_g, K4's rounds, the slab, the
+    sieve words) frozen at the plan's signature, everything else read
+    through from the engine.  The prewarm thread builds against a view, so
+    the main thread may grow a budget meanwhile: the program is then
+    stale and dropped, never built from half of each."""
+
+    def __init__(self, eng, **frozen):
+        self._eng = eng
+        slab = frozen.pop("slab")
+        sieve = frozen.pop("sieve")
+        self.__dict__.update(frozen)
+        self.hstore = SimpleNamespace(slab=slab)
+        self._sieve = sieve
+
+    def _sieve_operand(self):
+        return self._sieve
+
+    def __getattr__(self, name):
+        return getattr(self._eng, name)
 
 
 class LevelProgram(GraphProgram):
@@ -649,27 +810,178 @@ class LevelProgram(GraphProgram):
 
 class ProgramCache:
     """Captured programs keyed on their static shapes, at most
-    ``_PROG_CACHE_MAX`` (least recently used first out).  A key ends with
-    the budgets' signature (cap_x, cap_m, rounds, slab address and
-    capacity); ``drop_stale`` forgets every program of another signature,
-    so a grown slab or budget frees the programs captured before it."""
+    ``_PROG_CACHE_MAX`` (least recently used first out), shared by the
+    main thread and the prewarm thread under one lock.  A key ends with
+    the budgets' signature (``sig``: cap_x, cap_m, rounds, slab address and
+    capacity, sieve words); ``drop_stale`` forgets every program of another
+    signature, so a grown slab or budget frees the programs captured
+    before it.
 
-    def __init__(self):
+    The prewarm side: ``prewarm(key, build)`` builds and captures a key
+    unless it is cached or stale, then files it as fresh (a prewarmed
+    program the LRU does not evict before its first use, unless it is
+    stale).  ``get`` on the main thread waits for a key the prewarm thread
+    is capturing (counted in ``stats``); a key only queued is built and
+    captured in line, and the prewarm thread then skips it."""
+
+    def __init__(self, budget_bytes: int | None = None):
         self.progs: dict = {}
+        self.lock = threading.Lock()
+        self.sig: tuple | None = None
+        self.capturing: dict = {}   # key -> Event, set when its prewarm capture ends
+        self.building: set = set()  # keys the main thread is building in line
+        self.fresh: set = set()     # prewarmed keys not used yet
+        self.fresh_bytes = 0
+        self.budget_bytes = budget_bytes  # the fresh programs' bytes (None: no bound)
+        self.captured: dict = {}    # key without its signature -> the signature last captured
+        self.misses: list = []      # (key without signature, "planned" | "unplanned")
+        self.stats = dict(prewarm_hits=0, prewarm_misses=0, prewarm_waits=0,
+                          prewarm_wait_seconds=0.0, prewarm_wasted=0, prewarm_skipped=0,
+                          prewarm_over_budget=0)
 
-    def get(self, key, build):
-        prog = self.progs.pop(key, None)
-        if prog is None:
+    def _split(self, key: tuple) -> tuple:
+        n = len(self.sig) if self.sig is not None else 0
+        return (key[:-n], key[-n:]) if n else (key, ())
+
+    def note_capture(self, prog) -> str | None:
+        """Record a capture of ``prog``; the cause when its key was
+        captured before under another signature (or evicted), else None."""
+        base, sig = self._split(prog.key)
+        with self.lock:
+            old = self.captured.get(base)
+            self.captured[base] = sig
+        return None if old is None else recapture_cause(old, sig)
+
+    def get(self, key, build, planned: set | None = None):
+        """The program of ``key`` (main thread): cached, or the prewarm
+        thread's capture in flight waited for, or built here (captured at
+        its first launch).  ``planned``: the keys (without signatures) the
+        prewarm plans named so far, or None before the first plan; a key
+        built here after it is logged in ``misses`` as "planned" (the
+        prewarm had not reached it, or dropped it) or "unplanned"."""
+        base = self._split(key)[0]
+        while True:
+            with self.lock:
+                ev = self.capturing.get(key)
+                if ev is None:
+                    prog = self.progs.pop(key, None)
+                    if prog is not None:
+                        self.progs[key] = prog  # the most recently used
+                    if prog is not None and key in self.fresh:
+                        self.fresh.discard(key)
+                        self.fresh_bytes -= prog.nbytes()
+                        self.stats["prewarm_hits"] += 1
+                    elif prog is None:
+                        if planned is not None:
+                            self.stats["prewarm_misses"] += 1
+                            self.misses.append(
+                                (base, "planned" if base in planned else "unplanned"))
+                        self.building.add(key)  # the prewarm thread leaves it alone now
+                    break
+            t0 = time.perf_counter()
+            ev.wait()
+            with self.lock:
+                self.stats["prewarm_waits"] += 1
+                self.stats["prewarm_wait_seconds"] += time.perf_counter() - t0
+        if prog is not None:
+            return prog
+        try:
             prog = build()
-        self.progs[key] = prog
-        while len(self.progs) > _PROG_CACHE_MAX:
-            self.progs.pop(next(iter(self.progs))).release()
+        finally:
+            with self.lock:
+                self.building.discard(key)
+        with self.lock:
+            self.progs[key] = prog
+            dropped = self._evict()
+        release_programs(dropped)
         return prog
 
+    def prewarm(self, key, build) -> bool | str:
+        """Build and capture ``key`` on the calling (prewarm) thread unless
+        it is cached, in flight, or of a stale signature; file it fresh.
+        True if it was captured and filed, "yielded" if its capture gave way
+        to the main thread's (nothing is filed; a later plan queues it
+        again), else False."""
+        with self.lock:
+            if (key in self.progs or key in self.capturing or key in self.building
+                    or not self._current(key)):
+                self.stats["prewarm_skipped"] += 1
+                return False
+            if (self.budget_bytes is not None and self.fresh
+                    and self.fresh_bytes >= self.budget_bytes):
+                self.stats["prewarm_over_budget"] += 1
+                return False
+            ev = self.capturing[key] = threading.Event()
+        prog, ok = None, False
+        try:
+            prog = build()
+            ok = prog.capture("prewarm")
+        finally:
+            with self.lock:
+                self.capturing.pop(key, None)
+                keep = ok and self._current(key) and key not in self.progs
+                dropped = []
+                if keep:
+                    self.progs[key] = prog
+                    self.fresh.add(key)
+                    self.fresh_bytes += prog.nbytes()
+                    dropped = self._evict()
+                elif prog is not None:
+                    self.stats["prewarm_wasted"] += int(ok)  # stale when it was done
+                    dropped = [prog]
+            ev.set()
+            release_programs(dropped)
+        return keep if ok else "yielded"
+
+    def retain_fresh(self, keys) -> None:
+        """Drop the fresh (prewarmed, unused) programs whose key is not in
+        ``keys``: the newest plan no longer expects them, and their bytes
+        would hold the budget against the programs it does expect."""
+        keys = set(keys)
+        with self.lock:
+            out = []
+            for k in [k for k in self.fresh if k not in keys]:
+                self.fresh.discard(k)
+                prog = self.progs.pop(k)
+                self.fresh_bytes -= prog.nbytes()
+                self.stats["prewarm_wasted"] += 1
+                out.append(prog)
+        release_programs(out)
+
+    def _current(self, key) -> bool:
+        return self.sig is None or key[-len(self.sig):] == self.sig
+
+    def _evict(self) -> list:
+        """Past the cap, the least recently used programs that are not
+        fresh (under the lock; the caller releases them)."""
+        out = []
+        for k in list(self.progs):
+            if len(self.progs) <= _PROG_CACHE_MAX:
+                break
+            if k not in self.fresh:
+                out.append(self.progs.pop(k))
+        return out
+
     def drop_stale(self, sig: tuple) -> None:
-        for k in [k for k in self.progs if k[-len(sig):] != sig]:
-            self.progs.pop(k).release()
+        """Forget every program of another signature (main thread); a
+        program the prewarm thread is capturing is not in the cache yet,
+        and is dropped by ``prewarm`` itself when it finds it stale."""
+        with self.lock:
+            self.sig = sig
+            out = []
+            for k in [k for k in self.progs if k[-len(sig):] != sig]:
+                if k in self.fresh:
+                    self.fresh.discard(k)
+                    self.fresh_bytes -= self.progs[k].nbytes()
+                    self.stats["prewarm_wasted"] += 1
+                out.append(self.progs.pop(k))
+        release_programs(out)
 
     def clear(self) -> None:
-        while self.progs:
-            self.progs.popitem()[1].release()
+        with self.lock:
+            out = list(self.progs.values())
+            self.progs.clear()
+            self.stats["prewarm_wasted"] += len(self.fresh)
+            self.fresh.clear()
+            self.fresh_bytes = 0
+        release_programs(out)

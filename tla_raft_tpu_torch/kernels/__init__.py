@@ -22,7 +22,9 @@ CUDA tensor) with ``sub`` bounds the live rows or lanes at
 ``min(n, max(0, cnt - sub) * mul)`` on the device (common.cuh
 ``live_count``), and the grid stays at the static capacity.  A capture
 adds its launches to the counts once per replay, not at capture time
-(``Tally``).
+(``Tally``): while a thread captures, the launches its wrappers count go
+to that thread's own tally, so a capture on one thread (the prewarm's)
+never touches the counts the main thread's launches add to.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -49,19 +52,53 @@ VP = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 
+# a capturing thread's tallies: a stack of {(kernel, "launches" | "calls"): n}
+_TL = threading.local()
+_LIB_LOCK = threading.Lock()  # the build and the first load of a library
+
+
+def _tally() -> dict | None:
+    stack = getattr(_TL, "stack", None)
+    return stack[-1] if stack else None
+
+
+class CaptureYield(Exception):
+    """Raised inside a yielding capture (``Tally(yield_if=...)``) at its
+    next counted launch once ``yield_if()`` is true: the capture gives way."""
+
 
 class Kernel:
     """One kernel library: its source, what it replaces, its C entry
-    points (name -> argtypes) and its launch count on the main path."""
+    points (name -> argtypes) and its launch count on the main path.
+    ``launches`` and ``calls`` read and write the process-wide counts,
+    except on a thread inside a ``Tally`` (a capture), where they are that
+    tally's."""
 
     def __init__(self, name: str, source: str, replaces: str, entries: dict):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.entries = entries
-        self.launches = 0
-        self.calls = 0  # the wrapper's calls, where it counts them (K4)
+        self._counts = dict(launches=0, calls=0)  # calls: the wrapper's, where counted (K4)
         self._lib = None
+
+    def _get(self, what: str) -> int:
+        t = _tally()
+        return self._counts[what] if t is None else t.get((self.name, what), 0)
+
+    def _set(self, what: str, v: int) -> None:
+        t = _tally()
+        if t is None:
+            self._counts[what] = v
+            return
+        t[(self.name, what)] = v
+        stop = t.get("yield_if")
+        if stop is not None and stop():
+            raise CaptureYield(f"a capture gave way after {self.name}")
+
+    launches = property(lambda self: self._get("launches"),
+                        lambda self, v: self._set("launches", v))
+    calls = property(lambda self: self._get("calls"), lambda self, v: self._set("calls", v))
 
     @property
     def stem(self) -> str:
@@ -69,21 +106,30 @@ class Kernel:
 
     def lib(self):
         if self._lib is None:
-            path = build_all()[self.stem]
-            lib = ctypes.CDLL(str(path))
-            for fn, args in self.entries.items():
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = I32
-            lib.error_string.argtypes = [I32]
-            lib.error_string.restype = ctypes.c_char_p
-            lib.lib_warm.restype = I32
-            self._lib = lib
-            self.check(lib.lib_warm())
+            with _LIB_LOCK:
+                if self._lib is None:
+                    self._load()
         return self._lib
+
+    def _load(self) -> None:
+        path = build_all()[self.stem]
+        lib = ctypes.CDLL(str(path))
+        for fn, args in self.entries.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = I32
+        lib.error_string.argtypes = [I32]
+        lib.error_string.restype = ctypes.c_char_p
+        lib.lib_warm.restype = I32
+        self.check_rc(lib, lib.lib_warm())
+        self._lib = lib
 
     def check(self, rc: int) -> None:
         if rc != 0:
-            msg = self.lib().error_string(rc).decode()
+            self.check_rc(self.lib(), rc)
+
+    def check_rc(self, lib, rc: int) -> None:
+        if rc != 0:
+            msg = lib.error_string(rc).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: {msg} ({rc})")
 
 
@@ -376,25 +422,28 @@ def launch_counts() -> dict:
 
 
 class Tally:
-    """The launches (and calls) of one captured CUDA graph.  ``take``
-    (after the capture) moves the launches and calls the wrappers counted
-    while capturing out of the counts — a capture launches nothing — and
-    ``replay`` adds them back once per replay, when the graph launches
-    them."""
+    """The launches (and calls) of one captured CUDA graph.  From its
+    construction to ``take`` (after the capture) the wrappers this thread
+    calls count into the tally, not into the counts -- a capture launches
+    nothing -- and ``replay`` adds them to the counts once per replay, when
+    the graph launches them.  Tallies nest on a thread.  ``yield_if`` (a
+    callable): a counted launch after which it is true raises
+    ``CaptureYield``, so a capture that may wait (the prewarm's) gives way."""
 
-    def __init__(self):
-        self.before = launch_counts()
-        self.calls_before = {k.name: k.calls for k in KERNELS.values()}
+    def __init__(self, yield_if=None):
+        if not hasattr(_TL, "stack"):
+            _TL.stack = []
+        self._mine: dict = {} if yield_if is None else {"yield_if": yield_if}
+        _TL.stack.append(self._mine)
         self.per_replay: dict = {}
         self.calls_per_replay: dict = {}
 
     def take(self) -> None:
-        after = launch_counts()
-        self.per_replay = {k: after[k] - self.before[k] for k in after}
-        self.calls_per_replay = {k: KERNELS[k].calls - v for k, v in self.calls_before.items()}
-        for k, v in self.before.items():
-            KERNELS[k].launches = v
-            KERNELS[k].calls = self.calls_before[k]
+        stack = _TL.stack
+        if self._mine in stack:
+            stack.remove(self._mine)
+        self.per_replay = {k: self._mine.get((k, "launches"), 0) for k in KERNELS}
+        self.calls_per_replay = {k: self._mine.get((k, "calls"), 0) for k in KERNELS}
 
     def replay(self) -> None:
         for k, v in self.per_replay.items():
@@ -842,6 +891,7 @@ NO_BUDGET = 1 << 62  # the host-driven calls' rounds: until none claims
 PAY_BITS = 44        # a payload's field in the representative's word
 
 _SCRATCH: dict = {}  # (device, cap) -> the representative's words and epoch
+_SCRATCH_LOCK = threading.Lock()  # the prewarm thread builds programs too
 K4_ROUNDS: list = []  # the claim rounds of every host-driven K4 call
 INSERT_CTL = None     # the control words of the last insert_only call (device)
 
@@ -871,11 +921,12 @@ def rep_scratch(dev, cap: int):
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = (str(dev), cap)
-    if key not in _SCRATCH:
-        _SCRATCH.clear()  # the slab grew: the old size is not used again
-        _SCRATCH[key] = (torch.zeros((2 * cap,), dtype=torch.int64, device=dev),
-                         torch.zeros((1,), dtype=torch.int64, device=dev))
-    return _SCRATCH[key]
+    with _SCRATCH_LOCK:
+        if key not in _SCRATCH:
+            _SCRATCH.clear()  # the slab grew: the old size is not used again
+            _SCRATCH[key] = (torch.zeros((2 * cap,), dtype=torch.int64, device=dev),
+                             torch.zeros((1,), dtype=torch.int64, device=dev))
+        return _SCRATCH[key]
 
 
 def drop_rep_scratch() -> None:

@@ -31,7 +31,9 @@ Three modes, as in the reference:
   the visited filter on the host: one ``native.HostFPStore`` per owner
   under ``shard_OO/``; the host lexsorts each owner's received lanes,
   inserts the representatives, and the verdicts go back to the shards.
-  The fetches are serial (the reference's async window is ROADMAP A.4).
+  The owners' reads go through one ``AsyncFetchWindow`` of D groups (all
+  started, then completed in owner order; the reference's
+  ``DeferredFetch``, :933).
 
 Payloads are global: ``(dev * cap_f + row) * K + slot``, ``cap_f`` the
 frontier block of the level (the ``cap_x`` the previous level ran with,
@@ -91,6 +93,7 @@ from .. import resilience
 from ..config import RaftConfig
 from ..device import fetch
 from ..engine import forecast
+from ..engine import pipeline as gpipe
 from ..engine.bfs import (BIG, CheckResult, TorchChecker, compact_payloads,
                           compact_payloads_plain, group_unique, member_plain, merge_sorted)
 from ..models.raft import Frontier, init_batch
@@ -275,7 +278,11 @@ class ShardedChecker:
     ``seg_rows`` (rows a segment, even), ``sieve`` (the pre-routing sieve),
     ``compress`` (the delta-packed fetch), ``scap`` and ``scap_max`` (the
     sieve's capacity and its ceiling).  ``pipeline`` and
-    ``pipeline_window`` are accepted and the fetches are serial.
+    ``pipeline_window`` (None: ``TLA_RAFT_PIPELINE`` and
+    ``TLA_RAFT_PIPELINE_WINDOW``): the host-store mesh's filter reads go
+    through an async window, the deep sweep's prefix and trace reads
+    through ``DeferredFetch``; off (or a window below 1), every read is
+    serial.  The counts are the same either way.
     ``chunk`` (the port's): parents per guard launch.
     """
 
@@ -314,6 +321,12 @@ class ShardedChecker:
             raise ValueError("the per-level watchdog (device loss and hangs) is not ported "
                              "yet (ROADMAP A.1)")
         self.cfg = cfg
+        if pipeline is None:
+            pipeline = gpipe.enabled_by_env()
+        if pipeline_window is None:
+            pipeline_window = gpipe.window_from_env()
+        self.pipeline_window = int(pipeline_window)
+        self.pipeline = bool(pipeline) and self.pipeline_window >= 1
         self.devices = [torch.device(d) for d in mesh]
         self.D = len(self.devices)
         self.exchange = exchange
@@ -665,10 +678,14 @@ class ShardedChecker:
         never new."""
         D, cap_r = self.D, self.cap_r
         rows = []
+        # every owner's read started, then completed in owner order
+        win = gpipe.AsyncFetchWindow(D if self.pipeline else 0)
         for o in range(D):
             live = [torch.cat([recv[k][o][s, :cnt[s, o]] for s in range(D)]) for k in range(3)]
-            rv, rf, rp = fetch(*live, what="mesh_host_filter")
-            rows.append((rv.view(np.uint64).copy(), rf.view(np.uint64).copy(), rp.copy()))
+            win.submit(live, lambda h: rows.append((h[0].view(np.uint64).copy(),
+                                                    h[1].view(np.uint64).copy(), h[2].copy())),
+                       what="mesh_host_filter")
+        win.drain()
         n_routed = int(cnt.sum())
         off_diag = (D - 1) / D
         self.meter.begin_level(len(self.meter.levels) + 1)
@@ -904,11 +921,14 @@ class ShardedChecker:
             """One idempotent unit: a transient failure retries it."""
             faults.fire("exchange.fetch")
             if packed_ok:
-                got = fetch(*[f[3][:int(totals[o])] for o, f in enumerate(fin)],
-                            *[f[4][:(int(n_us[o]) + 1) // 2] for o, f in enumerate(fin)],
-                            what="deep_prefix")
+                got = gpipe.DeferredFetch(
+                    self.pipeline, [f[3][:int(totals[o])] for o, f in enumerate(fin)]
+                    + [f[4][:(int(n_us[o]) + 1) // 2] for o, f in enumerate(fin)],
+                    what="deep_prefix").get()
                 return [g.copy() for g in got], D * (qb + qn)
-            got = fetch(*[f[0][:int(n_us[o])] for o, f in enumerate(fin)], what="deep_prefix")
+            got = gpipe.DeferredFetch(
+                self.pipeline, [f[0][:int(n_us[o])] for o, f in enumerate(fin)],
+                what="deep_prefix").get()
             return [g.copy() for g in got], D * qf * 8
 
         got, fetch_bytes = resilience.with_retry(fetch_prefixes, "deep exchange prefix fetch")
@@ -1054,8 +1074,9 @@ class ShardedChecker:
             starts.append(np.cumsum([0] + [int(wcounts[r, :, o].sum()) for r in range(R)]))
             bads.append(self._kit(o).inv_scan(fr).reshape(1).to(self.devices[0]) if srcs else
                         torch.full((1,), -1, dtype=I64, device=self.devices[0]))
-        got = fetch(torch.cat(bads), *[g.to(self.devices[0]) for g in gps],
-                    *[x.to(self.devices[0]) for x in sls], what="deep_trace")
+        got = gpipe.DeferredFetch(self.pipeline, [torch.cat(bads)]
+                                  + [g.to(self.devices[0]) for g in gps]
+                                  + [x.to(self.devices[0]) for x in sls], what="deep_trace").get()
         bad = got[0].copy()
         trace = ([g.copy() for g in got[1:1 + D]], [x.copy() for x in got[1 + D:]])
         inv = None

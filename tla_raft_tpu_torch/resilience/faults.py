@@ -26,8 +26,9 @@ fires after the tmp file is written but before digest and rename,
 other sites are ``level.start`` (the top of each BFS level),
 ``bucket.level`` (the top of each batched-bucket level), ``lease.renew``
 (a lease heartbeat), ``tensor.flip``, ``hashstore.grow`` (the Nth slab
-grow: ``fail`` turns the run onto the sorted visited store) and
-``exchange.fetch`` (the deep sweep's prefix fetch: ``fail`` is retried).
+grow: ``fail`` turns the run onto the sorted visited store),
+``exchange.fetch`` (the deep sweep's prefix fetch: ``fail`` is retried)
+and ``pipeline.window`` (each read group an async window takes in).
 The reference's tier, pool and device sites come with those parts of the
 port.  A spec that names a site the port does not
 poll, or an action its site cannot perform (``torn``/``flip`` need an
@@ -82,6 +83,8 @@ FAULT_SITES = {
                        "sweep's sieve the capacity stays)", ("fail",)),
     "exchange.fetch": ("deep-mode quantized-prefix host fetch (action `fail`: "
                        "the fetch retries with backoff)", _RUNTIME),
+    "pipeline.window": ("async-pipeline read-group submit (the Nth group entering "
+                        "the in-flight window)", _RUNTIME),
 }
 
 
