@@ -88,8 +88,8 @@ Phases, each printed as JSON lines:
    the sorted phase; the fpstore phases: group_unique and the staged
    chain's kernels but K4, with K4, hs_probe, filter_compact, the fused
    level's, the sieve and the sorted store's three never launched; the
-   cli, checkpoint, fpstore_kill and mesh_cli phases run in processes of
-   their own; the default phase's list now holds insert_only (the slab's
+   cli, cli_record, checkpoint, fpstore_kill and mesh_cli phases run in
+   processes of their own; the default phase's list now holds insert_only (the slab's
    growth) and not route or route_back; the mesh phases: route,
    route_back, K1-K4 and group_unique (all_gather: sorted_member and
    merge_sorted, no route and no K4; the host stores: no K4), never the
@@ -138,7 +138,20 @@ Phases, each printed as JSON lines:
                 program launched after it;
     cli       — ``python -m tla_raft_tpu_torch.check --config <Raft.cfg>
                 --max-depth 20 --json`` in a subprocess, on a cfg file written
-                from the Raft.cfg constants: golden;
+                from the Raft.cfg constants: golden (every CLI phase passes
+                ``--log`` into its smoke directory);
+    cli_record — the launcher's line with the run record in a subprocess
+                (``--log D/raft.log --progress --telemetry 1
+                --checkpoint-dir D --profile 2 --workers 4`` to depth 20):
+                exit 0, raft.log equal to its stdout, the ``level_commit``
+                events golden, ``obs report D`` exit 0, ``obs trace D``'s
+                profiler lanes naming a kernel of each of guards.cu,
+                materialize.cu, fingerprint.cu and hashstore.cu;
+    telemetry_arms — the default path to depth 25 through ``run_check``
+                with the flight recorder on and off, alternating, three
+                each: golden, the same kernel launches, graph launches and
+                reads; each on run's ``telemetry_hub`` line (level seconds,
+                dispatches a level, read waits), both medians;
     checkpoint — the delta log in CLI subprocesses: the Raft.cfg constants
                 to depth 22 plain and with ``--checkpoint-dir`` (the
                 checkpoint cost and the bytes written), killed by
@@ -1454,7 +1467,8 @@ def phase_cli(depth: int) -> dict:
     cfg = root / "build" / "smoke" / "Raft.cfg"
     cfg.parent.mkdir(parents=True, exist_ok=True)
     cfg.write_text(RAFT_CFG)
-    rc, got, secs, err = _check_cli(["--config", str(cfg), "--max-depth", str(depth), "--json"])
+    rc, got, secs, err = _check_cli(["--config", str(cfg), "--max-depth", str(depth), "--json"],
+                                    log=cfg.parent / "cli_raft.log")
     out = dict(phase="cli", rc=rc, seconds=secs, run_seconds=got.get("seconds"),
                config_line=got.get("_config_line"),
                **{k: got.get(k) for k in ("distinct", "generated", "depth", "level_sizes",
@@ -1465,6 +1479,151 @@ def phase_cli(depth: int) -> dict:
           f"cli level sizes {got['level_sizes']}")
     check(out["config_line"] is not None and "S=3 V=2 MaxElection=3 MaxRestart=3"
           in out["config_line"], f"cli config line {out['config_line']}")
+    return out
+
+
+# -- slice 20: the run record (obs/, --log, --progress, --telemetry, --profile) ----------
+
+# the kernels the cli_record phase's profiler lanes must name, by source
+RECORD_SOURCES = ("guards", "materialize", "fingerprint", "hashstore")
+
+
+def _global_kernels(source: str) -> list:
+    """The ``__global__`` function names of ``csrc/<source>.cu``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parent / "tla_raft_tpu_torch" / "csrc"
+           / f"{source}.cu").read_text()
+    return sorted(set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", src)))
+
+
+def phase_cli_record(depth: int) -> dict:
+    """The launcher's line with the run record, in a subprocess:
+    ``python -m tla_raft_tpu_torch.check --config Raft.cfg --max-depth depth
+    --log D/raft.log --progress --telemetry 1 --checkpoint-dir D --profile 2
+    --workers 4 --json``: exit 0, ``raft.log`` equal to its stdout, the
+    ``level_commit`` events golden, ``obs report D`` exit 0, and ``obs trace
+    D``'s profiler lanes naming a kernel of each of RECORD_SOURCES."""
+    import re
+    from pathlib import Path
+
+    from tla_raft_tpu_torch.obs import telemetry as tel
+    from tla_raft_tpu_torch.obs import tracefile
+
+    root = Path(__file__).resolve().parent
+    d = _smoke_dir("cli_record")
+    d.mkdir()
+    cfg = d / "Raft.cfg"
+    cfg.write_text(RAFT_CFG)
+    args = ["--config", str(cfg), "--max-depth", str(depth), "--log", str(d / "raft.log"),
+            "--progress", "--telemetry", "1", "--checkpoint-dir", str(d), "--profile", "2",
+            "--workers", "4", "--json"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args],
+                          capture_output=True, text=True, cwd=root, timeout=600)
+    secs = time.perf_counter() - t0
+    log = (d / "raft.log").read_text() if (d / "raft.log").exists() else None
+    events, dropped = tel.read_events(str(d / tel.EVENTS_NAME))
+    n_new = [e["n_new"] for e in events if e["ev"] == "level_commit"]
+    obs = {}
+    for cmd in ("report", "trace"):
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.obs", cmd, str(d)],
+                           capture_output=True, text=True, cwd=root, timeout=300)
+        obs[cmd] = dict(rc=r.returncode, seconds=time.perf_counter() - t1,
+                        tail=(r.stdout + r.stderr).strip()[-300:])
+    names, cats = set(), {}
+    if (d / "trace.json").exists():
+        for e in json.loads((d / "trace.json").read_text())["traceEvents"]:
+            if e.get("pid", 0) < tracefile.DEVICE_PID_BASE or e.get("ph") == "M":
+                continue
+            cat = (e.get("args") or {}).get("cat")
+            cats[cat] = cats.get(cat, 0) + 1
+            if cat == "kernel":
+                names.add(e["name"])
+    named = {src: [k for k in _global_kernels(src)
+                   if any(re.search(rf"\b{k}\b", n) for n in names)] for src in RECORD_SOURCES}
+    got = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.stdout.strip() else {}
+    kinds = {}
+    for e in events:
+        kinds[e["ev"]] = kinds.get(e["ev"], 0) + 1
+    out = dict(phase="cli_record", rc=proc.returncode, seconds=secs,
+               run_seconds=got.get("seconds"), log_equals_stdout=log == proc.stdout,
+               events=len(events), dropped=dropped, event_kinds=kinds,
+               events_bytes=(d / tel.EVENTS_NAME).stat().st_size if events else 0,
+               profile_bytes=sum(f.stat().st_size for f in (d / "profile").glob("*")),
+               obs=obs, lane_events=cats, kernels_named=named,
+               telemetry={k: (got.get("telemetry") or {}).get(k) for k in (
+                   "levels", "dispatches", "fetches", "fetch_wait_s", "compiles",
+                   "prewarm_compiles", "compile_s", "checkpoints", "profile_windows")})
+    emit(out)
+    check(proc.returncode == 0, f"the CLI exited {proc.returncode}: {proc.stderr[-1500:]}")
+    check(out["log_equals_stdout"], "raft.log differs from the run's stdout")
+    check(n_new == GOLDEN_LEVELS_REF[1: depth + 1] and dropped == 0,
+          f"level_commit n_new {n_new} (dropped {dropped})")
+    check(obs["report"]["rc"] == 0, f"obs report: {obs['report']}")
+    check(obs["trace"]["rc"] == 0, f"obs trace: {obs['trace']}")
+    check(all(named.values()), f"the profiler lanes name no kernel of {named}")
+    return out
+
+
+def phase_telemetry_arms(depth: int, chunk: int) -> dict:
+    """The default path to ``depth`` through ``run_check`` with the flight
+    recorder on (an in-memory hub) and off, alternating, three each: every
+    run golden with the same kernel launches, graph launches and counted
+    reads; each on run's hub prints its ``level_seconds``,
+    ``dispatches_per_level`` and ``fetch_wait_s``, then a line with both
+    medians."""
+    import torch
+
+    from tla_raft_tpu_torch import device as D
+    from tla_raft_tpu_torch import kernels
+    from tla_raft_tpu_torch.check import run_check
+    from tla_raft_tpu_torch.config import RaftConfig
+
+    runs = []
+    for on in (True, False) * 3:
+        # each run from an empty allocator cache (the last run's checker is
+        # cyclic garbage until collected), so the arms start alike
+        _release_cache()
+        kernels.reset_launches()
+        D.READS.clear()
+        t0 = time.perf_counter()
+        s = run_check(RaftConfig(), max_depth=depth, chunk=chunk, device="cuda", telemetry=on)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g = s["_chk"].graph_stats
+        run = dict(telemetry=on, wall=wall, level_sizes=s["level_sizes"],
+                   launches=kernels.launch_counts(), reads=dict(D.READS),
+                   graph_launches={k: v for k, v in g.items() if k.endswith("_launches")})
+        tel = s.get("telemetry")
+        if on:
+            check(tel is not None, "no telemetry block with telemetry on")
+            emit(dict(phase="telemetry_hub", run=len(runs), wall=wall, events=tel["events"],
+                      level_seconds=tel["level_seconds"],
+                      dispatches_per_level=tel["dispatches_per_level"],
+                      fetch_wait_s=tel["fetch_wait_s"], fetch_bytes=tel["fetch_bytes"],
+                      compiles=tel["compiles"], prewarm_compiles=tel["prewarm_compiles"],
+                      compile_s=tel["compile_s"], grows=tel["grows"], redos=tel["redos"],
+                      hbm=tel.get("hbm")))
+        else:
+            check(tel is None, "a telemetry block with telemetry off")
+        runs.append(run)
+        s = g = None
+    _release_cache()  # the later phases' CLI subprocesses need the card's memory
+    walls = {k: [r["wall"] for r in runs if r["telemetry"] is k] for k in (True, False)}
+    out = dict(phase="telemetry_arms", depth=depth, walls_on=walls[True], walls_off=walls[False],
+               median_on=float(np.median(walls[True])), median_off=float(np.median(walls[False])),
+               launches=runs[0]["launches"], graph_launches=runs[0]["graph_launches"],
+               reads=runs[0]["reads"])
+    emit(out)
+    for r in runs:
+        check(r["level_sizes"] == GOLDEN_LEVELS_REF[: depth + 1],
+              f"telemetry {r['telemetry']}: level sizes {r['level_sizes']}")
+        for k in ("launches", "graph_launches", "reads"):
+            check(r[k] == runs[0][k], f"telemetry {r['telemetry']}: {k} {r[k]} != {runs[0][k]}")
     return out
 
 
@@ -1482,15 +1641,18 @@ def _smoke_dir(name: str):
     return d
 
 
-def _check_cli(args: list, timeout: int = 600, env: dict | None = None):
-    """``python -m tla_raft_tpu_torch.check args`` in a subprocess: (return
-    code, its --json line or {}, process seconds, stderr tail)."""
+def _check_cli(args: list, log, timeout: int = 600, env: dict | None = None):
+    """``python -m tla_raft_tpu_torch.check args --log log`` in a subprocess
+    (the log in the phase's smoke directory): (return code, its --json line
+    or {}, process seconds, stderr tail)."""
     import os
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
+    Path(log).parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args],
+    proc = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args,
+                           "--log", str(log)],
                           capture_output=True, text=True, cwd=root, timeout=timeout,
                           env=dict(os.environ, **(env or {})))
     secs = time.perf_counter() - t0
@@ -1540,7 +1702,7 @@ def phase_checkpoint(depth: int) -> dict:
                        ("kill", base + ["--checkpoint-dir", str(b), "--fault",
                                         "delta.commit:kill@18"]),
                        ("resume", base + ["--checkpoint-dir", str(b), "--recover", str(b)])):
-        rc, got, secs, err = _check_cli(args)
+        rc, got, secs, err = _check_cli(args, log=c.parent / f"ck_{name}_raft.log")
         el = got.get("_elapsed") or [0.0]
         runs[name] = dict(rc=rc, process_s=secs, run_s=got.get("seconds"),
                           first_level_s=el[0], levels_s=el[-1] - el[0],
@@ -1563,7 +1725,8 @@ def phase_checkpoint(depth: int) -> dict:
           "the slab snapshot does not hold the log's fingerprints")
     written = sum(f.stat().st_size for f in a.iterdir() if f.is_file())
     rc, got, secs, err = _check_cli(["--max-depth", "20", "--audit", "64", "--fault",
-                                     "tensor.flip:flip@5", "--checkpoint-dir", str(c), "--json"])
+                                     "tensor.flip:flip@5", "--checkpoint-dir", str(c), "--json"],
+                                    log=c.parent / "ck_audit_raft.log")
     check(rc == 0, f"audit drill exit {rc}: {err}")
     check(got["level_sizes"] == GOLDEN_LEVELS_REF[:21], "audit drill not golden")
     check(got.get("audit", {}).get("rewinds") == 1, f"audit drill: {got.get('audit')}")
@@ -1986,10 +2149,11 @@ def phase_fpstore_kill(depth: int, clean) -> dict:
     d = _smoke_dir("fpstore_kill")
     base = ["--max-depth", str(depth), "--json", "--fpstore-dir", str(d / "fps"),
             "--checkpoint-dir", str(d / "ck")]
-    rc, got, secs_kill, err = _check_cli(base + ["--fault", f"partial.commit:kill@{n_kill}"])
+    rc, got, secs_kill, err = _check_cli(base + ["--fault", f"partial.commit:kill@{n_kill}"],
+                                         log=d / "kill_raft.log")
     check(rc == -signal.SIGKILL, f"fpstore kill: exit {rc} (want {-signal.SIGKILL}): {err}")
     left = sorted(p.name for p in (d / "ck").glob("partial_*.npz"))
-    rc, got, secs, err = _check_cli(base + ["--recover", str(d / "ck")])
+    rc, got, secs, err = _check_cli(base + ["--recover", str(d / "ck")], log=d / "raft.log")
     check(rc == 0, f"fpstore recover: exit {rc}: {err}")
     hs = got.get("host_store", {})
     last = hs.get("last_level", {})
@@ -2662,10 +2826,14 @@ def phase_mesh_cli(depth: int) -> dict:
     message."""
     import torch
 
-    rc, got, secs, err = _check_cli(["--mesh", "1", "--max-depth", str(depth), "--json"])
+    d = _smoke_dir("mesh_cli")
+    d.mkdir()
+    rc, got, secs, err = _check_cli(["--mesh", "1", "--max-depth", str(depth), "--json"],
+                                    log=d / "raft.log")
     n_gpu = torch.cuda.device_count()
     proc = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", "--mesh",
-                           str(n_gpu + 1), "--max-depth", "2"], capture_output=True, text=True,
+                           str(n_gpu + 1), "--max-depth", "2", "--log", str(d / "refused.log")],
+                          capture_output=True, text=True,
                           cwd=str(__import__("pathlib").Path(__file__).resolve().parent),
                           timeout=600)
     out = dict(phase="mesh_cli", rc=rc, seconds=secs, run_seconds=got.get("seconds"),
@@ -3017,7 +3185,7 @@ def phase_mesh_deep_cli(depth: int) -> dict:
 
     d = _smoke_dir("deep_cli_fps")
     args = ["--mesh", "1", "--mesh-deep", "--fpstore-dir", str(d), "--max-depth", str(depth),
-            "--json"]
+            "--json", "--log", str(d.parent / "deep_cli_raft.log")]
     root = Path(__file__).resolve().parent
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args],
@@ -5133,6 +5301,10 @@ def main() -> int:
     launches.update({k: sorted_launches[k] for k in kernels.SORTED_PATH})
     run("degrade", kernels.SORTED_PATH + eager, phase_degrade, DEPTH_DEGRADE, CHUNK)
     run("cli", (), phase_cli, DEPTH)
+    # slice 20: the launcher's line with the run record (a process of its
+    # own), and the recorder on against off on the default path
+    run("cli_record", (), phase_cli_record, DEPTH)
+    run("telemetry_arms", default_need, phase_telemetry_arms, DEPTH_DEFAULT, CHUNK)
     # slice 8: the delta log (in CLI subprocesses: no launch in this process),
     # the bucket core, its members' sequential runs, the sweep service
     run("checkpoint", (), phase_checkpoint, DEPTH_CHECKPOINT)

@@ -196,7 +196,7 @@ def test_cli_flags_and_exit_codes(capsys, monkeypatch):
     import json
 
     base = ["--servers", "3", "--vals", "1", "--max-election", "1", "--max-restart", "1",
-            "--device", "cpu", "--chunk", "256", "--json"]
+            "--device", "cpu", "--chunk", "256", "--json", "--log", "-"]
     for extra, mxu in ((["--canon", "expand"], True), (["--no-mxu-expand"], False),
                        (["--mxu-expand", "0", "--audit", "8", "--audit-retries", "2"], False)):
         assert check.main(base + extra) == 0

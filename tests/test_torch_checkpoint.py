@@ -254,7 +254,8 @@ def test_heal_rows_adopt_refuse_and_sweep(tmp_path):
 def _cli(*args, env=None):
     e = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
     e.update(env or {})
-    return subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args], cwd=REPO,
+    return subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args, "--log", "-"],
+                          cwd=REPO,
                           env=e, capture_output=True, text=True)
 
 
@@ -303,7 +304,8 @@ def test_cli_exit_codes(tmp_path, capsys, monkeypatch):
     """--dev-bytes with --checkpoint-dir refuses with exit 2; a preemption
     request stops at a level boundary with exit 75 and the resume hint."""
     base = ["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
-            "--device", "cpu", "--chunk", "64", "--checkpoint-dir", str(tmp_path / "ck")]
+            "--device", "cpu", "--chunk", "64", "--checkpoint-dir", str(tmp_path / "ck"),
+            "--log", str(tmp_path / "raft.log")]
     assert check.main(base + ["--dev-bytes", "8192"]) == 2
     assert "Refusing --dev-bytes with --checkpoint-dir" in capsys.readouterr().out
     monkeypatch.setattr(resilience, "install_signal_handlers", lambda: None)

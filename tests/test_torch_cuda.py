@@ -2431,3 +2431,35 @@ def test_main_capture_goes_first():
     ref.capture("main")
     want = _level_outputs(chk, ref, fr, n_f, slab0)
     assert all(torch.equal(a, b) for a, b in zip(_level_outputs(chk, mine, fr, n_f, slab0), want))
+
+
+def test_profile_records_device_lanes(tmp_path):
+    """``--profile 1`` on the card (``run_check(profile=1)``): the capture
+    of the first window (the superstep of levels 1-4), merged by ``obs
+    trace``, holds the card's kernels by name, K1-K4 among them, on the
+    hub's clock; the counts are the run's."""
+    import json
+    import os
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the profiler's CUDA lanes)")
+    from tla_raft_tpu_torch.check import run_check
+    from tla_raft_tpu_torch.obs import tracefile
+
+    d = str(tmp_path / "run")
+    s = run_check(RaftConfig(), max_depth=8, chunk=1024, device="cuda", checkpoint_dir=d,
+                  profile=1)
+    assert s["level_sizes"] == [1, 1, 3, 9, 22, 57, 136, 345, 931]
+    assert s["telemetry"]["profile_windows"] == 1
+    out = str(tmp_path / "trace.json")
+    st = tracefile.export(os.path.join(d, "events.jsonl"), out, run_dir=d)
+    assert st["device_events"] > 0
+    doc = json.load(open(out))
+    lanes = [e for e in doc["traceEvents"]
+             if e.get("pid", 0) >= tracefile.DEVICE_PID_BASE and e.get("ph") == "X"
+             and (e.get("args") or {}).get("cat") == "kernel"]
+    names = {e["name"] for e in lanes}
+    for k in ("guards_kernel", "materialize_kernel", "fingerprint_s3", "probe_first"):
+        assert any(k in n for n in names), (k, sorted(names)[:20])
+    begin = next(e for e in doc["traceEvents"] if e["name"] == "profiler start")
+    assert min(e["ts"] for e in lanes) >= begin["ts"] - 1000  # within 1 ms of the anchor

@@ -607,7 +607,7 @@ def test_cli_mesh_deep_line(tmp_path, capsys):
     cfg.write_text(REFERENCE_CFG)
     args = ["--config", str(cfg), "--device", "cpu", "--mesh", "8", "--mesh-deep",
             "--fpstore-dir", str(tmp_path / "fps"), "--seg-rows", "128", "--cap-x", "512",
-            "--max-depth", "8", "--json"]
+            "--max-depth", "8", "--json", "--log", "-"]
     assert check.main(args) == 0
     out = capsys.readouterr().out
     got = json.loads(out.strip().splitlines()[-1])
@@ -631,7 +631,8 @@ def test_cli_mesh_deep_lines_equal_the_reference_cli(tmp_path, capsys):
             "--cap-x", "512", "--max-depth", "8", "--json"]
     assert ref_main(args + ["--fpstore-dir", str(tmp_path / "r"), "--log", "-"]) == 0
     want = capsys.readouterr().out
-    assert check.main(args + ["--fpstore-dir", str(tmp_path / "p"), "--device", "cpu"]) == 0
+    assert check.main(args + ["--fpstore-dir", str(tmp_path / "p"), "--device", "cpu",
+                              "--log", "-"]) == 0
     got = capsys.readouterr().out
     assert _exchange_lines(got) == _exchange_lines(want)
     keys = ("ok", "distinct", "generated", "depth", "level_sizes", "violation")
@@ -645,7 +646,7 @@ def test_cli_mesh_deep_small(tmp_path, capsys):
     want = _oracle(S2)
     for extra in ([], ["--no-sieve"], ["--no-compress"], ["--no-hashstore"]):
         args = SMALL + ["--device", "cpu", "--mesh", "2", "--mesh-deep", "--fpstore-dir",
-                        str(tmp_path / "fps"), "--seg-rows", "4", "--json"] + extra
+                        str(tmp_path / "fps"), "--seg-rows", "4", "--json", "--log", "-"] + extra
         assert check.main(args) == 0
         out = capsys.readouterr().out
         got = json.loads(out.strip().splitlines()[-1])

@@ -146,7 +146,7 @@ def test_cli_json_line(capsys):
 
     rc = check.main(["--servers", "2", "--vals", "1", "--max-election", "1",
                      "--max-restart", "1", "--device", "cpu", "--chunk", "64",
-                     "--coverage", "--json"])
+                     "--coverage", "--json", "--log", "-"])
     out = capsys.readouterr().out
     assert rc == 0
     assert "Model checking completed. No error has been found." in out
@@ -164,7 +164,7 @@ def test_cli_prints_the_trace_on_a_violation(capsys):
 
     rc = check.main(["--servers", "3", "--vals", "1", "--max-election", "2",
                      "--max-restart", "0", "--mutate", "median-bug", "--device", "cpu",
-                     "--chunk", "256"])
+                     "--chunk", "256", "--log", "-"])
     out = capsys.readouterr().out
     assert rc == 1
     assert "Error: Invariant Inv is violated." in out

@@ -427,7 +427,8 @@ def test_cli_json_equals_the_reference_cli(tmp_path, capsys):
             "--max-restart", "1", "--chunk", "16", "--json", "--warm-bytes", "2048"]
     assert ref_main(args + ["--fpstore-dir", str(tmp_path / "r"), "--log", "-"]) == 0
     want = _json_of(capsys.readouterr().out)
-    assert check.main(args + ["--fpstore-dir", str(tmp_path / "p"), "--device", "cpu"]) == 0
+    assert check.main(args + ["--fpstore-dir", str(tmp_path / "p"), "--device", "cpu",
+                              "--log", "-"]) == 0
     out = capsys.readouterr().out
     got = _json_of(out)
     keys = ("ok", "distinct", "generated", "depth", "level_sizes", "violation", "mxu",
@@ -449,7 +450,7 @@ def test_segment_settings_the_port_does_not_run_are_refused(tmp_path, monkeypatc
     ignored; TLA_RAFT_DEV_BYTES with a store is the paging budget; a chunk
     past SEG_ROWS is refused with a store."""
     small = ["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
-             "--device", "cpu", "--chunk", "8"]
+             "--device", "cpu", "--chunk", "8", "--log", "-"]
     monkeypatch.setenv("TLA_RAFT_DEV_BYTES", "4096")
     with pytest.raises(ValueError, match="ROADMAP A.5"):
         TorchChecker(RaftConfig(2, 1, 1, 1), device="cpu", chunk=8)
@@ -475,7 +476,8 @@ def test_dev_bytes_with_the_store_builds_no_tier(tmp_path, capsys):
     accepted and builds no tier (the tier needs the hash store, bfs.py:4131);
     without the store the pair is refused (exit 2)."""
     small = ["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
-             "--device", "cpu", "--chunk", "8", "--dev-bytes", "8192", "--checkpoint-dir"]
+             "--device", "cpu", "--chunk", "8", "--dev-bytes", "8192", "--log", "-",
+             "--checkpoint-dir"]
     assert check.main(small + [str(tmp_path / "a")]) == 2
     capsys.readouterr()
     assert check.main(small + [str(tmp_path / "b"), "--fpstore-dir", str(tmp_path / "f"),

@@ -189,7 +189,8 @@ def test_cli_three_arms(capsys, arm):
     from tla_raft_tpu_torch import check
 
     rc = check.main(["--servers", "2", "--vals", "1", "--max-election", "1",
-                     "--max-restart", "1", "--device", "cpu", "--chunk", "256", "--json", *arm])
+                     "--max-restart", "1", "--device", "cpu", "--chunk", "256", "--json", "--log",
+                     "-", *arm])
     assert rc == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert (summary["distinct"], summary["generated"], summary["depth"]) == (50, 97, 12)

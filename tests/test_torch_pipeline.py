@@ -426,7 +426,8 @@ def _run_cli(args, fault=None, timeout=300):
     env.pop("TLA_RAFT_FAULT", None)
     if fault is not None:
         env["TLA_RAFT_FAULT"] = fault
-    return subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args], env=env,
+    return subprocess.run([sys.executable, "-m", "tla_raft_tpu_torch.check", *args, "--log", "-"],
+                          env=env,
                           capture_output=True, text=True, timeout=timeout, cwd=str(REPO))
 
 

@@ -45,7 +45,8 @@ def test_package_import_loads_neither_jax_nor_reference():
     code = (
         "import sys\n"
         "import tla_raft_tpu_torch.engine.bfs, tla_raft_tpu_torch.check, "
-        "tla_raft_tpu_torch.carry, tla_raft_tpu_torch.kernels\n"
+        "tla_raft_tpu_torch.carry, tla_raft_tpu_torch.kernels, "
+        "tla_raft_tpu_torch.obs.__main__, tla_raft_tpu_torch.analysis.devprof\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tla_raft_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

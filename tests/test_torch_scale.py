@@ -418,7 +418,8 @@ def test_cli_servers7_small(capsys):
     chunk of its K."""
     K = MXUExpand(RaftConfig(n_servers=7, **SMALL), "cpu").K
     rc = check_main(["--servers", "7", "--vals", "1", "--max-election", "1",
-                     "--max-restart", "0", "--max-depth", "8", "--device", "cpu", "--json"])
+                     "--max-restart", "0", "--max-depth", "8", "--device", "cpu", "--json",
+                     "--log", "-"])
     out = capsys.readouterr().out
     assert rc == 0
     summary = json.loads(out.strip().splitlines()[-1])

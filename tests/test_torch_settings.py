@@ -153,7 +153,8 @@ def test_cli_config_equals_the_reference_cli(cfg_file, capsys, flags):
     rc_ref = ref_main(["--config", str(cfg_file), "--max-depth", depth, "--json", "--log", "-",
                        *ref_flags])
     want = _json_of(capsys.readouterr().out)
-    rc = main(["--config", str(cfg_file), "--max-depth", depth, "--json", "--device", "cpu",
+    rc = main(["--log", "-",
+               "--config", str(cfg_file), "--max-depth", depth, "--json", "--device", "cpu",
                "--chunk", "256", *flags])
     out = capsys.readouterr().out
     got = _json_of(out)
@@ -170,9 +171,11 @@ def test_cli_refuses_a_spec_that_diverges(cfg_file, capsys):
     from tla_raft_tpu_torch.check import main
 
     (cfg_file.parent / "Raft.tla").write_text("---- MODULE Raft ----\nVARIABLES x\n====\n")
-    assert main(["--config", str(cfg_file), "--device", "cpu", "--max-depth", "1"]) == 2
+    assert main(["--log", "-",
+                 "--config", str(cfg_file), "--device", "cpu", "--max-depth", "1"]) == 2
     assert "SPEC MISMATCH" in capsys.readouterr().out
-    assert main(["--config", str(cfg_file), "--device", "cpu", "--max-depth", "1", "--spec",
+    assert main(["--log", "-",
+                 "--config", str(cfg_file), "--device", "cpu", "--max-depth", "1", "--spec",
                  ""]) == 0
 
 
@@ -186,7 +189,8 @@ def test_cli_degrade_line(capsys, monkeypatch):
     monkeypatch.setattr(hs, "MIN_CAP", 16)
     faults.install("hashstore.grow:fail@1")
     try:
-        rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+        rc = main(["--log", "-",
+                   "--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
                    "--device", "cpu", "--chunk", "64", "--json"])
     finally:
         faults.reset()
@@ -210,7 +214,8 @@ def test_cli_cap_x(capsys, monkeypatch):
         real(self, *a, **kw)
 
     monkeypatch.setattr(TorchChecker, "__init__", init)
-    rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+    rc = main(["--log", "-",
+               "--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
                "--device", "cpu", "--chunk", "64", "--cap-x", "8", "--superstep", "1",
                "--json"])
     got = _json_of(capsys.readouterr().out)
@@ -263,7 +268,8 @@ def test_cli_pipeline_flags(capsys, monkeypatch, flags, want):
 
     for k in ("TLA_RAFT_PIPELINE", "TLA_RAFT_PIPELINE_WINDOW", "TLA_RAFT_PREWARM"):
         monkeypatch.delenv(k, raising=False)
-    rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+    rc = main(["--log", "-",
+               "--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
                "--device", "cpu", "--chunk", "64", "--json", *flags])
     got = _json_of(capsys.readouterr().out)
     assert rc == 0 and (got["distinct"], got["generated"], got["depth"]) == GOLD
@@ -275,10 +281,12 @@ def test_cli_refuses_prewarm_on_a_mesh(capsys):
     loops capture their programs in line (check.py:1109-1111)."""
     from tla_raft_tpu_torch.check import PREWARM_MESH_REFUSAL, main
 
-    rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+    rc = main(["--log", "-",
+               "--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
                "--device", "cpu", "--mesh", "2", "--prewarm", "1"])
     assert rc == 2 and PREWARM_MESH_REFUSAL in capsys.readouterr().out
-    rc = main(["--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
+    rc = main(["--log", "-",
+               "--servers", "2", "--vals", "1", "--max-election", "1", "--max-restart", "1",
                "--device", "cpu", "--mesh", "2", "--cap-x", "512", "--prewarm", "0",
                "--no-pipeline", "--json"])
     assert rc == 0 and _json_of(capsys.readouterr().out)["distinct"] == GOLD[0]

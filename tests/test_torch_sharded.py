@@ -587,7 +587,7 @@ def test_cli_mesh_line(tmp_path, capsys):
     port's --mesh 8 --json line holds the oracle's counts and the
     straggler block of the same run in process; --fpstore-dir on the mesh
     names its owner-sharded stores."""
-    args = SMALL + ["--device", "cpu", "--mesh", "8", "--cap-x", "512", "--json"]
+    args = SMALL + ["--device", "cpu", "--mesh", "8", "--cap-x", "512", "--json", "--log", "-"]
     assert check.main(args) == 0
     got = _json_of(capsys.readouterr().out)
     want = _oracle(CFGS["s2"])
@@ -617,7 +617,7 @@ def test_cli_mesh_line_equals_the_reference_cli(tmp_path, capsys):
     args = ["--config", str(cfg)] + SMALL + ["--mesh", "8", "--json"]
     assert ref_main(args + ["--log", "-"]) == 0
     want = _json_of(capsys.readouterr().out)
-    assert check.main(args + ["--device", "cpu"]) == 0
+    assert check.main(args + ["--device", "cpu", "--log", "-"]) == 0
     got = _json_of(capsys.readouterr().out)
     keys = ("ok", "distinct", "generated", "depth", "level_sizes", "violation", "mxu",
             "megakernel", "superstep", "straggler")
@@ -635,7 +635,7 @@ def test_cli_mesh_line_equals_the_reference_cli(tmp_path, capsys):
 ])
 def test_cli_refusals_exit_2(extra, needle, tmp_path, capsys):
     extra = [str(tmp_path / "ck") if x == "CK" else x for x in extra]
-    assert check.main(SMALL + ["--device", "cpu"] + extra) == 2
+    assert check.main(SMALL + ["--device", "cpu", "--log", "-"] + extra) == 2
     assert needle in capsys.readouterr().out
 
 
@@ -643,6 +643,6 @@ def test_cli_mesh_no_hashstore_on_all_gather_runs(capsys):
     """--no-hashstore is refused only where a slab would hold the visited
     set: all_gather keeps its replicated sorted store."""
     args = SMALL + ["--device", "cpu", "--mesh", "2", "--no-hashstore", "--exchange",
-                    "all_gather", "--json"]
+                    "all_gather", "--json", "--log", "-"]
     assert check.main(args) == 0
     assert _json_of(capsys.readouterr().out)["distinct"] == 50

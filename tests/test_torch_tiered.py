@@ -183,7 +183,7 @@ def test_cli_dev_bytes(capsys):
     from tla_raft_tpu_torch import check
 
     args = ["--servers", "3", "--vals", "1", "--max-election", "2", "--max-restart", "1",
-            "--device", "cpu", "--chunk", "256", "--max-depth", str(DEPTH), "--json"]
+            "--device", "cpu", "--chunk", "256", "--max-depth", str(DEPTH), "--json", "--log", "-"]
     summaries = []
     for extra in ([], ["--dev-bytes", str(BUDGET)]):
         assert check.main(args + extra) == 0

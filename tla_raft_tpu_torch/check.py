@@ -10,6 +10,7 @@ from TLC's ``Raft.cfg`` (``--config``, the reference's entry, as in
 semantics), or without one from the Raft.cfg defaults; ``--servers``,
 ``--vals``, ``--max-election`` and ``--max-restart`` override either.
 
+    python -m tla_raft_tpu_torch.check --config Raft.cfg --log raft.log   # the launcher's line
     python -m tla_raft_tpu_torch.check --config Raft.cfg --max-depth 20 --json
     python -m tla_raft_tpu_torch.check --max-depth 12 --json          # on the card
     python -m tla_raft_tpu_torch.check --servers 2 --vals 1 \\
@@ -30,6 +31,18 @@ semantics), or without one from the Raft.cfg defaults; ``--servers``,
     python -m tla_raft_tpu_torch.check --mesh 1 --max-depth 16 --json  # a 1-GPU mesh
     python -m tla_raft_tpu_torch.check --mesh 8 --device cpu --mesh-deep --fpstore-dir fps \
         --seg-rows 128 --cap-x 512 --max-depth 8                      # the sharded deep sweep
+    python -m tla_raft_tpu_torch.check --max-depth 20 --checkpoint-dir run --progress \
+        --profile 2 --json                      # the run record: run/events.jsonl, run/profile/
+    python -m tla_raft_tpu_torch.obs report run; python -m tla_raft_tpu_torch.obs trace run
+
+Everything the run prints goes to stdout and to ``--log`` (default
+``raft.log``, ``-`` for none), as the reference tees it (check.py:40,
+:984).  The flight recorder (obs/telemetry.py) is on unless ``--telemetry
+0`` or ``TLA_RAFT_TELEMETRY=0``: its events land in the checkpoint
+directory's ``events.jsonl`` (or ``TLA_RAFT_TELEMETRY_DIR``'s; in memory
+without either), its aggregates in the ``--json`` line's ``telemetry``
+block.  ``--workers N`` is accepted and ignored, as the reference does for
+``myrun.sh``.
 
 Exit code 0 when no error was found, 1 on a violation, 2 when the spec
 beside the cfg differs from the compiled semantics (or on --dev-bytes with
@@ -46,6 +59,7 @@ fail-stop, 75 on a preemption
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -55,6 +69,21 @@ import time
 from .config import MSG_TYPE_NAMES, ROLE_NAMES, RaftConfig
 
 MUTATIONS = ("median-bug", "double-vote", "legacy-append", "become-follower")
+
+
+class Tee:
+    """Write to every stream (stdout and the ``--log`` file; check.py:40)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
 
 
 def format_state(cfg: RaftConfig, st) -> str:
@@ -131,11 +160,24 @@ def _report_preempted(e, out) -> int:
     return 75
 
 
-def summarize(res, seconds: float, chk) -> dict:
+def _telemetry_blocks(out: dict, hub) -> dict:
+    """The hub's ``telemetry`` block, and its ``hbm`` gauge at the top level
+    beside the counts it prices (check.py:298-310)."""
+    if hub is not None:
+        tel = hub.snapshot()
+        if "straggler" in out:
+            tel["straggler"] = out["straggler"]
+        out["telemetry"] = tel
+        if "hbm" in tel:
+            out["hbm"] = tel["hbm"]
+    return out
+
+
+def summarize(res, seconds: float, chk, hub=None) -> dict:
     """CheckResult -> the ``--json`` summary (the reference's keys:
-    check.py:236-280), plus the levels each route committed, the grouped
+    check.py:236-310), plus the levels each route committed, the grouped
     levels' records and, once the tiered store demoted or probed, its
-    stats."""
+    stats; with a telemetry hub its ``telemetry`` and ``hbm`` blocks."""
     out = dict(
         ok=res.ok,
         distinct=res.distinct,
@@ -185,10 +227,10 @@ def summarize(res, seconds: float, chk) -> dict:
         out["tiered"] = dict(tiered.stats, dev_bytes=tiered.dev_bytes,
                              generations=len(tiered.gens), soft_seats=chk.tier_soft_seats,
                              probe_wait_s=round(tiered.stats["probe_wait_s"], 6))
-    return out
+    return _telemetry_blocks(out, hub)
 
 
-def summarize_mesh(res, seconds: float, chk) -> dict:
+def summarize_mesh(res, seconds: float, chk, hub=None) -> dict:
     """The ``--json`` summary of a mesh run: the reference's keys for a
     ``ShardedChecker`` (check.py:221-297: no megakernel or superstep, the
     ``straggler`` block once a level ran), plus the shard devices, the
@@ -215,12 +257,12 @@ def summarize_mesh(res, seconds: float, chk) -> dict:
             out["host_store"]["host_filter_s"] = round(chk.host_seconds, 6)
     if chk.skew.levels:
         out["straggler"] = chk.skew.summary()
-    return out
+    return _telemetry_blocks(out, hub)
 
 
 def summary_public(summary: dict) -> dict:
     """The JSON-serializable view of a :func:`run_check` summary
-    (check.py:311): the ``_res`` / ``_chk`` keys stripped."""
+    (check.py:311): the ``_res`` / ``_chk`` / ``_hub`` keys stripped."""
     return {k: v for k, v in summary.items() if not k.startswith("_")}
 
 
@@ -235,7 +277,8 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
               exchange: str = "all_to_all", cap_x: int = 4096, mesh_deep: bool = False,
               seg_rows: int = 1 << 15, sieve: bool = True, compress: bool = True,
               pipeline: bool | None = None, pipeline_window: int | None = None,
-              prewarm: bool | None = None) -> dict:
+              prewarm: bool | None = None, telemetry: bool | None = None,
+              profile: int = 0) -> dict:
     """One in-process check -> the ``--json`` summary dict (check.py:316):
     the programmatic entry the sweep service and the tests call.  ``out``
     (a stream, or None) receives the CLI's informational lines, ``progress``
@@ -256,71 +299,170 @@ def run_check(cfg: RaftConfig, *, max_depth: int | None = None, chunk: int | Non
     ``pipeline_window`` set the async pipeline (None: the environment's
     ``TLA_RAFT_PIPELINE`` / ``TLA_RAFT_PIPELINE_WINDOW``), ``prewarm`` the
     single-device engine's forecast prewarm (None: ``TLA_RAFT_PREWARM``,
-    else on on the card, off on the CPU); a mesh takes no prewarm."""
-    from . import resilience
-    from .engine.bfs import TorchChecker
+    else on on the card, off on the CPU); a mesh takes no prewarm.
 
-    if install_signals:
-        # SIGTERM/SIGINT finish the level, flush, and raise Preempted
-        resilience.install_signal_handlers()
-    if warm_bytes is None and os.environ.get("TLA_RAFT_WARM_BYTES"):
-        warm_bytes = int(float(os.environ["TLA_RAFT_WARM_BYTES"]))
-    t0 = time.monotonic()
-    if mesh:
-        if prewarm:
-            raise ValueError(PREWARM_MESH_REFUSAL)
-        return _run_mesh(cfg, t0, pipeline=pipeline, pipeline_window=pipeline_window,
-                         max_depth=max_depth, chunk=chunk, checkpoint_dir=checkpoint_dir,
-                         checkpoint_every=checkpoint_every, recover=recover, device=device,
-                         canon=canon, use_hashstore=use_hashstore, use_mxu=use_mxu,
-                         progress=progress, out=out, config_path=config_path,
-                         fpstore_dir=fpstore_dir, warm_bytes=warm_bytes, mesh=mesh,
-                         exchange=exchange, cap_x=cap_x, dev_bytes=dev_bytes,
-                         mesh_deep=mesh_deep, seg_rows=seg_rows, sieve=sieve, compress=compress)
-    host_store = None
-    if fpstore_dir:
-        from .native import HostFPStore
+    ``telemetry`` (None: ``TLA_RAFT_TELEMETRY``, on) installs the
+    process-wide flight recorder (obs/telemetry.py) for the run
+    (check.py:389-411, :470-476): every level, graph launch, device read,
+    capture, checkpoint commit and grow/redo lands in ``<checkpoint_dir>/
+    events.jsonl`` (``TLA_RAFT_TELEMETRY_DIR``'s without a checkpoint
+    directory; in memory without either), and the summary carries the
+    ``telemetry`` block (and ``hbm``) and the hub under ``_hub``.  A hub an
+    outer caller installed is used as it is, never re-anchored or closed.
+    ``profile`` N > 0 captures the first N dispatch windows with
+    ``torch.profiler`` into ``<run dir>/profile/`` (analysis/devprof.py),
+    stopped on every exit."""
+    with _run_hub(telemetry, cfg, checkpoint_dir=checkpoint_dir, recover=recover, mesh=mesh,
+                  mesh_deep=mesh_deep, device=device) as hub:
+        from . import resilience
+        from .engine.bfs import TorchChecker
+        from .obs import telemetry as obs_telemetry
 
-        host_store = HostFPStore(fpstore_dir,
-                                 mem_budget_entries=max(warm_bytes // 8, 1) if warm_bytes else 0)
-        if not recover:
-            # run files a crashed earlier process left behind
-            host_store.clear()
-    chk = TorchChecker(cfg, device=device, chunk=chunk, progress=progress,
-                       megakernel=megakernel, superstep=superstep,
-                       store_bytes=int(dev_bytes) if dev_bytes else None, canon=canon,
-                       use_mxu=use_mxu, audit=audit, audit_retries=audit_retries,
-                       use_hashstore=use_hashstore, host_store=host_store, pipeline=pipeline,
-                       pipeline_window=pipeline_window, prewarm=prewarm)
-    if out is not None:
-        print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
-        where = f" {config_path}" if config_path else ""
-        print(f"Config{where}: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
-        if host_store is not None:
-            print(f"Native FP store: {fpstore_dir}", file=out)
-        elif not chk.use_hashstore:
-            print("Visited store: sorted (level dedup by radix sort, merged per level)",
-                  file=out)
-        if chk.store_bytes:
-            print(f"Tiered visited store: hot slab budget {chk.store_bytes:,} B (demotions "
-                  "spill to host generations)", file=out)
-        if checkpoint_dir and checkpoint_every:
-            print(f"Checkpoints: delta log in {checkpoint_dir}"
-                  + (f" (resuming from {recover})" if recover else ""), file=out)
-    res = chk.run(max_depth=max_depth, checkpoint_dir=checkpoint_dir,
-                  checkpoint_every=checkpoint_every, resume_from=recover)
-    summary = summarize(res, time.monotonic() - t0, chk)
-    summary["_res"] = res
-    summary["_chk"] = chk
-    return summary
+        if install_signals:
+            # SIGTERM/SIGINT finish the level, flush, and raise Preempted
+            resilience.install_signal_handlers()
+        if warm_bytes is None and os.environ.get("TLA_RAFT_WARM_BYTES"):
+            warm_bytes = int(float(os.environ["TLA_RAFT_WARM_BYTES"]))
+        t0 = time.monotonic()
+        if mesh:
+            if prewarm:
+                raise ValueError(PREWARM_MESH_REFUSAL)
+            return _run_mesh(cfg, t0, hub=hub, profile=profile, pipeline=pipeline,
+                             pipeline_window=pipeline_window,
+                             max_depth=max_depth, chunk=chunk, checkpoint_dir=checkpoint_dir,
+                             checkpoint_every=checkpoint_every, recover=recover, device=device,
+                             canon=canon, use_hashstore=use_hashstore, use_mxu=use_mxu,
+                             progress=progress, out=out, config_path=config_path,
+                             fpstore_dir=fpstore_dir, warm_bytes=warm_bytes, mesh=mesh,
+                             exchange=exchange, cap_x=cap_x, dev_bytes=dev_bytes,
+                             mesh_deep=mesh_deep, seg_rows=seg_rows, sieve=sieve, compress=compress)
+        host_store = None
+        if fpstore_dir:
+            from .native import HostFPStore
+
+            host_store = HostFPStore(
+                fpstore_dir, mem_budget_entries=max(warm_bytes // 8, 1) if warm_bytes else 0)
+            if not recover:
+                # run files a crashed earlier process left behind
+                host_store.clear()
+        chk = TorchChecker(cfg, device=device, chunk=chunk, progress=progress,
+                           megakernel=megakernel, superstep=superstep,
+                           store_bytes=int(dev_bytes) if dev_bytes else None, canon=canon,
+                           use_mxu=use_mxu, audit=audit, audit_retries=audit_retries,
+                           use_hashstore=use_hashstore, host_store=host_store, pipeline=pipeline,
+                           pipeline_window=pipeline_window, prewarm=prewarm)
+        if out is not None:
+            print(f"tla-raft-tpu-torch checker: device={chk.device}", file=out)
+            where = f" {config_path}" if config_path else ""
+            print(f"Config{where}: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
+            if host_store is not None:
+                print(f"Native FP store: {fpstore_dir}", file=out)
+            elif not chk.use_hashstore:
+                print("Visited store: sorted (level dedup by radix sort, merged per level)",
+                      file=out)
+            if chk.store_bytes:
+                print(f"Tiered visited store: hot slab budget {chk.store_bytes:,} B (demotions "
+                      "spill to host generations)", file=out)
+            if checkpoint_dir and checkpoint_every:
+                print(f"Checkpoints: delta log in {checkpoint_dir}"
+                      + (f" (resuming from {recover})" if recover else ""), file=out)
+        prof = _start_profiler(profile, hub, checkpoint_dir, chk.device, out)
+        try:
+            res = chk.run(max_depth=max_depth, checkpoint_dir=checkpoint_dir,
+                          checkpoint_every=checkpoint_every, resume_from=recover)
+        finally:
+            _stop_profiler(prof, out)
+        if hub is not None:
+            obs_telemetry.run_end(ok=res.ok, distinct=res.distinct, generated=res.generated,
+                                  depth=res.depth)
+        summary = summarize(res, time.monotonic() - t0, chk, hub=hub)
+        summary["_res"] = res
+        summary["_chk"] = chk
+        summary["_hub"] = hub
+        return summary
+
+
+@contextlib.contextmanager
+def _run_hub(telemetry, cfg, *, checkpoint_dir, recover, mesh, mesh_deep, device):
+    """The run's flight recorder (check.py:389-411, :470-476): None with
+    telemetry off; the hub an outer caller installed, left as it is; else a
+    hub of the run's own (its run dir ``checkpoint_dir``, else
+    ``TLA_RAFT_TELEMETRY_DIR``, else in memory), anchored by ``run_begin``,
+    installed for the run and closed after it."""
+    from .obs import telemetry as obs_telemetry
+
+    if not (obs_telemetry.enabled_by_env() if telemetry is None else bool(telemetry)):
+        yield None
+        return
+    hub = obs_telemetry.current()
+    if hub is not None:
+        yield hub
+        return
+    hub = obs_telemetry.TelemetryHub(
+        run_dir=checkpoint_dir or os.environ.get("TLA_RAFT_TELEMETRY_DIR") or None)
+    obs_telemetry.install(hub)
+    try:
+        obs_telemetry.run_begin(config=cfg.describe(), backend="torch", mesh=mesh,
+                                mesh_deep=mesh_deep, recover=bool(recover),
+                                device=str(device or "cuda"))
+        yield hub
+    finally:
+        obs_telemetry.install(None)
+        hub.close()
+
+
+def _start_profiler(windows: int, hub, checkpoint_dir, device, out):
+    """``--profile N`` (check.py:601-652): a capture of the first N dispatch
+    windows into ``<run dir>/profile/``, or the reference's message when
+    there is no hub (no ``profile_begin`` anchor, no stream to merge into)
+    or no run dir; a profiler that cannot start is reported, not fatal."""
+    if not windows or int(windows) <= 0:
+        return None
+
+    def say(msg):
+        if out is not None:
+            print(msg, file=out)
+
+    prof_dir = checkpoint_dir or os.environ.get("TLA_RAFT_TELEMETRY_DIR")
+    if hub is None:
+        say("--profile needs telemetry on (the profile_begin event anchors the device-lane "
+            "merge; flag ignored)")
+        return None
+    if not prof_dir:
+        say("--profile needs --checkpoint-dir (or TLA_RAFT_TELEMETRY_DIR): the device trace "
+            "lands beside events.jsonl (flag ignored)")
+        return None
+    from .analysis import devprof
+
+    prof = devprof.ProfilerCapture(prof_dir, int(windows), cuda=device.type == "cuda")
+    if not prof.start():
+        say(f"Profiler: could not start ({prof.error}); no trace")
+        return None
+    devprof.install_profiler(prof)
+    say(f"Profiler: capturing {prof.windows} dispatch window(s) -> {prof.trace_dir}")
+    return prof
+
+
+def _stop_profiler(prof, out) -> None:
+    """Stop a capture that is still open (every exit: done, raised or
+    preempted) and uninstall it."""
+    if prof is None:
+        return
+    from .analysis import devprof
+
+    prof.stop()
+    devprof.install_profiler(None)
+    if prof.failed and out is not None:
+        print(f"Profiler: failed ({prof.error}); no trace", file=out)
 
 
 def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, recover, device,
               canon, use_hashstore, use_mxu, progress, out, config_path, fpstore_dir,
               warm_bytes, mesh, exchange, cap_x, dev_bytes, mesh_deep, seg_rows, sieve,
-              compress, pipeline, pipeline_window) -> dict:
+              compress, pipeline, pipeline_window, hub, profile) -> dict:
     """``run_check``'s mesh branch (check.py:686-757), the deep sweep's
     ``Exchange:`` lines included."""
+    from .obs import telemetry as obs_telemetry
     from .parallel import ShardedChecker, make_mesh
 
     if out is not None and dev_bytes:
@@ -339,8 +481,15 @@ def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, re
         print(f"Config{where}: {cfg.describe()}; {chk.K} slots, chunk {chk.chunk}", file=out)
         if fpstore_dir:
             print(f"Native FP store (owner-sharded x{mesh}): {fpstore_dir}", file=out)
-    res = chk.run(max_depth=max_depth, checkpoint_dir=checkpoint_dir,
-                  checkpoint_every=checkpoint_every, resume_from=recover)
+    prof = _start_profiler(profile, hub, checkpoint_dir, chk.devices[0], out)
+    try:
+        res = chk.run(max_depth=max_depth, checkpoint_dir=checkpoint_dir,
+                      checkpoint_every=checkpoint_every, resume_from=recover)
+    finally:
+        _stop_profiler(prof, out)
+    if hub is not None:
+        obs_telemetry.run_end(ok=res.ok, distinct=res.distinct, generated=res.generated,
+                              depth=res.depth)
     if out is not None and mesh_deep and chk.meter.levels:
         # the run's exchange ledger: the sieve-and-compress bytes against
         # what the uncompressed exchange would have moved (check.py:734-757)
@@ -352,9 +501,10 @@ def _run_mesh(cfg, t0, *, max_depth, chunk, checkpoint_dir, checkpoint_every, re
             print(f"  level {lv['level']}: {lv['exchanged_bytes']:,} B (raw "
                   f"{lv['raw_bytes']:,} B, x{lv['reduction']}), sieved "
                   f"{lv['n_sieved']:,}/{lv['n_candidates']:,}", file=out)
-    summary = summarize_mesh(res, time.monotonic() - t0, chk)
+    summary = summarize_mesh(res, time.monotonic() - t0, chk, hub=hub)
     summary["_res"] = res
     summary["_chk"] = chk
+    summary["_hub"] = hub
     return summary
 
 
@@ -509,14 +659,47 @@ def main(argv=None) -> int:
                          "TLA_RAFT_FAULT takes the same grammar)")
     ap.add_argument("--coverage", action="store_true", help="print per-action counts")
     ap.add_argument("--json", action="store_true", help="print a JSON summary line")
+    ap.add_argument("--log", default="raft.log",
+                    help="also write everything printed to this file (default raft.log, as "
+                         "the launcher tees it; '-' for none)")
+    ap.add_argument("--progress", action="store_true",
+                    help="a live one-line progress display on stderr (states/s, frontier, "
+                         "slab load, levels per launch, forecast ETA to the fixpoint); the "
+                         "per-level Progress lines go to the log")
+    ap.add_argument("--telemetry", type=int, choices=(0, 1), default=None,
+                    help="the run's flight recorder (obs/telemetry.py): typed run events "
+                         "appended to events.jsonl in the checkpoint directory, and the "
+                         "telemetry block in --json.  Default on; 0 turns it off.  Host-side "
+                         "only: the same launches, reads and counts either way (env "
+                         "TLA_RAFT_TELEMETRY)")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="capture the first N dispatch windows (a superstep, a level or a "
+                         "launch group, each ending in one device read) with torch.profiler "
+                         "into <checkpoint-dir>/profile/; `python -m tla_raft_tpu_torch.obs "
+                         "trace` merges its lanes beside the host lanes.  Default off; the "
+                         "counts are the same either way")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="accepted for the launcher's line (TLC's -workers); ignored")
     args = ap.parse_args(argv)
 
+    logf = open(args.log, "w") if args.log and args.log != "-" else None
+    out = Tee(sys.stdout, logf) if logf else sys.stdout
+    try:
+        return _main(args, out)
+    finally:
+        if logf:
+            logf.close()
+
+
+def _main(args, out) -> int:
+    """``main`` after the arguments, printing to ``out`` (stdout, teed to
+    the log file when there is one): every exit, refusals and fail-stops
+    too, lands in the log."""
     from . import resilience
     from .resilience.integrity import IntegrityError
 
     if args.fault:
         resilience.fault_install(",".join(args.fault))
-    out = sys.stdout
     cfg = RaftConfig()
     if args.config:
         from .cfgparse import load_raft_config
@@ -567,11 +750,27 @@ def main(argv=None) -> int:
         print(f"Refusing: {why}.", file=out)
         return 2
 
+    pline = None
+    if args.progress:
+        from .obs.progress import ProgressLine
+
+        pline = ProgressLine(stream=sys.stderr)
+
     def progress(s):
         rate = s["distinct"] / max(s["elapsed"], 1e-9)
-        print(f"Progress: level {s['level']}, frontier {s['frontier']}, "
-              f"distinct {s['distinct']}, generated {s['generated']}, "
-              f"{rate:,.0f} states/s", file=out, flush=True)
+        line = (f"Progress: level {s['level']}, frontier {s['frontier']}, "
+                f"distinct {s['distinct']}, generated {s['generated']}, "
+                f"{rate:,.0f} states/s")
+        if pline is not None:
+            # the live line on stderr (check.py:1081-1106); the grep-able
+            # Progress lines go to stdout and the log as without it, printed
+            # between two paints so a terminal that shows both streams keeps
+            # the live line below them
+            pline.clear()
+            print(line, file=out, flush=True)
+            pline.write(s)
+            return
+        print(line, file=out, flush=True)
 
     try:
         summary = run_check(
@@ -588,7 +787,9 @@ def main(argv=None) -> int:
             exchange=args.exchange, cap_x=args.cap_x, mesh_deep=args.mesh_deep,
             seg_rows=args.seg_rows, sieve=not args.no_sieve, compress=not args.no_compress,
             pipeline=False if args.no_pipeline else None, pipeline_window=args.pipeline_window,
-            prewarm=None if args.prewarm is None else bool(args.prewarm))
+            prewarm=None if args.prewarm is None else bool(args.prewarm),
+            telemetry=None if args.telemetry is None else bool(args.telemetry),
+            profile=args.profile)
     except resilience.Preempted as e:
         return _report_preempted(e, out)
     except ValueError as e:
@@ -603,9 +804,15 @@ def main(argv=None) -> int:
         # exit 4 (check.py:1188-1197)
         print(f"Integrity fail-stop: {e}", file=out)
         return 4
-    res, chk = summary["_res"], summary["_chk"]
+    finally:
+        if pline is not None:
+            pline.done()  # the live line ends on every exit
+    res, chk, hub = summary["_res"], summary["_chk"], summary["_hub"]
     dt = time.monotonic() - t0
     print(file=out)
+    if hub is not None and hub.path:
+        print(f"Telemetry: {hub.n_events} events -> {hub.path} (timeline: python -m "
+              f"tla_raft_tpu_torch.obs trace {os.path.dirname(hub.path)})", file=out)
     if res.ok:
         print("Model checking completed. No error has been found.", file=out)
     else:
@@ -625,7 +832,8 @@ def main(argv=None) -> int:
     print(f"Finished in {dt:.1f}s ({res.distinct / max(dt, 1e-9):,.0f} distinct states/s).",
           file=out)
     if args.json:
-        line = summarize_mesh(res, dt, chk) if args.mesh else summarize(res, dt, chk)
+        line = (summarize_mesh(res, dt, chk, hub=hub) if args.mesh
+                else summarize(res, dt, chk, hub=hub))
         print(json.dumps(line), file=out)
     return 0 if res.ok else 1
 

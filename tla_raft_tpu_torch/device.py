@@ -7,7 +7,12 @@ falls back to the CPU when CUDA is missing.
 
 from __future__ import annotations
 
+import time
+
 import torch
+
+from .analysis import devprof as _devprof
+from .obs import telemetry as _obs
 
 
 def resolve_device(device=None) -> torch.device:
@@ -70,12 +75,20 @@ def fetch_start(*tensors: torch.Tensor, what: str = "read",
 
 def fetch_complete(pending: PendingFetch) -> list:
     """Wait for a started read: numpy arrays (on the card, views of its
-    pinned buffers, valid until a read of the same slot starts again)."""
-    if not pending.events:
-        return pending.bufs
-    for ev in pending.events:
-        ev.synchronize()
-    return [b.numpy() for b in pending.bufs]
+    pinned buffers, valid until a read of the same slot starts again).
+    With a telemetry hub installed the wait and the bytes are published
+    (``fetch``); a ``--profile`` capture counts the read as one window."""
+    t0 = time.perf_counter() if _obs.CURRENT is not None else 0.0
+    if pending.events:
+        for ev in pending.events:
+            ev.synchronize()
+        out = [b.numpy() for b in pending.bufs]
+    else:
+        out = pending.bufs
+    if _obs.CURRENT is not None:
+        _obs.fetch_done(time.perf_counter() - t0, sum(int(a.nbytes) for a in out))
+    _devprof.profile_tick()
+    return out
 
 
 def fetch(*tensors: torch.Tensor, what: str = "read") -> list:

@@ -126,6 +126,7 @@ from .. import kernels
 from ..config import RaftConfig
 from ..device import READS, fetch, resolve_device
 from ..models.raft import Frontier, RaftState, core_of, id_dtype, init_batch, to_oracle
+from ..obs import telemetry as graft_obs
 from ..ops import hashstore
 from ..ops import sieve as sieve_ops
 from ..ops.fingerprint import Fingerprinter
@@ -916,6 +917,7 @@ class TorchChecker:
             ovf_g = ovf_g | flush_group()
         ctl = torch.cat([torch.stack([abort_at, ovf_x.to(I64), ovf_m.to(I64), ovf_g.to(I64)]),
                          mult])
+        graft_obs.dispatch("staged.expand")
         (ctl,) = fetch(ctl, what="staged_expand")  # the expand pass's one control fetch
         out = dict(abort_at=int(ctl[0]), ovf_x=bool(ctl[1]), ovf_m=bool(ctl[2]),
                    ovf_g=bool(ctl[3]), ovf_h=False, mult=ctl[4:].copy(), n_new=0, new_fps=None,
@@ -931,11 +933,13 @@ class TorchChecker:
                 cv, cf, cp = (torch.cat([x, torch.full((pad,), v, dtype=I64, device=self.device)])
                               for x, v in ((cv, SENT), (cf, SENT), (cp, -1)))
             n_new, new_fps, new_payload = level_dedup(cv, cf, cp, store)
+            graft_obs.dispatch("staged.dedup")
             (nv,) = fetch(n_new.reshape(1), what="staged_dedup")
             out.update(n_new=int(nv[0]), new_fps=new_fps, new_payload=new_payload)
             return out
         slab, fresh, n_new, ovf_h = probe_and_insert(store, cv, cf, cp)
         new_fps, new_payload = compact_fresh(fresh, cv, cp, cv.shape[0])
+        graft_obs.dispatch("staged.insert")
         (nv,) = fetch(torch.stack([n_new.to(I64), ovf_h.to(I64)]), what="staged_insert")
         n_new, ovf_h = int(nv[0]), int(nv[1])
         out.update(n_new=n_new, ovf_h=bool(ovf_h), new_fps=new_fps, new_payload=new_payload,
@@ -957,6 +961,7 @@ class TorchChecker:
             ovfs.append(ovf.any())
         new = Frontier(*(torch.cat([getattr(p, f) for p in parts]) for f in Frontier._fields))
         bad = self.inv_scan(new)
+        graft_obs.dispatch("staged.mat")
         (ctl,) = fetch(torch.stack([bad, torch.stack(ovfs).any().to(I64)]), what="staged_mat")
         return new, int(ctl[0]), bool(ctl[1])
 
@@ -1360,18 +1365,28 @@ class TorchChecker:
         self.graph_stats["launch_log"].append(
             [prog.kind, prog.cap_f, sum(tally.values()), levels])
 
+    def _redo(self, budget: str, to=None) -> None:
+        """A budget grew and the level runs again: counted in ``redos`` and
+        published as the reference's ``grow`` + ``redo`` events."""
+        self.redos[budget] += 1
+        graft_obs.grow(budget, to)
+        graft_obs.redo(budget)
+
     def _grow_cap_x(self) -> None:
         """Half-step growth of cap_x; cap_g stays at least G * cap_x / 2
         (bfs.py:4673)."""
         self.cap_x = _cap_steps(self.cap_x + 1)
         self.cap_g = max(self.cap_g, self.G * self.cap_x // 2)
-        self.redos["cap_x"] += 1
+        self._redo("cap_x", self.cap_x)
 
     def _grow_slab(self, depth: int, expected: int) -> None:
-        """A probe overflow's slab growth, or a demotion under the budget."""
-        if self._slab_grow_or_demote(depth, expected=expected) == "demoted":
+        """A probe overflow's slab growth, or a demotion under the budget
+        (the ``slab_tier`` redo: demote, then redo)."""
+        how = self._slab_grow_or_demote(depth, expected=expected)
+        if how == "demoted":
             self.tiered.stats["tier_redos"] += 1
         self.redos["slab"] += 1
+        graft_obs.redo("slab_tier" if how == "demoted" else "slab")
 
     def _check_occupancy(self, slab_live: int) -> None:
         """The conservation signal: the slab's live slots, counted on the
@@ -1419,6 +1434,8 @@ class TorchChecker:
             if lc[mk.LC_OVF_ROUNDS]:
                 self.k4_rounds *= 2
                 self._mega_stats["redo_rounds"] += 1
+                graft_obs.grow("k4_rounds", self.k4_rounds)
+                graft_obs.redo("k4_rounds")
                 continue
             if ctrl[mk.CTRL_OVF_SLAB]:
                 depth = len(level_sizes) - 1
@@ -1435,6 +1452,8 @@ class TorchChecker:
             if n_new > cap_out:
                 out_floor = n_new  # the exact count is known: one redo lands it
                 self._mega_stats["redo_out"] += 1
+                graft_obs.grow("cap_out", n_new)
+                graft_obs.redo("cap_out")
                 continue
             if int(ctrl[mk.CTRL_ABORT]) < n_f:
                 break  # the violation stops the run; nothing was inserted
@@ -1480,6 +1499,10 @@ class TorchChecker:
         key = self._superstep_key(cap_f)
         prog = self._program(key, self._superstep_make(cap_f))
         self._seat(prog.fr[0], frontier, n_f)
+        # the ring (fps i64 + pidx i32 + slot i16 an entry) is the window's
+        # one extra long-lived buffer
+        graft_obs.buffer("ring", prog.ring_max * 14)
+        graft_obs.superstep_begin(level=depth + 1, span=span, cap_f=cap_f, ring=ring)
         prog.run(n_f, span, ring)
         ctrl, mn, mm, mr, rf, rp, rs = gpipe.DeferredFetch(
             self.pipeline, (prog.ss[: ss.SS_CTRL], prog.meta_n, prog.meta_mult, prog.meta_rounds,
@@ -1516,12 +1539,14 @@ class TorchChecker:
             if how != "degraded":
                 self.redos["slab"] += 1
                 self._mega_stats["redo_slab"] += 1
+                graft_obs.redo("slab_tier" if how == "demoted" else "slab")
         if flags & ss.FLAG_OVF_M and self.cap_m < self.uni.M:
             frontier = self._grow_cap_m(frontier)
             self._mega_stats["redo_m"] += 1
         if flags & ss.FLAG_OVF_ROUNDS:
             self.k4_rounds *= 2
             self._mega_stats["redo_rounds"] += 1
+            graft_obs.grow("k4_rounds", self.k4_rounds)
         if flags & ss.FLAG_TIER:
             self._ss_stats["sieve_stops"] = self._ss_stats.get("sieve_stops", 0) + 1
         return frontier
@@ -1770,8 +1795,10 @@ class TorchChecker:
         slab restarts empty, sized to seat the level in flight (past the
         budget if its fresh set alone is larger: the drain at the next
         level top takes it back)."""
+        t0 = time.monotonic()
         (vb,) = fetch(self.hstore.slab, what="demote")
-        self.tiered.demote(vb.view(np.uint64))
+        gen = self.tiered.demote(vb.view(np.uint64))
+        graft_obs.tier_demote(depth, gen.n, gen.gid, time.monotonic() - t0)
         want = hashstore.slab_rows(max(2 * max(expected, 1), hashstore.MIN_CAP // 2))
         if not self.tiered.slab_fits(want):
             want = max(min(want, hashstore.slab_rows(max(expected, 1))), hashstore.MIN_CAP)
@@ -1800,6 +1827,7 @@ class TorchChecker:
                   f"demotion; seating it at {want} slots", file=sys.stderr)
         self.hstore.grow(min_cap=min_cap)
         self.slab_grows += 1
+        graft_obs.grow("slab", self.hstore.cap)
         return "grew"
 
     def _tier_drain(self, depth: int, n_next: int) -> None:
@@ -1825,8 +1853,11 @@ class TorchChecker:
         demoted fingerprint leave the new frontier (``drop_rows``); their
         fingerprints stay in the hot slab.  (n_keep, keep mask or None,
         new frontier)."""
+        w0 = self.tiered.stats["probe_wait_s"]
         hits = self.tiered.probe(fps_np[:n_new])
         n_hit = int(hits.sum())
+        graft_obs.tier_probe(depth + 1, n_new, n_hit,
+                             wait_s=self.tiered.stats["probe_wait_s"] - w0)
         if not n_hit:
             return n_new, None, new_frontier
         self.tiered.stats["reheats"] += n_hit
@@ -1941,7 +1972,7 @@ class TorchChecker:
         if self.cap_m >= self.uni.M:
             raise RuntimeError("message-set width exceeds the whole universe")
         self.cap_m = min(self.cap_m + 32, self.uni.M)
-        self.redos["cap_m"] += 1
+        self._redo("cap_m", self.cap_m)
         return [self._widen_seg(s) for s in segs]
 
     def _seg_row(self, segs: list, idx: int) -> Frontier:
@@ -2056,53 +2087,58 @@ class TorchChecker:
             if ckdir:
                 self._save_partial(ckdir, level, gi, gv_c, gf_c, gp_c, mult_g, n_f)
 
-        for gi in range(n_groups):
-            if stop:
-                break
-            if gi in saved:
-                # in group order: the open groups before it complete first
-                t0 = time.perf_counter()
-                win.drain()
-                level_stats["fetch_s"] += time.perf_counter() - t0
+        try:
+            for gi in range(n_groups):
                 if stop:
                     break
-                z = saved[gi]
-                hv.append(z["hv"])
-                hf.append(z["hf"])
-                hp.append(z["hp"])
-                mult += z["mult"]
-                hs["saved_groups"] += 1
-                continue
-            g_lo = gi * G * chunk
-            g_hi = g_lo + G * chunk
-            span_ok = (chunk >= self.span_min_chunk and not self.orbit
-                       and (gi + 1) * G <= n_chunks and g_lo // seg_len == (g_hi - 1) // seg_len)
-            t0 = time.perf_counter()
-            timing = None
-            if on_card:
-                timing = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                timing[0].record()
-            if span_ok:
-                sj, off = divmod(g_lo, seg_len)
-                prog = self._host_program()
-                prog.run(seg_dev(sj), off, min(G * chunk, n_f - g_lo))
-                want = (prog.ctl, prog.chunk_total, *prog.out)
-                graph_groups += 1
-            else:
-                want = self._host_group_chunks(seg_dev, seg_len, gi, n_f, n_chunks)
-                hs["chunk_groups"] += 1
-            if on_card:
-                timing[1].record()
-            else:
-                level_stats["group_s"] += time.perf_counter() - t0
-            # the copies are queued behind the group's launches and before the
-            # next group's, which overwrite the program's output buffers
-            base = g_lo if span_ok else 0  # the program's rows and payloads are seat-relative
-            t0 = time.perf_counter()
-            win.submit(want, lambda host, gi=gi, base=base, timing=timing:
-                       consume(gi, base, timing, host), what="host_group")
-            level_stats["fetch_s"] += time.perf_counter() - t0
+                if gi in saved:
+                    # in group order: the open groups before it complete first
+                    t0 = time.perf_counter()
+                    win.drain()
+                    level_stats["fetch_s"] += time.perf_counter() - t0
+                    if stop:
+                        break
+                    z = saved[gi]
+                    hv.append(z["hv"])
+                    hf.append(z["hf"])
+                    hp.append(z["hp"])
+                    mult += z["mult"]
+                    hs["saved_groups"] += 1
+                    continue
+                g_lo = gi * G * chunk
+                g_hi = g_lo + G * chunk
+                span_ok = (chunk >= self.span_min_chunk and not self.orbit
+                           and (gi + 1) * G <= n_chunks
+                           and g_lo // seg_len == (g_hi - 1) // seg_len)
+                t0 = time.perf_counter()
+                timing = None
+                if on_card:
+                    timing = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    timing[0].record()
+                if span_ok:
+                    sj, off = divmod(g_lo, seg_len)
+                    prog = self._host_program()
+                    prog.run(seg_dev(sj), off, min(G * chunk, n_f - g_lo))
+                    want = (prog.ctl, prog.chunk_total, *prog.out)
+                    graph_groups += 1
+                else:
+                    want = self._host_group_chunks(seg_dev, seg_len, gi, n_f, n_chunks)
+                    hs["chunk_groups"] += 1
+                if on_card:
+                    timing[1].record()
+                else:
+                    level_stats["group_s"] += time.perf_counter() - t0
+                # the copies are queued behind the group's launches and before the
+                # next group's, which overwrite the program's output buffers
+                base = g_lo if span_ok else 0  # the program's rows and payloads are seat-relative
+                t0 = time.perf_counter()
+                win.submit(want, lambda host, gi=gi, base=base, timing=timing:
+                           consume(gi, base, timing, host), what="host_group")
+                level_stats["fetch_s"] += time.perf_counter() - t0
+        except BaseException:
+            win.discard()  # a raised group (a fault, a failed write) leaves no read open
+            raise
         t0 = time.perf_counter()
         if stop:
             win.discard()
@@ -2435,9 +2471,11 @@ class TorchChecker:
                 self._grow_cap_x()
             if ovf["ovf_g"]:
                 self.cap_g *= 2
-                self.redos["cap_g"] += 1
+                self._redo("cap_g", self.cap_g)
             if ovf["ovf_rounds"]:
                 self.k4_rounds *= 2
+                graft_obs.grow("k4_rounds", self.k4_rounds)
+                graft_obs.redo("k4_rounds")
             if ovf["ovf_m"]:
                 frontier = self._grow_cap_m(frontier)
 
@@ -2487,6 +2525,9 @@ class TorchChecker:
         self._check_checkpoint_dirs(checkpoint_dir if ck_on else None, resume_from)
         self.tiered = (tiered.TieredVisitedStore(self.store_bytes)
                        if self.store_bytes and self.use_hashstore else None)
+        budget = self.store_bytes if self.tiered is not None else self.dev_budget
+        if budget:
+            graft_obs.hbm_budget(budget)
         self._sieve_dev, self._sieve_ver, self.tier_soft_seats = None, -1, 0
         if resume_from is not None:
             ck = self._resume_from_deltas(resume_from)
@@ -2537,7 +2578,13 @@ class TorchChecker:
                 self._wipe_partials(checkpoint_dir)
 
         def note(route):
+            """The level committed: its ``level_commit`` event (bfs.py:4403,
+            :4937) and its progress line."""
             self.routes[route] += 1
+            graft_obs.level_commit(
+                depth, n_f, distinct, generated,
+                slab_cap=(self.hstore.cap if self.host_store is None and self.use_hashstore
+                          and self.hstore is not None else 0))
             if self.progress is not None:
                 self.progress(dict(level=depth, frontier=n_f, distinct=distinct,
                                    generated=generated, route=route,
@@ -2561,6 +2608,8 @@ class TorchChecker:
                 raise resilience.Preempted(checkpoint_dir if ck_on else None, depth)
             if max_depth is not None and depth >= max_depth:
                 break
+            graft_obs.level_begin(depth + 1, n_f)
+            self._hbm_note(frontier)
             self._tier_drain(depth, n_f)
             if (not skip_superstep and self._superstep_span_at(max_depth, depth) > 1
                     and self._mega_level_ok(n_f)):
@@ -2588,6 +2637,7 @@ class TorchChecker:
                     if ck_on:
                         self._save_delta(checkpoint_dir, depth, rec["pidx"], rec["slot"],
                                          rec["fps"], rec["mult"], n_f)
+                graft_obs.superstep_commit(len(sres["recs"]), reason=sres["reason"])
                 if sres["n_total"] or hit_fixpoint:
                     self.hstore.adopt(self.hstore.slab, sres["n_total"])
                     self._check_occupancy(sres["slab_live"])
@@ -2753,6 +2803,7 @@ class TorchChecker:
                 # before the level would commit (bfs.py:5009-5032)
                 problems = self._audit_level(parent_prev, frontier, pidx, slot, fps_lvl,
                                              n_new, depth)
+                graft_obs.audit(depth, min(self.audit, n_new), len(problems or []))
                 if problems:
                     return self._audit_rewind(problems, depth, max_depth, checkpoint_dir,
                                               checkpoint_every)
@@ -2764,6 +2815,19 @@ class TorchChecker:
             True, distinct, generated, depth, tuple(level_sizes), None,
             self.layout.action_counts(mult_per_slot),
         )
+
+    def _hbm_note(self, frontier) -> None:
+        """The live device-memory gauge's frontier entry (the loop top, once
+        a pass; bfs.py:2172): the bytes of the frontier's device buffers,
+        from their shapes (host segments are host RAM).  One global read
+        when telemetry is off."""
+        if graft_obs.current() is None:
+            return
+        nbytes = 0
+        for seg in frontier if isinstance(frontier, list) else [frontier]:
+            if not isinstance(seg, _HostSeg):
+                nbytes += sum(x.numel() * x.element_size() for x in seg)
+        graft_obs.buffer("frontier", nbytes)
 
     def _keep_frontier(self, frontier, n_f: int) -> None:
         """The last committed level's rows: ``frontier`` (its first ``n_f``
@@ -2778,6 +2842,6 @@ class TorchChecker:
         if self.cap_m >= self.uni.M:
             raise RuntimeError("message-set width exceeds the whole universe")
         self.cap_m = min(self.cap_m + 32, self.uni.M)
-        self.redos["cap_m"] += 1
+        self._redo("cap_m", self.cap_m)
         return self.widen(frontier)
 

@@ -65,6 +65,7 @@ import torch
 from .. import kernels
 from ..device import fetch
 from ..models.raft import Frontier, RaftState, core_of
+from ..obs import telemetry as _obs
 from ..ops.fingerprint import OrbitScratch
 from ..ops.hashstore import probe_plain
 from ..u64 import SENT
@@ -356,6 +357,7 @@ def expand_level_grouped(eng, frontier: Frontier, n_f: int, groups_cap: int | No
         mk.copy_rows(prog.seat, mk.rows_of(frontier, g * rows, g * rows + n), n)
         prog.launch()
     prog.tail(n_groups)
+    _obs.dispatch("group.tail")
     lc, mult = fetch(prog.lc, prog.mult, what="grouped")
     return dict(
         n_new=int(lc[mk.LC_N_NEW]), abort_at=int(lc[mk.LC_ABORT]), ovf_x=bool(lc[mk.LC_OVF_X]),

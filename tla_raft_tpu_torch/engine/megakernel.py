@@ -81,6 +81,7 @@ import torch
 
 from .. import kernels
 from ..models.raft import Frontier, RaftState, core_of, id_dtype
+from ..obs import telemetry as _obs
 from ..ops import sieve as sieve_ops
 from ..ops.fingerprint import OrbitScratch
 from ..ops.hashstore import compact_fresh_plain, probe_and_insert_plain
@@ -705,6 +706,10 @@ class GraphProgram:
             _CAPTURE_LOCK.release()
         if g is None:
             return False
+        # the flight recorder's compile event, out of the capture lock: the
+        # hub is never entered while a capture holds it
+        _obs.emit("compile", s=round(secs, 4), declared=thread != "main", kind=self.kind,
+                  cap_f=getattr(self, "cap_f", None))
         self.graph, self.tally = g, tally
         cause = self.cache.note_capture(self) if self.cache is not None else None
         with _STATS_LOCK:
@@ -725,6 +730,7 @@ class GraphProgram:
         return True
 
     def launch(self) -> None:
+        _obs.dispatch(self.kind)
         if self.device.type != "cuda":
             self.record()
             return
@@ -789,6 +795,11 @@ class LevelProgram(GraphProgram):
         self.pidx = torch.zeros((cap_out,), dtype=torch.int32, device=dev)
         self.slot = torch.zeros((cap_out,), dtype=torch.int16, device=dev)
         self.host_n_f = torch.zeros((), dtype=I64, pin_memory=dev.type == "cuda")
+        # flight-recorder breadcrumb: a fused program was built (its capture
+        # lands on the compile track at its first launch or on the prewarm
+        # thread)
+        _obs.emit("program", kind="level", cap_f=cap_f, cap_out=cap_out, chunk=eng.chunk,
+                  cap_x=eng.cap_x, cap_m=eng.cap_m)
 
     def record(self) -> None:
         eng, B, lc = self.eng, self.B, self.lc

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..obs import telemetry as _obs
 from . import forecast
 from . import megakernel as mk
 
@@ -253,6 +254,9 @@ class SuperstepProgram(mk.GraphProgram):
         self.ring_fps = torch.full((ring_max,), -1, dtype=I64, device=dev)
         self.ring_pidx = torch.zeros((ring_max,), dtype=torch.int32, device=dev)
         self.ring_slot = torch.zeros((ring_max,), dtype=torch.int16, device=dev)
+        # flight-recorder breadcrumb (see megakernel.LevelProgram)
+        _obs.emit("program", kind="superstep", span=span, cap_f=cap_f, ring_max=ring_max,
+                  chunk=eng.chunk, cap_x=eng.cap_x, cap_m=eng.cap_m)
 
     def record(self) -> None:
         eng, B, lc, ss = self.eng, self.B, self.lc, self.ss

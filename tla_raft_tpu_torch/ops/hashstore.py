@@ -39,6 +39,7 @@ import torch
 
 from .. import kernels
 from ..device import resolve_device
+from ..obs import telemetry as _obs
 from ..u64 import SENT, mix64, mix64_np, ukey
 
 BIGP = 1 << 62
@@ -295,6 +296,7 @@ class DeviceHashStore:
         self.cap = max(MIN_CAP, cap)
         self.count = count
         self.slab = make_slab(self.cap, self.device)
+        _obs.buffer("hslab", self.cap * 8)
 
     @classmethod
     def from_fps(cls, fps: np.ndarray, cap: int | None = None, device=None):
@@ -350,6 +352,9 @@ class DeviceHashStore:
             want *= 2
         self.cap = want
         self.slab = slab2
+        # the live device-memory gauge: every capacity change re-registers
+        # the slab (8 B a slot; hashstore.py:472)
+        _obs.buffer("hslab", self.cap * 8)
 
     # -- the slab snapshot (hslab.npz; reference hashstore.py:542, :566) --
 

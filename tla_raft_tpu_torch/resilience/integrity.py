@@ -1,7 +1,8 @@
 """Conservation checks and the sampled recomputation audit's sample and
 fail-stop: the port's copy of ``tla_raft_tpu/resilience/integrity.py``
 (``reconcile``, ``occupancy_check``, ``audit_indices``, the exceptions
-and the mesh's ``SkewMeter``), without the telemetry hooks.
+and the mesh's ``SkewMeter``); a failed check publishes an ``integrity``
+event to the flight recorder before it raises.
 
 ``--audit N``: every level, a deterministic sample of N new-frontier rows
 is re-expanded through the legacy per-lane kernels and cross-checked three
@@ -18,6 +19,8 @@ does at once without checkpoints.
 from __future__ import annotations
 
 import numpy as np
+
+from ..obs import telemetry as _obs
 
 
 class IntegrityError(RuntimeError):
@@ -41,6 +44,7 @@ def reconcile(what: str, admitted: int, materialized: int,
     """Owner-side admissions must equal origin-side materializations."""
     if int(admitted) != int(materialized):
         at = f" at level {level}" if level is not None else ""
+        _obs.integrity(f"reconcile: {what}{at}")
         raise IntegrityError(
             f"conservation check failed{at}: {what} admitted "
             f"{int(admitted)} new state(s) but {int(materialized)} were "
@@ -54,6 +58,7 @@ def occupancy_check(what: str, occupancy: int, distinct: int,
     """A visited structure's live entries must count the distinct set."""
     if int(occupancy) != int(distinct):
         at = f" at level {level}" if level is not None else ""
+        _obs.integrity(f"occupancy: {what}{at}")
         raise IntegrityError(
             f"occupancy check failed{at}: {what} holds {int(occupancy)} "
             f"live entrie(s) for {int(distinct)} distinct state(s) — a "

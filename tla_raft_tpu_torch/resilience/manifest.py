@@ -43,14 +43,12 @@ import time
 
 import numpy as np
 
+from ..obs import telemetry as _obs
 from . import faults
 
 SCHEMA_VERSION = 1
 
 
-def _checkpoint_hook(kind: str, name: str, seconds: float, nbytes: int) -> None:
-    """Where the reference reports each commit to its telemetry
-    (``obs.telemetry.checkpoint``): a no-op until the port has telemetry."""
 MANIFEST_NAME = "MANIFEST.json"
 TMP_PREFIX = ".tmp_"
 
@@ -313,7 +311,7 @@ def commit_npz(
         m.record(name, kind=kind, depth=depth, algo=algo, digest=dig,
                  nbytes=nbytes)
         m.commit()
-    _checkpoint_hook(kind, name, time.monotonic() - t0, nbytes)
+    _obs.checkpoint(kind, name, time.monotonic() - t0, nbytes)
     return final
 
 
@@ -365,7 +363,7 @@ def commit_json(
         # every ttl/3 per job from the beater thread) — recording
         # either would grow the event stream one non-progress line per
         # tick forever and inflate the checkpoint aggregates
-        _checkpoint_hook(kind, name, time.monotonic() - t0, nbytes)
+        _obs.checkpoint(kind, name, time.monotonic() - t0, nbytes)
     return final
 
 
